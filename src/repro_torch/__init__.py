@@ -1,0 +1,6 @@
+"""PyTorch port of the TinyReptile system, for NVIDIA Hopper GPUs.
+
+Mirrors the module layout of the JAX package ``repro``. It imports
+torch, numpy and the standard library only; the kernels on its paths
+are written by hand (Triton and CUDA C++ under ``kernels/``).
+"""

@@ -1,0 +1,151 @@
+"""Plain PyTorch versions of the port's kernels.
+
+Each function here is what a hand-written kernel of ``kernels/``
+computes, written with ordinary tensor operations. The wrappers in
+``kernels/ops.py`` use them for tensors on the CPU; on the GPU they are
+the yardstick the kernels are held to.
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+
+INT8_MAX = 127.0
+BIAS_MAX = 2.0 ** 23          # biases live at accumulator scale, int32-safe
+DFA_SHIFT = 7                 # feedback projections are scaled by 2^-7
+EXP_FLOOR = -24               # all-zero tensors land on this grid
+
+# order of the ten fp32 multipliers in a packed scales vector
+SCALE_KEYS = ("f0", "f1", "fe", "floss", "ftw0", "ftw1", "ftw2",
+              "ftb0", "ftb1", "ftb2")
+
+
+def online_sgd(p, g, lr, m=None, momentum=0.0):
+    """Streaming SGD step ``p - lr * g`` in fp32 math, stored in p's
+    dtype; with ``m``, the momentum form ``m' = momentum * m + g``,
+    ``p' = p - lr * m'`` (m' in fp32)."""
+    if m is None:
+        return (p.float() - lr * g.float()).to(p.dtype)
+    m_new = momentum * m + g.float()
+    return (p.float() - lr * m_new).to(p.dtype), m_new
+
+
+def pow2_exponent(maxabs, limit=INT8_MAX):
+    """Smallest integer e with ``maxabs * 2^-e <= limit``, floored at
+    -24 (the grid of an all-zero tensor).
+
+    Computed exactly from the binary exponents (``torch.frexp``):
+    with maxabs = m 2^k and limit = mL 2^kL (m, mL in [0.5, 1)), the
+    answer is k - kL, plus one when m > mL. The JAX package's
+    ``ceil(log2(.))`` form returns one more than this at some exact
+    boundaries ``maxabs = 127 * 2^k`` (k = -21, -17, -15, -13, 15, 19 on
+    JAX 0.9 CPU); elsewhere the two agree."""
+    maxabs = torch.as_tensor(maxabs, dtype=torch.float32)
+    m, k = torch.frexp(maxabs)
+    lim = torch.tensor(float(limit), dtype=torch.float32,
+                       device=maxabs.device)
+    ml, kl = torch.frexp(lim)
+    e = k - kl + (m > ml).to(k.dtype)
+    e = torch.where(maxabs > 0, e, torch.full_like(e, EXP_FLOOR))
+    return torch.clamp(e, min=EXP_FLOOR).to(torch.int32)
+
+
+def quantize_pow2(w, limit=INT8_MAX):
+    """Per-tensor power-of-two symmetric quantization: ``(q, e)`` with
+    ``q`` the integer-valued fp32 codes in [-limit, limit] and ``w ~=
+    q * 2^e`` (``e`` an int32 scalar tensor)."""
+    e = pow2_exponent(w.abs().max(), limit)
+    q = torch.clamp(torch.round(torch.ldexp(w, -e)), -limit, limit)
+    return q, e
+
+
+def stochastic_round(v, dither):
+    """Unbiased stochastic rounding ``floor(v + u)``, u ~ U[0, 1) given
+    by the caller."""
+    return torch.floor(v + dither)
+
+
+def pack_scales(scales: Dict, device=None) -> torch.Tensor:
+    """The scales dict (f0, f1, fe, floss, ftw 3-tuple, ftb 3-tuple) ->
+    a (10,) fp32 tensor in ``SCALE_KEYS`` order, as the kernel reads
+    it."""
+    vals = [scales["f0"], scales["f1"], scales["fe"], scales["floss"],
+            *scales["ftw"], *scales["ftb"]]
+    return torch.tensor([float(v) for v in vals], dtype=torch.float32,
+                        device=device)
+
+
+def dfa_int8_epoch(ws: Sequence, bs: Sequence, xq, yal, layer,
+                   fb: Sequence, dither: Sequence, scales):
+    """One TIFeD epoch for each of B slots: int8 forward with exact
+    integer accumulation, uint7 activation requantization, quantized
+    output error, direct-feedback-alignment projection through the fixed
+    int8 ``fb``, and a stochastic-rounding update of the one layer
+    ``layer[b]`` selects (the others pass through).
+
+      ws:     (w0 (B,din,H1), w1 (B,H1,H2), w2 (B,H2,dout)) int8
+      bs:     (b0 (B,H1), b1 (B,H2), b2 (B,dout)) int32, accumulator scale
+      xq:     (B,S,din) int8;  yal: (B,S,dout) int32
+      layer:  (B,) int32 in {0, 1, 2}
+      fb:     (fb1 (dout,H1), fb2 (dout,H2)) int8, shared by the slots
+      dither: (d0 (B,din,H1), d1 (B,H1,H2), d2 (B,H2,dout)) fp32 U[0,1)
+      scales: (10,) fp32 in ``SCALE_KEYS`` order (see ``pack_scales``)
+
+    Returns ((w0', w1', w2') int8, (b0', b1', b2') int32, loss (B,) fp32).
+
+    Integer sums run in float64, exact for any integer below 2^53; the
+    requantization steps run in fp32 as the JAX oracle does, where every
+    multiplier is a power of two. The loss is summed in float64 and
+    rounded once to fp32.
+    """
+    f64, f32 = torch.float64, torch.float32
+    sc = scales.to(f32)
+    f0, f1, fe, floss = sc[0], sc[1], sc[2], sc[3]
+    ftw, ftb = sc[4:7], sc[7:10]
+    w0, w1, w2 = (w.to(f64) for w in ws)
+    b0, b1, b2 = (b.to(f64) for b in bs)
+    fb1, fb2 = (f.to(f64) for f in fb)
+    x = xq.to(f64)
+
+    def requant(z, f):
+        zf = torch.clamp(z, min=0.0).to(f32)
+        return torch.clamp(torch.round(zf * f), 0.0, INT8_MAX).to(f64)
+
+    z0 = torch.matmul(x, w0) + b0.unsqueeze(1)
+    a1 = requant(z0, f0)
+    z1 = torch.matmul(a1, w1) + b1.unsqueeze(1)
+    a2 = requant(z1, f1)
+    z2 = torch.matmul(a2, w2) + b2.unsqueeze(1)
+    err = z2 - yal.to(f64)
+    eq = torch.clamp(torch.round(err.to(f32) * fe), -INT8_MAX, INT8_MAX)
+    eq = eq.to(f64)
+    loss = (torch.square(err).sum(dim=(1, 2)) * floss.to(f64)).to(f32)
+
+    def delta(z, fbm):
+        proj = torch.matmul(eq, fbm).to(f32)
+        d = torch.round(torch.where(z > 0, proj, torch.zeros_like(proj))
+                        * 2.0 ** -DFA_SHIFT)
+        return d.to(f64)
+
+    def wstep(w, a_in, d, i, dith):
+        g = torch.matmul(a_in.transpose(1, 2), d).to(f32)
+        wn = w.to(f32) - stochastic_round(g * ftw[i], dith.to(f32))
+        return torch.clamp(wn, -INT8_MAX, INT8_MAX).to(torch.int8)
+
+    def bstep(b, d, i):
+        bn = b.to(f32) - torch.round(d.sum(dim=1).to(f32) * ftb[i])
+        return torch.clamp(bn, -BIAS_MAX, BIAS_MAX).to(torch.int32)
+
+    d0 = delta(z0, fb1)
+    d1 = delta(z1, fb2)
+    cand = ((wstep(w0, x, d0, 0, dither[0]), bstep(b0, d0, 0)),
+            (wstep(w1, a1, d1, 1, dither[1]), bstep(b1, d1, 1)),
+            (wstep(w2, a2, eq, 2, dither[2]), bstep(b2, eq, 2)))
+    lay = layer.to(torch.int64).clamp(0, 2)      # as lax.switch clamps
+    new_w, new_b = [], []
+    for i in range(3):
+        sel = lay == i
+        new_w.append(torch.where(sel.view(-1, 1, 1), cand[i][0], ws[i]))
+        new_b.append(torch.where(sel.view(-1, 1), cand[i][1], bs[i]))
+    return tuple(new_w), tuple(new_b), loss
