@@ -7,18 +7,29 @@ Phases, each printing one JSON line:
 
 1. device: the card, its power limit, and the fp32 matmul flags (full
    fp32, no TF32) the sine MLP's parity needs;
-2. build: the CUDA kernel (``nvcc``, sm_90a) and the Triton kernel are
-   built from this checkout's sources, at the same time;
+2. build: the CUDA kernels (``nvcc``, sm_90a, one process per source)
+   and the Triton kernels are built from this checkout's sources, all at
+   the same time;
 3. kernels: each kernel against its plain PyTorch version on the same
-   CUDA tensors, at the serving shapes and at harder ones, timed with
-   CUDA events (median of repeats) beside its bound and, for SGD, the
-   one PyTorch call that computes the same function;
+   CUDA tensors, at the shapes the main paths give it and at harder
+   ones, timed with CUDA events (median of repeats) and the profiler
+   beside its bound and the one PyTorch call that computes the same
+   function, where there is one;
 4. serve fp32: 512 requests through ``AdaptationServer`` with the
    ``serve --mode adapt`` defaults, launch counters set to 0 just before
    and read just after; 32 requests held against the port on the CPU;
 5. serve TIFeD: the same through the int8 route (support 8, k_max 6);
    adapted weights exact against the CPU;
-6. profile: device busy share of one fp32 drain (torch.profiler).
+6. profile: device busy share of one fp32 drain (torch.profiler);
+7. train TinyReptile: the quickstart's 600-round run, launch counters
+   set to 0 just before and read just after, checked against the
+   random init; a 60-round run of the same configuration against the
+   port on the CPU;
+8. train Reptile: the train launcher's ``--strategy reptile`` defaults
+   (64 clients, 20 rounds), in-process, against the CPU;
+9. train baselines: FedAvg, FedSGD and Transfer at the launcher
+   defaults, and TinyReptile with 8 straggling clients, against the CPU;
+10. profile train: device busy share of 60 TinyReptile rounds.
 
 Then the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure is a
@@ -48,8 +59,19 @@ SUPPORT, QUERY, K_MAX, SLOTS, STEPS_PER_TICK = 10, 20, 10, 64, 5
 T_SUPPORT, T_K_MAX = 8, 6
 N_REQUESTS, N_HELD = 512, 32
 
+# examples/quickstart.py's TinyReptile run and eval protocol
+TR_ROUNDS, TR_CHECK_ROUNDS, TR_SUPPORT = 600, 60, 32
+TR_EVAL = dict(num_tasks=10, support=8, k_steps=8, lr=0.02, query=64)
+PHI_BYTES = 1153 * 4           # one fp32 copy of the sine MLP on the wire
+
+
+T0 = time.perf_counter()
+
 
 def emit(obj):
+    """One JSON line; a phase's line carries the seconds since start."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -77,29 +99,26 @@ def cuda_ms(torch, fn, iters):
     return statistics.median(times)
 
 
-def kernel_device_us(torch, prof):
-    """Device time of the CUDA kernels in a profile (microseconds). Only
-    events on the device are summed: an operator's row also carries the
-    time of the kernels it launched, and would count them twice."""
-    cuda = torch.autograd.DeviceType.CUDA
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == cuda)
-
-
 def device_ms(torch, fn, calls=20):
-    """Mean device time of the kernels one call of ``fn`` launches,
-    from torch.profiler: the GPU's own time, without the host's."""
+    """Mean device time of one launch of the kernel ``fn`` launches (one
+    per call), from torch.profiler: the GPU's own time, without the
+    host's. The tracer can miss the first launches of a kernel it has
+    not seen yet, so it runs 2 x ``calls`` calls and averages over the
+    launches it recorded; only events on the device are summed (an
+    operator's row also carries the time of the kernels it launched)."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
+        for _ in range(2 * calls):
             fn()
         torch.cuda.synchronize()
-    us = kernel_device_us(torch, prof)
-    check(us > 0, "the profiler saw no device time")
-    return us / calls / 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [ev for ev in prof.key_averages() if ev.device_type == cuda]
+    launches = sum(ev.count for ev in events)
+    check(launches > 0, "the profiler saw no device time")
+    return sum(ev.self_device_time_total for ev in events) / launches / 1e3
 
 
 def smi_line():
@@ -184,12 +203,14 @@ def phase_device(torch):
 
 
 def phase_build(torch, build, ops):
-    """nvcc in a thread while Triton compiles its kernel."""
+    """One nvcc per CUDA source in a thread while Triton compiles its
+    kernels."""
     out = {}
+    sources = ["dfa_epoch_int8", "meta_update"]
 
     def nvcc():
         t0 = time.perf_counter()
-        out["report"] = build.build(["dfa_epoch_int8"])["dfa_epoch_int8"]
+        out["reports"] = build.build(sources)
         out["nvcc_s"] = time.perf_counter() - t0
 
     th = threading.Thread(target=nvcc)
@@ -197,13 +218,16 @@ def phase_build(torch, build, ops):
     t0 = time.perf_counter()
     p = torch.zeros(16, device="cuda")
     ops.online_sgd(p, p, 0.0)
+    ops.online_sgd_momentum(p, p, p, 0.0, 0.0)
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t0
     th.join()
     check("nvcc_s" in out, "nvcc build did not finish")
-    ptxas = [ln.strip() for ln in out["report"].splitlines()
-             if "registers" in ln or "spill" in ln]
-    build.load("dfa_epoch_int8")
+    ptxas = {name: [ln.strip() for ln in rep.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, rep in out["reports"].items()}
+    for name in sources:
+        build.load(name)
     emit({"phase": "build", "nvcc_s": round(out["nvcc_s"], 3),
           "triton_first_call_s": round(triton_s, 3), "ptxas": ptxas})
 
@@ -281,6 +305,88 @@ def phase_kernels(torch, np, ops, ref):
         rows[f"dfa_epoch_int8/{tag}"] = row
         emit({"phase": "kernel", "kernel": "dfa_epoch_int8", "case": tag,
               **row})
+
+    # meta_update: the training shape (phi of the sine MLP), then flat
+    # 2^24 in fp32 and bf16, each at alpha 0, 0.37 and 1; timed at 0.37
+    for tag, n, dtype, tol in (
+            ("train_1153_fp32", 1153, torch.float32, 1e-5),
+            ("flat_2^24_fp32", 1 << 24, torch.float32, 1e-5),
+            ("flat_2^24_bf16", 1 << 24, torch.bfloat16, 1e-2)):
+        w = torch.randn(n, generator=g).to(dev, dtype)
+        wh = torch.randn(n, generator=g).to(dev, dtype)
+        err = 0.0
+        for a in (0.0, 0.37, 1.0):
+            alpha = torch.tensor([a], device=dev)
+            got = ops.meta_update(w, wh, alpha)
+            want = ref.meta_update(w, wh, alpha)
+            check(got.dtype == dtype, f"meta_update {tag}: {got.dtype}")
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            err = max(err, (got.float() - want.float()).abs().max().item())
+        alpha = torch.tensor([0.37], device=dev)
+        iters = 200 if n < 1e6 else 20
+        moved = 3 * n * w.element_size()
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, 3 * n / FP32_OPS_PER_S
+        row = {"n": n, "dtype": str(dtype).split(".")[1], "tol": tol,
+               "alphas": [0.0, 0.37, 1.0], "max_abs_err": err,
+               "ms": cuda_ms(torch, lambda: ops.meta_update(w, wh, alpha),
+                             iters),
+               "device_ms": device_ms(
+                   torch, lambda: ops.meta_update(w, wh, alpha)),
+               "plain_ms": cuda_ms(
+                   torch, lambda: ref.meta_update(w, wh, alpha), iters),
+               "library_ms": cuda_ms(
+                   torch, lambda: torch.lerp(w, wh, 0.37), iters),
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        rows[f"meta_update/{tag}"] = row
+        emit({"phase": "kernel", "kernel": "meta_update", "case": tag,
+              **row})
+
+    # online_sgd_momentum: the same sizes; m is fp32 whatever p's dtype
+    # (one FMA's rounding on values up to about 5 in fp32)
+    lr, mu = 0.05, 0.9
+    for tag, n, dtype, rtol, atol in (
+            ("train_1153_fp32", 1153, torch.float32, 1e-5, 1e-6),
+            ("flat_2^24_fp32", 1 << 24, torch.float32, 1e-5, 1e-6),
+            ("flat_2^24_bf16", 1 << 24, torch.bfloat16, 1e-2, 1e-2)):
+        p = torch.randn(n, generator=g).to(dev, dtype)
+        gr = torch.randn(n, generator=g).to(dev, dtype)
+        m = torch.randn(n, generator=g).to(dev)
+        gp, gm = ops.online_sgd_momentum(p, gr, m, lr, mu)
+        wp, wm = ref.online_sgd(p, gr, lr, m=m, momentum=mu)
+        torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(gp.float(), wp.float(), rtol=rtol,
+                                   atol=atol)
+        err = max((gp.float() - wp.float()).abs().max().item(),
+                  (gm - wm).abs().max().item())
+        iters = 200 if n < 1e6 else 20
+        moved = n * (3 * p.element_size() + 2 * 4)
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, 4 * n / FP32_OPS_PER_S
+        if dtype == torch.float32 and hasattr(torch, "_fused_sgd_"):
+            # torch.optim.SGD(momentum=mu, fused=True)'s one call, in
+            # place on copies
+            lp, lg, lm = p.clone(), gr.clone(), m.clone()
+            library = cuda_ms(torch, lambda: torch._fused_sgd_(
+                [lp], [lg], [lm], weight_decay=0.0, momentum=mu, lr=lr,
+                dampening=0.0, nesterov=False, maximize=False,
+                is_first_step=False), iters)
+        else:
+            library = None        # no one call keeps m fp32 beside bf16 p
+        row = {"n": n, "dtype": str(dtype).split(".")[1], "rtol": rtol,
+               "atol": atol, "max_abs_err": err,
+               "ms": cuda_ms(torch, lambda: ops.online_sgd_momentum(
+                   p, gr, m, lr, mu), iters),
+               "device_ms": device_ms(torch, lambda: ops.online_sgd_momentum(
+                   p, gr, m, lr, mu)),
+               "plain_ms": cuda_ms(torch, lambda: ref.online_sgd(
+                   p, gr, lr, m=m, momentum=mu), iters),
+               "library_ms": library,
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        rows[f"online_sgd_momentum/{tag}"] = row
+        emit({"phase": "kernel", "kernel": "online_sgd_momentum",
+              "case": tag, **row})
     return rows
 
 
@@ -405,6 +511,176 @@ def phase_profile(torch, np, mods, adapter, phi, reqs):
           "top_device_ms": [[k[:80], v / 1e3] for k, v in top]})
 
 
+def compare_runs(np, got, want, tol=1e-4):
+    """A card run against the same run on the CPU: params and history
+    floats within ``tol``, bytes and history keys exact. Returns the
+    largest param difference."""
+    worst = 0.0
+    for k, v in want["params"].items():
+        a, b = got["params"][k].cpu().numpy(), v.numpy()
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=k)
+        worst = max(worst, float(np.abs(a - b).max()))
+    for key in ("comm_bytes", "per_client_bytes"):
+        check(got.get(key) == want.get(key), f"{key} differs from the CPU")
+    check(len(got["history"]) == len(want["history"]), "history length")
+    for ge, we in zip(got["history"], want["history"]):
+        check(set(ge) == set(we), f"history keys {set(ge)} vs {set(we)}")
+        for k, v in we.items():
+            if isinstance(v, int):
+                check(ge[k] == v, f"history {k}: {ge[k]} vs {v}")
+            else:
+                np.testing.assert_allclose(ge[k], v, rtol=tol, atol=tol,
+                                           err_msg=k)
+    return worst
+
+
+def timed_run(torch, ops, fn):
+    """``fn()`` on the card with the launch counters set to 0 just
+    before and read just after; returns (result, wall seconds, counts)."""
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, ops.launch_counts()
+
+
+def phase_train_tinyreptile(torch, np, tm):
+    core, ops, loss, phi = tm["core"], tm["ops"], tm["loss"], tm["phi"]
+    base = core.evaluate_init(loss, {k: v.cuda() for k, v in phi.items()},
+                              tm["SineTasks"](), np.random.default_rng(7),
+                              **TR_EVAL)["query_loss"]
+    kw = dict(alpha=1.0, beta=0.02, support=TR_SUPPORT, seed=1,
+              eval_kwargs=TR_EVAL)
+
+    def run(rounds, device):
+        return core.tinyreptile_train(loss, phi, tm["SineTasks"](),
+                                      rounds=rounds, eval_every=rounds,
+                                      device=device, **kw)
+
+    out, wall, counts = timed_run(torch, ops,
+                                  lambda: run(TR_ROUNDS, "cuda"))
+    q = out["history"][-1]["query_loss"]
+    check(math.isfinite(q) and q < base / 2,
+          f"trained query MSE {q} is not below half the random init's "
+          f"{base}")
+    check(counts["meta_update"] == TR_ROUNDS,
+          f"{counts['meta_update']} meta_update launches, {TR_ROUNDS} rounds")
+    want_sgd = TR_ROUNDS * TR_SUPPORT + TR_EVAL["k_steps"]
+    check(counts["online_sgd"] == want_sgd,
+          f"{counts['online_sgd']} online_sgd launches, expected {want_sgd}")
+    check(out["comm_bytes"] == TR_ROUNDS * 2 * PHI_BYTES, "comm_bytes")
+    worst = compare_runs(np, run(TR_CHECK_ROUNDS, "cuda"),
+                         run(TR_CHECK_ROUNDS, "cpu"))
+    row = {"phase": "train_tinyreptile", "rounds": TR_ROUNDS,
+           "support": TR_SUPPORT, "wall_s": wall,
+           "rounds_per_s": TR_ROUNDS / wall, "launches": counts,
+           "query_loss": q, "random_init_query_loss": base,
+           "comm_bytes": out["comm_bytes"],
+           "vs_cpu": {"rounds": TR_CHECK_ROUNDS, "tol": 1e-4,
+                      "params_max_abs_diff": worst}}
+    emit(row)
+    return row
+
+
+def launcher_run(torch, np, tm, argv, name):
+    """The train launcher in-process on the card (its row is printed),
+    then on the CPU; returns this phase's row."""
+    tl, ops = tm["train"], tm["ops"]
+    (row, out), wall, counts = timed_run(
+        torch, ops, lambda: tl.run_engine_strategy(tl.parse_args(argv)))
+    _, want = tl.run_engine_strategy(tl.parse_args(argv + ["--device",
+                                                           "cpu"]))
+    worst = compare_runs(np, out, want)
+    q = out["history"][-1]["query_loss"]
+    check(math.isfinite(q), f"{name}: query loss {q}")
+    return {"run": name, "argv": argv, "rounds": row["rounds"],
+            "clients": row["clients"], "wall_s": wall,
+            "rounds_per_s": row["rounds"] / wall, "launches": counts,
+            "query_loss": q, "comm_bytes": out.get("comm_bytes"),
+            "vs_cpu_params_max_abs_diff": worst}
+
+
+def phase_train_reptile(torch, np, tm):
+    row = launcher_run(torch, np, tm, ["--strategy", "reptile"],
+                       "reptile_c64")
+    rounds, clients = row["rounds"], row["clients"]
+    check(row["comm_bytes"] == rounds * clients * 2 * PHI_BYTES,
+          f"comm_bytes {row['comm_bytes']}")
+    check(row["launches"]["meta_update"] == rounds, "meta_update launches")
+    want_sgd = rounds * tm["train"].EPOCHS + \
+        tm["train"].EVAL_KWARGS["k_steps"]
+    check(row["launches"]["online_sgd"] == want_sgd,
+          f"{row['launches']['online_sgd']} online_sgd launches, "
+          f"expected {want_sgd}")
+    emit({"phase": "train_reptile_c64", **row})
+    return row
+
+
+def phase_train_baselines(torch, np, tm):
+    runs = [launcher_run(torch, np, tm, ["--strategy", s], s)
+            for s in ("fedavg", "fedsgd", "transfer")]
+    core, loss, phi = tm["core"], tm["loss"], tm["phi"]
+    ev = tm["train"].EVAL_KWARGS
+
+    def straggle(device):
+        return core.tinyreptile_train(
+            loss, phi, tm["SineTasks"](), rounds=20, beta=0.02,
+            support=TR_SUPPORT, clients_per_round=8,
+            sampling=core.StragglerSampling(0.5), eval_every=20,
+            eval_kwargs=ev, device=device)
+
+    out, wall, counts = timed_run(torch, tm["ops"],
+                                  lambda: straggle("cuda"))
+    check(counts["meta_update"] == 20, "meta_update launches")
+    runs.append({"run": "tinyreptile_c8_straggler0.5", "rounds": 20,
+                 "clients": 8, "wall_s": wall, "rounds_per_s": 20 / wall,
+                 "launches": counts,
+                 "query_loss": out["history"][-1]["query_loss"],
+                 "comm_bytes": out["comm_bytes"],
+                 "vs_cpu_params_max_abs_diff": compare_runs(
+                     np, out, straggle("cpu"))})
+    for r in runs:
+        check(r["launches"]["online_sgd"] > 0,
+              f"{r['run']}: no online_sgd launch")
+    emit({"phase": "train_baselines", "runs": runs})
+    return runs
+
+
+def phase_profile_train(torch, tm):
+    """Device busy share of TR_CHECK_ROUNDS TinyReptile rounds (every
+    kernel on the path has run before: the train phases warm it up)."""
+    core, loss, phi = tm["core"], tm["loss"], tm["phi"]
+
+    def run():
+        return core.tinyreptile_train(loss, phi, tm["SineTasks"](),
+                                      rounds=TR_CHECK_ROUNDS, beta=0.02,
+                                      support=TR_SUPPORT, seed=1,
+                                      device="cuda")
+
+    # the device's activity only: the host-side op events of some 50k
+    # launches would take longer to summarise than the run itself
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = {ev.key: (ev.self_device_time_total, ev.count)
+               for ev in prof.key_averages()
+               if ev.device_type == cuda and ev.self_device_time_total > 0}
+    dev_us = sum(t for t, _ in by_name.values())
+    check(dev_us > 0, "the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    emit({"phase": "profile_train", "rounds": TR_CHECK_ROUNDS,
+          "wall_ms": 1e3 * wall, "device_busy_ms": dev_us / 1e3,
+          "device_idle_share": 1 - dev_us / 1e6 / wall,
+          "kernels_launched": sum(c for _, c in by_name.values()),
+          "top_device_ms": [[k[:80], t / 1e3, c] for k, (t, c) in top]})
+
+
 def main():
     import numpy as np
     import torch
@@ -429,7 +705,7 @@ def main():
                                      TifedAdapter)
 
     t_start = time.perf_counter()
-    name, smi = phase_device(torch)
+    phase_device(torch)
     phase_build(torch, build, ops)
     rows = phase_kernels(torch, np, ops, ref)
 
@@ -447,26 +723,53 @@ def main():
                           T_K_MAX, "dfa_epoch_int8", exact_params=True)
     phase_profile(torch, np, mods, fp32, phi, reqs)
 
-    sgd = rows["online_sgd/serve_64x1153_fp32"]
-    dfa = rows["dfa_epoch_int8/serve_B64_S8_mixed"]
-    kernels = [
-        {"name": "online_sgd", "route": "triton",
-         "source": "src/repro_torch/kernels/online_sgd.py",
-         "replaces": "src/repro/kernels/online_sgd.py:36",
-         "launches": s_fp32["launches"]["online_sgd"],
-         **{k: sgd[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
-                                "bound_ms", "bound_by", "library_ms")}},
-        {"name": "dfa_epoch_int8", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/dfa_epoch_int8.cu",
-         "replaces": "src/repro/kernels/online_sgd_int8.py:120",
-         "launches": s_tifed["launches"]["dfa_epoch_int8"],
-         **{k: dfa[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
-                                "bound_ms", "bound_by", "library_ms")}},
-    ]
+    from repro_torch import core
+    from repro_torch.data import SineTasks
+    from repro_torch.launch import train
+
+    tm = {"core": core, "ops": ops, "train": train, "SineTasks": SineTasks,
+          "loss": functools.partial(paper_model_loss, SINE_MLP), "phi": phi}
+    t_tiny = phase_train_tinyreptile(torch, np, tm)
+    t_rep = phase_train_reptile(torch, np, tm)
+    t_base = phase_train_baselines(torch, np, tm)
+    phase_profile_train(torch, tm)
+
+    # every main path's launches, each counted from 0 just before it
+    paths = {"serve_fp32": s_fp32["launches"],
+             "serve_tifed": s_tifed["launches"],
+             "train_tinyreptile": t_tiny["launches"],
+             "train_reptile_c64": t_rep["launches"],
+             **{f"train_{r['run']}": r["launches"] for r in t_base}}
+    kernels = []
+    for kernel, route, source, replaces, row in (
+            ("online_sgd", "triton", "src/repro_torch/kernels/online_sgd.py",
+             "src/repro/kernels/online_sgd.py:36",
+             rows["online_sgd/serve_64x1153_fp32"]),
+            ("dfa_epoch_int8", "cuda",
+             "src/repro_torch/kernels/csrc/dfa_epoch_int8.cu",
+             "src/repro/kernels/online_sgd_int8.py:120",
+             rows["dfa_epoch_int8/serve_B64_S8_mixed"]),
+            ("meta_update", "cuda",
+             "src/repro_torch/kernels/csrc/meta_update.cu",
+             "src/repro/kernels/meta_update.py:31",
+             rows["meta_update/train_1153_fp32"]),
+            ("online_sgd_momentum", "triton",
+             "src/repro_torch/kernels/online_sgd.py",
+             "src/repro/kernels/online_sgd.py:52",
+             rows["online_sgd_momentum/train_1153_fp32"])):
+        by_path = {p: c[kernel] for p, c in paths.items() if c[kernel]}
+        kernels.append(
+            {"name": kernel, "route": route, "source": source,
+             "replaces": replaces, "launches": sum(by_path.values()),
+             "launches_by_path": by_path,
+             **{k: row[k] for k in ("max_abs_err", "ms", "device_ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}})
     emit({"total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi_line(), flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
 
 

@@ -21,6 +21,14 @@ SCALE_KEYS = ("f0", "f1", "fe", "floss", "ftw0", "ftw1", "ftw2",
               "ftb0", "ftb1", "ftb2")
 
 
+def meta_update(w, w_hat, alpha):
+    """Reptile interpolation ``w + alpha * (w_hat - w)`` in fp32 math,
+    stored in w's dtype. ``alpha`` is a float or a one-element fp32
+    tensor."""
+    w32 = w.float()
+    return (w32 + alpha * (w_hat.float() - w32)).to(w.dtype)
+
+
 def online_sgd(p, g, lr, m=None, momentum=0.0):
     """Streaming SGD step ``p - lr * g`` in fp32 math, stored in p's
     dtype; with ``m``, the momentum form ``m' = momentum * m + g``,

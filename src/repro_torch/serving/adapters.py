@@ -18,12 +18,13 @@ int8 route's through ``dfa_epoch_int8``, each one launch for all slots.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable
 
 import numpy as np
 import torch
 
+from repro_torch.bridge import FlatLayout
+from repro_torch.core.meta import cohort_grad
 from repro_torch.core.strategies import (TIFED_ACT, TIFED_EX, TIFED_SERR,
                                          _tifed_constants)
 from repro_torch.kernels import ops as kops
@@ -48,19 +49,12 @@ class Fp32Adapter:
     name = "fp32"
 
     def pack_phi(self, phi):
-        names = tuple(sorted(phi))
-        shapes = tuple(tuple(phi[k].shape) for k in names)
-        flat = torch.cat([phi[k].reshape(-1).float() for k in names])
-        return {"names": names, "shapes": shapes, "flat": flat}
+        layout = FlatLayout.of(phi)
+        return {"layout": layout, "flat": layout.pack(phi).float()}
 
     @staticmethod
     def _views(pack, flat):
-        out, off = {}, 0
-        for k, shape in zip(pack["names"], pack["shapes"]):
-            n = math.prod(shape)
-            out[k] = flat[:, off:off + n].unflatten(1, shape)
-            off += n
-        return out
+        return pack["layout"].views(flat)
 
     def prepare(self, pack, sx, sy):
         flat = pack["flat"].expand(sx.shape[0], -1).clone()
@@ -71,12 +65,10 @@ class Fp32Adapter:
         rows = torch.arange(sx.shape[0], device=sx.device)
         i = step.clamp(0, sx.shape[1] - 1)
         batch = {"x": sx[rows, i].unsqueeze(1), "y": sy[rows, i].unsqueeze(1)}
-        with torch.enable_grad():
-            flat = slots["flat"].detach().requires_grad_(True)
-            loss = self.loss_fn(self._views(pack, flat), batch)
-            (g,) = torch.autograd.grad(loss.sum(), flat)
+        loss, g = cohort_grad(self.loss_fn, pack["layout"], slots["flat"],
+                              batch)
         new = kops.online_sgd(slots["flat"], g, self.lr)
-        return {**slots, "flat": new}, loss.detach()
+        return {**slots, "flat": new}, loss
 
     def query_loss(self, pack, slots, qx, qy):
         return self.loss_fn(self._views(pack, slots["flat"]),

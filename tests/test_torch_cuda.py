@@ -1,10 +1,12 @@
-"""The port's kernels and serving slice on a CUDA device.
+"""The port's kernels, serving slice and training engine on a CUDA
+device.
 
 These tests need the card: each skips where there is none. They import
 neither JAX nor the JAX package, so they run on a machine that has only
 PyTorch (``python -m pytest -q --noconftest tests/test_torch_cuda.py``).
 Each kernel is held to its plain PyTorch version on the same CUDA
-tensors, and the served results on the card to the port on the CPU.
+tensors, and the served results and trained params on the card to the
+port on the CPU.
 """
 import functools
 
@@ -14,12 +16,17 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs.paper_models import SINE_MLP  # noqa: E402
+from repro_torch.core import (StragglerSampling, reptile_train,  # noqa: E402
+                              tinyreptile_train)
 from repro_torch.core.strategies import tifed_requantize  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models.paper_nets import (init_paper_model,  # noqa: E402
                                            paper_model_loss)
+from repro_torch.data import SineTasks  # noqa: E402
 from repro_torch.serving import (AdaptationServer, Fp32Adapter,  # noqa: E402
                                  TifedAdapter)
+
+LOSS = functools.partial(paper_model_loss, SINE_MLP)
 
 
 @pytest.fixture
@@ -132,3 +139,77 @@ def test_served_on_card_matches_cpu(cuda, route):
             else:
                 np.testing.assert_allclose(g.params[leaf], c.params[leaf],
                                            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", [(1153, 0), (1 << 20, 0), (4099, 1)])
+def test_meta_update_kernel_matches_plain(cuda, dtype, n, offset):
+    """Exact: the kernel rounds each operation on its own, as the plain
+    version's separate tensor ops do. ``offset`` 1 misaligns the
+    buffers, which takes the scalar path."""
+    g = torch.Generator().manual_seed(n)
+    w, wh = (torch.randn(n + offset, generator=g).to(cuda, dtype)[offset:]
+             for _ in range(2))
+    for a in (0.0, 0.37, 1.0):
+        alpha = torch.tensor([a], device=cuda)
+        before = ops.meta_update.launches
+        out = ops.meta_update(w, wh, alpha)
+        torch.cuda.synchronize()
+        assert ops.meta_update.launches == before + 1
+        assert out.dtype == dtype
+        assert torch.equal(out, ref.meta_update(w, wh, alpha))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+def test_online_sgd_momentum_kernel_matches_plain(cuda, dtype, tol):
+    g = torch.Generator().manual_seed(1)
+    p, grad = (torch.randn(64, 1153, generator=g).to(cuda, dtype)
+               for _ in range(2))
+    m = torch.randn(64, 1153, generator=g).to(cuda)
+    before = ops.online_sgd_momentum.launches
+    gp, gm = ops.online_sgd_momentum(p, grad, m, 0.05, 0.9)
+    torch.cuda.synchronize()
+    assert ops.online_sgd_momentum.launches == before + 1
+    wp, wm = ref.online_sgd(p, grad, 0.05, m=m, momentum=0.9)
+    assert gp.dtype == dtype and gm.dtype == torch.float32
+    torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(gp.float(), wp.float(), rtol=tol,
+                               atol=tol if dtype == torch.bfloat16 else 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tinyreptile", "reptile"])
+def test_training_on_card_matches_cpu(cuda, name):
+    phi = init_paper_model(SINE_MLP, torch.Generator().manual_seed(0), "cpu")
+    if name == "tinyreptile":
+        run = functools.partial(
+            tinyreptile_train, LOSS, phi, SineTasks(), rounds=12, beta=0.02,
+            support=8, clients_per_round=3, sampling=StragglerSampling(0.5),
+            seed=1)
+        inner = 12 * 8
+    else:
+        run = functools.partial(reptile_train, LOSS, phi, SineTasks(),
+                                rounds=10, beta=0.02, support=8, epochs=4,
+                                clients_per_round=5, seed=2)
+        inner = 10 * 4
+    kw = dict(eval_every=6 if name == "tinyreptile" else 5,
+              eval_kwargs=dict(num_tasks=4, support=8, k_steps=4, lr=0.02,
+                               query=16))
+    ops.reset_launch_counts()
+    got = run(device=cuda, **kw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["meta_update"] == (12 if name == "tinyreptile" else 10)
+    assert counts["online_sgd"] == inner + 2 * 4      # + two evals x k
+    want = run(device="cpu", **kw)
+    for k, v in want["params"].items():
+        assert got["params"][k].device.type == "cuda"
+        np.testing.assert_allclose(got["params"][k].cpu().numpy(), v.numpy(),
+                                   rtol=1e-4, atol=1e-4)
+    assert got["comm_bytes"] == want["comm_bytes"]
+    for ge, we in zip(got["history"], want["history"]):
+        for k, v in we.items():
+            np.testing.assert_allclose(ge[k], v, rtol=1e-4, atol=1e-4)

@@ -10,10 +10,12 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # tiny tensors; the suite runs in parallel workers
 
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import strategies as jstrat  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import strategies as tstrat  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
@@ -46,6 +48,78 @@ def test_online_sgd_momentum_ref_matches_jax():
                                atol=1e-6)
     np.testing.assert_allclose(gm.numpy(), np.asarray(wm), rtol=1e-6,
                                atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(7,), (1153,), (64, 64), (3, 5, 257),
+                                   (8192,)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("alpha", [0.0, 0.37, 1.0])
+def test_meta_update_matches_jax_kernel(shape, dtype, alpha):
+    """The port's wrapper on the CPU (its plain version) against the JAX
+    Pallas kernel in interpret mode, on tests/test_kernels.py's sweep."""
+    rng = np.random.default_rng(2)
+    w = rng.normal(size=shape).astype(np.float32)
+    wh = rng.normal(size=shape).astype(np.float32)
+    want = np.asarray(jops.meta_update(jnp.asarray(w, dtype),
+                                       jnp.asarray(wh, dtype), alpha),
+                      np.float32)
+    tdt = getattr(torch, dtype)
+    got = tops.meta_update(torch.tensor(w).to(tdt), torch.tensor(wh).to(tdt),
+                           alpha)
+    assert got.dtype == tdt and got.shape == shape
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+def test_meta_update_takes_alpha_as_a_tensor():
+    w, wh = torch.randn(1153), torch.randn(1153)
+    a = torch.tensor([0.37])
+    assert torch.equal(tops.meta_update(w, wh, a),
+                       tops.meta_update(w, wh, 0.37))
+    with pytest.raises(ValueError, match="alpha"):
+        tops.meta_update(w, wh, torch.tensor([0.3, 0.4]))
+    with pytest.raises(ValueError, match="alpha"):
+        tops.meta_update(w, wh, torch.tensor([0.3], dtype=torch.float64))
+
+
+def test_tree_meta_update_matches_jax():
+    rng = np.random.default_rng(4)
+    shapes = {"w0": (1, 32), "b0": (32,), "w1": (32, 32), "b1": (32,)}
+    phi = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    hat = {k: rng.normal(size=s).astype(np.float32) for k, s in shapes.items()}
+    want = jops.tree_meta_update({k: jnp.asarray(v) for k, v in phi.items()},
+                                 {k: jnp.asarray(v) for k, v in hat.items()},
+                                 0.37)
+    got = tops.tree_meta_update({k: torch.tensor(v) for k, v in phi.items()},
+                                {k: torch.tensor(v) for k, v in hat.items()},
+                                0.37)
+    assert set(got) == set(want)
+    for k in shapes:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
+                                       ("bfloat16", 1e-2)])
+def test_online_sgd_momentum_matches_jax_kernel(dtype, tol):
+    """tests/test_kernels.py's momentum case (513 elements, m = 0.3)
+    against the JAX Pallas kernel in interpret mode."""
+    rng = np.random.default_rng(3)
+    p, g = (rng.normal(size=(513,)).astype(np.float32) for _ in range(2))
+    m = np.full((513,), 0.3, np.float32)
+    wp, wm = jops.online_sgd_momentum(jnp.asarray(p, dtype),
+                                      jnp.asarray(g, dtype), jnp.asarray(m),
+                                      0.05, 0.9)
+    tdt = getattr(torch, dtype)
+    gp, gm = tops.online_sgd_momentum(torch.tensor(p).to(tdt),
+                                      torch.tensor(g).to(tdt),
+                                      torch.tensor(m), 0.05, 0.9)
+    assert gp.dtype == tdt and gm.dtype == torch.float32
+    np.testing.assert_allclose(gp.float().numpy(),
+                               np.asarray(wp, np.float32), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(gm.numpy(), np.asarray(wm), rtol=1e-5,
+                               atol=1e-7)
 
 
 def _tifed_case(dims, S, seed, B, extreme=False):
@@ -173,7 +247,11 @@ def test_ops_on_cpu_take_the_plain_path():
                         T(xq), T(yal), torch.zeros(4, dtype=torch.int32),
                         tuple(T(f) for f in fb), tuple(T(d) for d in dither),
                         tref.pack_scales(scales))
-    assert tops.launch_counts() == {"online_sgd": 0, "dfa_epoch_int8": 0}
+    out = tops.meta_update(p, g, 0.37)
+    torch.testing.assert_close(out, tref.meta_update(p, g, 0.37), rtol=0,
+                               atol=0)
+    tops.online_sgd_momentum(p, g, torch.zeros_like(p), 0.5, 0.9)
+    assert tops.launch_counts() == {name: 0 for name in tops.KERNELS}
 
 
 def test_wrappers_reject_bad_operands():
@@ -182,6 +260,13 @@ def test_wrappers_reject_bad_operands():
         tops.online_sgd(p, torch.zeros(9), 0.1)
     with pytest.raises(TypeError, match="dtype"):
         tops.online_sgd(p, torch.zeros(8, dtype=torch.float64), 0.1)
+    with pytest.raises(ValueError, match="fp32"):
+        tops.online_sgd_momentum(p, p, torch.zeros(8, dtype=torch.bfloat16),
+                                 0.1, 0.9)
+    with pytest.raises(ValueError, match="shape"):
+        tops.meta_update(p, torch.zeros(9), 0.5)
+    with pytest.raises(TypeError, match="float32"):
+        tops.meta_update(p.double(), p.double(), 0.5)
     ws, bs, xq, yal, fb, dither, scales = _tifed_case((1, 4, 4, 1), 8, 6, 2)
     T = torch.from_numpy
     with pytest.raises(ValueError, match="w0"):

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # tiny tensors; the suite runs in parallel workers
 
 import jax  # noqa: E402
 
@@ -155,7 +156,7 @@ def test_launch_counts_stay_zero_on_cpu(jphi, jphi_q):
         reqs = make_requests(**spec)[:3]
         serve_all(AdaptationServer(phi, adapter, slots=2, k_max=10,
                                    device="cpu"), reqs)
-    assert ops.launch_counts() == {"online_sgd": 0, "dfa_epoch_int8": 0}
+    assert ops.launch_counts() == {name: 0 for name in ops.KERNELS}
 
 
 def test_submit_validation(jphi):
