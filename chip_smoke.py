@@ -14,7 +14,9 @@ Phases, each printing one JSON line:
    CUDA tensors, at the shapes the main paths give it and at harder
    ones, timed with CUDA events (median of repeats) and the profiler
    beside its bound and the one PyTorch call that computes the same
-   function, where there is one;
+   function, where there is one; ``ssd_scan`` at the JAX package's test
+   shapes and the LM path's, ``online_sgd`` and ``meta_update`` also at
+   mamba2-130m's two flat buffers;
 4. serve fp32: 512 requests through ``AdaptationServer`` with the
    ``serve --mode adapt`` defaults, launch counters set to 0 just before
    and read just after; 32 requests held against the port on the CPU;
@@ -29,7 +31,16 @@ Phases, each printing one JSON line:
    (64 clients, 20 rounds), in-process, against the CPU;
 9. train baselines: FedAvg, FedSGD and Transfer at the launcher
    defaults, and TinyReptile with 8 straggling clients, against the CPU;
-10. profile train: device busy share of 60 TinyReptile rounds.
+10. profile train: device busy share of 60 TinyReptile rounds;
+11. train LM reduced: the LM launcher (``--arch mamba2 --reduced``) on
+    the card and on the CPU from the same init, rows and params within
+    1e-4, ``comm_mb`` exact, launches as reckoned;
+12. train LM mamba2-130m: full width and depth, bf16, ``--rounds 6
+    --batch 8 --seq 2048 --k-inner 4``: finite losses, the client adapts
+    (mean last inner loss below the first), launches as reckoned,
+    rounds/s, tokens/s and peak device memory;
+13. profile LM: two full-width rounds under torch.profiler: idle share,
+    top kernels, the shares of ``ssd_scan`` and of its plain backward.
 
 Then the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure is a
@@ -52,6 +63,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # fp32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # TF32 tensor-core peak, dense
 INT8_OPS_PER_S = 1979e12       # int8 tensor-core peak, dense
 PASSES = 7                     # timing repeats; the median is kept
 
@@ -63,6 +75,30 @@ N_REQUESTS, N_HELD = 512, 32
 TR_ROUNDS, TR_CHECK_ROUNDS, TR_SUPPORT = 600, 60, 32
 TR_EVAL = dict(num_tasks=10, support=8, k_steps=8, lr=0.02, query=64)
 PHI_BYTES = 1153 * 4           # one fp32 copy of the sine MLP on the wire
+
+# ssd_scan: tests/test_kernels.py's three shapes, then the LM path's
+# (B, H, nc, Q, P, N) at --batch 8 --seq 2048 --k-inner 4: 2 sequences
+# of 8 chunks of 256 per inner step, mamba2-130m's 24 heads of 64 and
+# state 128
+SSD_SHAPES = (("test_1x2x2x16x64x16", (1, 2, 2, 16, 64, 16)),
+              ("test_2x3x4x32x64x32", (2, 3, 4, 32, 64, 32)),
+              ("test_1x24x2x64x64x128", (1, 24, 2, 64, 64, 128)),
+              ("path_2x24x8x256x64x128", (2, 24, 8, 256, 64, 128)))
+# 2e-4 is the JAX package's tolerance for the scan (tests/test_kernels.py);
+# it holds at the path's shape too: the outputs stay below about 25, the
+# in-chunk sums are damped by exp(sum dA), and both versions sum fp32
+# products in orders that differ by a few ulp of those magnitudes
+SSD_TOL = 2e-4
+# the LM launcher's runs: the reduced config against the CPU, then
+# mamba2-130m at full width and depth
+LM_REDUCED = ["--arch", "mamba2", "--reduced", "--rounds", "4", "--seq", "64",
+              "--batch", "4", "--k-inner", "2"]
+LM_FULL = ["--arch", "mamba2-130m", "--rounds", "6", "--batch", "8",
+           "--seq", "2048", "--k-inner", "4"]
+LM_PROFILE_ROUNDS = 2
+# mamba2-130m's parameters: the bf16 group and the fp32 group (dt_bias,
+# A_log and D of 24 layers), the two flat buffers of every update
+LM_BF16, LM_FP32 = 128_981_760, 1_728
 
 
 T0 = time.perf_counter()
@@ -206,7 +242,7 @@ def phase_build(torch, build, ops):
     """One nvcc per CUDA source in a thread while Triton compiles its
     kernels."""
     out = {}
-    sources = ["dfa_epoch_int8", "meta_update"]
+    sources = ["dfa_epoch_int8", "meta_update", "ssd_scan"]
 
     def nvcc():
         t0 = time.perf_counter()
@@ -387,6 +423,102 @@ def phase_kernels(torch, np, ops, ref):
         rows[f"online_sgd_momentum/{tag}"] = row
         emit({"phase": "kernel", "kernel": "online_sgd_momentum",
               "case": tag, **row})
+    return rows
+
+
+def ssd_inputs(torch, np, shape, seed, dev):
+    """The JAX package's test inputs for the scan, from a NumPy seed."""
+    B, H, nc, Q, P, N = shape
+    r = np.random.default_rng(seed)
+    arrays = (r.standard_normal((B, H, nc, Q, P)),
+              -np.abs(r.standard_normal((B, H, nc, Q))) * 0.1,
+              r.standard_normal((B, nc, Q, N)) * 0.3,
+              r.standard_normal((B, nc, Q, N)) * 0.3)
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev)
+                 for a in arrays)
+
+
+def ssd_bytes_ops(shape):
+    """fp32 operations the scan needs and the bytes it must move (xd, dA,
+    Bm, Cm read once, y written once). L is zero above the diagonal, so
+    the two in-chunk products count only the Q (Q + 1) / 2 causal pairs:
+    C B^T once per (b, c), as the heads share it, and the masked product
+    per (b, h, c); the two state products are dense, per (b, h, c)."""
+    B, H, nc, Q, P, N = shape
+    causal = Q * (Q + 1)                # 2 ops for each of Q (Q + 1) / 2 pairs
+    ops = B * nc * causal * N + B * H * nc * (causal * P + 4 * Q * N * P)
+    moved = 4 * (2 * B * H * nc * Q * P + B * H * nc * Q + 2 * B * nc * Q * N)
+    return ops, moved
+
+
+def phase_kernels_lm(torch, np, ops, ref, rows):
+    """ssd_scan at the test shapes and the path's (with its dynamic
+    shared memory per block); online_sgd and meta_update at the LM shape
+    (mamba2-130m's two flat buffers)."""
+    from repro_torch.kernels import ssd_scan as ssd_module
+
+    _, smem_bytes = ssd_module._bind()
+    dev = torch.device("cuda")
+    for i, (tag, shape) in enumerate(SSD_SHAPES):
+        args = ssd_inputs(torch, np, shape, 40 + i, dev)
+        got = ops.ssd_scan(*args)
+        want = ref.ssd_scan(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+        err = (got - want).abs().max().item()
+        nops, moved = ssd_bytes_ops(shape)
+        t_ops, t_bytes = nops / FP32_OPS_PER_S, moved / HBM_BYTES_PER_S
+        big = shape[3] >= 256
+        row = {"shape_BHncQPN": list(shape), "tol": SSD_TOL,
+               "max_abs_err": err, "y_max_abs": want.abs().max().item(),
+               "ms": cuda_ms(torch, lambda: ops.ssd_scan(*args),
+                             5 if big else 50),
+               "device_ms": device_ms(torch, lambda: ops.ssd_scan(*args),
+                                      calls=5 if big else 20),
+               "plain_ms": cuda_ms(torch, lambda: ref.ssd_scan(*args),
+                                   3 if big else 20),
+               "library_ms": None,
+               "bound_ms": 1e3 * max(t_ops, t_bytes),
+               "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "ops_type": "fp32", "fp32_ops": nops, "bytes": moved,
+               "smem_bytes": smem_bytes(*shape[3:]),
+               "tf32_bound_ms": 1e3 * max(nops / TF32_OPS_PER_S, t_bytes)}
+        rows[f"ssd_scan/{tag}"] = row
+        emit({"phase": "kernel", "kernel": "ssd_scan", "case": tag, **row})
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    alpha = torch.tensor([0.37], device=dev)
+    for tag, n, dtype, tol in (("lm_bf16_128981760", LM_BF16, torch.bfloat16,
+                                1e-2),
+                               ("lm_fp32_1728", LM_FP32, torch.float32, 1e-6)):
+        a, b = (torch.randn(n, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        iters = 20 if n > 1e6 else 200
+        moved = 3 * n * a.element_size()
+        for kernel, fn, plain, library, nops in (
+                ("online_sgd", lambda: ops.online_sgd(a, b, 0.02),
+                 lambda: ref.online_sgd(a, b, 0.02),
+                 lambda: torch.add(a, b, alpha=-0.02), 2 * n),
+                ("meta_update", lambda: ops.meta_update(a, b, alpha),
+                 lambda: ref.meta_update(a, b, alpha),
+                 lambda: torch.lerp(a, b, 0.37), 3 * n)):
+            got, want = fn(), plain()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                       atol=tol)
+            t_bytes, t_ops = moved / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+            row = {"n": n, "dtype": str(dtype).split(".")[1], "tol": tol,
+                   "max_abs_err": (got.float() - want.float()).abs().max()
+                   .item(),
+                   "ms": cuda_ms(torch, fn, iters),
+                   "device_ms": device_ms(torch, fn),
+                   "plain_ms": cuda_ms(torch, plain, iters),
+                   "library_ms": cuda_ms(torch, library, iters),
+                   "bound_ms": 1e3 * max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            rows[f"{kernel}/{tag}"] = row
+            emit({"phase": "kernel", "kernel": kernel, "case": tag, **row})
+        del a, b
     return rows
 
 
@@ -681,6 +813,178 @@ def phase_profile_train(torch, tm):
           "top_device_ms": [[k[:80], t / 1e3, c] for k, (t, c) in top]})
 
 
+def lm_launches(args):
+    """Launches one LM launcher run must make: one ssd_scan per layer per
+    inner step, one online_sgd per dtype group per step, one meta_update
+    per dtype group per round (the backward takes the plain gradient and
+    recomputes nothing through the kernel)."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    groups = 1 if cfg.dtype == "float32" else 2      # bf16 beside fp32
+    return {"ssd_scan": args.rounds * args.k_inner * cfg.num_layers,
+            "online_sgd": args.rounds * args.k_inner * groups,
+            "meta_update": args.rounds * groups}
+
+
+def check_launches(name, counts, want):
+    for k, v in want.items():
+        check(counts[k] == v, f"{name}: {counts[k]} {k} launches, "
+                              f"expected {v}")
+    check(all(counts[k] == 0 for k in counts if k not in want),
+          f"{name}: unexpected launches {counts}")
+
+
+def phase_train_lm_reduced(torch, np, tm):
+    """The reduced mamba2 LM launcher on the card, then on the CPU, from
+    the same seeded init: rows and final params within 1e-4, comm exact."""
+    tl, ops, bridge = tm["train"], tm["ops"], tm["bridge"]
+    args = tl.parse_args(LM_REDUCED)
+    (rows, summary, phi), wall, counts = timed_run(
+        torch, ops, lambda: tl.run_lm(args))
+    want_rows, _, want_phi = tl.run_lm(tl.parse_args(LM_REDUCED + [
+        "--device", "cpu"]))
+    check_launches("train_lm_reduced", counts, lm_launches(args))
+    check(len(rows) == len(want_rows), "row count")
+    worst_row = 0.0
+    for got, want in zip(rows, want_rows):
+        check(got["comm_mb"] == want["comm_mb"], f"comm_mb {got} vs {want}")
+        check(got["alpha"] == want["alpha"], f"alpha {got} vs {want}")
+        for k in ("loss", "inner_first", "inner_last", "client"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4,
+                                       err_msg=k)
+            worst_row = max(worst_row, abs(got[k] - want[k]))
+    worst = 0.0
+    got_leaves = bridge.flatten_tree(phi)
+    for path, want in bridge.flatten_tree(want_phi).items():
+        a, b = got_leaves[path].float().cpu().numpy(), want.float().numpy()
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4,
+                                   err_msg=str(path))
+        worst = max(worst, float(np.abs(a - b).max()))
+    row = {"phase": "train_lm_reduced", "argv": LM_REDUCED, "wall_s": wall,
+           "launches": counts, "comm_mb": summary["comm_mb"],
+           "rows": rows, "vs_cpu": {"tol": 1e-4, "rows_max_abs_diff": worst_row,
+                                    "params_max_abs_diff": worst}}
+    emit(row)
+    return row
+
+
+def phase_train_lm_full(torch, np, tm):
+    """mamba2-130m at full width and depth, bf16, through the launcher."""
+    tl, ops = tm["train"], tm["ops"]
+    args = tl.parse_args(LM_FULL)
+    torch.cuda.reset_peak_memory_stats()
+    (rows, summary, phi), wall, counts = timed_run(
+        torch, ops, lambda: tl.run_lm(args))
+    check_launches("train_lm_mamba2_130m", counts, lm_launches(args))
+    for r in rows:
+        for k in ("loss", "inner_first", "inner_last"):
+            check(math.isfinite(r[k]), f"round {r['round']} {k} = {r[k]}")
+    first = statistics.mean(r["inner_first"] for r in rows)
+    last = statistics.mean(r["inner_last"] for r in rows)
+    check(last < first, f"no client adaptation: mean inner_last {last} >= "
+                        f"mean inner_first {first}")
+    counts_by_dtype = {}
+    for _, leaf in tm["bridge"].tree_leaves(phi):
+        key = str(leaf.dtype).split(".")[1]
+        counts_by_dtype[key] = counts_by_dtype.get(key, 0) + leaf.numel()
+    check(counts_by_dtype == {"bfloat16": LM_BF16, "float32": LM_FP32},
+          f"parameter counts {counts_by_dtype}")
+    tokens = args.rounds * args.batch * args.seq
+    rounds_s = sum(r["dt_s"] for r in rows)
+    row = {"phase": "train_lm_mamba2_130m", "argv": LM_FULL,
+           "params": counts_by_dtype, "wall_s": wall,
+           "rounds_per_s": args.rounds / wall, "tokens_per_s": tokens / wall,
+           "rounds_only_s": rounds_s,
+           "rounds_only_tokens_per_s": tokens / rounds_s,
+           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts, "comm_mb": summary["comm_mb"],
+           "mean_inner_first": first, "mean_inner_last": last,
+           "rows": rows}
+    emit(row)
+    return row, phi
+
+
+def phase_profile_lm(torch, np, tm, phi):
+    """Two full-width rounds of the LM step (the launcher's per-round
+    work: K inner steps, one interpolation, one read of the losses)
+    under torch.profiler, twice. Device activity alone: the device's idle
+    share, the top kernels and ssd_scan's share. Host ops too (which slow
+    the host, so no idle share is read there): the share of the plain
+    backward of ssd_chunked, the device time of the kernels launched
+    inside its profiler range."""
+    tl, mamba2 = tm["train"], tm["mamba2"]
+    from repro_torch.configs import get_arch
+    from repro_torch.data import LMClientStream
+    from repro_torch.models.transformer import build_model
+    from repro_torch.runtime.steps import make_meta_train_step, microbatch
+
+    args = tl.parse_args(LM_FULL)
+    model = build_model(get_arch(args.arch))
+    step = make_meta_train_step(model, beta=args.beta)
+    rng = np.random.default_rng(123)
+    batches = []
+    for cid in range(LM_PROFILE_ROUNDS):
+        raw = microbatch(LMClientStream(model.cfg.vocab_size, cid).batch(
+            rng, args.batch, args.seq), args.k_inner)
+        batches.append({k: torch.from_numpy(v).cuda() for k, v in raw.items()})
+    alpha = torch.tensor([0.5], device="cuda")
+    bwd_range = mamba2.SSD_BACKWARD_RANGE
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def profiled(activities):
+        nonlocal phi
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for batch in batches:
+                phi, m = step(phi, batch, alpha)
+                m["loss"].item()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # device rows: kernels and copies (the range's own span on the GPU
+        # timeline, where the profiler adds one, is no work of its own)
+        by_name = {ev.key: (ev.self_device_time_total, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == cuda and ev.self_device_time_total > 0
+                   and ev.key != bwd_range}
+        dev_us = sum(t for t, _ in by_name.values())
+        check(dev_us > 0, "the profiler saw no device time")
+        return prof, wall, by_name, dev_us
+
+    act = torch.profiler.ProfilerActivity
+    _, wall, by_name, dev_us = profiled([act.CUDA])
+    ssd_us = sum(t for k, (t, _) in by_name.items() if "ssd_scan" in k)
+    check(ssd_us > 0, "the profiler saw no ssd_scan kernel")
+
+    def kernel_us(ev):      # device time of the kernels launched under ev
+        return (sum(k.duration for k in ev.kernels if k.name != bwd_range)
+                + sum(kernel_us(child) for child in ev.cpu_children))
+
+    prof, traced_wall, _, traced_dev_us = profiled([act.CPU, act.CUDA])
+    bwd = [ev for ev in prof.events()
+           if ev.name == bwd_range and ev.device_type != cuda]
+    bwd_us, bwd_count = sum(kernel_us(ev) for ev in bwd), len(bwd)
+    layers_steps = model.cfg.num_layers * LM_PROFILE_ROUNDS * args.k_inner
+    check(bwd_count == layers_steps and 0 < bwd_us < traced_dev_us - ssd_us,
+          f"the ssd_chunked backward ranges: {bwd_count} seen, "
+          f"{bwd_us} us of device time against {traced_dev_us} us busy")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    emit({"phase": "profile_lm", "rounds": LM_PROFILE_ROUNDS,
+          "wall_ms": 1e3 * wall, "device_busy_ms": dev_us / 1e3,
+          "device_idle_share": 1 - dev_us / 1e6 / wall,
+          "kernels_launched": sum(c for _, c in by_name.values()),
+          "ssd_scan_ms": ssd_us / 1e3,
+          "ssd_scan_share_of_busy": ssd_us / dev_us,
+          "host_traced_wall_ms": 1e3 * traced_wall,
+          "host_traced_device_busy_ms": traced_dev_us / 1e3,
+          "ssd_backward_ms": bwd_us / 1e3, "ssd_backward_count": bwd_count,
+          "ssd_backward_share_of_busy": bwd_us / traced_dev_us,
+          "top_device": [[k[:80], t / 1e3, c, t / dev_us]
+                         for k, (t, c) in top]})
+
+
 def main():
     import numpy as np
     import torch
@@ -708,6 +1012,7 @@ def main():
     phase_device(torch)
     phase_build(torch, build, ops)
     rows = phase_kernels(torch, np, ops, ref)
+    phase_kernels_lm(torch, np, ops, ref, rows)
 
     mods = (MetricsTracker, AdaptationServer, ops)
     phi = init_paper_model(SINE_MLP, torch.Generator().manual_seed(0), "cpu")
@@ -723,23 +1028,31 @@ def main():
                           T_K_MAX, "dfa_epoch_int8", exact_params=True)
     phase_profile(torch, np, mods, fp32, phi, reqs)
 
-    from repro_torch import core
+    from repro_torch import bridge, core
     from repro_torch.data import SineTasks
     from repro_torch.launch import train
+    from repro_torch.models import mamba2
 
     tm = {"core": core, "ops": ops, "train": train, "SineTasks": SineTasks,
-          "loss": functools.partial(paper_model_loss, SINE_MLP), "phi": phi}
+          "loss": functools.partial(paper_model_loss, SINE_MLP), "phi": phi,
+          "bridge": bridge, "mamba2": mamba2}
     t_tiny = phase_train_tinyreptile(torch, np, tm)
     t_rep = phase_train_reptile(torch, np, tm)
     t_base = phase_train_baselines(torch, np, tm)
     phase_profile_train(torch, tm)
+    t_lm_red = phase_train_lm_reduced(torch, np, tm)
+    t_lm, lm_phi = phase_train_lm_full(torch, np, tm)
+    phase_profile_lm(torch, np, tm, lm_phi)
+    del lm_phi
 
     # every main path's launches, each counted from 0 just before it
     paths = {"serve_fp32": s_fp32["launches"],
              "serve_tifed": s_tifed["launches"],
              "train_tinyreptile": t_tiny["launches"],
              "train_reptile_c64": t_rep["launches"],
-             **{f"train_{r['run']}": r["launches"] for r in t_base}}
+             **{f"train_{r['run']}": r["launches"] for r in t_base},
+             "train_lm_reduced": t_lm_red["launches"],
+             "train_lm_mamba2_130m": t_lm["launches"]}
     kernels = []
     for kernel, route, source, replaces, row in (
             ("online_sgd", "triton", "src/repro_torch/kernels/online_sgd.py",
@@ -756,7 +1069,10 @@ def main():
             ("online_sgd_momentum", "triton",
              "src/repro_torch/kernels/online_sgd.py",
              "src/repro/kernels/online_sgd.py:52",
-             rows["online_sgd_momentum/train_1153_fp32"])):
+             rows["online_sgd_momentum/train_1153_fp32"]),
+            ("ssd_scan", "cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan.py:61",
+             rows["ssd_scan/path_2x24x8x256x64x128"])):
         by_path = {p: c[kernel] for p, c in paths.items() if c[kernel]}
         kernels.append(
             {"name": kernel, "route": route, "source": source,

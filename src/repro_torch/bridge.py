@@ -1,16 +1,26 @@
 """Carry parameter trees between the JAX package and the port.
 
-Both sides speak NumPy: the JAX package's params are ``{w0, b0, ...}``
-dicts whose leaves convert with ``np.asarray``; the port's are dicts of
-torch tensors. Dtypes are kept as they are. ``FlatLayout`` packs such
-a dict into one flat buffer, the form the port's kernels update in one
-launch.
+Both sides speak NumPy: the JAX package's params are nested dicts and
+lists whose leaves convert with ``np.asarray``; the port's are the same
+trees of torch tensors. Dtypes are kept, bf16 included: the JAX
+package's bf16 leaves are ``ml_dtypes`` arrays, which ``torch`` cannot
+take, so they cross as fp32, which holds every bf16 value exactly, and
+are cast back on the far side (``params_to_numpy`` hands bf16 tensors
+back as fp32 arrays). ``lm_params_from_jax`` / ``lm_params_to_jax`` also
+map the LM family's layer layout (the JAX package stacks the layers of a
+deep homogeneous model over a leading axis; the port keeps one dict per
+layer).
+
+``FlatLayout`` packs a tree into one flat buffer, the form the port's
+kernels update in one launch; ``FlatLayout.per_dtype`` gives one layout
+per leaf dtype, for trees that mix dtypes (the LM's bf16 matrices beside
+its fp32 SSM scalars).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,21 +28,117 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 
 
-def params_from_numpy(tree, device: DeviceLike = None) -> Dict:
-    """Nested dict of array-likes -> same dict of tensors on ``device``."""
+def _is_bfloat16(a) -> bool:
+    return getattr(getattr(a, "dtype", None), "name", None) == "bfloat16"
+
+
+def params_from_numpy(tree, device: DeviceLike = None):
+    """Nested dicts and lists of array-likes -> the same tree of tensors
+    on ``device`` (a bf16 array arrives as a bf16 tensor)."""
     dev = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_numpy(v, dev) for v in tree]
+    if _is_bfloat16(tree):
+        return torch.from_numpy(np.asarray(tree, np.float32)).to(
+            dev, torch.bfloat16)
     return torch.from_numpy(np.array(tree, copy=True)).to(dev)
 
 
-def params_to_numpy(params) -> Dict:
-    """Nested dict of tensors -> same dict of host NumPy arrays."""
+def params_to_numpy(params):
+    """Nested dicts and lists of tensors -> the same tree of host NumPy
+    arrays; bf16 leaves come back as fp32 arrays (exact)."""
     if isinstance(params, dict):
         return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
     if isinstance(params, torch.Tensor):
-        return params.detach().cpu().numpy()
+        t = params.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
     return np.asarray(params)
+
+
+def tree_leaves(tree, prefix: Tuple = ()) -> Iterator[Tuple[Tuple, Any]]:
+    """``(path, leaf)`` pairs of a nested dict/list tree, dict keys in
+    sorted order (as ``jax.tree.leaves`` walks them); a path is a tuple
+    of dict keys (str) and list indices (int). Anything else, a tuple
+    included, is a leaf."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from tree_leaves(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def flatten_tree(tree) -> Dict[Tuple, Any]:
+    """A nested tree as ``{path: leaf}``."""
+    return dict(tree_leaves(tree))
+
+
+def unflatten_tree(flat: Dict[Tuple, Any]):
+    """``flatten_tree``'s inverse: int path entries become list indices."""
+    if list(flat) == [()]:
+        return flat[()]
+    groups: Dict[Any, Dict[Tuple, Any]] = {}
+    for path, leaf in flat.items():
+        groups.setdefault(path[0], {})[path[1:]] = leaf
+    if all(isinstance(k, int) for k in groups):
+        return [unflatten_tree(groups[i]) for i in range(len(groups))]
+    return {k: unflatten_tree(v) for k, v in groups.items()}
+
+
+def _map_layers(tree, fn):
+    out = dict(tree)
+    out["layers"] = fn(tree["layers"])
+    return out
+
+
+def lm_params_from_jax(tree, scan_period: Optional[int] = None,
+                       device: DeviceLike = None):
+    """The JAX package's LM params (NumPy or ``jax.Array`` leaves) -> the
+    port's tree on ``device``. With ``scan_period`` p (``Model.
+    scan_period``), ``tree["layers"]`` is the JAX scan layout: p dicts
+    whose leaves are stacked over the layer groups, layer g * p + pos
+    being row g of dict pos; the port unstacks them into one dict per
+    layer."""
+    tree = _as_numpy(tree)
+    if scan_period is not None:
+        def unstack(stacks):
+            n_groups = len(next(iter(flatten_tree(stacks[0]).values())))
+            return [_index_tree(stacks[pos], g)
+                    for g in range(n_groups) for pos in range(scan_period)]
+        tree = _map_layers(tree, unstack)
+    return params_from_numpy(tree, device)
+
+
+def lm_params_to_jax(params, scan_period: Optional[int] = None):
+    """The port's LM params -> NumPy in the JAX package's layout (stacked
+    over layer groups when ``scan_period`` is given); bf16 leaves come
+    back as fp32 arrays."""
+    tree = params_to_numpy(params)
+    if scan_period is not None:
+        def stack(layers):
+            p = scan_period
+            return [unflatten_tree({
+                path: np.stack([flatten_tree(layers[g * p + pos])[path]
+                                for g in range(len(layers) // p)])
+                for path in flatten_tree(layers[pos])}) for pos in range(p)]
+        tree = _map_layers(tree, stack)
+    return tree
+
+
+def _index_tree(tree, i):
+    return unflatten_tree({k: v[i] for k, v in flatten_tree(tree).items()})
+
+
+def _as_numpy(tree):
+    """Leaves as NumPy arrays (``np.asarray``; bf16 stays bf16)."""
+    return unflatten_tree({k: np.asarray(v)
+                           for k, v in flatten_tree(tree).items()})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,7 +148,7 @@ class FlatLayout:
     along the last axis. Leading (batch) axes are kept, so a cohort of C
     models is one ``(C, size)`` buffer, and the gradient of the summed
     per-model losses with respect to it is each model's own gradient."""
-    names: Tuple[str, ...]
+    names: Tuple[Any, ...]
     shapes: Tuple[Tuple[int, ...], ...]
 
     @classmethod
@@ -50,6 +156,16 @@ class FlatLayout:
         names = tuple(sorted(tree))
         return cls(names, tuple(tuple(tree[k].shape[batch_dims:])
                                 for k in names))
+
+    @classmethod
+    def per_dtype(cls, tree) -> Dict[torch.dtype, "FlatLayout"]:
+        """One layout per leaf dtype of a nested dict/list tree, named by
+        ``flatten_tree``'s paths; ``pack`` and ``views`` of each take and
+        give ``{path: tensor}`` dicts. Dtypes in first-seen order."""
+        groups: Dict[torch.dtype, Dict[Tuple, Any]] = {}
+        for path, leaf in tree_leaves(tree):
+            groups.setdefault(leaf.dtype, {})[path] = leaf
+        return {dt: cls.of(g) for dt, g in groups.items()}
 
     def pack(self, tree, batch_dims: int = 0) -> torch.Tensor:
         """The tree as one buffer ``(*batch, size)`` (a copy)."""

@@ -1,2 +1,16 @@
+"""Config registry of the port: the paper's tiny models and the LM
+architectures whose model is ported (importing this package registers
+them)."""
+from repro_torch.configs.base import (ArchConfig, get_arch,  # noqa: F401
+                                      list_archs, register)
+from repro_torch.configs.mamba2_130m import MAMBA2_130M  # noqa: F401
 from repro_torch.configs.paper_models import (PAPER_MODELS,  # noqa: F401
                                               PaperModelConfig, SINE_MLP)
+
+#: every architecture the JAX package registers; ``get_arch`` knows only
+#: the ported ones, and the launcher rejects the rest as not ported yet
+ALL_ARCHS = (
+    "llama4-maverick-400b-a17b", "mamba2-130m", "mixtral-8x22b",
+    "whisper-tiny", "tinyllama-1.1b", "glm4-9b", "zamba2-1.2b",
+    "minicpm-2b", "paligemma-3b", "starcoder2-15b",
+)

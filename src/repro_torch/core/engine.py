@@ -29,6 +29,13 @@ slices are ported.)
   them.
 * ``CommChannel`` does the paper's Table-II byte accounting for
   fp32/fp16/int8 payloads and can simulate the quantized transport.
+
+The LM launcher's round (``runtime/steps.py``) is built from two more
+pieces here: ``streaming_sgd``, K streaming SGD steps over a nested
+params tree kept as one flat buffer per leaf dtype (one ``online_sgd``
+launch per dtype group per step); the Reptile update over such a tree
+is ``kernels/ops.py::tree_meta_update`` (one ``meta_update`` launch per
+group).
 """
 from __future__ import annotations
 
@@ -39,7 +46,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.bridge import FlatLayout
+from repro_torch.bridge import (FlatLayout, flatten_tree, tree_leaves,
+                                unflatten_tree)
 from repro_torch.core.meta import evaluate_init
 from repro_torch.core.pipeline import (ClientSchedule, SamplingPolicy,
                                        UniformSampling, plan_blocks,
@@ -59,6 +67,39 @@ def meta_interpolate(phi, phi_hat, alpha):
     launch. ``alpha`` is a one-element fp32 tensor on phi's device (or a
     float)."""
     return kops.meta_update(phi, phi_hat.to(phi.dtype), alpha)
+
+
+def streaming_sgd(loss_fn, phi, batch, beta):
+    """The LM inner loop: one SGD step per microbatch of ``batch`` (the
+    paper's online learning), fp32 update math, each leaf stored back in
+    its own dtype. ``phi`` is a nested tree; ``batch`` a dict of
+    ``(K, ...)`` tensors. Each leaf dtype's params live in one flat
+    buffer, so a step is one backward and one ``online_sgd`` launch per
+    dtype group over the concatenated gradients. Returns ``(phi_hat,
+    losses)``: the tree as views of the final buffers, and the K losses
+    as one fp32 tensor on phi's device (nothing is read to the host)."""
+    layouts = list(FlatLayout.per_dtype(phi).values())
+    leaves = flatten_tree(phi)
+    flats = [lay.pack(leaves) for lay in layouts]
+    steps = next(iter(batch.values())).shape[0]
+    losses = []
+    for i in range(steps):
+        micro = {k: v[i] for k, v in batch.items()}
+        params = {}
+        for lay, flat in zip(layouts, flats):
+            params.update({k: v.detach().requires_grad_()
+                           for k, v in lay.views(flat).items()})
+        names = list(params)
+        loss = loss_fn(unflatten_tree(params), micro)
+        grads = dict(zip(names, torch.autograd.grad(
+            loss, [params[k] for k in names])))
+        flats = [kops.online_sgd(flat, lay.pack(grads), beta)
+                 for lay, flat in zip(layouts, flats)]
+        losses.append(loss.detach().float())
+    out = {}
+    for lay, flat in zip(layouts, flats):
+        out.update(lay.views(flat))
+    return unflatten_tree(out), torch.stack(losses)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,7 +135,8 @@ class CommChannel:
     def payload_bytes(self, tree) -> int:
         """One direction, one client: every leaf at the wire itemsize."""
         itemsize = PAYLOAD_ITEMSIZE[self.dtype]
-        return sum(math.prod(x.shape) * itemsize for x in tree.values())
+        return sum(math.prod(x.shape) * itemsize
+                   for _, x in tree_leaves(tree))
 
     def _wire(self, x: torch.Tensor) -> torch.Tensor:
         """Simulated dtype round-trip (encode + decode) of one leaf. The

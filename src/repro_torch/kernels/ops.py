@@ -7,15 +7,16 @@ never the plain version. Each kernel's wrapper counts its launches
 """
 from __future__ import annotations
 
-from repro_torch.bridge import FlatLayout
+from repro_torch.bridge import FlatLayout, flatten_tree, unflatten_tree
 from repro_torch.kernels.meta_update import meta_update
 from repro_torch.kernels.online_sgd import online_sgd, online_sgd_momentum
 from repro_torch.kernels.online_sgd_int8 import dfa_epoch_int8
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 # every kernel wrapper of the port, by name
 KERNELS = {"online_sgd": online_sgd, "dfa_epoch_int8": dfa_epoch_int8,
            "meta_update": meta_update,
-           "online_sgd_momentum": online_sgd_momentum}
+           "online_sgd_momentum": online_sgd_momentum, "ssd_scan": ssd_scan}
 
 
 def reset_launch_counts() -> None:
@@ -28,9 +29,13 @@ def launch_counts() -> dict:
 
 
 def tree_meta_update(phi, phi_hat, alpha):
-    """Reptile interpolation over a whole ``{leaf: tensor}`` tree in ONE
-    launch: both trees are packed into flat buffers (sorted leaf names),
-    updated, and handed back as views of the result."""
-    layout = FlatLayout.of(phi)
-    return layout.views(meta_update(layout.pack(phi), layout.pack(phi_hat),
-                                    alpha))
+    """Reptile interpolation over a whole params tree (nested dicts and
+    lists) in ONE launch per leaf dtype: the leaves of each dtype are
+    packed into one flat buffer (sorted paths), updated, and handed back
+    as views of the result, each leaf in its own dtype."""
+    hat = flatten_tree(phi_hat)
+    out = {}
+    for layout in FlatLayout.per_dtype(phi).values():
+        out.update(layout.views(meta_update(
+            layout.pack(flatten_tree(phi)), layout.pack(hat), alpha)))
+    return unflatten_tree(out)

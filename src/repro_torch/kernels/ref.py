@@ -157,3 +157,35 @@ def dfa_int8_epoch(ws: Sequence, bs: Sequence, xq, yal, layer,
         new_w.append(torch.where(sel.view(-1, 1, 1), cand[i][0], ws[i]))
         new_b.append(torch.where(sel.view(-1, 1), cand[i][1], bs[i]))
     return tuple(new_w), tuple(new_b), loss
+
+
+def ssd_scan(xd, dA, Bm, Cm):
+    """Chunked Mamba2 SSD forward in the kernel's layout.
+
+    xd (B, H, nc, Q, P) dt-scaled inputs; dA (B, H, nc, Q) log-decay
+    increments dt * A (<= 0); Bm, Cm (B, nc, Q, N), shared by the heads
+    (ngroups = 1). Returns y (B, H, nc, Q, P) fp32: the in-chunk term
+    (C B^T o L) xd plus the (P, N) state carried across chunks (zero
+    before the first) and decayed by exp(sum dA). The scan over chunks is
+    a Python loop."""
+    xd, dA, Bm, Cm = (t.float() for t in (xd, dA, Bm, Cm))
+    B, H, nc, Q, P = xd.shape
+    N = Bm.shape[-1]
+    dA_cs = torch.cumsum(dA, dim=-1)                       # (B,H,nc,Q)
+    diff = dA_cs[..., :, None] - dA_cs[..., None, :]       # (B,H,nc,Q,Q)
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=xd.device))
+    # mask inside the exp (exp(-1e30) = 0), so the gradient stays finite
+    L = torch.exp(torch.where(mask, diff, torch.full_like(diff, -1e30)))
+    CB = torch.einsum("bcin,bcjn->bcij", Cm, Bm)           # (B,nc,Q,Q)
+    y_diag = torch.einsum("bhcij,bhcjp->bhcip", L * CB[:, None], xd)
+    decay_out = torch.exp(dA_cs[..., -1:] - dA_cs)         # (B,H,nc,Q)
+    states = torch.einsum("bcln,bhcl,bhclp->bhcpn", Bm, decay_out, xd)
+    chunk_decay = torch.exp(dA_cs[..., -1])                # (B,H,nc)
+    state = torch.zeros(B, H, P, N, dtype=torch.float32, device=xd.device)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, :, c, None, None] + states[:, :, c]
+    prev = torch.stack(prev, dim=2)                        # (B,H,nc,P,N)
+    y_off = torch.einsum("bcln,bhcpn,bhcl->bhclp", Cm, prev, torch.exp(dA_cs))
+    return y_diag + y_off

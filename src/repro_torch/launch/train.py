@@ -1,17 +1,35 @@
-"""Training launcher of the port: one round-engine run on the paper's
-sine workload, one JSON row.
+"""Training launcher of the port: federated meta-training, one JSON
+row per round (the LM launcher) or one summary row (the round engine).
 
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2 \
+        --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --strategy reptile
+
+The default ``--strategy tinyreptile`` is the JAX package's LM launcher
+on its plain route: each round takes one client's ``LMClientStream``
+batch, splits it into ``--k-inner`` microbatches, runs that many
+streaming SGD steps (``online_sgd``) through the Mamba2 model (whose
+SSD scan is the ``ssd_scan`` kernel), and interpolates phi toward the
+result with the annealed alpha (``meta_update``). Its defaults are the
+JAX launcher's (20 rounds, batch 8, seq 64, k-inner 4, beta 0.02, alpha
+1, 64 clients, seed 0); ``--reduced`` runs the family's smoke config.
+Only the SSM family is ported: ``--arch mamba2-130m`` (or the family
+keyword ``mamba2``).
 
 ``--strategy reptile|fedavg|fedsgd|transfer`` runs ``run_federated``
 with the JAX launcher's defaults (64 clients per round, 20 rounds,
-beta 0.02, support 32, 8 local epochs, one eval at the end) on the GPU;
-``--device cpu`` runs the plain PyTorch path on the CPU instead. The
-init is drawn from ``--seed`` with torch's generator, which does not
-reproduce ``jax.random``'s init at the same seed. The flags of routes
-not ported yet (the LM launcher and its ``--arch``, pools, availability,
-FedBuff buffering, meshes, checkpoints, multi-process runs, the
-``tinyreptile`` and ``tifed`` strategies) are rejected at parse time.
+beta 0.02, support 32, 8 local epochs, one eval at the end) on the sine
+MLP.
+
+Both routes run on the GPU; ``--device cpu`` runs the plain PyTorch
+path on the CPU instead. The init is drawn from ``--seed`` with torch's
+generator, which does not reproduce ``jax.random``'s init at the same
+seed (``init_params=`` carries the JAX package's init in). The flags of
+routes not ported yet (the other architectures, the engine's LM route
+``--strategy ... --arch``, pools, availability, FedBuff buffering,
+meshes, checkpoints, multi-process runs, ``--strategy tifed``) are
+rejected at parse time.
 """
 from __future__ import annotations
 
@@ -19,10 +37,16 @@ import argparse
 import json
 import time
 
+from repro_torch.configs import ALL_ARCHS
+
 ENGINE_STRATEGIES = ("reptile", "fedavg", "fedsgd", "transfer")
-NOT_PORTED_STRATEGIES = ("tinyreptile", "tifed")
-NOT_PORTED_FLAGS = ("--arch", "--reduced", "--batch", "--seq", "--k-inner",
-                    "--pool-size", "--pool-sampler", "--pool-residency",
+NOT_PORTED_STRATEGIES = ("tifed",)
+#: --arch family keywords -> the canonical config each names (as in the
+#: JAX launcher)
+ARCH_FAMILIES = {"transformer": "tinyllama-1.1b", "mamba2": "mamba2-130m",
+                 "moe": "mixtral-8x22b"}
+PORTED_ARCHS = ("mamba2-130m",)
+NOT_PORTED_FLAGS = ("--pool-size", "--pool-sampler", "--pool-residency",
                     "--availability", "--buffer-size", "--devices", "--mesh",
                     "--coordinator", "--num-processes", "--process-id",
                     "--ckpt-dir", "--ckpt-every", "--resume")
@@ -35,16 +59,27 @@ EPOCHS = 8
 class _NotPorted(argparse.Action):
     def __call__(self, parser, namespace, values, option_string=None):
         parser.error(f"{option_string} is not ported yet: the port's "
-                     f"launcher runs the engine route --strategy "
-                     f"{'|'.join(ENGINE_STRATEGIES)} on the sine MLP")
+                     f"launcher runs the plain single-device routes (the "
+                     f"tinyreptile LM launcher and --strategy "
+                     f"{'|'.join(ENGINE_STRATEGIES)} on the sine MLP)")
 
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Federated meta-training of the sine MLP on the "
-                    "port's round engine.")
+        description="Federated meta-training: TinyReptile rounds of an LM "
+                    "(--arch), or the round engine on the sine MLP.")
     ap.add_argument("--strategy", default="tinyreptile",
-                    choices=NOT_PORTED_STRATEGIES + ENGINE_STRATEGIES)
+                    choices=("tinyreptile",) + ENGINE_STRATEGIES
+                    + NOT_PORTED_STRATEGIES)
+    ap.add_argument("--arch", choices=list(ALL_ARCHS) + sorted(ARCH_FAMILIES),
+                    help="LM architecture of the tinyreptile launcher "
+                         "(ported: mamba2-130m, family keyword mamba2)")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the family's smoke config (2 layers, d_model "
+                         "256, fp32)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--k-inner", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--beta", type=float, default=0.02)
     ap.add_argument("--alpha", type=float, default=1.0)
@@ -66,7 +101,34 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = ap.parse_args(argv)
     if args.strategy in NOT_PORTED_STRATEGIES:
         ap.error(f"--strategy {args.strategy} is not ported yet; pass "
-                 f"--strategy {'|'.join(ENGINE_STRATEGIES)}")
+                 f"--strategy tinyreptile|{'|'.join(ENGINE_STRATEGIES)}")
+    if args.strategy == "tinyreptile":
+        if args.arch is None:
+            ap.error("--arch is required for the tinyreptile LM launcher "
+                     "(engine strategies --strategy "
+                     f"{'|'.join(ENGINE_STRATEGIES)} default to the paper "
+                     "sine workload instead)")
+        # family keyword -> the canonical config it names
+        args.arch = ARCH_FAMILIES.get(args.arch, args.arch)
+        if args.arch not in PORTED_ARCHS:
+            ap.error(f"--arch {args.arch} is not ported yet: the port's LM "
+                     f"launcher runs {'|'.join(PORTED_ARCHS)} (--arch "
+                     f"mamba2)")
+        if args.participation < 1.0:
+            ap.error("--participation is not ported yet on the LM "
+                     "launcher (one client per round)")
+        for flag, v in (("--batch", args.batch), ("--seq", args.seq),
+                        ("--k-inner", args.k_inner)):
+            if v < 1:
+                ap.error(f"{flag} must be >= 1, got {v}")
+        if args.batch % args.k_inner:
+            ap.error(f"--batch {args.batch} must split into --k-inner "
+                     f"{args.k_inner} equal microbatches")
+    elif args.arch is not None or args.reduced:
+        ap.error(f"--strategy {args.strategy} with an LM (--arch/--reduced)"
+                 f" is the engine LM route, which is not ported yet (it "
+                 f"needs a client-batched LM); drop --arch/--reduced for "
+                 f"the sine MLP, or run the tinyreptile LM launcher")
     if args.rounds < 1:
         ap.error(f"--rounds must be >= 1, got {args.rounds}")
     if args.clients < 1:
@@ -136,8 +198,92 @@ def run_engine_strategy(args, init_params=None):
     return row, out
 
 
+def run_lm(args, init_params=None):
+    """The tinyreptile LM launcher's run, as the JAX launcher's plain
+    route makes it: prints one row per round and a summary row, and
+    returns ``(rows, summary, phi)``. ``init_params`` (the JAX package's
+    ``Model.init`` tree, in its own layout, as NumPy or ``jax.Array``
+    leaves) replaces the seeded torch init."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bridge import lm_params_from_jax
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine import CommChannel, _consume, _stage
+    from repro_torch.data import LMClientStream
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim.schedules import linear_anneal
+    from repro_torch.runtime.steps import (make_meta_train_step, microbatch,
+                                           prefetch_batches)
+
+    dev = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    model = build_model(cfg)
+    if init_params is None:
+        phi = model.init(torch.Generator().manual_seed(args.seed), dev)
+    else:
+        phi = lm_params_from_jax(init_params, model.scan_period, dev)
+    clients = [LMClientStream(cfg.vocab_size, cid)
+               for cid in range(args.clients)]
+    alpha_sched = linear_anneal(args.alpha, args.rounds,
+                                floor=args.alpha * 0.1)
+    rng = np.random.default_rng(args.seed)
+    round_bill = 2 * CommChannel().payload_bytes(phi)   # down + uplink
+    step = make_meta_train_step(model, beta=args.beta, alpha=args.alpha)
+
+    def make_round_batch(rnd):
+        # one client per round, drawn on the prefetch thread strictly in
+        # round order, so the seeded rng gives the synchronous sequence
+        client = clients[int(rng.integers(len(clients)))]
+        raw = microbatch(client.batch(rng, args.batch, args.seq),
+                         args.k_inner)
+        alpha_t = alpha_sched(rnd)                       # float32
+        staged = _stage([raw["tokens"], raw["labels"],
+                         np.array([alpha_t], np.float32)], dev)
+        return rnd, client.zipf_a, float(alpha_t), staged
+
+    ops.reset_launch_counts()
+    t_start = time.time()
+    rows = []
+    for rnd, zipf_a, alpha_t, (tensors, event) in prefetch_batches(
+            make_round_batch, args.rounds):
+        t0 = time.time()
+        _consume(tensors, event)
+        tokens, labels, alpha_dev = tensors
+        phi, metrics = step(phi, {"tokens": tokens, "labels": labels},
+                            alpha_dev)
+        loss, first, last = torch.stack(
+            [metrics["loss"], metrics["inner_first"],
+             metrics["inner_last"]]).tolist()          # one host read
+        row = {"round": rnd, "client": zipf_a, "loss": loss,
+               "inner_first": first, "inner_last": last, "alpha": alpha_t,
+               "comm_mb": round((rnd + 1) * round_bill / 2 ** 20, 2),
+               "dt_s": round(time.time() - t0, 3)}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    summary = {"arch": cfg.name, "rounds": args.rounds,
+               "tokens_per_round": args.batch * args.seq,
+               "dt_s": round(time.time() - t_start, 3),
+               "comm_mb": round(args.rounds * round_bill / 2 ** 20, 2),
+               "device": (torch.cuda.get_device_name(dev)
+                          if dev.type == "cuda" else "cpu"),
+               "kernel_launches": ops.launch_counts()}
+    print(json.dumps(summary), flush=True)
+    return rows, summary, phi
+
+
 def main(argv=None):
-    run_engine_strategy(parse_args(argv))
+    args = parse_args(argv)
+    if args.strategy == "tinyreptile":
+        run_lm(args)
+    else:
+        run_engine_strategy(args)
 
 
 if __name__ == "__main__":

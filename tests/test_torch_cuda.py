@@ -213,3 +213,53 @@ def test_training_on_card_matches_cpu(cuda, name):
     for ge, we in zip(got["history"], want["history"]):
         for k, v in we.items():
             np.testing.assert_allclose(ge[k], v, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 2, 2, 16, 64, 16), (2, 3, 4, 32, 64, 32), (1, 24, 2, 64, 64, 128),
+    (2, 24, 8, 256, 64, 128)])           # the JAX tests' shapes, the LM path's
+def test_ssd_scan_kernel_matches_plain(cuda, shape):
+    B, H, nc, Q, P, N = shape
+    r = np.random.default_rng(sum(shape))
+    xd, dA, Bm, Cm = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+        r.standard_normal((B, H, nc, Q, P)),
+        -np.abs(r.standard_normal((B, H, nc, Q))) * 0.1,
+        r.standard_normal((B, nc, Q, N)) * 0.3,
+        r.standard_normal((B, nc, Q, N)) * 0.3))
+    before = ops.ssd_scan.launches
+    got = ops.ssd_scan(xd, dA, Bm, Cm)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before + 1
+    torch.testing.assert_close(got, ref.ssd_scan(xd, dA, Bm, Cm), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_lm_round_on_card_matches_cpu(cuda):
+    """The reduced mamba2 LM launcher on the card against the CPU, from
+    the same seeded init: rows within 1e-4, comm exact, launches as
+    reckoned (2 layers x 2 steps x 2 rounds ssd_scan; one dtype group)."""
+    import contextlib
+    import io
+
+    from repro_torch.bridge import flatten_tree
+    from repro_torch.launch import train
+
+    argv = ["--arch", "mamba2", "--reduced", "--rounds", "2", "--seq", "48",
+            "--batch", "4", "--k-inner", "2"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows, summary, phi = train.run_lm(train.parse_args(argv))
+        want_rows, _, want_phi = train.run_lm(train.parse_args(
+            argv + ["--device", "cpu"]))
+    counts = summary["kernel_launches"]
+    assert (counts["ssd_scan"], counts["online_sgd"],
+            counts["meta_update"]) == (8, 4, 2)
+    for got, want in zip(rows, want_rows):
+        assert got["comm_mb"] == want["comm_mb"]
+        for k in ("loss", "inner_first", "inner_last"):
+            assert abs(got[k] - want[k]) <= 1e-4, k
+    got_leaves = flatten_tree(phi)
+    for path, v in flatten_tree(want_phi).items():
+        np.testing.assert_allclose(got_leaves[path].cpu().numpy(), v.numpy(),
+                                   rtol=1e-4, atol=1e-4)

@@ -55,7 +55,8 @@ def test_cpu_run_prints_the_json_row(strategy, extra):
     assert row["device"] == "cpu"
     assert row["kernel_launches"] == {"online_sgd": 0, "dfa_epoch_int8": 0,
                                       "meta_update": 0,
-                                      "online_sgd_momentum": 0}
+                                      "online_sgd_momentum": 0,
+                                      "ssd_scan": 0}
     assert set(row["latency_ms"]) == {"p50", "p95", "p99"}
     assert row["mean_query_loss"] == row["mean_query_loss"]     # finite
 
@@ -106,11 +107,12 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
 
 
 @pytest.mark.parametrize("argv,msg", [
-    ([], "--strategy tinyreptile is not ported yet"),
+    ([], "--arch is required for the tinyreptile LM launcher"),
     (["--strategy", "tifed"], "--strategy tifed is not ported yet"),
     (["--strategy", "reptile", "--arch", "transformer"],
-     "--arch is not ported yet"),
-    (["--strategy", "reptile", "--reduced"], "--reduced is not ported yet"),
+     "the engine LM route, which is not ported yet"),
+    (["--strategy", "reptile", "--reduced"],
+     "the engine LM route, which is not ported yet"),
     (["--strategy", "fedavg", "--pool-size", "100"],
      "--pool-size is not ported yet"),
     (["--strategy", "reptile", "--availability", "diurnal"],
