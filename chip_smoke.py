@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line, in this order:
 
 1. device: the card, its power limit, and the fp32 matmul flags (full
-   fp32, no TF32) the sine MLP's parity needs;
+   fp32, no TF32) the parity checks need;
 2. build: the CUDA kernels (``nvcc``, sm_90a, one process per source)
    and the Triton kernels are built from this checkout's sources, all at
    the same time;
@@ -16,30 +16,47 @@ Phases, each printing one JSON line:
    beside its bound and the one PyTorch call that computes the same
    function, where there is one; ``ssd_scan`` at the JAX package's test
    shapes and the LM path's, ``online_sgd`` and ``meta_update`` also at
-   mamba2-130m's two flat buffers;
-4. serve fp32: 512 requests through ``AdaptationServer`` with the
+   mamba2-130m's two flat buffers; ``flash_decode`` at the JAX
+   package's 24 test cases, at the decode path's shape (tinyllama at
+   batch 8 and cache 2048, bf16) at L = 1, 577, 2048 and with a window,
+   and at the 32k fp32 shape of ``benchmarks/kernels_bench.py``, beside
+   ``scaled_dot_product_attention``, within 3e-4 (fp32) or 2e-2 (bf16)
+   relative and that times min(1, max |want|) absolute;
+4. serve decode reduced: ``serve --mode decode --arch tinyllama-1.1b
+   --reduced`` (4 requests, batch 2, 16 + 16 tokens, cache 64) on the
+   card and on the CPU from the same init: every step's logits within
+   1e-4, the same tokens, 128 ``flash_decode`` launches and no other;
+5. serve decode tinyllama-1.1b: full width and depth, bf16, random
+   weights from seed 0, 16 requests at batch 8, 512 + 128 tokens, cache
+   2048: finite logits, 28,160 ``flash_decode`` launches, tokens/s, step
+   time and peak memory; then the same weights in fp32, 16 teacher-
+   forced steps at batch 2 on the card and on the CPU (within 1e-3 of
+   the largest logit), and the bf16 choices held near the fp32 maximum;
+6. profile decode: 16 full-width decode steps under torch.profiler:
+   idle share, kernels per step, top kernels, ``flash_decode``'s share;
+7. serve fp32: 512 requests through ``AdaptationServer`` with the
    ``serve --mode adapt`` defaults, launch counters set to 0 just before
    and read just after; 32 requests held against the port on the CPU;
-5. serve TIFeD: the same through the int8 route (support 8, k_max 6);
+8. serve TIFeD: the same through the int8 route (support 8, k_max 6);
    adapted weights exact against the CPU;
-6. profile: device busy share of one fp32 drain (torch.profiler);
-7. train TinyReptile: the quickstart's 600-round run, launch counters
-   set to 0 just before and read just after, checked against the
-   random init; a 60-round run of the same configuration against the
-   port on the CPU;
-8. train Reptile: the train launcher's ``--strategy reptile`` defaults
-   (64 clients, 20 rounds), in-process, against the CPU;
-9. train baselines: FedAvg, FedSGD and Transfer at the launcher
-   defaults, and TinyReptile with 8 straggling clients, against the CPU;
-10. profile train: device busy share of 60 TinyReptile rounds;
-11. train LM reduced: the LM launcher (``--arch mamba2 --reduced``) on
+9. profile: device busy share of one fp32 drain (torch.profiler);
+10. train TinyReptile: the quickstart's 600-round run, launch counters
+    set to 0 just before and read just after, checked against the
+    random init; a 60-round run of the same configuration against the
+    port on the CPU;
+11. train Reptile: the train launcher's ``--strategy reptile`` defaults
+    (64 clients, 20 rounds), in-process, against the CPU;
+12. train baselines: FedAvg, FedSGD and Transfer at the launcher
+    defaults, and TinyReptile with 8 straggling clients, against the CPU;
+13. profile train: device busy share of 60 TinyReptile rounds;
+14. train LM reduced: the LM launcher (``--arch mamba2 --reduced``) on
     the card and on the CPU from the same init, rows and params within
     1e-4, ``comm_mb`` exact, launches as reckoned;
-12. train LM mamba2-130m: full width and depth, bf16, ``--rounds 6
+15. train LM mamba2-130m: full width and depth, bf16, ``--rounds 6
     --batch 8 --seq 2048 --k-inner 4``: finite losses, the client adapts
     (mean last inner loss below the first), launches as reckoned,
     rounds/s, tokens/s and peak device memory;
-13. profile LM: two full-width rounds under torch.profiler: idle share,
+16. profile LM: two full-width rounds under torch.profiler: idle share,
     top kernels, the shares of ``ssd_scan`` and of its plain backward.
 
 Then the kernels line, the card's ``nvidia-smi`` name and power limit,
@@ -49,6 +66,7 @@ rest of the repository beside it, the script exits non-zero at once.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import statistics
@@ -65,6 +83,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # fp32 outside the tensor cores
 TF32_OPS_PER_S = 495e12        # TF32 tensor-core peak, dense
 INT8_OPS_PER_S = 1979e12       # int8 tensor-core peak, dense
+BF16_OPS_PER_S = 989e12        # bf16 tensor-core peak, dense
 PASSES = 7                     # timing repeats; the median is kept
 
 SUPPORT, QUERY, K_MAX, SLOTS, STEPS_PER_TICK = 10, 20, 10, 64, 5
@@ -99,6 +118,40 @@ LM_PROFILE_ROUNDS = 2
 # mamba2-130m's parameters: the bf16 group and the fp32 group (dt_bias,
 # A_log and D of 24 layers), the two flat buffers of every update
 LM_BF16, LM_FP32 = 128_981_760, 1_728
+
+# flash_decode, as (B, H, Kv, hd, S): tests/test_kernels.py's three shapes
+# (each at its four (L, window) cases and both dtypes, its tolerances),
+# the decode path's (tinyllama-1.1b at --batch 8 --cache-len 2048) in
+# bf16, and benchmarks/kernels_bench.py's 32k cache in fp32
+FD_TEST_SHAPES = ((1, 4, 4, 64, 512), (2, 8, 2, 64, 1024),
+                  (1, 8, 1, 128, 2048))
+FD_PATH, FD_32K = (8, 32, 4, 64, 2048), (4, 8, 4, 64, 32768)
+# the kernel is held at tol x min(1, max |want|) absolute and tol relative:
+# at the path's L = 2,048 the softmax is nearly flat, |out| is some 0.03,
+# and a fixed 2e-2 would be two thirds of a typical value; the library
+# call, whose time only is used, keeps the fixed tolerance
+FD_TOL = {"float32": 3e-4, "bfloat16": 2e-2}
+# the serve launcher's decode runs: the reduced config against the CPU,
+# then tinyllama-1.1b at full width and depth (TinyLlama's context is
+# 2,048 tokens)
+DECODE_REDUCED = ["--mode", "decode", "--arch", "tinyllama-1.1b",
+                  "--reduced", "--requests", "4", "--batch", "2",
+                  "--prompt-len", "16", "--max-new", "16", "--cache-len",
+                  "64"]
+DECODE_FULL = ["--mode", "decode", "--arch", "tinyllama-1.1b", "--requests",
+               "16", "--batch", "8", "--prompt-len", "512", "--max-new",
+               "128", "--cache-len", "2048"]
+TINYLLAMA_PARAMS = 1_100_048_384
+# the fp32 stretch at full width: 16 teacher-forced steps at batch 2, the
+# card (full fp32 matmuls) against the CPU within 1e-3 of the largest
+# |logit|: fp32 sums over d_model 2048 and d_ff 5632 in other orders,
+# through 22 layers
+CHECK_STEPS, CHECK_BATCH, CHECK_TOL = 16, 2, 1e-3
+# a bf16 greedy choice may differ from the fp32 argmax where two logits
+# are closer than bf16's rounding through 22 layers; its fp32 logit is
+# held within 2^-4 of the largest fp32 |logit| (16 bf16 steps) of the max
+BF16_CHOICE_TOL = 2 ** -4
+DECODE_PROFILE_STEPS, DECODE_PROFILE_AT = 16, 512
 
 
 T0 = time.perf_counter()
@@ -135,26 +188,40 @@ def cuda_ms(torch, fn, iters):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, calls=20):
-    """Mean device time of one launch of the kernel ``fn`` launches (one
-    per call), from torch.profiler: the GPU's own time, without the
-    host's. The tracer can miss the first launches of a kernel it has
-    not seen yet, so it runs 2 x ``calls`` calls and averages over the
-    launches it recorded; only events on the device are summed (an
-    operator's row also carries the time of the kernels it launched)."""
+def device_ms(torch, fn, key="device_ms", calls=20, windows=3):
+    """Mean device time of one call of ``fn``, from torch.profiler: the
+    GPU's own time, without the host's, over ``windows`` windows of
+    2 x ``calls`` calls each. Only events on the device are summed (an
+    operator's row also carries the time of the kernels it launched).
+
+    The tracer loses device events now and then: a window may record
+    none, or only some launches of a kernel. So each kernel (by its full
+    name) counts at its mean time over the launches recorded, times its
+    launches per call: the most any window recorded, over 2 x ``calls``,
+    rounded up. Returns ``{key: ms, key + "_traced": share}``, the share
+    being the launches recorded over those reckoned."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(2 * calls):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    events = [ev for ev in prof.key_averages() if ev.device_type == cuda]
-    launches = sum(ev.count for ev in events)
-    check(launches > 0, "the profiler saw no device time")
-    return sum(ev.self_device_time_total for ev in events) / launches / 1e3
+    n = 2 * calls
+    time_us, count, per_call = ({} for _ in range(3))
+    for _ in range(windows):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if ev.device_type == cuda and ev.count:
+                k = ev.key
+                time_us[k] = time_us.get(k, 0) + ev.self_device_time_total
+                count[k] = count.get(k, 0) + ev.count
+                per_call[k] = max(per_call.get(k, 0), -(-ev.count // n))
+    check(count, f"the profiler saw no device time in {windows} windows")
+    ms = sum(time_us[k] / count[k] * per_call[k] for k in count) / 1e3
+    return {key: ms, key + "_traced": sum(count.values())
+            / (windows * n * sum(per_call.values()))}
 
 
 def smi_line():
@@ -242,7 +309,7 @@ def phase_build(torch, build, ops):
     """One nvcc per CUDA source in a thread while Triton compiles its
     kernels."""
     out = {}
-    sources = ["dfa_epoch_int8", "meta_update", "ssd_scan"]
+    sources = ["dfa_epoch_int8", "meta_update", "ssd_scan", "flash_decode"]
 
     def nvcc():
         t0 = time.perf_counter()
@@ -292,8 +359,7 @@ def phase_kernels(torch, np, ops, ref):
         row = {"shape": list(shape), "dtype": str(dtype).split(".")[1],
                "tol": tol, "max_abs_err": err,
                "ms": cuda_ms(torch, lambda: ops.online_sgd(p, gr, lr), iters),
-               "device_ms": device_ms(torch,
-                                      lambda: ops.online_sgd(p, gr, lr)),
+               **device_ms(torch, lambda: ops.online_sgd(p, gr, lr)),
                "plain_ms": cuda_ms(torch, lambda: ref.online_sgd(p, gr, lr),
                                    iters),
                "library_ms": cuda_ms(
@@ -331,8 +397,7 @@ def phase_kernels(torch, np, ops, ref):
         row = {"B": B, "S": S, "dims": list(dims), "layers": layers,
                "max_abs_err": err, "loss_max_rel_err": rel,
                "ms": cuda_ms(torch, lambda: ops.dfa_epoch_int8(*args), 100),
-               "device_ms": device_ms(torch,
-                                      lambda: ops.dfa_epoch_int8(*args)),
+               **device_ms(torch, lambda: ops.dfa_epoch_int8(*args)),
                "plain_ms": cuda_ms(torch, lambda: ref.dfa_int8_epoch(*args),
                                    10),
                "library_ms": None, "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -367,8 +432,7 @@ def phase_kernels(torch, np, ops, ref):
                "alphas": [0.0, 0.37, 1.0], "max_abs_err": err,
                "ms": cuda_ms(torch, lambda: ops.meta_update(w, wh, alpha),
                              iters),
-               "device_ms": device_ms(
-                   torch, lambda: ops.meta_update(w, wh, alpha)),
+               **device_ms(torch, lambda: ops.meta_update(w, wh, alpha)),
                "plain_ms": cuda_ms(
                    torch, lambda: ref.meta_update(w, wh, alpha), iters),
                "library_ms": cuda_ms(
@@ -413,7 +477,7 @@ def phase_kernels(torch, np, ops, ref):
                "atol": atol, "max_abs_err": err,
                "ms": cuda_ms(torch, lambda: ops.online_sgd_momentum(
                    p, gr, m, lr, mu), iters),
-               "device_ms": device_ms(torch, lambda: ops.online_sgd_momentum(
+               **device_ms(torch, lambda: ops.online_sgd_momentum(
                    p, gr, m, lr, mu)),
                "plain_ms": cuda_ms(torch, lambda: ref.online_sgd(
                    p, gr, lr, m=m, momentum=mu), iters),
@@ -473,8 +537,8 @@ def phase_kernels_lm(torch, np, ops, ref, rows):
                "max_abs_err": err, "y_max_abs": want.abs().max().item(),
                "ms": cuda_ms(torch, lambda: ops.ssd_scan(*args),
                              5 if big else 50),
-               "device_ms": device_ms(torch, lambda: ops.ssd_scan(*args),
-                                      calls=5 if big else 20),
+               **device_ms(torch, lambda: ops.ssd_scan(*args),
+                           calls=5 if big else 20),
                "plain_ms": cuda_ms(torch, lambda: ref.ssd_scan(*args),
                                    3 if big else 20),
                "library_ms": None,
@@ -511,7 +575,7 @@ def phase_kernels_lm(torch, np, ops, ref, rows):
                    "max_abs_err": (got.float() - want.float()).abs().max()
                    .item(),
                    "ms": cuda_ms(torch, fn, iters),
-                   "device_ms": device_ms(torch, fn),
+                   **device_ms(torch, fn),
                    "plain_ms": cuda_ms(torch, plain, iters),
                    "library_ms": cuda_ms(torch, library, iters),
                    "bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -985,6 +1049,294 @@ def phase_profile_lm(torch, np, tm, phi):
                          for k, (t, c) in top]})
 
 
+def fd_inputs(torch, np, shape, dtype, seed, dev):
+    """q (B, H, hd) and the two caches (B, S, Kv, hd), standard normal from
+    a NumPy seed, in ``dtype`` on ``dev``."""
+    B, H, Kv, hd, S = shape
+    r = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(r.standard_normal(s).astype(np.float32))
+                 .to(dev, dtype)
+                 for s in ((B, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
+
+
+def fd_bytes_ops(shape, L, window, elem):
+    """Bytes the call must move (q read, the n attended K and V rows read,
+    the output written) and its operations (q.k and p v: 4 B H n hd)."""
+    B, H, Kv, hd, S = shape
+    n = min(L, window) if window else L
+    return 2 * B * n * Kv * hd * elem + 2 * B * H * hd * elem, \
+        4 * B * H * n * hd
+
+
+def phase_kernels_decode(torch, np, ops, ref, rows):
+    """flash_decode against its plain version at each case, timed beside
+    its bound and one scaled_dot_product_attention call on the same
+    inputs (the attended slice of each cache, as views, enable_gqa)."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    cases = [(f"test_{'x'.join(map(str, shape))}_{dt}_L{L}_w{w}", shape, dt,
+              L, w)
+             for shape in FD_TEST_SHAPES for dt in ("float32", "bfloat16")
+             for L, w in ((shape[-1] // 2, 0), (shape[-1], 0), (1, 0),
+                          (shape[-1] // 2, 128))]
+    cases += [(f"path_8x32x4x64x2048_bfloat16_L{L}_w{w}", FD_PATH,
+               "bfloat16", L, w)
+              for L, w in ((1, 0), (577, 0), (2048, 0), (1024, 256))]
+    cases.append(("32k_4x8x4x64x32768_float32_L32768_w0", FD_32K, "float32",
+                  32768, 0))
+    inputs = {}
+    for i, (tag, shape, dt, L, w) in enumerate(cases):
+        if (shape, dt) not in inputs:
+            q, k, v = fd_inputs(torch, np, shape, getattr(torch, dt), 60 + i,
+                                dev)
+            # the decode path reads a different layer's cache at every
+            # call (22 x 16.8 MB at this shape), so its rows time calls
+            # that cycle over 8 copies, 134 MB, past the 50 MB L2
+            n = 8 if shape == FD_PATH else 1
+            inputs = {(shape, dt): (q, [(k, v)] + [(k.clone(), v.clone())
+                                                   for _ in range(n - 1)])}
+        q, kvs = inputs[(shape, dt)]
+        k, v = kvs[0]
+        got = ops.flash_decode(q, k, v, L, window=w)
+        want = ref.flash_decode(q, k, v, L, window=w)
+        lo = max(0, L - w) if w else 0
+        B, H, Kv, hd, S = shape
+        views = itertools.cycle([(q.view(B, H, 1, hd),
+                                  kc[:, lo:L].transpose(1, 2),
+                                  vc[:, lo:L].transpose(1, 2))
+                                 for kc, vc in kvs])
+        caches = itertools.cycle(kvs)
+        lib = F.scaled_dot_product_attention(*next(views), enable_gqa=True)
+        torch.cuda.synchronize()
+        tol = FD_TOL[dt]
+        check(got.dtype == q.dtype and got.shape == q.shape,
+              f"flash_decode {tag}: {got.dtype} {tuple(got.shape)}")
+        atol = tol * min(1.0, want.abs().max().item())
+        torch.testing.assert_close(got.float(), want, rtol=tol, atol=atol)
+        torch.testing.assert_close(lib.reshape(B, H, hd).float(), want,
+                                   rtol=tol, atol=tol)
+        moved, nops = fd_bytes_ops(shape, L, w, q.element_size())
+        t_bytes = moved / HBM_BYTES_PER_S
+        t_ops = nops / (FP32_OPS_PER_S if dt == "float32"
+                        else BF16_OPS_PER_S)
+        big = moved > 1e8
+        iters = 20 if big else 100
+        row = {"shape_BHKvhdS": list(shape), "dtype": dt, "L": L,
+               "window": w, "rtol": tol, "atol": atol,
+               "max_abs_err": (got.float() - want).abs().max().item(),
+               "ms": cuda_ms(torch, lambda: ops.flash_decode(
+                   q, *next(caches), L, window=w), iters),
+               **device_ms(torch, lambda: ops.flash_decode(
+                   q, *next(caches), L, window=w)),
+               "plain_ms": cuda_ms(torch, lambda: ref.flash_decode(
+                   q, *next(caches), L, window=w), 5 if big else 20),
+               "library_ms": cuda_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       *next(views), enable_gqa=True), iters),
+               **device_ms(
+                   torch, lambda: F.scaled_dot_product_attention(
+                       *next(views), enable_gqa=True), "library_device_ms"),
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": moved, "flop": nops}
+        rows[f"flash_decode/{tag}"] = row
+        emit({"phase": "kernel", "kernel": "flash_decode", "case": tag,
+              **row})
+    return rows
+
+
+def decode_steps(args):
+    """Decode steps of one decode run: prompt_len + max_new per wave."""
+    return -(-args.requests // args.batch) * (args.prompt_len + args.max_new)
+
+
+def decode_launches(args):
+    """flash_decode launches of one decode run: one per attention layer
+    per decode step."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(args.arch)
+    cfg = cfg.reduced() if args.reduced else cfg
+    return {"flash_decode": decode_steps(args) * cfg.num_layers}
+
+
+def phase_serve_decode_reduced(torch, np, tm):
+    """The reduced decode launcher on the card, then on the CPU, from the
+    same seeded init: every step's logits within 1e-4, the same tokens."""
+    serve, ops = tm["serve"], tm["ops"]
+    args = serve.parse_args(DECODE_REDUCED)
+    got, want = [], []
+    (row, out), wall, counts = timed_run(torch, ops, lambda: serve.run_decode(
+        args, on_logits=lambda lg: got.append(lg.cpu())))
+    cpu_row, cpu_out = serve.run_decode(
+        serve.parse_args(DECODE_REDUCED + ["--device", "cpu"]),
+        on_logits=lambda lg: want.append(lg.clone()))
+    check_launches("serve_decode_reduced", counts, decode_launches(args))
+    check(counts == row["kernel_launches"], "launch counts")
+    check(len(got) == len(want) == decode_steps(args),
+          f"{len(got)} and {len(want)} steps")
+    worst = max((a - b).abs().max().item() for a, b in zip(got, want))
+    check(worst <= 1e-4, f"logits differ from the CPU by {worst}")
+    check(out == cpu_out, "generated tokens differ from the CPU")
+    check(row["sample_output"] == cpu_row["sample_output"], "sample_output")
+    for key in ("tokens_generated", "requests", "arch"):
+        check(row[key] == cpu_row[key], key)
+    res = {"phase": "serve_decode_reduced", "argv": DECODE_REDUCED,
+           "wall_s": wall, "launches": counts, "row": row,
+           "vs_cpu": {"steps": len(got), "tol": 1e-4,
+                      "logits_max_abs_diff": worst, "tokens": "equal"}}
+    emit(res)
+    return res
+
+
+def teacher_forced(torch, model, params, tokens, dev):
+    """Logits (fp32, on the CPU) of decoding ``tokens`` (B, T) one at a
+    time from an empty cache of T."""
+    B, T = tokens.shape
+    cache = model.init_cache(B, T, device=dev)
+    out = []
+    with torch.no_grad():
+        for t in range(T):
+            logits, cache = model.decode_fn(params, {
+                "tokens": torch.from_numpy(tokens[:, t:t + 1]).to(dev),
+                "cache": cache, "cache_len": t})
+            out.append(logits[:, 0].float().cpu())
+    return torch.stack(out, dim=1)
+
+
+def phase_serve_decode_full(torch, np, tm):
+    """tinyllama-1.1b at full width and depth, bf16, through the decode
+    launcher; then its weights in fp32 on the card against the CPU, and
+    the bf16 model's greedy choices against the fp32 logits."""
+    import dataclasses
+
+    from repro_torch.models.transformer import build_model
+
+    serve, ops, bridge = tm["serve"], tm["ops"], tm["bridge"]
+    args = serve.parse_args(DECODE_FULL)
+    cfg = tm["get_arch"](args.arch)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(args.seed), "cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in bridge.tree_leaves(params))
+    check(n_params == TINYLLAMA_PARAMS, f"{n_params} parameters")
+    finite = []
+    torch.cuda.reset_peak_memory_stats()
+    (row, out), wall, counts = timed_run(torch, ops, lambda: serve.run_decode(
+        args, params=params,
+        on_logits=lambda lg: finite.append(torch.isfinite(lg).all())))
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("serve_decode_tinyllama_1_1b", counts,
+                   decode_launches(args))
+    steps = decode_steps(args)
+    check(len(finite) == steps and bool(torch.stack(finite).all()),
+          "a logit is not finite")
+    check(len(out) == args.requests
+          and all(len(o) == args.max_new for o in out), "outputs")
+
+    # the same weights in fp32: the card against the CPU, teacher-forced
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    m32 = build_model(cfg32)
+    tokens = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (CHECK_BATCH, CHECK_STEPS))
+    p32 = bridge.unflatten_tree({path: t.float() for path, t in
+                                 bridge.tree_leaves(params)})
+    card = teacher_forced(torch, m32, p32, tokens, "cuda")
+    p32 = bridge.unflatten_tree({path: t.cpu() for path, t in
+                                 bridge.tree_leaves(p32)})
+    t1 = time.perf_counter()
+    cpu = teacher_forced(torch, m32, p32, tokens, "cpu")
+    cpu_s = time.perf_counter() - t1
+    del p32
+    scale = cpu.abs().max().item()
+    diff = (card - cpu).abs().max().item()
+    check(diff <= CHECK_TOL * scale,
+          f"fp32 card vs CPU: {diff} > {CHECK_TOL} x {scale}")
+    # the bf16 model on the same tokens: each greedy choice's fp32 logit
+    bf16 = teacher_forced(torch, model, params, tokens, "cuda")
+    chosen = bf16.argmax(dim=-1, keepdim=True)
+    gap = (cpu.max(dim=-1, keepdim=True).values
+           - cpu.gather(-1, chosen)).max().item()
+    check(gap <= BF16_CHOICE_TOL * scale,
+          f"a bf16 choice is {gap} below the fp32 max ({scale} largest)")
+    agree = (chosen[..., 0] == cpu.argmax(dim=-1)).float().mean().item()
+    res = {"phase": "serve_decode_tinyllama_1_1b", "argv": DECODE_FULL,
+           "params": n_params, "init_s": init_s, "wall_s": wall,
+           "tok_per_s": row["tokens_generated"] / wall,
+           "processed_tok_per_s": steps * args.batch / wall,
+           "decode_steps": steps, "step_ms": 1e3 * wall / steps,
+           "max_memory_allocated_gb": peak / 1e9, "launches": counts,
+           "row": row,
+           "fp32_vs_cpu": {"steps": CHECK_STEPS, "batch": CHECK_BATCH,
+                           "tol_of_max": CHECK_TOL, "max_abs_logit": scale,
+                           "logits_max_abs_diff": diff, "cpu_s": cpu_s},
+           "bf16_choices": {"tol_of_max": BF16_CHOICE_TOL,
+                            "worst_gap_to_fp32_max": gap,
+                            "same_as_fp32_argmax": agree,
+                            "bf16_vs_fp32_max_abs_diff": (bf16 - cpu).abs()
+                            .max().item()}}
+    emit(res)
+    return res, model, params
+
+
+def phase_profile_decode(torch, np, model, params):
+    """DECODE_PROFILE_STEPS full-width decode steps at batch 8 from
+    position DECODE_PROFILE_AT under torch.profiler, device activity
+    only: the idle share, kernels per step, the top kernels and
+    flash_decode's share of busy time; beside them the wrapper's launches
+    and the flash_decode kernels the tracer recorded (two a launch where
+    the KV axis is split), since the tracer may lose device events."""
+    from repro_torch.kernels import ops
+    cfg = model.cfg
+    B = 8
+    cache = model.init_cache(B, 2048, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, (B, DECODE_PROFILE_STEPS + 1))).cuda()
+
+    def step(i):
+        return model.decode_fn(params, {"tokens": toks[:, i:i + 1],
+                                        "cache": cache,
+                                        "cache_len": DECODE_PROFILE_AT + i})
+
+    with torch.no_grad():
+        step(0)
+        torch.cuda.synchronize()
+        before = ops.launch_counts()["flash_decode"]
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for i in range(1, DECODE_PROFILE_STEPS + 1):
+                step(i)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = ops.launch_counts()["flash_decode"] - before
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = {ev.key: (ev.self_device_time_total, ev.count)
+               for ev in prof.key_averages()
+               if ev.device_type == cuda and ev.self_device_time_total > 0}
+    dev_us = sum(t for t, _ in by_name.values())
+    check(dev_us > 0, "the profiler saw no device time")
+    fd_us = sum(t for k, (t, _) in by_name.items() if "flash_decode" in k)
+    check(fd_us > 0, "the profiler saw no flash_decode kernel")
+    n_kernels = sum(c for _, c in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    emit({"phase": "profile_decode", "steps": DECODE_PROFILE_STEPS,
+          "batch": B, "from_position": DECODE_PROFILE_AT,
+          "wall_ms": 1e3 * wall, "step_ms": 1e3 * wall / DECODE_PROFILE_STEPS,
+          "device_busy_ms": dev_us / 1e3,
+          "device_idle_share": 1 - dev_us / 1e6 / wall,
+          "kernels_per_step": n_kernels / DECODE_PROFILE_STEPS,
+          "flash_decode_ms": fd_us / 1e3,
+          "flash_decode_share_of_busy": fd_us / dev_us,
+          "flash_decode_launches": launches,
+          "flash_decode_kernels_traced": sum(
+              c for k, (_, c) in by_name.items() if "flash_decode" in k),
+          "top_device": [[k[:80], t / 1e3, c, t / dev_us]
+                         for k, (t, c) in top]})
+
+
 def main():
     import numpy as np
     import torch
@@ -1013,6 +1365,19 @@ def main():
     phase_build(torch, build, ops)
     rows = phase_kernels(torch, np, ops, ref)
     phase_kernels_lm(torch, np, ops, ref, rows)
+    phase_kernels_decode(torch, np, ops, ref, rows)
+
+    # the decode slice first: its paths are the newest
+    from repro_torch import bridge
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as serve_launcher
+
+    dm = {"ops": ops, "bridge": bridge, "serve": serve_launcher,
+          "get_arch": get_arch}
+    s_dec_red = phase_serve_decode_reduced(torch, np, dm)
+    s_dec, dec_model, dec_params = phase_serve_decode_full(torch, np, dm)
+    phase_profile_decode(torch, np, dec_model, dec_params)
+    del dec_params
 
     mods = (MetricsTracker, AdaptationServer, ops)
     phi = init_paper_model(SINE_MLP, torch.Generator().manual_seed(0), "cpu")
@@ -1028,7 +1393,7 @@ def main():
                           T_K_MAX, "dfa_epoch_int8", exact_params=True)
     phase_profile(torch, np, mods, fp32, phi, reqs)
 
-    from repro_torch import bridge, core
+    from repro_torch import core
     from repro_torch.data import SineTasks
     from repro_torch.launch import train
     from repro_torch.models import mamba2
@@ -1045,6 +1410,7 @@ def main():
     phase_profile_lm(torch, np, tm, lm_phi)
     del lm_phi
 
+
     # every main path's launches, each counted from 0 just before it
     paths = {"serve_fp32": s_fp32["launches"],
              "serve_tifed": s_tifed["launches"],
@@ -1052,7 +1418,9 @@ def main():
              "train_reptile_c64": t_rep["launches"],
              **{f"train_{r['run']}": r["launches"] for r in t_base},
              "train_lm_reduced": t_lm_red["launches"],
-             "train_lm_mamba2_130m": t_lm["launches"]}
+             "train_lm_mamba2_130m": t_lm["launches"],
+             "serve_decode_reduced": s_dec_red["launches"],
+             "serve_decode_tinyllama_1_1b": s_dec["launches"]}
     kernels = []
     for kernel, route, source, replaces, row in (
             ("online_sgd", "triton", "src/repro_torch/kernels/online_sgd.py",
@@ -1072,7 +1440,11 @@ def main():
              rows["online_sgd_momentum/train_1153_fp32"]),
             ("ssd_scan", "cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan.py:61",
-             rows["ssd_scan/path_2x24x8x256x64x128"])):
+             rows["ssd_scan/path_2x24x8x256x64x128"]),
+            ("flash_decode", "cuda",
+             "src/repro_torch/kernels/csrc/flash_decode.cu",
+             "src/repro/kernels/flash_decode.py:68",
+             rows["flash_decode/path_8x32x4x64x2048_bfloat16_L2048_w0"])):
         by_path = {p: c[kernel] for p, c in paths.items() if c[kernel]}
         kernels.append(
             {"name": kernel, "route": route, "source": source,

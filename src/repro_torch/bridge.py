@@ -9,7 +9,8 @@ are cast back on the far side (``params_to_numpy`` hands bf16 tensors
 back as fp32 arrays). ``lm_params_from_jax`` / ``lm_params_to_jax`` also
 map the LM family's layer layout (the JAX package stacks the layers of a
 deep homogeneous model over a leading axis; the port keeps one dict per
-layer).
+layer), and ``lm_cache_from_jax`` / ``lm_cache_to_jax`` the decode
+cache's, which follows the same layout.
 
 ``FlatLayout`` packs a tree into one flat buffer, the form the port's
 kernels update in one launch; ``FlatLayout.per_dtype`` gives one layout
@@ -129,6 +130,23 @@ def lm_params_to_jax(params, scan_period: Optional[int] = None):
                 for path in flatten_tree(layers[pos])}) for pos in range(p)]
         tree = _map_layers(tree, stack)
     return tree
+
+
+def lm_cache_from_jax(cache, scan_period: Optional[int] = None,
+                      device: DeviceLike = None):
+    """The JAX package's decode cache -> the port's, on ``device``. The
+    JAX cache is ``{"layers": [{"k": ..., "v": ...}, ...]}``, with the
+    scan layout's p entries of ``(G, B, S, Kv, hd)`` (G layer groups)
+    when ``scan_period`` p is given, else one entry per layer; the port's
+    has one ``(B, S, Kv, hd)`` entry per layer. The layers map as
+    ``lm_params_from_jax`` maps params."""
+    return lm_params_from_jax(cache, scan_period, device)
+
+
+def lm_cache_to_jax(cache, scan_period: Optional[int] = None):
+    """The port's decode cache -> NumPy in the JAX package's layout (bf16
+    as fp32 arrays), as ``lm_params_to_jax`` maps params."""
+    return lm_params_to_jax(cache, scan_period)
 
 
 def _index_tree(tree, i):

@@ -6,9 +6,11 @@ from repro_torch.configs.base import (ArchConfig, get_arch,  # noqa: F401
 from repro_torch.configs.mamba2_130m import MAMBA2_130M  # noqa: F401
 from repro_torch.configs.paper_models import (PAPER_MODELS,  # noqa: F401
                                               PaperModelConfig, SINE_MLP)
+from repro_torch.configs.starcoder2_15b import STARCODER2_15B  # noqa: F401
+from repro_torch.configs.tinyllama_1_1b import TINYLLAMA_1_1B  # noqa: F401
 
 #: every architecture the JAX package registers; ``get_arch`` knows only
-#: the ported ones, and the launcher rejects the rest as not ported yet
+#: the ported ones, and the launchers reject the rest as not ported yet
 ALL_ARCHS = (
     "llama4-maverick-400b-a17b", "mamba2-130m", "mixtral-8x22b",
     "whisper-tiny", "tinyllama-1.1b", "glm4-9b", "zamba2-1.2b",

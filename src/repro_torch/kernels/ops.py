@@ -8,6 +8,7 @@ never the plain version. Each kernel's wrapper counts its launches
 from __future__ import annotations
 
 from repro_torch.bridge import FlatLayout, flatten_tree, unflatten_tree
+from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.meta_update import meta_update
 from repro_torch.kernels.online_sgd import online_sgd, online_sgd_momentum
 from repro_torch.kernels.online_sgd_int8 import dfa_epoch_int8
@@ -16,7 +17,8 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 # every kernel wrapper of the port, by name
 KERNELS = {"online_sgd": online_sgd, "dfa_epoch_int8": dfa_epoch_int8,
            "meta_update": meta_update,
-           "online_sgd_momentum": online_sgd_momentum, "ssd_scan": ssd_scan}
+           "online_sgd_momentum": online_sgd_momentum, "ssd_scan": ssd_scan,
+           "flash_decode": flash_decode}
 
 
 def reset_launch_counts() -> None:

@@ -39,6 +39,27 @@ def online_sgd(p, g, lr, m=None, momentum=0.0):
     return (p.float() - lr * m_new).to(p.dtype), m_new
 
 
+def flash_decode(q, k_cache, v_cache, cache_len, *, window=0):
+    """Single-token GQA attention. q: (B, H, hd); caches: (B, S, Kv, hd)
+    with H = Kv * R; cache_len: an int. Positions ``pos < cache_len``
+    (and ``pos >= cache_len - window`` with a window) are attended; q is
+    scaled by ``hd ** -0.5`` and everything is computed in fp32. Returns
+    (B, H, hd) fp32."""
+    B, H, hd = q.shape
+    S, Kv = k_cache.shape[1], k_cache.shape[2]
+    R = H // Kv
+    qg = q.reshape(B, Kv, R, hd).float() * hd ** -0.5
+    s = torch.einsum("bkrh,bskh->bkrs", qg, k_cache.float())
+    pos = torch.arange(S, device=q.device)
+    valid = pos < cache_len
+    if window:
+        valid &= pos >= cache_len - window
+    s = s.masked_fill(~valid, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkrs,bskh->bkrh", p, v_cache.float())
+    return out.reshape(B, H, hd)
+
+
 def pow2_exponent(maxabs, limit=INT8_MAX):
     """Smallest integer e with ``maxabs * 2^-e <= limit``, floored at
     -24 (the grid of an all-zero tensor).

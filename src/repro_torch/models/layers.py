@@ -1,10 +1,12 @@
-"""Shared layer primitives of the LM family: the initializer and the
-RMS norm, as the JAX package's ``models/layers.py`` defines them."""
+"""Shared layer primitives of the LM family: the initializer, the RMS
+norm and the MLP, as the JAX package's ``models/layers.py`` defines
+them."""
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def normal_init(gen: torch.Generator, shape, scale, dtype, device=None):
@@ -25,3 +27,29 @@ def rms_norm(x, weight, eps):
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + weight.float())).to(dtype)
+
+
+def silu(x):
+    """x * sigmoid(x), the form ``jax.nn.silu`` computes."""
+    return x * torch.sigmoid(x)
+
+
+def mlp_shapes(d_model, d_ff, act, dtype):
+    """``{leaf: (shape, dtype)}`` of the SwiGLU (``silu``) or plain
+    two-layer (``gelu``) MLP, as ``init_mlp`` builds them."""
+    if act == "silu":
+        return {"w_gate": ((d_model, d_ff), dtype),
+                "w_up": ((d_model, d_ff), dtype),
+                "w_down": ((d_ff, d_model), dtype)}
+    return {"w_in": ((d_model, d_ff), dtype), "b_in": ((d_ff,), dtype),
+            "w_out": ((d_ff, d_model), dtype), "b_out": ((d_model,), dtype)}
+
+
+def mlp(params, x, act):
+    """SwiGLU, or the gelu MLP with ``jax.nn.gelu``'s default: the tanh
+    approximation (torch's default is the exact erf form)."""
+    if act == "silu":
+        g = silu(x @ params["w_gate"])
+        return (g * (x @ params["w_up"])) @ params["w_down"]
+    h = F.gelu(x @ params["w_in"] + params["b_in"], approximate="tanh")
+    return h @ params["w_out"] + params["b_out"]

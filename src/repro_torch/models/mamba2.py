@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
-from repro_torch.models.layers import rms_norm
+from repro_torch.models.layers import rms_norm, silu
 
 #: the profiler range around the plain backward of ``ssd_chunked_kernel``
 SSD_BACKWARD_RANGE = "ssd_chunked_backward"
@@ -51,11 +51,6 @@ def mamba_shapes(d_model, d_state, head_dim, expand, conv_width, dtype):
         "gate_norm": ((d_inner,), dtype),
         "w_out": ((d_inner, d_model), dtype),
     }
-
-
-def silu(x):
-    """x * sigmoid(x), the form ``jax.nn.silu`` computes."""
-    return x * torch.sigmoid(x)
 
 
 def softplus(x):

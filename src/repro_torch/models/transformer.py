@@ -1,16 +1,26 @@
 """Model assembly for the LM family, the port of the JAX package's
 ``models/transformer.py``: decoder LMs built from an ``ArchConfig``.
 
-Ported so far: the SSM family (Mamba2 blocks, e.g. mamba2-130m) on the
-train/prefill path: ``Model.init``, ``loss_fn`` (mean next-token cross
-entropy) and ``prefill_fn`` (last-token logits). Attention, MoE, hybrid
-and encoder-decoder blocks, and the decode path, raise "not ported yet".
+Ported so far:
 
-The port keeps ``params["layers"]`` as a list with one dict per layer.
-The JAX package stacks the layers of a homogeneous model of four or more
-layers over a leading axis (scan over layers, ``Model.use_scan``);
-``bridge.lm_params_from_jax`` / ``lm_params_to_jax`` map between the two
-layouts with ``Model.scan_period``. The JAX package recomputes each layer
+- the SSM family (Mamba2 blocks, e.g. mamba2-130m) on the train/prefill
+  path: ``Model.init``, ``loss_fn`` (mean next-token cross entropy) and
+  ``prefill_fn`` (last-token logits);
+- the dense family (attention + MLP blocks, e.g. tinyllama-1.1b) on the
+  decode path: ``Model.init``, ``init_cache`` and ``decode_fn``, whose
+  attention runs through the ``flash_decode`` kernel.
+
+The dense family's ``loss_fn`` and ``prefill_fn``, the SSM family's
+decode, and the MoE, hybrid, encoder-decoder and VLM families raise
+"not ported yet".
+
+The port keeps ``params["layers"]`` as a list with one dict per layer,
+and the decode cache as ``{"layers": [{"k", "v"} per layer]}``. The JAX
+package stacks the layers of a homogeneous model of four or more
+layers over a leading axis (scan over layers, ``Model.use_scan``), its
+cache too; ``bridge.lm_params_from_jax`` / ``lm_params_to_jax`` and
+``lm_cache_from_jax`` / ``lm_cache_to_jax`` map between the two layouts
+with ``Model.scan_period``. The JAX package recomputes each layer
 group's forward in the backward pass (``jax.checkpoint``); the port
 keeps the activations instead (they fit on the card), so the ``ssd_scan``
 kernel runs once per layer per forward and not again in the backward.
@@ -26,12 +36,15 @@ import torch.nn.functional as F
 from repro_torch.bridge import tree_leaves, unflatten_tree
 from repro_torch.configs.base import ATTN, MAMBA, MOE, SHARED_ATTN, ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
-from repro_torch.models.layers import normal_init, rms_norm
+from repro_torch.models.layers import mlp, mlp_shapes, normal_init, rms_norm
 
 LABEL_IGNORE = -1
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+#: the families the port builds: SSM for training, dense for decoding
+PORTED_FAMILIES = ("ssm", "dense")
 
 
 def layer_specs(cfg: ArchConfig) -> List[Tuple[str, int]]:
@@ -61,19 +74,27 @@ def find_period(specs: List[Tuple[str, int]]) -> int:
 
 
 def _block_shapes(cfg: ArchConfig, kind: str, dtype) -> Dict[str, Any]:
-    if kind != MAMBA:
-        raise NotImplementedError(
-            f"{kind!r} blocks are not ported yet: the port runs the SSM "
-            f"family (Mamba2 blocks)")
     d = cfg.d_model
+    if kind == MAMBA:
+        return {"norm1": ((d,), dtype),
+                "mamba": mamba_lib.mamba_shapes(
+                    d, cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_expand,
+                    cfg.ssm_conv_width, dtype)}
+    if kind != ATTN:
+        raise NotImplementedError(
+            f"{kind!r} blocks are not ported yet: the port runs Mamba2 and "
+            f"dense attention blocks")
     return {"norm1": ((d,), dtype),
-            "mamba": mamba_lib.mamba_shapes(
-                d, cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_expand,
-                cfg.ssm_conv_width, dtype)}
+            "attn": attn_lib.attention_shapes(
+                d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+                dtype),
+            "norm2": ((d,), dtype),
+            "mlp": mlp_shapes(d, cfg.d_ff, cfg.act, dtype)}
 
 
 #: leaves that start at zero (norm weights, used as 1 + w, and biases)
-_ZERO_LEAVES = ("final_norm", "norm1", "dt_bias", "conv_b", "gate_norm")
+_ZERO_LEAVES = ("final_norm", "norm1", "norm2", "dt_bias", "conv_b",
+                "gate_norm", "b_in", "b_out")
 
 
 def _init_leaf(name, shape, dtype, gen, device):
@@ -106,10 +127,11 @@ class Model:
     cfg: ArchConfig
 
     def __post_init__(self):
-        if self.cfg.family != "ssm":
+        if self.cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"the {self.cfg.family!r} family ({self.cfg.name}) is not "
-                f"ported yet: the port runs the SSM family (mamba2)")
+                f"ported yet: the port runs the SSM family (mamba2) and the "
+                f"dense family's decode path")
         if self.cfg.dtype not in _DTYPES:
             raise NotImplementedError(f"dtype {self.cfg.dtype!r}")
 
@@ -172,9 +194,18 @@ class Model:
             return params["embed"].T
         return params["lm_head"]
 
+    def _only(self, family, path):
+        if self.cfg.family != family:
+            raise NotImplementedError(
+                f"the {self.cfg.family!r} family's {path} path "
+                f"({self.cfg.name}) is not ported yet: the port runs the "
+                f"SSM family's training path and the dense family's decode "
+                f"path")
+
     # ----- training loss ---------------------------------------------------
     def loss_fn(self, params, batch):
         """Mean next-token cross-entropy over labels != -1."""
+        self._only("ssm", "training")
         x = self._embed_inputs(params, batch)
         x = self._backbone(params, x)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
@@ -184,10 +215,63 @@ class Model:
     # ----- prefill ----------------------------------------------------------
     def prefill_fn(self, params, batch):
         """Last-token logits (B, 1, V) in fp32."""
+        self._only("ssm", "prefill")
         x = self._embed_inputs(params, batch)
         x = self._backbone(params, x)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return (x[:, -1:] @ self._lm_head(params)).float()
+
+
+    # ----- decode -----------------------------------------------------------
+    def init_cache(self, batch_size: int, seq_len: int,
+                   device: DeviceLike = None) -> Dict[str, Any]:
+        """The decode cache on ``device`` (default ``cuda``): one ``{"k",
+        "v"}`` dict of zeros (batch, seq_len, Kv, hd) in the model dtype per
+        layer (the JAX package stacks them over layer groups when it
+        scans; ``bridge.lm_cache_from_jax`` maps the layouts)."""
+        self._only("dense", "decode")
+        cfg = self.cfg
+        dev = resolve_device(device)
+        dtype = _DTYPES[cfg.dtype]
+        shape = (batch_size, seq_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim)
+        return {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=dev),
+                            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+                           for _ in self.specs]}
+
+    def _decode_block(self, window, bp, x, entry, cache_len, rope):
+        """One attention + MLP block on one token; writes its K and V into
+        ``entry`` in place."""
+        eps = self.cfg.norm_eps
+        out, _, _ = attn_lib.decode_attention_block(
+            bp["attn"], rms_norm(x, bp["norm1"], eps), entry["k"],
+            entry["v"], cache_len, rope, window=window)
+        x = x + out
+        return x + mlp(bp["mlp"], rms_norm(x, bp["norm2"], eps), self.cfg.act)
+
+    def decode_fn(self, params, batch):
+        """One decode step. batch: ``tokens`` (B, 1), ``cache``
+        (``init_cache``), ``cache_len`` (an int: the position this token
+        takes). Returns (logits (B, 1, V) fp32, the cache).
+
+        The cache is updated in place and returned (the JAX package
+        returns a new one): a caller never reuses a cache from before a
+        step. Each layer launches ``flash_decode`` once on the card. The
+        RoPE angles of the position are computed once for all layers."""
+        self._only("dense", "decode")
+        cfg = self.cfg
+        tokens, cache, cache_len = (batch["tokens"], batch["cache"],
+                                    batch["cache_len"])
+        x = params["embed"][tokens.long()]
+        pos = torch.full(tuple(tokens.shape), cache_len, dtype=torch.int32,
+                         device=x.device)
+        rope = attn_lib.rope_angles(pos, cfg.resolved_head_dim,
+                                    cfg.rope_theta)
+        for bp, entry, (_, window) in zip(params["layers"], cache["layers"],
+                                          self.specs):
+            x = self._decode_block(window, bp, x, entry, cache_len, rope)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        return (x @ self._lm_head(params)).float(), cache
 
 
 def chunked_cross_entropy(x, lm_head, labels, chunk=1024):

@@ -11,6 +11,9 @@ from the round engine's building blocks (``core/engine.py``):
 - ``kernels/ops.py::tree_meta_update``: the Reptile server update phi
   <- phi + alpha (phi_hat - phi), one ``meta_update`` launch per dtype
   group.
+
+``make_decode_step`` is the dense LM's decode step (``Model.decode_fn``),
+which the serve launcher's decode mode drives.
 """
 from __future__ import annotations
 
@@ -35,6 +38,14 @@ def make_meta_train_step(model, *, beta: float = 0.01,
         return new_phi, {"loss": losses.mean(), "inner_first": losses[0],
                          "inner_last": losses[-1]}
 
+    return step
+
+
+def make_decode_step(model) -> Callable:
+    """One decode step: ``step(params, batch)`` is ``model.decode_fn``
+    (batch: tokens (B, 1), cache, cache_len), returning (logits, cache)."""
+    def step(params, batch):
+        return model.decode_fn(params, batch)
     return step
 
 

@@ -263,3 +263,24 @@ def test_lm_round_on_card_matches_cpu(cuda):
     for path, v in flatten_tree(want_phi).items():
         np.testing.assert_allclose(got_leaves[path].cpu().numpy(), v.numpy(),
                                    rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((2, 8, 2, 64, 1024), torch.float32, 3e-4),     # the JAX tests' GQA
+    ((8, 32, 4, 64, 2048), torch.bfloat16, 2e-2)])  # tinyllama's decode
+def test_flash_decode_kernel_matches_plain(cuda, shape, dtype, tol):
+    B, H, Kv, hd, S = shape
+    r = np.random.default_rng(S)
+    q, k, v = (torch.from_numpy(r.standard_normal(s).astype(np.float32))
+               .to(cuda, dtype)
+               for s in ((B, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
+    for L, window in ((1, 0), (S // 2 + 1, 0), (S, 0), (S // 2, 128)):
+        before = ops.flash_decode.launches
+        got = ops.flash_decode(q, k, v, L, window=window)
+        torch.cuda.synchronize()
+        assert ops.flash_decode.launches == before + 1
+        assert got.dtype == dtype and got.shape == (B, H, hd)
+        torch.testing.assert_close(
+            got.float(), ref.flash_decode(q, k, v, L, window=window),
+            rtol=tol, atol=tol)

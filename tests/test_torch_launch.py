@@ -20,15 +20,18 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--strategy", "fp32", "--k-max", "12", "--support", "10"], "support"),
-    (["--strategy", "tifed", "--support", "10"], "power of two"),
-    (["--slots", "0"], "slots"),
-    (["--k-max", "0"], "k-max"),
-    (["--steps-per-tick", "0"], "steps-per-tick"),
-    (["--requests", "0"], "requests"),
-    (["--mode", "decode"], "invalid choice"),
-    (["--arch", "tinyllama-1.1b"], "unrecognized"),
-    (["--device", "tpu"], "invalid choice"),
+    (["--mode", "adapt", "--strategy", "fp32", "--k-max", "12", "--support",
+      "10"], "support"),
+    (["--mode", "adapt", "--strategy", "tifed", "--support", "10"],
+     "power of two"),
+    (["--mode", "adapt", "--slots", "0"], "slots"),
+    (["--mode", "adapt", "--k-max", "0"], "k-max"),
+    (["--mode", "adapt", "--steps-per-tick", "0"], "steps-per-tick"),
+    (["--mode", "adapt", "--requests", "0"], "requests"),
+    (["--mode", "decode"], "--arch is required for --mode decode"),
+    (["--mode", "adapt", "--arch", "tinyllama-1.1b"],
+     "--arch only applies with --mode decode"),
+    (["--mode", "adapt", "--device", "tpu"], "invalid choice"),
 ])
 def test_parse_rejects_bad_flags(argv, msg, capsys):
     with pytest.raises(SystemExit):
@@ -56,7 +59,7 @@ def test_cpu_run_prints_the_json_row(strategy, extra):
     assert row["kernel_launches"] == {"online_sgd": 0, "dfa_epoch_int8": 0,
                                       "meta_update": 0,
                                       "online_sgd_momentum": 0,
-                                      "ssd_scan": 0}
+                                      "ssd_scan": 0, "flash_decode": 0}
     assert set(row["latency_ms"]) == {"p50", "p95", "p99"}
     assert row["mean_query_loss"] == row["mean_query_loss"]     # finite
 
