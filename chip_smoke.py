@@ -14,12 +14,14 @@ Phases, each printing one JSON line, in this order:
    CUDA tensors, at the shapes the main paths give it and at harder
    ones, timed with CUDA events (median of repeats) and the profiler
    beside its bound and the one PyTorch call that computes the same
-   function, where there is one; ``ssd_scan`` at the JAX package's test
-   shapes and the LM path's, ``online_sgd`` and ``meta_update`` also at
-   mamba2-130m's two flat buffers; ``flash_decode`` at the JAX
-   package's 24 test cases, at the decode path's shape (tinyllama at
-   batch 8 and cache 2048, bf16) at L = 1, 577, 2048 and with a window,
-   and at the 32k fp32 shape of ``benchmarks/kernels_bench.py``, beside
+   function, where there is one (host-paced and on the device); ``ssd_scan``
+   at the JAX package's test shapes and the LM path's, ``online_sgd`` and
+   ``meta_update`` also at mamba2-130m's two flat buffers;
+   ``flash_decode`` at the JAX package's 24 test cases, at the decode
+   path's shape (tinyllama at batch 8 and cache 2048, bf16) at L = 1, 64,
+   128, 320, 577, 640 and 2048 and with a window, with their mean over
+   the L = 1 ... 640 of a decode wave (``path_run_mean``), and at the
+   32k fp32 shape of ``benchmarks/kernels_bench.py``, beside
    ``scaled_dot_product_attention``, within 3e-4 (fp32) or 2e-2 (bf16)
    relative and that times min(1, max |want|) absolute;
 4. serve decode reduced: ``serve --mode decode --arch tinyllama-1.1b
@@ -126,6 +128,12 @@ LM_BF16, LM_FP32 = 128_981_760, 1_728
 FD_TEST_SHAPES = ((1, 4, 4, 64, 512), (2, 8, 2, 64, 1024),
                   (1, 8, 1, 128, 2048))
 FD_PATH, FD_32K = (8, 32, 4, 64, 2048), (4, 8, 4, 64, 32768)
+# the path shape's (L, window) rows: a decode wave of 512 + 128 steps
+# passes through L = 1 ... 640 (the rows up to 640 give path_run_mean),
+# then the cache's full 2,048 and a window
+PATH_CASES = ((1, 0), (64, 0), (128, 0), (320, 0), (577, 0), (640, 0),
+              (2048, 0), (1024, 256))
+PATH_RUN = (1, 640)
 # the kernel is held at tol x min(1, max |want|) absolute and tol relative:
 # at the path's L = 2,048 the softmax is nearly flat, |out| is some 0.03,
 # and a fixed 2e-2 would be two thirds of a typical value; the library
@@ -188,7 +196,8 @@ def cuda_ms(torch, fn, iters):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, key="device_ms", calls=20, windows=3):
+def device_ms(torch, fn, key="device_ms", calls=20, windows=3,
+              max_windows=10):
     """Mean device time of one call of ``fn``, from torch.profiler: the
     GPU's own time, without the host's, over ``windows`` windows of
     2 x ``calls`` calls each. Only events on the device are summed (an
@@ -198,8 +207,10 @@ def device_ms(torch, fn, key="device_ms", calls=20, windows=3):
     none, or only some launches of a kernel. So each kernel (by its full
     name) counts at its mean time over the launches recorded, times its
     launches per call: the most any window recorded, over 2 x ``calls``,
-    rounded up. Returns ``{key: ms, key + "_traced": share}``, the share
-    being the launches recorded over those reckoned."""
+    rounded up; while no window has recorded anything, more windows are
+    opened, up to ``max_windows``. Returns ``{key: ms, key + "_traced":
+    share}``, the share being the launches recorded over those
+    reckoned."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -207,7 +218,9 @@ def device_ms(torch, fn, key="device_ms", calls=20, windows=3):
     cuda = torch.autograd.DeviceType.CUDA
     n = 2 * calls
     time_us, count, per_call = ({} for _ in range(3))
-    for _ in range(windows):
+    opened = 0
+    while opened < windows or (not count and opened < max_windows):
+        opened += 1
         with torch.profiler.profile(activities=acts) as prof:
             for _ in range(n):
                 fn()
@@ -218,10 +231,10 @@ def device_ms(torch, fn, key="device_ms", calls=20, windows=3):
                 time_us[k] = time_us.get(k, 0) + ev.self_device_time_total
                 count[k] = count.get(k, 0) + ev.count
                 per_call[k] = max(per_call.get(k, 0), -(-ev.count // n))
-    check(count, f"the profiler saw no device time in {windows} windows")
+    check(count, f"the profiler saw no device time in {opened} windows")
     ms = sum(time_us[k] / count[k] * per_call[k] for k in count) / 1e3
     return {key: ms, key + "_traced": sum(count.values())
-            / (windows * n * sum(per_call.values()))}
+            / (opened * n * sum(per_call.values()))}
 
 
 def smi_line():
@@ -364,6 +377,8 @@ def phase_kernels(torch, np, ops, ref):
                                    iters),
                "library_ms": cuda_ms(
                    torch, lambda: torch.add(p, gr, alpha=-lr), iters),
+               **device_ms(torch, lambda: torch.add(p, gr, alpha=-lr),
+                           "library_device_ms"),
                "bound_ms": bound,
                "bound_by": ("bytes" if moved / HBM_BYTES_PER_S
                             >= 2 * n / FP32_OPS_PER_S else "operations")}
@@ -437,6 +452,8 @@ def phase_kernels(torch, np, ops, ref):
                    torch, lambda: ref.meta_update(w, wh, alpha), iters),
                "library_ms": cuda_ms(
                    torch, lambda: torch.lerp(w, wh, 0.37), iters),
+               **device_ms(torch, lambda: torch.lerp(w, wh, 0.37),
+                           "library_device_ms"),
                "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         rows[f"meta_update/{tag}"] = row
@@ -467,12 +484,17 @@ def phase_kernels(torch, np, ops, ref):
             # torch.optim.SGD(momentum=mu, fused=True)'s one call, in
             # place on copies
             lp, lg, lm = p.clone(), gr.clone(), m.clone()
-            library = cuda_ms(torch, lambda: torch._fused_sgd_(
-                [lp], [lg], [lm], weight_decay=0.0, momentum=mu, lr=lr,
-                dampening=0.0, nesterov=False, maximize=False,
-                is_first_step=False), iters)
+
+            def fused():
+                torch._fused_sgd_(
+                    [lp], [lg], [lm], weight_decay=0.0, momentum=mu, lr=lr,
+                    dampening=0.0, nesterov=False, maximize=False,
+                    is_first_step=False)
+            library = {"library_ms": cuda_ms(torch, fused, iters),
+                       **device_ms(torch, fused, "library_device_ms")}
         else:
-            library = None        # no one call keeps m fp32 beside bf16 p
+            # no one call keeps m fp32 beside bf16 p
+            library = {"library_ms": None, "library_device_ms": None}
         row = {"n": n, "dtype": str(dtype).split(".")[1], "rtol": rtol,
                "atol": atol, "max_abs_err": err,
                "ms": cuda_ms(torch, lambda: ops.online_sgd_momentum(
@@ -481,7 +503,7 @@ def phase_kernels(torch, np, ops, ref):
                    p, gr, m, lr, mu)),
                "plain_ms": cuda_ms(torch, lambda: ref.online_sgd(
                    p, gr, lr, m=m, momentum=mu), iters),
-               "library_ms": library,
+               **library,
                "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         rows[f"online_sgd_momentum/{tag}"] = row
@@ -578,6 +600,7 @@ def phase_kernels_lm(torch, np, ops, ref, rows):
                    **device_ms(torch, fn),
                    "plain_ms": cuda_ms(torch, plain, iters),
                    "library_ms": cuda_ms(torch, library, iters),
+                   **device_ms(torch, library, "library_device_ms"),
                    "bound_ms": 1e3 * max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
             rows[f"{kernel}/{tag}"] = row
@@ -1082,7 +1105,7 @@ def phase_kernels_decode(torch, np, ops, ref, rows):
                           (shape[-1] // 2, 128))]
     cases += [(f"path_8x32x4x64x2048_bfloat16_L{L}_w{w}", FD_PATH,
                "bfloat16", L, w)
-              for L, w in ((1, 0), (577, 0), (2048, 0), (1024, 256))]
+              for L, w in PATH_CASES]
     cases.append(("32k_4x8x4x64x32768_float32_L32768_w0", FD_32K, "float32",
                   32768, 0))
     inputs = {}
@@ -1143,6 +1166,22 @@ def phase_kernels_decode(torch, np, ops, ref, rows):
         rows[f"flash_decode/{tag}"] = row
         emit({"phase": "kernel", "kernel": "flash_decode", "case": tag,
               **row})
+
+    # what a decode wave pays per call: every L in PATH_RUN once per layer,
+    # each time linear between the path rows at L <= PATH_RUN[1]
+    path = sorted((r["L"], r) for key, r in rows.items()
+                  if key.startswith("flash_decode/path_") and not r["window"]
+                  and r["L"] <= PATH_RUN[1])
+    Ls = [L for L, _ in path]
+    grid = np.arange(PATH_RUN[0], PATH_RUN[1] + 1)
+    row = {"shape_BHKvhdS": list(FD_PATH), "dtype": "bfloat16",
+           "L_range": list(PATH_RUN), "from_L": Ls,
+           **{k: float(np.interp(grid, Ls, [r[k] for _, r in path]).mean())
+              for k in ("ms", "device_ms", "library_ms",
+                        "library_device_ms", "bound_ms")}}
+    rows["flash_decode/path_run_mean"] = row
+    emit({"phase": "kernel", "kernel": "flash_decode",
+          "case": "path_run_mean", **row})
     return rows
 
 
@@ -1286,8 +1325,9 @@ def phase_profile_decode(torch, np, model, params):
     position DECODE_PROFILE_AT under torch.profiler, device activity
     only: the idle share, kernels per step, the top kernels and
     flash_decode's share of busy time; beside them the wrapper's launches
-    and the flash_decode kernels the tracer recorded (two a launch where
-    the KV axis is split), since the tracer may lose device events."""
+    and the flash_decode kernels the tracer recorded: one a launch, as a
+    call is one kernel launch whether or not the KV axis is split, or
+    fewer, since the tracer may lose device events (never more)."""
     from repro_torch.kernels import ops
     cfg = model.cfg
     B = 8
@@ -1320,6 +1360,10 @@ def phase_profile_decode(torch, np, model, params):
     check(dev_us > 0, "the profiler saw no device time")
     fd_us = sum(t for k, (t, _) in by_name.items() if "flash_decode" in k)
     check(fd_us > 0, "the profiler saw no flash_decode kernel")
+    fd_traced = sum(c for k, (_, c) in by_name.items() if "flash_decode" in k)
+    check(fd_traced <= launches,
+          f"{fd_traced} flash_decode kernels traced for {launches} launches: "
+          f"a call must be one kernel launch")
     n_kernels = sum(c for _, c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     emit({"phase": "profile_decode", "steps": DECODE_PROFILE_STEPS,
@@ -1331,8 +1375,7 @@ def phase_profile_decode(torch, np, model, params):
           "flash_decode_ms": fd_us / 1e3,
           "flash_decode_share_of_busy": fd_us / dev_us,
           "flash_decode_launches": launches,
-          "flash_decode_kernels_traced": sum(
-              c for k, (_, c) in by_name.items() if "flash_decode" in k),
+          "flash_decode_kernels_traced": fd_traced,
           "top_device": [[k[:80], t / 1e3, c, t / dev_us]
                          for k, (t, c) in top]})
 
@@ -1452,7 +1495,8 @@ def main():
              "launches_by_path": by_path,
              **{k: row[k] for k in ("max_abs_err", "ms", "device_ms",
                                     "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms")}})
+                                    "library_ms")},
+             "library_device_ms": row.get("library_device_ms")})
     emit({"total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi_line(), flush=True)

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled with
 repository's ``build/kernels/`` directory, named by a hash of its
 source so an edited file is rebuilt, and loaded with ``ctypes``. The
 build happens at first use, on the machine with the card; nothing is
-built when a module is imported.
+built when a module is imported. ``launch_on`` calls a loaded entry
+point on a device's current stream at little host cost.
 """
 from __future__ import annotations
 
@@ -17,6 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -85,3 +88,14 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _loaded[name] = lib
         return lib
+
+
+def launch_on(index: int, fn, *args) -> int:
+    """``fn(*args, stream)`` with the raw handle of CUDA device ``index``'s
+    current stream, made the current device only if it is not already;
+    returns what ``fn`` returns. Reads the device and the handle from
+    torch's C layer, without building Python device or stream objects."""
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(index))

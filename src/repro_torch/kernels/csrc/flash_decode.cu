@@ -7,120 +7,495 @@
 //   out[b,h,:] = sum_p softmax_p(hd^-0.5 q[b,h,:].k[b,p,kv,:]) v[b,p,kv,:]
 //
 // over the positions p in [lo, hi) = [max(0, L - window), L), or [0, L)
-// without a window. q is cast to fp32 and scaled in fp32, K and V are read
-// in their own dtype (fp32 or bf16, the same as q's) and everything is
-// accumulated in fp32; the result is stored in q's dtype. Positions outside
-// [lo, hi) are never read: with L >= 1 they add exactly 0 to the TPU
-// kernel's sums too (exp(-1e30 - m) underflows), so the cache's tail need
-// not be zero. The wrapper rejects L = 0 (the TPU kernel's degenerate mean
-// of V), as decode never passes it.
-//
-// Design. The TPU grid (B, Kv, S / block) walks the cache blocks in order
-// with the running max, denominator and accumulator in VMEM. Here:
-//  - GQA reuse: one block owns a (b, kv) pair and up to kRows = 8 of its R
-//    query heads, so each K and V row is read from device memory once for
-//    all of them (R > 8 takes ceil(R / 8) head groups);
-//  - a split over the KV axis (flash-decoding): the grid is (n_split,
-//    Kv * groups, B), and each block runs the online softmax over its own
-//    stretch of positions. With one split the block writes the output;
-//    otherwise it writes its partial (m, l, acc) to a workspace and a
-//    second small kernel combines the splits. The wrapper picks n_split
-//    so that some 528 blocks (four per SM) are in flight: at batch 8 and
-//    Kv 4, (b, kv) alone would be 32 blocks on 132 SMs.
-// A block of 128 threads walks its stretch in tiles of 32 positions: the
-// tile's K and V rows are loaded with 16-byte vector loads into registers
-// (the next tile's while the current one is computed) and stored to
-// shared memory as fp32, rows padded by one float so the score loop has
-// no bank conflicts; each warp owns query rows and computes one position per
-// lane, then the tile's max and sum by warp shuffles; each thread then
-// owns one (row, dim) output per pass and accumulates P V from shared
-// memory, rescaled by exp(m_old - m_new). No tensor cores: one query
-// token gives R = 8 rows, and the products stay in fp32 as the TPU
-// kernel's do. The design is the simple one; it runs well above its bound
-// and above PyTorch's fused attention (PERF.md), and its redesign is
-// queued in ROADMAP.
+// without a window. Sums are fp32 and the result is stored in q's dtype.
+// Positions outside [lo, hi) are never read: with L >= 1 they add exactly
+// 0 to the TPU kernel's sums too (exp(-1e30 - m) underflows), so the
+// cache's tail need not be zero. The wrapper rejects L = 0 (the TPU
+// kernel's degenerate mean of V), as decode never passes it.
 //
 // Bound on an H100: the K and V bytes, 2 B n Kv hd elem with n = hi - lo.
 // At the decode path's (B, H, Kv, hd) = (8, 32, 4, 64) in bf16 with n =
 // 2048 that is 16.8 MB, 5.0 us at 3.35 TB/s; its 4 B H n hd = 134 MFLOP
-// are far below that. chip_smoke.py prints the bound of every case.
+// are 8 operations a byte, far below the 295 at which bf16 tensor-core
+// throughput would bound it. chip_smoke.py prints the bound of every case.
+//
+// Shared by both dtypes. One block owns a (b, kv) pair and up to kRows = 8
+// of its R query heads, so each K and V row is read from device memory
+// once for all of them (R > 8 takes ceil(R / 8) head groups). The KV axis
+// is split across blocks (flash-decoding): the grid is (n_split, Kv *
+// groups, B) and each block runs the online softmax over its stretch of
+// positions. With one split the block writes the output. Otherwise the
+// splits' partials (max, sum, accumulator) are merged in split-index
+// order, so the result does not depend on which block finished first,
+// inside the one launch a call makes:
+//  - bf16: the n_split <= 8 blocks of a (b, group) are one thread-block
+//    cluster. Each leaves its partial in its own shared memory; after a
+//    cluster barrier every block merges a share of the outputs, reading
+//    the others' partials through distributed shared memory, and a
+//    second barrier keeps them alive until all have read. No device
+//    memory, no memset, nothing on the host.
+//  - fp32 (up to 128 splits, for the long caches it is timed at): each
+//    block writes its partial to a workspace; the last block of its
+//    (b, group) to finish, found by a __threadfence and an atomic ticket
+//    on a per-(b, group) counter, merges them and resets the counter to
+//    0, so the wrapper allocates the counters zeroed once.
+//
+// bf16 path: tensor cores through mma.sync.m16n8k16 (bf16 in, fp32
+// accumulate). The point is fewer instructions, not FLOP/s: one mma does
+// 2,048 multiply-adds from four ldmatrix-fed registers where an FFMA loop
+// reads both operands from shared memory. A block of 4 warps streams
+// tiles of 64 positions; K and V tiles arrive in bf16 straight into a
+// two-stage shared-memory ring by 16-byte cp.async (zero-filled past the
+// stretch), 16 KB a stage at hd 64, with the 16-byte chunks of each row
+// XOR-swizzled by the row so that ldmatrix is free of bank conflicts.
+// cp.async rather than TMA: a tile is 64 rows strided by Kv hd elements
+// starting at any position, which 128 threads cover in 4 copies each of
+// K and V at fixed offsets, with the zero fill that a TMA descriptor
+// would need a 4-d box for. Deeper rings (3 and 4 stages) and larger
+// blocks (8 and 16 warps, tiles of 128 and 256) were measured slower on
+// an H100 (PERF.md). A stretch of two tiles has both in flight before
+// the first math. Warp w owns positions 16w .. 16w + 15 of every tile and
+// runs its own online softmax:
+//  - S = q Kt: the block's query heads are the A operand, 8 rows padded
+//    to 16 with zeros, as FlashAttention's split-KV decode does; K rows
+//    are the B operand (ldmatrix). With R < 8 the missing rows are zeros
+//    too, at no cost: the tile is 16 rows whatever R is. q is bf16
+//    already, so it enters the product exactly; the fp32 score is scaled
+//    by hd^-0.5 log2(e) after it, and the softmax runs in base 2 (exp2f).
+//  - max, exp, sum and rescale run on the score fragment; the max is
+//    shuffled within the quad of lanes that share a row.
+//  - P V reuses the score fragment as the A operand, with V through
+//    ldmatrix.trans. The TPU kernel keeps p in fp32; here p is rounded to
+//    bf16 for the product, as the JAX model's own decode_attention rounds
+//    its probabilities to the cache dtype. The row sums stay fp32 of the
+//    unrounded p. tests/test_torch_decode.py holds this rounding to the
+//    plain version at the decode path's shapes within the bf16 tolerance.
+// At the end of its stretch the block merges its 4 warps' states through
+// shared memory (the ring, free by then). What bounds it on an H100
+// (PERF.md): a call costs some 3 us at L = 1 (launch, one round trip to
+// memory, the merges), and a block's tiles follow one another at the
+// latency of its dependent mma, shuffle and exp chain, so long stretches
+// are split; the split merge adds a cluster barrier pair.
+//
+// fp32 path: FFMA, as TF32 would not hold the 3e-4 fp32 tolerance. Tiles
+// of 32 positions are loaded with 16-byte vector loads into registers
+// (the next tile's while the current one is computed) and stored to
+// shared memory as fp32, rows padded by one float; each warp owns query
+// rows and computes one position per lane, then each thread owns one
+// (row, dim) output and accumulates P V. Rows a block lacks (R < 8) are
+// skipped, not computed.
 //
 // Limits, checked by the Python wrapper too: hd in {64, 128}; fp32 or
 // bf16, the same for q, K and V; contiguous tensors, the caches 16-byte
-// aligned.
+// aligned; stretches of whole 64-position tiles; at most kMaxSplits
+// splits in fp32 and kMaxCluster in bf16.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;          // positions per tile: one per lane
-constexpr int kRows = 8;           // query heads per block
+constexpr int kRows = 8;             // query heads per block
+constexpr int kChunk = 64;           // a stretch is a multiple of this
+constexpr int kMaxSplits = 128;      // fp32: the merge's weights fit in smem
+constexpr int kMaxCluster = 8;       // bf16: splits a (portable) cluster holds
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxCombineWarps = 4;  // the combine runs hd <= 128 threads
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// One 16-byte vector of T, unpacked to floats.
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int kN = 4;
-  __device__ __forceinline__ static void unpack(const uint4& v, float* dst) {
-    dst[0] = __uint_as_float(v.x);
-    dst[1] = __uint_as_float(v.y);
-    dst[2] = __uint_as_float(v.z);
-    dst[3] = __uint_as_float(v.w);
+// -- fp32: the split merge through device memory ---------------------------
+
+// ws holds every split's partials: acc (n_split, B, H, HD), then m and l
+// (n_split, B, H). Called by every thread of every block after it wrote
+// its own partial; the last block of the (b, group) merges all of them:
+//   out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30),  w_s = e^(m_s - M)
+// smem holds 2 kRows kMaxSplits floats.
+template <int HD>
+__device__ __forceinline__ void merge_splits(const float* ws, float* out,
+                                             int* counter, float* smem,
+                                             int n_split, long long BH,
+                                             long long row0, int nr) {
+  __shared__ int s_last;
+  __shared__ float sM[kRows];
+  const int t = threadIdx.x;
+  __threadfence();                      // this block's partial is visible
+  __syncthreads();
+  if (t == 0) s_last = atomicAdd(counter, 1) == n_split - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float* ws_m = ws + (long long)n_split * BH * HD;
+  const float* ws_l = ws_m + (long long)n_split * BH;
+  float* sw = smem;                     // (n_split, kRows): m, then weights
+  float* swl = smem + n_split * kRows;  // l, then the weights times l
+  for (int e = t; e < n_split * nr; e += kThreads) {
+    const int s = e / nr, r = e % nr;
+    sw[s * kRows + r] = __ldcg(ws_m + s * BH + row0 + r);
+    swl[s * kRows + r] = __ldcg(ws_l + s * BH + row0 + r);
   }
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-  __device__ __forceinline__ static void unpack(const uint4& v, float* dst) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+  __syncthreads();
+  if (t < nr) {
+    float M = -INFINITY;
+    for (int s = 0; s < n_split; ++s) M = fmaxf(M, sw[s * kRows + t]);
+    sM[t] = M;
+  }
+  __syncthreads();
+  for (int e = t; e < n_split * nr; e += kThreads) {
+    const int s = e / nr, r = e % nr;
+    const float w = expf(sw[s * kRows + r] - sM[r]);
+    sw[s * kRows + r] = w;
+    swl[s * kRows + r] *= w;
+  }
+  __syncthreads();
+  for (int e = t; e < nr * HD; e += kThreads) {
+    const int r = e / HD, d = e % HD;
+    const float* acc = ws + (row0 + r) * HD + d;
+    float num = 0.f, den = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < n_split; ++s) {
+      num = fmaf(sw[s * kRows + r], __ldcg(acc + s * BH * HD), num);
+      den += swl[s * kRows + r];
+    }
+    out[(row0 + r) * HD + d] = num / fmaxf(den, 1e-30f);
+  }
+  if (t == 0) *counter = 0;             // ready for the next call
+}
+
+// -- bf16: mma.sync ----------------------------------------------------------
+
+constexpr int kStages = 2;           // tiles in the shared-memory ring
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr,
+                                              uint32_t (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+// c += A B for a 16x16 A of which rows 8..15 are zero (a1 = a3 = 0)
+__device__ __forceinline__ void mma_rows8(float (&c)[4], uint32_t a0,
+                                          uint32_t a2, uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(0u), "r"(a2), "r"(0u), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+constexpr int kTile = 16 * kWarps;    // positions per tile: 16 per warp
+
+template <int HD>
+__host__ __device__ constexpr int bf16_smem_bytes() {
+  return kStages * 2 * kTile * HD * 2;
+}
+
+// q (B, H, HD), k and v (B, S, Kv, HD), out (B, H, HD), all bf16.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_bf16(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ out, int S, int H, int Kv,
+                  int R, int lo, int hi, int chunk, float scale_log2) {
+  constexpr int CPR = HD / 8;                  // 16-byte chunks per row
+  constexpr int TILE_BYTES = kTile * HD * 2;   // one of K or V
+  constexpr int LOADS = kTile * CPR / kThreads;  // copies a thread issues
+  constexpr int RSTEP = kThreads / CPR;        // rows between them
+  constexpr int KS = HD / 16;                  // k-steps of q K^T
+  constexpr int NB = HD / 8;                   // 8-dim blocks of P V
+  static_assert(kThreads % CPR == 0 && RSTEP % 8 == 0,
+                "a thread's copies share one column and swizzle");
+  static_assert(((kWarps + 1) * kRows * HD + (2 * kWarps + 2) * kRows) * 4 <=
+                    bf16_smem_bytes<HD>(),
+                "the warp and split merges fit in the ring");
+  extern __shared__ __align__(128) unsigned char smem[];
+
+  const int G = (R + kRows - 1) / kRows;       // head groups per KV head
+  const int kv = blockIdx.y / G, g = blockIdx.y % G;
+  const int b = blockIdx.z;
+  const int split = blockIdx.x, n_split = gridDim.x;
+  const int h0 = kv * R + g * kRows;
+  const int nr = min(kRows, R - g * kRows);
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int qr = lane / 4, qc = lane % 4;      // fragment row and column pair
+
+  const int p_begin = lo + split * chunk;
+  const int p_end = min(hi, p_begin + chunk);
+  const int n_tiles = (p_end - p_begin + kTile - 1) / kTile;
+
+  // this thread copies rows r0, r0 + RSTEP, ... of every tile at chunk
+  // c, which lands at chunk c ^ (row % 8), the same for all of them
+  const long long row = (long long)Kv * HD;    // elements between positions
+  const int r0 = t / CPR, c = t % CPR;
+  const long long off0 = ((long long)b * S * Kv + kv) * HD + c * 8;
+  const uint32_t ring = smem_addr(smem);
+  const uint32_t dst0 = (r0 * CPR + (c ^ (r0 & 7))) * 16;
+  auto fetch = [&](int i) {
+    const int p0 = p_begin + i * kTile;
+    const uint32_t sk = ring + (i % kStages) * 2 * TILE_BYTES + dst0;
+    const long long off = off0 + (p0 + r0) * row;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      dst[2 * i] = f.x;
-      dst[2 * i + 1] = f.y;
+    for (int j = 0; j < LOADS; ++j) {
+      const bool ok = p0 + r0 + j * RSTEP < p_end;
+      const long long o = ok ? off + j * RSTEP * row : off0;
+      const uint32_t d = sk + j * RSTEP * CPR * 16;
+      cp_async16(d, k + o, ok ? 16 : 0);
+      cp_async16(d + TILE_BYTES, v + o, ok ? 16 : 0);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages; ++i) {
+    if (i < n_tiles) fetch(i);
+    cp_async_commit();
+  }
+
+  // this lane's q fragments: row qr, dims 16 ks + 2 qc (+1) and + 8
+  uint32_t qa[KS][2];
+  {
+    const __nv_bfloat16* qrow = q + ((long long)b * H + h0 + qr) * HD;
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = ks * 16 + h * 8 + 2 * qc;
+        __nv_bfloat162 x;
+        x.x = qr < nr ? qrow[d] : zero;
+        x.y = qr < nr ? qrow[d + 1] : zero;
+        qa[ks][h] = *reinterpret_cast<uint32_t*>(&x);
+      }
+  }
+
+  float o[NB][4];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+    o[nb][0] = o[nb][1] = o[nb][2] = o[nb][3] = 0.f;
+  float m = -INFINITY, l = 0.f;  // row qr, base 2; l is this lane's share
+
+  // the ldmatrix addresses of this lane: x4 matrix sel = lane / 8
+  const int sel = lane / 8;
+  const int rk = warp * 16 + (sel / 2) * 8 + lane % 8;  // K: 2 position blocks
+  const int rv = warp * 16 + (sel % 2) * 8 + lane % 8;  // V: 2 position halves
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<kStages - 1>();              // tile i has landed
+    __syncthreads();
+    const uint32_t sk = ring + (i % kStages) * 2 * TILE_BYTES;
+    const uint32_t sv = sk + TILE_BYTES;
+
+    // S = q K^T over this warp's 16 positions: two 8-position blocks
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      const int cc = 2 * ks + sel % 2;
+      uint32_t bk[4];
+      ldsm_x4(sk + (rk * CPR + (cc ^ (rk & 7))) * 16, bk);
+      mma_rows8(s[0], qa[ks][0], qa[ks][1], bk[0], bk[1]);
+      mma_rows8(s[1], qa[ks][0], qa[ks][1], bk[2], bk[3]);
+    }
+
+    // online softmax of row qr over this lane's 4 positions
+    const int pos0 = p_begin + i * kTile + warp * 16 + 2 * qc;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float x =
+            pos0 + 8 * j + e < p_end ? s[j][e] * scale_log2 : -INFINITY;
+        s[j][e] = x;
+        mx = fmaxf(mx, x);
+      }
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(m, mx);
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    const float corr = exp2f(m - m_use);       // 0 while m is -inf
+    float p[2][2], sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[j][e] = exp2f(s[j][e] - m_use);
+        sum += p[j][e];
+      }
+    l = l * corr + sum;
+    m = m_new;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      o[nb][0] *= corr;
+      o[nb][1] *= corr;
+    }
+
+    // O += P V: P's A fragment is the score fragment, rounded to bf16
+    const uint32_t pa0 = pack_bf16(p[0][0], p[0][1]);
+    const uint32_t pa2 = pack_bf16(p[1][0], p[1][1]);
+#pragma unroll
+    for (int np = 0; np < NB / 2; ++np) {
+      const int cc = 2 * np + sel / 2;
+      uint32_t bv[4];
+      ldsm_x4_trans(sv + (rv * CPR + (cc ^ (rv & 7))) * 16, bv);
+      mma_rows8(o[2 * np], pa0, pa2, bv[0], bv[1]);
+      mma_rows8(o[2 * np + 1], pa0, pa2, bv[2], bv[3]);
+    }
+    __syncthreads();                           // the stage is consumed
+    if (i + kStages < n_tiles) fetch(i + kStages);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  l += __shfl_xor_sync(kFull, l, 1);
+  l += __shfl_xor_sync(kFull, l, 2);
+
+  // merge the warps' states in shared memory (the ring is free)
+  __syncthreads();
+  float* sO = reinterpret_cast<float*>(smem);  // (kWarps, kRows, HD)
+  float* sMw = sO + kWarps * kRows * HD;       // (kWarps, kRows)
+  float* sLw = sMw + kWarps * kRows;
+  if (qc == 0) {
+    sMw[warp * kRows + qr] = m;
+    sLw[warp * kRows + qr] = l;
+  }
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb) {
+    float* dst = sO + (warp * kRows + qr) * HD + nb * 8 + 2 * qc;
+    dst[0] = o[nb][0];
+    dst[1] = o[nb][1];
+  }
+  __syncthreads();
+  // this block's state: acc (kRows, HD), then m and l (kRows)
+  float* pAcc = sLw + kWarps * kRows;
+  float* pM = pAcc + kRows * HD;
+  float* pL = pM + kRows;
+  const long long row0 = (long long)b * H + h0;
+  // warp 0 holds p_begin, so every row's M is finite
+  for (int e = t; e < nr * HD; e += kThreads) {
+    const int r = e / HD, d = e % HD;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) M = fmaxf(M, sMw[w * kRows + r]);
+    float acc = 0.f, den = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float cw = exp2f(sMw[w * kRows + r] - M);
+      acc = fmaf(sO[(w * kRows + r) * HD + d], cw, acc);
+      den = fmaf(sLw[w * kRows + r], cw, den);
+    }
+    if (n_split == 1) {
+      store(out + (row0 + r) * HD + d, acc / fmaxf(den, 1e-30f));
+    } else {
+      pAcc[e] = acc;
+      if (d == 0) {
+        pM[r] = M;
+        pL[r] = den;
+      }
     }
   }
-};
+  if (n_split == 1) return;
 
-// q (B, H, HD), k and v (B, S, Kv, HD), out (B, H, HD); ws: the partials
-// of every split, acc (n_split, B, H, HD) then m and l (n_split, B, H).
-template <typename T, int HD>
+  // the splits of this (b, group) are one cluster: once every block's
+  // state is in its shared memory, block s merges outputs s kThreads + t,
+  // s kThreads + t + n_split kThreads, ..., reading every block's state
+  // in split order, then waits until all have read its own
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const float* parts[kMaxCluster];
+#pragma unroll
+  for (int sp = 0; sp < kMaxCluster; ++sp)
+    parts[sp] = sp < n_split ? cluster.map_shared_rank(pAcc, sp) : pAcc;
+  for (int e = split * kThreads + t; e < nr * HD; e += n_split * kThreads) {
+    const int r = e / HD, d = e % HD;
+    float ms[kMaxCluster], ls[kMaxCluster], as[kMaxCluster];
+#pragma unroll
+    for (int sp = 0; sp < kMaxCluster; ++sp) {
+      if (sp < n_split) {
+        as[sp] = parts[sp][e];
+        ms[sp] = parts[sp][kRows * HD + r];
+        ls[sp] = parts[sp][kRows * HD + kRows + r];
+      }
+    }
+    float M = -INFINITY;
+#pragma unroll
+    for (int sp = 0; sp < kMaxCluster; ++sp)
+      if (sp < n_split) M = fmaxf(M, ms[sp]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < kMaxCluster; ++sp) {
+      if (sp < n_split) {
+        const float cw = exp2f(ms[sp] - M);
+        num = fmaf(as[sp], cw, num);
+        den = fmaf(ls[sp], cw, den);
+      }
+    }
+    store(out + (row0 + r) * HD + d, num / fmaxf(den, 1e-30f));
+  }
+  cluster.sync();
+}
+
+// -- fp32: FFMA ---------------------------------------------------------------
+
+constexpr int kTile32 = 32;          // positions per tile: one per lane
+
+// q (B, H, HD), k and v (B, S, Kv, HD), out (B, H, HD), all fp32.
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_decode_split(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, T* __restrict__ out,
-                   float* __restrict__ ws, int S, int H, int Kv, int R,
-                   int lo, int hi, int chunk, float scale) {
+flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ ws, int* __restrict__ counters, int S,
+                 int H, int Kv, int R, int lo, int hi, int chunk,
+                 float scale) {
   constexpr int KP = HD + 1;                   // padded shared row
-  constexpr int EPV = Vec<T>::kN;              // elements per vector load
-  constexpr int VPR = HD / EPV;                // vector loads per row
+  constexpr int VPR = HD / 4;                  // float4 loads per row
   constexpr int RSTEP = kThreads / HD;         // output rows per pass
   constexpr int ACC = (kRows + RSTEP - 1) / RSTEP;
   constexpr int RPW = (kRows + kWarps - 1) / kWarps;  // score rows per warp
+  static_assert(2 * kRows * kMaxSplits <= kTile32 * KP,
+                "the split merge fits in sK");
 
-  __shared__ float sK[kTile * KP];
-  __shared__ float sV[kTile * KP];
+  __shared__ float sK[kTile32 * KP];
+  __shared__ float sV[kTile32 * KP];
   __shared__ float sQ[kRows * HD];
-  __shared__ float sP[kRows * kTile];
+  __shared__ float sP[kRows * kTile32];
   __shared__ float sCorr[kRows];
   __shared__ float sL[kRows];
 
-  const int G = (R + kRows - 1) / kRows;       // head groups per KV head
+  const int G = (R + kRows - 1) / kRows;
   const int kv = blockIdx.y / G, g = blockIdx.y % G;
   const int b = blockIdx.z, B = gridDim.z;
   const int split = blockIdx.x, n_split = gridDim.x;
@@ -134,8 +509,7 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int e = t; e < kRows * HD; e += kThreads) {
     const int r = e / HD;
-    sQ[e] = r < nr ? to_f32(q[((long long)b * H + h0 + r) * HD + e % HD]) *
-                         scale
+    sQ[e] = r < nr ? q[((long long)b * H + h0 + r) * HD + e % HD] * scale
                    : 0.f;
   }
   float m[RPW], l[RPW], acc[ACC];
@@ -147,49 +521,45 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
 
-  const long long row = (long long)Kv * HD;    // elements between positions
-  const T* kb = k + ((long long)b * S * Kv + kv) * HD;
-  const T* vb = v + ((long long)b * S * Kv + kv) * HD;
+  const long long row = (long long)Kv * HD;
+  const float* kb = k + ((long long)b * S * Kv + kv) * HD;
+  const float* vb = v + ((long long)b * S * Kv + kv) * HD;
 
-  // each thread's share of one tile's K and V rows, as raw 16-byte
-  // vectors (zero past the stretch): the next tile's loads are issued
-  // before the current tile's arithmetic, so they are in flight during it
-  constexpr int LPT = (kTile * VPR + kThreads - 1) / kThreads;
-  uint4 rk[LPT], rv[LPT];
+  // each thread's share of one tile's K and V rows (zero past the
+  // stretch): the next tile's loads are in flight during the current
+  // tile's arithmetic
+  constexpr int LPT = (kTile32 * VPR + kThreads - 1) / kThreads;
+  float4 rk[LPT], rv[LPT];
   auto fetch = [&](int p0) {
 #pragma unroll
     for (int i = 0; i < LPT; ++i) {
       const int e = t + i * kThreads, r = e / VPR, c = e % VPR;
-      rk[i] = rv[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (e < kTile * VPR && p0 + r < p_end) {
-        rk[i] = *reinterpret_cast<const uint4*>(kb + (p0 + r) * row + c * EPV);
-        rv[i] = *reinterpret_cast<const uint4*>(vb + (p0 + r) * row + c * EPV);
+      rk[i] = rv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (e < kTile32 * VPR && p0 + r < p_end) {
+        rk[i] = *reinterpret_cast<const float4*>(kb + (p0 + r) * row + c * 4);
+        rv[i] = *reinterpret_cast<const float4*>(vb + (p0 + r) * row + c * 4);
       }
     }
   };
 
   if (p_begin < p_end) fetch(p_begin);
-  for (int p0 = p_begin; p0 < p_end; p0 += kTile) {
+  for (int p0 = p_begin; p0 < p_end; p0 += kTile32) {
     __syncthreads();                           // the last tile is consumed
 #pragma unroll
     for (int i = 0; i < LPT; ++i) {
       const int e = t + i * kThreads, r = e / VPR, c = e % VPR;
-      if (e < kTile * VPR) {
-        float fk[EPV], fv[EPV];
-        Vec<T>::unpack(rk[i], fk);
-        Vec<T>::unpack(rv[i], fv);
-#pragma unroll
-        for (int j = 0; j < EPV; ++j) {
-          sK[r * KP + c * EPV + j] = fk[j];
-          sV[r * KP + c * EPV + j] = fv[j];
-        }
+      if (e < kTile32 * VPR) {
+        float* dk = sK + r * KP + c * 4;
+        float* dv = sV + r * KP + c * 4;
+        dk[0] = rk[i].x; dk[1] = rk[i].y; dk[2] = rk[i].z; dk[3] = rk[i].w;
+        dv[0] = rv[i].x; dv[1] = rv[i].y; dv[2] = rv[i].z; dv[3] = rv[i].w;
       }
     }
     __syncthreads();
-    if (p0 + kTile < p_end) fetch(p0 + kTile);
+    if (p0 + kTile32 < p_end) fetch(p0 + kTile32);
 
-    // scores and the online softmax: warp w owns rows w, w + 4, ...; lane
-    // = position in the tile. m and l live in the owning warp's registers
+    // scores and the online softmax: warp w owns rows w, w + 4; lane =
+    // position in the tile. m and l live in the owning warp's registers
     // (equal in every lane); the rescale factor goes to shared memory.
     const bool ok = p0 + lane < p_end;
 #pragma unroll
@@ -212,7 +582,7 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k,
         const float corr = expf(m[j] - m_new);  // 0 on the first tile
         l[j] = l[j] * corr + sum;
         m[j] = m_new;
-        sP[r * kTile + lane] = p;
+        sP[r * kTile32 + lane] = p;
         if (lane == 0) sCorr[r] = corr;
       }
     }
@@ -226,8 +596,8 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k,
       if (r < nr) {
         float a = acc[i] * sCorr[r];
 #pragma unroll
-        for (int j = 0; j < kTile; ++j)
-          a = fmaf(sP[r * kTile + j], sV[j * KP + d_own], a);
+        for (int j = 0; j < kTile32; ++j)
+          a = fmaf(sP[r * kTile32 + j], sV[j * KP + d_own], a);
         acc[i] = a;
       }
     }
@@ -240,19 +610,19 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
   const long long BH = (long long)B * H;
+  const long long row0 = (long long)b * H + h0;
   if (n_split == 1) {
 #pragma unroll
     for (int i = 0; i < ACC; ++i) {
       const int r = r_own + i * RSTEP;
       if (r < nr)
-        store(out + ((long long)b * H + h0 + r) * HD + d_own,
-              acc[i] / fmaxf(sL[r], 1e-30f));
+        out[(row0 + r) * HD + d_own] = acc[i] / fmaxf(sL[r], 1e-30f);
     }
     return;
   }
   // this split's partials: acc, then l beside it and m from the warp
   // that owns the row
-  const long long base = split * BH + (long long)b * H + h0;
+  const long long base = split * BH + row0;
   float* ws_m = ws + (long long)n_split * BH * HD;
   float* ws_l = ws_m + (long long)n_split * BH;
 #pragma unroll
@@ -268,103 +638,107 @@ flash_decode_split(const T* __restrict__ q, const T* __restrict__ k,
     const int r = warp + j * kWarps;
     if (r < nr && lane == 0) ws_m[base + r] = m[j];
   }
+  merge_splits<HD>(
+      ws, out, counters + (long long)b * gridDim.y + blockIdx.y, sK, n_split,
+      BH, row0, nr);
 }
 
-// One block per (b, h), one thread per dim: the splits' partials merged
-// as out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30).
-// The weights e^(m_s - M) go to shared memory first, so the loop over the
-// splits issues independent loads rather than a chain of them.
-template <typename T>
-__global__ void flash_decode_combine(const float* __restrict__ ws,
-                                     T* __restrict__ out, int BH, int HD,
-                                     int n_split) {
-  extern __shared__ float sw[];                // (n_split,) then (n_split,)
-  float* swl = sw + n_split;
-  __shared__ float red[kMaxCombineWarps];
-  const int bh = blockIdx.x, d = threadIdx.x, nw = blockDim.x / 32;
-  const float* ws_m = ws + (long long)n_split * BH * HD;
-  const float* ws_l = ws_m + (long long)n_split * BH;
-  float mx = -INFINITY;
-  for (int s = d; s < n_split; s += blockDim.x)
-    mx = fmaxf(mx, sw[s] = ws_m[(long long)s * BH + bh]);
-#pragma unroll
-  for (int o = 16; o; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
-  if (d % 32 == 0) red[d / 32] = mx;
-  __syncthreads();
-  float M = red[0];
-  for (int w = 1; w < nw; ++w) M = fmaxf(M, red[w]);
-  for (int s = d; s < n_split; s += blockDim.x) {
-    sw[s] = expf(sw[s] - M);
-    swl[s] = sw[s] * ws_l[(long long)s * BH + bh];
-  }
-  __syncthreads();
-  float num = 0.f, den = 0.f;
-  const float* acc = ws + (long long)bh * HD + d;
-#pragma unroll 8
-  for (int s = 0; s < n_split; ++s) {
-    num = fmaf(sw[s], acc[(long long)s * BH * HD], num);
-    den += swl[s];
-  }
-  store(out + (long long)bh * HD + d, num / fmaxf(den, 1e-30f));
-}
+// -- launch -------------------------------------------------------------------
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, void* ws,
-           int B, int S, int H, int Kv, int lo, int hi, int chunk,
-           int n_split, float scale, cudaStream_t stream) {
-  const int R = H / Kv;
-  const int G = (R + kRows - 1) / kRows;
-  dim3 grid((unsigned)n_split, (unsigned)(Kv * G), (unsigned)B);
-  flash_decode_split<T, HD><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(ws), S, H, Kv, R, lo, hi, chunk, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return (int)err;
-  flash_decode_combine<T><<<(unsigned)(B * H), HD,
-                            2 * n_split * sizeof(float), stream>>>(
-      static_cast<const float*>(ws), static_cast<T*>(out), B * H, HD,
-      n_split);
+template <int HD>
+int launch_bf16(dim3 grid, const void* q, const void* k, const void* v,
+                void* out, int S, int H, int Kv, int lo, int hi, int chunk,
+                float scale, cudaStream_t stream) {
+  constexpr int smem = bf16_smem_bytes<HD>();
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    // above 48 KB only after opting in, once per device
+    static bool opted[kMaxDevices];
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (!opted[dev]) {
+      err = cudaFuncSetAttribute(flash_decode_bf16<HD>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return (int)err;
+      opted[dev] = true;
+    }
+  }
+  // one cluster of grid.x blocks per (b, group): the splits
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid.x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = grid.x > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(
+      &cfg, flash_decode_bf16<HD>,
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      S, H, Kv, H / Kv, lo, hi, chunk, scale * kLog2e);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int by_hd(int hd, const void* q, const void* k, const void* v, void* out,
-          void* ws, int B, int S, int H, int Kv, int lo, int hi, int chunk,
-          int n_split, float scale, cudaStream_t stream) {
-  if (hd == 64)
-    return launch<T, 64>(q, k, v, out, ws, B, S, H, Kv, lo, hi, chunk,
-                         n_split, scale, stream);
-  if (hd == 128)
-    return launch<T, 128>(q, k, v, out, ws, B, S, H, Kv, lo, hi, chunk,
-                          n_split, scale, stream);
-  return (int)cudaErrorInvalidValue;
+template <int HD>
+int launch_f32(dim3 grid, const void* q, const void* k, const void* v,
+               void* out, float* ws, int* counters, int S, int H, int Kv,
+               int lo, int hi, int chunk, float scale, cudaStream_t stream) {
+  flash_decode_f32<HD><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), ws, counters,
+      S, H, Kv, H / Kv, lo, hi, chunk, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B,H,hd), k and v (B,S,Kv,hd), out (B,H,hd): contiguous on the device,
 // fp32 (dtype 0) or bf16 (dtype 1). Positions [lo, hi) are attended, in
-// n_split stretches of `chunk` positions (a multiple of 32; every stretch
-// non-empty); up to 8 query heads per block. ws holds
-// n_split * B * H * (hd + 2) floats when n_split > 1, else may be null.
-// Returns the cudaError_t of the launches.
+// n_split stretches of `chunk` positions (a multiple of 64; every stretch
+// non-empty; n_split <= 128 in fp32, <= 8 in bf16); up to 8 query heads
+// per block. For fp32 with n_split > 1, ws holds n_split * B * H * (hd +
+// 2) floats and counters B * Kv * ceil(H / Kv / 8) ints, all 0 (each call
+// leaves them 0); otherwise both may be null. Returns the cudaError_t of
+// the launch.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, void* out, void* ws,
-                                   int dtype, int B, int S, int H, int Kv,
-                                   int hd, int lo, int hi, int chunk,
-                                   int n_split, float scale, void* stream) {
+                                   void* counters, int dtype, int B, int S,
+                                   int H, int Kv, int hd, int lo, int hi,
+                                   int chunk, int n_split, float scale,
+                                   void* stream) {
   if (B <= 0 || H <= 0 || Kv <= 0 || H % Kv != 0 || lo < 0 || hi > S ||
-      lo >= hi || chunk <= 0 || chunk % kTile != 0 || n_split <= 0 ||
+      lo >= hi || chunk <= 0 || chunk % kChunk != 0 || n_split <= 0 ||
       (long long)(n_split - 1) * chunk >= hi - lo ||
-      (n_split > 1 && ws == nullptr))
+      (dtype == 0 && (n_split > kMaxSplits ||
+                      (n_split > 1 && (ws == nullptr || counters == nullptr)))) ||
+      (dtype == 1 && n_split > kMaxCluster))
     return (int)cudaErrorInvalidValue;
+  const int G = (H / Kv + kRows - 1) / kRows;
+  const dim3 grid((unsigned)n_split, (unsigned)(Kv * G), (unsigned)B);
+  float* w = static_cast<float*>(ws);
+  int* c = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return by_hd<float>(hd, q, k, v, out, ws, B, S, H, Kv, lo, hi, chunk,
-                        n_split, scale, s);
-  if (dtype == 1)
-    return by_hd<__nv_bfloat16>(hd, q, k, v, out, ws, B, S, H, Kv, lo, hi,
-                                chunk, n_split, scale, s);
+  if (dtype == 0 && hd == 64)
+    return launch_f32<64>(grid, q, k, v, out, w, c, S, H, Kv, lo, hi, chunk,
+                          scale, s);
+  if (dtype == 0 && hd == 128)
+    return launch_f32<128>(grid, q, k, v, out, w, c, S, H, Kv, lo, hi, chunk,
+                           scale, s);
+  if (dtype == 1 && hd == 64)
+    return launch_bf16<64>(grid, q, k, v, out, S, H, Kv, lo, hi, chunk, scale,
+                           s);
+  if (dtype == 1 && hd == 128)
+    return launch_bf16<128>(grid, q, k, v, out, S, H, Kv, lo, hi, chunk,
+                            scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,14 +6,21 @@ Replaces the TPU kernel ``repro/kernels/flash_decode.py::flash_decode``
 decode_attention`` calls this wrapper once per attention layer per
 decode step, so one step of tinyllama-1.1b launches it 22 times.
 ``csrc/flash_decode.cu`` gives the design (one block per (batch, KV
-head) and its query heads, the KV axis split across blocks and the
-partials combined by a second kernel) and the bound (the K and V bytes
-of the attended positions). This module checks the operands, plans the
-split, and launches it through ``ctypes``; a CPU tensor gets the plain
-version ``ref.flash_decode``.
+head) and its query heads, the KV axis split across blocks whose
+partials are merged inside the same launch, bf16 on the tensor cores)
+and the bound (the K and V bytes of the attended positions). This module checks the operands, plans the split, and
+launches it through ``ctypes``; a CPU tensor gets the plain version
+``ref.flash_decode``.
 
 The kernel reads only the attended positions ``[max(0, L - window),
 L)``; ``L = 0``, which would attend nothing, raises.
+
+A split bf16 call merges its splits inside a thread-block cluster and
+needs no scratch. A split fp32 call uses a workspace for the splits'
+partials and one counter per (batch, head group), both held per (device,
+stream) and grown on demand. The counters are allocated zeroed and
+every call leaves them at 0, so no call clears them or waits on the
+host.
 """
 from __future__ import annotations
 
@@ -27,66 +34,93 @@ from repro_torch.kernels import build, ref
 
 HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-TILE = 32                  # positions per tile of the kernel
+TILE = 64                  # positions per tile of the bf16 kernel
 MAX_ROWS = 8               # query heads one block takes (kRows)
-TARGET_BLOCKS = 4 * 132    # four blocks per SM of an H100
+MAX_SPLITS = 128           # fp32: kMaxSplits
+CLUSTER_SPLITS = 8         # bf16: kMaxCluster, a portable cluster's blocks
+MIN_TILES = 4              # tiles a block streams, where n allows
+TARGET_BLOCKS = 4 * 132    # blocks a call aims for: four per SM of an H100
+
+# (device index, stream) -> (workspace, counters)
+_SCRATCH: dict = {}
 
 
 @functools.lru_cache(maxsize=1)
 def _bind():
     """The library's entry point, typed; built at first use."""
     launch = build.load("flash_decode").flash_decode_launch
-    launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
+    launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
     launch.restype = ctypes.c_int
     return launch
 
 
-def plan(B: int, Kv: int, R: int, n: int):
+@functools.lru_cache(maxsize=4096)
+def plan(B: int, Kv: int, R: int, n: int, max_splits: int = MAX_SPLITS):
     """(n_split, chunk) for n attended positions: the query heads of a KV
     head go to blocks in groups of at most ``MAX_ROWS``, and the positions
-    in ``n_split`` stretches of ``chunk`` (a multiple of the tile, every
-    stretch non-empty), enough for some ``TARGET_BLOCKS`` blocks."""
+    in ``n_split`` stretches of ``chunk`` (whole tiles, every stretch
+    non-empty): some ``TARGET_BLOCKS`` blocks, each streaming at least
+    ``MIN_TILES`` tiles where n has them, at most ``max_splits``
+    (``CLUSTER_SPLITS`` for bf16, whose splits are one cluster)."""
     blocks = B * Kv * -(-R // MAX_ROWS)
     tiles = -(-n // TILE)
-    n_split = max(1, min(tiles, -(-TARGET_BLOCKS // blocks)))
+    n_split = max(1, min(tiles // MIN_TILES, -(-TARGET_BLOCKS // blocks),
+                         max_splits))
     chunk = -(-tiles // n_split) * TILE
     return -(-n // chunk), chunk
 
 
-def _check(q, k_cache, v_cache, cache_len, window):
-    if q.dim() != 3 or k_cache.dim() != 4:
+def scratch_sizes(B: int, H: int, Kv: int, hd: int, n_split: int):
+    """(workspace floats, counters) one fp32 call needs: every split's
+    partial accumulator, max and sum for each (b, h), and one counter per
+    (b, head group); none without a split. (bf16 merges its splits in
+    the cluster's shared memory and needs neither.)"""
+    if n_split == 1:
+        return 0, 0
+    return n_split * B * H * (hd + 2), B * Kv * -(-(H // Kv) // MAX_ROWS)
+
+
+def _scratch(index: int, stream: int, n_ws: int, n_counters: int):
+    """The (device, stream)'s workspace and counters, grown to hold
+    ``n_ws`` floats and ``n_counters`` ints. Calls on one stream run in
+    order, so they share them safely."""
+    ws, counters = _SCRATCH.get((index, stream), (None, None))
+    if ws is None or ws.numel() < n_ws:
+        ws = torch.empty(max(n_ws, 2 * (0 if ws is None else ws.numel())),
+                         dtype=torch.float32, device=f"cuda:{index}")
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32,
+                               device=f"cuda:{index}")
+    _SCRATCH[(index, stream)] = (ws, counters)
+    return ws.data_ptr(), counters.data_ptr()
+
+
+@functools.lru_cache(maxsize=256)
+def _shapes(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype):
+    """(B, H, hd, S, Kv) of valid operands; raises on invalid ones. Cached,
+    as the decode path passes the same shapes at every call."""
+    if len(q_shape) != 3 or len(k_shape) != 4:
         raise ValueError(f"flash_decode: q must be (B, H, hd) and the caches "
-                         f"(B, S, Kv, hd); got {tuple(q.shape)} and "
-                         f"{tuple(k_cache.shape)}")
-    B, H, hd = q.shape
-    S, Kv = k_cache.shape[1], k_cache.shape[2]
-    if v_cache.shape != k_cache.shape or k_cache.shape[0] != B or \
-            k_cache.shape[3] != hd:
-        raise ValueError(f"flash_decode: caches {tuple(k_cache.shape)} and "
-                         f"{tuple(v_cache.shape)} do not match q "
-                         f"{tuple(q.shape)} as (B, S, Kv, hd)")
+                         f"(B, S, Kv, hd); got {tuple(q_shape)} and "
+                         f"{tuple(k_shape)}")
+    B, H, hd = q_shape
+    S, Kv = k_shape[1], k_shape[2]
+    if v_shape != k_shape or k_shape[0] != B or k_shape[3] != hd:
+        raise ValueError(f"flash_decode: caches {tuple(k_shape)} and "
+                         f"{tuple(v_shape)} do not match q "
+                         f"{tuple(q_shape)} as (B, S, Kv, hd)")
     if Kv < 1 or H % Kv:
         raise ValueError(f"flash_decode: H={H} query heads must be a "
                          f"multiple of Kv={Kv} KV heads")
     if hd not in HEAD_DIMS:
         raise ValueError(f"flash_decode: head dim {hd} not in {HEAD_DIMS}")
-    if q.dtype not in _DTYPE_CODES or k_cache.dtype != q.dtype or \
-            v_cache.dtype != q.dtype:
+    if q_dtype not in _DTYPE_CODES or k_dtype != q_dtype or \
+            v_dtype != q_dtype:
         raise TypeError(f"flash_decode: q, K and V must share one dtype of "
-                        f"float32 or bfloat16; got {q.dtype}, "
-                        f"{k_cache.dtype}, {v_cache.dtype}")
-    for name, t in (("k_cache", k_cache), ("v_cache", v_cache)):
-        if t.device != q.device:
-            raise ValueError(f"flash_decode: {name} on {t.device}, q on "
-                             f"{q.device}")
-    L, window = operator.index(cache_len), operator.index(window)
-    if not 1 <= L <= S:
-        raise ValueError(f"flash_decode: cache_len must be in [1, S={S}]; "
-                         f"got {L}")
-    if window < 0:
-        raise ValueError(f"flash_decode: window must be >= 0; got {window}")
-    return L, window
+                        f"float32 or bfloat16; got {q_dtype}, {k_dtype}, "
+                        f"{v_dtype}")
+    return B, H, hd, S, Kv
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -98,36 +132,53 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     positions ``[max(0, cache_len - window), cache_len)``. A CPU tensor
     gets the plain version; a CUDA tensor gets the kernel
     (``flash_decode.launches`` counts its launches) or an error."""
-    L, window = _check(q, k_cache, v_cache, cache_len, window)
-    if q.device.type == "cpu":
+    B, H, hd, S, Kv = _shapes(q.shape, k_cache.shape, v_cache.shape,
+                              q.dtype, k_cache.dtype, v_cache.dtype)
+    dev = q.get_device()                # -1 on the CPU
+    if k_cache.get_device() != dev or v_cache.get_device() != dev:
+        raise ValueError(f"flash_decode: caches on {k_cache.device} and "
+                         f"{v_cache.device}, q on {q.device}")
+    L, window = operator.index(cache_len), operator.index(window)
+    if not 1 <= L <= S:
+        raise ValueError(f"flash_decode: cache_len must be in [1, S={S}]; "
+                         f"got {L}")
+    if window < 0:
+        raise ValueError(f"flash_decode: window must be >= 0; got {window}")
+    if not q.is_cuda:
+        if q.device.type != "cpu":
+            raise ValueError(f"flash_decode: unsupported device {q.device}")
         return ref.flash_decode(q, k_cache, v_cache, L,
                                 window=window).to(q.dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_decode: unsupported device {q.device}")
-    if not all(t.is_contiguous() for t in (q, k_cache, v_cache)):
+    if not (q.is_contiguous() and k_cache.is_contiguous()
+            and v_cache.is_contiguous()):
         raise ValueError("flash_decode: q and the caches must be contiguous")
-    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+    k_ptr, v_ptr = k_cache.data_ptr(), v_cache.data_ptr()
+    if k_ptr % 16 or v_ptr % 16:
         raise ValueError("flash_decode: the caches must start on a 16-byte "
                          "boundary (the kernel reads them in 16-byte "
                          "vectors)")
-    B, H, hd = q.shape
-    S, Kv = k_cache.shape[1], k_cache.shape[2]
     lo = max(0, L - window) if window else 0
-    n_split, chunk = plan(B, Kv, H // Kv, L - lo)
+    code = _DTYPE_CODES[q.dtype]
+    n_split, chunk = plan(B, Kv, H // Kv, L - lo,
+                          CLUSTER_SPLITS if code else MAX_SPLITS)
     out = torch.empty_like(q)
-    ws = (torch.empty(n_split * B * H * (hd + 2), dtype=torch.float32,
-                      device=q.device) if n_split > 1 else None)
-    launch = _bind()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                     out.data_ptr(), 0 if ws is None else ws.data_ptr(),
-                     _DTYPE_CODES[q.dtype], B, S, H, Kv, hd, lo, L,
-                     chunk, n_split, hd ** -0.5, stream)
+    err = build.launch_on(dev, _launch, dev, q.data_ptr(), k_ptr,
+                          v_ptr, out.data_ptr(), code, B, S, H, Kv, hd, lo, L,
+                          chunk, n_split)
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError {err}")
     flash_decode.launches += 1
     return out
+
+
+def _launch(index, q, k, v, out, dtype, B, S, H, Kv, hd, lo, L, chunk,
+            n_split, stream):
+    ws = counters = 0
+    if n_split > 1 and dtype == 0:
+        ws, counters = _scratch(index, stream,
+                                *scratch_sizes(B, H, Kv, hd, n_split))
+    return _bind()(q, k, v, out, ws, counters, dtype, B, S, H, Kv, hd, lo,
+                   L, chunk, n_split, hd ** -0.5, stream)
 
 
 flash_decode.launches = 0

@@ -39,12 +39,12 @@ def _bind():
 def _alpha_tensor(alpha, w):
     if isinstance(alpha, torch.Tensor):
         if (alpha.dtype != torch.float32 or alpha.numel() != 1
-                or alpha.device != w.device):
+                or alpha.get_device() != w.get_device()):
             raise ValueError(
                 f"meta_update: alpha must be one fp32 element on "
                 f"{w.device}; got {alpha.dtype} {tuple(alpha.shape)} on "
                 f"{alpha.device}")
-        return alpha.reshape(1)
+        return alpha
     return torch.tensor([float(alpha)], dtype=torch.float32, device=w.device)
 
 
@@ -58,27 +58,27 @@ def meta_update(w: torch.Tensor, w_hat: torch.Tensor,
     if w.shape != w_hat.shape:
         raise ValueError(f"w {tuple(w.shape)} and w_hat "
                          f"{tuple(w_hat.shape)} differ in shape")
-    if w.dtype not in _DTYPES:
+    code = _DTYPES.get(w.dtype)
+    if code is None:
         raise TypeError(f"meta_update: w must be one of {tuple(_DTYPES)}; "
                         f"got {w.dtype}")
-    if w.device != w_hat.device:
+    if w_hat.get_device() != w.get_device() or w_hat.is_cuda != w.is_cuda:
         raise ValueError(f"w on {w.device}, w_hat on {w_hat.device}")
-    w_hat = w_hat.to(w.dtype)
+    if w_hat.dtype != w.dtype:
+        w_hat = w_hat.to(w.dtype)
     a = _alpha_tensor(alpha, w)
-    if w.device.type == "cpu":
-        return ref.meta_update(w, w_hat, a)
-    if w.device.type != "cuda":
-        raise ValueError(f"meta_update: unsupported device {w.device}")
+    if not w.is_cuda:
+        if w.device.type != "cpu":
+            raise ValueError(f"meta_update: unsupported device {w.device}")
+        return ref.meta_update(w, w_hat, a.reshape(1))
     if not (w.is_contiguous() and w_hat.is_contiguous()):
         raise ValueError("meta_update: w and w_hat must be contiguous")
     out = torch.empty_like(w)
     n = w.numel()
     if n:
-        launch = _bind()
-        with torch.cuda.device(w.device):
-            stream = torch.cuda.current_stream(w.device).cuda_stream
-            err = launch(w.data_ptr(), w_hat.data_ptr(), a.data_ptr(),
-                         out.data_ptr(), n, _DTYPES[w.dtype], stream)
+        err = build.launch_on(w.get_device(), _bind(), w.data_ptr(),
+                              w_hat.data_ptr(), a.data_ptr(), out.data_ptr(),
+                              n, code)
         if err != 0:
             raise RuntimeError(f"meta_update launch failed: cudaError {err}")
         meta_update.launches += 1

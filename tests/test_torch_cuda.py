@@ -143,11 +143,18 @@ def test_served_on_card_matches_cpu(cuda, route):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n,offset", [(1153, 0), (1 << 20, 0), (4099, 1)])
+@pytest.mark.parametrize("n,offset", [
+    (1153, 0), (1 << 20, 0), (4099, 1),
+    (3, 0), (13, 0),                     # below one thread's 4 vectors
+    (4 * 4 * 256 - 1, 0), (4 * 4 * 256 + 1, 0),    # unroll x fp32 vector
+    (4 * 8 * 256 - 1, 0), (4 * 8 * 256 + 1, 0),    # x threads, +- 1; bf16
+    (4 * 8 * 256 + 1, 3), (1153, 3)])
 def test_meta_update_kernel_matches_plain(cuda, dtype, n, offset):
     """Exact: the kernel rounds each operation on its own, as the plain
-    version's separate tensor ops do. ``offset`` 1 misaligns the
-    buffers, which takes the scalar path."""
+    version's separate tensor ops do. Sizes around one block's work (4
+    vectors of 16 bytes a thread, 256 threads) and below one thread's
+    take the tail; ``offset`` 1 or 3 misaligns the buffers, which takes
+    the scalar path."""
     g = torch.Generator().manual_seed(n)
     w, wh = (torch.randn(n + offset, generator=g).to(cuda, dtype)[offset:]
              for _ in range(2))
@@ -265,22 +272,83 @@ def test_lm_round_on_card_matches_cpu(cuda):
                                    rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,tol", [
-    ((2, 8, 2, 64, 1024), torch.float32, 3e-4),     # the JAX tests' GQA
-    ((8, 32, 4, 64, 2048), torch.bfloat16, 2e-2)])  # tinyllama's decode
-def test_flash_decode_kernel_matches_plain(cuda, shape, dtype, tol):
+FD_TOL = {torch.float32: 3e-4, torch.bfloat16: 2e-2}
+
+
+def _fd_inputs(shape, dtype, seed, dev):
     B, H, Kv, hd, S = shape
-    r = np.random.default_rng(S)
-    q, k, v = (torch.from_numpy(r.standard_normal(s).astype(np.float32))
-               .to(cuda, dtype)
-               for s in ((B, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
-    for L, window in ((1, 0), (S // 2 + 1, 0), (S, 0), (S // 2, 128)):
-        before = ops.flash_decode.launches
-        got = ops.flash_decode(q, k, v, L, window=window)
-        torch.cuda.synchronize()
-        assert ops.flash_decode.launches == before + 1
-        assert got.dtype == dtype and got.shape == (B, H, hd)
-        torch.testing.assert_close(
-            got.float(), ref.flash_decode(q, k, v, L, window=window),
-            rtol=tol, atol=tol)
+    r = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(r.standard_normal(s).astype(np.float32))
+                 .to(dev, dtype)
+                 for s in ((B, H, hd), (B, S, Kv, hd), (B, S, Kv, hd)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 8, 2, 64, 1024), torch.float32),     # the JAX tests' GQA, R = 4
+    ((8, 32, 4, 64, 2048), torch.bfloat16),   # tinyllama's decode, R = 8
+    ((2, 4, 4, 64, 512), torch.bfloat16),     # R = 1
+    ((4, 8, 4, 64, 1024), torch.bfloat16),    # R = 2
+    ((4, 8, 4, 64, 1024), torch.float32),
+    ((2, 8, 2, 128, 512), torch.bfloat16),    # hd 128, R = 4
+    ((2, 8, 2, 128, 512), torch.float32),
+    ((1, 24, 2, 128, 640), torch.bfloat16),   # R = 12: two head groups
+    ((1, 24, 2, 128, 640), torch.float32)])
+def test_flash_decode_kernel_matches_plain(cuda, shape, dtype, monkeypatch):
+    """L at 1, a tile's edges (63, 64, 65), mid-cache and S; windows that
+    start mid-tile; one split and several (the plan's least tiles a block
+    at 1 as well as its own, so that every shape splits somewhere)."""
+    from repro_torch.kernels import flash_decode as fd
+
+    B, H, Kv, hd, S = shape
+    tol = FD_TOL[dtype]
+    q, k, v = _fd_inputs(shape, dtype, S + H, cuda)
+    splits = set()
+    for min_tiles in (1, fd.MIN_TILES):
+        monkeypatch.setattr(fd, "MIN_TILES", min_tiles)
+        fd.plan.cache_clear()
+        for L, window in ((1, 0), (63, 0), (64, 0), (65, 0), (S // 2 + 1, 0),
+                          (S, 0), (S // 2, 128), (S, 100), (S - 3, 70)):
+            before = ops.flash_decode.launches
+            got = ops.flash_decode(q, k, v, L, window=window)
+            torch.cuda.synchronize()
+            assert ops.flash_decode.launches == before + 1
+            assert got.dtype == dtype and got.shape == (B, H, hd)
+            torch.testing.assert_close(
+                got.float(), ref.flash_decode(q, k, v, L, window=window),
+                rtol=tol, atol=tol)
+            lo = max(0, L - window) if window else 0
+            cap = (fd.CLUSTER_SPLITS if dtype == torch.bfloat16
+                   else fd.MAX_SPLITS)
+            splits.add(fd.plan(B, Kv, H // Kv, L - lo, cap)[0] > 1)
+    fd.plan.cache_clear()
+    assert splits == {False, True}
+
+
+@pytest.mark.cuda
+def test_flash_decode_back_to_back_calls(cuda, monkeypatch):
+    """Calls queued without a sync between them, whose split counts differ
+    and whose shapes alternate, each match the plain version: state left
+    stale by one call would show in the next. One tile a block at least,
+    so that the calls split in several ways."""
+    from repro_torch.kernels import flash_decode as fd
+
+    monkeypatch.setattr(fd, "MIN_TILES", 1)
+    fd.plan.cache_clear()
+
+    shapes = ((8, 32, 4, 64, 2048), (2, 24, 2, 128, 1024))
+    ins = {s: _fd_inputs(s, torch.bfloat16, i, cuda)
+           for i, s in enumerate(shapes)}
+    calls = [(shapes[i % 2], L) for i, L in enumerate(
+        (2048, 577, 1, 1024, 640, 130, 2048, 64, 1500, 900))]
+    outs = [ops.flash_decode(*ins[s], L) for s, L in calls]
+    torch.cuda.synchronize()
+    seen = set()
+    for (s, L), got in zip(calls, outs):
+        B, H, Kv, hd, S = s
+        seen.add(fd.plan(B, Kv, H // Kv, L, fd.CLUSTER_SPLITS)[0])
+        torch.testing.assert_close(got.float(),
+                                   ref.flash_decode(*ins[s], L),
+                                   rtol=2e-2, atol=2e-2)
+    fd.plan.cache_clear()
+    assert len(seen) >= 3

@@ -144,18 +144,68 @@ def test_wrapper_rejects(case, err, msg):
 
 
 @pytest.mark.parametrize("B,Kv,R,n,splits", [
-    (8, 4, 8, 1, 1), (8, 4, 8, 577, 10), (8, 4, 8, 2048, 16),
-    (4, 4, 2, 32768, 32), (1, 1, 8, 2048, 64), (2, 2, 4, 33, 2),
-    (1, 4, 1, 512, 16), (2, 1, 12, 100, 4), (1, 2, 3, 1000, 32)])
+    (8, 4, 8, 1, 1), (8, 4, 8, 577, 2), (8, 4, 8, 2048, 8),
+    (4, 4, 2, 32768, 32), (1, 1, 8, 2048, 8), (2, 2, 4, 33, 1),
+    (1, 4, 1, 512, 2), (2, 1, 12, 100, 1), (1, 2, 3, 1000, 4)])
 def test_split_plan_covers_the_positions(B, Kv, R, n, splits):
-    """Head groups of at most 8, stretches of whole tiles, none empty,
-    some 528 blocks at most (the decode path's L = 2048: 16 splits, 512
-    blocks)."""
-    n_split, chunk = fd.plan(B, Kv, R, n)
-    assert chunk % fd.TILE == 0 and n_split == splits
-    assert (n_split - 1) * chunk < n <= n_split * chunk
-    base = B * Kv * -(-R // fd.MAX_ROWS)
-    assert base * n_split < fd.TARGET_BLOCKS + base
+    """Head groups of at most 8, stretches of whole 64-position tiles,
+    none empty, at least 4 tiles a block where n has them, some 528
+    blocks at most (the decode path's L = 2048: 8 splits, 256 blocks);
+    bf16 at most 8 splits, one cluster."""
+    for cap, want in ((fd.MAX_SPLITS, splits),
+                      (fd.CLUSTER_SPLITS, min(splits, fd.CLUSTER_SPLITS))):
+        n_split, chunk = fd.plan(B, Kv, R, n, cap)
+        assert chunk % fd.TILE == 0 and n_split == want
+        assert (n_split - 1) * chunk < n <= n_split * chunk
+        assert n_split == 1 or chunk >= fd.MIN_TILES * fd.TILE
+        base = B * Kv * -(-R // fd.MAX_ROWS)
+        assert base * n_split < fd.TARGET_BLOCKS + base
+
+
+@pytest.mark.parametrize("B,H,Kv,hd,n_split,want", [
+    (8, 32, 4, 64, 1, (0, 0)), (8, 32, 4, 64, 8, (8 * 8 * 32 * 66, 32)),
+    (1, 24, 2, 128, 3, (3 * 24 * 130, 4)), (4, 8, 4, 64, 17,
+                                             (17 * 4 * 8 * 66, 16))])
+def test_scratch_sizes(B, H, Kv, hd, n_split, want):
+    """A split call's workspace holds every split's accumulator, max and
+    sum per (b, h); its counters one per (b, head group of up to 8)."""
+    assert fd.scratch_sizes(B, H, Kv, hd, n_split) == want
+
+
+def _flash_decode_p_bf16(q, k_cache, v_cache, cache_len):
+    """ref.flash_decode's math with the kernel's bf16 rounding of p for
+    the P V product; the denominator sums the unrounded p."""
+    B, H, hd = q.shape
+    S, Kv = k_cache.shape[1], k_cache.shape[2]
+    R = H // Kv
+    qg = q.reshape(B, Kv, R, hd).float() * hd ** -0.5
+    s = torch.einsum("bkrh,bskh->bkrs", qg, k_cache.float())
+    s = s.masked_fill(torch.arange(S) >= cache_len, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    out = torch.einsum("bkrs,bskh->bkrh", p.bfloat16().float(),
+                       v_cache.float()) / p.sum(-1, keepdim=True)
+    return out.reshape(B, H, hd)
+
+
+@pytest.mark.parametrize("L", [1, 577, 2048])
+def test_bf16_probabilities_fit_the_kernel_tolerance(L):
+    """The bf16 kernel rounds p to bf16 for P V (the TPU kernel keeps it
+    fp32). At the decode path's R = 8, hd 64, S = 2,048 that rounding
+    stays well inside the kernel's bf16 tolerance (chip_smoke.py's
+    FD_TOL: 2e-2 relative, 2e-2 x min(1, max |want|) absolute)."""
+    B, H, Kv, hd, S = 8, 32, 4, 64, 2048
+    r = np.random.default_rng(L)
+    q, k, v = (torch.from_numpy(r.standard_normal(s).astype(np.float32))
+               .bfloat16() for s in ((B, H, hd), (B, S, Kv, hd),
+                                     (B, S, Kv, hd)))
+    want = ref.flash_decode(q, k, v, L)
+    got = _flash_decode_p_bf16(q, k, v, L)
+    tol = TOL["bfloat16"]
+    torch.testing.assert_close(got, want, rtol=tol,
+                               atol=tol * min(1.0, want.abs().max().item()))
+    # and by a wide margin: within a tenth of the absolute tolerance
+    err = (got - want).abs().max().item()
+    assert err <= 0.1 * tol * min(1.0, want.abs().max().item())
 
 
 # -- layers ------------------------------------------------------------------
