@@ -15,8 +15,12 @@ Phases, each printing one JSON line, in this order:
    ones, timed with CUDA events (median of repeats) and the profiler
    beside its bound and the one PyTorch call that computes the same
    function, where there is one (host-paced and on the device); ``ssd_scan``
-   at the JAX package's test shapes and the LM path's, ``online_sgd`` and
-   ``meta_update`` also at mamba2-130m's two flat buffers;
+   at the JAX package's test shapes, the LM path's and a 16-chunk
+   sequence (its bound at the tensor cores' TF32 rate, three products
+   for each fp32 one), at the last two also its three kernels, each
+   against its plain phase, and its third at every heads-a-block
+   setting; ``online_sgd`` and ``meta_update`` also at mamba2-130m's
+   two flat buffers;
    ``flash_decode`` at the JAX package's 24 test cases, at the decode
    path's shape (tinyllama at batch 8 and cache 2048, bf16) at L = 1, 64,
    128, 320, 577, 640 and 2048 and with a window, with their mean over
@@ -59,7 +63,8 @@ Phases, each printing one JSON line, in this order:
     (mean last inner loss below the first), launches as reckoned,
     rounds/s, tokens/s and peak device memory;
 16. profile LM: two full-width rounds under torch.profiler: idle share,
-    top kernels, the shares of ``ssd_scan`` and of its plain backward.
+    top kernels, the shares of ``ssd_scan`` (its three kernels) and of
+    its plain backward.
 
 Then the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure is a
@@ -100,16 +105,20 @@ PHI_BYTES = 1153 * 4           # one fp32 copy of the sine MLP on the wire
 # ssd_scan: tests/test_kernels.py's three shapes, then the LM path's
 # (B, H, nc, Q, P, N) at --batch 8 --seq 2048 --k-inner 4: 2 sequences
 # of 8 chunks of 256 per inner step, mamba2-130m's 24 heads of 64 and
-# state 128
+# state 128; then one 4,096-token sequence (16 chunks)
 SSD_SHAPES = (("test_1x2x2x16x64x16", (1, 2, 2, 16, 64, 16)),
               ("test_2x3x4x32x64x32", (2, 3, 4, 32, 64, 32)),
               ("test_1x24x2x64x64x128", (1, 24, 2, 64, 64, 128)),
-              ("path_2x24x8x256x64x128", (2, 24, 8, 256, 64, 128)))
+              ("path_2x24x8x256x64x128", (2, 24, 8, 256, 64, 128)),
+              ("nc16_1x24x16x256x64x128", (1, 24, 16, 256, 64, 128)))
 # 2e-4 is the JAX package's tolerance for the scan (tests/test_kernels.py);
 # it holds at the path's shape too: the outputs stay below about 25, the
 # in-chunk sums are damped by exp(sum dA), and both versions sum fp32
 # products in orders that differ by a few ulp of those magnitudes
 SSD_TOL = 2e-4
+# heads a chunk-outputs block owns: the settings held and timed at the
+# large shapes, beside ssd_scan.heads_per_block's choice
+SSD_HEAD_GROUPS = (1, 2, 3, 4, 5, 6, 8, 12, 24)
 # the LM launcher's runs: the reduced config against the CPU, then
 # mamba2-130m at full width and depth
 LM_REDUCED = ["--arch", "mamba2", "--reduced", "--rounds", "4", "--seq", "64",
@@ -197,7 +206,7 @@ def cuda_ms(torch, fn, iters):
 
 
 def device_ms(torch, fn, key="device_ms", calls=20, windows=3,
-              max_windows=10):
+              max_windows=10, match=None):
     """Mean device time of one call of ``fn``, from torch.profiler: the
     GPU's own time, without the host's, over ``windows`` windows of
     2 x ``calls`` calls each. Only events on the device are summed (an
@@ -208,9 +217,11 @@ def device_ms(torch, fn, key="device_ms", calls=20, windows=3,
     name) counts at its mean time over the launches recorded, times its
     launches per call: the most any window recorded, over 2 x ``calls``,
     rounded up; while no window has recorded anything, more windows are
-    opened, up to ``max_windows``. Returns ``{key: ms, key + "_traced":
-    share}``, the share being the launches recorded over those
-    reckoned."""
+    opened, up to ``max_windows``. Only kernels whose name holds
+    ``match`` count, where it is given. Returns ``{key: ms, key +
+    "_traced": share}``, the share being the launches recorded over
+    those reckoned, and with ``match`` also ``kernels_per_call``, the
+    launches a call so reckoned, summed over the kernels counted."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -226,15 +237,19 @@ def device_ms(torch, fn, key="device_ms", calls=20, windows=3,
                 fn()
             torch.cuda.synchronize()
         for ev in prof.key_averages():
-            if ev.device_type == cuda and ev.count:
+            if ev.device_type == cuda and ev.count and (
+                    match is None or match in ev.key):
                 k = ev.key
                 time_us[k] = time_us.get(k, 0) + ev.self_device_time_total
                 count[k] = count.get(k, 0) + ev.count
                 per_call[k] = max(per_call.get(k, 0), -(-ev.count // n))
     check(count, f"the profiler saw no device time in {opened} windows")
     ms = sum(time_us[k] / count[k] * per_call[k] for k in count) / 1e3
-    return {key: ms, key + "_traced": sum(count.values())
-            / (opened * n * sum(per_call.values()))}
+    out = {key: ms, key + "_traced": sum(count.values())
+           / (opened * n * sum(per_call.values()))}
+    if match is not None:
+        out["kernels_per_call"] = sum(per_call.values())
+    return out
 
 
 def smi_line():
@@ -537,13 +552,58 @@ def ssd_bytes_ops(shape):
     return ops, moved
 
 
+def ssd_phases(torch, ref, ssd_module, args):
+    """ssd_scan's three kernels, each on its plain phase's inputs, held
+    to that phase (2e-4; the cumsum 1e-5) and timed on the device (its
+    own kernel only: state_pass also copies its input first); then
+    chunk_outputs at every setting of SSD_HEAD_GROUPS, held and timed
+    the same way."""
+    xd, dA, Bm, Cm = args
+    st, cs = ref.ssd_chunk_states(xd, dA, Bm)
+    s_in = ref.ssd_state_pass(st, cs)[0]
+    out = {}
+    for name, fn, want, kernel in (
+            ("chunk_states", lambda: ssd_module.chunk_states(xd, dA, Bm),
+             (st, cs), "ssd_scan_states"),
+            ("state_pass", lambda: (ssd_module.state_pass(st, cs),), (s_in,),
+             "ssd_scan_pass"),
+            ("chunk_outputs",
+             lambda: (ssd_module.chunk_outputs(xd, cs, Bm, Cm, s_in),),
+             (ref.ssd_chunk_outputs(xd, cs, Bm, Cm, s_in),),
+             "ssd_scan_outputs")):
+        got = fn()
+        torch.cuda.synchronize()
+        errs = []
+        for g, w in zip(got, want):
+            tol = 1e-5 if g.shape == cs.shape else SSD_TOL
+            torch.testing.assert_close(g, w, rtol=tol, atol=tol)
+            errs.append((g - w).abs().max().item())
+        out[name] = {"max_abs_err": max(errs),
+                     **device_ms(torch, fn, calls=5, match=kernel)}
+    want = ref.ssd_chunk_outputs(xd, cs, Bm, Cm, s_in)
+    by_heads = {}
+    for hg in SSD_HEAD_GROUPS:
+        fn = lambda: ssd_module.chunk_outputs(xd, cs, Bm, Cm, s_in, hg=hg)  # noqa: E731
+        got = fn()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
+        by_heads[hg] = {"max_abs_err": (got - want).abs().max().item(),
+                        **device_ms(torch, fn, calls=5,
+                                    match="ssd_scan_outputs")}
+    out["chunk_outputs_by_heads_per_block"] = by_heads
+    return out
+
+
 def phase_kernels_lm(torch, np, ops, ref, rows):
-    """ssd_scan at the test shapes and the path's (with its dynamic
-    shared memory per block); online_sgd and meta_update at the LM shape
-    (mamba2-130m's two flat buffers)."""
+    """ssd_scan at the test shapes, the path's and a 16-chunk sequence
+    (with its device kernels a call, heads a block and dynamic shared
+    memory per block; at the two large shapes also its three kernels,
+    each held to its plain phase and timed); online_sgd and meta_update
+    at the LM shape (mamba2-130m's two flat buffers)."""
     from repro_torch.kernels import ssd_scan as ssd_module
 
-    _, smem_bytes = ssd_module._bind()
+    smem_bytes = ssd_module._bind()["smem"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     dev = torch.device("cuda")
     for i, (tag, shape) in enumerate(SSD_SHAPES):
         args = ssd_inputs(torch, np, shape, 40 + i, dev)
@@ -552,23 +612,33 @@ def phase_kernels_lm(torch, np, ops, ref, rows):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, rtol=SSD_TOL, atol=SSD_TOL)
         err = (got - want).abs().max().item()
+        # every fp32 product is three TF32 tensor-core products (3xTF32)
         nops, moved = ssd_bytes_ops(shape)
-        t_ops, t_bytes = nops / FP32_OPS_PER_S, moved / HBM_BYTES_PER_S
+        t_ops, t_bytes = 3 * nops / TF32_OPS_PER_S, moved / HBM_BYTES_PER_S
         big = shape[3] >= 256
         row = {"shape_BHncQPN": list(shape), "tol": SSD_TOL,
                "max_abs_err": err, "y_max_abs": want.abs().max().item(),
+               "heads_per_block": ssd_module.heads_per_block(*shape[:4], sms),
                "ms": cuda_ms(torch, lambda: ops.ssd_scan(*args),
                              5 if big else 50),
                **device_ms(torch, lambda: ops.ssd_scan(*args),
-                           calls=5 if big else 20),
+                           calls=5 if big else 20, match="ssd_scan"),
                "plain_ms": cuda_ms(torch, lambda: ref.ssd_scan(*args),
                                    3 if big else 20),
                "library_ms": None,
                "bound_ms": 1e3 * max(t_ops, t_bytes),
                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-               "ops_type": "fp32", "fp32_ops": nops, "bytes": moved,
-               "smem_bytes": smem_bytes(*shape[3:]),
-               "tf32_bound_ms": 1e3 * max(nops / TF32_OPS_PER_S, t_bytes)}
+               "ops_type": "3xtf32", "fp32_ops": nops, "tf32_ops": 3 * nops,
+               "bytes": moved, "smem_bytes": smem_bytes(*shape[3:]),
+               "tf32_bound_ms": 1e3 * max(nops / TF32_OPS_PER_S, t_bytes),
+               "fp32_ffma_bound_ms": 1e3 * max(nops / FP32_OPS_PER_S,
+                                               t_bytes)}
+        check(row["kernels_per_call"] == ssd_module.KERNELS_PER_CALL,
+              f"ssd_scan {tag}: the profiler reckons "
+              f"{row['kernels_per_call']} kernels a call, not "
+              f"{ssd_module.KERNELS_PER_CALL}")
+        if big:
+            row["phases"] = ssd_phases(torch, ref, ssd_module, args)
         rows[f"ssd_scan/{tag}"] = row
         emit({"phase": "kernel", "kernel": "ssd_scan", "case": tag, **row})
 
@@ -1042,7 +1112,8 @@ def phase_profile_lm(torch, np, tm, phi):
 
     act = torch.profiler.ProfilerActivity
     _, wall, by_name, dev_us = profiled([act.CUDA])
-    ssd_us = sum(t for k, (t, _) in by_name.items() if "ssd_scan" in k)
+    ssd_by = {k: t for k, (t, _) in by_name.items() if "ssd_scan" in k}
+    ssd_us = sum(ssd_by.values())
     check(ssd_us > 0, "the profiler saw no ssd_scan kernel")
 
     def kernel_us(ev):      # device time of the kernels launched under ev
@@ -1064,6 +1135,8 @@ def phase_profile_lm(torch, np, tm, phi):
           "kernels_launched": sum(c for _, c in by_name.values()),
           "ssd_scan_ms": ssd_us / 1e3,
           "ssd_scan_share_of_busy": ssd_us / dev_us,
+          "ssd_scan_ms_by_kernel": {k[:80]: t / 1e3
+                                    for k, t in ssd_by.items()},
           "host_traced_wall_ms": 1e3 * traced_wall,
           "host_traced_device_busy_ms": traced_dev_us / 1e3,
           "ssd_backward_ms": bwd_us / 1e3, "ssd_backward_count": bwd_count,
@@ -1496,7 +1569,9 @@ def main():
              **{k: row[k] for k in ("max_abs_err", "ms", "device_ms",
                                     "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},
-             "library_device_ms": row.get("library_device_ms")})
+             "library_device_ms": row.get("library_device_ms"),
+             **({"kernels_per_call": row["kernels_per_call"]}
+                if "kernels_per_call" in row else {})})
     emit({"total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi_line(), flush=True)

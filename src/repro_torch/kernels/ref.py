@@ -210,3 +210,47 @@ def ssd_scan(xd, dA, Bm, Cm):
     prev = torch.stack(prev, dim=2)                        # (B,H,nc,P,N)
     y_off = torch.einsum("bcln,bhcpn,bhcl->bhclp", Cm, prev, torch.exp(dA_cs))
     return y_diag + y_off
+
+
+# -- the three phases of the ssd_scan kernel (kernels/ssd_scan.py) ----------
+# Their composition is ssd_scan: ssd_chunk_outputs(xd, cs, Bm, Cm,
+# ssd_state_pass(*ssd_chunk_states(xd, dA, Bm))[0]). States are stored
+# transposed, (N, P) per (b, h, c), as the kernel keeps them.
+
+
+def ssd_chunk_states(xd, dA, Bm):
+    """Phase 1: cs = cumsum(dA) within each chunk (B, H, nc, Q), and each
+    chunk's own state st[b,h,c] = (B_c o exp(cs[-1] - cs))^T xd_c, as
+    (B, H, nc, N, P). Returns (st, cs)."""
+    cs = torch.cumsum(dA.float(), dim=-1)
+    decay = torch.exp(cs[..., -1:] - cs)
+    st = torch.einsum("bcln,bhcl,bhclp->bhcnp", Bm.float(), decay,
+                      xd.float())
+    return st.contiguous(), cs
+
+
+def ssd_state_pass(st, cs):
+    """Phase 2: the state entering each chunk, zero before the first and
+    s_in[c+1] = s_in[c] exp(cs[c, -1]) + st[c]. Returns (s_in (B, H, nc,
+    N, P), the state after the last chunk (B, H, N, P))."""
+    decay = torch.exp(cs[..., -1])                         # (B,H,nc)
+    state = torch.zeros_like(st[:, :, 0])
+    s_in = []
+    for c in range(st.shape[2]):
+        s_in.append(state)
+        state = state * decay[:, :, c, None, None] + st[:, :, c]
+    return torch.stack(s_in, dim=2), state
+
+
+def ssd_chunk_outputs(xd, cs, Bm, Cm, s_in):
+    """Phase 3: y = (C B^T o L) xd + exp(cs) C s_in, with L[i,j] =
+    exp(cs[i] - cs[j]) for i >= j, else 0. Returns (B, H, nc, Q, P)."""
+    xd, Bm, Cm = xd.float(), Bm.float(), Cm.float()
+    Q = xd.shape[3]
+    diff = cs[..., :, None] - cs[..., None, :]             # (B,H,nc,Q,Q)
+    mask = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=xd.device))
+    L = torch.exp(torch.where(mask, diff, torch.full_like(diff, -1e30)))
+    CB = torch.einsum("bcin,bcjn->bcij", Cm, Bm)           # (B,nc,Q,Q)
+    y_diag = torch.einsum("bhcij,bhcjp->bhcip", L * CB[:, None], xd)
+    y_off = torch.einsum("bcin,bhcnp,bhci->bhcip", Cm, s_in, torch.exp(cs))
+    return y_diag + y_off

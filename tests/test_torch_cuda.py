@@ -222,24 +222,107 @@ def test_training_on_card_matches_cpu(cuda, name):
             np.testing.assert_allclose(ge[k], v, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [
-    (1, 2, 2, 16, 64, 16), (2, 3, 4, 32, 64, 32), (1, 24, 2, 64, 64, 128),
-    (2, 24, 8, 256, 64, 128)])           # the JAX tests' shapes, the LM path's
-def test_ssd_scan_kernel_matches_plain(cuda, shape):
+def _ssd_inputs(shape, dev, decay=0.1):
     B, H, nc, Q, P, N = shape
     r = np.random.default_rng(sum(shape))
-    xd, dA, Bm, Cm = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (
+    return tuple(torch.from_numpy(a.astype(np.float32)).to(dev) for a in (
         r.standard_normal((B, H, nc, Q, P)),
-        -np.abs(r.standard_normal((B, H, nc, Q))) * 0.1,
+        -np.abs(r.standard_normal((B, H, nc, Q))) * decay,
         r.standard_normal((B, nc, Q, N)) * 0.3,
         r.standard_normal((B, nc, Q, N)) * 0.3))
+
+
+# the JAX tests' shapes, the LM path's, one chunk, and one 4,096-token
+# sequence (16 chunks)
+SSD_SHAPES = [(1, 2, 2, 16, 64, 16), (2, 3, 4, 32, 64, 32),
+              (1, 24, 2, 64, 64, 128), (2, 24, 8, 256, 64, 128),
+              (2, 24, 1, 256, 64, 128), (1, 24, 16, 256, 64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain(cuda, shape):
+    xd, dA, Bm, Cm = _ssd_inputs(shape, cuda)
     before = ops.ssd_scan.launches
     got = ops.ssd_scan(xd, dA, Bm, Cm)
     torch.cuda.synchronize()
     assert ops.ssd_scan.launches == before + 1
     torch.testing.assert_close(got, ref.ssd_scan(xd, dA, Bm, Cm), rtol=2e-4,
                                atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 24, 16, 256, 64, 128),
+                                   (1, 3, 4, 32, 64, 32)])
+def test_ssd_scan_kernel_holds_slow_decay(cuda, shape):
+    """dA about -1e-4: the carried state hardly decays and grows over
+    every chunk, and the 2e-4 still holds."""
+    xd, dA, Bm, Cm = _ssd_inputs(shape, cuda, decay=1e-4)
+    got = ops.ssd_scan(xd, dA, Bm, Cm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref.ssd_scan(xd, dA, Bm, Cm), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 4, 32, 64, 32),
+                                   (2, 24, 8, 256, 64, 128)])
+def test_ssd_scan_phase_kernels_match_plain(cuda, shape):
+    """Each of the three kernels against its plain phase, on the plain
+    version's inputs to it."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    xd, dA, Bm, Cm = _ssd_inputs(shape, cuda)
+    st_want, cs_want = ref.ssd_chunk_states(xd, dA, Bm)
+    s_in_want = ref.ssd_state_pass(st_want, cs_want)[0]
+    before = ops.ssd_scan.launches
+    st, cs = ssd.chunk_states(xd, dA, Bm)
+    s_in = ssd.state_pass(st_want, cs_want)
+    y = ssd.chunk_outputs(xd, cs_want, Bm, Cm, s_in_want)
+    torch.cuda.synchronize()
+    assert ops.ssd_scan.launches == before     # the phases count nothing
+    torch.testing.assert_close(cs, cs_want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(st, st_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(s_in, s_in_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(
+        y, ref.ssd_chunk_outputs(xd, cs_want, Bm, Cm, s_in_want), rtol=2e-4,
+        atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hg", [1, 5, 7, 24])
+def test_ssd_scan_kernel_any_head_group(cuda, hg):
+    """The chunk-outputs kernel at other heads-per-block settings than
+    the wrapper picks, a ragged last group included."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    xd, dA, Bm, Cm = _ssd_inputs((1, 24, 2, 256, 64, 128), cuda)
+    st, cs = ref.ssd_chunk_states(xd, dA, Bm)
+    s_in = ref.ssd_state_pass(st, cs)[0]
+    got = ssd.chunk_outputs(xd, cs, Bm, Cm, s_in, hg=hg)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, ref.ssd_chunk_outputs(xd, cs, Bm, Cm, s_in), rtol=2e-4,
+        atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", range(4))
+def test_ssd_scan_kernel_rejects_misaligned_operands(cuda, operand):
+    """A contiguous view that starts off a 16-byte boundary raises a
+    ValueError before any launch (the kernels copy 16-byte vectors), and
+    the next call still runs."""
+    args = list(_ssd_inputs((1, 2, 2, 16, 64, 16), cuda))
+    t = args[operand]
+    args[operand] = torch.empty(t.numel() + 1, device=cuda)[1:].view(
+        t.shape).copy_(t)
+    before = ops.ssd_scan.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.ssd_scan(*args)
+    assert ops.ssd_scan.launches == before
+    args[operand] = t
+    torch.testing.assert_close(ops.ssd_scan(*args), ref.ssd_scan(*args),
+                               rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.cuda

@@ -2,9 +2,11 @@
 
 ``kernels/ref.py::ssd_scan`` (the kernel's plain version, which the
 ``ssd_scan`` wrapper takes for CPU tensors), ``models/mamba2.py::
-ssd_chunked`` and the autograd function around the kernel
-(``ssd_chunked_kernel``) are held to ``repro``'s ``ref.ssd_scan``, its
-Pallas kernel in interpret mode, ``ssd_chunked`` and the gradient of
+ssd_chunked``, the autograd function around the kernel
+(``ssd_chunked_kernel``) and the plain versions of the kernel's three
+phases (chunk states, state pass, chunk outputs) are held to
+``repro``'s ``ref.ssd_scan``, its Pallas kernel in interpret mode,
+``ssd_chunked`` (its y and final state) and the gradient of
 ``ssd_chunked_pallas``. Inputs come from NumPy seeds. Tolerances: 2e-4
 for the scan, as the JAX package's own kernel test; 1e-4 for the
 gradients (fp32 sums of up to a chunk's length in another order).
@@ -27,6 +29,8 @@ from repro_torch.models import mamba2 as tm  # noqa: E402
 TOL = 2e-4
 SHAPES = [(1, 2, 2, 16, 64, 16), (2, 3, 4, 32, 64, 32),
           (1, 24, 2, 64, 64, 128)]       # the last is mamba2-130m's geometry
+# the kernel's three phases: the JAX tests' shapes, one chunk, 16 chunks
+PHASE_SHAPES = SHAPES + [(2, 3, 1, 32, 64, 32), (1, 2, 16, 16, 64, 16)]
 
 
 def _scan_inputs(shape, seed):
@@ -66,6 +70,58 @@ def test_ref_ssd_scan_matches_jax_ref_and_pallas_kernel(shape):
     before = ops.ssd_scan.launches
     np.testing.assert_array_equal(ops.ssd_scan(*_t(ins)).numpy(), got)
     assert ops.ssd_scan.launches == before
+
+
+def _phases(xd, dA, Bm, Cm):
+    """ref's three phases of the kernel, composed: (y, final state)."""
+    st, cs = ref.ssd_chunk_states(xd, dA, Bm)
+    s_in, final = ref.ssd_state_pass(st, cs)
+    return ref.ssd_chunk_outputs(xd, cs, Bm, Cm, s_in), final
+
+
+@pytest.mark.parametrize("shape", PHASE_SHAPES)
+def test_ssd_phases_compose_to_jax_scan(shape):
+    """Chunk states, state pass and chunk outputs (the kernel's split)
+    give ref.ssd_scan, repro's ref.ssd_scan and its Pallas kernel in
+    interpret mode; the phase wrappers take them for CPU tensors."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    ins = _scan_inputs(shape, sum(shape) + 1)
+    xd, dA, Bm, Cm = _t(ins)
+    y, _ = _phases(xd, dA, Bm, Cm)
+    np.testing.assert_allclose(y.numpy(), ref.ssd_scan(xd, dA, Bm, Cm),
+                               rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jref.ssd_scan(*ins)),
+                               rtol=TOL, atol=TOL)
+    pallas = jops.ssd_scan(*map(jnp.asarray, ins))           # interpret mode
+    np.testing.assert_allclose(y.numpy(), np.asarray(pallas), rtol=TOL,
+                               atol=TOL)
+    st, cs = ssd.chunk_states(xd, dA, Bm)
+    assert st.shape == (*xd.shape[:3], Bm.shape[-1], xd.shape[-1])
+    y_w = ssd.chunk_outputs(xd, cs, Bm, Cm, ssd.state_pass(st, cs))
+    np.testing.assert_array_equal(y_w.numpy(), y.numpy())
+
+
+@pytest.mark.parametrize("shape", PHASE_SHAPES)
+def test_ssd_passed_states_match_jax_final_state(shape):
+    """The model's inputs in the kernel's layout: the state after the
+    pass's last chunk is jax ssd_chunked's final state (transposed), and
+    the phases' y its y."""
+    B, H, nc, Q, P, N = shape
+    S = nc * Q
+    ins = _model_inputs(B, S, H, P, N, sum(shape) + 2)
+    y_j, st_j = jm.ssd_chunked(*map(jnp.asarray, ins), Q)
+    x, dt, A, Bm, Cm = _t(ins)
+    xd = (x * dt[..., None]).reshape(B, nc, Q, H, P).permute(
+        0, 3, 1, 2, 4).contiguous()
+    dA = (dt * A).reshape(B, nc, Q, H).permute(0, 3, 1, 2).contiguous()
+    y, final = _phases(xd, dA, Bm.reshape(B, nc, Q, N),
+                       Cm.reshape(B, nc, Q, N))
+    np.testing.assert_allclose(final.transpose(-1, -2).numpy(),
+                               np.asarray(st_j), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(
+        y.permute(0, 2, 3, 1, 4).reshape(B, S, H, P).numpy(),
+        np.asarray(y_j), rtol=TOL, atol=TOL)
 
 
 @pytest.mark.parametrize("S", [128, 100])     # whole chunks, then ragged
