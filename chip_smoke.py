@@ -7,14 +7,19 @@ Phases, each printing one JSON line, in this order:
 
 1. device: the card, its power limit, and the fp32 matmul flags (full
    fp32, no TF32) the parity checks need;
-2. build: the CUDA kernels (``nvcc``, sm_90a, one process per source)
-   and the Triton kernels are built from this checkout's sources, all at
-   the same time;
+2. build: the CUDA kernels (``nvcc``, sm_90a, one process per source:
+   ``online_sgd``, ``dfa_epoch_int8``, ``meta_update``, ``ssd_scan``,
+   ``flash_decode``) and the one Triton kernel (``online_sgd_momentum``)
+   are built from this checkout's sources, all at the same time;
 3. kernels: each kernel against its plain PyTorch version on the same
    CUDA tensors, at the shapes the main paths give it and at harder
    ones, timed with CUDA events (median of repeats) and the profiler
    beside its bound and the one PyTorch call that computes the same
-   function, where there is one (host-paced and on the device); ``ssd_scan``
+   function, where there is one (host-paced and on the device);
+   ``online_sgd`` bit for bit at the quickstart's (1, 1153), the serving
+   (64, 1153) and flat 2^24 in fp32 and bf16; ``dfa_epoch_int8`` exact
+   (the loss within 1e-6) at the serving shape for each layer and mixed,
+   the S = 512 rails and dims (5, 16, 12, 3); ``ssd_scan``
    at the JAX package's test shapes, the LM path's and a 16-chunk
    sequence (its bound at the tensor cores' TF32 rate, three products
    for each fp32 one), at the last two also its three kernels, each
@@ -335,9 +340,10 @@ def phase_device(torch):
 
 def phase_build(torch, build, ops):
     """One nvcc per CUDA source in a thread while Triton compiles its
-    kernels."""
+    one kernel (``online_sgd_momentum``, on no path)."""
     out = {}
-    sources = ["dfa_epoch_int8", "meta_update", "ssd_scan", "flash_decode"]
+    sources = ["online_sgd", "dfa_epoch_int8", "meta_update", "ssd_scan",
+               "flash_decode"]
 
     def nvcc():
         t0 = time.perf_counter()
@@ -348,7 +354,6 @@ def phase_build(torch, build, ops):
     th.start()
     t0 = time.perf_counter()
     p = torch.zeros(16, device="cuda")
-    ops.online_sgd(p, p, 0.0)
     ops.online_sgd_momentum(p, p, p, 0.0, 0.0)
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t0
@@ -368,24 +373,25 @@ def phase_kernels(torch, np, ops, ref):
     rows = {}
     g = torch.Generator(device="cpu").manual_seed(0)
     lr = 0.01
-    # online_sgd: the serving shape, then flat 2^24 in fp32 and bf16
-    for tag, shape, dtype, tol in (
-            ("serve_64x1153_fp32", (SLOTS, 1153), torch.float32, 1e-6),
-            ("flat_2^24_fp32", (1 << 24,), torch.float32, 1e-6),
-            ("flat_2^24_bf16", (1 << 24,), torch.bfloat16, 1e-2)):
+    # online_sgd: the quickstart's client (19,208 of its launches), the
+    # serving shape, then flat 2^24 in fp32 and bf16; bit for bit
+    for tag, shape, dtype in (
+            ("quickstart_1x1153_fp32", (1, 1153), torch.float32),
+            ("serve_64x1153_fp32", (SLOTS, 1153), torch.float32),
+            ("flat_2^24_fp32", (1 << 24,), torch.float32),
+            ("flat_2^24_bf16", (1 << 24,), torch.bfloat16)):
         p = torch.randn(shape, generator=g).to(dev, dtype)
         gr = torch.randn(shape, generator=g).to(dev, dtype)
         got = ops.online_sgd(p, gr, lr)
         want = ref.online_sgd(p, gr, lr)
-        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                   atol=tol)
+        check(torch.equal(got, want), f"online_sgd {tag}: not bit-exact")
         err = (got.float() - want.float()).abs().max().item()
         iters = 200 if p.numel() < 1e6 else 20
         n = p.numel()
         moved = 3 * n * p.element_size()
         bound = 1e3 * max(moved / HBM_BYTES_PER_S, 2 * n / FP32_OPS_PER_S)
         row = {"shape": list(shape), "dtype": str(dtype).split(".")[1],
-               "tol": tol, "max_abs_err": err,
+               "tol": "exact", "max_abs_err": err,
                "ms": cuda_ms(torch, lambda: ops.online_sgd(p, gr, lr), iters),
                **device_ms(torch, lambda: ops.online_sgd(p, gr, lr)),
                "plain_ms": cuda_ms(torch, lambda: ref.online_sgd(p, gr, lr),
@@ -660,10 +666,15 @@ def phase_kernels_lm(torch, np, ops, ref, rows):
                  lambda: torch.lerp(a, b, 0.37), 3 * n)):
             got, want = fn(), plain()
             torch.cuda.synchronize()
-            torch.testing.assert_close(got.float(), want.float(), rtol=tol,
-                                       atol=tol)
+            if kernel == "online_sgd":
+                check(torch.equal(got, want),
+                      f"online_sgd {tag}: not bit-exact")
+            else:
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=tol, atol=tol)
             t_bytes, t_ops = moved / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
-            row = {"n": n, "dtype": str(dtype).split(".")[1], "tol": tol,
+            row = {"n": n, "dtype": str(dtype).split(".")[1],
+                   "tol": "exact" if kernel == "online_sgd" else tol,
                    "max_abs_err": (got.float() - want.float()).abs().max()
                    .item(),
                    "ms": cuda_ms(torch, fn, iters),
@@ -1539,7 +1550,7 @@ def main():
              "serve_decode_tinyllama_1_1b": s_dec["launches"]}
     kernels = []
     for kernel, route, source, replaces, row in (
-            ("online_sgd", "triton", "src/repro_torch/kernels/online_sgd.py",
+            ("online_sgd", "cuda", "src/repro_torch/kernels/csrc/online_sgd.cu",
              "src/repro/kernels/online_sgd.py:36",
              rows["online_sgd/serve_64x1153_fp32"]),
             ("dfa_epoch_int8", "cuda",

@@ -1,0 +1,173 @@
+// Streaming SGD step out = p - lr * g on Hopper.
+//
+// Replaces the TPU kernel repro/kernels/online_sgd.py::online_sgd_2d
+// (_sgd_kernel). The JAX server makes one pallas_call per parameter leaf;
+// the port keeps every slot's (or client's) parameters in one flat buffer,
+// so one launch updates all of them: one launch per streamed sample on
+// the quickstart's TinyReptile client, one per step of a serving tick.
+//
+// Bound on an H100: the pass reads p and g and writes out once, 12 bytes
+// per element in fp32 and 6 in bf16, over 3.35 TB/s (0.26 us at the
+// serving shape's 64 x 1,153 fp32, 231 us at mamba2-130m's 128,981,760
+// bf16); two flops per element are nothing beside that. At the sine MLP's
+// sizes launch latency, on the device and on the host, sets the pace, so
+// the design is about the host path as much as the device: a plain C entry
+// point called through ctypes with lr passed by value (no host->device
+// copy, nothing to look up per call), on PyTorch's current stream.
+//
+// Device side, as csrc/meta_update.cu: there is no reuse, so no TMA or
+// wgmma; what matters is bytes in flight. Where all three pointers are
+// 16-byte aligned each thread loads U independent 16-byte vectors of p and
+// of g (float4, or eight bf16) before it uses any, with streaming cache
+// hints (__ldcs, __stcs: nothing is read twice). The grid is sized to the
+// work: 256-thread blocks of U = 4 vectors a thread where that fills the
+// card's 132 SMs at least once, else 128-thread blocks of one vector a
+// thread, so that a small update (64 x 1,153 is 18,448 vectors) is spread
+// over 145 blocks rather than 19 (each SM's own bandwidth to
+// L2 would set the pace there). The few elements past the last whole
+// vector go to the first threads of the grid. Unaligned buffers take the
+// scalar kernel, U elements a thread.
+//
+// The math is fp32 whatever the storage. lr * g and the difference are
+// rounded on their own (__fmul_rn, __fsub_rn), so nvcc cannot contract
+// them into an FMA and the result equals the plain PyTorch version
+// (kernels/ref.py::online_sgd, lr rounded to fp32 as torch does) bit for
+// bit; bf16 output rounds to nearest even, as torch's cast does.
+//
+// The helpers are copied from csrc/meta_update.cu rather than shared
+// through a header: kernels/build.py names each library by a hash of its
+// one source file, so an edited header would not rebuild it.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kSms = 132;            // an H100 SXM's SMs
+// the two launch shapes: (threads, vectors or elements a thread)
+constexpr int kBigThreads = 256, kBigUnroll = 4;
+constexpr int kSmallThreads = 128, kSmallUnroll = 1;
+
+__device__ __forceinline__ float step_rn(float p, float g, float lr) {
+  return __fsub_rn(p, __fmul_rn(lr, g));
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store(float v, float* o) { *o = v; }
+__device__ __forceinline__ void store(float v, __nv_bfloat16* o) {
+  *o = __float2bfloat16_rn(v);
+}
+
+// n elements, all three pointers 16-byte aligned: nv = n / V whole
+// vectors, then the tail n - nv V (< V) by the first threads.
+template <typename T, int kThreads, int kUnroll>
+__global__ void __launch_bounds__(kThreads)
+online_sgd_vec(const T* __restrict__ p, const T* __restrict__ g,
+               T* __restrict__ out, long long n, float lr) {
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte access
+  const long long nv = n / V;
+  const uint4* p4 = reinterpret_cast<const uint4*>(p);
+  const uint4* g4 = reinterpret_cast<const uint4*>(g);
+  uint4* o4 = reinterpret_cast<uint4*>(out);
+  const long long base =
+      (long long)blockIdx.x * kThreads * kUnroll + threadIdx.x;
+  uint4 x[kUnroll], y[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const long long i = base + u * kThreads;
+    if (i < nv) {
+      x[u] = __ldcs(p4 + i);
+      y[u] = __ldcs(g4 + i);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const long long i = base + u * kThreads;
+    if (i < nv) {
+      uint4 r;
+      const T* xs = reinterpret_cast<const T*>(&x[u]);
+      const T* ys = reinterpret_cast<const T*>(&y[u]);
+      T* rs = reinterpret_cast<T*>(&r);
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        store(step_rn(to_f32(xs[j]), to_f32(ys[j]), lr), &rs[j]);
+      __stcs(o4 + i, r);
+    }
+  }
+  const long long tail = nv * V + (long long)blockIdx.x * kThreads +
+                         threadIdx.x;
+  if (tail < n) store(step_rn(to_f32(p[tail]), to_f32(g[tail]), lr),
+                      &out[tail]);
+}
+
+// any alignment: kUnroll elements a thread, loaded before any is used
+template <typename T, int kThreads, int kUnroll>
+__global__ void __launch_bounds__(kThreads)
+online_sgd_scalar(const T* __restrict__ p, const T* __restrict__ g,
+                  T* __restrict__ out, long long n, float lr) {
+  const long long base =
+      (long long)blockIdx.x * kThreads * kUnroll + threadIdx.x;
+  float x[kUnroll], y[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const long long i = base + u * kThreads;
+    if (i < n) {
+      x[u] = to_f32(__ldcs(p + i));
+      y[u] = to_f32(__ldcs(g + i));
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    const long long i = base + u * kThreads;
+    if (i < n) store(step_rn(x[u], y[u], lr), &out[i]);
+  }
+}
+
+template <typename T, int kThreads, int kUnroll>
+cudaError_t launch_as(bool vectorized, long long items, const T* p,
+                      const T* g, T* out, long long n, float lr,
+                      cudaStream_t stream) {
+  const long long per_block = (long long)kThreads * kUnroll;
+  long long blocks = (items + per_block - 1) / per_block;
+  if (blocks < 1) blocks = 1;                  // a tail only
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (vectorized)
+    online_sgd_vec<T, kThreads, kUnroll>
+        <<<(unsigned)blocks, kThreads, 0, stream>>>(p, g, out, n, lr);
+  else
+    online_sgd_scalar<T, kThreads, kUnroll>
+        <<<(unsigned)blocks, kThreads, 0, stream>>>(p, g, out, n, lr);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const void* p, const void* g, void* out, long long n,
+                   float lr, cudaStream_t stream) {
+  const bool vectorized =
+      (((uintptr_t)p | (uintptr_t)g | (uintptr_t)out) % 16) == 0;
+  const long long items = vectorized ? n / (16 / sizeof(T)) : n;
+  const T* pt = static_cast<const T*>(p);
+  const T* gt = static_cast<const T*>(g);
+  T* ot = static_cast<T*>(out);
+  if (items >= (long long)kSms * kBigThreads * kBigUnroll)
+    return launch_as<T, kBigThreads, kBigUnroll>(vectorized, items, pt, gt,
+                                                 ot, n, lr, stream);
+  return launch_as<T, kSmallThreads, kSmallUnroll>(vectorized, items, pt,
+                                                   gt, ot, n, lr, stream);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+extern "C" int online_sgd_launch(const void* p, const void* g, void* out,
+                                 long long n, int dtype, float lr,
+                                 void* stream) {
+  if (n <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)launch<float>(p, g, out, n, lr, s);
+  if (dtype == 1) return (int)launch<__nv_bfloat16>(p, g, out, n, lr, s);
+  return (int)cudaErrorInvalidValue;
+}

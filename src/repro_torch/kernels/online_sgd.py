@@ -1,60 +1,56 @@
-"""Streaming SGD update ``p - lr * g``, and its momentum form, as
-Triton kernels.
+"""Streaming SGD update ``p - lr * g`` as a CUDA C++ kernel, and its
+momentum form as a Triton kernel.
 
-Replaces the TPU kernel ``repro/kernels/online_sgd.py::online_sgd_2d``
-(``_sgd_kernel``), which the JAX server reaches once per parameter leaf
-through ``kernels/ops.py::tree_online_sgd``. Here the adaptation
-server keeps every slot's parameters in one flat ``(B, 1153)`` buffer,
-so one launch updates all slots and all six leaves of the sine MLP.
-
-What bounds it on an H100: it reads p and g and writes p' once, 3 * n *
-itemsize bytes over 3.35 TB/s. At the serving shape (B = 64 slots x
-1153 fp32) that is 0.89 MB, about 0.26 us: launch latency, not the
-memory, sets the pace, which is why the update is one launch per step
-rather than one per leaf. A flat 2^24-element buffer (201 MB in fp32)
-is where the memory bound shows.
-
-The math is fp32 whatever the storage (fp32 or bf16); lr is a runtime
-fp32 scalar, so a new learning rate does not recompile. The compiler
-may contract ``p - lr * g`` into one FMA, so the fp32 result can differ
-from the plain version in the last bit.
+``online_sgd`` replaces the TPU kernel
+``repro/kernels/online_sgd.py::online_sgd_2d`` (``_sgd_kernel``), which
+the JAX server reaches once per parameter leaf through
+``kernels/ops.py::tree_online_sgd``. Here the adaptation server keeps
+every slot's parameters in one flat ``(B, 1153)`` buffer, and a
+TinyReptile client its 1,153, so one launch of ``csrc/online_sgd.cu``
+updates all slots and all six leaves of the sine MLP; the source gives
+the design and the bound. At these sizes the host's cost of a launch
+is the cost of the update, so the wrapper does little: its checks, one
+``torch.empty_like``, one ``ctypes`` call with the pointers and lr by
+value on the current stream. A CPU tensor gets the plain version
+``ref.online_sgd`` instead. The kernel rounds like the plain version,
+so the two agree bit for bit.
 
 ``online_sgd_momentum`` replaces ``online_sgd_momentum_2d``
 (``_sgd_momentum_kernel``): ``m' = mu * m + g`` in fp32, then ``p' = p -
 lr * m'``, one pass that reads p, g and m and writes p' and m' (20 bytes
 per element in fp32, 14 with bf16 p and g: 100.2 us and 70.1 us at 2^24
-elements). Triton because it is the same streaming elementwise pass as
-the kernel beside it, with the same dtype checks and launcher; code
-generation loses nothing on a pass with no reuse.
+elements). It is a Triton kernel launched through Triton's own
+launcher; no path calls it (nor does the JAX package), so its host cost
+was left as it is.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import build, ref
 
 BLOCK = 1024
-_DTYPES = (torch.float32, torch.bfloat16)
+_CODES = {torch.float32: 0, torch.bfloat16: 1}   # online_sgd.cu's dtype
+_DTYPES = tuple(_CODES)
 
 
 @functools.lru_cache(maxsize=1)
-def _kernel():
+def _bind():
+    """The library's entry point, typed; built at first use."""
+    fn = build.load("online_sgd").online_sgd_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.lru_cache(maxsize=1)
+def _momentum_kernel():
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def sgd_kernel(p_ptr, g_ptr, out_ptr, lr, n,
-                   BLOCK_SIZE: tl.constexpr):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK_SIZE + tl.arange(
-            0, BLOCK_SIZE)
-        mask = offs < n
-        p = tl.load(p_ptr + offs, mask=mask).to(tl.float32)
-        g = tl.load(g_ptr + offs, mask=mask).to(tl.float32)
-        out = p - lr * g
-        tl.store(out_ptr + offs, out.to(out_ptr.dtype.element_ty),
-                 mask=mask)
 
     @triton.jit
     def sgd_momentum_kernel(p_ptr, g_ptr, m_ptr, out_p_ptr, out_m_ptr, lr,
@@ -70,14 +66,14 @@ def _kernel():
         tl.store(out_p_ptr + offs,
                  (p - lr * m_new).to(out_p_ptr.dtype.element_ty), mask=mask)
 
-    return sgd_kernel, sgd_momentum_kernel, triton.cdiv
+    return sgd_momentum_kernel, triton.cdiv
 
 
 def _check(p, g):
     if p.shape != g.shape:
         raise ValueError(f"p {tuple(p.shape)} and g {tuple(g.shape)} "
                          f"differ in shape")
-    if p.dtype != g.dtype or p.dtype not in _DTYPES:
+    if p.dtype != g.dtype or p.dtype not in _CODES:
         raise TypeError(f"p and g must share a dtype in {_DTYPES}; got "
                         f"{p.dtype} and {g.dtype}")
     if p.device != g.device:
@@ -88,20 +84,30 @@ def online_sgd(p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
     """``(p - lr * g)`` in fp32 math, stored in p's dtype, as a new
     tensor. A CPU tensor gets the plain version; a CUDA tensor gets the
     kernel (``online_sgd.launches`` counts its launches) or an error."""
-    _check(p, g)
-    if p.device.type == "cpu":
+    if p.shape != g.shape:
+        raise ValueError(f"p {tuple(p.shape)} and g {tuple(g.shape)} "
+                         f"differ in shape")
+    code = _CODES.get(p.dtype)
+    if code is None or g.dtype != p.dtype:
+        raise TypeError(f"p and g must share a dtype in {_DTYPES}; got "
+                        f"{p.dtype} and {g.dtype}")
+    index = p.get_device()         # -1 off the card
+    if g.get_device() != index:
+        raise ValueError(f"p on {p.device}, g on {g.device}")
+    if index < 0:
+        if p.device.type != "cpu" or g.device.type != "cpu":
+            raise ValueError(f"online_sgd: unsupported device {p.device}, "
+                             f"{g.device}")
         return ref.online_sgd(p, g, float(lr))
-    if p.device.type != "cuda":
-        raise ValueError(f"online_sgd: unsupported device {p.device}")
     if not (p.is_contiguous() and g.is_contiguous()):
         raise ValueError("online_sgd: p and g must be contiguous")
     out = torch.empty_like(p)
     n = p.numel()
     if n:
-        kernel, _, cdiv = _kernel()
-        with torch.cuda.device(p.device):
-            kernel[(cdiv(n, BLOCK),)](p, g, out, float(lr), n,
-                                      BLOCK_SIZE=BLOCK, num_warps=4)
+        err = build.launch_on(index, _bind(), p.data_ptr(), g.data_ptr(),
+                              out.data_ptr(), n, code, float(lr))
+        if err != 0:
+            raise RuntimeError(f"online_sgd launch failed: cudaError {err}")
         online_sgd.launches += 1
     return out
 
@@ -133,7 +139,7 @@ def online_sgd_momentum(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     out_p, out_m = torch.empty_like(p), torch.empty_like(m)
     n = p.numel()
     if n:
-        _, kernel, cdiv = _kernel()
+        kernel, cdiv = _momentum_kernel()
         with torch.cuda.device(p.device):
             kernel[(cdiv(n, BLOCK),)](p, g, m, out_p, out_m, float(lr),
                                       float(momentum), n, BLOCK_SIZE=BLOCK,

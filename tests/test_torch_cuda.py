@@ -3,7 +3,8 @@ device.
 
 These tests need the card: each skips where there is none. They import
 neither JAX nor the JAX package, so they run on a machine that has only
-PyTorch (``python -m pytest -q --noconftest tests/test_torch_cuda.py``).
+PyTorch (``PYTHONPATH=src python -m pytest -q --noconftest
+tests/test_torch_cuda.py``).
 Each kernel is held to its plain PyTorch version on the same CUDA
 tensors, and the served results and trained params on the card to the
 port on the CPU.
@@ -36,21 +37,26 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(dims, S, B, seed, dev):
+def _case(dims, S, B, seed, dev, layers=(0, 1, 2), extreme=False):
+    """B slots of random (or, ``extreme``, all-rails) integer operands;
+    slot b trains ``layers[b % len(layers)]``."""
     rng = np.random.default_rng(seed)
     din, h1, h2, dout = dims
 
     def ints(lo, hi, shape, dtype):
-        return torch.from_numpy(
-            rng.integers(lo, hi + 1, shape).astype(dtype)).to(dev)
+        a = (rng.choice([lo, hi], shape) if extreme
+             else rng.integers(lo, hi + 1, shape))
+        return torch.from_numpy(a.astype(dtype)).to(dev)
 
+    blim = 2 ** 22 if extreme else 2 ** 15
+    ylim = 2 ** 21 if extreme else 2 ** 15
     ws = tuple(ints(-127, 127, (B,) + s, np.int8)
                for s in ((din, h1), (h1, h2), (h2, dout)))
-    bs = tuple(ints(-2 ** 15, 2 ** 15, (B, n), np.int32)
-               for n in (h1, h2, dout))
+    bs = tuple(ints(-blim, blim, (B, n), np.int32) for n in (h1, h2, dout))
     xq = ints(-127, 127, (B, S, din), np.int8)
-    yal = ints(-2 ** 15, 2 ** 15, (B, S, dout), np.int32)
-    layer = torch.arange(B, dtype=torch.int32, device=dev) % 3
+    yal = ints(-ylim, ylim, (B, S, dout), np.int32)
+    layer = torch.tensor([layers[i % len(layers)] for i in range(B)],
+                         dtype=torch.int32, device=dev)
     fb = tuple(ints(-127, 127, (dout, h), np.int8) for h in (h1, h2))
     dither = tuple(torch.from_numpy(rng.random((B,) + s).astype(np.float32))
                    .to(dev) for s in ((din, h1), (h1, h2), (h2, dout)))
@@ -62,9 +68,10 @@ def _case(dims, S, B, seed, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
-                                       (torch.bfloat16, 1e-2)])
-def test_online_sgd_kernel_matches_plain(cuda, dtype, tol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_online_sgd_kernel_matches_plain(cuda, dtype):
+    """Exact: lr * g and the difference are rounded on their own, as the
+    plain version's two tensor ops round them."""
     g = torch.Generator().manual_seed(0)
     p, grad = (torch.randn(64, 1153, generator=g).to(cuda, dtype)
                for _ in range(2))
@@ -72,9 +79,31 @@ def test_online_sgd_kernel_matches_plain(cuda, dtype, tol):
     out = ops.online_sgd(p, grad, 0.01)
     torch.cuda.synchronize()
     assert ops.online_sgd.launches == before + 1
-    torch.testing.assert_close(out.float(),
-                               ref.online_sgd(p, grad, 0.01).float(),
-                               rtol=tol, atol=tol)
+    assert out.dtype == dtype
+    assert torch.equal(out, ref.online_sgd(p, grad, 0.01))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,offset", [
+    (0, 0), (1, 0), (1153, 0), (73792, 0), ((1 << 20) + 3, 0),
+    (1153, 1), (73792, 1), ((1 << 20) + 3, 1),
+    (132 * 256 * 4 * 4 - 1, 0), (132 * 256 * 4 * 8 + 5, 0)])
+def test_online_sgd_kernel_exact_at_ragged_sizes(cuda, dtype, n, offset):
+    """Bit for bit at ragged sizes, across the small and the large launch
+    shape (a full wave of 256 x 4 vectors), and at views one element off
+    16-byte alignment (the scalar kernel); one launch a call, none for an
+    empty tensor."""
+    g = torch.Generator().manual_seed(n + offset)
+    p, grad = (torch.randn(n + offset, generator=g).to(cuda, dtype)[offset:]
+               for _ in range(2))
+    for lr in (0.01, 0.0173, 0.5):
+        before = ops.online_sgd.launches
+        out = ops.online_sgd(p, grad, lr)
+        torch.cuda.synchronize()
+        assert ops.online_sgd.launches == before + (1 if n else 0)
+        assert out.dtype == dtype and out.shape == p.shape
+        assert torch.equal(out, ref.online_sgd(p, grad, lr))
 
 
 @pytest.mark.cuda
@@ -86,6 +115,39 @@ def test_dfa_epoch_kernel_matches_plain(cuda, dims, S):
     ww, wb, wl = ref.dfa_int8_epoch(*args)
     torch.cuda.synchronize()
     assert ops.dfa_epoch_int8.launches == before + 1
+    for i in range(3):
+        assert torch.equal(gw[i], ww[i]) and torch.equal(gb[i], wb[i])
+    torch.testing.assert_close(gl, wl, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 1, 2])
+@pytest.mark.parametrize("S", [8, 32])
+@pytest.mark.parametrize("dims", [(1, 32, 32, 1), (5, 16, 12, 3),
+                                  (1, 8, 8, 1)])
+def test_dfa_epoch_kernel_exact_by_layer(cuda, dims, S, layer):
+    """Every slot trains one layer: weights and biases exact, the loss to
+    1e-6; dims that are not multiples of 4 take the zero-padded K."""
+    args = _case(dims, S, 5, 11 + layer, cuda, layers=(layer,))
+    gw, gb, gl = ops.dfa_epoch_int8(*args)
+    ww, wb, wl = ref.dfa_int8_epoch(*args)
+    torch.cuda.synchronize()
+    for i in range(3):
+        assert torch.equal(gw[i], ww[i]) and torch.equal(gb[i], wb[i])
+    torch.testing.assert_close(gl, wl, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 1, 2])
+@pytest.mark.parametrize("S", [8, 32, 512])
+def test_dfa_epoch_kernel_exact_at_the_rails(cuda, S, layer):
+    """Operands at the int8 and bias rails, up to S = 512: the envelope
+    where every integer sum still stays below 2^24."""
+    args = _case((1, 8, 8, 1), S, 4, 99, cuda, layers=(layer,),
+                 extreme=True)
+    gw, gb, gl = ops.dfa_epoch_int8(*args)
+    ww, wb, wl = ref.dfa_int8_epoch(*args)
+    torch.cuda.synchronize()
     for i in range(3):
         assert torch.equal(gw[i], ww[i]) and torch.equal(gb[i], wb[i])
     torch.testing.assert_close(gl, wl, rtol=1e-6, atol=0)

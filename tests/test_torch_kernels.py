@@ -6,6 +6,11 @@ on the GPU (``chip_smoke.py`` and tests/test_torch_cuda.py).
 Both sides get the same seeded NumPy inputs; the JAX side is its plain
 oracle ``repro.kernels.ref``.
 """
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -276,3 +281,171 @@ def test_wrappers_reject_bad_operands():
                             tuple(T(f) for f in fb),
                             tuple(T(d) for d in dither),
                             tref.pack_scales(scales))
+
+
+def test_online_sgd_module_imports_no_triton():
+    """``online_sgd`` launches through ctypes: importing its module, and
+    the ops that gather every kernel, loads no ``triton`` (only the
+    momentum kernel, on no path, still builds with Triton at first
+    call)."""
+    src = Path(__file__).resolve().parents[1] / "src"
+    code = ("import sys, torch\n"
+            "import repro_torch.kernels.online_sgd as m\n"
+            "import repro_torch.kernels.ops\n"
+            "assert 'triton' not in sys.modules, 'triton imported'\n"
+            "p = torch.ones(5)\n"
+            "assert torch.equal(m.online_sgd(p, p, 0.5), torch.full((5,), 0.5))\n"
+            "assert 'triton' not in sys.modules, 'triton imported'\n")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(src)] + [x for x in [os.environ.get("PYTHONPATH")] if x])}
+    run = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 1153), torch.float32), ((64, 1153), torch.float32),
+    ((73792,), torch.bfloat16), ((0,), torch.float32)])
+def test_online_sgd_on_cpu_is_the_plain_version(shape, dtype):
+    """A CPU tensor takes ``ref.online_sgd``, bit for bit, and counts no
+    launch."""
+    g = torch.Generator().manual_seed(len(shape))
+    p, grad = (torch.randn(shape, generator=g).to(dtype) for _ in range(2))
+    before = tops.online_sgd.launches
+    out = tops.online_sgd(p, grad, 0.0173)
+    assert out.dtype == dtype and out.shape == p.shape
+    assert torch.equal(out, tref.online_sgd(p, grad, 0.0173))
+    assert tops.online_sgd.launches == before
+
+
+@pytest.mark.parametrize("dims,S,extreme", [
+    ((1, 32, 32, 1), 8, False), ((5, 16, 12, 3), 32, False),
+    ((1, 8, 8, 1), 512, True)])
+def test_dfa_epoch_on_cpu_is_the_plain_version(dims, S, extreme):
+    """A CPU tensor takes ``ref.dfa_int8_epoch``, exactly, and counts no
+    launch; one slot for each layer."""
+    ws, bs, xq, yal, fb, dither, scales = _tifed_case(dims, S, 21, 3,
+                                                      extreme)
+    T = torch.from_numpy
+    args = (tuple(T(w) for w in ws), tuple(T(b) for b in bs), T(xq), T(yal),
+            torch.tensor([0, 1, 2], dtype=torch.int32),
+            tuple(T(f) for f in fb), tuple(T(d) for d in dither),
+            tref.pack_scales(scales))
+    before = tops.dfa_epoch_int8.launches
+    gw, gb, gl = tops.dfa_epoch_int8(*args)
+    ww, wb, wl = tref.dfa_int8_epoch(*args)
+    for a, b in zip(gw + gb + (gl,), ww + wb + (wl,)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert tops.dfa_epoch_int8.launches == before
+
+
+@pytest.fixture
+def no_build(monkeypatch):
+    """Fail the test if anything asks for a kernel to be built."""
+    from repro_torch.kernels import build
+
+    def refuse(name):
+        raise AssertionError(f"built {name}")
+    monkeypatch.setattr(build, "load", refuse)
+    monkeypatch.setattr(build, "build", refuse)
+
+
+@pytest.mark.parametrize("case", ["shape", "dtype", "mixed_dtypes",
+                                  "device", "devices"])
+def test_online_sgd_rejects_before_any_build(no_build, case):
+    p = torch.zeros(8)
+    g = {"shape": torch.zeros(9), "dtype": torch.zeros(8, dtype=torch.float64),
+         "mixed_dtypes": torch.zeros(8, dtype=torch.bfloat16),
+         "device": torch.zeros(8, device="meta"),
+         "devices": torch.zeros(8, device="meta")}[case]
+    if case in ("dtype", "device"):
+        p = torch.zeros(8, dtype=g.dtype, device=g.device)
+    err = TypeError if "dtype" in case else ValueError
+    with pytest.raises(err):
+        tops.online_sgd(p, g, 0.1)
+
+
+_DFA_NAMES = ("xq", "yal", "w0", "w1", "w2", "b0", "b1", "b2", "fb1", "fb2",
+              "d0", "d1", "d2", "scales", "layer")
+
+
+def _dfa_operands():
+    """The wrapper's operands in its own order (``_DFA_NAMES``), CPU."""
+    ws, bs, xq, yal, fb, dither, scales = _tifed_case((1, 4, 4, 1), 8, 6, 2)
+    T = torch.from_numpy
+    return [T(xq), T(yal), *(T(w) for w in ws), *(T(b) for b in bs),
+            *(T(f) for f in fb), *(T(d) for d in dither),
+            tref.pack_scales(scales), torch.zeros(2, dtype=torch.int32)]
+
+
+def _dfa_call(ops):
+    xq, yal, w0, w1, w2, b0, b1, b2, fb1, fb2, d0, d1, d2, scales, lay = ops
+    return tops.dfa_epoch_int8((w0, w1, w2), (b0, b1, b2), xq, yal, lay,
+                               (fb1, fb2), (d0, d1, d2), scales)
+
+
+@pytest.mark.parametrize("name", _DFA_NAMES)
+def test_dfa_epoch_rejects_a_wrong_dtype_before_any_build(no_build, name):
+    ops = _dfa_operands()
+    i = _DFA_NAMES.index(name)
+    wrong = {torch.int8: torch.int16, torch.int32: torch.int64,
+             torch.float32: torch.float64}
+    ops[i] = ops[i].to(wrong[ops[i].dtype])
+    with pytest.raises(ValueError, match=rf"\b{name} must be"):
+        _dfa_call(ops)
+
+
+@pytest.mark.parametrize("name", _DFA_NAMES[:1] + _DFA_NAMES[1:2]
+                         + _DFA_NAMES[5:])
+def test_dfa_epoch_rejects_a_wrong_shape_before_any_build(no_build, name):
+    """One more element on an axis the dims are not read from."""
+    ops = _dfa_operands()
+    i = _DFA_NAMES.index(name)
+    t = ops[i]
+    ops[i] = torch.cat([t, t.narrow(-1, 0, 1)], dim=-1)
+    with pytest.raises(ValueError, match=rf"\b{name} must be"):
+        _dfa_call(ops)
+
+
+@pytest.mark.parametrize("name", ["xq", "w1", "d2", "layer"])
+def test_dfa_epoch_rejects_other_devices_before_any_build(no_build, name):
+    ops = _dfa_operands()
+    i = _DFA_NAMES.index(name)
+    ops[i] = torch.empty_like(ops[i], device="meta")
+    with pytest.raises(ValueError, match="device"):
+        _dfa_call(ops)
+
+
+@pytest.mark.parametrize("B,dims", [(64, (1, 32, 32, 1)), (16, (5, 16, 12, 3)),
+                                    (8, (1, 8, 8, 1)), (3, (2, 3, 5, 1))])
+def test_dfa_outputs_are_carved_from_one_buffer(B, dims):
+    """``carve_outputs`` on a CPU buffer: the seven views have their
+    dtypes and shapes, are contiguous, start on 16-byte boundaries, lie
+    inside the buffer without overlapping, and each writes only its own
+    bytes."""
+    from repro_torch.kernels import online_sgd_int8 as dfa
+    din, h1, h2, dout = dims
+    layout = dfa.output_layout(B, din, h1, h2, dout)
+    total, starts = layout[0], layout[2]
+    assert total % 16 == 0 and len(layout[1]) == len(starts) == 7
+    buf = torch.zeros(total, dtype=torch.int8)
+    ws, bs, loss = dfa.carve_outputs(buf, layout)
+    outs = (*ws, *bs, loss)
+    want = [(torch.int8, (B, din, h1)), (torch.int8, (B, h1, h2)),
+            (torch.int8, (B, h2, dout)), (torch.int32, (B, h1)),
+            (torch.int32, (B, h2)), (torch.int32, (B, dout)),
+            (torch.float32, (B,))]
+    spans = []
+    for t, (dtype, shape) in zip(outs, want):
+        assert t.dtype == dtype and tuple(t.shape) == shape
+        assert t.is_contiguous()
+        start = t.data_ptr() - buf.data_ptr()
+        assert start % 16 == 0 and start in starts
+        spans.append((start, start + t.numel() * t.element_size()))
+    spans.sort()
+    assert spans[0][0] >= 0 and spans[-1][1] <= total
+    assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    for k, t in enumerate(outs):
+        t.fill_(k + 1)
+    for k, t in enumerate(outs):
+        assert bool((t == k + 1).all())
