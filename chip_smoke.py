@@ -8,16 +8,18 @@ Phases, each printing one JSON line, in this order:
 1. device: the card, its power limit, and the fp32 matmul flags (full
    fp32, no TF32) the parity checks need;
 2. build: the CUDA kernels (``nvcc``, sm_90a, one process per source:
-   ``online_sgd``, ``dfa_epoch_int8``, ``meta_update``, ``ssd_scan``,
-   ``flash_decode``) and the one Triton kernel (``online_sgd_momentum``)
-   are built from this checkout's sources, all at the same time;
+   ``online_sgd`` (with ``online_sgd_momentum``), ``dfa_epoch_int8``,
+   ``meta_update``, ``ssd_scan``, ``flash_decode``) are built from this
+   checkout's sources, all at the same time;
 3. kernels: each kernel against its plain PyTorch version on the same
    CUDA tensors, at the shapes the main paths give it and at harder
    ones, timed with CUDA events (median of repeats) and the profiler
    beside its bound and the one PyTorch call that computes the same
    function, where there is one (host-paced and on the device);
    ``online_sgd`` bit for bit at the quickstart's (1, 1153), the serving
-   (64, 1153) and flat 2^24 in fp32 and bf16; ``dfa_epoch_int8`` exact
+   (64, 1153) and flat 2^24 in fp32 and bf16; ``online_sgd_momentum``
+   bit for bit at 1,153, (64, 1153) and flat 2^24 in fp32 and bf16,
+   beside ``torch._fused_sgd_``; ``dfa_epoch_int8`` exact
    (the loss within 1e-6) at the serving shape for each layer and mixed,
    the S = 512 rails and dims (5, 16, 12, 3); ``ssd_scan``
    at the JAX package's test shapes, the LM path's and a 16-chunk
@@ -47,27 +49,34 @@ Phases, each printing one JSON line, in this order:
    idle share, kernels per step, top kernels, ``flash_decode``'s share;
 7. serve fp32: 512 requests through ``AdaptationServer`` with the
    ``serve --mode adapt`` defaults, launch counters set to 0 just before
-   and read just after; 32 requests held against the port on the CPU;
+   and read just after, the tick built (captured) once; 32 requests held
+   against the port on the CPU;
 8. serve TIFeD: the same through the int8 route (support 8, k_max 6);
    adapted weights exact against the CPU;
 9. profile: device busy share of one fp32 drain (torch.profiler);
 10. train TinyReptile: the quickstart's 600-round run, launch counters
-    set to 0 just before and read just after, checked against the
-    random init; a 60-round run of the same configuration against the
-    port on the CPU;
+    set to 0 just before and read just after, the round built (captured)
+    once, checked against the random init; a 60-round run of the same
+    configuration against the port on the CPU;
 11. train Reptile: the train launcher's ``--strategy reptile`` defaults
     (64 clients, 20 rounds), in-process, against the CPU;
 12. train baselines: FedAvg, FedSGD and Transfer at the launcher
     defaults, and TinyReptile with 8 straggling clients, against the CPU;
+    each train run's round built once, with its capture time and graph
+    size;
 13. profile train: device busy share of 60 TinyReptile rounds;
-14. train LM reduced: the LM launcher (``--arch mamba2 --reduced``) on
+14. graphs vs eager: the captured round (TinyReptile, Reptile and FedAvg
+    at 8 clients, the int8 wire) and tick (fp32, TIFeD) against the same
+    round and tick run eagerly on the card, bit for bit, launch counts
+    equal;
+15. train LM reduced: the LM launcher (``--arch mamba2 --reduced``) on
     the card and on the CPU from the same init, rows and params within
     1e-4, ``comm_mb`` exact, launches as reckoned;
-15. train LM mamba2-130m: full width and depth, bf16, ``--rounds 6
+16. train LM mamba2-130m: full width and depth, bf16, ``--rounds 6
     --batch 8 --seq 2048 --k-inner 4``: finite losses, the client adapts
     (mean last inner loss below the first), launches as reckoned,
     rounds/s, tokens/s and peak device memory;
-16. profile LM: two full-width rounds under torch.profiler: idle share,
+17. profile LM: two full-width rounds under torch.profiler: idle share,
     top kernels, the shares of ``ssd_scan`` (its three kernels) and of
     its plain backward.
 
@@ -78,13 +87,13 @@ rest of the repository beside it, the script exits non-zero at once.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
 import statistics
 import subprocess
 import sys
-import threading
 import time
 from pathlib import Path
 
@@ -338,34 +347,19 @@ def phase_device(torch):
     return name, smi
 
 
-def phase_build(torch, build, ops):
-    """One nvcc per CUDA source in a thread while Triton compiles its
-    one kernel (``online_sgd_momentum``, on no path)."""
-    out = {}
+def phase_build(build):
+    """One nvcc per CUDA source, all started at once."""
     sources = ["online_sgd", "dfa_epoch_int8", "meta_update", "ssd_scan",
                "flash_decode"]
-
-    def nvcc():
-        t0 = time.perf_counter()
-        out["reports"] = build.build(sources)
-        out["nvcc_s"] = time.perf_counter() - t0
-
-    th = threading.Thread(target=nvcc)
-    th.start()
     t0 = time.perf_counter()
-    p = torch.zeros(16, device="cuda")
-    ops.online_sgd_momentum(p, p, p, 0.0, 0.0)
-    torch.cuda.synchronize()
-    triton_s = time.perf_counter() - t0
-    th.join()
-    check("nvcc_s" in out, "nvcc build did not finish")
+    reports = build.build(sources)
+    nvcc_s = time.perf_counter() - t0
     ptxas = {name: [ln.strip() for ln in rep.splitlines()
                     if "registers" in ln or "spill" in ln]
-             for name, rep in out["reports"].items()}
+             for name, rep in reports.items()}
     for name in sources:
         build.load(name)
-    emit({"phase": "build", "nvcc_s": round(out["nvcc_s"], 3),
-          "triton_first_call_s": round(triton_s, 3), "ptxas": ptxas})
+    emit({"phase": "build", "nvcc_s": round(nvcc_s, 3), "ptxas": ptxas})
 
 
 def phase_kernels(torch, np, ops, ref):
@@ -481,23 +475,24 @@ def phase_kernels(torch, np, ops, ref):
         emit({"phase": "kernel", "kernel": "meta_update", "case": tag,
               **row})
 
-    # online_sgd_momentum: the same sizes; m is fp32 whatever p's dtype
-    # (one FMA's rounding on values up to about 5 in fp32)
+    # online_sgd_momentum: the same sizes; m is fp32 whatever p's dtype;
+    # bit for bit
     lr, mu = 0.05, 0.9
-    for tag, n, dtype, rtol, atol in (
-            ("train_1153_fp32", 1153, torch.float32, 1e-5, 1e-6),
-            ("flat_2^24_fp32", 1 << 24, torch.float32, 1e-5, 1e-6),
-            ("flat_2^24_bf16", 1 << 24, torch.bfloat16, 1e-2, 1e-2)):
-        p = torch.randn(n, generator=g).to(dev, dtype)
-        gr = torch.randn(n, generator=g).to(dev, dtype)
-        m = torch.randn(n, generator=g).to(dev)
+    for tag, shape, dtype in (
+            ("train_1153_fp32", (1153,), torch.float32),
+            ("serve_64x1153_fp32", (SLOTS, 1153), torch.float32),
+            ("flat_2^24_fp32", (1 << 24,), torch.float32),
+            ("flat_2^24_bf16", (1 << 24,), torch.bfloat16)):
+        p = torch.randn(shape, generator=g).to(dev, dtype)
+        gr = torch.randn(shape, generator=g).to(dev, dtype)
+        m = torch.randn(shape, generator=g).to(dev)
         gp, gm = ops.online_sgd_momentum(p, gr, m, lr, mu)
         wp, wm = ref.online_sgd(p, gr, lr, m=m, momentum=mu)
-        torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-6)
-        torch.testing.assert_close(gp.float(), wp.float(), rtol=rtol,
-                                   atol=atol)
+        check(torch.equal(gm, wm) and torch.equal(gp, wp),
+              f"online_sgd_momentum {tag}: not bit-exact")
         err = max((gp.float() - wp.float()).abs().max().item(),
                   (gm - wm).abs().max().item())
+        n = p.numel()
         iters = 200 if n < 1e6 else 20
         moved = n * (3 * p.element_size() + 2 * 4)
         t_bytes, t_ops = moved / HBM_BYTES_PER_S, 4 * n / FP32_OPS_PER_S
@@ -516,8 +511,8 @@ def phase_kernels(torch, np, ops, ref):
         else:
             # no one call keeps m fp32 beside bf16 p
             library = {"library_ms": None, "library_device_ms": None}
-        row = {"n": n, "dtype": str(dtype).split(".")[1], "rtol": rtol,
-               "atol": atol, "max_abs_err": err,
+        row = {"shape": list(shape), "dtype": str(dtype).split(".")[1],
+               "tol": "exact", "max_abs_err": err,
                "ms": cuda_ms(torch, lambda: ops.online_sgd_momentum(
                    p, gr, m, lr, mu), iters),
                **device_ms(torch, lambda: ops.online_sgd_momentum(
@@ -526,7 +521,8 @@ def phase_kernels(torch, np, ops, ref):
                    p, gr, lr, m=m, momentum=mu), iters),
                **library,
                "bound_ms": 1e3 * max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": moved}
         rows[f"online_sgd_momentum/{tag}"] = row
         emit({"phase": "kernel", "kernel": "online_sgd_momentum",
               "case": tag, **row})
@@ -740,6 +736,8 @@ def phase_serve(torch, np, mods, name, adapter, phi, reqs, k_max, kernel,
     check(counts[kernel] >= server.ticks * STEPS_PER_TICK,
           f"{name}: {counts[kernel]} {kernel} launches for {server.ticks} "
           f"ticks x {STEPS_PER_TICK}")
+    check(server.trace_count == 1 and server._tick_step.graph is not None,
+          f"{name}: the tick was built {server.trace_count} times")
 
     # the first N_HELD requests, on the card and on the CPU port
     held = reqs[:N_HELD]
@@ -770,6 +768,9 @@ def phase_serve(torch, np, mods, name, adapter, phi, reqs, k_max, kernel,
            "steps_per_tick": STEPS_PER_TICK, "ticks": server.ticks,
            "wall_s": wall, "req_per_s": len(got) / wall,
            "latency_ms": lat, "launches": counts,
+           "trace_count": server.trace_count,
+           "capture_s": server._tick_step.capture_s,
+           "graph_nodes": server._tick_step.nodes,
            "mean_query_loss": float(np.mean([r.query_loss
                                              for r in got])),
            "held_vs_cpu": {"requests": N_HELD,
@@ -845,6 +846,19 @@ def timed_run(torch, ops, fn):
     return out, time.perf_counter() - t0, ops.launch_counts()
 
 
+def built_round(engine):
+    """The timed run's round: built (captured) once. The runner cache is
+    cleared before a timed run, so its runner is the cache's one entry
+    and its one program holds the capture."""
+    (runner,) = engine._RUNNER_CACHE._entries.values()
+    check(runner.trace_count == 1,
+          f"the round was built {runner.trace_count} times")
+    (prog,) = runner._programs.values()
+    check(prog.step.graph is not None, "the round was not captured")
+    return {"trace_count": runner.trace_count,
+            "capture_s": prog.step.capture_s, "graph_nodes": prog.step.nodes}
+
+
 def phase_train_tinyreptile(torch, np, tm):
     core, ops, loss, phi = tm["core"], tm["ops"], tm["loss"], tm["phi"]
     base = core.evaluate_init(loss, {k: v.cuda() for k, v in phi.items()},
@@ -858,8 +872,10 @@ def phase_train_tinyreptile(torch, np, tm):
                                       rounds=rounds, eval_every=rounds,
                                       device=device, **kw)
 
+    core.clear_runner_cache()
     out, wall, counts = timed_run(torch, ops,
                                   lambda: run(TR_ROUNDS, "cuda"))
+    graph = built_round(tm["engine"])
     q = out["history"][-1]["query_loss"]
     check(math.isfinite(q) and q < base / 2,
           f"trained query MSE {q} is not below half the random init's "
@@ -874,7 +890,7 @@ def phase_train_tinyreptile(torch, np, tm):
                          run(TR_CHECK_ROUNDS, "cpu"))
     row = {"phase": "train_tinyreptile", "rounds": TR_ROUNDS,
            "support": TR_SUPPORT, "wall_s": wall,
-           "rounds_per_s": TR_ROUNDS / wall, "launches": counts,
+           "rounds_per_s": TR_ROUNDS / wall, "launches": counts, **graph,
            "query_loss": q, "random_init_query_loss": base,
            "comm_bytes": out["comm_bytes"],
            "vs_cpu": {"rounds": TR_CHECK_ROUNDS, "tol": 1e-4,
@@ -887,8 +903,10 @@ def launcher_run(torch, np, tm, argv, name):
     """The train launcher in-process on the card (its row is printed),
     then on the CPU; returns this phase's row."""
     tl, ops = tm["train"], tm["ops"]
+    tm["core"].clear_runner_cache()
     (row, out), wall, counts = timed_run(
         torch, ops, lambda: tl.run_engine_strategy(tl.parse_args(argv)))
+    graph = built_round(tm["engine"])
     _, want = tl.run_engine_strategy(tl.parse_args(argv + ["--device",
                                                            "cpu"]))
     worst = compare_runs(np, out, want)
@@ -897,7 +915,7 @@ def launcher_run(torch, np, tm, argv, name):
     return {"run": name, "argv": argv, "rounds": row["rounds"],
             "clients": row["clients"], "wall_s": wall,
             "rounds_per_s": row["rounds"] / wall, "launches": counts,
-            "query_loss": q, "comm_bytes": out.get("comm_bytes"),
+            **graph, "query_loss": q, "comm_bytes": out.get("comm_bytes"),
             "vs_cpu_params_max_abs_diff": worst}
 
 
@@ -930,12 +948,13 @@ def phase_train_baselines(torch, np, tm):
             sampling=core.StragglerSampling(0.5), eval_every=20,
             eval_kwargs=ev, device=device)
 
+    core.clear_runner_cache()
     out, wall, counts = timed_run(torch, tm["ops"],
                                   lambda: straggle("cuda"))
     check(counts["meta_update"] == 20, "meta_update launches")
     runs.append({"run": "tinyreptile_c8_straggler0.5", "rounds": 20,
                  "clients": 8, "wall_s": wall, "rounds_per_s": 20 / wall,
-                 "launches": counts,
+                 "launches": counts, **built_round(tm["engine"]),
                  "query_loss": out["history"][-1]["query_loss"],
                  "comm_bytes": out["comm_bytes"],
                  "vs_cpu_params_max_abs_diff": compare_runs(
@@ -948,8 +967,8 @@ def phase_train_baselines(torch, np, tm):
 
 
 def phase_profile_train(torch, tm):
-    """Device busy share of TR_CHECK_ROUNDS TinyReptile rounds (every
-    kernel on the path has run before: the train phases warm it up)."""
+    """Device busy share of TR_CHECK_ROUNDS TinyReptile rounds, after a
+    run of the same config has built (captured) its round."""
     core, loss, phi = tm["core"], tm["loss"], tm["phi"]
 
     def run():
@@ -958,6 +977,7 @@ def phase_profile_train(torch, tm):
                                       support=TR_SUPPORT, seed=1,
                                       device="cuda")
 
+    run()
     # the device's activity only: the host-side op events of some 50k
     # launches would take longer to summarise than the run itself
     torch.cuda.synchronize()
@@ -979,6 +999,86 @@ def phase_profile_train(torch, tm):
           "device_idle_share": 1 - dev_us / 1e6 / wall,
           "kernels_launched": sum(c for _, c in by_name.values()),
           "top_device_ms": [[k[:80], t / 1e3, c] for k, (t, c) in top]})
+
+
+@contextlib.contextmanager
+def uncaptured(graphs):
+    """Every ``GraphStep`` call runs its function eagerly on the card:
+    the uncaptured round and tick the graphs are held to."""
+    capture = graphs.GraphStep._warm_up_and_capture
+    graphs.GraphStep._warm_up_and_capture = lambda self: self.fn()
+    try:
+        yield
+    finally:
+        graphs.GraphStep._warm_up_and_capture = capture
+
+
+def phase_graphs(torch, np, tm, serves):
+    """The captured round and tick, replayed, against the same round and
+    tick run eagerly on the card: params, histories, served results and
+    launch counts equal, bit for bit. The round: TinyReptile (the
+    quickstart's client, 40 rounds), Reptile and FedAvg at 8 clients,
+    and TinyReptile on the int8 wire; the tick: 128 fp32 and 128 TIFeD
+    requests at the serve phases' settings. Each with its capture time
+    and graph size."""
+    core, ops, graphs, loss, phi = (tm["core"], tm["ops"], tm["graphs"],
+                                    tm["loss"], tm["phi"])
+    ev = tm["train"].EVAL_KWARGS
+    common = dict(beta=0.02, support=TR_SUPPORT, seed=4, eval_every=20,
+                  device="cuda")
+    runs = {
+        "tinyreptile": lambda: core.tinyreptile_train(
+            loss, phi, tm["SineTasks"](), rounds=40, eval_kwargs=TR_EVAL,
+            **common),
+        "reptile_c8": lambda: core.reptile_train(
+            loss, phi, tm["SineTasks"](), rounds=20, clients_per_round=8,
+            eval_kwargs=ev, **common),
+        "fedavg_c8": lambda: core.fedavg_train(
+            loss, phi, tm["SineTasks"](), rounds=20, clients_per_round=8,
+            eval_kwargs=ev, **common),
+        "tinyreptile_int8_wire": lambda: core.tinyreptile_train(
+            loss, phi, tm["SineTasks"](), rounds=40, eval_kwargs=TR_EVAL,
+            channel=core.CommChannel("int8"), **common)}
+    rows = {}
+    for name, run in runs.items():
+        core.clear_runner_cache()
+        got, _, counts = timed_run(torch, ops, run)
+        info = built_round(tm["engine"])
+        core.clear_runner_cache()
+        with uncaptured(graphs):
+            want, _, eager = timed_run(torch, ops, run)
+        core.clear_runner_cache()
+        check(counts == eager, f"graphs {name}: launches {counts} vs {eager}")
+        check(all(torch.equal(got["params"][k], v)
+                  for k, v in want["params"].items()),
+              f"graphs {name}: the captured round's params differ")
+        check(got["history"] == want["history"],
+              f"graphs {name}: the captured round's history differs")
+        rows[name] = {**info, "launches": counts, "bit_equal": True}
+    AdaptationServer = serves["server"]
+    for name, (adapter, p, reqs, k_max) in serves["routes"].items():
+        def drain():
+            server = AdaptationServer(p, adapter, slots=SLOTS, k_max=k_max,
+                                      steps_per_tick=STEPS_PER_TICK,
+                                      return_params=True, device="cuda")
+            return server, serve(server, reqs[:128])
+
+        (server, got), _, counts = timed_run(torch, ops, drain)
+        with uncaptured(graphs):
+            (_, want), _, eager = timed_run(torch, ops, drain)
+        check(server.trace_count == 1, f"graphs {name}: trace_count")
+        check(counts == eager, f"graphs {name}: launches {counts} vs {eager}")
+        for g, w in zip(got, want):
+            check((g.steps, g.query_loss) == (w.steps, w.query_loss)
+                  and all(np.array_equal(g.params[k], w.params[k])
+                          for k in w.params),
+                  f"graphs {name}: request {g.rid} differs from the "
+                  f"uncaptured tick")
+        rows[name] = {"trace_count": server.trace_count,
+                      "capture_s": server._tick_step.capture_s,
+                      "graph_nodes": server._tick_step.nodes,
+                      "launches": counts, "bit_equal": True}
+    emit({"phase": "graphs_vs_eager", **rows})
 
 
 def lm_launches(args):
@@ -1489,7 +1589,7 @@ def main():
 
     t_start = time.perf_counter()
     phase_device(torch)
-    phase_build(torch, build, ops)
+    phase_build(build)
     rows = phase_kernels(torch, np, ops, ref)
     phase_kernels_lm(torch, np, ops, ref, rows)
     phase_kernels_decode(torch, np, ops, ref, rows)
@@ -1520,18 +1620,24 @@ def main():
                           T_K_MAX, "dfa_epoch_int8", exact_params=True)
     phase_profile(torch, np, mods, fp32, phi, reqs)
 
-    from repro_torch import core
+    from repro_torch import core, graphs
+    from repro_torch.core import engine
     from repro_torch.data import SineTasks
     from repro_torch.launch import train
     from repro_torch.models import mamba2
 
     tm = {"core": core, "ops": ops, "train": train, "SineTasks": SineTasks,
           "loss": functools.partial(paper_model_loss, SINE_MLP), "phi": phi,
-          "bridge": bridge, "mamba2": mamba2}
+          "bridge": bridge, "mamba2": mamba2, "engine": engine,
+          "graphs": graphs}
     t_tiny = phase_train_tinyreptile(torch, np, tm)
     t_rep = phase_train_reptile(torch, np, tm)
     t_base = phase_train_baselines(torch, np, tm)
     phase_profile_train(torch, tm)
+    phase_graphs(torch, np, tm, {
+        "server": AdaptationServer,
+        "routes": {"serve_fp32": (fp32, phi, reqs, K_MAX),
+                   "serve_tifed": (tifed, phi_q, t_reqs, T_K_MAX)}})
     t_lm_red = phase_train_lm_reduced(torch, np, tm)
     t_lm, lm_phi = phase_train_lm_full(torch, np, tm)
     phase_profile_lm(torch, np, tm, lm_phi)
@@ -1561,8 +1667,8 @@ def main():
              "src/repro_torch/kernels/csrc/meta_update.cu",
              "src/repro/kernels/meta_update.py:31",
              rows["meta_update/train_1153_fp32"]),
-            ("online_sgd_momentum", "triton",
-             "src/repro_torch/kernels/online_sgd.py",
+            ("online_sgd_momentum", "cuda",
+             "src/repro_torch/kernels/csrc/online_sgd.cu",
              "src/repro/kernels/online_sgd.py:52",
              rows["online_sgd_momentum/train_1153_fp32"]),
             ("ssd_scan", "cuda", "src/repro_torch/kernels/csrc/ssd_scan.cu",

@@ -2,5 +2,5 @@
 
 Mirrors the module layout of the JAX package ``repro``. It imports
 torch, numpy and the standard library only; the kernels on its paths
-are written by hand (Triton and CUDA C++ under ``kernels/``).
+are written by hand in CUDA C++ (``kernels/csrc``).
 """

@@ -3,7 +3,9 @@ engine (``engine.run_federated``); see the JAX package's ``core`` for
 the full design. Ported so far: the plain single-device route with the
 five fp32 strategies and the uniform, partial-participation and
 straggler schedules."""
-from repro_torch.core.engine import CommChannel, run_federated  # noqa: F401
+from repro_torch.core.engine import (CommChannel,  # noqa: F401
+                                     clear_runner_cache, run_federated,
+                                     runner_cache_stats)
 from repro_torch.core.fedavg import fedavg_train, fedsgd_train  # noqa: F401
 from repro_torch.core.meta import (evaluate_init,  # noqa: F401
                                    finetune_batch, finetune_online)

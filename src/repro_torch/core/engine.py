@@ -16,14 +16,23 @@ slices are ported.)
   in sorted-name order) and a round's cohort in one ``(C, P)`` buffer,
   so each inner SGD step of every client is one ``online_sgd`` launch
   and each Reptile interpolation one ``meta_update`` launch.
+* One round is one function, ``_BlockRunner._round``, built once per
+  config and shape (``graphs.GraphStep``): captured as a CUDA graph on
+  the card and replayed, run as it is on the CPU. It reads round j of
+  the staged block through a device cursor and writes phi and the
+  round's loss in place, so a block of rounds is that many replays and
+  one host call each. Runners are cached by config as the JAX
+  package's are (``runner_cache_stats``, ``clear_runner_cache``);
+  ``_BlockRunner.trace_count`` counts the builds.
 * Rounds run in blocks between evals, each padded on the host to one
-  per-run length with a validity mask (``pipeline.plan_blocks``); this
-  eager loop simply skips the pad rounds. The host plans each block's
-  ``ClientSchedule`` and samples its data (``SamplingPolicy``) on a
-  background thread (``prefetch``) in strict block order, so pipelined
-  and synchronous runs are bit-for-bit identical. On the GPU the staged
-  block is copied from pinned memory on a side stream; the round loop
-  waits on its event, not on the host.
+  per-run length with a validity mask (``pipeline.plan_blocks``), so the
+  runner's block buffers keep one shape; the pad rounds are never run.
+  The host plans each block's ``ClientSchedule`` and samples its data
+  (``SamplingPolicy``) on a background thread (``prefetch``) in strict
+  block order, so pipelined and synchronous runs are bit-for-bit
+  identical. On the GPU the staged block is copied from pinned memory on
+  a side stream; the round loop waits on its event, not on the host,
+  and copies the block into the runner's buffers.
 * No round reads anything back to the host. The per-round losses are
   fetched once per block, and only when an eval or a tracker needs
   them.
@@ -39,7 +48,9 @@ group).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import logging
 import math
 from typing import Dict, List, Optional
 
@@ -54,7 +65,10 @@ from repro_torch.core.pipeline import (ClientSchedule, SamplingPolicy,
                                        prefetch_items)
 from repro_torch.data.tasks import TaskDistribution
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.graphs import GraphStep
 from repro_torch.kernels import ops as kops
+
+logger = logging.getLogger(__name__)
 
 #: bytes per parameter for each transport payload dtype (paper Table II
 #: generalized: the paper ships fp32; fp16/int8 model compressed uplinks).
@@ -202,6 +216,187 @@ def _weighted_round_loss(losses, local_steps, weights):
     return torch.sum(weights * torch.where(weights > 0, per_client, 0.0))
 
 
+class _Program:
+    """A runner's fixed-address state for one shape of run: phi, the
+    staged block (schedule fields, then the batch), the block's per-round
+    losses and the round cursor, with the round as a ``GraphStep``."""
+
+    def __init__(self, runner, layout: FlatLayout, phi: torch.Tensor,
+                 staged, names):
+        dev = phi.device
+        self.layout = layout
+        self.phi = torch.empty_like(phi)
+        self.block = [torch.empty_like(t) for t in staged]
+        nf = len(dataclasses.fields(ClientSchedule))
+        self.sched = ClientSchedule(*self.block[:nf])
+        self.batch = dict(zip(names, self.block[nf:]))
+        self.losses = torch.zeros(len(staged[0]), dtype=torch.float32,
+                                  device=dev)
+        self.cursor = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.step = GraphStep(lambda: runner._round(self), dev)
+
+
+class _BlockRunner:
+    """One round of ``strategy`` built once and replayed: the port's
+    counterpart of the JAX package's compiled block executor.
+
+    ``_round`` reads round j of the block buffers through the device
+    cursor (``index_select``, never a host index), runs the client hook
+    on the broadcast phi (scheduled runs: ``client_update_steps`` with
+    the round's step budgets, ``server_aggregate_weighted`` with its
+    weights, the weighted round loss), writes phi back in place and the
+    round's loss at the cursor, and advances the cursor. ``beta`` rides
+    the ``online_sgd`` launches by value, so it is part of the cache
+    key; alpha is read on the device.
+
+    A block is ``blk`` calls of the round's ``GraphStep``: CUDA-graph
+    replays on the card, the same function run eagerly on the CPU. The
+    pad rounds are never called. One program (buffers and graph) is
+    kept per shape of run (layout, padded block, device), and
+    ``trace_count`` counts their builds: with the engine's fixed
+    per-run block shape it stays at 1 per config, as the JAX runner's
+    trace count does."""
+
+    def __init__(self, strategy, beta, channel: CommChannel,
+                 scheduled: bool = False):
+        self.strategy = strategy
+        self.beta = float(beta)
+        self.channel = channel
+        self.scheduled = bool(scheduled)
+        self.trace_count = 0
+        self._programs: Dict = {}
+
+    def program(self, layout: FlatLayout, phi: torch.Tensor, staged,
+                names) -> _Program:
+        """The buffers for this shape of run, made on first use."""
+        key = (str(phi.device), layout, phi.dtype, tuple(names),
+               tuple((tuple(t.shape), t.dtype) for t in staged))
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = _Program(self, layout, phi, staged, names)
+            self._programs[key] = prog
+        return prog
+
+    def run_block(self, prog: _Program, staged, rounds: int) -> None:
+        """Copy a staged block into the program's buffers and run its
+        first ``rounds`` (valid) rounds."""
+        for dst, src in zip(prog.block, staged):
+            dst.copy_(src)
+        prog.cursor.zero_()
+        if rounds and not prog.step.ready:
+            self.trace_count += 1          # this block's first round builds
+        for _ in range(rounds):
+            prog.step()
+
+    def _round(self, prog: _Program) -> None:
+        strategy, channel, beta = self.strategy, self.channel, self.beta
+        layout, phi, j = prog.layout, prog.phi, prog.cursor
+        batch = {k: v.index_select(0, j)[0] for k, v in prog.batch.items()}
+        phi_down = channel.transmit_flat(layout, phi)
+        if self.scheduled:
+            steps = prog.sched.local_steps.index_select(0, j)[0]
+            weights = prog.sched.weights.index_select(0, j)[0]
+            results, losses = strategy.client_update_steps(
+                layout, phi_down, batch, beta, steps)
+        else:
+            results, losses = strategy.client_update(layout, phi_down,
+                                                     batch, beta)
+        if channel.simulates_quantization:
+            results = (channel.transmit(results)
+                       if isinstance(results, dict)
+                       else channel.transmit_flat(layout, results))
+        alpha_t = prog.sched.alpha.index_select(0, j)   # on the device
+        if self.scheduled:
+            new = strategy.server_aggregate_weighted(
+                layout, phi, results, alpha_t, beta, weights)
+            loss = _weighted_round_loss(losses, steps, weights)
+        else:
+            new = strategy.server_aggregate(layout, phi, results, alpha_t,
+                                            beta)
+            loss = losses.float().mean()
+        phi.copy_(new)
+        prog.losses.index_copy_(0, j, loss.reshape(1))
+        j.add_(1)
+
+
+class _RunnerLRU:
+    """The block runners by config, least recently used out first, with
+    hit and miss counters (raises TypeError on an unhashable key)."""
+
+    def __init__(self, maxsize: int = 64):
+        self.maxsize = maxsize
+        self._entries: "collections.OrderedDict" = collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key, build):
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            self.hits += 1
+            return self._entries[key]
+        self.misses += 1
+        runner = build()
+        self._entries[key] = runner
+        if len(self._entries) > self.maxsize:
+            self._entries.popitem(last=False)
+        return runner
+
+    def keys(self):
+        return list(self._entries.keys())
+
+    def clear(self):
+        self._entries.clear()
+        self.hits = 0
+        self.misses = 0
+
+
+_RUNNER_CACHE = _RunnerLRU(maxsize=64)
+_UNHASHABLE_MISSES = {"count": 0}
+
+
+def _block_runner(strategy, beta, channel: CommChannel,
+                  scheduled: bool = False) -> _BlockRunner:
+    """The cached runner of this config. Strategies and channels are
+    frozen dataclasses, so identically configured runs share one runner
+    and its built rounds, keyed as the JAX package keys its runners
+    (``(strategy, beta, channel, scheduled)``; the pool, buffered, mesh
+    and partitioner parts of its key are not ported). An unhashable
+    strategy gets an uncached runner, a fresh build per run, counted and
+    logged."""
+    key = (strategy, float(beta), channel, bool(scheduled))
+
+    def build():
+        return _BlockRunner(strategy, beta, channel, scheduled)
+
+    try:
+        return _RUNNER_CACHE.get(key, build)
+    except TypeError:
+        _UNHASHABLE_MISSES["count"] += 1
+        logger.warning(
+            "block-runner cache miss #%d: strategy %s (channel %s) is "
+            "unhashable; building an uncached runner (a fresh build per "
+            "run). Make custom strategies frozen dataclasses to cache "
+            "them.", _UNHASHABLE_MISSES["count"], type(strategy).__name__,
+            type(channel).__name__)
+        return build()
+
+
+def runner_cache_stats() -> Dict[str, int]:
+    """Block-runner cache counters: hits, misses, size and bound, and how
+    many times an unhashable strategy forced an uncached runner."""
+    return {"hits": _RUNNER_CACHE.hits, "misses": _RUNNER_CACHE.misses,
+            "currsize": len(_RUNNER_CACHE.keys()),
+            "maxsize": _RUNNER_CACHE.maxsize,
+            "unhashable_misses": _UNHASHABLE_MISSES["count"]}
+
+
+def clear_runner_cache() -> None:
+    """Drop every cached runner (with its buffers and graphs) and reset
+    the counters."""
+    _RUNNER_CACHE.clear()
+    _UNHASHABLE_MISSES["count"] = 0
+
+
 def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                   rounds: int, clients_per_round: int = 1,
                   alpha: float = 1.0, beta: float = 0.01, support: int = 32,
@@ -263,7 +458,6 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
     per_client_bytes = np.zeros(clients_per_round, np.int64)
     scheduled = getattr(sampling, "schedule_kind", "scheduled") != "uniform"
     budget = int(strategy.local_step_budget(support))
-    simulate = channel.simulates_quantization
     beta = float(beta)
     blocks, pad = plan_blocks(rounds, eval_every, max_block)
     if strategy.meters_comm:
@@ -307,48 +501,27 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
         fields = [f.name for f in dataclasses.fields(ClientSchedule)]
         staged, event = _stage([getattr(sched, f) for f in fields] + data,
                                dev)
-        sched_d = ClientSchedule(*staged[:len(fields)])
-        batch_d = dict(zip(names, staged[len(fields):]))
-        return part, sched_d, batch_d, (staged, event)
+        return part, staged, names, event
 
+    runner = _block_runner(strategy, beta, channel, scheduled)
+    prog = None
     staged_iter = prefetch_items(stage, len(blocks), depth=prefetch)
     if tracker is not None:
         tracker.on_run_start()
     try:
-        for (start, end), (part, sched, batch, sync) in zip(blocks,
-                                                            staged_iter):
-            _consume(*sync)
+        for (start, end), (part, staged, names, event) in zip(blocks,
+                                                             staged_iter):
+            _consume(staged, event)
+            if prog is None:
+                prog = runner.program(layout, phi, staged, names)
+                prog.phi.copy_(phi)
             blk = end - start
-            round_losses = []
-            for j in range(blk):          # the pad rounds are skipped
-                client_batch = {k: v[j] for k, v in batch.items()}
-                phi_down = channel.transmit_flat(layout, phi)
-                steps, weights = sched.local_steps[j], sched.weights[j]
-                if scheduled:
-                    results, losses = strategy.client_update_steps(
-                        layout, phi_down, client_batch, beta, steps)
-                else:
-                    results, losses = strategy.client_update(
-                        layout, phi_down, client_batch, beta)
-                if simulate:
-                    results = (channel.transmit(results)
-                               if isinstance(results, dict)
-                               else channel.transmit_flat(layout, results))
-                alpha_t = sched.alpha[j:j + 1]     # stays on the device
-                if scheduled:
-                    phi = strategy.server_aggregate_weighted(
-                        layout, phi, results, alpha_t, beta, weights)
-                    loss = _weighted_round_loss(losses, steps, weights)
-                else:
-                    phi = strategy.server_aggregate(layout, phi, results,
-                                                    alpha_t, beta)
-                    loss = losses.float().mean()
-                round_losses.append(loss)
+            runner.run_block(prog, staged, blk)   # the pad rounds: never
             needs_eval = bool(eval_every) and end % eval_every == 0
             if tracker is not None or (needs_eval
                                        and strategy.tracks_inner_loss):
                 # the one device->host read of the block's losses
-                host_losses = torch.stack(round_losses).cpu().numpy()
+                host_losses = prog.losses[:blk].cpu().numpy()
             if tracker is not None:
                 tracker.on_block(start, end, host_losses)
             if strategy.meters_comm:
@@ -359,7 +532,7 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                 if tracker is not None:
                     tracker.on_transport(end, block_bytes, comm_bytes)
             if needs_eval:
-                ev = evaluate_init(strategy.loss_fn, layout.views(phi),
+                ev = evaluate_init(strategy.loss_fn, layout.views(prog.phi),
                                    task_dist,
                                    np.random.default_rng(10_000 + end - 1),
                                    **(eval_kwargs or {}))
@@ -376,10 +549,12 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
         if tracker is not None:
             tracker.stop_profile()
 
+    if prog is not None:
+        phi = prog.phi.clone()     # the runner's buffer serves later runs
     out = {"params": layout.views(phi), "history": history}
     if strategy.meters_comm:
         out["comm_bytes"] = comm_bytes
         out["per_client_bytes"] = per_client_bytes.tolist()
     if tracker is not None:
-        tracker.on_run_end()
+        tracker.on_run_end(runner_cache_stats())
     return out

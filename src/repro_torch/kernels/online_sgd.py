@@ -1,5 +1,5 @@
-"""Streaming SGD update ``p - lr * g`` as a CUDA C++ kernel, and its
-momentum form as a Triton kernel.
+"""Streaming SGD update ``p - lr * g`` and its momentum form as CUDA
+C++ kernels.
 
 ``online_sgd`` replaces the TPU kernel
 ``repro/kernels/online_sgd.py::online_sgd_2d`` (``_sgd_kernel``), which
@@ -19,9 +19,12 @@ so the two agree bit for bit.
 (``_sgd_momentum_kernel``): ``m' = mu * m + g`` in fp32, then ``p' = p -
 lr * m'``, one pass that reads p, g and m and writes p' and m' (20 bytes
 per element in fp32, 14 with bf16 p and g: 100.2 us and 70.1 us at 2^24
-elements). It is a Triton kernel launched through Triton's own
-launcher; no path calls it (nor does the JAX package), so its host cost
-was left as it is.
+elements). Its kernel is the second entry point of the same source and
+its wrapper is as lean: the checks, ``torch.empty_like`` for p' and for
+m' (on the card's host two allocations cost less than one carved into
+two views), one ``ctypes`` call with lr and mu by value. It also agrees
+with its plain version bit for bit. No path calls it (nor does the JAX
+package).
 """
 from __future__ import annotations
 
@@ -32,58 +35,30 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-BLOCK = 1024
 _CODES = {torch.float32: 0, torch.bfloat16: 1}   # online_sgd.cu's dtype
 _DTYPES = tuple(_CODES)
 
 
 @functools.lru_cache(maxsize=1)
 def _bind():
-    """The library's entry point, typed; built at first use."""
-    fn = build.load("online_sgd").online_sgd_launch
+    """The library's two entry points, typed; built at first use."""
+    lib = build.load("online_sgd")
+    fn = lib.online_sgd_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
                                            ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=1)
-def _momentum_kernel():
-    import triton
-    import triton.language as tl
-
-    @triton.jit
-    def sgd_momentum_kernel(p_ptr, g_ptr, m_ptr, out_p_ptr, out_m_ptr, lr,
-                            mu, n, BLOCK_SIZE: tl.constexpr):
-        offs = tl.program_id(0).to(tl.int64) * BLOCK_SIZE + tl.arange(
-            0, BLOCK_SIZE)
-        mask = offs < n
-        g = tl.load(g_ptr + offs, mask=mask).to(tl.float32)
-        m = tl.load(m_ptr + offs, mask=mask)
-        m_new = mu * m + g
-        tl.store(out_m_ptr + offs, m_new, mask=mask)
-        p = tl.load(p_ptr + offs, mask=mask).to(tl.float32)
-        tl.store(out_p_ptr + offs,
-                 (p - lr * m_new).to(out_p_ptr.dtype.element_ty), mask=mask)
-
-    return sgd_momentum_kernel, triton.cdiv
+    mom = lib.online_sgd_momentum_launch
+    mom.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_float, ctypes.c_float,
+                                            ctypes.c_void_p]
+    mom.restype = ctypes.c_int
+    return fn, mom
 
 
 def _check(p, g):
-    if p.shape != g.shape:
-        raise ValueError(f"p {tuple(p.shape)} and g {tuple(g.shape)} "
-                         f"differ in shape")
-    if p.dtype != g.dtype or p.dtype not in _CODES:
-        raise TypeError(f"p and g must share a dtype in {_DTYPES}; got "
-                        f"{p.dtype} and {g.dtype}")
-    if p.device != g.device:
-        raise ValueError(f"p on {p.device}, g on {g.device}")
-
-
-def online_sgd(p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
-    """``(p - lr * g)`` in fp32 math, stored in p's dtype, as a new
-    tensor. A CPU tensor gets the plain version; a CUDA tensor gets the
-    kernel (``online_sgd.launches`` counts its launches) or an error."""
+    """Raise unless p and g share a shape, a supported dtype and a
+    device; returns the dtype's code and the device index (-1 off the
+    card)."""
     if p.shape != g.shape:
         raise ValueError(f"p {tuple(p.shape)} and g {tuple(g.shape)} "
                          f"differ in shape")
@@ -91,9 +66,17 @@ def online_sgd(p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
     if code is None or g.dtype != p.dtype:
         raise TypeError(f"p and g must share a dtype in {_DTYPES}; got "
                         f"{p.dtype} and {g.dtype}")
-    index = p.get_device()         # -1 off the card
+    index = p.get_device()
     if g.get_device() != index:
         raise ValueError(f"p on {p.device}, g on {g.device}")
+    return code, index
+
+
+def online_sgd(p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
+    """``(p - lr * g)`` in fp32 math, stored in p's dtype, as a new
+    tensor. A CPU tensor gets the plain version; a CUDA tensor gets the
+    kernel (``online_sgd.launches`` counts its launches) or an error."""
+    code, index = _check(p, g)
     if index < 0:
         if p.device.type != "cpu" or g.device.type != "cpu":
             raise ValueError(f"online_sgd: unsupported device {p.device}, "
@@ -104,7 +87,7 @@ def online_sgd(p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
     out = torch.empty_like(p)
     n = p.numel()
     if n:
-        err = build.launch_on(index, _bind(), p.data_ptr(), g.data_ptr(),
+        err = build.launch_on(index, _bind()[0], p.data_ptr(), g.data_ptr(),
                               out.data_ptr(), n, code, float(lr))
         if err != 0:
             raise RuntimeError(f"online_sgd launch failed: cudaError {err}")
@@ -122,28 +105,30 @@ def online_sgd_momentum(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     CPU tensor gets the plain version; a CUDA tensor gets the kernel
     (``online_sgd_momentum.launches`` counts its launches) or an
     error."""
-    _check(p, g)
+    code, index = _check(p, g)
     if m.shape != p.shape or m.dtype != torch.float32:
         raise ValueError(f"m must be fp32 of shape {tuple(p.shape)}; got "
                          f"{m.dtype} {tuple(m.shape)}")
-    if m.device != p.device:
+    if m.get_device() != index:
         raise ValueError(f"p on {p.device}, m on {m.device}")
-    if p.device.type == "cpu":
+    if index < 0:
+        if {p.device.type, g.device.type, m.device.type} != {"cpu"}:
+            raise ValueError(f"online_sgd_momentum: unsupported device "
+                             f"{p.device}")
         return ref.online_sgd(p, g, float(lr), m=m, momentum=float(momentum))
-    if p.device.type != "cuda":
-        raise ValueError(f"online_sgd_momentum: unsupported device "
-                         f"{p.device}")
     if not (p.is_contiguous() and g.is_contiguous() and m.is_contiguous()):
         raise ValueError("online_sgd_momentum: p, g and m must be "
                          "contiguous")
     out_p, out_m = torch.empty_like(p), torch.empty_like(m)
     n = p.numel()
     if n:
-        kernel, cdiv = _momentum_kernel()
-        with torch.cuda.device(p.device):
-            kernel[(cdiv(n, BLOCK),)](p, g, m, out_p, out_m, float(lr),
-                                      float(momentum), n, BLOCK_SIZE=BLOCK,
-                                      num_warps=4)
+        err = build.launch_on(index, _bind()[1], p.data_ptr(), g.data_ptr(),
+                              m.data_ptr(), out_p.data_ptr(),
+                              out_m.data_ptr(), n, code, float(lr),
+                              float(momentum))
+        if err != 0:
+            raise RuntimeError(
+                f"online_sgd_momentum launch failed: cudaError {err}")
         online_sgd_momentum.launches += 1
     return out_p, out_m
 

@@ -309,7 +309,7 @@ def run_adapt(args):
         "k_max": args.k_max, "steps_per_tick": args.steps_per_tick,
         "wall_s": round(dt, 3),
         "req_per_s": round(len(results) / dt, 1),
-        "ticks": server.ticks,
+        "ticks": server.ticks, "trace_count": server.trace_count,
         "kernel_launches": ops.launch_counts(),
         "latency_ms": {k: round(v, 3) for k, v in
                        tracker.percentiles("serve.latency_ms").items()},

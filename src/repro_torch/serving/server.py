@@ -3,10 +3,20 @@
 The paper's deployment story: a new device checks in with a few support
 samples, fine-tunes the broadcast phi for k steps, and is scored on its
 own query data. The server keeps B padded SLOTS on the device and
-advances all of them a few steps per TICK; retired slots are refilled
-from a host FIFO between ticks by writing the new rows in place, so no
-shape ever changes. Each unit step is one kernel launch over all slots
-(``online_sgd`` for fp32, ``dfa_epoch_int8`` for TIFeD).
+advances all of them a few steps per TICK. Each unit step is one kernel
+launch over all slots (``online_sgd`` for fp32, ``dfa_epoch_int8`` for
+TIFeD).
+
+No shape ever changes, so the tick is built once per server, as the JAX
+server's is traced once (``AdaptationServer.trace_count``): a
+``graphs.GraphStep``, captured as a CUDA graph on the card and replayed,
+run as it is on the CPU. Every tick reads a refill of B rows, row b for
+slot b, from one fixed device buffer: the host writes the admitted
+requests into a pinned buffer of the same layout and makes one copy, and
+the tick takes row b only where the refill's mask is set (a
+``torch.where``, so no index ever points past the state). It writes the
+state in place and its one output, (finished, query loss, steps) per
+slot, to one buffer that the host reads once per tick.
 
 Numerics: ``offline_adapt`` runs the same unit steps on a request set
 held in memory, in FIFO groups at the same slot width; a served request
@@ -16,6 +26,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import math
 import time
 from typing import Dict, List, Optional
 
@@ -24,6 +35,7 @@ import torch
 
 from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.graphs import GraphStep
 
 
 @dataclasses.dataclass
@@ -71,6 +83,41 @@ def _to_phi(phi, device):
     return params_from_numpy(phi, device)
 
 
+def _leaves(tree):
+    """The leaves of a pack (nested dicts, tuples and lists), in order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _same_program(old, new) -> bool:
+    """Whether a tick built on pack ``old`` serves pack ``new`` once
+    ``new``'s tensors are copied into ``old``'s: the same tensor shapes,
+    dtypes and devices, and equal host values (which a capture bakes
+    in)."""
+    a, b = list(_leaves(old)), list(_leaves(new))
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.shape == y.shape
+                    and x.dtype == y.dtype and x.device == y.device):
+                return False
+        elif isinstance(y, torch.Tensor) or x != y:
+            return False
+    return True
+
+
+# the refill's fields, one after another in one fp32 buffer: the four
+# request arrays per row, then k and the row's refill mask
+_REFILL = ("sx", "sy", "qx", "qy", "k", "fill")
+
+
 class AdaptationServer:
     """Serve a ragged stream of client-adaptation requests against one
     meta-learned init.
@@ -84,6 +131,8 @@ class AdaptationServer:
     - ``device``: ``"cuda"`` (default) or ``"cpu"``.
 
     Request shapes are fixed by the first submitted request.
+    ``trace_count`` counts the builds of the tick: 1 after the first
+    tick, on either device.
     """
 
     def __init__(self, phi, adapter, *, slots: int, k_max: int,
@@ -103,6 +152,7 @@ class AdaptationServer:
         self.steps_per_tick = int(steps_per_tick)
         self.metrics = metrics
         self.return_params = bool(return_params)
+        self.trace_count = 0
         self.ticks = 0
         self._pack = adapter.pack_phi(_to_phi(phi, self.device))
         self._queue: collections.deque = collections.deque()
@@ -111,6 +161,7 @@ class AdaptationServer:
         self._next_rid = 0
         self._state = None                    # allocated on first submit
         self._shapes = None
+        self._tick_step = None
 
     # -- device state ------------------------------------------------------
     def _alloc_state(self, req: _Pending):
@@ -132,29 +183,50 @@ class AdaptationServer:
             "active": torch.zeros((B,), dtype=torch.bool, device=dev),
             "qloss": torch.zeros((B,), dtype=f32, device=dev),
         }
+        shapes = [self._shapes[f] for f in _REFILL[:4]] + [(), ()]
+        sizes = [B * math.prod(sh) for sh in shapes]
+        host = torch.zeros(sum(sizes), dtype=f32,
+                           pin_memory=dev.type == "cuda")
+        self._refill_host = host
+        self._refill_dev = torch.zeros_like(host, device=dev)
+        self._refill, self._refill_np, at = {}, {}, 0
+        for name, sh, n in zip(_REFILL, shapes, sizes):
+            self._refill[name] = self._refill_dev[at:at + n].view((B,) + sh)
+            self._refill_np[name] = host[at:at + n].view((B,) + sh).numpy()
+            at += n
+        # finished, query loss and steps per slot, read once per tick
+        self._out = torch.zeros((3, B), dtype=f32, device=dev)
+        self._tick_step = GraphStep(self._tick, dev)
 
     @torch.no_grad()
-    def _tick(self, refill):
-        st, ad, pack = self._state, self.adapter, self._pack
-        if refill is not None:
-            idx = refill["idx"]
-            fresh = ad.prepare(pack, refill["sx"], refill["sy"])
-            for key, val in fresh.items():
-                st["slots"][key][idx] = val
-            st["qx"][idx] = refill["qx"]
-            st["qy"][idx] = refill["qy"]
-            st["k"][idx] = refill["k"]
-            st["step"][idx] = 0
-            st["active"][idx] = True
-            st["qloss"][idx] = 0.0
-        st["slots"], st["step"] = _advance(
-            ad, pack, st["slots"], st["step"], st["k"], st["active"],
-            self.steps_per_tick)
-        finished = st["active"] & (st["step"] >= st["k"])
-        ql = ad.query_loss(pack, st["slots"], st["qx"], st["qy"])
-        st["qloss"] = torch.where(finished, ql, st["qloss"])
-        st["active"] = st["active"] & ~finished
-        return finished
+    def _tick(self):
+        """One tick on the fixed buffers: the masked refill, then
+        ``steps_per_tick`` masked unit steps, the query loss of the slots
+        that finish, and the retire mask."""
+        st, ad, pack, rf = self._state, self.adapter, self._pack, self._refill
+        fill = rf["fill"] > 0
+        fresh = ad.prepare(pack, rf["sx"], rf["sy"])
+        slots = {key: torch.where(_bcast(fill, fresh[key]), fresh[key], old)
+                 for key, old in st["slots"].items()}
+        qx = torch.where(_bcast(fill, rf["qx"]), rf["qx"], st["qx"])
+        qy = torch.where(_bcast(fill, rf["qy"]), rf["qy"], st["qy"])
+        k = torch.where(fill, rf["k"].to(torch.int32), st["k"])
+        step = torch.where(fill, 0, st["step"])
+        active = st["active"] | fill
+        slots, step = _advance(ad, pack, slots, step, k, active,
+                               self.steps_per_tick)
+        finished = active & (step >= k)
+        ql = ad.query_loss(pack, slots, qx, qy)
+        qloss = torch.where(finished, ql,
+                            torch.where(fill, 0.0, st["qloss"]))
+        for key, t in st["slots"].items():
+            t.copy_(slots[key])
+        for key, t in (("qx", qx), ("qy", qy), ("k", k), ("step", step),
+                       ("active", active & ~finished), ("qloss", qloss)):
+            st[key].copy_(t)
+        self._out[0].copy_(finished)
+        self._out[1].copy_(qloss)
+        self._out[2].copy_(step)
 
     # -- host control loop -------------------------------------------------
     def submit(self, sx, sy, qx, qy, k: int) -> int:
@@ -186,25 +258,21 @@ class AdaptationServer:
         return rid
 
     def _build_refill(self):
-        reqs = []
+        """Admit waiting requests into free slots: request rows into the
+        pinned refill at their slots' rows, the mask set there, then one
+        copy to the device. (The host writes the pinned buffer again only
+        after the tick's read, which follows the copy.)"""
+        h = self._refill_np
+        h["fill"][:] = 0
         while self._queue and self._free:
             req = self._queue.popleft()
             slot = self._free.pop(0)          # lowest free slot first
+            for name in _REFILL[:4]:
+                h[name][slot] = getattr(req, name)
+            h["k"][slot] = req.k
+            h["fill"][slot] = 1
             self._inflight[slot] = req
-            reqs.append((slot, req))
-        if not reqs:
-            return None
-        dev = self.device
-
-        def rows(field):
-            arr = np.stack([getattr(r, field) for _, r in reqs])
-            return torch.from_numpy(arr).to(dev)
-
-        return {"idx": torch.tensor([s for s, _ in reqs], device=dev),
-                "sx": rows("sx"), "sy": rows("sy"), "qx": rows("qx"),
-                "qy": rows("qy"),
-                "k": torch.tensor([r.k for _, r in reqs],
-                                  dtype=torch.int32, device=dev)}
+        self._refill_dev.copy_(self._refill_host, non_blocking=True)
 
     def step(self) -> List[AdaptResult]:
         """Admit waiting requests into free slots, run ONE tick, retire
@@ -213,20 +281,20 @@ class AdaptationServer:
             return []
         if self._state is None:
             self._alloc_state(self._queue[0])
-        finished = self._tick(self._build_refill())
+        self._build_refill()
+        if not self._tick_step.ready:
+            self.trace_count += 1             # this tick builds
+        self._tick_step()
         self.ticks += 1
         if self.metrics is not None:
             self.metrics.on_tick()
-        fin = finished.cpu().numpy()
+        fin, ql, steps = self._out.cpu().numpy()   # the tick's one read
         results: List[AdaptResult] = []
         if fin.any():
-            st = self._state
-            ql = st["qloss"].cpu().numpy()
-            steps = st["step"].cpu().numpy()
             params = None
             if self.return_params:
                 params = params_to_numpy(
-                    self.adapter.finish(self._pack, st["slots"]))
+                    self.adapter.finish(self._pack, self._state["slots"]))
             now = time.monotonic()
             for slot in np.nonzero(fin)[0]:
                 slot = int(slot)
@@ -256,13 +324,25 @@ class AdaptationServer:
 
     def set_params(self, phi) -> None:
         """Swap the served init. Requires an idle server: in-flight
-        requests finish against their phi."""
+        requests finish against their phi. Where the new pack has the
+        old one's shapes and host values, its tensors are copied into
+        the old ones and the built tick serves on; otherwise the tick is
+        built again at the next tick (and counted)."""
         if not self.idle:
             raise RuntimeError("cannot swap phi with requests in flight")
-        self._pack = self.adapter.pack_phi(_to_phi(phi, self.device))
+        pack = self.adapter.pack_phi(_to_phi(phi, self.device))
+        if _same_program(self._pack, pack):
+            for old, new in zip(_leaves(self._pack), _leaves(pack)):
+                if isinstance(old, torch.Tensor):
+                    old.copy_(new)
+            return
+        self._pack = pack
+        if self._state is not None:
+            self._tick_step = GraphStep(self._tick, self.device)
 
     def reset(self) -> None:
-        """Drop all queued work and zero the slot state (phi stays)."""
+        """Drop all queued work and zero the slot state (phi and the
+        built tick stay)."""
         self._queue.clear()
         self._inflight.clear()
         self._free = list(range(self.B))

@@ -16,9 +16,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import graphs  # noqa: E402
 from repro_torch.configs.paper_models import SINE_MLP  # noqa: E402
-from repro_torch.core import (StragglerSampling, reptile_train,  # noqa: E402
-                              tinyreptile_train)
+from repro_torch.core import (CommChannel, StragglerSampling,  # noqa: E402
+                              clear_runner_cache, engine, fedavg_train,
+                              reptile_train, tinyreptile_train)
 from repro_torch.core.strategies import tifed_requantize  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models.paper_nets import (init_paper_model,  # noqa: E402
@@ -231,9 +233,10 @@ def test_meta_update_kernel_matches_plain(cuda, dtype, n, offset):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 1e-2)])
-def test_online_sgd_momentum_kernel_matches_plain(cuda, dtype, tol):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_online_sgd_momentum_kernel_matches_plain(cuda, dtype):
+    """Exact: mu * m + g and p - lr * m' are rounded op by op, as the
+    plain version's tensor ops round them; m' stays fp32."""
     g = torch.Generator().manual_seed(1)
     p, grad = (torch.randn(64, 1153, generator=g).to(cuda, dtype)
                for _ in range(2))
@@ -244,9 +247,143 @@ def test_online_sgd_momentum_kernel_matches_plain(cuda, dtype, tol):
     assert ops.online_sgd_momentum.launches == before + 1
     wp, wm = ref.online_sgd(p, grad, 0.05, m=m, momentum=0.9)
     assert gp.dtype == dtype and gm.dtype == torch.float32
-    torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-6)
-    torch.testing.assert_close(gp.float(), wp.float(), rtol=tol,
-                               atol=tol if dtype == torch.bfloat16 else 1e-6)
+    assert gp.shape == gm.shape == p.shape
+    assert torch.equal(gm, wm) and torch.equal(gp, wp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,offset", [
+    ((1153,), 0), ((64, 1153), 0), ((1 << 24,), 0), ((0,), 0), ((1,), 0),
+    ((4099,), 0), ((132 * 256 * 4 * 8 + 5,), 0),     # past a full wave
+    ((1153,), 1), ((4099,), 3), ((73792,), 1)])
+def test_online_sgd_momentum_kernel_exact_at_sizes(cuda, dtype, shape,
+                                                   offset):
+    """Bit for bit at the sine MLP's 1,153 and 64 x 1,153, flat 2^24, odd
+    lengths (the tail), past the large launch shape's wave, and at views
+    ``offset`` elements off 16-byte alignment (the scalar kernel); one
+    launch a call, none for an empty tensor."""
+    n = int(np.prod(shape))
+    g = torch.Generator().manual_seed(n + offset)
+    p, grad = (torch.randn(n + offset, generator=g).to(cuda, dtype)[offset:]
+               .view(shape) for _ in range(2))
+    m = torch.randn(n + offset, generator=g).to(cuda)[offset:].view(shape)
+    for lr, mu in ((0.05, 0.9), (0.0173, 0.5), (0.5, 0.0)):
+        before = ops.online_sgd_momentum.launches
+        gp, gm = ops.online_sgd_momentum(p, grad, m, lr, mu)
+        torch.cuda.synchronize()
+        assert ops.online_sgd_momentum.launches == before + (1 if n else 0)
+        wp, wm = ref.online_sgd(p, grad, lr, m=m, momentum=mu)
+        assert torch.equal(gm, wm) and torch.equal(gp, wp)
+
+
+def _train_case(name):
+    """A small run of each route the captured round takes: TinyReptile,
+    Reptile at 8 clients, FedAvg, a straggler schedule and the int8
+    wire, with uneven blocks (the last one shorter than the pad)."""
+    phi = init_paper_model(SINE_MLP, torch.Generator().manual_seed(0), "cpu")
+    ev = dict(num_tasks=4, support=8, k_steps=4, lr=0.02, query=16)
+    kw = dict(beta=0.02, support=8, eval_every=7, eval_kwargs=ev, seed=3)
+    if name == "tinyreptile":
+        return functools.partial(tinyreptile_train, LOSS, phi, SineTasks(),
+                                 rounds=17, **kw)
+    if name == "reptile_c8":
+        return functools.partial(reptile_train, LOSS, phi, SineTasks(),
+                                 rounds=10, epochs=4, clients_per_round=8,
+                                 **kw)
+    if name == "fedavg":
+        return functools.partial(fedavg_train, LOSS, phi, SineTasks(),
+                                 rounds=10, epochs=3, clients_per_round=4,
+                                 **kw)
+    if name == "straggler":
+        return functools.partial(tinyreptile_train, LOSS, phi, SineTasks(),
+                                 rounds=10, clients_per_round=4,
+                                 sampling=StragglerSampling(0.5), **kw)
+    return functools.partial(tinyreptile_train, LOSS, phi, SineTasks(),
+                             rounds=10, channel=CommChannel("int8"), **kw)
+
+
+def _uncaptured(monkeypatch):
+    """Every GraphStep call runs its function eagerly on the card."""
+    monkeypatch.setattr(graphs.GraphStep, "_warm_up_and_capture",
+                        lambda self: self.fn())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tinyreptile", "reptile_c8", "fedavg",
+                                  "straggler", "int8_wire"])
+def test_captured_round_equals_uncaptured(cuda, name, monkeypatch):
+    """The round captured once and replayed gives the params and history
+    of the same round run eagerly every time, bit for bit; the launch
+    counters count every replay; one capture per config."""
+    run = _train_case(name)
+    clear_runner_cache()
+    ops.reset_launch_counts()
+    got = run(device=cuda)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    (runner,) = engine._RUNNER_CACHE._entries.values()
+    assert runner.trace_count == 1
+    (prog,) = runner._programs.values()
+    assert prog.step.graph is not None
+    run(device=cuda)                           # a second run: no capture
+    assert runner.trace_count == 1
+    clear_runner_cache()
+    with monkeypatch.context() as mp:
+        _uncaptured(mp)
+        ops.reset_launch_counts()
+        want = run(device=cuda)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == counts
+    clear_runner_cache()
+    for k, v in want["params"].items():
+        assert torch.equal(got["params"][k], v), k
+    assert got["history"] == want["history"]
+    assert got["comm_bytes"] == want["comm_bytes"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fp32", "tifed"])
+def test_captured_tick_equals_uncaptured(cuda, route, monkeypatch):
+    """The tick captured once and replayed serves exactly what the same
+    tick run eagerly serves (params, query losses, steps), counts the
+    same launches, and is built once: also across ``reset`` and a
+    ``set_params`` of the same shapes."""
+    phi = init_paper_model(SINE_MLP, torch.Generator().manual_seed(0), "cpu")
+    if route == "fp32":
+        adapter = Fp32Adapter(functools.partial(paper_model_loss, SINE_MLP))
+        reqs, k_max = _requests(20, 10, 8, 10, 0), 10
+    else:
+        phi, adapter = tifed_requantize(phi), TifedAdapter(8, 6)
+        reqs, k_max = _requests(20, 8, 8, 6, 1), 6
+
+    def serve():
+        server = AdaptationServer(phi, adapter, slots=8, k_max=k_max,
+                                  steps_per_tick=3, return_params=True,
+                                  device=cuda)
+        ops.reset_launch_counts()
+        out = []
+        for _ in range(2):
+            for r in reqs:
+                server.submit(*r)
+            out += sorted(server.drain(), key=lambda r: r.rid)
+            server.reset()
+            server.set_params(phi)
+        torch.cuda.synchronize()
+        return server, out, ops.launch_counts()
+
+    server, got, counts = serve()
+    assert server.trace_count == 1
+    assert server._tick_step.graph is not None
+    with monkeypatch.context() as mp:
+        _uncaptured(mp)
+        _, want, eager_counts = serve()
+    assert counts == eager_counts
+    for g, w in zip(got, want):
+        assert (g.rid, g.steps, g.query_loss) == (w.rid, w.steps,
+                                                  w.query_loss)
+        for leaf in w.params:
+            np.testing.assert_array_equal(g.params[leaf], w.params[leaf])
 
 
 @pytest.mark.cuda

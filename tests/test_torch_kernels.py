@@ -1,7 +1,7 @@
 """The port's kernels, held against the JAX package on the CPU.
 
 On the CPU the port's wrappers take their plain PyTorch versions, so
-these tests pin the arithmetic the CUDA and Triton kernels are held to
+these tests pin the arithmetic the CUDA kernels are held to
 on the GPU (``chip_smoke.py`` and tests/test_torch_cuda.py).
 Both sides get the same seeded NumPy inputs; the JAX side is its plain
 oracle ``repro.kernels.ref``.
@@ -284,10 +284,9 @@ def test_wrappers_reject_bad_operands():
 
 
 def test_online_sgd_module_imports_no_triton():
-    """``online_sgd`` launches through ctypes: importing its module, and
-    the ops that gather every kernel, loads no ``triton`` (only the
-    momentum kernel, on no path, still builds with Triton at first
-    call)."""
+    """``online_sgd`` and its momentum form launch through ctypes:
+    importing their module, and the ops that gather every kernel, loads
+    no ``triton``, nor does calling either."""
     src = Path(__file__).resolve().parents[1] / "src"
     code = ("import sys, torch\n"
             "import repro_torch.kernels.online_sgd as m\n"
@@ -295,6 +294,9 @@ def test_online_sgd_module_imports_no_triton():
             "assert 'triton' not in sys.modules, 'triton imported'\n"
             "p = torch.ones(5)\n"
             "assert torch.equal(m.online_sgd(p, p, 0.5), torch.full((5,), 0.5))\n"
+            "q, v = m.online_sgd_momentum(p, p, p, 0.5, 0.5)\n"
+            "assert torch.equal(q, torch.full((5,), 0.25))\n"
+            "assert torch.equal(v, torch.full((5,), 1.5))\n"
             "assert 'triton' not in sys.modules, 'triton imported'\n")
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [str(src)] + [x for x in [os.environ.get("PYTHONPATH")] if x])}
