@@ -34,19 +34,27 @@ Phases, each printing one JSON line, in this order:
    the L = 1 ... 640 of a decode wave (``path_run_mean``), and at the
    32k fp32 shape of ``benchmarks/kernels_bench.py``, beside
    ``scaled_dot_product_attention``, within 3e-4 (fp32) or 2e-2 (bf16)
-   relative and that times min(1, max |want|) absolute;
+   relative and that times min(1, max |want|) absolute; at the path and
+   32k shapes also the device-L route (L an int32 on the card, as the
+   decode graph launches it), bit-equal to the host-int call, with its
+   own ``path_run_mean_devL``;
 4. serve decode reduced: ``serve --mode decode --arch tinyllama-1.1b
    --reduced`` (4 requests, batch 2, 16 + 16 tokens, cache 64) on the
    card and on the CPU from the same init: every step's logits within
    1e-4, the same tokens, 128 ``flash_decode`` launches and no other;
+   the step built once (``decode_build``: trace_count 1, capture seconds,
+   graph nodes) and replayed;
 5. serve decode tinyllama-1.1b: full width and depth, bf16, random
    weights from seed 0, 16 requests at batch 8, 512 + 128 tokens, cache
-   2048: finite logits, 28,160 ``flash_decode`` launches, tokens/s, step
-   time and peak memory; then the same weights in fp32, 16 teacher-
-   forced steps at batch 2 on the card and on the CPU (within 1e-3 of
-   the largest logit), and the bf16 choices held near the fp32 maximum;
-6. profile decode: 16 full-width decode steps under torch.profiler:
-   idle share, kernels per step, top kernels, ``flash_decode``'s share;
+   2048, the step built once and replayed 1,280 times: finite logits,
+   28,160 ``flash_decode`` launches, tokens/s, step time and peak
+   memory; then the same weights in fp32, 16 teacher-forced steps at
+   batch 2 on the card and on the CPU (within 1e-3 of the largest
+   logit), and the bf16 choices held near the fp32 maximum;
+6. profile decode: 16 replays of the full-width decode step under
+   torch.profiler: idle share, kernels per step, top kernels,
+   ``flash_decode``'s share; then a 64 + 32-token wave of tinyllama-1.1b
+   replayed against the same step run eagerly (for phase 14);
 7. serve fp32: 512 requests through ``AdaptationServer`` with the
    ``serve --mode adapt`` defaults, launch counters set to 0 just before
    and read just after, the tick built (captured) once; 32 requests held
@@ -66,9 +74,10 @@ Phases, each printing one JSON line, in this order:
     size;
 13. profile train: device busy share of 60 TinyReptile rounds;
 14. graphs vs eager: the captured round (TinyReptile, Reptile and FedAvg
-    at 8 clients, the int8 wire) and tick (fp32, TIFeD) against the same
-    round and tick run eagerly on the card, bit for bit, launch counts
-    equal;
+    at 8 clients, the int8 wire), tick (fp32, TIFeD) and decode step
+    (phase 6's wave: every step's logits and the tokens) against the same
+    round, tick and step run eagerly on the card, bit for bit, launch
+    counts equal;
 15. train LM reduced: the LM launcher (``--arch mamba2 --reduced``) on
     the card and on the CPU from the same init, rows and params within
     1e-4, ``comm_mb`` exact, launches as reckoned;
@@ -183,6 +192,9 @@ CHECK_STEPS, CHECK_BATCH, CHECK_TOL = 16, 2, 1e-3
 # held within 2^-4 of the largest fp32 |logit| (16 bf16 steps) of the max
 BF16_CHOICE_TOL = 2 ** -4
 DECODE_PROFILE_STEPS, DECODE_PROFILE_AT = 16, 512
+# graphs_vs_eager's decode wave: tinyllama-1.1b at full width and depth,
+# 8 prompts of 64 tokens and 32 new, cache 2048, replayed against eager
+DECODE_GRAPH = dict(batch=8, prompt_len=64, max_new=32, cache_len=2048)
 
 
 T0 = time.perf_counter()
@@ -1013,7 +1025,7 @@ def uncaptured(graphs):
         graphs.GraphStep._warm_up_and_capture = capture
 
 
-def phase_graphs(torch, np, tm, serves):
+def phase_graphs(torch, np, tm, serves, extra):
     """The captured round and tick, replayed, against the same round and
     tick run eagerly on the card: params, histories, served results and
     launch counts equal, bit for bit. The round: TinyReptile (the
@@ -1078,7 +1090,7 @@ def phase_graphs(torch, np, tm, serves):
                       "capture_s": server._tick_step.capture_s,
                       "graph_nodes": server._tick_step.nodes,
                       "launches": counts, "bit_equal": True}
-    emit({"phase": "graphs_vs_eager", **rows})
+    emit({"phase": "graphs_vs_eager", **rows, **extra})
 
 
 def lm_launches(args):
@@ -1350,22 +1362,45 @@ def phase_kernels_decode(torch, np, ops, ref, rows):
         rows[f"flash_decode/{tag}"] = row
         emit({"phase": "kernel", "kernel": "flash_decode", "case": tag,
               **row})
+        if shape not in (FD_PATH, FD_32K):
+            continue
+        # the device-L route, as the decode graph launches it: L an int32
+        # on the card, one grid for every L; bit-equal to the host-int call
+        length = torch.tensor([L], dtype=torch.int32, device=dev)
+        got_d = ops.flash_decode(q, k, v, length, window=w)
+        torch.cuda.synchronize()
+        check(torch.equal(got_d, got),
+              f"flash_decode {tag}: the device-L route differs from the "
+              f"host-int call")
+        row_d = {**row, "route": "device_L", "bit_equal_to_host_int": True,
+                 "ms": cuda_ms(torch, lambda: ops.flash_decode(
+                     q, *next(caches), length, window=w), iters),
+                 **device_ms(torch, lambda: ops.flash_decode(
+                     q, *next(caches), length, window=w))}
+        rows[f"flash_decode/{tag}_devL"] = row_d
+        emit({"phase": "kernel", "kernel": "flash_decode",
+              "case": f"{tag}_devL", **row_d})
 
     # what a decode wave pays per call: every L in PATH_RUN once per layer,
-    # each time linear between the path rows at L <= PATH_RUN[1]
-    path = sorted((r["L"], r) for key, r in rows.items()
-                  if key.startswith("flash_decode/path_") and not r["window"]
-                  and r["L"] <= PATH_RUN[1])
-    Ls = [L for L, _ in path]
+    # each time linear between the path rows at L <= PATH_RUN[1]; for the
+    # host-int route and the device-L route the decode graph launches
     grid = np.arange(PATH_RUN[0], PATH_RUN[1] + 1)
-    row = {"shape_BHKvhdS": list(FD_PATH), "dtype": "bfloat16",
-           "L_range": list(PATH_RUN), "from_L": Ls,
-           **{k: float(np.interp(grid, Ls, [r[k] for _, r in path]).mean())
-              for k in ("ms", "device_ms", "library_ms",
-                        "library_device_ms", "bound_ms")}}
-    rows["flash_decode/path_run_mean"] = row
-    emit({"phase": "kernel", "kernel": "flash_decode",
-          "case": "path_run_mean", **row})
+    for suffix in ("", "_devL"):
+        path = sorted((r["L"], r) for key, r in rows.items()
+                      if key.startswith("flash_decode/path_")
+                      and key.endswith(f"_w0{suffix}")
+                      and r["L"] <= PATH_RUN[1])
+        Ls = [L for L, _ in path]
+        row = {"shape_BHKvhdS": list(FD_PATH), "dtype": "bfloat16",
+               "route": "device_L" if suffix else "host_int",
+               "L_range": list(PATH_RUN), "from_L": Ls,
+               **{k: float(np.interp(grid, Ls, [r[k] for _, r in path])
+                           .mean())
+                  for k in ("ms", "device_ms", "library_ms",
+                            "library_device_ms", "bound_ms")}}
+        rows[f"flash_decode/path_run_mean{suffix}"] = row
+        emit({"phase": "kernel", "kernel": "flash_decode",
+              "case": f"path_run_mean{suffix}", **row})
     return rows
 
 
@@ -1388,9 +1423,11 @@ def phase_serve_decode_reduced(torch, np, tm):
     same seeded init: every step's logits within 1e-4, the same tokens."""
     serve, ops = tm["serve"], tm["ops"]
     args = serve.parse_args(DECODE_REDUCED)
-    got, want = [], []
+    got, want, built = [], [], []
     (row, out), wall, counts = timed_run(torch, ops, lambda: serve.run_decode(
-        args, on_logits=lambda lg: got.append(lg.cpu())))
+        args, on_logits=lambda lg: got.append(lg.cpu()),
+        on_build=built.append))
+    build = decode_build("serve_decode_reduced", built)
     cpu_row, cpu_out = serve.run_decode(
         serve.parse_args(DECODE_REDUCED + ["--device", "cpu"]),
         on_logits=lambda lg: want.append(lg.clone()))
@@ -1405,11 +1442,26 @@ def phase_serve_decode_reduced(torch, np, tm):
     for key in ("tokens_generated", "requests", "arch"):
         check(row[key] == cpu_row[key], key)
     res = {"phase": "serve_decode_reduced", "argv": DECODE_REDUCED,
-           "wall_s": wall, "launches": counts, "row": row,
+           "wall_s": wall, "launches": counts, "row": row, "build": build,
            "vs_cpu": {"steps": len(got), "tol": 1e-4,
                       "logits_max_abs_diff": worst, "tokens": "equal"}}
     emit(res)
     return res
+
+
+def decode_build(run, built):
+    """The decode run's one build: a step captured once as a CUDA graph
+    and replayed for every step of every wave. Printed on its own line
+    before the run's; returns it."""
+    check(len(built) == 1, f"{run}: {len(built)} decode runners")
+    (runner,) = built
+    check(runner.trace_count == 1 and runner.step.graph is not None,
+          f"{run}: the decode step was built {runner.trace_count} times "
+          f"or not captured")
+    build = {"trace_count": runner.trace_count,
+             "capture_s": runner.capture_s, "graph_nodes": runner.nodes}
+    emit({"phase": "decode_build", "run": run, **build})
+    return build
 
 
 def teacher_forced(torch, model, params, tokens, dev):
@@ -1445,12 +1497,18 @@ def phase_serve_decode_full(torch, np, tm):
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for _, t in bridge.tree_leaves(params))
     check(n_params == TINYLLAMA_PARAMS, f"{n_params} parameters")
-    finite = []
+    finite, built, marks = [], [], []
     torch.cuda.reset_peak_memory_stats()
     (row, out), wall, counts = timed_run(torch, ops, lambda: serve.run_decode(
         args, params=params,
-        on_logits=lambda lg: finite.append(torch.isfinite(lg).all())))
+        on_logits=lambda lg: finite.append(torch.isfinite(lg).all()),
+        on_build=lambda r: (built.append(r),
+                            marks.append(time.perf_counter()))))
+    # the launcher's clocked part: from the built step to the last sync
+    decode_s = time.perf_counter() - marks[0]
     peak = torch.cuda.max_memory_allocated()
+    build = decode_build("serve_decode_tinyllama_1_1b", built)
+    del built
     check_launches("serve_decode_tinyllama_1_1b", counts,
                    decode_launches(args))
     steps = decode_steps(args)
@@ -1490,8 +1548,11 @@ def phase_serve_decode_full(torch, np, tm):
            "tok_per_s": row["tokens_generated"] / wall,
            "processed_tok_per_s": steps * args.batch / wall,
            "decode_steps": steps, "step_ms": 1e3 * wall / steps,
+           "after_build": {"wall_s": decode_s,
+                           "tok_per_s": row["tokens_generated"] / decode_s,
+                           "step_ms": 1e3 * decode_s / steps},
            "max_memory_allocated_gb": peak / 1e9, "launches": counts,
-           "row": row,
+           "row": row, "build": build,
            "fp32_vs_cpu": {"steps": CHECK_STEPS, "batch": CHECK_BATCH,
                            "tol_of_max": CHECK_TOL, "max_abs_logit": scale,
                            "logits_max_abs_diff": diff, "cpu_s": cpu_s},
@@ -1507,35 +1568,39 @@ def phase_serve_decode_full(torch, np, tm):
 def phase_profile_decode(torch, np, model, params):
     """DECODE_PROFILE_STEPS full-width decode steps at batch 8 from
     position DECODE_PROFILE_AT under torch.profiler, device activity
-    only: the idle share, kernels per step, the top kernels and
-    flash_decode's share of busy time; beside them the wrapper's launches
-    and the flash_decode kernels the tracer recorded: one a launch, as a
-    call is one kernel launch whether or not the KV axis is split, or
-    fewer, since the tracer may lose device events (never more)."""
+    only, each a replay of the decode runner's one captured step: the
+    idle share, kernels per step, the top kernels and flash_decode's
+    share of busy time; beside them the wrapper's launches and the
+    flash_decode kernels the tracer recorded: one a launch, as a call is
+    one kernel launch whether or not the KV axis is split, or fewer, since
+    the tracer may lose device events (never more)."""
     from repro_torch.kernels import ops
+    from repro_torch.runtime.steps import DecodeRunner
     cfg = model.cfg
     B = 8
-    cache = model.init_cache(B, 2048, device="cuda")
-    toks = torch.from_numpy(np.random.default_rng(9).integers(
-        0, cfg.vocab_size, (B, DECODE_PROFILE_STEPS + 1))).cuda()
-
-    def step(i):
-        return model.decode_fn(params, {"tokens": toks[:, i:i + 1],
-                                        "cache": cache,
-                                        "cache_len": DECODE_PROFILE_AT + i})
-
-    with torch.no_grad():
-        step(0)
+    runner = DecodeRunner(model, params, batch=B,
+                          prompt_len=DECODE_PROFILE_AT
+                          + DECODE_PROFILE_STEPS + 1,
+                          cache_len=2048, max_new=0, device="cuda")
+    runner.prompts.copy_(torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab_size, tuple(runner.prompts.shape))))
+    runner.build()
+    runner.cursor.fill_(DECODE_PROFILE_AT)
+    runner.step()                               # a replay before the window
+    torch.cuda.synchronize()
+    before = ops.launch_counts()["flash_decode"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(DECODE_PROFILE_STEPS):
+            runner.step()
         torch.cuda.synchronize()
-        before = ops.launch_counts()["flash_decode"]
-        with torch.profiler.profile(
-                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for i in range(1, DECODE_PROFILE_STEPS + 1):
-                step(i)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        launches = ops.launch_counts()["flash_decode"] - before
+        wall = time.perf_counter() - t0
+    launches = ops.launch_counts()["flash_decode"] - before
+    check(launches == DECODE_PROFILE_STEPS * cfg.num_layers,
+          f"{launches} flash_decode launches in {DECODE_PROFILE_STEPS} "
+          f"replayed steps")
+    check(runner.trace_count == 1, "the profiled step was built again")
     cuda = torch.autograd.DeviceType.CUDA
     by_name = {ev.key: (ev.self_device_time_total, ev.count)
                for ev in prof.key_averages()
@@ -1551,7 +1616,8 @@ def phase_profile_decode(torch, np, model, params):
     n_kernels = sum(c for _, c in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     emit({"phase": "profile_decode", "steps": DECODE_PROFILE_STEPS,
-          "batch": B, "from_position": DECODE_PROFILE_AT,
+          "batch": B, "from_position": DECODE_PROFILE_AT, "replayed": True,
+          "graph_nodes": runner.nodes,
           "wall_ms": 1e3 * wall, "step_ms": 1e3 * wall / DECODE_PROFILE_STEPS,
           "device_busy_ms": dev_us / 1e3,
           "device_idle_share": 1 - dev_us / 1e6 / wall,
@@ -1562,6 +1628,46 @@ def phase_profile_decode(torch, np, model, params):
           "flash_decode_kernels_traced": fd_traced,
           "top_device": [[k[:80], t / 1e3, c, t / dev_us]
                          for k, (t, c) in top]})
+
+
+def graphs_vs_eager_decode(torch, np, graphs, model, params):
+    """A DECODE_GRAPH wave of tinyllama-1.1b through the decode runner,
+    its step captured and replayed, against the same step run eagerly on
+    the card: every step's logits and the tokens bit for bit, launch
+    counts equal. Returns the graphs_vs_eager row."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.steps import DecodeRunner
+    prompts = torch.from_numpy(np.random.default_rng(11).integers(
+        0, model.cfg.vocab_size,
+        (DECODE_GRAPH["batch"], DECODE_GRAPH["prompt_len"])))
+
+    def wave():
+        runner = DecodeRunner(model, params, device="cuda", **DECODE_GRAPH)
+        runner.build()
+        logits = []
+        (tokens, wall, counts) = timed_run(
+            torch, ops, lambda: runner.wave(prompts, on_logits=logits.append))
+        return runner, logits, tokens, wall, counts
+
+    runner, got, got_tokens, wall, counts = wave()
+    info = {"trace_count": runner.trace_count, "capture_s": runner.capture_s,
+            "graph_nodes": runner.nodes}
+    check(runner.trace_count == 1 and runner.step.graph is not None,
+          "graphs decode: the step was not built once")
+    del runner
+    with uncaptured(graphs):
+        _, want, want_tokens, eager_wall, eager = wave()
+    steps = DECODE_GRAPH["prompt_len"] + DECODE_GRAPH["max_new"]
+    check(counts == eager and counts["flash_decode"] == steps
+          * model.cfg.num_layers,
+          f"graphs decode: launches {counts} vs {eager}")
+    check(got_tokens == want_tokens,
+          "graphs decode: the replayed wave's tokens differ from eager")
+    check(len(got) == len(want) == steps
+          and all(torch.equal(a, b) for a, b in zip(got, want)),
+          "graphs decode: the replayed wave's logits differ from eager")
+    return {**info, **DECODE_GRAPH, "launches": counts, "bit_equal": True,
+            "wall_s": wall, "eager_wall_s": eager_wall}
 
 
 def main():
@@ -1595,7 +1701,7 @@ def main():
     phase_kernels_decode(torch, np, ops, ref, rows)
 
     # the decode slice first: its paths are the newest
-    from repro_torch import bridge
+    from repro_torch import bridge, graphs
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve as serve_launcher
 
@@ -1604,6 +1710,7 @@ def main():
     s_dec_red = phase_serve_decode_reduced(torch, np, dm)
     s_dec, dec_model, dec_params = phase_serve_decode_full(torch, np, dm)
     phase_profile_decode(torch, np, dec_model, dec_params)
+    g_dec = graphs_vs_eager_decode(torch, np, graphs, dec_model, dec_params)
     del dec_params
 
     mods = (MetricsTracker, AdaptationServer, ops)
@@ -1620,7 +1727,7 @@ def main():
                           T_K_MAX, "dfa_epoch_int8", exact_params=True)
     phase_profile(torch, np, mods, fp32, phi, reqs)
 
-    from repro_torch import core, graphs
+    from repro_torch import core
     from repro_torch.core import engine
     from repro_torch.data import SineTasks
     from repro_torch.launch import train
@@ -1637,7 +1744,8 @@ def main():
     phase_graphs(torch, np, tm, {
         "server": AdaptationServer,
         "routes": {"serve_fp32": (fp32, phi, reqs, K_MAX),
-                   "serve_tifed": (tifed, phi_q, t_reqs, T_K_MAX)}})
+                   "serve_tifed": (tifed, phi_q, t_reqs, T_K_MAX)}},
+                 {"decode_tinyllama_1_1b": g_dec})
     t_lm_red = phase_train_lm_reduced(torch, np, tm)
     t_lm, lm_phi = phase_train_lm_full(torch, np, tm)
     phase_profile_lm(torch, np, tm, lm_phi)
@@ -1677,7 +1785,9 @@ def main():
             ("flash_decode", "cuda",
              "src/repro_torch/kernels/csrc/flash_decode.cu",
              "src/repro/kernels/flash_decode.py:68",
-             rows["flash_decode/path_8x32x4x64x2048_bfloat16_L2048_w0"])):
+             # the route the decode graph launches: L read on the device
+             rows["flash_decode/path_8x32x4x64x2048_bfloat16_L2048_w0_devL"]
+             )):
         by_path = {p: c[kernel] for p, c in paths.items() if c[kernel]}
         kernels.append(
             {"name": kernel, "route": route, "source": source,
@@ -1687,6 +1797,7 @@ def main():
                                     "plain_ms", "bound_ms", "bound_by",
                                     "library_ms")},
              "library_device_ms": row.get("library_device_ms"),
+             **({"route_on_path": row["route"]} if "route" in row else {}),
              **({"kernels_per_call": row["kernels_per_call"]}
                 if "kernels_per_call" in row else {})})
     emit({"total_s": time.perf_counter() - t_start})

@@ -20,11 +20,14 @@ counters back (a capture launches nothing), and every replay adds the
 rise again: ``kernels.ops.launch_counts`` reads the same on both routes.
 
 A capture or replay that fails raises; nothing falls back to running
-the step eagerly.
+the step eagerly. Python's cyclic garbage collector is off while a graph
+is captured: a collection may free another, unreachable graph, and
+destroying a graph is a call that invalidates a capture in progress.
 """
 from __future__ import annotations
 
 import ctypes
+import gc
 import time
 from typing import Callable, Optional
 
@@ -92,11 +95,17 @@ class GraphStep:
         before = kops.launch_counts()
         t0 = time.perf_counter()
         graph, kept = _new_graph()
-        # thread_local: the engine's prefetch thread stages the next block
-        # (pinned copies, a side stream) while this thread captures
-        with torch.cuda.graph(graph, stream=side,
-                              capture_error_mode="thread_local"):
-            self.fn()
+        collecting = gc.isenabled()
+        gc.disable()            # no graph is destroyed during the capture
+        try:
+            # thread_local: the engine's prefetch thread stages the next
+            # block (pinned copies, a side stream) while this one captures
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                self.fn()
+        finally:
+            if collecting:
+                gc.enable()
         if kept:
             graph.instantiate()
         self.capture_s = time.perf_counter() - t0

@@ -85,6 +85,20 @@
 // (row, dim) output and accumulates P V. Rows a block lacks (R < 8) are
 // skipped, not computed.
 //
+// L on the host or on the device. flash_decode_launch takes [lo, hi)
+// and the split as host ints, so a call's grid fits its L.
+// flash_decode_launch_len reads L from a device int32, as the TPU kernel
+// reads it from SMEM (scalar prefetch), so one launch recorded in a CUDA
+// graph serves every L. Its grid is sized for the longest stretch the call
+// allows (S, or the window), and every block reads L, clamps it to [1, S]
+// (a bad length never reads outside the cache), and plans its split by the
+// wrapper's rule (kernels/flash_decode.py::plan): n_split active blocks of
+// `chunk` positions. At any L it then attends the same stretches and merges
+// them in the same order as the host-int call, so the two are bit-equal.
+// The blocks past n_split attend nothing: in bf16 they still take part in
+// the cluster's two barriers; in fp32 they leave at once, and the last-
+// block ticket counts the n_split active blocks.
+//
 // Limits, checked by the Python wrapper too: hd in {64, 128}; fp32 or
 // bf16, the same for q, K and V; contiguous tensors, the caches 16-byte
 // aligned; stretches of whole 64-position tiles; at most kMaxSplits
@@ -113,11 +127,35 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
+// What a call attends, [lo, hi), in n_split stretches of `chunk`
+// positions: given by the host (len null), or planned by every block from
+// the device length *len, its window, the split cap and the least tiles a
+// split streams, as kernels/flash_decode.py::plan plans it on the host.
+struct Span {
+  const int* len;
+  int lo, hi, chunk, n_split;
+  int window, cap, min_tiles;
+};
+
+__device__ __forceinline__ Span resolve(Span a, int S) {
+  if (a.len == nullptr) return a;
+  const int L = min(max(*a.len, 1), S);
+  a.lo = a.window ? max(0, L - a.window) : 0;
+  a.hi = L;
+  const int n = a.hi - a.lo;
+  const int tiles = (n + kChunk - 1) / kChunk;
+  const int splits = max(1, min(tiles / a.min_tiles, a.cap));
+  a.chunk = (tiles + splits - 1) / splits * kChunk;
+  a.n_split = (n + a.chunk - 1) / a.chunk;
+  return a;
+}
+
 // -- fp32: the split merge through device memory ---------------------------
 
-// ws holds every split's partials: acc (n_split, B, H, HD), then m and l
-// (n_split, B, H). Called by every thread of every block after it wrote
-// its own partial; the last block of the (b, group) merges all of them:
+// ws holds every split's partials: acc (G, B, H, HD), then m and l
+// (G, B, H), G = gridDim.x, of which the first n_split are written. Called
+// by every thread of every active block after it wrote its own partial;
+// the last of the n_split blocks of the (b, group) merges all of them:
 //   out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30),  w_s = e^(m_s - M)
 // smem holds 2 kRows kMaxSplits floats.
 template <int HD>
@@ -134,8 +172,8 @@ __device__ __forceinline__ void merge_splits(const float* ws, float* out,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  const float* ws_m = ws + (long long)n_split * BH * HD;
-  const float* ws_l = ws_m + (long long)n_split * BH;
+  const float* ws_m = ws + (long long)gridDim.x * BH * HD;
+  const float* ws_l = ws_m + (long long)gridDim.x * BH;
   float* sw = smem;                     // (n_split, kRows): m, then weights
   float* swl = smem + n_split * kRows;  // l, then the weights times l
   for (int e = t; e < n_split * nr; e += kThreads) {
@@ -234,7 +272,7 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ out, int S, int H, int Kv,
-                  int R, int lo, int hi, int chunk, float scale_log2) {
+                  int R, Span span, float scale_log2) {
   constexpr int CPR = HD / 8;                  // 16-byte chunks per row
   constexpr int TILE_BYTES = kTile * HD * 2;   // one of K or V
   constexpr int LOADS = kTile * CPR / kThreads;  // copies a thread issues
@@ -251,40 +289,46 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q,
   const int G = (R + kRows - 1) / kRows;       // head groups per KV head
   const int kv = blockIdx.y / G, g = blockIdx.y % G;
   const int b = blockIdx.z;
-  const int split = blockIdx.x, n_split = gridDim.x;
+  span = resolve(span, S);
+  const int split = blockIdx.x, n_split = span.n_split;
   const int h0 = kv * R + g * kRows;
   const int nr = min(kRows, R - g * kRows);
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   const int qr = lane / 4, qc = lane % 4;      // fragment row and column pair
+  const long long row0 = (long long)b * H + h0;
+  // this block's state for the split merge: acc (kRows, HD), then m and l
+  // (kRows), behind the warps' states in the ring
+  float* pAcc = reinterpret_cast<float*>(smem) + kWarps * kRows * (HD + 2);
 
-  const int p_begin = lo + split * chunk;
-  const int p_end = min(hi, p_begin + chunk);
-  const int n_tiles = (p_end - p_begin + kTile - 1) / kTile;
+  if (split < n_split) {   // the blocks past n_split attend nothing
+    const int p_begin = span.lo + split * span.chunk;
+    const int p_end = min(span.hi, p_begin + span.chunk);
+    const int n_tiles = (p_end - p_begin + kTile - 1) / kTile;
 
-  // this thread copies rows r0, r0 + RSTEP, ... of every tile at chunk
-  // c, which lands at chunk c ^ (row % 8), the same for all of them
-  const long long row = (long long)Kv * HD;    // elements between positions
-  const int r0 = t / CPR, c = t % CPR;
-  const long long off0 = ((long long)b * S * Kv + kv) * HD + c * 8;
-  const uint32_t ring = smem_addr(smem);
-  const uint32_t dst0 = (r0 * CPR + (c ^ (r0 & 7))) * 16;
-  auto fetch = [&](int i) {
-    const int p0 = p_begin + i * kTile;
-    const uint32_t sk = ring + (i % kStages) * 2 * TILE_BYTES + dst0;
-    const long long off = off0 + (p0 + r0) * row;
+    // this thread copies rows r0, r0 + RSTEP, ... of every tile at chunk
+    // c, which lands at chunk c ^ (row % 8), the same for all of them
+    const long long row = (long long)Kv * HD;    // elements between positions
+    const int r0 = t / CPR, c = t % CPR;
+    const long long off0 = ((long long)b * S * Kv + kv) * HD + c * 8;
+    const uint32_t ring = smem_addr(smem);
+    const uint32_t dst0 = (r0 * CPR + (c ^ (r0 & 7))) * 16;
+    auto fetch = [&](int i) {
+      const int p0 = p_begin + i * kTile;
+      const uint32_t sk = ring + (i % kStages) * 2 * TILE_BYTES + dst0;
+      const long long off = off0 + (p0 + r0) * row;
 #pragma unroll
-    for (int j = 0; j < LOADS; ++j) {
-      const bool ok = p0 + r0 + j * RSTEP < p_end;
-      const long long o = ok ? off + j * RSTEP * row : off0;
-      const uint32_t d = sk + j * RSTEP * CPR * 16;
-      cp_async16(d, k + o, ok ? 16 : 0);
-      cp_async16(d + TILE_BYTES, v + o, ok ? 16 : 0);
-    }
-  };
+      for (int j = 0; j < LOADS; ++j) {
+        const bool ok = p0 + r0 + j * RSTEP < p_end;
+        const long long o = ok ? off + j * RSTEP * row : off0;
+        const uint32_t d = sk + j * RSTEP * CPR * 16;
+        cp_async16(d, k + o, ok ? 16 : 0);
+        cp_async16(d + TILE_BYTES, v + o, ok ? 16 : 0);
+      }
+    };
 #pragma unroll
-  for (int i = 0; i < kStages; ++i) {
-    if (i < n_tiles) fetch(i);
-    cp_async_commit();
+    for (int i = 0; i < kStages; ++i) {
+      if (i < n_tiles) fetch(i);
+      cp_async_commit();
   }
 
   // this lane's q fragments: row qr, dims 16 ks + 2 qc (+1) and + 8
@@ -399,11 +443,8 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q,
     dst[1] = o[nb][1];
   }
   __syncthreads();
-  // this block's state: acc (kRows, HD), then m and l (kRows)
-  float* pAcc = sLw + kWarps * kRows;
   float* pM = pAcc + kRows * HD;
   float* pL = pM + kRows;
-  const long long row0 = (long long)b * H + h0;
   // warp 0 holds p_begin, so every row's M is finite
   for (int e = t; e < nr * HD; e += kThreads) {
     const int r = e / HD, d = e % HD;
@@ -427,43 +468,47 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q,
       }
     }
   }
-  if (n_split == 1) return;
+  }
+  if (gridDim.x == 1) return;                  // alone in its cluster
 
-  // the splits of this (b, group) are one cluster: once every block's
-  // state is in its shared memory, block s merges outputs s kThreads + t,
-  // s kThreads + t + n_split kThreads, ..., reading every block's state
-  // in split order, then waits until all have read its own
+  // the blocks of this (b, group) are one cluster: once every active
+  // block's state is in its shared memory, active block s merges outputs
+  // s kThreads + t, s kThreads + t + n_split kThreads, ..., reading the
+  // active blocks' states in split order; then every block waits until
+  // all have read its own
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();
-  const float* parts[kMaxCluster];
-#pragma unroll
-  for (int sp = 0; sp < kMaxCluster; ++sp)
-    parts[sp] = sp < n_split ? cluster.map_shared_rank(pAcc, sp) : pAcc;
-  for (int e = split * kThreads + t; e < nr * HD; e += n_split * kThreads) {
-    const int r = e / HD, d = e % HD;
-    float ms[kMaxCluster], ls[kMaxCluster], as[kMaxCluster];
-#pragma unroll
-    for (int sp = 0; sp < kMaxCluster; ++sp) {
-      if (sp < n_split) {
-        as[sp] = parts[sp][e];
-        ms[sp] = parts[sp][kRows * HD + r];
-        ls[sp] = parts[sp][kRows * HD + kRows + r];
-      }
-    }
-    float M = -INFINITY;
+  if (n_split > 1 && split < n_split) {
+    const float* parts[kMaxCluster];
 #pragma unroll
     for (int sp = 0; sp < kMaxCluster; ++sp)
-      if (sp < n_split) M = fmaxf(M, ms[sp]);
-    float num = 0.f, den = 0.f;
+      parts[sp] = sp < n_split ? cluster.map_shared_rank(pAcc, sp) : pAcc;
+    for (int e = split * kThreads + t; e < nr * HD; e += n_split * kThreads) {
+      const int r = e / HD, d = e % HD;
+      float ms[kMaxCluster], ls[kMaxCluster], as[kMaxCluster];
 #pragma unroll
-    for (int sp = 0; sp < kMaxCluster; ++sp) {
-      if (sp < n_split) {
-        const float cw = exp2f(ms[sp] - M);
-        num = fmaf(as[sp], cw, num);
-        den = fmaf(ls[sp], cw, den);
+      for (int sp = 0; sp < kMaxCluster; ++sp) {
+        if (sp < n_split) {
+          as[sp] = parts[sp][e];
+          ms[sp] = parts[sp][kRows * HD + r];
+          ls[sp] = parts[sp][kRows * HD + kRows + r];
+        }
       }
-    }
-    store(out + (row0 + r) * HD + d, num / fmaxf(den, 1e-30f));
+      float M = -INFINITY;
+#pragma unroll
+      for (int sp = 0; sp < kMaxCluster; ++sp)
+        if (sp < n_split) M = fmaxf(M, ms[sp]);
+      float num = 0.f, den = 0.f;
+#pragma unroll
+      for (int sp = 0; sp < kMaxCluster; ++sp) {
+        if (sp < n_split) {
+          const float cw = exp2f(ms[sp] - M);
+          num = fmaf(as[sp], cw, num);
+          den = fmaf(ls[sp], cw, den);
+        }
+      }
+      store(out + (row0 + r) * HD + d, num / fmaxf(den, 1e-30f));
+  }
   }
   cluster.sync();
 }
@@ -478,8 +523,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ ws, int* __restrict__ counters, int S,
-                 int H, int Kv, int R, int lo, int hi, int chunk,
-                 float scale) {
+                 int H, int Kv, int R, Span span, float scale) {
   constexpr int KP = HD + 1;                   // padded shared row
   constexpr int VPR = HD / 4;                  // float4 loads per row
   constexpr int RSTEP = kThreads / HD;         // output rows per pass
@@ -498,14 +542,16 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int G = (R + kRows - 1) / kRows;
   const int kv = blockIdx.y / G, g = blockIdx.y % G;
   const int b = blockIdx.z, B = gridDim.z;
-  const int split = blockIdx.x, n_split = gridDim.x;
+  span = resolve(span, S);
+  const int split = blockIdx.x, n_split = span.n_split;
+  if (split >= n_split) return;        // attends nothing; not in the ticket
   const int h0 = kv * R + g * kRows;
   const int nr = min(kRows, R - g * kRows);
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
   const int d_own = t % HD, r_own = t / HD;
 
-  const int p_begin = lo + split * chunk;
-  const int p_end = min(hi, p_begin + chunk);
+  const int p_begin = span.lo + split * span.chunk;
+  const int p_end = min(span.hi, p_begin + span.chunk);
 
   for (int e = t; e < kRows * HD; e += kThreads) {
     const int r = e / HD;
@@ -623,8 +669,8 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
   // this split's partials: acc, then l beside it and m from the warp
   // that owns the row
   const long long base = split * BH + row0;
-  float* ws_m = ws + (long long)n_split * BH * HD;
-  float* ws_l = ws_m + (long long)n_split * BH;
+  float* ws_m = ws + (long long)gridDim.x * BH * HD;
+  float* ws_l = ws_m + (long long)gridDim.x * BH;
 #pragma unroll
   for (int i = 0; i < ACC; ++i) {
     const int r = r_own + i * RSTEP;
@@ -647,8 +693,8 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 int launch_bf16(dim3 grid, const void* q, const void* k, const void* v,
-                void* out, int S, int H, int Kv, int lo, int hi, int chunk,
-                float scale, cudaStream_t stream) {
+                void* out, int S, int H, int Kv, Span span, float scale,
+                cudaStream_t stream) {
   constexpr int smem = bf16_smem_bytes<HD>();
   cudaError_t err;
   if (smem > 48 * 1024) {
@@ -684,7 +730,7 @@ int launch_bf16(dim3 grid, const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      S, H, Kv, H / Kv, lo, hi, chunk, scale * kLog2e);
+      S, H, Kv, H / Kv, span, scale * kLog2e);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -692,12 +738,33 @@ int launch_bf16(dim3 grid, const void* q, const void* k, const void* v,
 template <int HD>
 int launch_f32(dim3 grid, const void* q, const void* k, const void* v,
                void* out, float* ws, int* counters, int S, int H, int Kv,
-               int lo, int hi, int chunk, float scale, cudaStream_t stream) {
+               Span span, float scale, cudaStream_t stream) {
   flash_decode_f32<HD><<<grid, kThreads, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), ws, counters,
-      S, H, Kv, H / Kv, lo, hi, chunk, scale);
+      S, H, Kv, H / Kv, span, scale);
   return (int)cudaGetLastError();
+}
+
+// the kernel for (dtype, hd) on a grid of n_grid splits
+int launch(int n_grid, const void* q, const void* k, const void* v,
+           void* out, void* ws, void* counters, int dtype, int B, int S,
+           int H, int Kv, int hd, Span span, float scale, void* stream) {
+  const int G = (H / Kv + kRows - 1) / kRows;
+  const dim3 grid((unsigned)n_grid, (unsigned)(Kv * G), (unsigned)B);
+  float* w = static_cast<float*>(ws);
+  int* c = static_cast<int*>(counters);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && hd == 64)
+    return launch_f32<64>(grid, q, k, v, out, w, c, S, H, Kv, span, scale, s);
+  if (dtype == 0 && hd == 128)
+    return launch_f32<128>(grid, q, k, v, out, w, c, S, H, Kv, span, scale,
+                           s);
+  if (dtype == 1 && hd == 64)
+    return launch_bf16<64>(grid, q, k, v, out, S, H, Kv, span, scale, s);
+  if (dtype == 1 && hd == 128)
+    return launch_bf16<128>(grid, q, k, v, out, S, H, Kv, span, scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -723,22 +790,39 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                       (n_split > 1 && (ws == nullptr || counters == nullptr)))) ||
       (dtype == 1 && n_split > kMaxCluster))
     return (int)cudaErrorInvalidValue;
-  const int G = (H / Kv + kRows - 1) / kRows;
-  const dim3 grid((unsigned)n_split, (unsigned)(Kv * G), (unsigned)B);
-  float* w = static_cast<float*>(ws);
-  int* c = static_cast<int*>(counters);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
-    return launch_f32<64>(grid, q, k, v, out, w, c, S, H, Kv, lo, hi, chunk,
-                          scale, s);
-  if (dtype == 0 && hd == 128)
-    return launch_f32<128>(grid, q, k, v, out, w, c, S, H, Kv, lo, hi, chunk,
-                           scale, s);
-  if (dtype == 1 && hd == 64)
-    return launch_bf16<64>(grid, q, k, v, out, S, H, Kv, lo, hi, chunk, scale,
-                           s);
-  if (dtype == 1 && hd == 128)
-    return launch_bf16<128>(grid, q, k, v, out, S, H, Kv, lo, hi, chunk,
-                            scale, s);
-  return (int)cudaErrorInvalidValue;
+  const Span span = {nullptr, lo, hi, chunk, n_split, 0, 0, 1};
+  return launch(n_split, q, k, v, out, ws, counters, dtype, B, S, H, Kv, hd,
+                span, scale, stream);
+}
+
+// The same attention with L read on the device from len (one int32; the
+// kernel clamps it to [1, S]): positions [max(0, L - window), L), or [0,
+// L) with window 0, split as the wrapper's plan splits them, with `cap`
+// the most splits and `min_tiles` the least 64-position tiles a split
+// streams where there are enough. The grid has n_grid splits, enough for
+// the longest stretch, min(window, S) or S; the blocks past a length's
+// splits attend nothing. For fp32 with n_grid > 1, ws holds n_grid * B *
+// H * (hd + 2) floats and counters as above. Returns the cudaError_t of
+// the launch.
+extern "C" int flash_decode_launch_len(const void* q, const void* k,
+                                       const void* v, void* out, void* ws,
+                                       void* counters, const void* len,
+                                       int dtype, int B, int S, int H,
+                                       int Kv, int hd, int window,
+                                       int n_grid, int cap, int min_tiles,
+                                       float scale, void* stream) {
+  const int n_max = window > 0 && window < S ? window : S;
+  const int tiles = (n_max + kChunk - 1) / kChunk;
+  if (len == nullptr || B <= 0 || S <= 0 || H <= 0 || Kv <= 0 ||
+      H % Kv != 0 || window < 0 || cap <= 0 || min_tiles <= 0 ||
+      n_grid < max(1, min(tiles / min_tiles, cap)) ||
+      (dtype == 0 &&
+       (n_grid > kMaxSplits ||
+        (n_grid > 1 && (ws == nullptr || counters == nullptr)))) ||
+      (dtype == 1 && n_grid > kMaxCluster))
+    return (int)cudaErrorInvalidValue;
+  const Span span = {static_cast<const int*>(len), 0, 0, 0, 0, window, cap,
+                     min_tiles};
+  return launch(n_grid, q, k, v, out, ws, counters, dtype, B, S, H, Kv, hd,
+                span, scale, stream);
 }

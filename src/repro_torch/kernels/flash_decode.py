@@ -13,7 +13,14 @@ launches it through ``ctypes``; a CPU tensor gets the plain version
 ``ref.flash_decode``.
 
 The kernel reads only the attended positions ``[max(0, L - window),
-L)``; ``L = 0``, which would attend nothing, raises.
+L)``; ``L = 0``, which would attend nothing, raises. L is a host int, or
+an int32 tensor of one element on q's device, as the TPU kernel reads it
+from SMEM: then the wrapper never reads it on the host, the grid is
+planned for the longest stretch the call allows (S, or the window), and
+the kernel plans the split from L on the device by ``plan``'s rule, so one
+launch recorded in a CUDA graph serves every L, bit-equal to the host-int
+call at the same L. The kernel clamps a device L to [1, S]; its caller
+keeps it in range.
 
 A split bf16 call merges its splits inside a thread-block cluster and
 needs no scratch. A split fp32 call uses a workspace for the splits'
@@ -43,31 +50,50 @@ TARGET_BLOCKS = 4 * 132    # blocks a call aims for: four per SM of an H100
 
 # (device index, stream) -> (workspace, counters)
 _SCRATCH: dict = {}
+# outgrown scratch, kept: a captured CUDA graph may still point at it
+_OUTGROWN: list = []
 
 
 @functools.lru_cache(maxsize=1)
 def _bind():
-    """The library's entry point, typed; built at first use."""
-    launch = build.load("flash_decode").flash_decode_launch
+    """The library's entry points, typed; built at first use: the host-int
+    route and the device-L route."""
+    lib = build.load("flash_decode")
+    launch, launch_len = lib.flash_decode_launch, lib.flash_decode_launch_len
     launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
-    launch.restype = ctypes.c_int
-    return launch
+    launch_len.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+                           + [ctypes.c_float, ctypes.c_void_p])
+    launch.restype = launch_len.restype = ctypes.c_int
+    return launch, launch_len
+
+
+def split_cap(B: int, Kv: int, R: int, max_splits: int) -> int:
+    """The most splits a call takes: enough for some ``TARGET_BLOCKS``
+    blocks, whose query heads of a KV head go in groups of at most
+    ``MAX_ROWS``, and at most ``max_splits``."""
+    return min(-(-TARGET_BLOCKS // (B * Kv * -(-R // MAX_ROWS))), max_splits)
+
+
+def splits_for(B: int, Kv: int, R: int, n: int, max_splits: int) -> int:
+    """The splits ``plan`` aims n positions at, before it drops the empty
+    ones: at most ``split_cap``, each streaming at least ``MIN_TILES``
+    tiles where n has them. Monotone in n, so the device-L route's grid,
+    sized by it for the longest stretch, holds every shorter one's."""
+    return max(1, min(-(-n // TILE) // MIN_TILES,
+                      split_cap(B, Kv, R, max_splits)))
 
 
 @functools.lru_cache(maxsize=4096)
 def plan(B: int, Kv: int, R: int, n: int, max_splits: int = MAX_SPLITS):
-    """(n_split, chunk) for n attended positions: the query heads of a KV
-    head go to blocks in groups of at most ``MAX_ROWS``, and the positions
-    in ``n_split`` stretches of ``chunk`` (whole tiles, every stretch
-    non-empty): some ``TARGET_BLOCKS`` blocks, each streaming at least
+    """(n_split, chunk) for n attended positions: ``splits_for``'s count
+    of stretches of ``chunk`` positions (whole tiles), less those left
+    empty: some ``TARGET_BLOCKS`` blocks, each streaming at least
     ``MIN_TILES`` tiles where n has them, at most ``max_splits``
-    (``CLUSTER_SPLITS`` for bf16, whose splits are one cluster)."""
-    blocks = B * Kv * -(-R // MAX_ROWS)
+    (``CLUSTER_SPLITS`` for bf16, whose splits are one cluster). The
+    device-L route's kernel plans by this rule from L on the device."""
     tiles = -(-n // TILE)
-    n_split = max(1, min(tiles // MIN_TILES, -(-TARGET_BLOCKS // blocks),
-                         max_splits))
-    chunk = -(-tiles // n_split) * TILE
+    chunk = -(-tiles // splits_for(B, Kv, R, n, max_splits)) * TILE
     return -(-n // chunk), chunk
 
 
@@ -84,8 +110,11 @@ def scratch_sizes(B: int, H: int, Kv: int, hd: int, n_split: int):
 def _scratch(index: int, stream: int, n_ws: int, n_counters: int):
     """The (device, stream)'s workspace and counters, grown to hold
     ``n_ws`` floats and ``n_counters`` ints. Calls on one stream run in
-    order, so they share them safely."""
+    order, so they share them safely; a graph captured on the stream keeps
+    their addresses, so what is outgrown is kept, never freed."""
     ws, counters = _SCRATCH.get((index, stream), (None, None))
+    _OUTGROWN.extend(t for t, n in ((ws, n_ws), (counters, n_counters))
+                     if t is not None and t.numel() < n)
     if ws is None or ws.numel() < n_ws:
         ws = torch.empty(max(n_ws, 2 * (0 if ws is None else ws.numel())),
                          dtype=torch.float32, device=f"cuda:{index}")
@@ -123,27 +152,47 @@ def _shapes(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype):
     return B, H, hd, S, Kv
 
 
+def _check_len(cache_len: torch.Tensor, dev: int) -> None:
+    """A tensor ``cache_len`` must be one int32 on q's device."""
+    if cache_len.dtype != torch.int32 or cache_len.numel() != 1:
+        raise TypeError(f"flash_decode: a tensor cache_len must be one "
+                        f"int32; got {cache_len.dtype} of "
+                        f"{cache_len.numel()} elements")
+    if cache_len.get_device() != dev:
+        raise ValueError(f"flash_decode: cache_len on {cache_len.device}, "
+                         f"q on device {dev}")
+
+
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, cache_len: int, *,
+                 v_cache: torch.Tensor, cache_len, *,
                  window: int = 0) -> torch.Tensor:
     """q (B, H, hd), caches (B, S, Kv, hd) with H a multiple of Kv, hd 64
-    or 128, all fp32 or all bf16; ``cache_len`` an int in [1, S] ->
-    (B, H, hd) in q's dtype, as ``ref.flash_decode`` computes it over the
-    positions ``[max(0, cache_len - window), cache_len)``. A CPU tensor
-    gets the plain version; a CUDA tensor gets the kernel
-    (``flash_decode.launches`` counts its launches) or an error."""
+    or 128, all fp32 or all bf16; ``cache_len`` an int in [1, S], or an
+    int32 tensor of one element on q's device -> (B, H, hd) in q's dtype,
+    as ``ref.flash_decode`` computes it over the positions ``[max(0,
+    cache_len - window), cache_len)``. A CPU tensor gets the plain version;
+    a CUDA tensor gets the kernel (``flash_decode.launches`` counts its
+    launches) or an error. A tensor L on the card is never read on the
+    host: the kernel reads it (the device-L route)."""
     B, H, hd, S, Kv = _shapes(q.shape, k_cache.shape, v_cache.shape,
                               q.dtype, k_cache.dtype, v_cache.dtype)
     dev = q.get_device()                # -1 on the CPU
     if k_cache.get_device() != dev or v_cache.get_device() != dev:
         raise ValueError(f"flash_decode: caches on {k_cache.device} and "
                          f"{v_cache.device}, q on {q.device}")
-    L, window = operator.index(cache_len), operator.index(window)
-    if not 1 <= L <= S:
-        raise ValueError(f"flash_decode: cache_len must be in [1, S={S}]; "
-                         f"got {L}")
+    window = operator.index(window)
     if window < 0:
         raise ValueError(f"flash_decode: window must be >= 0; got {window}")
+    if isinstance(cache_len, torch.Tensor):
+        _check_len(cache_len, dev)
+        if not q.is_cuda:               # a CPU tensor: read, as an int
+            cache_len = int(cache_len)
+    on_device = isinstance(cache_len, torch.Tensor)
+    if not on_device:
+        L = operator.index(cache_len)
+        if not 1 <= L <= S:
+            raise ValueError(f"flash_decode: cache_len must be in "
+                             f"[1, S={S}]; got {L}")
     if not q.is_cuda:
         if q.device.type != "cpu":
             raise ValueError(f"flash_decode: unsupported device {q.device}")
@@ -157,28 +206,49 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("flash_decode: the caches must start on a 16-byte "
                          "boundary (the kernel reads them in 16-byte "
                          "vectors)")
-    lo = max(0, L - window) if window else 0
     code = _DTYPE_CODES[q.dtype]
-    n_split, chunk = plan(B, Kv, H // Kv, L - lo,
-                          CLUSTER_SPLITS if code else MAX_SPLITS)
+    cap = CLUSTER_SPLITS if code else MAX_SPLITS
     out = torch.empty_like(q)
-    err = build.launch_on(dev, _launch, dev, q.data_ptr(), k_ptr,
-                          v_ptr, out.data_ptr(), code, B, S, H, Kv, hd, lo, L,
-                          chunk, n_split)
+    if on_device:
+        n_max = min(window, S) if window else S
+        err = build.launch_on(
+            dev, _launch_len, dev, q.data_ptr(), k_ptr, v_ptr,
+            out.data_ptr(), cache_len.data_ptr(), code, B, S, H, Kv, hd,
+            window, splits_for(B, Kv, H // Kv, n_max, cap),
+            split_cap(B, Kv, H // Kv, cap), MIN_TILES)
+    else:
+        lo = max(0, L - window) if window else 0
+        n_split, chunk = plan(B, Kv, H // Kv, L - lo, cap)
+        err = build.launch_on(dev, _launch, dev, q.data_ptr(), k_ptr,
+                              v_ptr, out.data_ptr(), code, B, S, H, Kv, hd,
+                              lo, L, chunk, n_split)
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError {err}")
     flash_decode.launches += 1
     return out
 
 
+def _workspace(index, stream, dtype, B, H, Kv, hd, n_split):
+    """The fp32 split merge's workspace and counters for a grid of
+    ``n_split`` splits, or none."""
+    if n_split > 1 and dtype == 0:
+        return _scratch(index, stream, *scratch_sizes(B, H, Kv, hd, n_split))
+    return 0, 0
+
+
 def _launch(index, q, k, v, out, dtype, B, S, H, Kv, hd, lo, L, chunk,
             n_split, stream):
-    ws = counters = 0
-    if n_split > 1 and dtype == 0:
-        ws, counters = _scratch(index, stream,
-                                *scratch_sizes(B, H, Kv, hd, n_split))
-    return _bind()(q, k, v, out, ws, counters, dtype, B, S, H, Kv, hd, lo,
-                   L, chunk, n_split, hd ** -0.5, stream)
+    ws, counters = _workspace(index, stream, dtype, B, H, Kv, hd, n_split)
+    return _bind()[0](q, k, v, out, ws, counters, dtype, B, S, H, Kv, hd, lo,
+                      L, chunk, n_split, hd ** -0.5, stream)
+
+
+def _launch_len(index, q, k, v, out, len_ptr, dtype, B, S, H, Kv, hd, window,
+                n_grid, cap, min_tiles, stream):
+    ws, counters = _workspace(index, stream, dtype, B, H, Kv, hd, n_grid)
+    return _bind()[1](q, k, v, out, ws, counters, len_ptr, dtype, B, S, H,
+                      Kv, hd, window, n_grid, cap, min_tiles, hd ** -0.5,
+                      stream)
 
 
 flash_decode.launches = 0

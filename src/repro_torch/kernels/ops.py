@@ -4,6 +4,9 @@ A CPU tensor gets the plain version (``kernels/ref.py``); a CUDA tensor
 gets the hand-written kernel, or an exception if it cannot launch —
 never the plain version. Each kernel's wrapper counts its launches
 (``<wrapper>.launches``; ``launch_counts`` reads them all).
+``flash_decode`` takes ``cache_len`` as a host int or as an int32 tensor
+on the device, which it never reads on the host (its device-L route), so
+a decode step can be captured once and replayed.
 """
 from __future__ import annotations
 

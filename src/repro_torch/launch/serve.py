@@ -144,68 +144,49 @@ def _device_name(dev):
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
 
 
-def decode_requests(model, params, prompts, *, batch, max_new, cache_len,
-                    device, on_logits=None):
+def decode_requests(runner, prompts, *, on_logits=None):
     """Greedy decoding of ``prompts`` (int arrays of one length) in waves
-    of ``batch`` slots, as the JAX launcher's loop runs them: the last
-    wave is padded with zero prompts, each wave gets a fresh cache of
-    ``cache_len``, the prompt goes through teacher-forced decode steps,
-    then ``max_new`` tokens are chosen by argmax, all slots in lockstep.
-    The chosen tokens stay on the device and are read once per wave.
-    ``on_logits(logits)`` sees the (batch, 1, V) fp32 logits of every
-    step. Returns (the generated tokens of each request, tokens generated
-    counting the pad slots, as the JAX launcher counts them)."""
+    of the runner's batch slots, as the JAX launcher's loop runs them: the
+    last wave is padded with zero prompts, the prompt goes through
+    teacher-forced decode steps, then ``max_new`` tokens are chosen by
+    argmax, all slots in lockstep. Each wave is one copy of its prompts
+    to the device, the runner's P + ``max_new`` steps (replays of its
+    one build) and one read of the chosen tokens. ``on_logits(logits)``
+    sees a copy of the (batch, 1, V) fp32 logits of every step. Returns
+    (the generated tokens of each request, tokens generated counting the
+    pad slots, as the JAX launcher counts them)."""
     import torch
 
-    from repro_torch.runtime.steps import make_decode_step
-
-    step = make_decode_step(model)
-    prompt_len = len(prompts[0])
+    batch, prompt_len = runner.prompts.shape
     queue, outputs, tokens_out = list(prompts), [], 0
-    with torch.no_grad():
-        while queue:
-            wave, queue = queue[:batch], queue[batch:]
-            n_real = len(wave)
-            wave += [np.zeros(prompt_len, np.int64)] * (batch - n_real)
-            tokens = torch.from_numpy(np.stack(wave).astype(np.int64)).to(
-                device)
-            cache = model.init_cache(batch, cache_len, device=device)
-            for t in range(prompt_len):          # teacher-forced prefill
-                logits, cache = step(params, {"tokens": tokens[:, t:t + 1],
-                                              "cache": cache, "cache_len": t})
-                if on_logits is not None:
-                    on_logits(logits)
-            chosen = []
-            for t in range(max_new):
-                nxt = torch.argmax(logits[:, 0], dim=-1)
-                chosen.append(nxt)
-                logits, cache = step(params, {"tokens": nxt[:, None],
-                                              "cache": cache,
-                                              "cache_len": prompt_len + t})
-                if on_logits is not None:
-                    on_logits(logits)
-                tokens_out += batch
-            gen = (torch.stack(chosen, dim=1).tolist() if chosen
-                   else [[] for _ in range(batch)])      # one read a wave
-            outputs.extend(gen[:n_real])
-            del cache, logits          # freed before the next wave's cache
+    while queue:
+        wave, queue = queue[:batch], queue[batch:]
+        n_real = len(wave)
+        wave += [np.zeros(prompt_len, np.int64)] * (batch - n_real)
+        gen = runner.wave(torch.from_numpy(np.stack(wave).astype(np.int64)),
+                          on_logits=on_logits)
+        outputs.extend(gen[:n_real])
+        tokens_out += batch * runner.max_new
     return outputs, tokens_out
 
 
-def run_decode(args, params=None, on_logits=None):
+def run_decode(args, params=None, on_logits=None, on_build=None):
     """The decode mode's run: prints one JSON row with the JAX launcher's
     keys (``tokens_generated`` counts the pad slots, as there), then the
     device and the kernel launches, and returns (row, the generated
     tokens of each request). ``params`` (the port's tree on the device;
     ``bridge.lm_params_from_jax`` carries the JAX package's init over)
-    replaces the seeded torch init. One warm-up step on a throwaway cache
-    (the kernel's build, the libraries' set-up) runs before the clock and
-    the launch counters start."""
+    replaces the seeded torch init. The decode step is built once before
+    the clock and the launch counters start (``runtime/steps.py::
+    DecodeRunner``: on the card its first step runs, then it is captured
+    as a CUDA graph, replayed at every later step); ``on_build(runner)``
+    sees the built runner (``trace_count``, ``capture_s``, ``nodes``)."""
     import torch
 
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import build_model
+    from repro_torch.runtime.steps import DecodeRunner
 
     dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
@@ -218,19 +199,19 @@ def run_decode(args, params=None, on_logits=None):
     prompts = [rng.integers(0, cfg.vocab_size, size=args.prompt_len)
                for _ in range(args.requests)]
 
-    with torch.no_grad():
-        model.decode_fn(params, {
-            "tokens": torch.zeros((args.batch, 1), dtype=torch.long,
-                                  device=dev),
-            "cache": model.init_cache(args.batch, args.cache_len,
-                                      device=dev), "cache_len": 0})
+    runner = DecodeRunner(model, params, batch=args.batch,
+                          prompt_len=args.prompt_len,
+                          cache_len=args.cache_len, max_new=args.max_new,
+                          device=dev)
+    runner.build()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    if on_build is not None:
+        on_build(runner)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    outputs, tokens_out = decode_requests(
-        model, params, prompts, batch=args.batch, max_new=args.max_new,
-        cache_len=args.cache_len, device=dev, on_logits=on_logits)
+    outputs, tokens_out = decode_requests(runner, prompts,
+                                          on_logits=on_logits)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0

@@ -57,20 +57,21 @@ def apply_rope(x, positions, theta):
     return rotate(x, *rope_angles(positions, x.shape[-1], theta))
 
 
-def decode_attention(q, k_cache, v_cache, cache_len: int, *, window=0):
+def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
     """Single-token attention against a KV cache.
 
     q: (B, 1, H, hd); k_cache/v_cache: (B, S, Kv, hd); cache_len: the
-    number of valid cache entries (an int). The new token attends to
-    ``cache[max(0, cache_len - window):cache_len]``. Returns (B, 1, H, hd)
-    in q's dtype."""
+    number of valid cache entries, an int or an int32 tensor of one element
+    on q's device (the JAX package's traced scalar; ``flash_decode`` reads
+    it on the card). The new token attends to ``cache[max(0, cache_len -
+    window):cache_len]``. Returns (B, 1, H, hd) in q's dtype."""
     B, _, H, hd = q.shape
     out = ops.flash_decode(q.reshape(B, H, hd), k_cache, v_cache, cache_len,
                            window=window)
     return out.reshape(B, 1, H, hd)
 
 
-def decode_attention_block(params, x, k_cache, v_cache, cache_len: int,
+def decode_attention_block(params, x, k_cache, v_cache, cache_len,
                            rope: Tuple[torch.Tensor, torch.Tensor], *,
                            window=0):
     """Decode sub-block: project one token, rotate q and k by ``rope``
@@ -81,18 +82,26 @@ def decode_attention_block(params, x, k_cache, v_cache, cache_len: int,
 
     The caches are written in place (the JAX package returns new
     arrays): its callers never reuse a cache from before a step.
-    ``cache_len`` must be below the cache length: the JAX package's
+    ``cache_len`` is an int or an int32 tensor of one element on x's
+    device; then the write and the attention take it on the device, with
+    no host index. It must be below the cache length: the JAX package's
     ``dynamic_update_slice`` clamps the write index and silently
-    overwrites the last row instead."""
-    S_cache = k_cache.shape[1]
-    if not 0 <= cache_len < S_cache:
-        raise ValueError(f"decode_attention_block: the cache holds "
-                         f"{S_cache} entries; cannot write at {cache_len}")
+    overwrites the last row instead. An int is checked here; a tensor's
+    caller, which knows the step, keeps it in range."""
+    if isinstance(cache_len, torch.Tensor):
+        at = cache_len.reshape(1)
+    else:
+        S_cache = k_cache.shape[1]
+        if not 0 <= cache_len < S_cache:
+            raise ValueError(f"decode_attention_block: the cache holds "
+                             f"{S_cache} entries; cannot write at "
+                             f"{cache_len}")
+        at = slice(cache_len, cache_len + 1)
     q = rotate(torch.einsum("bsd,dnh->bsnh", x, params["wq"]), *rope)
     k = rotate(torch.einsum("bsd,dnh->bsnh", x, params["wk"]), *rope)
     v = torch.einsum("bsd,dnh->bsnh", x, params["wv"])
-    k_cache[:, cache_len] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, cache_len] = v[:, 0].to(v_cache.dtype)
+    k_cache[:, at] = k.to(k_cache.dtype)
+    v_cache[:, at] = v.to(v_cache.dtype)
     out = decode_attention(q, k_cache, v_cache, cache_len + 1, window=window)
     out = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
     return out, k_cache, v_cache

@@ -251,20 +251,29 @@ class Model:
 
     def decode_fn(self, params, batch):
         """One decode step. batch: ``tokens`` (B, 1), ``cache``
-        (``init_cache``), ``cache_len`` (an int: the position this token
-        takes). Returns (logits (B, 1, V) fp32, the cache).
+        (``init_cache``), ``cache_len`` (the position this token takes: an
+        int, or an int32 tensor of one element on the device, as the JAX
+        package's ``decode_fn`` takes a traced scalar). Returns (logits
+        (B, 1, V) fp32, the cache).
 
         The cache is updated in place and returned (the JAX package
         returns a new one): a caller never reuses a cache from before a
         step. Each layer launches ``flash_decode`` once on the card. The
-        RoPE angles of the position are computed once for all layers."""
+        RoPE angles of the position are computed once for all layers. A
+        tensor ``cache_len`` is never read on the host, so the step can be
+        captured once and replayed at every position
+        (``runtime/steps.py::DecodeRunner``); its caller keeps it below
+        the cache length."""
         self._only("dense", "decode")
         cfg = self.cfg
         tokens, cache, cache_len = (batch["tokens"], batch["cache"],
                                     batch["cache_len"])
         x = params["embed"][tokens.long()]
-        pos = torch.full(tuple(tokens.shape), cache_len, dtype=torch.int32,
-                         device=x.device)
+        if isinstance(cache_len, torch.Tensor):
+            pos = cache_len.reshape(1, 1).expand(tuple(tokens.shape))
+        else:
+            pos = torch.full(tuple(tokens.shape), cache_len,
+                             dtype=torch.int32, device=x.device)
         rope = attn_lib.rope_angles(pos, cfg.resolved_head_dim,
                                     cfg.rope_theta)
         for bp, entry, (_, window) in zip(params["layers"], cache["layers"],

@@ -12,15 +12,22 @@ from the round engine's building blocks (``core/engine.py``):
   <- phi + alpha (phi_hat - phi), one ``meta_update`` launch per dtype
   group.
 
-``make_decode_step`` is the dense LM's decode step (``Model.decode_fn``),
-which the serve launcher's decode mode drives.
+``make_decode_step`` is the dense LM's decode step (``Model.decode_fn``).
+``DecodeRunner`` is what the serve launcher's decode mode drives: a whole
+greedy decode step (the token, ``decode_fn``, the argmax) built once and
+replayed, as the JAX launcher jits ``decode_fn`` once with ``cache_len``
+a traced scalar.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Iterator
+from typing import Any, Callable, Dict, Iterator, List, Optional
+
+import torch
 
 from repro_torch.core.engine import streaming_sgd
 from repro_torch.core.pipeline import prefetch_items
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.graphs import GraphStep
 from repro_torch.kernels.ops import tree_meta_update
 
 
@@ -47,6 +54,93 @@ def make_decode_step(model) -> Callable:
     def step(params, batch):
         return model.decode_fn(params, batch)
     return step
+
+
+class DecodeRunner:
+    """Greedy decoding of waves of ``batch`` prompts of ``prompt_len``
+    tokens, ``max_new`` new tokens each, as one step built once and
+    replayed (``graphs.GraphStep``: a CUDA graph on the card, the same
+    function run eagerly on the CPU).
+
+    The step reads and writes only buffers at fixed addresses: the
+    wave's prompts (B, P), an int32 cursor (the position), one KV cache of
+    (B, ``cache_len``, Kv, hd) per layer, the logits (B, 1, V) fp32 and
+    every step's argmax (B, P + ``max_new``). At cursor c it takes the
+    prompt's token c while c < P, else the argmax of step c - 1; runs
+    ``decode_fn`` at c; writes the logits and their argmax at c; and
+    advances the cursor, all on the device. A wave is P + ``max_new``
+    steps from a reset cursor; its new tokens are the argmaxes of steps
+    P - 1 ... P + ``max_new`` - 2, read once. The cache is reused across
+    waves: each step writes row c before it attends to rows [0, c], and
+    nothing reads past them.
+
+    ``step()`` runs one step at the cursor (``wave`` runs a whole wave);
+    ``trace_count`` counts the builds (1), ``capture_s`` and ``nodes``
+    describe the capture on the card (None on the CPU)."""
+
+    def __init__(self, model, params, *, batch: int, prompt_len: int,
+                 cache_len: int, max_new: int, device: DeviceLike = None):
+        if prompt_len < 1 or max_new < 0 or prompt_len + max_new > cache_len:
+            raise ValueError(f"DecodeRunner: a cache of {cache_len} cannot "
+                             f"hold {prompt_len} prompt + {max_new} new "
+                             f"tokens (prompt_len >= 1, max_new >= 0)")
+        dev = resolve_device(device)
+        self.model, self.params = model, params
+        self.prompt_len, self.max_new = prompt_len, max_new
+        self.steps = prompt_len + max_new
+        self.prompts = torch.zeros((batch, prompt_len), dtype=torch.int64,
+                                   device=dev)
+        self.cursor = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.cache = model.init_cache(batch, cache_len, device=dev)
+        self.logits = torch.zeros((batch, 1, model.cfg.vocab_size),
+                                  dtype=torch.float32, device=dev)
+        self.chosen = torch.zeros((batch, self.steps), dtype=torch.int64,
+                                  device=dev)
+        self.trace_count = 0
+        self.step = GraphStep(self._decode_step, dev)
+
+    @property
+    def capture_s(self) -> Optional[float]:
+        return self.step.capture_s
+
+    @property
+    def nodes(self) -> Optional[int]:
+        return self.step.nodes
+
+    def _decode_step(self) -> None:
+        c, P = self.cursor, self.prompt_len
+        with torch.no_grad():
+            tokens = torch.where(
+                c < P, self.prompts.index_select(1, c.clamp(max=P - 1)),
+                self.chosen.index_select(1, (c - 1).clamp(min=0)))
+            logits, _ = self.model.decode_fn(self.params, {
+                "tokens": tokens, "cache": self.cache, "cache_len": c})
+            self.logits.copy_(logits)
+            self.chosen[:, c] = logits[:, 0].argmax(dim=-1, keepdim=True)
+            c.add_(1)
+
+    def build(self) -> None:
+        """Build the step once (on the card: run it, then capture it) on
+        whatever the buffers hold; each wave starts from a reset cursor."""
+        if not self.step.ready:
+            self.cursor.zero_()
+            self.step()
+            self.trace_count += 1
+
+    def wave(self, prompts: torch.Tensor,
+             on_logits: Optional[Callable] = None) -> List[List[int]]:
+        """Decode one wave: ``prompts`` (B, P) integer tokens on any
+        device. ``on_logits(logits)`` gets a copy of every step's logits
+        (the buffer is overwritten by the next step). Returns each slot's
+        ``max_new`` new tokens."""
+        self.build()
+        self.prompts.copy_(prompts)
+        self.cursor.zero_()
+        for _ in range(self.steps):
+            self.step()
+            if on_logits is not None:
+                on_logits(self.logits.clone())
+        return self.chosen[:, self.prompt_len - 1:self.steps - 1].tolist()
 
 
 def microbatch(batch: Dict[str, Any], k: int) -> Dict[str, Any]:

@@ -9,7 +9,9 @@ Each kernel is held to its plain PyTorch version on the same CUDA
 tensors, and the served results and trained params on the card to the
 port on the CPU.
 """
+import contextlib
 import functools
+import gc
 
 import numpy as np
 import pytest
@@ -307,6 +309,47 @@ def _uncaptured(monkeypatch):
     """Every GraphStep call runs its function eagerly on the card."""
     monkeypatch.setattr(graphs.GraphStep, "_warm_up_and_capture",
                         lambda self: self.fn())
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_garbage_collection(cuda):
+    """A graph left in a reference cycle is freed by Python's cyclic
+    collector whenever it runs; destroying a graph during another capture
+    would invalidate that capture. So the collector is off while a graph
+    is captured (and only then), and a capture succeeds with the
+    collector set to run at every allocation and such a graph waiting."""
+    x = torch.zeros(64, device=cuda)
+    seen = []
+
+    class Holder:
+        pass
+
+    def orphan():
+        h = Holder()
+        h.x = x
+        h.step = graphs.GraphStep(lambda: h.x.add_(1), cuda)  # h <-> step
+        h.step()
+
+    def fn():
+        seen.append(gc.isenabled())
+        junk = [[i] for i in range(2000)]       # allocations: collections
+        x.mul_(2)
+        del junk
+
+    for _ in range(3):
+        orphan()
+    old = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)
+    try:
+        step = graphs.GraphStep(fn, cuda)
+        step()                                   # run, then capture
+        step()                                   # replay
+    finally:
+        gc.set_threshold(*old)
+    torch.cuda.synchronize()
+    assert seen == [True, False] and gc.isenabled()
+    assert step.graph is not None
+    gc.collect()
 
 
 @pytest.mark.cuda
@@ -634,3 +677,147 @@ def test_flash_decode_back_to_back_calls(cuda, monkeypatch):
                                    rtol=2e-2, atol=2e-2)
     fd.plan.cache_clear()
     assert len(seen) >= 3
+
+
+# -- flash_decode with L on the device, and the decode step as a graph -------
+
+FD_PATH = (8, 32, 4, 64, 2048)              # tinyllama's decode, bf16
+FD_32K = (4, 8, 4, 64, 32768)               # benchmarks/kernels_bench.py's
+
+
+def _device_len_cases(shape, dtype):
+    """(L, window) cases: a decode wave's every L (1 ... 640) and the
+    cache's end at the path shape, with and without a window; at the 32k
+    fp32 shape, L where fewer splits are active than the grid holds."""
+    S = shape[-1]
+    if dtype == torch.bfloat16:
+        Ls = list(range(1, 641)) + [1023, 1024, 1500, S]
+        return [(L, w) for w in (0, 256) for L in Ls]
+    return [(L, w) for w in (0, 3000)
+            for L in (1, 64, 255, 256, 257, 1000, 4096, 8191, 8448, 20000,
+                      S)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [(FD_PATH, torch.bfloat16),
+                                         (FD_32K, torch.float32)])
+def test_flash_decode_device_len_equals_host_int(cuda, shape, dtype):
+    """The device-L route (cache_len an int32 on the card, never read on
+    the host; one grid for every L) is bit-equal to the host-int call at
+    every L, and within the kernel's tolerance of the plain version; its
+    launches count as the host-int route's do."""
+    from repro_torch.kernels import flash_decode as fd
+
+    B, H, Kv, hd, S = shape
+    tol = FD_TOL[dtype]
+    q, k, v = _fd_inputs(shape, dtype, 70, cuda)
+    cap = fd.CLUSTER_SPLITS if dtype == torch.bfloat16 else fd.MAX_SPLITS
+    cases = _device_len_cases(shape, dtype)
+    grids = set()
+    for L, window in cases:
+        length = torch.tensor([L], dtype=torch.int32, device=cuda)
+        before = ops.flash_decode.launches
+        got = ops.flash_decode(q, k, v, length, window=window)
+        want = ops.flash_decode(q, k, v, L, window=window)
+        assert ops.flash_decode.launches == before + 2
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == (B, H, hd)
+        assert torch.equal(got, want), (L, window)
+        if L % 64 in (0, 1) or L > 640:
+            torch.testing.assert_close(
+                got.float(), ref.flash_decode(q, k, v, L, window=window),
+                rtol=tol, atol=tol)
+        n = L - (max(0, L - window) if window else 0)
+        n_max = min(window, S) if window else S
+        grids.add(fd.plan(B, Kv, H // Kv, n, cap)[0]
+                  < fd.splits_for(B, Kv, H // Kv, n_max, cap))
+    assert grids == {False, True}      # idle blocks in the grid, and none
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [(FD_PATH, torch.bfloat16),
+                                         (FD_32K, torch.float32)])
+def test_flash_decode_device_len_in_a_captured_graph(cuda, shape, dtype):
+    """One launch captured in a CUDA graph, replayed at several L set on
+    the device between replays, equals the host-int call at each L bit
+    for bit; each replay counts one launch."""
+    q, k, v = _fd_inputs(shape, dtype, 71, cuda)
+    S = shape[-1]
+    length = torch.tensor([S // 2], dtype=torch.int32, device=cuda)
+    out = torch.empty_like(q)
+    for window in (0, 100):
+        step = graphs.GraphStep(
+            lambda w=window: out.copy_(ops.flash_decode(q, k, v, length,
+                                                        window=w)), cuda)
+        step()                                   # run, then capture
+        assert step.graph is not None
+        for L in (1, 2, 63, 64, 65, 577, 640, 2048, S - 1, S, 300):
+            length.fill_(L)
+            before = ops.flash_decode.launches
+            step()
+            assert ops.flash_decode.launches == before + 1
+            want = ops.flash_decode(q, k, v, L, window=window)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (L, window)
+
+
+@pytest.mark.cuda
+def test_flash_decode_device_len_rejects(cuda):
+    q, k, v = _fd_inputs((2, 8, 2, 64, 128), torch.bfloat16, 72, cuda)
+    with pytest.raises(TypeError, match="one int32"):
+        ops.flash_decode(q, k, v, torch.tensor([5], device=cuda))
+    with pytest.raises(TypeError, match="one int32"):
+        ops.flash_decode(q, k, v, torch.tensor([5, 6], dtype=torch.int32,
+                                               device=cuda))
+    with pytest.raises(ValueError, match="cache_len on cpu"):
+        ops.flash_decode(q, k, v, torch.tensor([5], dtype=torch.int32))
+
+
+def _decode_wave(cuda, dtype, monkeypatch=None):
+    """One wave of the reduced tinyllama through the decode runner on the
+    card (captured, or with ``monkeypatch`` run eagerly): every step's
+    logits, the tokens, the launches and the runner."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.runtime.steps import DecodeRunner
+
+    cfg = dataclasses.replace(get_arch("tinyllama-1.1b").reduced(),
+                              dtype=dtype)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(3), cuda)
+    prompts = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (3, 12)))
+    with (monkeypatch.context() if monkeypatch
+          else contextlib.nullcontext()) as mp:
+        if mp is not None:
+            _uncaptured(mp)
+        runner = DecodeRunner(model, params, batch=3, prompt_len=12,
+                              cache_len=64, max_new=20, device=cuda)
+        runner.build()
+        ops.reset_launch_counts()
+        logits = []
+        tokens = [runner.wave(prompts, on_logits=logits.append)
+                  for _ in range(2)]
+        torch.cuda.synchronize()
+    return logits, tokens, ops.launch_counts(), runner
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_wave_replayed_equals_eager(cuda, dtype, monkeypatch):
+    """The decode step built once and replayed for two waves equals the
+    same step function run eagerly on the card, bit for bit: every step's
+    logits and the tokens, with equal launch counts (one flash_decode per
+    layer per step)."""
+    got, got_tokens, counts, runner = _decode_wave(cuda, dtype)
+    assert runner.trace_count == 1 and runner.step.graph is not None
+    assert runner.capture_s > 0
+    want, want_tokens, eager, _ = _decode_wave(cuda, dtype, monkeypatch)
+    assert counts == eager
+    assert counts["flash_decode"] == 2 * (12 + 20) * 2
+    assert got_tokens == want_tokens
+    assert len(got) == len(want) == 2 * (12 + 20)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
