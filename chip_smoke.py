@@ -5,8 +5,11 @@
 
 Phases, each printing one JSON line, in this order:
 
-1. device: the card, its power limit, and the fp32 matmul flags (full
-   fp32, no TF32) the parity checks need;
+1. device: the card, its power limit, the fp32 matmul flags (full fp32,
+   no TF32) the parity checks need, and cuDNN's flags as found; the
+   conv nets' forward and gradients on the card within 1e-5 of the CPU
+   under those flags (the port's convolutions run in fp32 with
+   deterministic algorithms whatever the global flags say);
 2. build: the CUDA kernels (``nvcc``, sm_90a, one process per source:
    ``online_sgd`` (with ``online_sgd_momentum``), ``dfa_epoch_int8``,
    ``meta_update``, ``ssd_scan``, ``flash_decode``) are built from this
@@ -27,7 +30,8 @@ Phases, each printing one JSON line, in this order:
    for each fp32 one), at the last two also its three kernels, each
    against its plain phase, and its third at every heads-a-block
    setting; ``online_sgd`` and ``meta_update`` also at mamba2-130m's
-   two flat buffers;
+   two flat buffers, and bit for bit at the conv nets' phi (20,612 and
+   112,709) and KWS Reptile c4's (4, 20,612) cohort;
    ``flash_decode`` at the JAX package's 24 test cases, at the decode
    path's shape (tinyllama at batch 8 and cache 2048, bf16) at L = 1, 64,
    128, 320, 577, 640 and 2048 and with a window, with their mean over
@@ -54,7 +58,7 @@ Phases, each printing one JSON line, in this order:
 6. profile decode: 16 replays of the full-width decode step under
    torch.profiler: idle share, kernels per step, top kernels,
    ``flash_decode``'s share; then a 64 + 32-token wave of tinyllama-1.1b
-   replayed against the same step run eagerly (for phase 14);
+   replayed against the same step run eagerly (for phase 16);
 7. serve fp32: 512 requests through ``AdaptationServer`` with the
    ``serve --mode adapt`` defaults, launch counters set to 0 just before
    and read just after, the tick built (captured) once; 32 requests held
@@ -73,19 +77,29 @@ Phases, each printing one JSON line, in this order:
     each train run's round built once, with its capture time and graph
     size;
 13. profile train: device busy share of 60 TinyReptile rounds;
-14. graphs vs eager: the captured round (TinyReptile, Reptile and FedAvg
-    at 8 clients, the int8 wire), tick (fp32, TIFeD) and decode step
-    (phase 6's wave: every step's logits and the tokens) against the same
-    round, tick and step run eagerly on the card, bit for bit, launch
-    counts equal;
-15. train LM reduced: the LM launcher (``--arch mamba2 --reduced``) on
+14. paper models: Table I (params, fp32 size), Table II
+    (``algorithm_memory_report`` at S = 32, equal to the JAX package's)
+    and Tables III-IV (one client's TinyReptile against Reptile update
+    at S = 32, eager and built once) for the three paper models;
+15. fig4 conv: Fig. 4 on Omniglot 5-way and KWS 4-way (TinyReptile and
+    serial Reptile 120 rounds, Reptile at 4 clients 30), rounds/s,
+    accuracy after adaptation beside the random init's and chance, each
+    round built once, launches exact; KWS TinyReptile above 0.35 at the
+    JAX package's test setting; each net on the card against the CPU
+    (1e-4); a profile of 20 replayed Omniglot TinyReptile rounds;
+16. graphs vs eager: the captured round (TinyReptile, Reptile and FedAvg
+    at 8 clients, the int8 wire, Omniglot TinyReptile, KWS Reptile at 4
+    clients), tick (fp32, TIFeD) and decode step (phase 6's wave: every
+    step's logits and the tokens) against the same round, tick and step
+    run eagerly on the card, bit for bit, launch counts equal;
+17. train LM reduced: the LM launcher (``--arch mamba2 --reduced``) on
     the card and on the CPU from the same init, rows and params within
     1e-4, ``comm_mb`` exact, launches as reckoned;
-16. train LM mamba2-130m: full width and depth, bf16, ``--rounds 6
+18. train LM mamba2-130m: full width and depth, bf16, ``--rounds 6
     --batch 8 --seq 2048 --k-inner 4``: finite losses, the client adapts
     (mean last inner loss below the first), launches as reckoned,
     rounds/s, tokens/s and peak device memory;
-17. profile LM: two full-width rounds under torch.profiler: idle share,
+19. profile LM: two full-width rounds under torch.profiler: idle share,
     top kernels, the shares of ``ssd_scan`` (its three kernels) and of
     its plain backward.
 
@@ -195,6 +209,47 @@ DECODE_PROFILE_STEPS, DECODE_PROFILE_AT = 16, 512
 # graphs_vs_eager's decode wave: tinyllama-1.1b at full width and depth,
 # 8 prompts of 64 tokens and 32 new, cache 2048, replayed against eager
 DECODE_GRAPH = dict(batch=8, prompt_len=64, max_new=32, cache_len=2048)
+
+# the paper models' parameters (Table I): the sine MLP and the conv nets
+# KWS_CONV and OMNIGLOT_CONV, whose flat phi and (4, P) Reptile c4 cohort
+# the kernel rows take
+PAPER_PARAMS = {"sine_mlp": 1_153, "kws_conv": 20_612,
+                "omniglot_conv": 112_709}
+# paper Table II as the JAX package's metering/memory.py gives it at S = 32
+# (algorithm_memory_report, run with the JAX package; constants here)
+TABLE2 = {
+    "sine_mlp": {"model": "sine_mlp", "params": 1153, "param_bytes": 4612,
+                 "reptile_bytes": 17928, "tinyreptile_bytes": 5140,
+                 "reduction_factor": 3.4879377431906615,
+                 "fits_arduino_256kb_reptile": True,
+                 "fits_arduino_256kb_tinyreptile": True},
+    "kws_conv": {"model": "kws_conv", "params": 20612, "param_bytes": 82448,
+                 "reptile_bytes": 1020064, "tinyreptile_bytes": 141172,
+                 "reduction_factor": 7.225682146601309,
+                 "fits_arduino_256kb_reptile": False,
+                 "fits_arduino_256kb_tinyreptile": True},
+    "omniglot_conv": {"model": "omniglot_conv", "params": 112709,
+                      "param_bytes": 450836, "reptile_bytes": 3274024,
+                      "tinyreptile_bytes": 625324,
+                      "reduction_factor": 5.235724200574422,
+                      "fits_arduino_256kb_reptile": False,
+                      "fits_arduino_256kb_tinyreptile": False}}
+# Tables III-IV (benchmarks/table34_round_time.py): one client's update,
+# TinyReptile against Reptile with 8 epochs, at S = 32
+T34_S, T34_EPOCHS = 32, 8
+# Fig. 4 (benchmarks/fig4_omniglot_kws.py): 120 rounds of TinyReptile and
+# of serial Reptile, 30 of Reptile at 4 clients, one eval at the end
+FIG4_ROUNDS, FIG4_C4_ROUNDS, FIG4_CLIENTS = 120, 30, 4
+FIG4_KW = dict(alpha=1.0, beta=0.01, support=16, seed=4)
+FIG4_EVAL = dict(num_tasks=6, support=16, k_steps=8, lr=0.01, query=32)
+# tests/test_core_algorithms.py::test_kws_tasks_learnable: KWS TinyReptile,
+# 60 rounds, seed 6, the init from seed 1, must beat 0.35 (chance 0.25)
+KWS_GATE = dict(rounds=60, alpha=1.0, beta=0.01, support=16, seed=6)
+KWS_GATE_EVAL = dict(num_tasks=5, support=8, k_steps=8, lr=0.01, query=32)
+KWS_GATE_MIN = 0.35
+# the conv runs on the card against the CPU: TinyReptile rounds of each
+# net, KWS Reptile c4 rounds; then the profiled Omniglot rounds
+CONV_CHECK_ROUNDS, CONV_CHECK_C4_ROUNDS, CONV_PROFILE_ROUNDS = 10, 4, 20
 
 
 T0 = time.perf_counter()
@@ -344,19 +399,97 @@ def dfa_bytes_ops(args):
 
 # -- phases -------------------------------------------------------------------
 
-def phase_device(torch):
+def phase_device(torch, np):
     name = torch.cuda.get_device_name(0)
     smi = smi_line()
     check(torch.backends.cuda.matmul.allow_tf32 is False,
           "torch.backends.cuda.matmul.allow_tf32 must be False")
     check(torch.get_float32_matmul_precision() == "highest",
           "float32 matmul precision must be 'highest'")
+    cudnn = torch.backends.cudnn
     emit({"phase": "device", "name": name, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-          "float32_matmul_precision": torch.get_float32_matmul_precision()})
+          "float32_matmul_precision": torch.get_float32_matmul_precision(),
+          "cudnn_version": cudnn.version(),
+          "cudnn_allow_tf32": cudnn.allow_tf32,
+          "cudnn_deterministic": cudnn.deterministic,
+          "cudnn_benchmark": cudnn.benchmark,
+          "conv_fp32": conv_fp32_check(torch, np)})
     return name, smi
+
+
+def conv_fp32_check(torch, np):
+    """The conv nets' forward and gradients on the card against the CPU,
+    with cuDNN's global flags as this process found them (TF32 allowed
+    by default): the port's convolutions set their own flags (full
+    fp32, deterministic algorithms) for the forward and the backward, so
+    they agree within 1e-5 of the largest value. Then the second layer
+    on a random input, as one plain ``F.conv2d`` under the global flags
+    and as the port's ``_Conv``, each against the CPU."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.paper_models import KWS_CONV, OMNIGLOT_CONV
+    from repro_torch.models import paper_nets
+
+    with paper_nets._fp32_cudnn():
+        c = torch.backends.cudnn
+        inside = {"allow_tf32": c.allow_tf32, "deterministic": c.deterministic,
+                  "benchmark": c.benchmark, "enabled": c.enabled}
+    check(inside == {"allow_tf32": False, "deterministic": True,
+                     "benchmark": False, "enabled": True},
+          f"the port's conv scope sets {inside}")
+    out = {"port_conv_flags": inside}
+    for cfg in (KWS_CONV, OMNIGLOT_CONV):
+        params = paper_nets.init_paper_model(
+            cfg, torch.Generator().manual_seed(0), "cpu")
+        r = np.random.default_rng(1)
+        x = torch.from_numpy(r.standard_normal((64,) + cfg.input_shape)
+                             .astype(np.float32))
+        y = torch.from_numpy(r.integers(0, cfg.num_outputs, 64)
+                             .astype(np.int32))
+        got = {}
+        for dev in ("cpu", "cuda"):
+            p = {k: v.detach().to(dev).requires_grad_()
+                 for k, v in params.items()}
+            logits = paper_nets.paper_model_apply(cfg, p, x.to(dev))
+            paper_nets.paper_model_loss(cfg, p, {"x": x.to(dev),
+                                                 "y": y.to(dev)}).backward()
+            got[dev] = (logits.detach().cpu(),
+                        {k: v.grad.cpu() for k, v in p.items()})
+        scale = got["cpu"][0].abs().max().item()
+        err = (got["cuda"][0] - got["cpu"][0]).abs().max().item()
+        gerr = max((got["cuda"][1][k] - g).abs().max().item()
+                   / max(g.abs().max().item(), 1e-30)
+                   for k, g in got["cpu"][1].items())
+        check(err <= 1e-5 * scale and gerr <= 1e-5,
+              f"{cfg.name}: the conv net on the card is {err} (of {scale}) "
+              f"from the CPU, its gradients {gerr} relative: not fp32")
+        # the second layer (32 or 64 input channels) on a random input:
+        # one plain F.conv2d under the global flags, and the port's _Conv
+        h, w, c = paper_nets.conv_shapes(cfg)[0]
+        x1 = F.pad(torch.from_numpy(r.standard_normal((64, c, h, w))
+                                    .astype(np.float32)),
+                   paper_nets.same_pads(w) + paper_nets.same_pads(h))
+        w1 = params["conv1"].permute(3, 2, 0, 1).contiguous()
+        b1 = torch.zeros(w1.shape[0])
+        want = F.conv2d(x1, w1, b1, stride=2)
+        layer1 = {}
+        for how, conv in (("global_flags", lambda a, b, c: F.conv2d(
+                a, b, c, stride=2)), ("port", lambda a, b, c:
+                                      paper_nets._Conv.apply(a, b, c, 1))):
+            got1 = conv(x1.cuda(), w1.cuda(), b1.cuda()).cpu()
+            layer1[f"{how}_conv1_max_abs_err"] = (got1 - want).abs().max() \
+                .item()
+        check(layer1["port_conv1_max_abs_err"] <= 1e-5
+              * want.abs().max().item(),
+              f"{cfg.name}: the port's conv1 is not fp32: {layer1}")
+        out[cfg.name] = {
+            "logits_max_abs_err": err, "logits_max_abs": scale,
+            "grad_max_rel_err": gerr, **layer1,
+            "conv1_max_abs": want.abs().max().item()}
+    return out
 
 
 def phase_build(build):
@@ -486,6 +619,49 @@ def phase_kernels(torch, np, ops, ref):
         rows[f"meta_update/{tag}"] = row
         emit({"phase": "kernel", "kernel": "meta_update", "case": tag,
               **row})
+
+    # online_sgd and meta_update at the conv nets' shapes: phi of KWS and
+    # of Omniglot (a TinyReptile client's step, the server update), and
+    # the (4, P) cohort of KWS Reptile c4 (its clients' step); bit for bit,
+    # meta_update at alpha 0, 0.37 and 1
+    lr, alpha = 0.01, torch.tensor([0.37], device=dev)
+    for tag, shape in (("kws_20612_fp32", (PAPER_PARAMS["kws_conv"],)),
+                       ("omniglot_112709_fp32",
+                        (PAPER_PARAMS["omniglot_conv"],)),
+                       ("kws_c4_4x20612_fp32",
+                        (FIG4_CLIENTS, PAPER_PARAMS["kws_conv"]))):
+        a = torch.randn(shape, generator=g).to(dev)
+        b = torch.randn(shape, generator=g).to(dev)
+        n = a.numel()
+        for kernel, fn, plain, library, nops in (
+                ("online_sgd", lambda: ops.online_sgd(a, b, lr),
+                 lambda: ref.online_sgd(a, b, lr),
+                 lambda: torch.add(a, b, alpha=-lr), 2 * n),
+                ("meta_update", lambda: ops.meta_update(a, b, alpha),
+                 lambda: ref.meta_update(a, b, alpha),
+                 lambda: torch.lerp(a, b, 0.37), 3 * n)):
+            if kernel == "meta_update":
+                for x in (0.0, 1.0):
+                    at = torch.tensor([x], device=dev)
+                    check(torch.equal(ops.meta_update(a, b, at),
+                                      ref.meta_update(a, b, at)),
+                          f"meta_update {tag} alpha {x}: not bit-exact")
+            got, want = fn(), plain()
+            check(torch.equal(got, want), f"{kernel} {tag}: not bit-exact")
+            moved = 3 * n * 4
+            t_bytes, t_ops = moved / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+            row = {"shape": list(shape), "dtype": "float32", "tol": "exact",
+                   "max_abs_err": 0.0,
+                   "ms": cuda_ms(torch, fn, 200),
+                   **device_ms(torch, fn),
+                   "plain_ms": cuda_ms(torch, plain, 200),
+                   "library_ms": cuda_ms(torch, library, 200),
+                   **device_ms(torch, library, "library_device_ms"),
+                   "bound_ms": 1e3 * max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes": moved}
+            rows[f"{kernel}/{tag}"] = row
+            emit({"phase": "kernel", "kernel": kernel, "case": tag, **row})
 
     # online_sgd_momentum: the same sizes; m is fp32 whatever p's dtype;
     # bit for bit
@@ -1013,6 +1189,229 @@ def phase_profile_train(torch, tm):
           "top_device_ms": [[k[:80], t / 1e3, c] for k, (t, c) in top]})
 
 
+def phase_paper_models(torch, np, tm):
+    """Paper Tables I-IV on the card. Table I: each model's parameters
+    from its init and its fp32 size. Table II: ``algorithm_memory_report``
+    at S = 32, equal to the JAX package's dicts. Tables III-IV: one
+    client's update (``client_update``, as the round engine runs it) of
+    TinyReptile against Reptile with 8 epochs at S = 32, on the support
+    set ``benchmarks/table34_round_time.py`` draws, timed with CUDA events
+    (median of PASSES), eagerly and built once (captured, replayed); the
+    built update's result equals the eager one bit for bit."""
+    core, graphs, nets = tm["core"], tm["graphs"], tm["nets"]
+    from repro_torch.bridge import FlatLayout
+    from repro_torch.configs.paper_models import PAPER_MODELS
+    from repro_torch.data import KWSTasks, OmniglotTasks, SineTasks
+    from repro_torch.metering import algorithm_memory_report
+
+    dists = {"sine_mlp": SineTasks(), "kws_conv": KWSTasks(),
+             "omniglot_conv": OmniglotTasks()}
+    rng = np.random.default_rng(0)
+    beta = 0.01
+    table1, table2, table34 = {}, {}, {}
+    for name, cfg in PAPER_MODELS.items():
+        params = nets.init_paper_model(cfg, torch.Generator().manual_seed(0),
+                                       "cuda")
+        n = nets.param_count(params)
+        check(n == PAPER_PARAMS[name], f"{name}: {n} parameters")
+        table1[name] = {"params": n, "fp32_kb": n * 4 / 1024}
+        mem = algorithm_memory_report(cfg, support=32)
+        check(mem == TABLE2[name], f"{name}: Table II {mem}")
+        table2[name] = {k: mem[k] for k in ("reptile_bytes",
+                                            "tinyreptile_bytes",
+                                            "reduction_factor")}
+
+        loss = tm["loss_of"](cfg)
+        sup = dists[name].sample_task(rng).support_batch(rng, T34_S)
+        batch = {k: torch.from_numpy(np.asarray(v)[None]).cuda()
+                 for k, v in sup.items()}
+        layout = FlatLayout.of(params)
+        phi = layout.pack(params)
+        row = {}
+        for strat, key in ((core.TinyReptileStrategy(loss), "tinyreptile"),
+                           (core.ReptileStrategy(loss, epochs=T34_EPOCHS),
+                            "reptile")):
+            def update():
+                return strat.client_update(layout, phi, batch, beta)[0]
+
+            out = torch.empty_like(phi)[None]
+            step = graphs.GraphStep(lambda: out.copy_(update()),
+                                    torch.device("cuda"))
+            step()                                   # run, then capture
+            torch.cuda.synchronize()
+            check(torch.equal(out, update()),
+                  f"{name} {key}: the built update differs from eager")
+            row[key] = {"eager_ms": cuda_ms(torch, update, 3),
+                        "built_ms": cuda_ms(torch, step, 10),
+                        "graph_nodes": step.nodes,
+                        "capture_s": step.capture_s}
+        for how in ("eager", "built"):
+            row[f"reptile_over_tinyreptile_{how}"] = (
+                row["reptile"][f"{how}_ms"] / row["tinyreptile"][f"{how}_ms"])
+        table34[name] = row
+    emit({"phase": "paper_models", "support_table2": 32,
+          "support_table34": T34_S, "epochs_table34": T34_EPOCHS,
+          "table1": table1, "table2": table2, "table34": table34})
+
+
+def fig4_runs(tm, cfg, dist, phi, ev):
+    """Fig. 4's three runs of one net, by name: (run, rounds, clients,
+    epochs a round, or None for the stream)."""
+    core, loss = tm["core"], tm["loss_of"](cfg)
+    common = dict(eval_kwargs=ev, **FIG4_KW)
+    return {
+        "tinyreptile": (lambda dev: core.tinyreptile_train(
+            loss, phi, dist, rounds=FIG4_ROUNDS, eval_every=FIG4_ROUNDS,
+            device=dev, **common), FIG4_ROUNDS, 1, None),
+        "reptile_serial": (lambda dev: core.reptile_train(
+            loss, phi, dist, rounds=FIG4_ROUNDS, epochs=8,
+            eval_every=FIG4_ROUNDS, device=dev, **common), FIG4_ROUNDS, 1,
+            8),
+        "reptile_c4": (lambda dev: core.reptile_train(
+            loss, phi, dist, rounds=FIG4_C4_ROUNDS, epochs=8,
+            clients_per_round=FIG4_CLIENTS, eval_every=FIG4_C4_ROUNDS,
+            device=dev, **common), FIG4_C4_ROUNDS, FIG4_CLIENTS, 8)}
+
+
+def phase_fig4_conv(torch, np, tm):
+    """Paper Fig. 4 on the card (``benchmarks/fig4_omniglot_kws.py``'s
+    setting): Omniglot 5-way and KWS 4-way, TinyReptile and serial
+    Reptile for 120 rounds, batched Reptile for 30 rounds at 4 clients,
+    alpha 1, beta 0.01, support 16, seed 4, one eval at the end with the
+    accuracy metric. Each run's launch counters are set to 0 just before
+    it and read just after, its round built once; beside it the random
+    init's accuracy on the same eval clients and chance. Then the JAX
+    test's KWS gate, each net's run against the CPU, and a profile of
+    Omniglot TinyReptile rounds."""
+    core, ops, nets, dists = tm["core"], tm["ops"], tm["nets"], tm["dists"]
+    rows, paths = {}, {}
+    for tag, name, chance in (("omniglot5", "omniglot_conv", 0.2),
+                              ("kws4", "kws_conv", 0.25)):
+        cfg = tm["cfgs"][name]
+        phi = nets.init_paper_model(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+        ev = dict(FIG4_EVAL, metric_fn=tm["acc_of"](cfg))
+        base = core.evaluate_init(
+            tm["loss_of"](cfg), {k: v.cuda() for k, v in phi.items()},
+            dists[name], np.random.default_rng(10_000 + FIG4_ROUNDS - 1),
+            **ev)
+        rows[tag] = {"chance": chance, "random_init": base}
+        for run_name, (run, rounds, clients, epochs) in fig4_runs(
+                tm, cfg, dists[name], phi, ev).items():
+            core.clear_runner_cache()
+            out, wall, counts = timed_run(torch, ops, lambda: run("cuda"))
+            graph = built_round(tm["engine"])
+            steps = FIG4_KW["support"] if epochs is None else epochs
+            check_launches(f"fig4 {tag} {run_name}", counts, {
+                "online_sgd": rounds * steps + FIG4_EVAL["k_steps"],
+                "meta_update": rounds})
+            last = out["history"][-1]
+            check(math.isfinite(last["query_loss"])
+                  and 0 <= last["query_metric"] <= 1,
+                  f"fig4 {tag} {run_name}: {last}")
+            check(out["comm_bytes"] == rounds * clients * 2 * 4
+                  * PAPER_PARAMS[name], f"fig4 {tag} {run_name}: comm_bytes")
+            rows[tag][run_name] = {
+                "rounds": rounds, "clients": clients, "wall_s": wall,
+                "rounds_per_s": rounds / wall, **graph, "launches": counts,
+                "query_metric": last["query_metric"],
+                "query_loss": last["query_loss"],
+                "comm_bytes": out["comm_bytes"]}
+            paths[f"fig4_{tag}_{run_name}"] = counts
+
+    # the JAX package's own threshold, at its test's setting
+    kws = tm["cfgs"]["kws_conv"]
+    phi = nets.init_paper_model(kws, torch.Generator().manual_seed(1), "cpu")
+    core.clear_runner_cache()
+    out, wall, counts = timed_run(torch, ops, lambda: core.tinyreptile_train(
+        tm["loss_of"](kws), phi, dists["kws_conv"],
+        eval_every=KWS_GATE["rounds"], device="cuda",
+        eval_kwargs=dict(KWS_GATE_EVAL, metric_fn=tm["acc_of"](kws)),
+        **KWS_GATE))
+    acc = out["history"][-1]["query_metric"]
+    check(acc > KWS_GATE_MIN, f"KWS TinyReptile accuracy {acc} is not above "
+                              f"{KWS_GATE_MIN} at the JAX test's setting")
+    check_launches("fig4 kws gate", counts, {
+        "online_sgd": KWS_GATE["rounds"] * KWS_GATE["support"]
+        + KWS_GATE_EVAL["k_steps"], "meta_update": KWS_GATE["rounds"]})
+    rows["kws_gate"] = {**KWS_GATE, "eval": KWS_GATE_EVAL,
+                        "query_metric": acc, "min": KWS_GATE_MIN,
+                        "wall_s": wall, **built_round(tm["engine"])}
+    paths["fig4_kws_gate"] = counts
+
+    # the card against the CPU from the same init, params within 1e-4
+    vs_cpu = {}
+    for name in ("omniglot_conv", "kws_conv"):
+        cfg = tm["cfgs"][name]
+        phi = nets.init_paper_model(cfg, torch.Generator().manual_seed(2),
+                                    "cpu")
+        checks = [("tinyreptile", lambda dev: core.tinyreptile_train(
+            tm["loss_of"](cfg), phi, dists[name],
+            rounds=CONV_CHECK_ROUNDS, device=dev, **FIG4_KW))]
+        if name == "kws_conv":
+            checks.append(("reptile_c4", lambda dev: core.reptile_train(
+                tm["loss_of"](cfg), phi, dists[name],
+                rounds=CONV_CHECK_C4_ROUNDS, epochs=8,
+                clients_per_round=FIG4_CLIENTS, device=dev, **FIG4_KW)))
+        for run_name, run in checks:
+            vs_cpu[f"{name}_{run_name}"] = compare_runs(np, run("cuda"),
+                                                        run("cpu"))
+    rows["vs_cpu"] = {"tol": 1e-4, "rounds": CONV_CHECK_ROUNDS,
+                      "c4_rounds": CONV_CHECK_C4_ROUNDS,
+                      "params_max_abs_diff": vs_cpu}
+    rows["profile_omniglot_tinyreptile"] = profile_conv(torch, tm)
+    emit({"phase": "fig4_conv", **rows})
+    return paths
+
+
+def profile_conv(torch, tm):
+    """CONV_PROFILE_ROUNDS Omniglot TinyReptile rounds, after a run of
+    the same config has built (captured) its round, under torch.profiler
+    (device activity only): the idle share, kernels a round, top kernels
+    and the convolutions' share of busy time."""
+    core, cfg = tm["core"], tm["cfgs"]["omniglot_conv"]
+    phi = tm["nets"].init_paper_model(cfg, torch.Generator().manual_seed(0),
+                                      "cpu")
+    loss = tm["loss_of"](cfg)     # one loss: one cached runner, one build
+
+    def run():
+        return core.tinyreptile_train(
+            loss, phi, tm["dists"]["omniglot_conv"],
+            rounds=CONV_PROFILE_ROUNDS, device="cuda", **FIG4_KW)
+
+    core.clear_runner_cache()
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    (runner,) = tm["engine"]._RUNNER_CACHE._entries.values()
+    check(runner.trace_count == 1, "the profiled conv round was built again")
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = {ev.key: (ev.self_device_time_total, ev.count)
+               for ev in prof.key_averages()
+               if ev.device_type == cuda and ev.self_device_time_total > 0}
+    dev_us = sum(t for t, _ in by_name.values())
+    check(dev_us > 0, "the profiler saw no device time")
+    conv_us = sum(t for k, (t, _) in by_name.items()
+                  if any(s in k.lower() for s in ("conv", "cudnn", "wgrad",
+                                                  "dgrad", "fprop")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    n = sum(c for _, c in by_name.values())
+    return {"rounds": CONV_PROFILE_ROUNDS, "replayed": True,
+            "wall_ms": 1e3 * wall,
+            "round_ms": 1e3 * wall / CONV_PROFILE_ROUNDS,
+            "device_busy_ms": dev_us / 1e3,
+            "device_idle_share": 1 - dev_us / 1e6 / wall,
+            "kernels_per_round": n / CONV_PROFILE_ROUNDS,
+            "conv_kernels_share_of_busy": conv_us / dev_us,
+            "top_device": [[k[:80], t / 1e3, c, t / dev_us]
+                           for k, (t, c) in top]}
+
+
 @contextlib.contextmanager
 def uncaptured(graphs):
     """Every ``GraphStep`` call runs its function eagerly on the card:
@@ -1025,14 +1424,37 @@ def uncaptured(graphs):
         graphs.GraphStep._warm_up_and_capture = capture
 
 
-def phase_graphs(torch, np, tm, serves, extra):
+def conv_graph_runs(torch, tm):
+    """graphs_vs_eager's conv rounds: Omniglot TinyReptile (20 rounds)
+    and KWS Reptile at 4 clients (10 rounds), Fig. 4's settings, an eval
+    with the accuracy metric every 10 rounds."""
+    core, nets, dists = tm["core"], tm["nets"], tm["dists"]
+    out = {}
+    for key, name, rounds, extra in (
+            ("omniglot_tinyreptile", "omniglot_conv", 20, None),
+            ("kws_reptile_c4", "kws_conv", 10,
+             dict(epochs=8, clients_per_round=FIG4_CLIENTS))):
+        cfg = tm["cfgs"][name]
+        phi = nets.init_paper_model(cfg, torch.Generator().manual_seed(3),
+                                    "cpu")
+        kw = dict(rounds=rounds, eval_every=10, device="cuda",
+                  eval_kwargs=dict(FIG4_EVAL, metric_fn=tm["acc_of"](cfg)),
+                  **FIG4_KW)
+        train = core.reptile_train if extra else core.tinyreptile_train
+        out[key] = (lambda train=train, cfg=cfg, phi=phi, name=name, kw=kw,
+                    extra=extra: train(tm["loss_of"](cfg), phi, dists[name],
+                                       **kw, **(extra or {})))
+    return out
+
+
+def phase_graphs(torch, np, tm, serves, extra, conv_runs):
     """The captured round and tick, replayed, against the same round and
     tick run eagerly on the card: params, histories, served results and
     launch counts equal, bit for bit. The round: TinyReptile (the
     quickstart's client, 40 rounds), Reptile and FedAvg at 8 clients,
-    and TinyReptile on the int8 wire; the tick: 128 fp32 and 128 TIFeD
-    requests at the serve phases' settings. Each with its capture time
-    and graph size."""
+    TinyReptile on the int8 wire, and the conv nets' ``conv_runs``; the
+    tick: 128 fp32 and 128 TIFeD requests at the serve phases' settings.
+    Each with its capture time and graph size."""
     core, ops, graphs, loss, phi = (tm["core"], tm["ops"], tm["graphs"],
                                     tm["loss"], tm["phi"])
     ev = tm["train"].EVAL_KWARGS
@@ -1050,7 +1472,7 @@ def phase_graphs(torch, np, tm, serves, extra):
             eval_kwargs=ev, **common),
         "tinyreptile_int8_wire": lambda: core.tinyreptile_train(
             loss, phi, tm["SineTasks"](), rounds=40, eval_kwargs=TR_EVAL,
-            channel=core.CommChannel("int8"), **common)}
+            channel=core.CommChannel("int8"), **common), **conv_runs}
     rows = {}
     for name, run in runs.items():
         core.clear_runner_cache()
@@ -1694,7 +2116,7 @@ def main():
                                      TifedAdapter)
 
     t_start = time.perf_counter()
-    phase_device(torch)
+    phase_device(torch, np)
     phase_build(build)
     rows = phase_kernels(torch, np, ops, ref)
     phase_kernels_lm(torch, np, ops, ref, rows)
@@ -1728,24 +2150,32 @@ def main():
     phase_profile(torch, np, mods, fp32, phi, reqs)
 
     from repro_torch import core
+    from repro_torch.configs.paper_models import PAPER_MODELS
     from repro_torch.core import engine
-    from repro_torch.data import SineTasks
+    from repro_torch.data import KWSTasks, OmniglotTasks, SineTasks
     from repro_torch.launch import train
-    from repro_torch.models import mamba2
+    from repro_torch.models import mamba2, paper_nets
 
     tm = {"core": core, "ops": ops, "train": train, "SineTasks": SineTasks,
           "loss": functools.partial(paper_model_loss, SINE_MLP), "phi": phi,
           "bridge": bridge, "mamba2": mamba2, "engine": engine,
-          "graphs": graphs}
+          "graphs": graphs, "nets": paper_nets, "cfgs": PAPER_MODELS,
+          "dists": {"kws_conv": KWSTasks(), "omniglot_conv": OmniglotTasks()},
+          "loss_of": lambda cfg: functools.partial(
+              paper_nets.paper_model_loss, cfg),
+          "acc_of": lambda cfg: functools.partial(
+              paper_nets.paper_model_accuracy, cfg)}
     t_tiny = phase_train_tinyreptile(torch, np, tm)
     t_rep = phase_train_reptile(torch, np, tm)
     t_base = phase_train_baselines(torch, np, tm)
     phase_profile_train(torch, tm)
+    phase_paper_models(torch, np, tm)
+    fig4_paths = phase_fig4_conv(torch, np, tm)
     phase_graphs(torch, np, tm, {
         "server": AdaptationServer,
         "routes": {"serve_fp32": (fp32, phi, reqs, K_MAX),
                    "serve_tifed": (tifed, phi_q, t_reqs, T_K_MAX)}},
-                 {"decode_tinyllama_1_1b": g_dec})
+                 {"decode_tinyllama_1_1b": g_dec}, conv_graph_runs(torch, tm))
     t_lm_red = phase_train_lm_reduced(torch, np, tm)
     t_lm, lm_phi = phase_train_lm_full(torch, np, tm)
     phase_profile_lm(torch, np, tm, lm_phi)
@@ -1761,7 +2191,8 @@ def main():
              "train_lm_reduced": t_lm_red["launches"],
              "train_lm_mamba2_130m": t_lm["launches"],
              "serve_decode_reduced": s_dec_red["launches"],
-             "serve_decode_tinyllama_1_1b": s_dec["launches"]}
+             "serve_decode_tinyllama_1_1b": s_dec["launches"],
+             **fig4_paths}
     kernels = []
     for kernel, route, source, replaces, row in (
             ("online_sgd", "cuda", "src/repro_torch/kernels/csrc/online_sgd.cu",

@@ -41,7 +41,7 @@ KWS_CONV = PaperModelConfig(
     channels=(32, 32, 32), loss="xent")
 
 # Omniglot: 5-way classifier, the canonical Reptile 4xconv(stride2) net on
-# 28x28x1 glyphs. 113,093 params vs the paper's 113,733 (head-size delta;
+# 28x28x1 glyphs. 112,709 params vs the paper's 113,733 (head-size delta;
 # topology not published).
 OMNIGLOT_CONV = PaperModelConfig(
     name="omniglot_conv", kind="conv", input_shape=(28, 28, 1), num_outputs=5,

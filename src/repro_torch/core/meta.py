@@ -112,12 +112,15 @@ def finetune_batch_masked(loss_fn, layout, flat, batch, steps: int, lr, k):
 def evaluate_init(loss_fn: Callable, params, task_dist: TaskDistribution,
                   rng: np.random.Generator, *, num_tasks: int = 10,
                   support: int = 8, query: int = 64, k_steps: int = 8,
-                  lr: float = 0.01) -> Dict[str, float]:
+                  lr: float = 0.01,
+                  metric_fn: Optional[Callable] = None) -> Dict[str, float]:
     """Paper protocol: per testing client, fine-tune ``k_steps`` on S
     then score on Q; average over clients. ``params`` is one model's
     ``{leaf: tensor}`` tree; the clients are drawn from ``rng`` in the
     JAX package's order (task, query, then support, client by client),
-    then fine-tuned together as one cohort."""
+    then fine-tuned together as one cohort. ``metric_fn(params, query)``
+    (e.g. ``paper_model_accuracy``), called as ``loss_fn`` is, gives one
+    value per client; their mean is ``query_metric``."""
     draws = []
     for _ in range(num_tasks):
         task = task_dist.sample_task(rng)
@@ -136,5 +139,8 @@ def evaluate_init(loss_fn: Callable, params, task_dist: TaskDistribution,
         flat, _ = finetune_batch(loss_fn, layout, flat,
                                  stack([s for _, s in draws]), k_steps, lr)
     # support == 0: no adaptation (paper Fig. 6)
-    losses = loss_fn(layout.views(flat), stack([q for q, _ in draws]))
-    return {"query_loss": float(np.mean(losses.tolist()))}
+    views, qry = layout.views(flat), stack([q for q, _ in draws])
+    out = {"query_loss": float(np.mean(loss_fn(views, qry).tolist()))}
+    if metric_fn is not None:
+        out["query_metric"] = float(np.mean(metric_fn(views, qry).tolist()))
+    return out

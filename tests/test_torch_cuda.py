@@ -821,3 +821,97 @@ def test_decode_wave_replayed_equals_eager(cuda, dtype, monkeypatch):
     assert len(got) == len(want) == 2 * (12 + 20)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _conv_case(name, lead, seed=0):
+    """A conv paper net's init, a batch of ``lead`` samples and labels."""
+    from repro_torch.configs.paper_models import PAPER_MODELS
+    cfg = PAPER_MODELS[name]
+    params = init_paper_model(cfg, torch.Generator().manual_seed(seed), "cpu")
+    r = np.random.default_rng(seed)
+    x = torch.from_numpy(r.standard_normal(lead + cfg.input_shape)
+                         .astype(np.float32))
+    y = torch.from_numpy(r.integers(0, cfg.num_outputs, lead)
+                         .astype(np.int32))
+    return cfg, params, {"x": x, "y": y}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["kws_conv", "omniglot_conv"])
+@pytest.mark.parametrize("slots", [0, 6])
+def test_conv_net_on_card_matches_cpu(cuda, name, slots):
+    """The conv nets' forward, loss and gradients on the card against the
+    CPU within 1e-5, in full fp32 although the caller left cuDNN's TF32
+    on (TF32 would be some 1e-3 off); the caller's flags come back."""
+    from repro_torch.models.paper_nets import paper_model_apply
+    cfg, params, batch = _conv_case(name, (slots, 16) if slots else (16,))
+    if slots:
+        params = {k: torch.stack([v * (1 + 0.1 * i) for i in range(slots)])
+                  for k, v in params.items()}
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, cudnn.deterministic)
+    cudnn.allow_tf32, cudnn.deterministic = True, False
+    try:
+        out = {}
+        for dev in ("cpu", cuda):
+            p = {k: v.detach().to(dev).requires_grad_()
+                 for k, v in params.items()}
+            b = {k: v.to(dev) for k, v in batch.items()}
+            logits = paper_model_apply(cfg, p, b["x"])
+            loss = paper_model_loss(cfg, p, b)
+            loss.sum().backward()
+            out[str(dev)] = (logits.detach().cpu(), loss.detach().cpu(),
+                             {k: v.grad.cpu() for k, v in p.items()})
+        assert (cudnn.allow_tf32, cudnn.deterministic) == (True, False)
+    finally:
+        cudnn.allow_tf32, cudnn.deterministic = saved
+    (lc, sc, gc_), (lg, sg, gg) = out["cpu"], out[str(cuda)]
+    torch.testing.assert_close(lg, lc, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(sg, sc, rtol=1e-5, atol=1e-5)
+    for k in gc_:
+        torch.testing.assert_close(gg[k], gc_[k], rtol=1e-5, atol=1e-6,
+                                   msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["omniglot_tinyreptile", "kws_reptile_c4"])
+def test_captured_conv_round_equals_uncaptured(cuda, name, monkeypatch):
+    """A conv net's round captured once and replayed gives the params and
+    history (accuracy included) of the same round run eagerly, bit for
+    bit, with the same launch counts: cuDNN's algorithms are
+    deterministic on both routes."""
+    from repro_torch.configs.paper_models import KWS_CONV, OMNIGLOT_CONV
+    from repro_torch.data import KWSTasks, OmniglotTasks
+    from repro_torch.models.paper_nets import paper_model_accuracy
+    cfg, dist = ((OMNIGLOT_CONV, OmniglotTasks()) if name.startswith("omni")
+                 else (KWS_CONV, KWSTasks()))
+    phi = init_paper_model(cfg, torch.Generator().manual_seed(0), "cpu")
+    loss = functools.partial(paper_model_loss, cfg)
+    kw = dict(beta=0.01, support=16, seed=4, eval_every=3,
+              eval_kwargs=dict(num_tasks=6, support=16, k_steps=8, lr=0.01,
+                               query=32, metric_fn=functools.partial(
+                                   paper_model_accuracy, cfg)))
+    if name.endswith("c4"):
+        run = functools.partial(reptile_train, loss, phi, dist, rounds=6,
+                                epochs=8, clients_per_round=4, **kw)
+    else:
+        run = functools.partial(tinyreptile_train, loss, phi, dist,
+                                rounds=6, **kw)
+    clear_runner_cache()
+    ops.reset_launch_counts()
+    got = run(device=cuda)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    (runner,) = engine._RUNNER_CACHE._entries.values()
+    assert runner.trace_count == 1
+    clear_runner_cache()
+    with monkeypatch.context() as mp:
+        _uncaptured(mp)
+        ops.reset_launch_counts()
+        want = run(device=cuda)
+        torch.cuda.synchronize()
+        assert ops.launch_counts() == counts
+    clear_runner_cache()
+    for k, v in want["params"].items():
+        assert torch.equal(got["params"][k], v), k
+    assert got["history"] == want["history"]

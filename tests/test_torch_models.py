@@ -77,8 +77,9 @@ def test_init_law_and_param_count():
     assert all(torch.equal(p[k], again[k]) for k in p)
     # He normal: std sqrt(2 / fan_in) for the 32 x 32 layer
     assert abs(float(p["w1"].std()) - (2 / 32) ** 0.5) < 0.03
-    with pytest.raises(NotImplementedError):
-        tnets.init_paper_model(PAPER_MODELS["kws_conv"], g, "cpu")
+    # the conv nets are ported too (tests/test_torch_paper_conv.py)
+    kws = tnets.init_paper_model(PAPER_MODELS["kws_conv"], g, "cpu")
+    assert tnets.param_count(kws) == 20_612
 
 
 def test_tifed_requantize_matches_jax():
