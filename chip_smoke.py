@@ -24,7 +24,9 @@ Phases, each printing one JSON line, in this order:
    bit for bit at 1,153, (64, 1153) and flat 2^24 in fp32 and bf16,
    beside ``torch._fused_sgd_``; ``dfa_epoch_int8`` exact
    (the loss within 1e-6) at the serving shape for each layer and mixed,
-   the S = 512 rails and dims (5, 16, 12, 3); ``ssd_scan``
+   the S = 512 rails, dims (5, 16, 12, 3) and the round engine's TIFeD
+   epoch (B = 64, S = 32, the sine MLP), the last and the serving shape
+   also through the generic instantiation, timed beside it; ``ssd_scan``
    at the JAX package's test shapes, the LM path's and a 16-chunk
    sequence (its bound at the tensor cores' TF32 rate, three products
    for each fp32 one), at the last two also its three kernels, each
@@ -58,7 +60,7 @@ Phases, each printing one JSON line, in this order:
 6. profile decode: 16 replays of the full-width decode step under
    torch.profiler: idle share, kernels per step, top kernels,
    ``flash_decode``'s share; then a 64 + 32-token wave of tinyllama-1.1b
-   replayed against the same step run eagerly (for phase 16);
+   replayed against the same step run eagerly (for phase 20);
 7. serve fp32: 512 requests through ``AdaptationServer`` with the
    ``serve --mode adapt`` defaults, launch counters set to 0 just before
    and read just after, the tick built (captured) once; 32 requests held
@@ -77,29 +79,52 @@ Phases, each printing one JSON line, in this order:
     each train run's round built once, with its capture time and graph
     size;
 13. profile train: device busy share of 60 TinyReptile rounds;
-14. paper models: Table I (params, fp32 size), Table II
+14. fleet tifed: the train launcher's ``--strategy tifed`` defaults (64
+    clients, support 32, 8 integer epochs, 20 rounds) on the card and on
+    the CPU: the integer params and bytes exact, the int8 loss within
+    1e-6, one build, 160 ``dfa_epoch_int8`` launches (one an epoch for
+    the whole cohort, the kernel's S = 32 instantiation), rounds/s;
+15. fleet partial: TinyReptile at 64 clients on
+    ``PartialCommChannel(0.25)``, the mask fixed and rotating, 200
+    rounds each (bills exact), the first 60 against the CPU (1e-4);
+16. fleet pool: the sine MLP's TinyReptile over a persistent
+    ``ClientPool`` of 100,000 devices (vectorized sampler), a cohort of
+    64 under ``DiurnalAvailability(24)`` with
+    ``BufferedAggregation(16, flush_staleness=8)``, 500 rounds (the pool
+    state equal to a host replay of the plan, the first 60 rounds
+    against the CPU), then 1,000,000 devices with their state in host
+    slabs for 50 rounds against the CPU (pool state exact, 1e-4); one
+    build each, launches as reckoned (the flush's ``meta_update`` every
+    round); ``profile_fleet``: 20 replayed pooled rounds under the
+    profiler (idle share, kernels a round, top kernels);
+17. fleet kws: the port's KWS example with its persistent fleet
+    (``--pool-size 1000 --availability markov --buffer-size 4``, 200
+    rounds) on the card and on the CPU: accuracy within one query
+    sample, the pool state and bills exact;
+18. paper models: Table I (params, fp32 size), Table II
     (``algorithm_memory_report`` at S = 32, equal to the JAX package's)
     and Tables III-IV (one client's TinyReptile against Reptile update
     at S = 32, eager and built once) for the three paper models;
-15. fig4 conv: Fig. 4 on Omniglot 5-way and KWS 4-way (TinyReptile and
+19. fig4 conv: Fig. 4 on Omniglot 5-way and KWS 4-way (TinyReptile and
     serial Reptile 120 rounds, Reptile at 4 clients 30), rounds/s,
     accuracy after adaptation beside the random init's and chance, each
     round built once, launches exact; KWS TinyReptile above 0.35 at the
     JAX package's test setting; each net on the card against the CPU
     (1e-4); a profile of 20 replayed Omniglot TinyReptile rounds;
-16. graphs vs eager: the captured round (TinyReptile, Reptile and FedAvg
-    at 8 clients, the int8 wire, Omniglot TinyReptile, KWS Reptile at 4
+20. graphs vs eager: the captured round (TinyReptile, Reptile and FedAvg
+    at 8 clients, the int8 wire, the pooled and buffered sine round,
+    TIFeD at 64 clients, Omniglot TinyReptile, KWS Reptile at 4
     clients), tick (fp32, TIFeD) and decode step (phase 6's wave: every
     step's logits and the tokens) against the same round, tick and step
     run eagerly on the card, bit for bit, launch counts equal;
-17. train LM reduced: the LM launcher (``--arch mamba2 --reduced``) on
+21. train LM reduced: the LM launcher (``--arch mamba2 --reduced``) on
     the card and on the CPU from the same init, rows and params within
     1e-4, ``comm_mb`` exact, launches as reckoned;
-18. train LM mamba2-130m: full width and depth, bf16, ``--rounds 6
+22. train LM mamba2-130m: full width and depth, bf16, ``--rounds 6
     --batch 8 --seq 2048 --k-inner 4``: finite losses, the client adapts
     (mean last inner loss below the first), launches as reckoned,
     rounds/s, tokens/s and peak device memory;
-19. profile LM: two full-width rounds under torch.profiler: idle share,
+23. profile LM: two full-width rounds under torch.profiler: idle share,
     top kernels, the shares of ``ssd_scan`` (its three kernels) and of
     its plain backward.
 
@@ -111,6 +136,8 @@ rest of the repository beside it, the script exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import functools
+import io
 import itertools
 import json
 import math
@@ -133,6 +160,10 @@ PASSES = 7                     # timing repeats; the median is kept
 SUPPORT, QUERY, K_MAX, SLOTS, STEPS_PER_TICK = 10, 20, 10, 64, 5
 T_SUPPORT, T_K_MAX = 8, 6
 N_REQUESTS, N_HELD = 512, 32
+# the round engine's TIFeD: the train launcher's --strategy tifed defaults
+# (64 clients, support 32, 8 epochs, 20 rounds); its dfa_epoch_int8 row
+TIFED_CLIENTS, TIFED_SUPPORT, TIFED_EPOCHS = 64, 32, 8
+ENGINE_DFA = "engine_B64_S32_mixed"
 
 # examples/quickstart.py's TinyReptile run and eval protocol
 TR_ROUNDS, TR_CHECK_ROUNDS, TR_SUPPORT = 600, 60, 32
@@ -209,6 +240,24 @@ DECODE_PROFILE_STEPS, DECODE_PROFILE_AT = 16, 512
 # graphs_vs_eager's decode wave: tinyllama-1.1b at full width and depth,
 # 8 prompts of 64 tokens and 32 new, cache 2048, replayed against eager
 DECODE_GRAPH = dict(batch=8, prompt_len=64, max_new=32, cache_len=2048)
+
+# the fleet phases: TinyMetaFed's partial wire on TinyReptile at 64
+# clients; the persistent pool of tests/test_pool_scale.py (100,000 sine
+# devices, vectorized sampler) under diurnal check-ins with a FedBuff
+# buffer, then 1,000,000 devices with their state in host slabs; the
+# KWS example's persistent fleet, at its defaults (200 rounds)
+PARTIAL_ROUNDS, PARTIAL_CLIENTS, PARTIAL_FRACTION = 200, 64, 0.25
+# the card is held to the CPU over the first FLEET_CHECK_ROUNDS of a long
+# sine run, as the quickstart's 600 rounds are over 60: past some 100
+# rounds a 64-client TinyReptile run amplifies fp32 reordering (the
+# card's GEMMs against the CPU's) beyond 1e-4; the long run's bills and
+# pool state are held exactly all the same
+FLEET_CHECK_ROUNDS = 60
+POOL_SIZE, POOL_BIG, POOL_COHORT = 100_000, 1_000_000, 64
+POOL_ROUNDS, POOL_BIG_ROUNDS, FLEET_PROFILE_ROUNDS = 500, 50, 20
+POOL_BUFFER, POOL_DEADLINE, POOL_PERIOD = 16, 8, 24
+KWS_FLEET = ["--pool-size", "1000", "--availability", "markov",
+             "--buffer-size", "4"]
 
 # the paper models' parameters (Table I): the sine MLP and the conv nets
 # KWS_CONV and OMNIGLOT_CONV, whose flat phi and (4, P) Reptile c4 cohort
@@ -508,6 +557,9 @@ def phase_build(build):
 
 
 def phase_kernels(torch, np, ops, ref):
+    from repro_torch.kernels.online_sgd_int8 import \
+        dfa_epoch_int8_generic as generic
+
     dev = torch.device("cuda")
     rows = {}
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -552,7 +604,11 @@ def phase_kernels(torch, np, ops, ref):
     cases += [("serve_B64_S8_mixed", (1, 32, 32, 1), 8, SLOTS, [0, 1, 2],
                False),
               ("rails_B8_S512", (1, 8, 8, 1), 512, 8, [0, 1, 2], True),
-              ("wide_B16_S32", (5, 16, 12, 3), 32, 16, [0, 1, 2], False)]
+              ("wide_B16_S32", (5, 16, 12, 3), 32, 16, [0, 1, 2], False),
+              # the round engine's TIFeD epoch: the launcher's 64 clients
+              # at support 32, the sine MLP; its own instantiation
+              (ENGINE_DFA, (1, 32, 32, 1), TIFED_SUPPORT, TIFED_CLIENTS,
+               [0, 1, 2], False)]
     for i, (tag, dims, S, B, layers, extreme) in enumerate(cases):
         args = tifed_case(torch, np, dims, S, B, 100 + i, layers, dev,
                           extreme)
@@ -578,6 +634,19 @@ def phase_kernels(torch, np, ops, ref):
                "library_ms": None, "bound_ms": 1e3 * max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "bytes": moved, "int_ops": nops}
+        if tag in (ENGINE_DFA, "serve_B64_S8_mixed"):
+            # the specialized instantiation against the generic one on
+            # the same operands, in this call (bit-equal first)
+            ggw, ggb, ggl = generic(*args)
+            check(all(torch.equal(a, b) for a, b in zip(ggw + ggb, gw + gb))
+                  and torch.equal(ggl, gl),
+                  f"dfa {tag}: the generic instantiation differs")
+            row["generic_ms"] = cuda_ms(torch, lambda: generic(*args), 100)
+            row.update(device_ms(torch, lambda: generic(*args),
+                                 "generic_device_ms"))
+        if tag == ENGINE_DFA:
+            row["serve_B64_S8_mixed_device_ms"] = rows[
+                "dfa_epoch_int8/serve_B64_S8_mixed"]["device_ms"]
         rows[f"dfa_epoch_int8/{tag}"] = row
         emit({"phase": "kernel", "kernel": "dfa_epoch_int8", "case": tag,
               **row})
@@ -1189,6 +1258,279 @@ def phase_profile_train(torch, tm):
           "top_device_ms": [[k[:80], t / 1e3, c] for k, (t, c) in top]})
 
 
+def phase_fleet_tifed(torch, np, tm):
+    """The train launcher's ``--strategy tifed`` at its defaults on the
+    card and on the CPU: integer params exact, bytes exact, the int8
+    loss within 1e-6, the eval within 1e-4; one build; every epoch of
+    the cohort one ``dfa_epoch_int8`` launch."""
+    tl, ops = tm["train"], tm["ops"]
+    argv = ["--strategy", "tifed"]
+    tm["core"].clear_runner_cache()
+    (row, out), wall, counts = timed_run(
+        torch, ops, lambda: tl.run_engine_strategy(tl.parse_args(argv)))
+    graph = built_round(tm["engine"])
+    _, want = tl.run_engine_strategy(tl.parse_args(argv + ["--device",
+                                                           "cpu"]))
+    rounds, clients = row["rounds"], row["clients"]
+    check((rounds, clients) == (20, TIFED_CLIENTS),
+          f"tifed launcher defaults: {rounds} rounds, {clients} clients")
+    for k, v in want["params"].items():
+        check(torch.equal(out["params"][k].cpu(), v),
+              f"fleet_tifed: integer param {k} differs from the CPU")
+    for key in ("comm_bytes", "per_client_bytes"):
+        check(out[key] == want[key], f"fleet_tifed: {key}")
+    check(out["comm_bytes"] == rounds * clients * 2 * PAPER_PARAMS[
+        "sine_mlp"], f"fleet_tifed: comm_bytes {out['comm_bytes']}")
+    (ge,), (we,) = out["history"], want["history"]
+    loss_rel = abs(ge["inner_loss"] - we["inner_loss"]) / abs(
+        we["inner_loss"])
+    check(loss_rel <= 1e-6, f"fleet_tifed: inner loss {ge['inner_loss']} "
+          f"vs {we['inner_loss']}")
+    check(abs(ge["query_loss"] - we["query_loss"]) <= 1e-4 * max(
+        1.0, abs(we["query_loss"])), "fleet_tifed: query loss")
+    want_counts = {"dfa_epoch_int8": rounds * TIFED_EPOCHS,
+                   "meta_update": rounds,
+                   "online_sgd": tl.EVAL_KWARGS["k_steps"]}
+    check_launches("fleet_tifed", counts, want_counts)
+    emit({"phase": "fleet_tifed", "argv": argv, "rounds": rounds,
+          "clients": clients, "support": tl.SUPPORT, "epochs": TIFED_EPOCHS,
+          "wall_s": wall, "rounds_per_s": rounds / wall, "launches": counts,
+          **graph, "query_loss": ge["query_loss"],
+          "inner_loss": ge["inner_loss"], "inner_loss_rel_vs_cpu": loss_rel,
+          "comm_bytes": out["comm_bytes"], "params_vs_cpu": "exact"})
+    return {"fleet_tifed": counts}
+
+
+def phase_fleet_partial(torch, np, tm):
+    """TinyReptile at 64 clients on PartialCommChannel(0.25), the mask
+    fixed and rotating: PARTIAL_ROUNDS rounds each on the card (bills
+    exact, launches as reckoned), and the same config's first
+    FLEET_CHECK_ROUNDS on the card and on the CPU (params within 1e-4,
+    bills exact)."""
+    core, loss, phi = tm["core"], tm["loss"], tm["phi"]
+    rows, paths = [], {}
+    for rotate in (False, True):
+        channel = core.PartialCommChannel(fraction=PARTIAL_FRACTION,
+                                          rotate=rotate)
+
+        def run(rounds, device, channel=channel):
+            return core.tinyreptile_train(
+                loss, phi, tm["SineTasks"](), rounds=rounds, beta=0.02,
+                support=TR_SUPPORT, clients_per_round=PARTIAL_CLIENTS,
+                seed=5, channel=channel, eval_every=rounds,
+                eval_kwargs=TR_EVAL, device=device)
+
+        name = f"fleet_partial_{'rotating' if rotate else 'fixed'}"
+        core.clear_runner_cache()
+        out, wall, counts = timed_run(
+            torch, tm["ops"], lambda: run(PARTIAL_ROUNDS, "cuda"))
+        graph = built_round(tm["engine"])
+        want_bytes = sum(2 * PARTIAL_CLIENTS * channel.payload_bytes_at(
+            phi, r) for r in range(PARTIAL_ROUNDS))
+        check(out["comm_bytes"] == want_bytes == sum(
+            out["per_client_bytes"]),
+            f"{name}: comm_bytes {out['comm_bytes']} vs {want_bytes}")
+        check_launches(name, counts, {
+            "online_sgd": PARTIAL_ROUNDS * TR_SUPPORT + TR_EVAL["k_steps"],
+            "meta_update": PARTIAL_ROUNDS})
+        q = out["history"][-1]["query_loss"]
+        check(math.isfinite(q), f"{name}: query loss {q}")
+        worst = compare_runs(np, run(FLEET_CHECK_ROUNDS, "cuda"),
+                             run(FLEET_CHECK_ROUNDS, "cpu"))
+        rows.append({"run": name, "fraction": PARTIAL_FRACTION,
+                     "rotation_period": (channel.rotation_period if rotate
+                                         else None),
+                     "rounds": PARTIAL_ROUNDS, "clients": PARTIAL_CLIENTS,
+                     "wall_s": wall, "rounds_per_s": PARTIAL_ROUNDS / wall,
+                     "launches": counts, **graph, "query_loss": q,
+                     "comm_bytes": out["comm_bytes"],
+                     "full_wire_bytes": PARTIAL_ROUNDS * PARTIAL_CLIENTS * 2
+                     * PHI_BYTES,
+                     "vs_cpu": {"rounds": FLEET_CHECK_ROUNDS, "tol": 1e-4,
+                                "params_max_abs_diff": worst}})
+        paths[name] = counts
+    emit({"phase": "fleet_partial", "runs": rows})
+    return paths
+
+
+def pool_run(tm, size, rounds, residency, device):
+    """The sine MLP's TinyReptile over a fresh vectorized pool of ``size``
+    devices: a cohort of POOL_COHORT under diurnal check-ins, a FedBuff
+    buffer with a staleness deadline, one eval at the end."""
+    core = tm["core"]
+    pool = core.ClientPool(tm["SineTasks"](), size, seed=2,
+                           sampler="vectorized", residency=residency)
+    return core.tinyreptile_train(
+        tm["loss"], tm["phi"], tm["SineTasks"](), rounds=rounds, beta=0.02,
+        support=TR_SUPPORT, clients_per_round=POOL_COHORT, seed=2,
+        sampling=core.DiurnalAvailability(period=POOL_PERIOD,
+                                          sampler="vectorized"),
+        pool=pool, buffered=core.BufferedAggregation(
+            POOL_BUFFER, flush_staleness=POOL_DEADLINE),
+        eval_every=rounds, eval_kwargs=TR_EVAL, device=device)
+
+
+def replay_pool_state(np, tm, size, rounds):
+    """``pool_run``'s identity state replayed on the host from its plan
+    alone (the pool draws its data from its own streams, so the run's
+    generator serves the plan only): last_seen, staleness, checkins."""
+    core = tm["core"]
+    policy = core.DiurnalAvailability(period=POOL_PERIOD,
+                                      sampler="vectorized")
+    rng = np.random.default_rng(2)
+    last = np.full(size, -1, np.int64)
+    stale = np.zeros(size, np.int64)
+    seen = np.zeros(size, np.int64)
+    for start, end in core.plan_blocks(rounds, rounds, 512)[0]:
+        plan = policy.plan_pool_schedule(rng, start, end, POOL_COHORT,
+                                         TR_SUPPORT, size)
+        for j, r in enumerate(range(start, end)):
+            m = plan["cohort"][j][plan["participation"][j]]
+            stale[m] = r - last[m]
+            last[m] = r
+            seen[m] += 1
+    return {"last_seen": last, "staleness": stale, "checkins": seen}
+
+
+def phase_fleet_pool(torch, np, tm):
+    """The persistent pool on the card: POOL_SIZE devices resident on the
+    card for POOL_ROUNDS rounds (the pool state equal to a host replay of
+    the plan, bills exact, one build, launches as reckoned: every round,
+    no-show or not, replays the whole round, its 32 online_sgd and the
+    FedBuff flush's meta_update), its first FLEET_CHECK_ROUNDS against
+    the CPU, then POOL_BIG devices with their state in host slabs for
+    POOL_BIG_ROUNDS against the CPU (pool state exact, params within
+    1e-4); then FLEET_PROFILE_ROUNDS replayed rounds under the profiler."""
+    core = tm["core"]
+    rows, paths = [], {}
+    for name, size, rounds, residency, check_rounds in (
+            ("fleet_pool", POOL_SIZE, POOL_ROUNDS, "device",
+             FLEET_CHECK_ROUNDS),
+            ("fleet_pool_host", POOL_BIG, POOL_BIG_ROUNDS, "host",
+             POOL_BIG_ROUNDS)):
+        core.clear_runner_cache()
+        out, wall, counts = timed_run(
+            torch, tm["ops"],
+            lambda: pool_run(tm, size, rounds, residency, "cuda"))
+        graph = built_round(tm["engine"])
+        ps = out["pool_state"]
+        for k, v in replay_pool_state(np, tm, size, rounds).items():
+            check(np.array_equal(ps[k], v),
+                  f"{name}: pool state {k} differs from the plan's replay")
+        checkins = int(ps["checkins"].sum())
+        check(out["comm_bytes"] == 2 * PHI_BYTES * checkins,
+              f"{name}: comm_bytes against {checkins} check-ins")
+        check_launches(name, counts, {
+            "online_sgd": rounds * TR_SUPPORT + TR_EVAL["k_steps"],
+            "meta_update": rounds})
+        got = (out if check_rounds == rounds else
+               pool_run(tm, size, check_rounds, residency, "cuda"))
+        want = pool_run(tm, size, check_rounds, residency, "cpu")
+        worst = compare_runs(np, got, want)
+        for k, v in want["pool_state"].items():
+            check(np.array_equal(np.asarray(got["pool_state"][k]),
+                                 np.asarray(v)),
+                  f"{name}: pool state {k} differs from the CPU")
+        seen = ps["checkins"] > 0
+        rows.append({"run": name, "pool_size": size, "residency": residency,
+                     "rounds": rounds, "cohort": POOL_COHORT,
+                     "wall_s": wall, "rounds_per_s": rounds / wall,
+                     "launches": counts, **graph,
+                     "query_loss": out["history"][-1]["query_loss"],
+                     "checkins": checkins,
+                     "devices_seen": int(seen.sum()),
+                     "staleness_max": int(ps["staleness"].max()),
+                     "flushes": ps["flushes"],
+                     "buffered_pending": ps["buffered_pending"],
+                     "comm_bytes": out["comm_bytes"],
+                     "pool_state_vs_replay": "exact",
+                     "vs_cpu": {"rounds": check_rounds, "tol": 1e-4,
+                                "params_max_abs_diff": worst,
+                                "pool_state": "exact"}})
+        paths[name] = counts
+    rows.append(profile_fleet(torch, tm))
+    emit({"phase": "fleet_pool", "runs": rows})
+    return paths
+
+
+def profile_fleet(torch, tm):
+    """FLEET_PROFILE_ROUNDS pooled, buffered rounds (POOL_SIZE devices),
+    after a run of the same config has built (captured) the round, under
+    torch.profiler (device activity only): idle share, kernels a round,
+    top kernels."""
+    run = functools.partial(pool_run, tm, POOL_SIZE, FLEET_PROFILE_ROUNDS,
+                            "device", "cuda")
+    tm["core"].clear_runner_cache()
+    run()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    (runner,) = tm["engine"]._RUNNER_CACHE._entries.values()
+    check(runner.trace_count == 1, "the profiled pooled round was built "
+          "again")
+    cuda = torch.autograd.DeviceType.CUDA
+    by_name = {ev.key: (ev.self_device_time_total, ev.count)
+               for ev in prof.key_averages()
+               if ev.device_type == cuda and ev.self_device_time_total > 0}
+    dev_us = sum(t for t, _ in by_name.values())
+    check(dev_us > 0, "the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    n = sum(c for _, c in by_name.values())
+    return {"run": "profile_fleet", "rounds": FLEET_PROFILE_ROUNDS,
+            "replayed": True, "wall_ms": 1e3 * wall,
+            "round_ms": 1e3 * wall / FLEET_PROFILE_ROUNDS,
+            "device_busy_ms": dev_us / 1e3,
+            "device_idle_share": 1 - dev_us / 1e6 / wall,
+            "kernels_per_round": n / FLEET_PROFILE_ROUNDS,
+            "top_device": [[k[:80], t / 1e3, c, t / dev_us]
+                           for k, (t, c) in top]}
+
+
+def phase_fleet_kws(torch, np, tm):
+    """The port's KWS example with its persistent fleet (KWS_FLEET) on
+    the card and on the CPU, its printout kept out of this script's:
+    each run's accuracy within one query sample of the CPU's, the pool
+    state and bills exact."""
+    kws = tm["kws"]
+    tm["core"].clear_runner_cache()
+    with contextlib.redirect_stdout(io.StringIO()):
+        got, wall, counts = timed_run(
+            torch, tm["ops"], lambda: kws.main(KWS_FLEET + ["--device",
+                                                            "cuda"]))
+        out = {"cuda": got, "cpu": kws.main(KWS_FLEET + ["--device", "cpu"])}
+    one = 1.0 / (kws.EVAL["num_tasks"] * kws.EVAL["query"])
+    accs = {}
+    for run in ("tinyreptile", "fleet"):
+        g, w = (out[d][run]["history"][-1]["query_metric"]
+                for d in ("cuda", "cpu"))
+        check(abs(g - w) <= one + 1e-9,
+              f"fleet_kws {run}: accuracy {g} on the card, {w} on the CPU")
+        accs[run] = {"cuda": g, "cpu": w}
+    fleet, ref = out["cuda"]["fleet"], out["cpu"]["fleet"]
+    for key in ("comm_bytes", "per_client_bytes"):
+        check(fleet[key] == ref[key], f"fleet_kws: {key}")
+    for k, v in ref["pool_state"].items():
+        check(np.array_equal(np.asarray(fleet["pool_state"][k]),
+                             np.asarray(v)), f"fleet_kws: pool state {k}")
+    ps = fleet["pool_state"]
+    rounds = kws.parse_args(KWS_FLEET).rounds
+    check(counts["meta_update"] == 2 * rounds,
+          f"fleet_kws: {counts['meta_update']} meta_update launches")
+    emit({"phase": "fleet_kws", "argv": KWS_FLEET, "rounds": rounds,
+          "wall_s": wall, "launches": counts, "accuracy": accs,
+          "one_sample": one, "random_init": out["cuda"]["random_init"],
+          "checkins": int(ps["checkins"].sum()),
+          "devices_seen": int((ps["checkins"] > 0).sum()),
+          "flushes": ps["flushes"],
+          "buffered_pending": ps["buffered_pending"],
+          "comm_bytes": fleet["comm_bytes"]})
+    return {"fleet_kws": counts}
+
+
 def phase_paper_models(torch, np, tm):
     """Paper Tables I-IV on the card. Table I: each model's parameters
     from its init and its fp32 size. Table II: ``algorithm_memory_report``
@@ -1452,7 +1794,9 @@ def phase_graphs(torch, np, tm, serves, extra, conv_runs):
     tick run eagerly on the card: params, histories, served results and
     launch counts equal, bit for bit. The round: TinyReptile (the
     quickstart's client, 40 rounds), Reptile and FedAvg at 8 clients,
-    TinyReptile on the int8 wire, and the conv nets' ``conv_runs``; the
+    TinyReptile on the int8 wire, the pooled and buffered sine round (40
+    rounds, its pool state too), TIFeD at 64 clients (20 rounds), and
+    the conv nets' ``conv_runs``; the
     tick: 128 fp32 and 128 TIFeD requests at the serve phases' settings.
     Each with its capture time and graph size."""
     core, ops, graphs, loss, phi = (tm["core"], tm["ops"], tm["graphs"],
@@ -1472,7 +1816,16 @@ def phase_graphs(torch, np, tm, serves, extra, conv_runs):
             eval_kwargs=ev, **common),
         "tinyreptile_int8_wire": lambda: core.tinyreptile_train(
             loss, phi, tm["SineTasks"](), rounds=40, eval_kwargs=TR_EVAL,
-            channel=core.CommChannel("int8"), **common), **conv_runs}
+            channel=core.CommChannel("int8"), **common),
+        # the fleet: the pooled, buffered sine round (a fresh pool each
+        # run) and TIFeD's integer round at the launcher's cohort
+        "pooled_buffered_sine": lambda: pool_run(tm, POOL_SIZE, 40,
+                                                 "device", "cuda"),
+        "tifed_c64": lambda: core.tifed_train(
+            phi, tm["SineTasks"](), rounds=20, support=TIFED_SUPPORT,
+            clients_per_round=TIFED_CLIENTS, seed=4, eval_every=20,
+            eval_kwargs=dict(ev, lr=tm["train"].TIFED_EVAL_LR),
+            device="cuda"), **conv_runs}
     rows = {}
     for name, run in runs.items():
         core.clear_runner_cache()
@@ -1488,6 +1841,10 @@ def phase_graphs(torch, np, tm, serves, extra, conv_runs):
               f"graphs {name}: the captured round's params differ")
         check(got["history"] == want["history"],
               f"graphs {name}: the captured round's history differs")
+        for k, v in want.get("pool_state", {}).items():
+            check(np.array_equal(np.asarray(got["pool_state"][k]),
+                                 np.asarray(v)),
+                  f"graphs {name}: the captured round's pool state differs")
         rows[name] = {**info, "launches": counts, "bit_equal": True}
     AdaptationServer = serves["server"]
     for name, (adapter, p, reqs, k_max) in serves["routes"].items():
@@ -2104,8 +2461,6 @@ def main():
                          f"{SRC}; run this script from a checkout")
     sys.path.insert(0, str(SRC))
 
-    import functools
-
     from repro_torch.configs.paper_models import SINE_MLP
     from repro_torch.core.strategies import tifed_requantize
     from repro_torch.kernels import build, ops, ref
@@ -2153,6 +2508,7 @@ def main():
     from repro_torch.configs.paper_models import PAPER_MODELS
     from repro_torch.core import engine
     from repro_torch.data import KWSTasks, OmniglotTasks, SineTasks
+    from repro_torch.examples import federated_keyword_spotting as kws
     from repro_torch.launch import train
     from repro_torch.models import mamba2, paper_nets
 
@@ -2160,6 +2516,7 @@ def main():
           "loss": functools.partial(paper_model_loss, SINE_MLP), "phi": phi,
           "bridge": bridge, "mamba2": mamba2, "engine": engine,
           "graphs": graphs, "nets": paper_nets, "cfgs": PAPER_MODELS,
+          "kws": kws,
           "dists": {"kws_conv": KWSTasks(), "omniglot_conv": OmniglotTasks()},
           "loss_of": lambda cfg: functools.partial(
               paper_nets.paper_model_loss, cfg),
@@ -2169,6 +2526,10 @@ def main():
     t_rep = phase_train_reptile(torch, np, tm)
     t_base = phase_train_baselines(torch, np, tm)
     phase_profile_train(torch, tm)
+    fleet_paths = {**phase_fleet_tifed(torch, np, tm),
+                   **phase_fleet_partial(torch, np, tm),
+                   **phase_fleet_pool(torch, np, tm),
+                   **phase_fleet_kws(torch, np, tm)}
     phase_paper_models(torch, np, tm)
     fig4_paths = phase_fig4_conv(torch, np, tm)
     phase_graphs(torch, np, tm, {
@@ -2192,7 +2553,7 @@ def main():
              "train_lm_mamba2_130m": t_lm["launches"],
              "serve_decode_reduced": s_dec_red["launches"],
              "serve_decode_tinyllama_1_1b": s_dec["launches"],
-             **fig4_paths}
+             **fig4_paths, **fleet_paths}
     kernels = []
     for kernel, route, source, replaces, row in (
             ("online_sgd", "cuda", "src/repro_torch/kernels/csrc/online_sgd.cu",
@@ -2230,7 +2591,13 @@ def main():
              "library_device_ms": row.get("library_device_ms"),
              **({"route_on_path": row["route"]} if "route" in row else {}),
              **({"kernels_per_call": row["kernels_per_call"]}
-                if "kernels_per_call" in row else {})})
+                if "kernels_per_call" in row else {}),
+             **({"engine_shape": {
+                 k: rows[f"dfa_epoch_int8/{ENGINE_DFA}"][k] for k in (
+                     "B", "S", "dims", "ms", "device_ms", "generic_ms",
+                     "generic_device_ms", "plain_ms", "bound_ms", "bound_by",
+                     "max_abs_err", "loss_max_rel_err")}}
+                if kernel == "dfa_epoch_int8" else {})})
     emit({"total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi_line(), flush=True)

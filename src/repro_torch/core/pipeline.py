@@ -2,8 +2,7 @@
 prefetch, and pluggable client-scheduling policies.
 
 The port's counterpart of the JAX package's ``core/pipeline.py``, less
-its mesh helpers and the persistent-pool seating (those come with the
-pool and mesh slices):
+its mesh helpers (those come with the mesh slice):
 
 - ``plan_blocks``: split a run into blocks at eval boundaries and
   ``max_block``, and pick ONE padded length for every block of the run.
@@ -20,7 +19,10 @@ pool and mesh slices):
 - ``SamplingPolicy``: which client tasks feed each round and what the
   round's schedule is. ``UniformSampling`` is the paper's schema;
   ``PartialParticipation`` and ``StragglerSampling`` are the
-  deployment-scenario plugins.
+  deployment-scenario plugins. Over a persistent ``ClientPool``
+  (``core/pool.py``) a policy also seats each round's cohort
+  (``plan_pool_schedule``, ``seat_cohorts``), drawing the host RNG in
+  the JAX package's order, so cohorts are equal seat for seat.
 """
 from __future__ import annotations
 
@@ -143,19 +145,53 @@ def prefetch_items(produce: Callable[[int], object], n: int,
         pf.close()
 
 
+def seat_cohorts(rng, pool_size: int, clients: int,
+                 rows: int) -> np.ndarray:
+    """Uniform without-replacement cohort seating in O(rows * clients)
+    host work, independent of ``pool_size`` (the ``sampler="vectorized"``
+    stream contract of the JAX package's ``seat_cohorts``, draw for
+    draw). Sparse rows (8 * clients < pool_size) reject repeats among
+    ``rng.integers`` draws; near-dense rows keep ``rng.choice``'s
+    permutation draw."""
+    out = np.empty((rows, clients), np.int32)
+    if clients * 8 >= pool_size:
+        for r in range(rows):
+            out[r] = rng.choice(pool_size, size=clients, replace=False)
+        return out
+    for r in range(rows):
+        seen = set()
+        seats = []
+        while len(seats) < clients:
+            draw = rng.integers(pool_size,
+                                size=clients - len(seats)).tolist()
+            for cand in draw:
+                if cand not in seen:
+                    seen.add(cand)
+                    seats.append(cand)
+        out[r] = seats
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class ClientSchedule:
     """Per-round, per-client round state of one padded block.
 
-    valid:          (R,)    bool — False on padded rounds.
+    valid:          (R,)    bool — False on padded rounds, and on pooled
+                    rounds where nobody checked in (the round then
+                    passes phi and the pool state through).
     alpha:          (R,)    f32  — annealed server rate for the round.
-    round_index:    (R,)    i32  — absolute round number.
+    round_index:    (R,)    i32  — absolute round number (rotating
+                    partial-comm masks and the pool's last-seen and
+                    FedBuff staleness tags read it on the device).
     participation:  (R, C)  bool — which cohort slots train (and pay
                     transport) this round.
     local_steps:    (R, C)  i32  — per-client local step budget k_i, in
                     the strategy's own units (stream samples / epochs).
     weights:        (R, C)  f32  — aggregation weights, normalized per
                     round (0 for non-participants).
+    cohort:         (R, C)  i32 or None — which persistent pool client
+                    sits in each slot (unique within a round); None on
+                    runs without a pool.
 
     Fields are NumPy arrays when planned and tensors on the run's device
     once staged.
@@ -166,6 +202,12 @@ class ClientSchedule:
     participation: object
     local_steps: object
     weights: object
+    cohort: object = None
+
+    def present(self) -> List[str]:
+        """The names of the fields that are set, in field order."""
+        return [f.name for f in dataclasses.fields(self)
+                if getattr(self, f.name) is not None]
 
 
 class SamplingPolicy:
@@ -200,6 +242,33 @@ class SamplingPolicy:
             "local_steps": np.full((blk, clients), budget, np.int32),
             "weights": np.full((blk, clients), 1.0 / clients, np.float32),
         }
+
+    def plan_pool_schedule(self, rng, start: int, end: int, clients: int,
+                           budget: int,
+                           pool_size: int) -> Dict[str, np.ndarray]:
+        """Pooled-run schedule: ``plan_schedule``'s rows plus ``cohort``
+        ((blk, clients) int32), which of the ``pool_size`` persistent
+        clients sits in each slot (unique within a round). The default
+        seats a uniform without-replacement draw each round, then
+        delegates the heterogeneity rows to ``plan_schedule``. RNG
+        order: the cohort draws first, then ``plan_schedule``'s.
+        Availability processes (``core/pool.py``) override this."""
+        blk = end - start
+        if pool_size < clients:
+            raise ValueError(f"pool_size={pool_size} is smaller than the "
+                             f"cohort ({clients} slots): persistent "
+                             f"clients cannot repeat within a round")
+        if not blk:
+            cohort = np.zeros((0, clients), np.int64)
+        elif self.sampler == "vectorized":
+            cohort = seat_cohorts(rng, pool_size, clients, blk)
+        else:
+            cohort = np.stack([
+                rng.choice(pool_size, size=clients, replace=False)
+                for _ in range(blk)])
+        plan = self.plan_schedule(rng, start, end, clients, budget)
+        plan["cohort"] = cohort.astype(np.int32)
+        return plan
 
     def sample_block(self, task_dist, rng, rounds: int, clients: int,
                      support: int, data_mode: str,

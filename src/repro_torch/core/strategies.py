@@ -26,9 +26,15 @@ schedule-aware forms instead:
       the default ignores k (one-shot workloads).
   server_aggregate_weighted(layout, phi, results, alpha_t, beta, weights)
       weights: ``(C,)`` per-round-normalized aggregation weights (0 for
-      non-participants).
+      non-participants). A FedBuff flush calls it on the buffer, with a
+      leading capacity axis and staleness-discounted weights.
   local_step_budget(support) -> int
       The full per-client workload in scheduler units.
+
+Results need not be flat: TIFeD's are int8/int32 trees (``uplink_template``
+gives their shapes, for the FedBuff buffer; ``payload_dtype`` declares
+the native wire dtype). ``uplink_ref`` says what a partial channel's
+dropped uplink entries fall back to.
 
 TIFeD's grids: exponents are powers of two throughout, so every
 requantization multiplier is an exact fp32 scaling: inputs on the 2^EX
@@ -40,7 +46,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -49,6 +55,7 @@ from repro_torch.core.engine import meta_interpolate
 from repro_torch.core.meta import (cohort_grad, finetune_batch,
                                    finetune_batch_masked, finetune_online,
                                    finetune_online_masked)
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
 TIFED_EX = -4
@@ -76,27 +83,28 @@ def _tifed_constants(seed, epochs, dims):
 
 def tifed_dequantize(result):
     """``{"q": {leaf: codes}, "exp": {leaf: exponent}}`` -> fp32 params,
-    ``q * 2^exp`` per leaf (the exponent broadcasts over trailing
-    axes)."""
+    ``q * 2^exp`` per leaf (the exponent broadcasts over trailing axes,
+    so a cohort's tree with a leading clients axis dequantizes whole)."""
     out = {}
     for k, q in result["q"].items():
-        e = torch.as_tensor(result["exp"][k], device=q.device).float()
-        out[k] = q.float() * torch.exp2(
+        e = torch.as_tensor(result["exp"][k], device=q.device)
+        out[k] = q.float() * kref.exp2_int(
             e.reshape(e.shape + (1,) * (q.dim() - e.dim())))
     return out
 
 
 def tifed_requantize(phi):
     """Snap fp32 phi onto the integer grids: weights to their per-tensor
-    int8 grid, biases to the matching accumulator grid."""
+    int8 grid, biases to the matching accumulator grid. Every scaling is
+    an exact power of two built on the device (``kref.exp2_int``)."""
     out = {}
     for i, ea in enumerate((TIFED_EX, TIFED_ACT, TIFED_ACT)):
         q, e = kref.quantize_pow2(phi[f"w{i}"])
-        out[f"w{i}"] = torch.ldexp(q, e)
+        out[f"w{i}"] = q * kref.exp2_int(e)
         eb = e + ea
-        out[f"b{i}"] = torch.ldexp(torch.clamp(
-            torch.round(torch.ldexp(phi[f"b{i}"], -eb)),
-            -kref.BIAS_MAX, kref.BIAS_MAX), eb)
+        out[f"b{i}"] = torch.clamp(
+            torch.round(phi[f"b{i}"] * kref.exp2_int(-eb)),
+            -kref.BIAS_MAX, kref.BIAS_MAX) * kref.exp2_int(eb)
     return out
 
 
@@ -136,6 +144,22 @@ class FedStrategy:
     data_mode = "batch"          # "batch" | "stream" client data layout
     meters_comm = True           # account CommChannel bytes + report them
     tracks_inner_loss = False    # report last-round client loss at evals
+    uplink_ref = "params"        # what a partial uplink falls back to for
+    #                              untransmitted entries: "params" (the
+    #                              server's phi; model-returning uplinks),
+    #                              "zeros" (gradient uplinks) or "none"
+    #                              (no phi-shaped result to fall back on)
+    payload_dtype = "float32"    # wire dtype of the client result: other
+    #                              values declare NATIVE quantized uplinks,
+    #                              which need a matching non-simulating
+    #                              channel (e.g. CommChannel("int8",
+    #                              quantize=False))
+
+    def uplink_template(self, layout, phi):
+        """One client's result with zeros: its shapes and dtypes (a
+        tensor, or a dict of tensors), from which the engine sizes the
+        FedBuff buffer. Default: phi's flat ``(P,)`` buffer."""
+        return torch.zeros_like(phi)
 
     def client_update(self, layout, phi, client_batch, beta):
         raise NotImplementedError
@@ -256,6 +280,8 @@ class FedSGDStrategy(FedStrategy):
     """FedSGD: every client ships ONE gradient; the server applies the
     mean with the client rate beta."""
 
+    uplink_ref = "zeros"         # untransmitted gradient entries are 0
+
     def client_update(self, layout, phi, client_batch, beta):
         loss, g = cohort_grad(self.loss_fn, layout,
                               _cohort(phi, len(client_batch["x"])),
@@ -282,6 +308,7 @@ class TransferStrategy(FedStrategy):
     federation, so no comm accounting."""
 
     meters_comm = False
+    uplink_ref = "none"          # raw-data uplink: no phi-shaped reference
 
     def client_update(self, layout, phi, client_batch, beta):
         return client_batch, torch.zeros(len(client_batch["x"]),
@@ -303,3 +330,179 @@ class TransferStrategy(FedStrategy):
         _, g = cohort_grad(self.loss_fn, layout,
                            _cohort(phi, len(results["x"])), results)
         return (phi - beta * weighted_client_mean(g, weights)).to(phi.dtype)
+
+
+# the device copies of the TIFeD constants by (feedback seed, epochs,
+# dims, clients, device): fb (int8), each epoch's dither planes expanded
+# to the cohort, each epoch's layer per slot. Never evicted: a captured
+# round reads them at their addresses for as long as it lives.
+_TIFED_DEVICE: Dict = {}
+
+
+def _tifed_device_constants(seed, epochs, dims, clients, device):
+    key = (seed, epochs, dims, clients, str(device))
+    hit = _TIFED_DEVICE.get(key)
+    if hit is None:
+        fb_np, dith_np = _tifed_constants(seed, epochs, dims)
+        fb = tuple(torch.tensor(f, device=device).to(torch.int8)
+                   for f in fb_np)
+        dith = tuple(
+            tuple(torch.tensor(d[e], device=device)
+                  .expand((clients,) + d.shape[1:]).contiguous()
+                  for d in dith_np) for e in range(epochs))
+        layers = tuple(torch.full((clients,), e % 3, dtype=torch.int32,
+                                  device=device) for e in range(epochs))
+        hit = _TIFED_DEVICE[key] = (fb, dith, layers)
+    return hit
+
+
+@dataclasses.dataclass(frozen=True)
+class TifedStrategy(FedStrategy):
+    """TIFeD [arXiv 2307.03102]: integer-only local training with direct
+    feedback alignment, as an engine strategy.
+
+    Clients never touch fp32 weights: phi is quantized to per-tensor
+    power-of-two int8 grids, and each local epoch runs an int8 forward
+    pass with int32 accumulation, projects the quantized output error
+    straight to one layer through a fixed random feedback matrix, and
+    requantizes that layer's update with stochastic rounding (epoch t
+    trains layer t mod 3). Learning rates are bit-shifts: ``lr_shift``
+    plus log2(support) folds the batch mean in.
+
+    Each epoch is one ``dfa_epoch_int8`` launch for the whole cohort, the
+    round's C clients being the kernel's C slots. Straggler epochs past
+    a client's budget are dropped per slot on the device (the carry
+    passes through, the loss reads 0), so the round has no host branch
+    and is captured whole.
+
+    The uplink is the native int8/int32 result tree ``{"q": {w*, b*},
+    "exp": {w*, b*}}`` (``payload_dtype="int8"``: billed at 1 byte a
+    parameter through ``CommChannel("int8", quantize=False)``; the six
+    exponents ride free). The server dequantizes, takes the (weighted)
+    client mean, Reptile-interpolates with ``meta_update`` and snaps phi
+    back onto the integer grids.
+
+    ``loss_fn`` is only used by the engine's fp32 eval finetune
+    (``models.paper_nets.relu_mlp_loss``: the integer forward is a ReLU
+    MLP). ``unroll`` and ``use_pallas`` are accepted for the JAX
+    package's signature and ignored: each epoch is one kernel launch on
+    the card and the plain version on the CPU, as every wrapper of
+    ``kernels/ops.py`` dispatches."""
+    epochs: int = 8
+    lr_shift: int = 6
+    feedback_seed: int = 0
+    unroll: int = 2
+    use_pallas: Optional[bool] = None
+
+    tracks_inner_loss = True
+    payload_dtype = "int8"
+
+    @staticmethod
+    def _dims(phi):
+        for i in range(3):
+            if f"w{i}" not in phi or f"b{i}" not in phi:
+                raise ValueError(
+                    "TifedStrategy expects the paper MLP tree "
+                    "{w0,b0,w1,b1,w2,b2} (models.paper_nets); got keys "
+                    f"{sorted(phi)}")
+        return (phi["w0"].shape[0], phi["w0"].shape[1],
+                phi["w1"].shape[1], phi["w2"].shape[1])
+
+    def uplink_template(self, layout, phi):
+        views = layout.views(phi)
+        self._dims(views)
+        q = {f"w{i}": torch.zeros(views[f"w{i}"].shape, dtype=torch.int8,
+                                  device=phi.device) for i in range(3)}
+        q.update({f"b{i}": torch.zeros(views[f"b{i}"].shape,
+                                       dtype=torch.int32, device=phi.device)
+                  for i in range(3)})
+        return {"q": q, "exp": {k: torch.zeros((), dtype=torch.int32,
+                                               device=phi.device)
+                                for k in q}}
+
+    def _run_epochs(self, layout, phi, client_batch, k):
+        views = layout.views(phi)
+        dims = self._dims(views)
+        x = client_batch["x"]
+        clients = x.shape[0]
+        x = x.reshape(clients, -1, dims[0])
+        y = client_batch["y"].reshape(clients, x.shape[1], dims[3])
+        n = x.shape[1]
+        # fold the 1/n batch mean into the shift (exact for pow2 n)
+        lrs = self.lr_shift + int(np.floor(np.log2(n)))
+        fb, dith, layers = _tifed_device_constants(
+            self.feedback_seed, self.epochs, dims, clients, phi.device)
+        p2 = kref.exp2_int
+        ws, ew = [], []
+        for i in range(3):
+            q, e = kref.quantize_pow2(views[f"w{i}"])
+            ws.append(q)
+            ew.append(e)
+        ea = (TIFED_EX, TIFED_ACT, TIFED_ACT)
+        sacc = [ew[i] + ea[i] for i in range(3)]
+        bs = [torch.clamp(torch.round(views[f"b{i}"] * p2(-sacc[i])),
+                          -kref.BIAS_MAX, kref.BIAS_MAX) for i in range(3)]
+        xq = torch.clamp(torch.round(x * 2.0 ** -TIFED_EX), -127.0, 127.0)
+        yal = torch.round(y * p2(-sacc[2]))
+        scales = torch.stack(
+            [p2(sacc[0] - TIFED_ACT), p2(sacc[1] - TIFED_ACT),
+             p2(sacc[2] - TIFED_SERR), p2(2 * sacc[2]) / n]
+            + [p2(ea[i] + TIFED_SERR - ew[i] - lrs) for i in range(3)]
+            + [p2(TIFED_SERR - sacc[i] - lrs) for i in range(3)])
+        cw = tuple(w.to(torch.int8).expand((clients,) + w.shape).contiguous()
+                   for w in ws)
+        cb = tuple(b.to(torch.int32).expand(clients, -1).contiguous()
+                   for b in bs)
+        xq = xq.to(torch.int8).contiguous()
+        yal = yal.to(torch.int32).contiguous()
+        losses = []
+        for e in range(self.epochs):
+            nw, nb, loss = kops.dfa_epoch_int8(cw, cb, xq, yal, layers[e],
+                                               fb, dith[e], scales)
+            if k is not None:
+                live = k > e
+                nw = tuple(torch.where(live.view(-1, 1, 1), a, b)
+                           for a, b in zip(nw, cw))
+                nb = tuple(torch.where(live.view(-1, 1), a, b)
+                           for a, b in zip(nb, cb))
+                loss = torch.where(live, loss, 0.0)
+            cw, cb = nw, nb
+            losses.append(loss)
+        result = {
+            "q": {"w0": cw[0], "w1": cw[1], "w2": cw[2],
+                  "b0": cb[0], "b1": cb[1], "b2": cb[2]},
+            "exp": {f"{kind}{i}": e.reshape(1).expand(clients)
+                    for kind, es in (("w", ew), ("b", sacc))
+                    for i, e in enumerate(es)},
+        }
+        return result, torch.stack(losses, dim=1)
+
+    def client_update(self, layout, phi, client_batch, beta):
+        del beta                      # the learning rate is the bit-shift
+        return self._run_epochs(layout, phi, client_batch, None)
+
+    def local_step_budget(self, support):
+        return self.epochs
+
+    def client_update_steps(self, layout, phi, client_batch, beta, k):
+        """Straggler clients complete only their first k integer epochs."""
+        del beta
+        return self._run_epochs(layout, phi, client_batch, k)
+
+    @staticmethod
+    def _snap(layout, flat):
+        return layout.pack(tifed_requantize(layout.views(flat)))
+
+    def server_aggregate(self, layout, phi, results, alpha_t, beta):
+        deq = tifed_dequantize(results)
+        mean = layout.pack({k: v.mean(dim=0) for k, v in deq.items()})
+        return self._snap(layout, meta_interpolate(phi, mean, alpha_t))
+
+    def server_aggregate_weighted(self, layout, phi, results, alpha_t,
+                                  beta, weights):
+        """Dequantize each client's int8 tree, take the weighted client
+        mean, Reptile-interpolate, requantize onto the integer grids."""
+        deq = tifed_dequantize(results)
+        mean = layout.pack({k: weighted_client_mean(v, weights)
+                            for k, v in deq.items()})
+        return self._snap(layout, meta_interpolate(phi, mean, alpha_t))

@@ -7,16 +7,21 @@ port.
     PYTHONPATH=src python -m repro_torch.examples.federated_keyword_spotting \\
         --rounds 20 --device cpu
 
+    PYTHONPATH=src python -m repro_torch.examples.federated_keyword_spotting \\
+        --pool-size 1000 --availability markov --buffer-size 4
+
 It prints the Table-II memory model of the KWS net, the random init's
 accuracy after adaptation, serial TinyReptile (the paper's Algorithm 1),
 then an 8-slot fleet through ``run_federated`` with a
 ``PartialParticipation(0.5)`` schedule (each round half the fleet checks
-in, trains and pays transport) and its per-client transport bill. The
-init is drawn with torch's generator from seed 0, not ``jax.random``'s.
-It runs on the GPU; ``--device cpu`` runs the plain PyTorch path. The
-persistent-fleet flags of the JAX example (``--pool-size``,
-``--availability``, ``--buffer-size``) are rejected at parse time: the
-port has no client pool yet.
+in, trains and pays transport) and its per-client transport bill. With
+``--pool-size`` / ``--availability`` / ``--buffer-size`` the fleet is a
+persistent ``ClientPool`` instead (every device keeps its keyword task
+and data stream across check-ins; check-ins follow a diurnal sine or a
+two-state Markov process; aggregation optionally FedBuff-style async),
+and the run prints each device's check-ins, staleness and bill. The init
+is drawn with torch's generator from seed 0, not ``jax.random``'s. It
+runs on the GPU; ``--device cpu`` runs the plain PyTorch path.
 """
 from __future__ import annotations
 
@@ -28,8 +33,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.paper_models import KWS_CONV
-from repro_torch.core import (CommChannel, PartialParticipation,
-                              evaluate_init, run_federated, tinyreptile_train)
+from repro_torch.core import (BufferedAggregation, ClientPool, CommChannel,
+                              DiurnalAvailability, MarkovAvailability,
+                              PartialParticipation, evaluate_init,
+                              run_federated, tinyreptile_train)
 from repro_torch.core.strategies import TinyReptileStrategy
 from repro_torch.data import KWSTasks
 from repro_torch.metering import algorithm_memory_report
@@ -43,8 +50,7 @@ EVAL = dict(num_tasks=8, support=16, k_steps=8, lr=0.01, query=32,
             metric_fn=ACC)
 
 COHORT = 8          # fleet slots per round
-FRACTION = 0.5      # half the fleet checks in each round
-NOT_PORTED_FLAGS = ("--pool-size", "--availability", "--buffer-size")
+FRACTION = 0.5      # half the fleet checks in each round (default mode)
 
 
 def positive_int(s):
@@ -54,32 +60,45 @@ def positive_int(s):
     return v
 
 
-class _NotPorted(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet: the port has no "
-                     f"client pool; the fleet runs as an anonymous cohort "
-                     f"with partial participation")
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=positive_int, default=200)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    for flag in NOT_PORTED_FLAGS:
-        ap.add_argument(flag, nargs="?", action=_NotPorted,
-                        help="not ported yet")
-    return ap.parse_args(argv)
+    ap.add_argument("--pool-size", type=positive_int, default=None,
+                    help="run on a persistent ClientPool of this many "
+                         "devices (default 16 when --availability or "
+                         "--buffer-size imply a pool)")
+    ap.add_argument("--availability", default="none",
+                    choices=("none", "diurnal", "markov"),
+                    help="check-in process over the pool: diurnal sine "
+                         "or two-state Markov (implies a pool)")
+    ap.add_argument("--buffer-size", type=positive_int, default=None,
+                    help="FedBuff-style async aggregation: flush the "
+                         "server buffer every K arrivals (implies a pool)")
+    args = ap.parse_args(argv)
+    args.pooled = (args.pool_size is not None or args.availability != "none"
+                   or args.buffer_size is not None)
+    if args.pooled and (args.pool_size or 16) < COHORT:
+        ap.error(f"--pool-size must seat the {COHORT}-slot cohort")
+    return args
 
 
-def transport_table(out, params, rounds, label):
-    """Paper Table-II style per-device bill."""
+def transport_table(out, params, rounds, label, staleness=None):
+    """Paper Table-II style per-device bill (+ pooled identity state)."""
     round_bill = 2 * CommChannel().payload_bytes(params)  # down + up
     print(f"\ntransport accounting over {rounds} rounds "
           f"(fp32 wire, downlink + uplink, "
           f"{round_bill / 1024:.1f} KB per participated round):")
-    print(f"  {'client':>8}  {'rounds':>7}  {'KB paid':>9}")
+    header = f"  {'client':>8}  {'rounds':>7}  {'KB paid':>9}"
+    if staleness is not None:
+        header += f"  {'staleness':>10}  {'last seen':>10}"
+    print(header)
     for c, paid in enumerate(out["per_client_bytes"]):
-        print(f"  {c:>8}  {paid // round_bill:>7}  {paid / 1024:>9.1f}")
+        line = f"  {c:>8}  {paid // round_bill:>7}  {paid / 1024:>9.1f}"
+        if staleness is not None:
+            line += (f"  {staleness['staleness'][c]:>10d}"
+                     f"  {staleness['last_seen'][c]:>10d}")
+        print(line)
     total = out["comm_bytes"]
     full = rounds * COHORT * round_bill
     print(f"  {'total':>8}  {total // round_bill:>7}  {total / 1024:>9.1f}"
@@ -123,6 +142,10 @@ def main(argv=None) -> dict:
           f"{tiny['comm_bytes']/1024:.0f} KB total transport)")
 
     # --- the fleet through the round engine -----------------------------
+    if args.pooled:
+        fleet = persistent_fleet(args, params, dist, every)
+        return {"memory": mem, "random_init": base, "tinyreptile": tiny,
+                "fleet": fleet}
     policy = PartialParticipation(FRACTION)
     t0 = time.time()
     fleet = run_federated(params, dist, TinyReptileStrategy(LOSS),
@@ -141,6 +164,44 @@ def main(argv=None) -> dict:
                     f"anonymous cohort, {FRACTION:.0%} participation")
     return {"memory": mem, "random_init": base, "tinyreptile": tiny,
             "fleet": fleet}
+
+
+def persistent_fleet(args, params, dist, every) -> dict:
+    """The fleet as a persistent ``ClientPool``; prints its history, the
+    final check-in count, flushes and pending updates, and the transport
+    table with staleness; returns ``run_federated``'s output."""
+    pool_size = args.pool_size or 16
+    pool = ClientPool(dist, pool_size, seed=1)
+    policy = {"none": None,
+              "diurnal": DiurnalAvailability(period=24),
+              "markov": MarkovAvailability()}[args.availability]
+    buffered = (BufferedAggregation(args.buffer_size)
+                if args.buffer_size else None)
+    label = (f"pool of {pool_size}, {args.availability} check-ins"
+             + (f", FedBuff K={args.buffer_size}" if buffered else ""))
+    print(f"\npersistent fleet: {label}")
+    t0 = time.time()
+    fleet = run_federated(params, dist, TinyReptileStrategy(LOSS),
+                          rounds=args.rounds, clients_per_round=COHORT,
+                          alpha=1.0, beta=0.01, support=16, seed=1,
+                          eval_every=every, eval_kwargs=EVAL,
+                          sampling=policy, pool=pool, buffered=buffered,
+                          device=args.device)
+    t_fleet = time.time() - t0
+    for ev in fleet["history"]:
+        print(f"  fleet round {ev['round']:4d}: "
+              f"acc {ev['query_metric']:.2%}  loss {ev['query_loss']:.3f}")
+    ps = fleet["pool_state"]
+    idle = int((ps["checkins"] == 0).sum())
+    print(f"persistent fleet final acc: "
+          f"{fleet['history'][-1]['query_metric']:.2%} ({t_fleet:.1f}s; "
+          f"{int(ps['checkins'].sum())} check-ins, "
+          f"{idle}/{pool_size} devices never checked in"
+          + (f"; {ps['flushes']} buffer flushes, "
+             f"{ps['buffered_pending']} updates still pending"
+             if buffered else "") + ")")
+    transport_table(fleet, params, args.rounds, label, staleness=ps)
+    return fleet
 
 
 if __name__ == "__main__":

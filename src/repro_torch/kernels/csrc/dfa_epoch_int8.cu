@@ -49,8 +49,12 @@
 //   after staging, after the transposes, and before the update, which sums
 //   over every sample.
 // * The sine MLP's dims (1, 32, 32, 1) are compile-time constants in their
-//   own instantiation, so its layout, loop counts and index arithmetic fold
-//   away; any other dims take the same code with runtime values.
+//   own instantiations, one at the serving tick's S = 8 and one at the
+//   round engine's S = 32 (TIFeD clients at the launcher's support), so
+//   their layout, loop counts and index arithmetic fold away; any other
+//   shape takes the same code with runtime values.
+//   dfa_epoch_int8_launch_generic runs that generic instantiation at any
+//   shape, so the two can be timed against each other.
 // * The loss is an exact int64 sum of err^2, rounded once to double and
 //   scaled by the power of two floss (the plain version sums in float64).
 //
@@ -542,19 +546,25 @@ size_t dfa_epoch_int8_smem_bytes(int S, int din, int h1, int h2, int dout) {
 // The operands, then the outputs w0', w1', w2', b0', b1', b2' and loss:
 // the interface of the first version of this kernel, kept so that
 // kernels/time_dfa_epoch.py can time an older source beside this one.
-int dfa_epoch_int8_launch(
-    const void* xq, const void* yal, const void* w0, const void* w1,
-    const void* w2, const void* b0, const void* b1, const void* b2,
-    const void* fb1, const void* fb2, const void* dith0, const void* dith1,
-    const void* dith2, const void* scales, const void* layers, void* ow0,
-    void* ow1, void* ow2, void* ob0, void* ob1, void* ob2, void* loss,
-    int B, int S, int din, int h1, int h2, int dout, void* stream) {
+// `specialized` picks a compile-time instantiation where one matches.
+static int launch(bool specialized, const void* xq, const void* yal,
+                  const void* w0, const void* w1, const void* w2,
+                  const void* b0, const void* b1, const void* b2,
+                  const void* fb1, const void* fb2, const void* dith0,
+                  const void* dith1, const void* dith2, const void* scales,
+                  const void* layers, void* ow0, void* ow1, void* ow2,
+                  void* ob0, void* ob1, void* ob2, void* loss, int B, int S,
+                  int din, int h1, int h2, int dout, void* stream) {
   const size_t smem = dfa_epoch_int8_smem_bytes(S, din, h1, h2, dout);
   if (B < 1 || smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  // the serving shape: the sine MLP at a support of 8
-  const bool serving = S == 8 && din == 1 && h1 == 32 && h2 == 32 && dout == 1;
-  const Kernel kernel = serving ? dfa_epoch_int8_kernel<8, 1, 32, 32, 1>
-                                : dfa_epoch_int8_kernel<0, 0, 0, 0, 0>;
+  // the sine MLP at the serving tick's support of 8 and the engine's 32
+  const bool sine = din == 1 && h1 == 32 && h2 == 32 && dout == 1;
+  Kernel kernel = dfa_epoch_int8_kernel<0, 0, 0, 0, 0>;
+  if (specialized && sine && S == 8) {
+    kernel = dfa_epoch_int8_kernel<8, 1, 32, 32, 1>;
+  } else if (specialized && sine && S == 32) {
+    kernel = dfa_epoch_int8_kernel<32, 1, 32, 32, 1>;
+  }
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -575,6 +585,31 @@ int dfa_epoch_int8_launch(
       static_cast<int32_t*>(ob2), static_cast<float*>(loss),
       Dims{S, din, h1, h2, dout});
   return static_cast<int>(cudaGetLastError());
+}
+
+int dfa_epoch_int8_launch(
+    const void* xq, const void* yal, const void* w0, const void* w1,
+    const void* w2, const void* b0, const void* b1, const void* b2,
+    const void* fb1, const void* fb2, const void* dith0, const void* dith1,
+    const void* dith2, const void* scales, const void* layers, void* ow0,
+    void* ow1, void* ow2, void* ob0, void* ob1, void* ob2, void* loss,
+    int B, int S, int din, int h1, int h2, int dout, void* stream) {
+  return launch(true, xq, yal, w0, w1, w2, b0, b1, b2, fb1, fb2, dith0, dith1,
+                dith2, scales, layers, ow0, ow1, ow2, ob0, ob1, ob2, loss, B,
+                S, din, h1, h2, dout, stream);
+}
+
+// The same, always through the generic instantiation.
+int dfa_epoch_int8_launch_generic(
+    const void* xq, const void* yal, const void* w0, const void* w1,
+    const void* w2, const void* b0, const void* b1, const void* b2,
+    const void* fb1, const void* fb2, const void* dith0, const void* dith1,
+    const void* dith2, const void* scales, const void* layers, void* ow0,
+    void* ow1, void* ow2, void* ob0, void* ob1, void* ob2, void* loss,
+    int B, int S, int din, int h1, int h2, int dout, void* stream) {
+  return launch(false, xq, yal, w0, w1, w2, b0, b1, b2, fb1, fb2, dith0,
+                dith1, dith2, scales, layers, ow0, ow1, ow2, ob0, ob1, ob2,
+                loss, B, S, din, h1, h2, dout, stream);
 }
 
 }  // extern "C"

@@ -8,7 +8,8 @@ gives the design and the bound. This module checks the operands and
 launches it through ``ctypes``; a CPU tensor gets the plain version
 ``ref.dfa_int8_epoch`` instead.
 
-The serving tick calls it once per step, so the wrapper is kept lean:
+The serving tick calls it once per step, and the round engine once per
+TIFeD epoch of a cohort, so the wrapper is kept lean:
 the checks compare tuples of shapes and dtypes, the seven outputs are
 views of one allocation (``carve_outputs``), and the launch goes
 through ``build.launch_on`` on the current stream.
@@ -41,16 +42,22 @@ _ALIGN = 16                # bytes: where each output view starts
 
 @functools.lru_cache(maxsize=1)
 def _bind():
-    """The library's two entry points, typed; built at first use."""
+    """The library's entry points, typed; built at first use: the launch
+    (a compile-time instantiation where one matches the shape: the sine
+    MLP at S = 8 and S = 32), the shared-memory size, and the launch
+    that always takes the generic instantiation."""
     lib = build.load("dfa_epoch_int8")
-    fn = lib.dfa_epoch_int8_launch
-    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    launches = []
+    for name in ("dfa_epoch_int8_launch", "dfa_epoch_int8_launch_generic"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        launches.append(fn)
     sm = lib.dfa_epoch_int8_smem_bytes
     sm.argtypes = [ctypes.c_int] * 5
     sm.restype = ctypes.c_size_t
-    return fn, sm
+    return launches[0], sm, launches[1]
 
 
 @functools.lru_cache(maxsize=64)
@@ -118,21 +125,9 @@ def _check(ins):
     return dims
 
 
-def dfa_epoch_int8(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
-                   xq, yal, layer, fb, dither, scales):
-    """One TIFeD epoch per slot; the contract of ``ref.dfa_int8_epoch``
-    (native int8 / int32 operands with a leading slot axis, per-slot
-    ``layer``, packed (10,) fp32 ``scales``). Returns (ws', bs', loss).
-    ``dfa_epoch_int8.launches`` counts kernel launches."""
-    ins = (xq, yal, *ws, *bs, *fb, *dither, scales, layer)
-    B, S, din, h1, h2, dout = _check(ins)
-    index = xq.get_device()
-    if index < 0:
-        if any(t.device.type != "cpu" for t in ins):
-            raise ValueError(f"dfa_epoch_int8: unsupported device "
-                             f"{xq.device}")
-        return ref.dfa_int8_epoch(ws, bs, xq, yal, layer, fb, dither,
-                                  scales)
+def _launch(entry: int, ins, dims):
+    """Launch entry point ``entry`` of ``_bind()`` on CUDA operands."""
+    B, S, din, h1, h2, dout = dims
     if not all(map(torch.Tensor.is_contiguous, ins)):
         raise ValueError("dfa_epoch_int8: every operand must be contiguous")
     smem, layout = _launch_plan(B, S, din, h1, h2, dout)
@@ -141,17 +136,47 @@ def dfa_epoch_int8(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
             f"dfa_epoch_int8: S={S}, dims={(din, h1, h2, dout)} need "
             f"{smem} bytes of shared memory per slot; the limit is "
             f"{MAX_SMEM}")
+    xq = ins[0]
     buf = torch.empty(layout[0], dtype=_I8, device=xq.device)
     ow, ob, loss = carve_outputs(buf, layout)
     base = buf.data_ptr()
-    err = build.launch_on(index, _bind()[0],
+    err = build.launch_on(xq.get_device(), _bind()[entry],
                           *map(torch.Tensor.data_ptr, ins),
                           *(base + at for at in layout[2]),
                           B, S, din, h1, h2, dout)
     if err != 0:
         raise RuntimeError(f"dfa_epoch_int8 launch failed: cudaError {err}")
-    dfa_epoch_int8.launches += 1
     return ow, ob, loss
 
 
+def dfa_epoch_int8(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
+                   xq, yal, layer, fb, dither, scales):
+    """One TIFeD epoch per slot; the contract of ``ref.dfa_int8_epoch``
+    (native int8 / int32 operands with a leading slot axis, per-slot
+    ``layer``, packed (10,) fp32 ``scales``). Returns (ws', bs', loss).
+    ``dfa_epoch_int8.launches`` counts kernel launches."""
+    ins = (xq, yal, *ws, *bs, *fb, *dither, scales, layer)
+    dims = _check(ins)
+    if xq.get_device() < 0:
+        if any(t.device.type != "cpu" for t in ins):
+            raise ValueError(f"dfa_epoch_int8: unsupported device "
+                             f"{xq.device}")
+        return ref.dfa_int8_epoch(ws, bs, xq, yal, layer, fb, dither,
+                                  scales)
+    out = _launch(0, ins, dims)
+    dfa_epoch_int8.launches += 1
+    return out
+
+
 dfa_epoch_int8.launches = 0
+
+
+def dfa_epoch_int8_generic(ws, bs, xq, yal, layer, fb, dither, scales):
+    """``dfa_epoch_int8`` on CUDA tensors through the generic
+    instantiation whatever the shape: no path calls it; it times a
+    specialized instantiation against the generic one."""
+    ins = (xq, yal, *ws, *bs, *fb, *dither, scales, layer)
+    dims = _check(ins)
+    if xq.get_device() < 0:
+        raise ValueError("dfa_epoch_int8_generic runs on CUDA tensors")
+    return _launch(2, ins, dims)

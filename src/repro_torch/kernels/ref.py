@@ -7,6 +7,7 @@ the yardstick the kernels are held to.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence
 
 import torch
@@ -60,6 +61,17 @@ def flash_decode(q, k_cache, v_cache, cache_len, *, window=0):
     return out.reshape(B, H, hd)
 
 
+def exp2_int(e):
+    """``2.0 ** e`` as fp32 for an integer tensor ``e``, exact: the float's
+    bits are built from the exponent, so no ``pow`` or ``exp2`` routine
+    (whose results on the card are not promised exact) is involved.
+    Exponents are clamped to the normal range [-126, 127], which holds
+    every grid the TIFeD path reaches. Runs on the device, inside a
+    captured graph too."""
+    e = torch.clamp(torch.as_tensor(e).to(torch.int32), -126, 127)
+    return torch.bitwise_left_shift(e + 127, 23).view(torch.float32)
+
+
 def pow2_exponent(maxabs, limit=INT8_MAX):
     """Smallest integer e with ``maxabs * 2^-e <= limit``, floored at
     -24 (the grid of an all-zero tensor).
@@ -69,12 +81,11 @@ def pow2_exponent(maxabs, limit=INT8_MAX):
     answer is k - kL, plus one when m > mL. The JAX package's
     ``ceil(log2(.))`` form returns one more than this at some exact
     boundaries ``maxabs = 127 * 2^k`` (k = -21, -17, -15, -13, 15, 19 on
-    JAX 0.9 CPU); elsewhere the two agree."""
+    JAX 0.9 CPU); elsewhere the two agree. Makes no tensor from the
+    host, so it runs inside a captured graph."""
     maxabs = torch.as_tensor(maxabs, dtype=torch.float32)
     m, k = torch.frexp(maxabs)
-    lim = torch.tensor(float(limit), dtype=torch.float32,
-                       device=maxabs.device)
-    ml, kl = torch.frexp(lim)
+    ml, kl = math.frexp(float(limit))
     e = k - kl + (m > ml).to(k.dtype)
     e = torch.where(maxabs > 0, e, torch.full_like(e, EXP_FLOOR))
     return torch.clamp(e, min=EXP_FLOOR).to(torch.int32)
@@ -85,7 +96,7 @@ def quantize_pow2(w, limit=INT8_MAX):
     ``q`` the integer-valued fp32 codes in [-limit, limit] and ``w ~=
     q * 2^e`` (``e`` an int32 scalar tensor)."""
     e = pow2_exponent(w.abs().max(), limit)
-    q = torch.clamp(torch.round(torch.ldexp(w, -e)), -limit, limit)
+    q = torch.clamp(torch.round(w * exp2_int(-e)), -limit, limit)
     return q, e
 
 

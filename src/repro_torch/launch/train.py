@@ -17,19 +17,25 @@ JAX launcher's (20 rounds, batch 8, seq 64, k-inner 4, beta 0.02, alpha
 Only the SSM family is ported: ``--arch mamba2-130m`` (or the family
 keyword ``mamba2``).
 
-``--strategy reptile|fedavg|fedsgd|transfer`` runs ``run_federated``
-with the JAX launcher's defaults (64 clients per round, 20 rounds,
-beta 0.02, support 32, 8 local epochs, one eval at the end) on the sine
-MLP.
+``--strategy reptile|fedavg|fedsgd|transfer|tifed`` runs
+``run_federated`` with the JAX launcher's defaults (64 clients per round,
+20 rounds, beta 0.02, support 32, 8 local epochs, one eval at the end)
+on the sine MLP; ``tifed`` is TIFeD's integer-only training (each epoch
+of the cohort one ``dfa_epoch_int8`` launch) with native int8 uplinks
+billed at 1 byte a parameter. The fleet flags map onto the engine's
+plugins as in the JAX launcher: ``--pool-size`` -> ``ClientPool``
+(``--pool-sampler``, ``--pool-residency``), ``--participation`` or
+``--availability diurnal|markov`` -> the sampling policy,
+``--buffer-size`` -> ``BufferedAggregation``; incompatible combinations
+are rejected at parse time with the JAX launcher's messages.
 
 Both routes run on the GPU; ``--device cpu`` runs the plain PyTorch
 path on the CPU instead. The init is drawn from ``--seed`` with torch's
 generator, which does not reproduce ``jax.random``'s init at the same
 seed (``init_params=`` carries the JAX package's init in). The flags of
 routes not ported yet (the other architectures, the engine's LM route
-``--strategy ... --arch``, pools, availability, FedBuff buffering,
-meshes, checkpoints, multi-process runs, ``--strategy tifed``) are
-rejected at parse time.
+``--strategy ... --arch``, meshes, checkpoints and resume, multi-process
+runs) are rejected at parse time.
 """
 from __future__ import annotations
 
@@ -39,29 +45,58 @@ import time
 
 from repro_torch.configs import ALL_ARCHS
 
-ENGINE_STRATEGIES = ("reptile", "fedavg", "fedsgd", "transfer")
-NOT_PORTED_STRATEGIES = ("tifed",)
+ENGINE_STRATEGIES = ("reptile", "fedavg", "fedsgd", "transfer", "tifed")
 #: --arch family keywords -> the canonical config each names (as in the
 #: JAX launcher)
 ARCH_FAMILIES = {"transformer": "tinyllama-1.1b", "mamba2": "mamba2-130m",
                  "moe": "mixtral-8x22b"}
 PORTED_ARCHS = ("mamba2-130m",)
-NOT_PORTED_FLAGS = ("--pool-size", "--pool-sampler", "--pool-residency",
-                    "--availability", "--buffer-size", "--devices", "--mesh",
-                    "--coordinator", "--num-processes", "--process-id",
-                    "--ckpt-dir", "--ckpt-every", "--resume")
-# eval protocol of the JAX launcher's sine route
+#: flags not ported yet, by the slice that ports them
+NOT_PORTED_FLAGS = {
+    "--ckpt-dir": "the round-state checkpoint slice",
+    "--ckpt-every": "the round-state checkpoint slice",
+    "--resume": "the round-state checkpoint slice",
+    "--devices": "the multi-device slice", "--mesh": "the multi-device slice",
+    "--coordinator": "the multi-device slice",
+    "--num-processes": "the multi-device slice",
+    "--process-id": "the multi-device slice"}
+# eval protocol of the JAX launcher's sine route (tifed's ReLU net
+# diverges at the tanh net's finetune rate: 0.005 there)
 EVAL_KWARGS = dict(num_tasks=5, support=10, k_steps=16, lr=0.02, query=20)
+TIFED_EVAL_LR = 0.005
 SUPPORT = 32
 EPOCHS = 8
 
 
 class _NotPorted(argparse.Action):
     def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet: the port's "
-                     f"launcher runs the plain single-device routes (the "
-                     f"tinyreptile LM launcher and --strategy "
-                     f"{'|'.join(ENGINE_STRATEGIES)} on the sine MLP)")
+        parser.error(f"{option_string} is not ported yet ("
+                     f"{NOT_PORTED_FLAGS[option_string]} ports it): the "
+                     f"port's launcher runs one device (the tinyreptile LM "
+                     f"launcher and --strategy {'|'.join(ENGINE_STRATEGIES)} "
+                     f"on the sine MLP)")
+
+
+def fraction_arg(s: str) -> float:
+    """argparse type: a fraction in (0, 1]."""
+    try:
+        v = float(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected a number, got {s!r}")
+    if not 0.0 < v <= 1.0:
+        raise argparse.ArgumentTypeError(
+            f"must be a fraction in (0, 1], got {v}")
+    return v
+
+
+def positive_int_arg(s: str) -> int:
+    try:
+        v = int(s)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"expected an integer, got {s!r}")
+    if v < 1:
+        raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
+    return v
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,8 +104,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="Federated meta-training: TinyReptile rounds of an LM "
                     "(--arch), or the round engine on the sine MLP.")
     ap.add_argument("--strategy", default="tinyreptile",
-                    choices=("tinyreptile",) + ENGINE_STRATEGIES
-                    + NOT_PORTED_STRATEGIES)
+                    choices=("tinyreptile",) + ENGINE_STRATEGIES)
     ap.add_argument("--arch", choices=list(ALL_ARCHS) + sorted(ARCH_FAMILIES),
                     help="LM architecture of the tinyreptile launcher "
                          "(ported: mamba2-130m, family keyword mamba2)")
@@ -84,14 +118,39 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--beta", type=float, default=0.02)
     ap.add_argument("--alpha", type=float, default=1.0)
     ap.add_argument("--clients", type=int, default=64)
-    ap.add_argument("--participation", type=float, default=1.0,
+    ap.add_argument("--pool-size", type=positive_int_arg, default=None,
+                    help="size of the persistent client fleet (a "
+                         "ClientPool: every client keeps its own data "
+                         "stream across check-ins)")
+    ap.add_argument("--pool-sampler", default="reference",
+                    choices=("reference", "vectorized"),
+                    help="client-identity sampler for --pool-size: "
+                         "'reference' keeps one RNG per client on the "
+                         "host; 'vectorized' derives each check-in from a "
+                         "counter array (O(cohort) host work)")
+    ap.add_argument("--pool-residency", default="device",
+                    choices=("device", "host"),
+                    help="where --pool-size per-client state lives: "
+                         "'device' keeps the (N,) arrays on the card; "
+                         "'host' keeps them in host slabs and stages each "
+                         "block's cohort rows")
+    ap.add_argument("--participation", type=fraction_arg, default=1.0,
                     help="fraction of the cohort that checks in each "
                          "round (a PartialParticipation schedule)")
+    ap.add_argument("--availability", default="iid",
+                    choices=("iid", "diurnal", "markov"),
+                    help="structured check-in process over the fleet "
+                         "(diurnal sine / two-state Markov); rounds where "
+                         "nobody is available are idle")
+    ap.add_argument("--buffer-size", type=positive_int_arg, default=None,
+                    help="FedBuff-style async server: apply the buffered "
+                         "client updates every K arrivals, "
+                         "staleness-discounted")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    for flag in NOT_PORTED_FLAGS:
+    for flag, by in NOT_PORTED_FLAGS.items():
         ap.add_argument(flag, nargs="?", action=_NotPorted,
-                        help="not ported yet")
+                        help=f"not ported yet ({by})")
     return ap
 
 
@@ -99,9 +158,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     """Parse and cross-validate before any tensor work."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.strategy in NOT_PORTED_STRATEGIES:
-        ap.error(f"--strategy {args.strategy} is not ported yet; pass "
-                 f"--strategy tinyreptile|{'|'.join(ENGINE_STRATEGIES)}")
+    if args.availability != "iid" and args.participation < 1.0:
+        ap.error("--availability replaces the i.i.d. --participation "
+                 "schedule; pass one or the other")
     if args.strategy == "tinyreptile":
         if args.arch is None:
             ap.error("--arch is required for the tinyreptile LM launcher "
@@ -117,6 +176,14 @@ def parse_args(argv=None) -> argparse.Namespace:
         if args.participation < 1.0:
             ap.error("--participation is not ported yet on the LM "
                      "launcher (one client per round)")
+        for flag, v in (("--pool-size", args.pool_size),
+                        ("--buffer-size", args.buffer_size),
+                        ("--availability",
+                         None if args.availability == "iid" else 1)):
+            if v is not None:
+                ap.error(f"{flag} is not ported yet on the LM launcher "
+                         f"(its fleet flags come after the LM family's "
+                         f"engine route); pass an engine --strategy")
         for flag, v in (("--batch", args.batch), ("--seq", args.seq),
                         ("--k-inner", args.k_inner)):
             if v < 1:
@@ -124,6 +191,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         if args.batch % args.k_inner:
             ap.error(f"--batch {args.batch} must split into --k-inner "
                      f"{args.k_inner} equal microbatches")
+    elif args.strategy == "tifed" and (args.arch is not None
+                                       or args.reduced):
+        ap.error("--strategy tifed runs TIFeD integer-only training on "
+                 "the paper's ReLU sine net; the LM families are fp32 — "
+                 "drop --arch")
     elif args.arch is not None or args.reduced:
         ap.error(f"--strategy {args.strategy} with an LM (--arch/--reduced)"
                  f" is the engine LM route, which is not ported yet (it "
@@ -133,33 +205,54 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error(f"--rounds must be >= 1, got {args.rounds}")
     if args.clients < 1:
         ap.error(f"--clients must be >= 1, got {args.clients}")
-    if not 0.0 < args.participation <= 1.0:
-        ap.error(f"--participation must be in (0, 1], got "
-                 f"{args.participation}")
+    if args.strategy == "transfer" and args.buffer_size:
+        ap.error("--strategy transfer uplinks raw client batches "
+                 "(uplink_ref='none'); the FedBuff buffer stages "
+                 "phi-shaped updates and cannot hold them — drop "
+                 "--buffer-size")
+    if args.buffer_size and args.pool_size is None:
+        ap.error("--buffer-size (FedBuff) needs persistent clients to "
+                 "be stale against on the engine path: pass "
+                 "--pool-size N too")
+    if args.availability != "iid" and args.pool_size is None:
+        ap.error("--availability needs a persistent fleet on the engine "
+                 "path: pass --pool-size N")
+    if args.pool_size is None and (args.pool_sampler != "reference"
+                                   or args.pool_residency != "device"):
+        ap.error("--pool-sampler/--pool-residency configure the "
+                 "persistent fleet: pass --pool-size N")
+    if args.pool_size is not None and args.pool_size < args.clients:
+        ap.error(f"--pool-size {args.pool_size} cannot seat a cohort of "
+                 f"--clients {args.clients} (identities are unique "
+                 f"within a round)")
     return args
 
 
 def run_engine_strategy(args, init_params=None):
     """One ``run_federated`` call as the JAX launcher's engine route
-    makes it; prints the summary row and returns ``(row, out)``, out
-    being ``run_federated``'s result. ``init_params`` (a ``{leaf:
-    array}`` tree) replaces the seeded torch init — how a caller starts
-    from the JAX package's init."""
+    makes it, the fleet flags mapped onto the engine's plugins; prints
+    the summary row and returns ``(row, out)``, out being
+    ``run_federated``'s result. ``init_params`` (a ``{leaf: array}``
+    tree) replaces the seeded torch init — how a caller starts from the
+    JAX package's init."""
     import functools
 
     import torch
 
     from repro_torch.configs.paper_models import SINE_MLP
-    from repro_torch.core import (CommChannel, PartialParticipation,
+    from repro_torch.core import (BufferedAggregation, ClientPool,
+                                  CommChannel, DiurnalAvailability,
+                                  MarkovAvailability, PartialParticipation,
                                   run_federated)
     from repro_torch.core.strategies import (FedAvgStrategy, FedSGDStrategy,
-                                             ReptileStrategy,
+                                             ReptileStrategy, TifedStrategy,
                                              TransferStrategy)
     from repro_torch.data import SineTasks
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
     from repro_torch.models.paper_nets import (init_paper_model,
-                                               paper_model_loss)
+                                               paper_model_loss,
+                                               relu_mlp_loss)
 
     dev = resolve_device(args.device)
     loss = functools.partial(paper_model_loss, SINE_MLP)
@@ -171,17 +264,36 @@ def run_engine_strategy(args, init_params=None):
         "fedavg": lambda: FedAvgStrategy(loss, epochs=EPOCHS),
         "fedsgd": lambda: FedSGDStrategy(loss),
         "transfer": lambda: TransferStrategy(loss),
+        "tifed": lambda: TifedStrategy(relu_mlp_loss, epochs=EPOCHS),
     }[args.strategy]()
-    sampling = (PartialParticipation(args.participation)
-                if args.participation < 1.0 else None)
+    tifed = args.strategy == "tifed"
+    channel = CommChannel("int8", quantize=False) if tifed else CommChannel()
+    eval_kwargs = dict(EVAL_KWARGS, lr=TIFED_EVAL_LR) if tifed \
+        else EVAL_KWARGS
+    dist = SineTasks()
+    pool = (ClientPool(dist, args.pool_size, seed=args.seed,
+                       sampler=args.pool_sampler,
+                       residency=args.pool_residency)
+            if args.pool_size else None)
+    if args.availability == "diurnal":
+        sampling = DiurnalAvailability(period=24, sampler=args.pool_sampler)
+    elif args.availability == "markov":
+        sampling = MarkovAvailability(sampler=args.pool_sampler)
+    elif args.participation < 1.0:
+        sampling = PartialParticipation(args.participation,
+                                        sampler=args.pool_sampler)
+    else:
+        sampling = None
+    buffered = (BufferedAggregation(args.buffer_size)
+                if args.buffer_size else None)
     ops.reset_launch_counts()
     t0 = time.time()
     out = run_federated(
-        init_params, SineTasks(), strategy, rounds=args.rounds,
+        init_params, dist, strategy, rounds=args.rounds,
         clients_per_round=args.clients, alpha=args.alpha, beta=args.beta,
         support=SUPPORT, seed=args.seed, eval_every=args.rounds,
-        eval_kwargs=EVAL_KWARGS, channel=CommChannel(), sampling=sampling,
-        device=dev)
+        eval_kwargs=eval_kwargs, channel=channel, sampling=sampling,
+        pool=pool, buffered=buffered, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     row = {"strategy": args.strategy, "rounds": args.rounds,

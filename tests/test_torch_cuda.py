@@ -20,9 +20,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import graphs  # noqa: E402
 from repro_torch.configs.paper_models import SINE_MLP  # noqa: E402
-from repro_torch.core import (CommChannel, StragglerSampling,  # noqa: E402
+from repro_torch.core import (BufferedAggregation,  # noqa: E402
+                              ClientPool, CommChannel, DiurnalAvailability,
+                              PartialCommChannel, StragglerSampling,
                               clear_runner_cache, engine, fedavg_train,
-                              reptile_train, tinyreptile_train)
+                              reptile_train, tifed_train, tinyreptile_train)
 from repro_torch.core.strategies import tifed_requantize  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.models.paper_nets import (init_paper_model,  # noqa: E402
@@ -301,6 +303,29 @@ def _train_case(name):
         return functools.partial(tinyreptile_train, LOSS, phi, SineTasks(),
                                  rounds=10, clients_per_round=4,
                                  sampling=StragglerSampling(0.5), **kw)
+    if name in ("pooled_buffered", "pooled_host"):
+        # a fresh pool each run: its clients' data streams advance
+        def pooled(device):
+            pool = ClientPool(SineTasks(), 60, sampler="vectorized",
+                              residency="host" if name == "pooled_host"
+                              else "device")
+            return tinyreptile_train(
+                LOSS, phi, SineTasks(), rounds=17, clients_per_round=4,
+                sampling=DiurnalAvailability(period=6, sampler="vectorized"),
+                pool=pool, buffered=BufferedAggregation(3, flush_staleness=2),
+                device=device, **kw)
+        return pooled
+    if name == "tifed":
+        return functools.partial(
+            tifed_train, tifed_requantize(phi), SineTasks(), rounds=9,
+            support=32, clients_per_round=8, sampling=StragglerSampling(0.5),
+            eval_every=5, eval_kwargs=dict(ev, lr=0.005), seed=3)
+    if name == "partial_rotating":
+        return functools.partial(tinyreptile_train, LOSS, phi, SineTasks(),
+                                 rounds=10, clients_per_round=2,
+                                 channel=PartialCommChannel(
+                                     "int8", fraction=0.25, rotate=True),
+                                 **kw)
     return functools.partial(tinyreptile_train, LOSS, phi, SineTasks(),
                              rounds=10, channel=CommChannel("int8"), **kw)
 
@@ -354,7 +379,8 @@ def test_capture_survives_a_garbage_collection(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["tinyreptile", "reptile_c8", "fedavg",
-                                  "straggler", "int8_wire"])
+                                  "straggler", "int8_wire", "pooled_buffered",
+                                  "pooled_host", "tifed", "partial_rotating"])
 def test_captured_round_equals_uncaptured(cuda, name, monkeypatch):
     """The round captured once and replayed gives the params and history
     of the same round run eagerly every time, bit for bit; the launch
@@ -383,6 +409,9 @@ def test_captured_round_equals_uncaptured(cuda, name, monkeypatch):
         assert torch.equal(got["params"][k], v), k
     assert got["history"] == want["history"]
     assert got["comm_bytes"] == want["comm_bytes"]
+    if "pool_state" in want:
+        for k, v in want["pool_state"].items():
+            np.testing.assert_array_equal(got["pool_state"][k], v)
 
 
 @pytest.mark.cuda
@@ -427,6 +456,36 @@ def test_captured_tick_equals_uncaptured(cuda, route, monkeypatch):
                                                   w.query_loss)
         for leaf in w.params:
             np.testing.assert_array_equal(g.params[leaf], w.params[leaf])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pooled_buffered", "tifed",
+                                  "partial_rotating"])
+def test_fleet_on_card_matches_cpu(cuda, name):
+    """The pooled and buffered round, TIFeD (every epoch one
+    dfa_epoch_int8 launch for the cohort) and the rotating partial wire
+    on the card against the port on the CPU: TIFeD's integer params and
+    the pool state exactly, fp32 params within 1e-4, bytes exactly."""
+    run = _train_case(name)
+    ops.reset_launch_counts()
+    got = run(device=cuda)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = run(device="cpu")
+    if name == "tifed":
+        assert counts["dfa_epoch_int8"] == 9 * 8
+        assert counts["meta_update"] == 9
+    for k, v in want["params"].items():
+        g = got["params"][k].cpu()
+        if name == "tifed":
+            assert torch.equal(g, v), k
+        else:
+            np.testing.assert_allclose(g.numpy(), v.numpy(), rtol=1e-4,
+                                       atol=1e-4)
+    assert got["comm_bytes"] == want["comm_bytes"]
+    assert got["per_client_bytes"] == want["per_client_bytes"]
+    for k, v in want.get("pool_state", {}).items():
+        np.testing.assert_array_equal(got["pool_state"][k], v)
 
 
 @pytest.mark.cuda

@@ -111,21 +111,23 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
 
 @pytest.mark.parametrize("argv,msg", [
     ([], "--arch is required for the tinyreptile LM launcher"),
-    (["--strategy", "tifed"], "--strategy tifed is not ported yet"),
+    (["--strategy", "tifed", "--arch", "mamba2"],
+     "--strategy tifed runs TIFeD integer-only training"),
     (["--strategy", "reptile", "--arch", "transformer"],
      "the engine LM route, which is not ported yet"),
     (["--strategy", "reptile", "--reduced"],
      "the engine LM route, which is not ported yet"),
-    (["--strategy", "fedavg", "--pool-size", "100"],
-     "--pool-size is not ported yet"),
+    (["--strategy", "fedavg", "--pool-size", "10"],
+     "--pool-size 10 cannot seat a cohort of --clients 64"),
     (["--strategy", "reptile", "--availability", "diurnal"],
-     "--availability is not ported yet"),
+     "--availability needs a persistent fleet"),
     (["--strategy", "reptile", "--buffer-size", "4"],
-     "--buffer-size is not ported yet"),
+     "--buffer-size (FedBuff) needs persistent clients"),
     (["--strategy", "reptile", "--mesh", "clients:2"],
      "--mesh is not ported yet"),
     (["--strategy", "reptile", "--devices", "2"], "--devices is not ported"),
-    (["--strategy", "reptile", "--ckpt-dir", "x"], "--ckpt-dir is not"),
+    (["--strategy", "reptile", "--ckpt-dir", "x"],
+     "--ckpt-dir is not ported yet (the round-state checkpoint slice"),
     (["--strategy", "reptile", "--resume"], "--resume is not ported yet"),
     (["--strategy", "reptile", "--num-processes", "2"],
      "--num-processes is not ported yet"),

@@ -361,9 +361,15 @@ def test_kws_example_on_the_cpu(capsys):
 @pytest.mark.parametrize("flag", ["--pool-size", "--availability",
                                   "--buffer-size"])
 def test_kws_example_refuses_pool_flags(flag, capsys):
+    """The fleet flags run since the fleet slice (tests/test_torch_pool.py
+    runs the pooled example); a bad value of each is still refused at
+    parse time."""
+    bad = {"--pool-size": ("4", "must seat the 8-slot cohort"),
+           "--availability": ("4", "invalid choice"),
+           "--buffer-size": ("0", "must be >= 1")}[flag]
     with pytest.raises(SystemExit):
-        kws.parse_args([flag, "4"])
-    assert "not ported yet" in capsys.readouterr().err
+        kws.parse_args([flag, bad[0]])
+    assert bad[1] in capsys.readouterr().err
 
 
 def test_kws_example_defaults_to_the_card():
