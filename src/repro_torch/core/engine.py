@@ -6,9 +6,9 @@ The port's counterpart of the JAX package's ``core/engine.py`` on one
 device: anonymous cohorts resampled every round, or a persistent
 ``ClientPool`` (``core/pool.py``) with FedBuff buffering and
 availability processes; every strategy, TIFeD's int8 one included; the
-fp32/fp16/int8 wire and TinyMetaFed's partial one. (``mesh=`` and
-``ckpt_dir=`` are accepted and raise NotImplementedError until their
-slices are ported.)
+fp32/fp16/int8 wire and TinyMetaFed's partial one; round-state
+checkpoints and resume (``ckpt_dir=``, ``resume=``). (``mesh=`` is
+accepted and raises NotImplementedError until its slice is ported.)
 
 * A ``FedStrategy`` (``core/strategies.py``) supplies the two
   algorithm-specific hooks: ``client_update`` (what the round's cohort
@@ -46,6 +46,14 @@ slices are ported.)
   it inside the round by the cohort's indices; a FedBuff flush and a
   round where nobody checked in are selected on the device, so they too
   are one captured round.
+* ``ckpt_dir=`` snapshots the whole carry every ``ckpt_every`` rounds
+  (``checkpoint.RoundState``, in the JAX package's file format, so a
+  snapshot of either package resumes in the other): the host RNG, pool
+  and policy state captured on the prefetch producer, and device clones
+  of phi and the pool state made on the training stream right after the
+  block, which a background writer copies to the host once an event
+  recorded after them has passed. ``resume=True`` continues from the
+  newest valid snapshot bit for bit.
 
 The LM launcher's round (``runtime/steps.py``) is built from two more
 pieces here: ``streaming_sgd``, K streaming SGD steps over a nested
@@ -57,9 +65,11 @@ group).
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
 import logging
 import math
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -67,6 +77,9 @@ import torch
 
 from repro_torch.bridge import (FlatLayout, flatten_tree, tree_leaves,
                                 unflatten_tree)
+from repro_torch.checkpoint.ckpt import (AsyncCheckpointWriter, RoundState,
+                                         map_leaves, restore_round_state,
+                                         save_round_state)
 from repro_torch.core.meta import evaluate_init
 from repro_torch.core.pipeline import (ClientSchedule, SamplingPolicy,
                                        UniformSampling, plan_blocks,
@@ -818,9 +831,34 @@ def clear_runner_cache() -> None:
 #: the slices that port run_federated's remaining arguments
 _NOT_PORTED = {
     "mesh": "the multi-device slice (torch.distributed) ports it",
-    "ckpt_dir": "the round-state checkpoint slice (the write side of "
-                "checkpoint/ckpt.py, with resume) ports it",
 }
+
+
+def _pool_named(ps: PoolState, layout: FlatLayout) -> PoolState:
+    """The pool state as checkpoints hold it: a flat ``(capacity, P)``
+    FedBuff buffer as named ``(capacity, *leaf)`` views, the JAX
+    package's phi-shaped buffer leaves."""
+    if isinstance(ps.buf_updates, torch.Tensor):
+        ps = dataclasses.replace(ps, buf_updates=layout.views(
+            ps.buf_updates))
+    return ps
+
+
+def _pool_from_saved(saved: PoolState, layout: FlatLayout, flat: bool,
+                     dev) -> PoolState:
+    """A restored (NumPy) pool state as tensors on ``dev``, the buffer
+    packed back into one flat buffer where the run keeps it so."""
+    ps = map_leaves(lambda a: torch.as_tensor(a, device=dev), saved)
+    if flat and ps.buf_updates is not None:
+        ps = dataclasses.replace(ps, buf_updates=layout.pack(
+            ps.buf_updates, batch_dims=1))
+    return ps
+
+
+def _snapshot_copy(leaf):
+    """A snapshot's own copy of a leaf (on its device, or on the host),
+    so the next block cannot overwrite what the writer reads."""
+    return leaf.clone() if isinstance(leaf, torch.Tensor) else np.array(leaf)
 
 
 def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
@@ -834,8 +872,10 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                   sampling: Optional[SamplingPolicy] = None,
                   pool: Optional[ClientPool] = None,
                   buffered: Optional[BufferedAggregation] = None,
-                  mesh=None, ckpt_dir: Optional[str] = None, tracker=None,
-                  device: DeviceLike = None) -> Dict:
+                  mesh=None, ckpt_dir: Optional[str] = None,
+                  ckpt_every: int = 10, ckpt_keep: int = 3,
+                  ckpt_async: bool = True, resume: bool = False,
+                  tracker=None, device: DeviceLike = None) -> Dict:
     """Run ``rounds`` federated rounds of ``strategy`` on ``device``
     (default ``cuda``; the CPU only when asked).
 
@@ -868,16 +908,28 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
     the prefetch thread never reads a slab a running block will write)
     and scatters them back after it.
 
+    ``ckpt_dir`` makes the run preemption-safe: every ``ckpt_every``
+    rounds and at the end (blocks are cut there) the whole carry is
+    written as a ``checkpoint.RoundState`` (phi, the pool state with its
+    FedBuff buffer, the bills, the history, the host RNG, the pool's and
+    the policy's host state), keeping the newest ``ckpt_keep``; by a
+    background writer (``ckpt_async``) or inline. ``resume=True``
+    restores the newest valid snapshot in ``ckpt_dir`` (a fresh start,
+    logged, when there is none; a snapshot of another config or past
+    ``rounds`` is rejected) and continues bit for bit, also past the
+    horizon the snapshot was written under. The files are the JAX
+    package's, so either package resumes the other's snapshots.
+
     ``tracker`` attaches a ``metering.MetricsTracker`` (per-round inner
     losses, transport bytes, eval rows, wall clock, the final staleness
-    of pooled runs); it only observes. ``mesh`` and ``ckpt_dir`` are not
-    ported yet and raise.
+    of pooled runs, and each snapshot's milliseconds on the training
+    thread, ``ckpt.snapshot_ms``, and on the writer's, ``ckpt.write_ms``);
+    it only observes. ``mesh`` is not ported yet and raises.
     """
-    for name, value in (("mesh", mesh), ("ckpt_dir", ckpt_dir)):
-        if value is not None:
-            raise NotImplementedError(
-                f"run_federated({name}=...) is not ported yet: "
-                f"{_NOT_PORTED[name]}; the port runs one device")
+    if mesh is not None:
+        raise NotImplementedError(
+            f"run_federated(mesh=...) is not ported yet: "
+            f"{_NOT_PORTED['mesh']}; the port runs one device")
     dev = resolve_device(device)
     if channel is None:
         channel = CommChannel()
@@ -941,17 +993,93 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
     masked = scheduled and not uniform
     budget = int(strategy.local_step_budget(support))
     beta = float(beta)
-    blocks, pad = plan_blocks(rounds, eval_every, max_block)
     host_resident = pooled and pool.residency == "host"
+    uplink = strategy.uplink_template(layout, phi) if pooled else None
+    start_round, saved, fingerprint = 0, None, None
+    if ckpt_dir is not None:
+        if not (isinstance(ckpt_every, int) and ckpt_every >= 1):
+            raise ValueError(f"ckpt_every must be an int >= 1, got "
+                             f"{ckpt_every!r}")
+        if not (isinstance(ckpt_keep, int) and ckpt_keep >= 1):
+            raise ValueError(f"ckpt_keep must be an int >= 1, got "
+                             f"{ckpt_keep!r}")
+        # the run's identity, stamped into every snapshot, with the JAX
+        # package's keys and values: a resume under another config would
+        # replay a different run from this one's carry
+        fingerprint = {
+            "seed": int(seed), "clients_per_round": int(clients_per_round),
+            "support": int(support), "shards": 1, "mesh": "",
+            "partitioner": "", "strategy": type(strategy).__name__,
+            "pool_size": int(pool.size) if pooled else 0,
+            "pool_sampler": pool.sampler if pooled else "",
+            "policy_sampler": getattr(sampling, "sampler", "reference"),
+            "buffered": buffered is not None}
+    elif resume:
+        raise ValueError("resume=True needs ckpt_dir= to restore from")
+    if resume:
+        # the full (N,) layout, whatever the residency, with the buffer
+        # as named leaves: the templates of the checkpoint's arrays
+        template = (_pool_named(pool.init_state(
+            phi, clients_per_round, buffered, template=uplink,
+            device="cpu"), layout) if pooled else None)
+        try:
+            saved = restore_round_state(
+                ckpt_dir, phi=layout.views(phi), pool_state=template,
+                per_client_bytes=per_client_bytes)
+        except FileNotFoundError:
+            logger.info("resume: no snapshot in %s yet; starting fresh",
+                        ckpt_dir)
+        if saved is not None:
+            diff = {k: (saved.fingerprint.get(k), v)
+                    for k, v in fingerprint.items()
+                    if saved.fingerprint and saved.fingerprint.get(k) != v}
+            if diff:
+                raise ValueError(
+                    f"checkpoint in {ckpt_dir} was written by a different "
+                    f"run config (saved != current): {diff}")
+            if saved.round > rounds:
+                raise ValueError(
+                    f"checkpoint in {ckpt_dir} is at round {saved.round}, "
+                    f"past rounds={rounds}; raise the horizon to continue")
+            start_round = int(saved.round)
+            phi = layout.pack({k: torch.as_tensor(v, device=dev)
+                               for k, v in saved.phi.items()})
+            if pooled:
+                pool.load_host_state(saved.host.get("pool", {}))
+            per_client_bytes = np.asarray(saved.per_client_bytes,
+                                          np.int64).copy()
+            comm_bytes = int(saved.comm_bytes)
+            history = list(saved.history)
+            # the host rng continues exactly where the interrupted run's
+            # producer stopped drawing
+            rng.bit_generator.state = saved.host["rng"]
+            sampling.load_state_dict(saved.host.get("sampling", {}),
+                                     rng=rng)
+            logger.info("resumed %s from round %d", ckpt_dir, start_round)
+    # pad depends on ckpt_every but not on the start: a resumed run
+    # builds (or finds) the same round as the run it continues
+    blocks, pad = plan_blocks(rounds, eval_every, max_block,
+                              start=start_round,
+                              ckpt_every=ckpt_every if ckpt_dir else 0)
     slabs = slab_rows = None
     if host_resident:
         slabs = pool.init_slabs()
         # the device holds one row per distinct client a block can seat
         slab_rows = min(pool.size, pad * clients_per_round)
     pool_state = (pool.init_state(
-        phi, clients_per_round, buffered,
-        template=strategy.uplink_template(layout, phi), rows=slab_rows,
+        phi, clients_per_round, buffered, template=uplink, rows=slab_rows,
         device=dev) if pooled else None)
+    if saved is not None and pooled:
+        restored = _pool_from_saved(saved.pool_state, layout,
+                                    isinstance(uplink, torch.Tensor), dev)
+        if host_resident:
+            # the identity goes to the slabs before the first block's
+            # gather; the device keeps its window and the FedBuff buffer
+            for f in ClientPool.SLAB_FIELDS:
+                slabs[f][:] = getattr(saved.pool_state, f)
+            restored = dataclasses.replace(restored, **{
+                f: getattr(pool_state, f) for f in ClientPool.SLAB_FIELDS})
+        pool_state = restored
     if strategy.meters_comm:
         # per-round payloads repeat with a rotating channel's period
         period = (channel.rotation_period
@@ -1024,7 +1152,58 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                                                 v.dtype)]) for v in data]
         staged, event = _stage([getattr(sched, f) for f in fields] + data,
                                dev)
+        if ckpt_at(end):
+            host_snaps[end] = snapshot_host()
         return part, cohort, uniq, staged, names, fields, event
+
+    def ckpt_at(end):
+        """Whether a snapshot is taken after the block ending at ``end``
+        (``plan_blocks`` cuts blocks there): the same predicate on the
+        producer, for the host state, and on the consumer."""
+        return ckpt_dir is not None and (end == rounds
+                                         or end % ckpt_every == 0)
+
+    def snapshot_host():
+        """The host carry once block i's draws are done, taken on the
+        prefetch producer inside ``stage(i)``: the RNG, the pool's and
+        the policy's streams resume exactly where the uninterrupted
+        run's producer continues."""
+        snap = {"rng": copy.deepcopy(rng.bit_generator.state)}
+        if pooled:
+            snap["pool"] = pool.host_state()
+        policy_state = sampling.state_dict()
+        if policy_state:
+            snap["sampling"] = policy_state
+        return snap
+
+    def snapshot(end):
+        """The carry after the block ending at ``end``: clones of phi and
+        of the pool state made on the training stream (the next block's
+        replays overwrite the runner's buffers), the identity of a
+        host-resident pool from its slabs after the write-back, and an
+        event recorded after the clones for the writer to wait on."""
+        pool_snap = None
+        if pooled:
+            ps = _pool_named(prog.pool_state(), layout)
+            if host_resident:
+                ps = dataclasses.replace(ps, **{
+                    f: slabs[f] for f in ClientPool.SLAB_FIELDS})
+            pool_snap = map_leaves(_snapshot_copy, ps)
+        state = RoundState(
+            round=end, phi=layout.views(prog.phi.clone()),
+            pool_state=pool_snap, per_client_bytes=per_client_bytes.copy(),
+            comm_bytes=comm_bytes, history=list(history),
+            host=host_snaps.pop(end), fingerprint=fingerprint)
+        ready = None
+        if dev.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record()
+        return state, ready
+
+    host_snaps: Dict[int, dict] = {}
+    writer = (AsyncCheckpointWriter(ckpt_dir, keep=ckpt_keep,
+                                    tracker=tracker)
+              if ckpt_dir is not None and ckpt_async and blocks else None)
 
     runner = _block_runner(strategy, beta, channel, scheduled,
                            pooled=pooled, buffered=buffered, masked=masked)
@@ -1092,8 +1271,24 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                 history.append(ev)
                 if tracker is not None:
                     tracker.on_eval(ev)
+            if ckpt_at(end):
+                t_snap = time.perf_counter()
+                state, ready = snapshot(end)
+                if writer is not None:
+                    writer.submit_state(state, ready)
+                else:
+                    save_round_state(ckpt_dir, state, keep=ckpt_keep)
+                if tracker is not None:
+                    # the training thread's share: the device copies and
+                    # the submit (the whole write when not async)
+                    tracker.observe("ckpt.snapshot_ms",
+                                    1e3 * (time.perf_counter() - t_snap))
+        if writer is not None:
+            writer.close()        # drain the snapshots; raise their errors
     finally:
         staged_iter.close()
+        if writer is not None:
+            writer.close(raise_errors=False)
         if tracker is not None:
             tracker.stop_profile()
 

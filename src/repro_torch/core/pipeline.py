@@ -4,10 +4,10 @@ prefetch, and pluggable client-scheduling policies.
 The port's counterpart of the JAX package's ``core/pipeline.py``, less
 its mesh helpers (those come with the mesh slice):
 
-- ``plan_blocks``: split a run into blocks at eval boundaries and
-  ``max_block``, and pick ONE padded length for every block of the run.
-  The eager engine skips the pad rounds; the fixed shape is what a
-  block captured as a CUDA graph will need.
+- ``plan_blocks``: split a run into blocks at eval and checkpoint
+  boundaries and ``max_block``, from round 0 or from a resumed round,
+  and pick ONE padded length for every block of the run. The engine
+  skips the pad rounds; the fixed shape keeps one built round a run.
 - ``BlockPrefetcher`` / ``prefetch_items``: a background thread samples
   and stages block N+1 while the device runs block N. The producer runs
   strictly in block order, so a seeded host RNG consumed inside
@@ -36,29 +36,44 @@ import numpy as np
 SAMPLERS = ("reference", "vectorized")
 
 
-def plan_blocks(rounds: int, eval_every: int,
-                max_block: int) -> Tuple[List[Tuple[int, int]], int]:
-    """Split ``rounds`` into blocks; return ``(blocks, pad)``.
+def plan_blocks(rounds: int, eval_every: int, max_block: int, *,
+                start: int = 0,
+                ckpt_every: int = 0) -> Tuple[List[Tuple[int, int]], int]:
+    """Split ``[start, rounds)`` into blocks; return ``(blocks, pad)``.
 
     ``blocks`` is a list of ``(start, end)`` half-open round ranges that
-    cover ``[0, rounds)``, cut at every eval boundary (multiples of
-    ``eval_every``) and at most ``max_block`` rounds long. ``pad`` is
-    the one length every block is padded to on the host,
-    ``min(max_block, stride, rounds)`` where ``stride`` is the eval
-    cadence.
+    cover ``[start, rounds)``, cut at every eval boundary (multiples of
+    ``eval_every``), at every checkpoint boundary (multiples of
+    ``ckpt_every``, when > 0: snapshots land on block ends) and at most
+    ``max_block`` rounds long. ``pad`` is the one length every block is
+    padded to on the host, ``min(max_block, stride, ckpt_every,
+    rounds)`` where ``stride`` is the eval cadence; it does not depend
+    on ``start``, so a resumed run has the same block shape (and the
+    same built round) as the run it continues.
+
+    ``start`` > 0 is the resume path: cuts are at absolute rounds, so a
+    resume from a block boundary replays exactly the uninterrupted run's
+    remaining blocks.
     """
     if max_block <= 0:
         raise ValueError(f"max_block must be positive, got {max_block!r}")
-    if rounds <= 0:
+    if start < 0:
+        raise ValueError(f"start must be >= 0, got {start!r}")
+    if rounds <= start:
         return [], 0
     stride = eval_every if eval_every else rounds
     blocks: List[Tuple[int, int]] = []
-    rnd = 0
+    rnd = start
     while rnd < rounds:
         end = min(rounds, (rnd // stride + 1) * stride, rnd + max_block)
+        if ckpt_every:
+            end = min(end, (rnd // ckpt_every + 1) * ckpt_every)
         blocks.append((rnd, end))
         rnd = end
-    return blocks, min(max_block, stride, rounds)
+    pad = min(max_block, stride, rounds)
+    if ckpt_every:
+        pad = min(pad, ckpt_every)
+    return blocks, pad
 
 
 class BlockPrefetcher:
@@ -283,6 +298,18 @@ class SamplingPolicy:
         return task_dist.sample_support_block_reference(
             rng, rounds, clients, support, data_mode,
             participation=participation)
+
+    def state_dict(self) -> Dict:
+        """JSON-able host state carried from block to block, which
+        round-state checkpoints capture so a resumed run continues the
+        policy where the interrupted one stopped. Stateless policies
+        (all but ``core.pool.MarkovAvailability``) return {}."""
+        return {}
+
+    def load_state_dict(self, state: Dict, rng=None) -> None:
+        """Restore a ``state_dict`` snapshot at resume; ``rng`` is the
+        run's restored host generator, for policies whose state is keyed
+        by the stream driving it."""
 
     def _validate_sampler(self):
         if self.sampler not in SAMPLERS:

@@ -23,11 +23,15 @@
 // it from SMEM: an annealed per-round alpha then needs no host->device
 // copy, and a captured launch stays valid when alpha changes.
 //
-// The math is fp32 whatever the storage. Each operation is rounded on
-// its own (__fsub_rn, __fmul_rn, __fadd_rn), so nvcc cannot contract
-// them into an FMA and the result equals the plain PyTorch version
-// (kernels/ref.py::meta_update) bit for bit; bf16 output rounds to
-// nearest even, as torch's cast does.
+// The math is fp32 whatever the storage: the difference is rounded to
+// fp32 (__fsub_rn), then the product and the sum are rounded once
+// together, one fused multiply-add (__fmaf_rn(a, wh - w, w)). That is
+// what the JAX engine's jitted interpolation compiles to (XLA contracts
+// p + a * (q - p) into an FMA), and what the plain PyTorch version
+// (kernels/ref.py::meta_update) computes exactly in fp64, so the two
+// agree bit for bit; the intrinsics leave nvcc nothing to reassociate.
+// bf16 output rounds that fp32 result to nearest even, as torch's cast
+// does.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,7 +42,7 @@ constexpr int kThreads = 256;
 constexpr int kUnroll = 4;           // vectors (or elements) per thread
 
 __device__ __forceinline__ float lerp_rn(float w, float wh, float a) {
-  return __fadd_rn(w, __fmul_rn(a, __fsub_rn(wh, w)));
+  return __fmaf_rn(a, __fsub_rn(wh, w), w);
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

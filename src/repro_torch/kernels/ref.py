@@ -25,9 +25,26 @@ SCALE_KEYS = ("f0", "f1", "fe", "floss", "ftw0", "ftw1", "ftw2",
 def meta_update(w, w_hat, alpha):
     """Reptile interpolation ``w + alpha * (w_hat - w)`` in fp32 math,
     stored in w's dtype. ``alpha`` is a float or a one-element fp32
-    tensor."""
+    tensor.
+
+    The difference is rounded to fp32, then the product and the sum are
+    rounded once together: ``fma(alpha, w_hat - w, w)``, as the JAX
+    engine's jitted interpolation compiles. The sum is taken in float64,
+    where ``alpha * d`` is exact, and rounded to odd (one float64 ulp
+    toward the rounding error where it is nonzero and the last bit
+    even), so the one cast to fp32 that follows rounds exactly as a
+    single fp32 FMA does."""
     w32 = w.float()
-    return (w32 + alpha * (w_hat.float() - w32)).to(w.dtype)
+    a = torch.as_tensor(alpha, dtype=torch.float32, device=w.device)
+    prod = a.double() * (w_hat.float() - w32).double()        # exact
+    base = w32.double()
+    s = base + prod
+    back = s - base                                           # TwoSum
+    err = (base - (s - back)) + (prod - back)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float().to(w.dtype)
 
 
 def online_sgd(p, g, lr, m=None, momentum=0.0):

@@ -25,9 +25,11 @@ Both run on the GPU; ``--device cpu`` runs the plain PyTorch path on the
 CPU instead. The weights (the LM, or phi) are a fresh init from
 ``--seed`` drawn with torch's generator, which does not reproduce
 ``jax.random``'s init at the same seed (``run_decode(params=)`` takes
-others; ``--ckpt-dir`` serves the phi of a checkpoint written by the
-JAX package's ``run_federated(ckpt_dir=...)`` or ``save_checkpoint``). Decode runs the dense family (tinyllama-1.1b,
-starcoder2-15b); the other families are not ported yet.
+others; ``--ckpt-dir`` serves the phi of a round-state checkpoint that
+``run_federated(ckpt_dir=...)`` of either package wrote, or of a bare
+``save_checkpoint`` snapshot). Decode runs the dense family
+(tinyllama-1.1b, starcoder2-15b); the other families are not ported
+yet.
 """
 from __future__ import annotations
 

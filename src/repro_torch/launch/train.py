@@ -28,14 +28,21 @@ plugins as in the JAX launcher: ``--pool-size`` -> ``ClientPool``
 ``--availability diurnal|markov`` -> the sampling policy,
 ``--buffer-size`` -> ``BufferedAggregation``; incompatible combinations
 are rejected at parse time with the JAX launcher's messages.
+``--ckpt-dir`` snapshots the engine's whole round state every
+``--ckpt-every`` rounds (a background writer, the JAX package's file
+format) and ``--resume`` continues a preempted run bit for bit, also
+past the horizon it was written under:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --strategy tifed \
+        --ckpt-dir /path/to/ckpt --ckpt-every 5 --resume
 
 Both routes run on the GPU; ``--device cpu`` runs the plain PyTorch
 path on the CPU instead. The init is drawn from ``--seed`` with torch's
 generator, which does not reproduce ``jax.random``'s init at the same
 seed (``init_params=`` carries the JAX package's init in). The flags of
 routes not ported yet (the other architectures, the engine's LM route
-``--strategy ... --arch``, meshes, checkpoints and resume, multi-process
-runs) are rejected at parse time.
+``--strategy ... --arch``, meshes, multi-process runs, and checkpoints
+and resume on the LM launcher) are rejected at parse time.
 """
 from __future__ import annotations
 
@@ -53,9 +60,6 @@ ARCH_FAMILIES = {"transformer": "tinyllama-1.1b", "mamba2": "mamba2-130m",
 PORTED_ARCHS = ("mamba2-130m",)
 #: flags not ported yet, by the slice that ports them
 NOT_PORTED_FLAGS = {
-    "--ckpt-dir": "the round-state checkpoint slice",
-    "--ckpt-every": "the round-state checkpoint slice",
-    "--resume": "the round-state checkpoint slice",
     "--devices": "the multi-device slice", "--mesh": "the multi-device slice",
     "--coordinator": "the multi-device slice",
     "--num-processes": "the multi-device slice",
@@ -146,6 +150,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="FedBuff-style async server: apply the buffered "
                          "client updates every K arrivals, "
                          "staleness-discounted")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="snapshot directory: engine strategies snapshot "
+                         "the whole round state (phi, pool state, rng, "
+                         "bills) every --ckpt-every rounds on a "
+                         "background thread and resume bit for bit with "
+                         "--resume")
+    ap.add_argument("--ckpt-every", type=positive_int_arg, default=None,
+                    help="rounds between snapshots (default 10)")
+    ap.add_argument("--resume", action="store_true",
+                    help="continue from the newest valid snapshot in "
+                         "--ckpt-dir (a fresh start when there is none)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     for flag, by in NOT_PORTED_FLAGS.items():
@@ -158,10 +173,25 @@ def parse_args(argv=None) -> argparse.Namespace:
     """Parse and cross-validate before any tensor work."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.resume and not args.ckpt_dir:
+        ap.error("--resume restores from --ckpt-dir; pass both")
     if args.availability != "iid" and args.participation < 1.0:
         ap.error("--availability replaces the i.i.d. --participation "
                  "schedule; pass one or the other")
     if args.strategy == "tinyreptile":
+        for flag, v in (("--ckpt-dir", args.ckpt_dir),
+                        ("--ckpt-every", args.ckpt_every),
+                        ("--resume", args.resume or None)):
+            if v is not None:
+                ap.error(
+                    f"{flag} is not ported yet on the LM launcher: its "
+                    f"checkpoints come with its pool, availability and "
+                    f"FedBuff flags (ROADMAP queue A item 6h); the JAX "
+                    f"launcher's own resume of a bf16 model fails there "
+                    f"(its bf16 leaves are saved as raw |V2 bits, which "
+                    f"its restore refuses to cast). Pass an engine "
+                    f"--strategy ({'|'.join(ENGINE_STRATEGIES)}) to "
+                    f"checkpoint")
         if args.arch is None:
             ap.error("--arch is required for the tinyreptile LM launcher "
                      "(engine strategies --strategy "
@@ -201,6 +231,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                  f" is the engine LM route, which is not ported yet (it "
                  f"needs a client-batched LM); drop --arch/--reduced for "
                  f"the sine MLP, or run the tinyreptile LM launcher")
+    if args.ckpt_every is None:
+        args.ckpt_every = 10
     if args.rounds < 1:
         ap.error(f"--rounds must be >= 1, got {args.rounds}")
     if args.clients < 1:
@@ -293,7 +325,8 @@ def run_engine_strategy(args, init_params=None):
         clients_per_round=args.clients, alpha=args.alpha, beta=args.beta,
         support=SUPPORT, seed=args.seed, eval_every=args.rounds,
         eval_kwargs=eval_kwargs, channel=channel, sampling=sampling,
-        pool=pool, buffered=buffered, device=dev)
+        pool=pool, buffered=buffered, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every, resume=args.resume, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     row = {"strategy": args.strategy, "rounds": args.rounds,

@@ -218,15 +218,16 @@ def test_served_on_card_matches_cpu(cuda, route):
     (4 * 8 * 256 - 1, 0), (4 * 8 * 256 + 1, 0),    # x threads, +- 1; bf16
     (4 * 8 * 256 + 1, 3), (1153, 3)])
 def test_meta_update_kernel_matches_plain(cuda, dtype, n, offset):
-    """Exact: the kernel rounds each operation on its own, as the plain
-    version's separate tensor ops do. Sizes around one block's work (4
+    """Exact: the kernel's one fused multiply-add (``__fmaf_rn``) equals
+    the plain version's FMA, taken exactly in float64 and rounded to
+    odd, at alphas whose products round. Sizes around one block's work (4
     vectors of 16 bytes a thread, 256 threads) and below one thread's
     take the tail; ``offset`` 1 or 3 misaligns the buffers, which takes
     the scalar path."""
     g = torch.Generator().manual_seed(n)
     w, wh = (torch.randn(n + offset, generator=g).to(cuda, dtype)[offset:]
              for _ in range(2))
-    for a in (0.0, 0.37, 1.0):
+    for a in (0.0, 0.37, 0.55, 1 / 3, 1.0):
         alpha = torch.tensor([a], device=cuda)
         before = ops.meta_update.launches
         out = ops.meta_update(w, wh, alpha)
@@ -974,3 +975,81 @@ def test_captured_conv_round_equals_uncaptured(cuda, name, monkeypatch):
     for k, v in want["params"].items():
         assert torch.equal(got["params"][k], v), k
     assert got["history"] == want["history"]
+
+
+def _ckpt_run(name, device, **ckpt):
+    """A small run of each snapshot shape: fp32 phi, TIFeD's int8 codes,
+    a pool in host slabs with a FedBuff buffer under Markov check-ins."""
+    from repro_torch.core import MarkovAvailability, run_federated
+    from repro_torch.core.strategies import TifedStrategy, TinyReptileStrategy
+    from repro_torch.models.paper_nets import relu_mlp_loss
+
+    phi = init_paper_model(SINE_MLP, torch.Generator().manual_seed(0), "cpu")
+    kw = dict(rounds=12, clients_per_round=4, support=8, beta=0.02, seed=3,
+              eval_every=6, eval_kwargs=dict(num_tasks=2, support=4,
+                                             k_steps=2, lr=0.01, query=8),
+              device=device, **ckpt)
+    if name == "tifed":
+        return run_federated(phi, SineTasks(), TifedStrategy(relu_mlp_loss),
+                             channel=CommChannel("int8", quantize=False),
+                             **kw)
+    if name == "pool_host":
+        kw.update(pool=ClientPool(SineTasks(), 64, seed=5,
+                                  residency="host"),
+                  buffered=BufferedAggregation(3),
+                  sampling=MarkovAvailability())
+    return run_federated(phi, SineTasks(), TinyReptileStrategy(LOSS), **kw)
+
+
+def _assert_same_run(got, want):
+    for k, v in want["params"].items():
+        assert torch.equal(got["params"][k], v), k
+    assert got["history"] == want["history"]
+    for key in ("comm_bytes", "per_client_bytes"):
+        assert got.get(key) == want.get(key), key
+    for k, v in want.get("pool_state", {}).items():
+        np.testing.assert_array_equal(np.asarray(got["pool_state"][k]),
+                                      np.asarray(v), err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tinyreptile", "tifed", "pool_host"])
+def test_ckpt_crash_resume_on_card(cuda, name, tmp_path):
+    """On the card: a run crashed right after its round-4 snapshot and
+    resumed equals the uninterrupted run (its snapshots written by the
+    async writer while the next blocks run) exactly; the round is built
+    once across the three runs."""
+    from repro_torch.testing import faults
+
+    clear_runner_cache()
+    ck = dict(ckpt_every=4)
+    ref = _ckpt_run(name, cuda, ckpt_dir=str(tmp_path / "ref"), **ck)
+    with pytest.raises(faults.SimulatedPreemption):
+        with faults.crash_at_round(4):
+            _ckpt_run(name, cuda, ckpt_dir=str(tmp_path / "ck"),
+                      ckpt_async=False, **ck)
+    res = _ckpt_run(name, cuda, ckpt_dir=str(tmp_path / "ck"), resume=True,
+                    **ck)
+    _assert_same_run(res, ref)
+    (runner,) = engine._RUNNER_CACHE._entries.values()
+    assert runner.trace_count == 1
+
+
+@pytest.mark.cuda
+def test_ckpt_async_snapshots_on_card_hold_their_round(cuda, tmp_path):
+    """A snapshot every round, each block replayed right after the
+    previous snapshot's clones: the async writer's files equal those of
+    a synchronous run, round by round."""
+    from repro_torch.checkpoint import list_checkpoints
+
+    runs = {}
+    for kind, ck in (("async", {}), ("sync", dict(ckpt_async=False))):
+        _ckpt_run("pool_host", cuda, ckpt_dir=str(tmp_path / kind),
+                  ckpt_every=1, ckpt_keep=12, **ck)
+        runs[kind] = list_checkpoints(str(tmp_path / kind))
+    assert len(runs["async"]) == len(runs["sync"]) == 12
+    for a, b in zip(runs["async"], runs["sync"]):
+        with np.load(a) as za, np.load(b) as zb:
+            assert za.files == zb.files
+            for k in zb.files:
+                np.testing.assert_array_equal(za[k], zb[k], err_msg=k)

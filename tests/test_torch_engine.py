@@ -219,11 +219,12 @@ def test_cpu_run_launches_no_kernel_and_returns_cpu_tensors(init):
 
 
 @pytest.mark.parametrize("kw", [dict(mesh=2), dict(mesh="auto"),
-                                dict(ckpt_dir="x")])
+                                dict(mesh=1)])
 def test_unported_routes_raise(init, kw):
-    """mesh= and ckpt_dir= still raise, naming the slice that ports them
-    (pool= and buffered= run since the fleet slice:
-    tests/test_torch_pool.py)."""
+    """mesh= still raises, naming the slice that ports it (pool= and
+    buffered= run since the fleet slice: tests/test_torch_pool.py;
+    ckpt_dir= since the checkpoint slice:
+    tests/test_torch_preempt_resume.py)."""
     with pytest.raises(NotImplementedError, match="not ported yet.*slice"):
         tcore.run_federated(init, SineTasks(),
                             tcore.ReptileStrategy(TLOSS), rounds=2,

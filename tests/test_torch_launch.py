@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -126,13 +127,17 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     (["--strategy", "reptile", "--mesh", "clients:2"],
      "--mesh is not ported yet"),
     (["--strategy", "reptile", "--devices", "2"], "--devices is not ported"),
-    (["--strategy", "reptile", "--ckpt-dir", "x"],
-     "--ckpt-dir is not ported yet (the round-state checkpoint slice"),
-    (["--strategy", "reptile", "--resume"], "--resume is not ported yet"),
+    (["--arch", "mamba2", "--ckpt-dir", "x"],
+     "--ckpt-dir is not ported yet on the LM launcher"),
+    (["--strategy", "reptile", "--resume"],
+     "--resume restores from --ckpt-dir; pass both"),
     (["--strategy", "reptile", "--num-processes", "2"],
      "--num-processes is not ported yet"),
     (["--strategy", "reptile", "--participation", "0"], "participation"),
     (["--strategy", "reptile", "--device", "tpu"], "invalid choice"),
+    (["--arch", "mamba2", "--ckpt-every", "5"], "queue A item 6h"),
+    (["--arch", "mamba2", "--ckpt-dir", "x", "--resume"], "raw |V2 bits"),
+    (["--strategy", "tifed", "--ckpt-every", "0"], "must be >= 1"),
 ])
 def test_train_parse_rejects_unported_flags(argv, msg, capsys):
     with pytest.raises(SystemExit):
@@ -180,3 +185,59 @@ def test_train_row_matches_the_jax_launcher(argv, capsys):
     assert abs(got["query_loss"] - want["query_loss"]) <= 1e-4 + 1e-12
     for key in ("strategy", "rounds", "clients"):
         assert got[key] == want[key]
+
+
+@pytest.mark.parametrize("strategy", ["reptile", "fedavg", "fedsgd",
+                                      "transfer", "tifed"])
+def test_train_accepts_the_checkpoint_flags(strategy):
+    args = train.parse_args(["--strategy", strategy, "--ckpt-dir", "d",
+                             "--ckpt-every", "4", "--resume",
+                             "--pool-size", "64", "--availability",
+                             "markov"])
+    assert (args.ckpt_dir, args.ckpt_every, args.resume) == ("d", 4, True)
+    assert train.parse_args(["--strategy", strategy]).ckpt_every == 10
+
+
+def test_train_resume_prints_the_uninterrupted_row(tmp_path):
+    """``--strategy reptile --ckpt-dir D --ckpt-every 4 --rounds 8``,
+    killed after its round-4 snapshot, then ``--resume``: the row of the
+    run that was never killed."""
+    from repro_torch.testing import faults
+
+    argv = ["--strategy", "reptile", "--rounds", "8", "--clients", "8",
+            "--device", "cpu"]
+    ck = ["--ckpt-dir", str(tmp_path), "--ckpt-every", "4"]
+    want, ref = train.run_engine_strategy(train.parse_args(argv))
+    with pytest.raises(faults.SimulatedPreemption):
+        with faults.crash_at_round(4):
+            train.run_engine_strategy(train.parse_args(argv + ck))
+    got, out = train.run_engine_strategy(
+        train.parse_args(argv + ck + ["--resume"]))
+    for key in set(want) - {"dt_s", "kernel_launches"}:
+        assert got[key] == want[key], key
+    for k, v in ref["params"].items():
+        assert torch.equal(out["params"][k], v), k
+
+
+def test_serve_adapt_serves_a_port_written_round_state(tmp_path):
+    """``serve --mode adapt --ckpt-dir D`` serves the phi of a round
+    state the port's train launcher wrote: the same requests as when
+    serving those params from a bare snapshot, and not the init's."""
+    from repro_torch.checkpoint import load_params, save_checkpoint
+
+    d = str(tmp_path / "round")
+    _, out = train.run_engine_strategy(train.parse_args(
+        ["--strategy", "reptile", "--rounds", "4", "--clients", "4",
+         "--device", "cpu", "--ckpt-dir", d, "--ckpt-every", "2"]))
+    trained = {k: v.numpy() for k, v in out["params"].items()}
+    got = load_params(d, trained)
+    for k, v in trained.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    save_checkpoint(str(tmp_path / "bare"), trained, 4)
+    base = ["--mode", "adapt", "--device", "cpu", "--requests", "8",
+            "--slots", "4"]
+    rows = [serve.run_adapt(serve.parse_args(base + extra)) for extra in (
+        ["--ckpt-dir", d], ["--ckpt-dir", str(tmp_path / "bare")], [])]
+    assert rows[0]["mean_query_loss"] == rows[1]["mean_query_loss"]
+    assert rows[0]["mean_query_loss"] != rows[2]["mean_query_loss"]
+    assert rows[0]["requests"] == 8

@@ -8,14 +8,15 @@ int32 biases) times powers of two, so equal params are equal codes;
 byte counts exactly; the fp32 losses, which the port sums in float64,
 at rtol 1e-6; eval rows at 1e-4.
 
-One known gap (ROADMAP queue C): the JAX engine runs its round under
-``jax.jit``, where XLA on the CPU contracts the server interpolation
-phi + alpha (phi_hat - phi) into one fused multiply-add, while the
-port's ``meta_update`` rounds the product and the sum apart. Where the
-sum is inexact (an annealed alpha such as 0.55) the requantization can
-round a tie the other way, one grid step. So the engine cases here use
-an alpha whose products are exact (0.5, no annealing), and the hooks are
-held to the JAX package's un-jitted hooks at annealed alphas.
+The JAX engine runs its round under ``jax.jit``, where XLA on the CPU
+contracts the server interpolation phi + alpha (phi_hat - phi) into one
+fused multiply-add. The port's ``meta_update`` computes that same FMA
+(``kernels/ref.py::meta_update``), so the engine runs here are held at
+annealed alphas, where the products round, and the server hooks are
+held to the jitted JAX hooks, the arithmetic the engine actually runs.
+Under jit XLA also contracts the weighted client mean (a multiply and a
+reduction) into a chain of FMAs, which the port does not follow; the
+weighted hook is held with that mean taken op by op.
 """
 import numpy as np
 import pytest
@@ -27,6 +28,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro import core as jcore  # noqa: E402
+from repro.core import engine as jengine  # noqa: E402
 from repro.core import strategies as jstrat  # noqa: E402
 from repro.data import SineTasks as JSine  # noqa: E402
 from repro.models.paper_nets import relu_mlp_loss as j_relu  # noqa: E402
@@ -71,11 +73,12 @@ def _assert_exact_run(tout, jout):
 
 @pytest.mark.parametrize("case", ["uniform", "partial", "pooled_buffered"])
 def test_tifed_matches_jax(init, case):
-    """The whole integer trajectory equals the JAX package's: the cohort
-    uniform, half of it checking in (the masked hooks, every epoch live),
-    and on a pool under Markov check-ins with a FedBuff buffer."""
-    kw = dict(rounds=12, alpha=0.5, anneal=False, support=16,
-              clients_per_round=4, seed=31, eval_every=6, eval_kwargs=EVAL)
+    """The whole integer trajectory equals the JAX package's at alpha 1
+    annealed: the cohort uniform, half of it checking in (the masked
+    hooks, every epoch live), and on a pool under Markov check-ins with a
+    FedBuff buffer."""
+    kw = dict(rounds=12, alpha=1.0, support=16, clients_per_round=4,
+              seed=31, eval_every=6, eval_kwargs=EVAL)
     jkw, tkw = {}, {}
     if case == "partial":
         jkw["sampling"] = jcore.PartialParticipation(0.5)
@@ -103,8 +106,9 @@ def test_tifed_hooks_match_jax_at_annealed_alphas(init, alpha, steps):
     weights whose products round: int8 codes, exponents and losses from
     the client hook (with per-client epoch budgets, the straggler route:
     epochs past a budget pass the carry through and report 0), and the
-    requantized server update, equal the JAX package's hooks (the server
-    hook run without jit: see the module docstring)."""
+    requantized server update, equal the JAX package's hooks, the server
+    side under ``jax.jit`` as the engine runs it (see the module
+    docstring)."""
     rng = np.random.default_rng(7)
     phi = {k: np.asarray(v) for k, v in jstrat.tifed_requantize(
         {k: jnp.asarray(v) for k, v in init.items()}).items()}
@@ -136,13 +140,98 @@ def test_tifed_hooks_match_jax_at_annealed_alphas(init, alpha, steps):
                                           np.asarray(v), err_msg=k)
     np.testing.assert_allclose(tloss.numpy(), np.asarray(jloss),
                                rtol=LOSS_RTOL)
-    jnew = js.server_aggregate_weighted(jphi, jres, jnp.float32(alpha), 0.0,
-                                        jnp.asarray(w))
+    a = jnp.float32(alpha)
+    # the uniform route's whole hook under jit, as the engine runs it
+    jnew = jax.jit(lambda p, r, a: js.server_aggregate(p, r, a, 0.0))(
+        jphi, jres, a)
+    tnew = layout.views(ts.server_aggregate(layout, tphi, tres,
+                                            torch.tensor([alpha]), 0.0))
+    for k, v in jnew.items():
+        np.testing.assert_array_equal(tnew[k].numpy(), np.asarray(v),
+                                      err_msg=k)
+    # the weighted route: the interpolation and requantization under jit,
+    # on the weighted client mean taken op by op (XLA also contracts that
+    # multiply-reduce into an FMA chain, which the port does not follow:
+    # ROADMAP queue C)
+    mean = jstrat.weighted_client_mean(
+        jax.vmap(jstrat.tifed_dequantize)(jres), jnp.asarray(w))
+    jnew = jax.jit(lambda p, m, a: jstrat.tifed_requantize(
+        jengine.meta_interpolate(p, m, a)))(jphi, mean, a)
     tnew = layout.views(ts.server_aggregate_weighted(
         layout, tphi, tres, torch.tensor([alpha]), 0.0, torch.tensor(w)))
     for k, v in jnew.items():
         np.testing.assert_array_equal(tnew[k].numpy(), np.asarray(v),
                                       err_msg=k)
+
+
+def test_tifed_queue_c_run_matches_jax_exactly(init):
+    """``tifed_train`` from the JAX package's sine init, 20 rounds, 4
+    clients, support 16, seed 31, alpha 1 annealed: the run whose bias
+    once ended one accumulator step apart when the port rounded the
+    interpolation's product and sum separately."""
+    jout, tout = _runs(init, rounds=20, alpha=1.0, support=16,
+                       clients_per_round=4, seed=31, eval_every=10,
+                       eval_kwargs=EVAL)
+    _assert_exact_run(tout, jout)
+
+
+def test_tifed_queue_c_launcher_case_matches_jax_exactly(init):
+    """``--strategy tifed --rounds 6 --clients 4 --pool-size 30
+    --availability markov --buffer-size 4``: the port's launcher against
+    the JAX launcher's ``run_federated`` call at the same arguments;
+    integer params, bills and pool state exact (their trajectories once
+    parted here, the query loss 8.0886 against 7.4244)."""
+    from repro.launch import train as jtrain
+    from repro_torch.launch import train as ttrain
+
+    argv = ["--strategy", "tifed", "--rounds", "6", "--clients", "4",
+            "--pool-size", "30", "--availability", "markov",
+            "--buffer-size", "4"]
+    a = jtrain.parse_args(argv)
+    dist = JSine()
+    jout = jcore.run_federated(
+        init, dist, jstrat.TifedStrategy(j_relu, epochs=8),
+        rounds=a.rounds, clients_per_round=a.clients, alpha=a.alpha,
+        beta=a.beta, support=ttrain.SUPPORT, seed=a.seed,
+        eval_every=a.rounds,
+        eval_kwargs=dict(ttrain.EVAL_KWARGS, lr=ttrain.TIFED_EVAL_LR),
+        channel=jcore.CommChannel("int8", quantize=False),
+        sampling=jcore.MarkovAvailability(),
+        pool=jcore.ClientPool(dist, a.pool_size, seed=a.seed),
+        buffered=jcore.BufferedAggregation(a.buffer_size))
+    row, tout = ttrain.run_engine_strategy(
+        ttrain.parse_args(argv + ["--device", "cpu"]), init_params=init)
+    for k, v in jout["params"].items():
+        np.testing.assert_array_equal(tout["params"][k].numpy(),
+                                      np.asarray(v), err_msg=k)
+    assert tout["comm_bytes"] == jout["comm_bytes"]
+    assert tout["per_client_bytes"] == jout["per_client_bytes"]
+    for k, v in jout["pool_state"].items():
+        np.testing.assert_array_equal(np.asarray(tout["pool_state"][k]),
+                                      np.asarray(v), err_msg=k)
+    assert abs(row["query_loss"]
+               - float(jout["history"][-1]["query_loss"])) <= 1e-4 + 5e-5
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.95, 0.55, 1 / 3, 0.05])
+def test_meta_update_is_the_jitted_fma(alpha):
+    """The plain ``meta_update`` (what the kernel is held to on the card)
+    equals the jitted JAX ``p + a * (q - p)`` bit for bit over a seeded
+    2^16 sweep: phi_hat near phi, as a round's update leaves it, and
+    far from it."""
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(22)
+    n = 1 << 16
+    p = rng.standard_normal(n).astype(np.float32)
+    a = np.float32(alpha)
+    jitted = jax.jit(lambda p, q, a: p + a * (q - p))
+    for q in ((p + rng.normal(0, 1e-3, n)).astype(np.float32),
+              rng.standard_normal(n).astype(np.float32)):
+        want = np.asarray(jitted(p, q, a))
+        got = ref.meta_update(torch.from_numpy(p), torch.from_numpy(q),
+                              torch.tensor([a]))
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_tifed_seeded_determinism(init):
