@@ -12,8 +12,8 @@ Phases, each printing one JSON line, in this order:
    deterministic algorithms whatever the global flags say);
 2. build: the CUDA kernels (``nvcc``, sm_90a, one process per source:
    ``online_sgd`` (with ``online_sgd_momentum``), ``dfa_epoch_int8``,
-   ``meta_update``, ``ssd_scan``, ``flash_decode``) are built from this
-   checkout's sources, all at the same time;
+   ``meta_update``, ``ssd_scan``, ``flash_decode``, ``client_mean``) are
+   built from this checkout's sources, all at the same time;
 3. kernels: each kernel against its plain PyTorch version on the same
    CUDA tensors, at the shapes the main paths give it and at harder
    ones, timed with CUDA events (median of repeats) and the profiler
@@ -46,7 +46,13 @@ Phases, each printing one JSON line, in this order:
    relative and that times min(1, max |want|) absolute; at the path and
    32k shapes also the device-L route (L an int32 on the card, as the
    decode graph launches it), bit-equal to the host-int call, with its
-   own ``path_run_mean_devL``;
+   own ``path_run_mean_devL``; ``client_mean`` (the weighted client mean
+   in the jitted JAX engine's order) bit for bit at C = 1, 4, 8, 32, 33,
+   64 over 1,153, 20,612 and 2^20 parameters, beside torch.sum(w q, 0),
+   on the device at the engine's (8, 1,153), (64, 1,153) and (4,
+   20,612); ``online_sgd`` and ``meta_update`` bit for bit at
+   tinyllama-1.1b's flat bf16 buffer (1,100,048,384), beside torch.add
+   and torch.lerp;
 4. serve decode reduced: ``serve --mode decode --arch tinyllama-1.1b
    --reduced`` (4 requests, batch 2, 16 + 16 tokens, cache 64) on the
    card and on the CPU from the same init: every step's logits within
@@ -63,7 +69,19 @@ Phases, each printing one JSON line, in this order:
 6. profile decode: 16 replays of the full-width decode step under
    torch.profiler: idle share, kernels per step, top kernels,
    ``flash_decode``'s share; then a 64 + 32-token wave of tinyllama-1.1b
-   replayed against the same step run eagerly (for phase 20);
+   replayed against the same step run eagerly (for phase 20); then
+   ``prefill_dense_full``: ``prefill_fn`` of the same weights at 8 x 512
+   against the teacher-forced decode logits at position 511, within 4
+   bf16 steps of the largest; ``joint_step_full``: three
+   ``make_joint_train_step`` steps of the same weights (AdamW, cosine(3e-5,
+   3, warmup=1)) on one batch of 8 x 2,048, the loss falling, peak
+   memory; ``decode_mamba2_130m``: ``serve --mode decode --arch
+   mamba2-130m`` at phase 5's traffic (16 requests at batch 8, 512 + 128
+   tokens), the step built once and replayed, no kernel launched,
+   tokens/s and step time, a 64 + 32-token wave replayed bit-equal to
+   eager, and the decode logits at positions 0, 63 and 511 against
+   ``prefill_fn`` (the ``ssd_scan`` route): in fp32 (the weights cast)
+   within 1e-3 of the largest logit, in bf16 reported;
 7. serve fp32: 512 requests through ``AdaptationServer`` with the
    ``serve --mode adapt`` defaults, launch counters set to 0 just before
    and read just after, the tick built (captured) once; 32 requests held
@@ -82,6 +100,11 @@ Phases, each printing one JSON line, in this order:
     each train run's round built once, with its capture time and graph
     size;
 13. profile train: device busy share of 60 TinyReptile rounds;
+13b. client_mean queue C: ROADMAP queue C's TIFeD launcher case
+    (``--strategy tifed --rounds 6 --clients 4 --pool-size 30
+    --availability markov --buffer-size 4``) on the card and on the
+    CPU: params and pool state exact, six ``client_mean`` launches a
+    round;
 14. fleet tifed: the train launcher's ``--strategy tifed`` defaults (64
     clients, support 32, 8 integer epochs, 20 rounds) on the card and on
     the CPU: the integer params and bytes exact, the int8 loss within
@@ -94,12 +117,16 @@ Phases, each printing one JSON line, in this order:
     ``ClientPool`` of 100,000 devices (vectorized sampler), a cohort of
     64 under ``DiurnalAvailability(24)`` with
     ``BufferedAggregation(16, flush_staleness=8)``, 500 rounds (the pool
-    state equal to a host replay of the plan, the first 60 rounds
+    state equal to a host replay of the plan, the first 20 rounds
     against the CPU), then 1,000,000 devices with their state in host
     slabs for 50 rounds against the CPU (pool state exact, 1e-4); one
-    build each, launches as reckoned (the flush's ``meta_update`` every
-    round); ``profile_fleet``: 20 replayed pooled rounds under the
-    profiler (idle share, kernels a round, top kernels);
+    build each, launches as reckoned (the flush's ``meta_update`` and
+    ``client_mean`` every round); ``profile_fleet``: 20 replayed pooled
+    rounds under the profiler (idle share, kernels a round, top
+    kernels); ``fleet_pool_drift`` (reported): how far one ulp added to
+    every init weight moves each run on the card, at 20, 34, 50 and 60
+    rounds of the 100,000 devices and 50 of the 1,000,000, and the card
+    against the CPU at each length of the 100,000;
 17. fleet kws: the port's KWS example with its persistent fleet
     (``--pool-size 1000 --availability markov --buffer-size 4``, 200
     rounds) on the card and on the CPU: accuracy within one query
@@ -129,7 +156,16 @@ Phases, each printing one JSON line, in this order:
     rounds/s, tokens/s and peak device memory;
 23. profile LM: two full-width rounds under torch.profiler: idle share,
     top kernels, the shares of ``ssd_scan`` (its three kernels) and of
-    its plain backward;
+    its plain backward; then the dense LM: ``train_dense_reduced`` (the
+    reduced tinyllama and starcoder2, window 64 at 256 tokens, on the
+    card against the CPU: rows and params within 1e-4) and
+    ``train_dense_tinyllama_1_1b`` (``--arch tinyllama-1.1b --rounds 4
+    --batch 8 --seq 2048 --k-inner 4 --beta 0.002``, full width and
+    depth, bf16: 16
+    ``online_sgd`` and 4 ``meta_update`` launches, finite losses, the
+    client adapts in at least 3 rounds of 4, rounds/s, tokens/s, peak
+    memory, and one more round under the profiler: device time, idle
+    share);
 24. ckpt resume (after phase 17): crash and resume on the card, snapshots
     every 4 rounds, for TinyReptile at 64 clients (16 rounds), TIFeD at
     the launcher's defaults (alpha 1 annealed, 16 rounds), the pooled
@@ -156,6 +192,7 @@ rest of the repository beside it, the script exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import io
 import itertools
@@ -274,6 +311,15 @@ PARTIAL_ROUNDS, PARTIAL_CLIENTS, PARTIAL_FRACTION = 200, 64, 0.25
 # card's GEMMs against the CPU's) beyond 1e-4; the long run's bills and
 # pool state are held exactly all the same
 FLEET_CHECK_ROUNDS = 60
+# the 100,000-device pooled, buffered run is held to the CPU over its
+# first POOL_CHECK_ROUNDS: past them its dynamics turn a last-bit
+# difference into a jump past 1e-4 at some rounds and not at others, on
+# the CPU alone and with the weighted mean taken as an FMA chain or as
+# rounded products summed (PERF.md, "fleet_pool's length"). pool_drift
+# reports that growth at POOL_DRIFT_ROUNDS, from one
+# ulp added to every init weight, and the card against the CPU
+POOL_CHECK_ROUNDS = 20
+POOL_DRIFT_ROUNDS = (20, 34, 50, 60)
 POOL_SIZE, POOL_BIG, POOL_COHORT = 100_000, 1_000_000, 64
 POOL_ROUNDS, POOL_BIG_ROUNDS, FLEET_PROFILE_ROUNDS = 500, 50, 20
 POOL_BUFFER, POOL_DEADLINE, POOL_PERIOD = 16, 8, 24
@@ -323,6 +369,56 @@ KWS_GATE_MIN = 0.35
 # the conv runs on the card against the CPU: TinyReptile rounds of each
 # net, KWS Reptile c4 rounds; then the profiled Omniglot rounds
 CONV_CHECK_ROUNDS, CONV_CHECK_C4_ROUNDS, CONV_PROFILE_ROUNDS = 10, 4, 20
+
+# client_mean (the weighted client mean as the jitted JAX engine sums it):
+# cohorts through the FMA chain (<= 32) and the windows of 32 (33, 64),
+# over the sine MLP, KWS and 2^20 parameters; on the device at the
+# engine's shapes; and ROADMAP queue C's TIFeD launcher case
+CM_CLIENTS = (1, 4, 8, 32, 33, 64)
+CM_SIZES = (1_153, 20_612, 1 << 20)
+CM_TIMED = ((8, 1_153), (64, 1_153), (4, 20_612))
+QUEUE_C_TIFED = ["--strategy", "tifed", "--rounds", "6", "--clients", "4",
+                 "--pool-size", "30", "--availability", "markov",
+                 "--buffer-size", "4"]
+# online_sgd and meta_update at tinyllama-1.1b's flat bf16 buffer; the
+# plain versions run in pieces (meta_update's works in float64)
+TL_CHUNK = 1 << 26
+# the dense LM through the LM launcher: the reduced tinyllama and
+# starcoder2 (window 64) at 256 tokens against the CPU, then
+# tinyllama-1.1b at full width and depth at TinyLlama's context
+DENSE_REDUCED = {
+    arch: ["--arch", arch, "--reduced", "--rounds", "4", "--seq", "256",
+           "--batch", "4", "--k-inner", "2"]
+    for arch in ("transformer", "starcoder2-15b")}
+# the launcher's batch and inner steps at TinyLlama's context; at the
+# launcher's beta 0.02 the random-init 1.1B model's inner loss climbs
+# within a round, so the client's rate is 0.002, and one more round at
+# 0.02 is reported beside it (DENSE_DEFAULT_BETA)
+DENSE_SHAPE = ["--arch", "tinyllama-1.1b", "--batch", "8", "--seq", "2048",
+               "--k-inner", "4"]
+DENSE_FULL = DENSE_SHAPE + ["--rounds", "4", "--beta", "0.002"]
+DENSE_DEFAULT_BETA = DENSE_SHAPE + ["--rounds", "1"]
+# the joint-training baseline: AdamW on one fixed batch of 8 x 2,048,
+# cosine(JOINT_LR, 3, warmup=1) (the first step's lr is 0); AdamW's first
+# step moves each of the 1.1B weights by about lr, and the loss falls at
+# 3e-5; three steps at JOINT_LR_HIGH (a pretraining rate) are reported
+# beside them, where it rises
+JOINT_STEPS, JOINT_BATCH, JOINT_SEQ, JOINT_LR = 3, 8, 2048, 3e-5
+JOINT_LR_HIGH = 3e-4
+# prefill against the teacher-forced decode path, both bf16: within 4
+# bf16 steps of the largest logit
+PREFILL_BATCH, PREFILL_LEN, PREFILL_TOL = 8, 512, 4 * 2 ** -8
+# the serve launcher's decode mode on mamba2-130m, at the dense decode
+# phase's traffic; decode held to prefill at these positions in fp32 (the
+# same weights cast), within CHECK_TOL of the largest logit. In bf16 the
+# two routes round in other places every layer and part by several
+# percent of the largest logit, in the JAX package as in the port
+# (PERF.md, "mamba2 bf16"): reported there, and the card's bf16 decode
+# step is held to the CPU's layer by layer at PREFILL_TOL
+DECODE_MAMBA = ["--mode", "decode", "--arch", "mamba2-130m", "--requests",
+                "16", "--batch", "8", "--prompt-len", "512", "--max-new",
+                "128", "--cache-len", "640"]
+MAMBA_AT = (0, 63, 511)
 
 
 T0 = time.perf_counter()
@@ -568,7 +664,7 @@ def conv_fp32_check(torch, np):
 def phase_build(build):
     """One nvcc per CUDA source, all started at once."""
     sources = ["online_sgd", "dfa_epoch_int8", "meta_update", "ssd_scan",
-               "flash_decode"]
+               "flash_decode", "client_mean"]
     t0 = time.perf_counter()
     reports = build.build(sources)
     nvcc_s = time.perf_counter() - t0
@@ -1227,6 +1323,7 @@ def phase_train_baselines(torch, np, tm):
     out, wall, counts = timed_run(torch, tm["ops"],
                                   lambda: straggle("cuda"))
     check(counts["meta_update"] == 20, "meta_update launches")
+    check(counts["client_mean"] == 20, "client_mean launches")
     runs.append({"run": "tinyreptile_c8_straggler0.5", "rounds": 20,
                  "clients": 8, "wall_s": wall, "rounds_per_s": 20 / wall,
                  "launches": counts, **built_round(tm["engine"]),
@@ -1388,6 +1485,61 @@ def pool_run(tm, size, rounds, residency, device):
         eval_every=rounds, eval_kwargs=TR_EVAL, device=device)
 
 
+def sine_tm():
+    """What ``pool_run`` and ``pool_drift`` take from ``tm``, built from the
+    ``repro_torch`` on sys.path: the port's modules and the seeded sine
+    MLP init of ``main``. On the CPU, with a checkout's ``src`` first on
+    PYTHONPATH:
+    python -c "import chip_smoke as s, torch; s.pool_drift(torch, s.sine_tm(), 'cpu')"
+    """
+    import torch
+
+    from repro_torch import core
+    from repro_torch.configs.paper_models import SINE_MLP
+    from repro_torch.data import SineTasks
+    from repro_torch.models.paper_nets import (init_paper_model,
+                                               paper_model_loss)
+    return {"core": core, "SineTasks": SineTasks,
+            "loss": functools.partial(paper_model_loss, SINE_MLP),
+            "phi": init_paper_model(SINE_MLP,
+                                    torch.Generator().manual_seed(0), "cpu")}
+
+
+def run_drift(a, b):
+    """The largest param and history-float differences of two runs."""
+    return {"params_max_abs_diff": max(
+                float((a["params"][k].cpu() - b["params"][k].cpu()).abs()
+                      .max()) for k in a["params"]),
+            "history_max_abs_diff": max(
+                abs(x[k] - y[k]) for x, y in zip(a["history"], b["history"])
+                for k in x if isinstance(x[k], float))}
+
+
+def pool_drift(torch, tm, device):
+    """How far a last-bit difference grows in fleet_pool's runs: each run
+    from the seeded init and from it with one ulp added to every weight,
+    on ``device`` (POOL_SIZE devices for each of POOL_DRIFT_ROUNDS,
+    POOL_BIG in host slabs for POOL_BIG_ROUNDS), and on the card each
+    POOL_SIZE run against the CPU's too. Reported, not gated: emits and
+    returns the rows."""
+    bumped = dict(tm, phi={k: torch.nextafter(v, torch.full_like(v, math.inf))
+                           for k, v in tm["phi"].items()})
+    cases = [(POOL_SIZE, r, "device") for r in POOL_DRIFT_ROUNDS]
+    rows = []
+    for size, rounds, residency in cases + [(POOL_BIG, POOL_BIG_ROUNDS,
+                                             "host")]:
+        a = pool_run(tm, size, rounds, residency, device)
+        row = {"pool_size": size, "rounds": rounds, "residency": residency,
+               "device": device, "one_ulp": run_drift(
+                   a, pool_run(bumped, size, rounds, residency, device))}
+        if device != "cpu" and residency == "device":
+            row["vs_cpu"] = run_drift(
+                a, pool_run(tm, size, rounds, residency, "cpu"))
+        rows.append(row)
+        emit({"phase": "fleet_pool_drift", **row})
+    return rows
+
+
 def replay_pool_state(np, tm, size, rounds):
     """``pool_run``'s identity state replayed on the host from its plan
     alone (the pool draws its data from its own streams, so the run's
@@ -1415,15 +1567,16 @@ def phase_fleet_pool(torch, np, tm):
     card for POOL_ROUNDS rounds (the pool state equal to a host replay of
     the plan, bills exact, one build, launches as reckoned: every round,
     no-show or not, replays the whole round, its 32 online_sgd and the
-    FedBuff flush's meta_update), its first FLEET_CHECK_ROUNDS against
+    FedBuff flush's meta_update), its first POOL_CHECK_ROUNDS against
     the CPU, then POOL_BIG devices with their state in host slabs for
     POOL_BIG_ROUNDS against the CPU (pool state exact, params within
-    1e-4); then FLEET_PROFILE_ROUNDS replayed rounds under the profiler."""
+    1e-4); then FLEET_PROFILE_ROUNDS replayed rounds under the profiler,
+    and pool_drift on the card."""
     core = tm["core"]
     rows, paths = [], {}
     for name, size, rounds, residency, check_rounds in (
             ("fleet_pool", POOL_SIZE, POOL_ROUNDS, "device",
-             FLEET_CHECK_ROUNDS),
+             POOL_CHECK_ROUNDS),
             ("fleet_pool_host", POOL_BIG, POOL_BIG_ROUNDS, "host",
              POOL_BIG_ROUNDS)):
         core.clear_runner_cache()
@@ -1440,7 +1593,7 @@ def phase_fleet_pool(torch, np, tm):
               f"{name}: comm_bytes against {checkins} check-ins")
         check_launches(name, counts, {
             "online_sgd": rounds * TR_SUPPORT + TR_EVAL["k_steps"],
-            "meta_update": rounds})
+            "meta_update": rounds, "client_mean": rounds})
         got = (out if check_rounds == rounds else
                pool_run(tm, size, check_rounds, residency, "cuda"))
         want = pool_run(tm, size, check_rounds, residency, "cpu")
@@ -1468,6 +1621,7 @@ def phase_fleet_pool(torch, np, tm):
         paths[name] = counts
     rows.append(profile_fleet(torch, tm))
     emit({"phase": "fleet_pool", "runs": rows})
+    pool_drift(torch, tm, "cuda")
     return paths
 
 
@@ -1538,6 +1692,8 @@ def phase_fleet_kws(torch, np, tm):
     rounds = kws.parse_args(KWS_FLEET).rounds
     check(counts["meta_update"] == 2 * rounds,
           f"fleet_kws: {counts['meta_update']} meta_update launches")
+    check(counts["client_mean"] == rounds,
+          f"fleet_kws: {counts['client_mean']} client_mean launches")
     emit({"phase": "fleet_kws", "argv": KWS_FLEET, "rounds": rounds,
           "wall_s": wall, "launches": counts, "accuracy": accs,
           "one_sample": one, "random_init": out["cuda"]["random_init"],
@@ -1570,16 +1726,19 @@ def ckpt_launches(name, rounds, start, tl):
     """The launches a run of ``ckpt_cases`` makes from round ``start``:
     per round ``TR_SUPPORT`` online_sgd (one a step for the cohort) or
     ``TIFED_EPOCHS`` dfa_epoch_int8, and one meta_update (a buffered run
-    computes its flush every round); each eval past ``start`` adds its
-    finetuning steps."""
+    computes its flush every round, and with it one client_mean); each
+    eval past ``start`` adds its finetuning steps."""
     every = CKPT_POOL_ROUNDS // 2 if "pool" in name else CKPT_EVAL_EVERY
     evals = sum(1 for r in range(start + 1, rounds + 1) if r % every == 0)
     n = rounds - start
     if name.startswith("tifed"):
         return {"dfa_epoch_int8": n * TIFED_EPOCHS, "meta_update": n,
                 "online_sgd": evals * tl.EVAL_KWARGS["k_steps"]}
-    return {"online_sgd": n * TR_SUPPORT + evals * TR_EVAL["k_steps"],
+    want = {"online_sgd": n * TR_SUPPORT + evals * TR_EVAL["k_steps"],
             "meta_update": n}
+    if "pool" in name:
+        want["client_mean"] = n
+    return want
 
 
 def ckpt_cases(tm):
@@ -2190,18 +2349,24 @@ def phase_graphs(torch, np, tm, serves, extra, conv_runs):
 
 
 def lm_launches(args):
-    """Launches one LM launcher run must make: one ssd_scan per layer per
-    inner step, one online_sgd per dtype group per step, one meta_update
-    per dtype group per round (the backward takes the plain gradient and
-    recomputes nothing through the kernel)."""
+    """Launches one LM launcher run must make: one online_sgd per dtype
+    group per step, one meta_update per dtype group per round, and for
+    the SSM family one ssd_scan per layer per inner step (the backward
+    takes the plain gradient and recomputes nothing through the kernel;
+    the dense family's attention is plain ops)."""
+    from repro_torch.bridge import tree_leaves
     from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    groups = 1 if cfg.dtype == "float32" else 2      # bf16 beside fp32
-    return {"ssd_scan": args.rounds * args.k_inner * cfg.num_layers,
-            "online_sgd": args.rounds * args.k_inner * groups,
+    groups = len({dt for _, (_, dt) in tree_leaves(
+        build_model(cfg).param_shapes())})
+    want = {"online_sgd": args.rounds * args.k_inner * groups,
             "meta_update": args.rounds * groups}
+    if cfg.family == "ssm":
+        want["ssd_scan"] = args.rounds * args.k_inner * cfg.num_layers
+    return want
 
 
 def check_launches(name, counts, want):
@@ -2210,6 +2375,29 @@ def check_launches(name, counts, want):
                               f"expected {v}")
     check(all(counts[k] == 0 for k in counts if k not in want),
           f"{name}: unexpected launches {counts}")
+
+
+def lm_rows_vs_cpu(np, bridge, name, rows, phi, want_rows, want_phi):
+    """The LM launcher's rows and final params on the card against the
+    CPU's, within 1e-4; returns the worst differences."""
+    check(len(rows) == len(want_rows), f"{name}: row count")
+    worst_row = 0.0
+    for got, want in zip(rows, want_rows):
+        check(got["comm_mb"] == want["comm_mb"], f"{name}: comm_mb")
+        check(got["alpha"] == want["alpha"], f"{name}: alpha")
+        for k in ("loss", "inner_first", "inner_last", "client"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4,
+                                       err_msg=f"{name} {k}")
+            worst_row = max(worst_row, abs(got[k] - want[k]))
+    worst = 0.0
+    got_leaves = bridge.flatten_tree(phi)
+    for path, want in bridge.flatten_tree(want_phi).items():
+        a, b = got_leaves[path].float().cpu().numpy(), want.float().numpy()
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4,
+                                   err_msg=f"{name} {path}")
+        worst = max(worst, float(np.abs(a - b).max()))
+    return {"tol": 1e-4, "rows_max_abs_diff": worst_row,
+            "params_max_abs_diff": worst}
 
 
 def phase_train_lm_reduced(torch, np, tm):
@@ -2222,26 +2410,11 @@ def phase_train_lm_reduced(torch, np, tm):
     want_rows, _, want_phi = tl.run_lm(tl.parse_args(LM_REDUCED + [
         "--device", "cpu"]))
     check_launches("train_lm_reduced", counts, lm_launches(args))
-    check(len(rows) == len(want_rows), "row count")
-    worst_row = 0.0
-    for got, want in zip(rows, want_rows):
-        check(got["comm_mb"] == want["comm_mb"], f"comm_mb {got} vs {want}")
-        check(got["alpha"] == want["alpha"], f"alpha {got} vs {want}")
-        for k in ("loss", "inner_first", "inner_last", "client"):
-            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-4,
-                                       err_msg=k)
-            worst_row = max(worst_row, abs(got[k] - want[k]))
-    worst = 0.0
-    got_leaves = bridge.flatten_tree(phi)
-    for path, want in bridge.flatten_tree(want_phi).items():
-        a, b = got_leaves[path].float().cpu().numpy(), want.float().numpy()
-        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4,
-                                   err_msg=str(path))
-        worst = max(worst, float(np.abs(a - b).max()))
+    vs_cpu = lm_rows_vs_cpu(np, bridge, "train_lm_reduced", rows, phi,
+                            want_rows, want_phi)
     row = {"phase": "train_lm_reduced", "argv": LM_REDUCED, "wall_s": wall,
            "launches": counts, "comm_mb": summary["comm_mb"],
-           "rows": rows, "vs_cpu": {"tol": 1e-4, "rows_max_abs_diff": worst_row,
-                                    "params_max_abs_diff": worst}}
+           "rows": rows, "vs_cpu": vs_cpu}
     emit(row)
     return row
 
@@ -2560,19 +2733,25 @@ def decode_build(run, built):
     return build
 
 
-def teacher_forced(torch, model, params, tokens, dev):
+def teacher_forced(torch, model, params, tokens, dev, at=None):
     """Logits (fp32, on the CPU) of decoding ``tokens`` (B, T) one at a
-    time from an empty cache of T."""
+    time from an empty cache of T, through a decode runner (its step
+    built once: on the card captured and replayed): (B, T, V), or only
+    the positions in ``at``, (B, len(at), V)."""
+    from repro_torch.runtime.steps import DecodeRunner
     B, T = tokens.shape
-    cache = model.init_cache(B, T, device=dev)
-    out = []
-    with torch.no_grad():
-        for t in range(T):
-            logits, cache = model.decode_fn(params, {
-                "tokens": torch.from_numpy(tokens[:, t:t + 1]).to(dev),
-                "cache": cache, "cache_len": t})
-            out.append(logits[:, 0].float().cpu())
-    return torch.stack(out, dim=1)
+    at = range(T) if at is None else at
+    runner = DecodeRunner(model, params, batch=B, prompt_len=T, cache_len=T,
+                          max_new=0, device=dev)
+    kept, seen = {}, []
+
+    def keep(logits):
+        if len(seen) in at:
+            kept[len(seen)] = logits[:, 0].float().cpu()
+        seen.append(1)
+    runner.wave(torch.from_numpy(tokens), on_logits=keep)
+    check(len(seen) == T and set(kept) == set(at), "teacher_forced")
+    return torch.stack([kept[t] for t in at], dim=1)
 
 
 def phase_serve_decode_full(torch, np, tm):
@@ -2727,7 +2906,7 @@ def phase_profile_decode(torch, np, model, params):
 
 
 def graphs_vs_eager_decode(torch, np, graphs, model, params):
-    """A DECODE_GRAPH wave of tinyllama-1.1b through the decode runner,
+    """A DECODE_GRAPH wave of the model through the decode runner,
     its step captured and replayed, against the same step run eagerly on
     the card: every step's logits and the tokens bit for bit, launch
     counts equal. Returns the graphs_vs_eager row."""
@@ -2754,8 +2933,8 @@ def graphs_vs_eager_decode(torch, np, graphs, model, params):
     with uncaptured(graphs):
         _, want, want_tokens, eager_wall, eager = wave()
     steps = DECODE_GRAPH["prompt_len"] + DECODE_GRAPH["max_new"]
-    check(counts == eager and counts["flash_decode"] == steps
-          * model.cfg.num_layers,
+    attn_layers = sum(kind != "mamba" for kind, _ in model.specs)
+    check(counts == eager and counts["flash_decode"] == steps * attn_layers,
           f"graphs decode: launches {counts} vs {eager}")
     check(got_tokens == want_tokens,
           "graphs decode: the replayed wave's tokens differ from eager")
@@ -2764,6 +2943,472 @@ def graphs_vs_eager_decode(torch, np, graphs, model, params):
           "graphs decode: the replayed wave's logits differ from eager")
     return {**info, **DECODE_GRAPH, "launches": counts, "bit_equal": True,
             "wall_s": wall, "eager_wall_s": eager_wall}
+
+
+# -- the weighted client mean, the dense LM's train and prefill paths, the
+# -- joint step, and the Mamba2 decode -----------------------------------------
+
+def phase_kernels_client_mean(torch, np, ops, ref, rows):
+    """client_mean against its plain version, bit for bit, at every
+    (C, P) of CM_CLIENTS x CM_SIZES (the FMA chain up to 32 clients, the
+    windows above), timed beside torch.sum(w q, 0) and its bytes bound;
+    on the device at the engine's shapes (CM_TIMED)."""
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(17)
+    for C in CM_CLIENTS:
+        for P in CM_SIZES:
+            q = (torch.randn((C, P), generator=g) * 3).to(dev)
+            w = torch.rand(C, generator=g)
+            w[torch.rand(C, generator=g) < 0.2] = 0.0
+            w = (w / w.sum().clamp_min(1e-6)).to(dev)
+            got, want = ops.client_mean(q, w), ref.client_mean(q, w)
+            check(torch.equal(got, want),
+                  f"client_mean C {C} P {P}: not bit-exact")
+
+            def fn():
+                return ops.client_mean(q, w)
+
+            def library():
+                return torch.sum(w[:, None] * q, 0)
+            # the kernel never reads the q row of a client whose weight
+            # is 0, and the function needs no product for it
+            live = int((w > 0).sum())
+            moved = 4 * (live * P + C + P)
+            t_bytes = moved / HBM_BYTES_PER_S
+            t_ops = 2 * live * P / FP32_OPS_PER_S
+            iters = 200 if C * P < 1e6 else 20
+            row = {"C": C, "P": P, "tol": "exact", "max_abs_err": 0.0,
+                   "order": ("fma_chain" if C <= ref.CLIENT_MEAN_CHAIN
+                             else "windows_of_32"),
+                   "ms": cuda_ms(torch, fn, iters),
+                   "plain_ms": cuda_ms(torch, lambda: ref.client_mean(q, w),
+                                       max(iters // 20, 2)),
+                   "library_ms": cuda_ms(torch, library, iters),
+                   "bound_ms": 1e3 * max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes": moved, "clients_read": live}
+            if (C, P) in CM_TIMED:
+                row.update(device_ms(torch, fn))
+                row.update(device_ms(torch, library, "library_device_ms"))
+            rows[f"client_mean/C{C}_P{P}"] = row
+            emit({"phase": "kernel", "kernel": "client_mean",
+                  "case": f"C{C}_P{P}", **row})
+    return rows
+
+
+def phase_client_mean_queue_c(torch, np, tm):
+    """ROADMAP queue C's launcher case (QUEUE_C_TIFED: TIFeD on a Markov
+    pool of 30 with a FedBuff buffer of 4, where the weighted mean runs
+    every round, six client_mean launches a round, one a leaf) on the
+    card and on the CPU: params and pool state exact, launches as
+    reckoned."""
+    tl, ops = tm["train"], tm["ops"]
+    tm["core"].clear_runner_cache()
+    with contextlib.redirect_stdout(io.StringIO()):
+        (row, out), wall, counts = timed_run(
+            torch, ops, lambda: tl.run_engine_strategy(
+                tl.parse_args(QUEUE_C_TIFED)))
+        _, want = tl.run_engine_strategy(tl.parse_args(
+            QUEUE_C_TIFED + ["--device", "cpu"]))
+    for k, v in want["params"].items():
+        check(torch.equal(out["params"][k].cpu(), v),
+              f"client_mean queue C: param {k} differs from the CPU")
+    for k, v in want["pool_state"].items():
+        check(np.array_equal(np.asarray(out["pool_state"][k]),
+                             np.asarray(v)),
+              f"client_mean queue C: pool state {k} differs from the CPU")
+    for key in ("comm_bytes", "per_client_bytes"):
+        check(out[key] == want[key], f"client_mean queue C: {key}")
+    args = tl.parse_args(QUEUE_C_TIFED)
+    check_launches("client_mean_queue_c", counts, {
+        "client_mean": 6 * args.rounds,
+        "dfa_epoch_int8": args.rounds * TIFED_EPOCHS,
+        "meta_update": args.rounds,
+        "online_sgd": tl.EVAL_KWARGS["k_steps"]})
+    emit({"phase": "client_mean_queue_c", "argv": QUEUE_C_TIFED,
+          "wall_s": wall, "launches": counts,
+          "query_loss": row.get("query_loss"),
+          "cpu_query_loss": want["history"][-1]["query_loss"],
+          "params_vs_cpu": "exact", "pool_state_vs_cpu": "exact"})
+    return {"client_mean_queue_c": counts}
+
+
+def phase_kernels_tinyllama(torch, np, ops, ref, rows):
+    """online_sgd and meta_update at tinyllama-1.1b's one flat bf16 buffer
+    (TINYLLAMA_PARAMS), bit for bit against their plain versions (taken
+    in TL_CHUNK pieces: meta_update's plain version works in float64),
+    beside torch.add and torch.lerp and the bytes bound."""
+    dev = torch.device("cuda")
+    n = TINYLLAMA_PARAMS
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a, b = (torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    alpha = torch.tensor([0.37], device=dev)
+
+    def chunked(fn):
+        return lambda: torch.cat([fn(a[i:i + TL_CHUNK], b[i:i + TL_CHUNK])
+                                  for i in range(0, n, TL_CHUNK)])
+    moved = 3 * n * 2
+    for kernel, fn, plain, library, nops in (
+            ("online_sgd", lambda: ops.online_sgd(a, b, 0.02),
+             chunked(lambda x, y: ref.online_sgd(x, y, 0.02)),
+             lambda: torch.add(a, b, alpha=-0.02), 2 * n),
+            ("meta_update", lambda: ops.meta_update(a, b, alpha),
+             chunked(lambda x, y: ref.meta_update(x, y, alpha)),
+             lambda: torch.lerp(a, b, 0.37), 3 * n)):
+        check(torch.equal(fn(), plain()), f"{kernel} tinyllama: not "
+                                          f"bit-exact")
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+        row = {"n": n, "dtype": "bfloat16", "tol": "exact",
+               "max_abs_err": 0.0,
+               "ms": cuda_ms(torch, fn, 5), **device_ms(torch, fn, calls=5),
+               "plain_ms": cuda_ms(torch, plain, 2),
+               "plain_chunk": TL_CHUNK,
+               "library_ms": cuda_ms(torch, library, 5),
+               **device_ms(torch, library, "library_device_ms", calls=5),
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": moved}
+        rows[f"{kernel}/tinyllama_bf16_{n}"] = row
+        emit({"phase": "kernel", "kernel": kernel,
+              "case": f"tinyllama_bf16_{n}", **row})
+    del a, b
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_train_dense_reduced(torch, np, tm):
+    """The reduced tinyllama and starcoder2 (window 64, at 256 tokens, so
+    the window masks) through the LM launcher on the card and on the CPU
+    from the same seeded init: rows and params within 1e-4, launches as
+    reckoned (no ssd_scan: the dense family's attention is plain ops)."""
+    tl, ops, bridge = tm["train"], tm["ops"], tm["bridge"]
+    runs, paths = [], {}
+    for name, argv in DENSE_REDUCED.items():
+        args = tl.parse_args(argv)
+        (rows, summary, phi), wall, counts = timed_run(
+            torch, ops, lambda: tl.run_lm(args))
+        want_rows, _, want_phi = tl.run_lm(tl.parse_args(argv + [
+            "--device", "cpu"]))
+        check_launches(f"train_dense_reduced {name}", counts,
+                       lm_launches(args))
+        runs.append({"run": name, "argv": argv, "wall_s": wall,
+                     "launches": counts, "comm_mb": summary["comm_mb"],
+                     "rows": rows,
+                     "vs_cpu": lm_rows_vs_cpu(np, bridge, name, rows, phi,
+                                              want_rows, want_phi)})
+        paths[f"train_dense_reduced_{name}"] = counts
+    emit({"phase": "train_dense_reduced", "runs": runs})
+    return paths
+
+
+def phase_train_dense_full(torch, np, tm):
+    """tinyllama-1.1b at full width and depth, bf16, through the LM
+    launcher (DENSE_FULL): finite losses, the client adapts in most
+    rounds, launches as reckoned, rounds/s, tokens/s and peak memory;
+    then one more round of the same step under the profiler (device
+    activity only): its device time and idle share; then one launcher
+    round at the launcher's own beta (DENSE_DEFAULT_BETA), its inner
+    losses reported."""
+    tl, ops = tm["train"], tm["ops"]
+    args = tl.parse_args(DENSE_FULL)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (rows, summary, phi), wall, counts = timed_run(
+        torch, ops, lambda: tl.run_lm(args))
+    peak = torch.cuda.max_memory_allocated()
+    check_launches("train_dense_tinyllama_1_1b", counts, lm_launches(args))
+    for r in rows:
+        for k in ("loss", "inner_first", "inner_last"):
+            check(math.isfinite(r[k]), f"round {r['round']} {k} = {r[k]}")
+    adapted = sum(r["inner_last"] < r["inner_first"] for r in rows)
+    check(adapted >= len(rows) - 1,
+          f"the client adapted in only {adapted} of {len(rows)} rounds")
+    n = sum(t.numel() for _, t in tm["bridge"].tree_leaves(phi))
+    check(n == TINYLLAMA_PARAMS, f"{n} parameters")
+    tokens = args.rounds * args.batch * args.seq
+    rounds_s = sum(r["dt_s"] for r in rows)
+    profile = profile_dense_round(torch, np, tm, args, phi)
+    del phi
+    torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(io.StringIO()):
+        default, _, phi = tl.run_lm(tl.parse_args(DENSE_DEFAULT_BETA))
+    del phi
+    torch.cuda.empty_cache()
+    row = {"phase": "train_dense_tinyllama_1_1b", "argv": DENSE_FULL,
+           "params": n, "wall_s": wall, "rounds_per_s": args.rounds / wall,
+           "tokens_per_s": tokens / wall, "rounds_only_s": rounds_s,
+           "rounds_only_tokens_per_s": tokens / rounds_s,
+           "max_memory_allocated_gb": peak / 1e9, "launches": counts,
+           "comm_mb": summary["comm_mb"], "rounds_adapted": adapted,
+           "rows": rows, "profile_one_round": profile,
+           "default_beta_round": {
+               "argv": DENSE_DEFAULT_BETA,
+               **{k: default[0][k] for k in ("inner_first", "inner_last",
+                                             "loss")}}}
+    emit(row)
+    return {"train_dense_tinyllama_1_1b": counts}
+
+
+def profile_dense_round(torch, np, tm, args, phi):
+    """One round of the launcher's step at ``args``' shape on ``phi``
+    under torch.profiler, device activity only: wall, device busy time,
+    idle share, kernels and the top ones."""
+    from repro_torch.data import LMClientStream
+    from repro_torch.runtime.steps import make_meta_train_step, microbatch
+
+    model = tm["build_model"](tm["get_arch"](args.arch))
+    step = make_meta_train_step(model, beta=args.beta)
+    raw = microbatch(LMClientStream(model.cfg.vocab_size, 0).batch(
+        np.random.default_rng(321), args.batch, args.seq), args.k_inner)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    alpha = torch.tensor([0.5], device="cuda")
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        new, m = step(phi, batch, alpha)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del new
+    by_name = {ev.key: (ev.self_device_time_total, ev.count)
+               for ev in prof.key_averages()
+               if ev.device_type == cuda and ev.self_device_time_total > 0}
+    dev_us = sum(t for t, _ in by_name.values())
+    check(dev_us > 0, "the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms": 1e3 * wall, "device_busy_ms": dev_us / 1e3,
+            "device_idle_share": 1 - dev_us / 1e6 / wall,
+            "kernels_launched": sum(c for _, c in by_name.values()),
+            "top_device": [[k[:80], t / 1e3, c, t / dev_us]
+                           for k, (t, c) in top]}
+
+
+def joint_steps(torch, opt, step, params, batch):
+    """JOINT_STEPS steps of ``step`` from ``params``: the losses, lrs and
+    step times, the peak memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p, state, n = params, opt.init(params), 0
+    losses, lrs, times = [], [], []
+    for _ in range(JOINT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, state, n, met = step(p, state, n, batch)
+        losses.append(met["loss"].item())
+        times.append(time.perf_counter() - t0)
+        lrs.append(float(met["lr"]))
+    peak = torch.cuda.max_memory_allocated()
+    del p, state
+    torch.cuda.empty_cache()
+    return losses, lrs, times, peak
+
+
+def phase_joint_step_full(torch, np, tm, model, params):
+    """JOINT_STEPS steps of make_joint_train_step on tinyllama-1.1b at
+    full width and depth (the decode phases' bf16 weights) with adamw()
+    and cosine(JOINT_LR, JOINT_STEPS, warmup=1), on one fixed batch of
+    JOINT_BATCH x JOINT_SEQ tokens: the loss after the last step below
+    the first step's, every loss finite, peak memory and step times;
+    then the same steps at JOINT_LR_HIGH, their losses reported."""
+    from repro_torch import optim
+    from repro_torch.data import LMClientStream
+    from repro_torch.runtime.steps import make_joint_train_step
+
+    raw = LMClientStream(model.cfg.vocab_size, 0).batch(
+        np.random.default_rng(7), JOINT_BATCH, JOINT_SEQ)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
+    opt = optim.adamw()
+
+    def step_at(lr):
+        return make_joint_train_step(model, opt, optim.cosine(
+            lr, JOINT_STEPS, warmup=1))
+    ops = tm["ops"]
+    ops.reset_launch_counts()
+    losses, lrs, times, peak = joint_steps(torch, opt, step_at(JOINT_LR),
+                                           params, batch)
+    counts = ops.launch_counts()
+    check(all(math.isfinite(x) for x in losses), f"joint losses {losses}")
+    check(losses[-1] < losses[0],
+          f"joint step: loss {losses[-1]} after {JOINT_STEPS} steps, "
+          f"{losses[0]} at the first")
+    check_launches("joint_step_full", counts, {})
+    high = joint_steps(torch, opt, step_at(JOINT_LR_HIGH), params, batch)[0]
+    emit({"phase": "joint_step_full", "arch": model.cfg.name,
+          "batch": JOINT_BATCH, "seq": JOINT_SEQ, "optimizer": "adamw",
+          "schedule": f"cosine({JOINT_LR}, {JOINT_STEPS}, warmup=1)",
+          "losses": losses, "lrs": lrs, "step_s": times,
+          "tokens_per_s_after_first": JOINT_BATCH * JOINT_SEQ * (
+              JOINT_STEPS - 1) / sum(times[1:]),
+          "max_memory_allocated_gb": peak / 1e9, "launches": counts,
+          "losses_at_lr_high": {"lr": JOINT_LR_HIGH, "losses": high}})
+
+
+def prefill_vs_decode(torch, np, model, params, tokens, at, tag, tol):
+    """``prefill_fn`` of the first t + 1 tokens against the teacher-forced
+    decode logits at position t, for each t of ``at``: within ``tol`` of
+    the largest decode logit (reported only where ``tol`` is None).
+    Returns the rows."""
+    from repro_torch.runtime.steps import make_prefill_step
+    decoded = teacher_forced(torch, model, params, tokens, "cuda", at)
+    prefill = make_prefill_step(model)
+    rows = []
+    for i, t in enumerate(at):
+        got = prefill(params, {"tokens": torch.from_numpy(
+            tokens[:, :t + 1]).cuda()})[:, 0].float().cpu()
+        want = decoded[:, i]
+        scale = want.abs().max().item()
+        diff = (got - want).abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"{tag}: prefill at {t}")
+        check(tol is None or diff <= tol * scale,
+              f"{tag}: prefill vs decode at {t}: {diff} > {tol} x {scale}")
+        rows.append({"t": t, "max_abs_logit": scale,
+                     "max_abs_diff": diff, "diff_of_max": diff / scale,
+                     "tol_of_max": tol,
+                     "same_argmax": (got.argmax(-1) == want.argmax(-1))
+                     .float().mean().item()})
+    return rows
+
+
+def phase_prefill_dense_full(torch, np, tm, model, params):
+    """prefill_fn of tinyllama-1.1b (the decode phases' bf16 weights) at
+    PREFILL_BATCH x PREFILL_LEN tokens against the teacher-forced decode
+    path's logits at the last position; prefill's own time."""
+    from repro_torch.runtime.steps import make_prefill_step
+    tokens = np.random.default_rng(13).integers(
+        0, model.cfg.vocab_size, (PREFILL_BATCH, PREFILL_LEN))
+    last = PREFILL_LEN - 1
+    tm["ops"].reset_launch_counts()
+    rows = prefill_vs_decode(torch, np, model, params, tokens, (last,),
+                             "prefill_dense_full", PREFILL_TOL)
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    prefill = make_prefill_step(model)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(torch, lambda: prefill(params, batch), 2)
+    emit({"phase": "prefill_dense_full", "arch": model.cfg.name,
+          "batch": PREFILL_BATCH, "seq": PREFILL_LEN, "vs_decode": rows,
+          "prefill_ms": ms,
+          "prefill_tokens_per_s": PREFILL_BATCH * PREFILL_LEN / ms * 1e3,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "decode_launches": tm["ops"].launch_counts()})
+
+
+def bf16_layers_vs_cpu(torch, bridge, model, params, tokens):
+    """The bf16 decode step layer by layer, the card against the CPU:
+    ``tokens`` decoded eagerly on the card, and at each position of
+    MAMBA_AT every block, then the head, run on the card and on the CPU
+    (the same weights moved there) from the card's own input and cache
+    entry: the block's output and its new conv and ssm states, and the
+    logits, each within PREFILL_TOL of its largest entry. Whole-model
+    bf16 logits cannot be held so: each op's last bit is amplified over
+    the layers (the card at another batch size parts as far). Returns
+    the worst share of the largest entry for each kind of tensor."""
+    from repro_torch.models.layers import rms_norm
+    host = bridge.unflatten_tree({path: t.cpu() for path, t in
+                                  bridge.tree_leaves(params)})
+    B, T = tokens.shape
+    tok = torch.from_numpy(tokens).cuda()
+    cache = model.init_cache(B, T, device="cuda")
+    eps = model.cfg.norm_eps
+    worst = {"block_out": 0.0, "conv": 0.0, "ssm": 0.0, "logits": 0.0}
+
+    def hold(kind, got, want, where):
+        got, want = got.float().cpu(), want.float()
+        share = ((got - want).abs().max() / want.abs().max()).item()
+        check(share <= PREFILL_TOL,
+              f"mamba2 bf16 decode {where}: {kind} card vs CPU {share} of "
+              f"the largest > {PREFILL_TOL}")
+        worst[kind] = max(worst[kind], share)
+
+    with torch.no_grad():
+        for t in range(T):
+            batch = {"tokens": tok[:, t:t + 1], "cache": cache,
+                     "cache_len": t}
+            if t not in MAMBA_AT:
+                model.decode_fn(params, batch)
+                continue
+            x = params["embed"][tok[:, t:t + 1].long()]
+            for i, (bp, hp, entry, (kind, window)) in enumerate(zip(
+                    params["layers"], host["layers"], cache["layers"],
+                    model.specs)):
+                e_cpu = {k: v.to("cpu", copy=True) for k, v in entry.items()}
+                x_cpu = x.cpu()
+                x = model._decode_block(kind, window, bp, x, entry, t, None)
+                want = model._decode_block(kind, window, hp, x_cpu, e_cpu,
+                                           t, None)
+                where = f"at {t}, layer {i}"
+                hold("block_out", x, want, where)
+                for k in ("conv", "ssm"):
+                    hold(k, entry[k], e_cpu[k], where)
+            x_cpu = x.cpu()
+            logits = rms_norm(x, params["final_norm"], eps) @ \
+                model._lm_head(params)
+            want = rms_norm(x_cpu, host["final_norm"], eps) @ \
+                model._lm_head(host)
+            hold("logits", logits, want, f"at {t}")
+    return {"rows": B, "at": list(MAMBA_AT), "tol_of_max": PREFILL_TOL,
+            "worst_of_max": worst}
+
+
+def phase_decode_mamba_full(torch, np, tm):
+    """mamba2-130m at full width and depth, bf16, through the decode
+    launcher (DECODE_MAMBA): the step built once and replayed, finite
+    logits, no kernel launch (the SSM decode step is plain tensor ops, as
+    in the JAX package), tokens/s and step time; a DECODE_GRAPH wave
+    replayed against the same step run eagerly, bit for bit; then the
+    teacher-forced decode logits against prefill_fn (the ssd_scan route)
+    at MAMBA_AT, gated in fp32 (the weights cast), reported in bf16; the
+    bf16 step at MAMBA_AT against the CPU's, layer by layer, at
+    PREFILL_TOL."""
+    serve, ops, bridge = tm["serve"], tm["ops"], tm["bridge"]
+    args = serve.parse_args(DECODE_MAMBA)
+    model = tm["build_model"](tm["get_arch"](args.arch))
+    params = model.init(torch.Generator().manual_seed(args.seed), "cuda")
+    n = sum(t.numel() for _, t in bridge.tree_leaves(params))
+    finite, built = [], []
+    torch.cuda.reset_peak_memory_stats()
+    (row, out), wall, counts = timed_run(torch, ops, lambda: serve.run_decode(
+        args, params=params,
+        on_logits=lambda lg: finite.append(torch.isfinite(lg).all()),
+        on_build=built.append))
+    peak = torch.cuda.max_memory_allocated()
+    build = decode_build("decode_mamba2_130m", built)
+    del built
+    check_launches("decode_mamba2_130m", counts, {})
+    steps = decode_steps(args)
+    check(len(finite) == steps and bool(torch.stack(finite).all()),
+          "a logit is not finite")
+    check(len(out) == args.requests
+          and all(len(o) == args.max_new for o in out), "outputs")
+    graph = graphs_vs_eager_decode(torch, np, tm["graphs"], model, params)
+    tokens = np.random.default_rng(17).integers(
+        0, model.cfg.vocab_size, (PREFILL_BATCH, max(MAMBA_AT) + 1))
+    ops.reset_launch_counts()
+    bf16 = prefill_vs_decode(torch, np, model, params, tokens, MAMBA_AT,
+                             "decode_mamba2_130m bf16", None)
+    cross = ops.launch_counts()
+    vs_cpu = bf16_layers_vs_cpu(torch, bridge, model, params, tokens)
+    check(cross["ssd_scan"] == len(MAMBA_AT) * model.cfg.num_layers,
+          f"the prefill cross-check's ssd_scan launches: {cross}")
+    m32 = tm["build_model"](dataclasses.replace(model.cfg, dtype="float32"))
+    p32 = bridge.unflatten_tree({path: t.float() for path, t in
+                                 bridge.tree_leaves(params)})
+    del params
+    fp32 = prefill_vs_decode(torch, np, m32, p32, tokens, MAMBA_AT,
+                             "decode_mamba2_130m fp32", CHECK_TOL)
+    del p32
+    vs_prefill = {"fp32": fp32, "bf16": bf16}
+    emit({"phase": "decode_mamba2_130m", "argv": DECODE_MAMBA, "params": n,
+          "wall_s": wall, "tok_per_s": row["tokens_generated"] / wall,
+          "processed_tok_per_s": steps * args.batch / wall,
+          "decode_steps": steps, "step_ms": 1e3 * wall / steps,
+          "max_memory_allocated_gb": peak / 1e9, "launches": counts,
+          "row": row, "build": build, "graphs_vs_eager": graph,
+          "vs_prefill": vs_prefill, "prefill_launches": cross,
+          "bf16_vs_cpu": vs_cpu})
+    return {"decode_mamba2_130m": counts}
 
 
 def main():
@@ -2793,19 +3438,28 @@ def main():
     rows = phase_kernels(torch, np, ops, ref)
     phase_kernels_lm(torch, np, ops, ref, rows)
     phase_kernels_decode(torch, np, ops, ref, rows)
+    phase_kernels_client_mean(torch, np, ops, ref, rows)
+    phase_kernels_tinyllama(torch, np, ops, ref, rows)
 
     # the decode slice first: its paths are the newest
     from repro_torch import bridge, graphs
     from repro_torch.configs import get_arch
     from repro_torch.launch import serve as serve_launcher
+    from repro_torch.models.transformer import build_model
 
     dm = {"ops": ops, "bridge": bridge, "serve": serve_launcher,
-          "get_arch": get_arch}
+          "get_arch": get_arch, "build_model": build_model,
+          "graphs": graphs}
     s_dec_red = phase_serve_decode_reduced(torch, np, dm)
     s_dec, dec_model, dec_params = phase_serve_decode_full(torch, np, dm)
     phase_profile_decode(torch, np, dec_model, dec_params)
     g_dec = graphs_vs_eager_decode(torch, np, graphs, dec_model, dec_params)
+    # the dense family's prefill and joint step on the same weights
+    phase_prefill_dense_full(torch, np, dm, dec_model, dec_params)
+    phase_joint_step_full(torch, np, dm, dec_model, dec_params)
     del dec_params
+    torch.cuda.empty_cache()
+    dec_mamba = phase_decode_mamba_full(torch, np, dm)
 
     mods = (MetricsTracker, AdaptationServer, ops)
     phi = init_paper_model(SINE_MLP, torch.Generator().manual_seed(0), "cpu")
@@ -2832,6 +3486,7 @@ def main():
     tm = {"core": core, "ops": ops, "train": train, "SineTasks": SineTasks,
           "loss": functools.partial(paper_model_loss, SINE_MLP), "phi": phi,
           "bridge": bridge, "mamba2": mamba2, "engine": engine,
+          "build_model": build_model, "get_arch": get_arch,
           "graphs": graphs, "nets": paper_nets, "cfgs": PAPER_MODELS,
           "kws": kws, "MetricsTracker": MetricsTracker,
           "dists": {"kws_conv": KWSTasks(), "omniglot_conv": OmniglotTasks()},
@@ -2843,6 +3498,7 @@ def main():
     t_rep = phase_train_reptile(torch, np, tm)
     t_base = phase_train_baselines(torch, np, tm)
     phase_profile_train(torch, tm)
+    queue_c = phase_client_mean_queue_c(torch, np, tm)
     fleet_paths = {**phase_fleet_tifed(torch, np, tm),
                    **phase_fleet_partial(torch, np, tm),
                    **phase_fleet_pool(torch, np, tm),
@@ -2861,6 +3517,9 @@ def main():
     t_lm, lm_phi = phase_train_lm_full(torch, np, tm)
     phase_profile_lm(torch, np, tm, lm_phi)
     del lm_phi
+    torch.cuda.empty_cache()
+    dense_paths = {**phase_train_dense_reduced(torch, np, tm),
+                   **phase_train_dense_full(torch, np, tm)}
 
 
     # every main path's launches, each counted from 0 just before it
@@ -2873,7 +3532,8 @@ def main():
              "train_lm_mamba2_130m": t_lm["launches"],
              "serve_decode_reduced": s_dec_red["launches"],
              "serve_decode_tinyllama_1_1b": s_dec["launches"],
-             **fig4_paths, **fleet_paths, **ckpt_paths}
+             **fig4_paths, **fleet_paths, **ckpt_paths, **queue_c,
+             **dense_paths, **dec_mamba}
     kernels = []
     for kernel, route, source, replaces, row in (
             ("online_sgd", "cuda", "src/repro_torch/kernels/csrc/online_sgd.cu",
@@ -2899,7 +3559,11 @@ def main():
              "src/repro/kernels/flash_decode.py:68",
              # the route the decode graph launches: L read on the device
              rows["flash_decode/path_8x32x4x64x2048_bfloat16_L2048_w0_devL"]
-             )):
+             ),
+            # no Pallas function computes the weighted client mean
+            ("client_mean", "cuda",
+             "src/repro_torch/kernels/csrc/client_mean.cu", None,
+             rows["client_mean/C64_P1153"])):
         by_path = {p: c[kernel] for p, c in paths.items() if c[kernel]}
         kernels.append(
             {"name": kernel, "route": route, "source": source,

@@ -111,10 +111,10 @@ def tifed_requantize(phi):
 def weighted_client_mean(results: torch.Tensor, weights: torch.Tensor):
     """``sum_c weights[c] * results[c]`` along the leading clients axis,
     in fp32. Zero-weight clients are zeroed before the sum, so a
-    scheduled-out client cannot poison the round with a NaN."""
-    q = results.float()
-    w = weights.reshape((-1,) + (1,) * (q.dim() - 1))
-    return torch.sum(w * torch.where(w > 0, q, 0.0), dim=0)
+    scheduled-out client cannot poison the round with a NaN. One
+    ``client_mean`` launch on the card; it rounds where the JAX engine's
+    jitted mean rounds (``kernels/ref.py::client_mean``)."""
+    return kops.client_mean(results, weights)
 
 
 def reptile_aggregate(phi, phi_hats, alpha_t):

@@ -11,6 +11,7 @@ a decode step can be captured once and replayed.
 from __future__ import annotations
 
 from repro_torch.bridge import FlatLayout, flatten_tree, unflatten_tree
+from repro_torch.kernels.client_mean import client_mean
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.meta_update import meta_update
 from repro_torch.kernels.online_sgd import online_sgd, online_sgd_momentum
@@ -21,7 +22,7 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 KERNELS = {"online_sgd": online_sgd, "dfa_epoch_int8": dfa_epoch_int8,
            "meta_update": meta_update,
            "online_sgd_momentum": online_sgd_momentum, "ssd_scan": ssd_scan,
-           "flash_decode": flash_decode}
+           "flash_decode": flash_decode, "client_mean": client_mean}
 
 
 def reset_launch_counts() -> None:

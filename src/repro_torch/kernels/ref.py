@@ -22,6 +22,23 @@ SCALE_KEYS = ("f0", "f1", "fe", "floss", "ftw0", "ftw1", "ftw2",
               "ftb0", "ftb1", "ftb2")
 
 
+def _fma_f32(a, b, c):
+    """``fma(a, b, c)`` of fp32 tensors, rounded once to fp32: the
+    product is exact in float64, the sum is taken there and rounded to
+    odd (one float64 ulp toward the rounding error where it is nonzero
+    and the last bit even), so the one cast to fp32 that follows rounds
+    exactly as a single fp32 fused multiply-add does."""
+    prod = a.double() * b.double()                            # exact
+    base = c.double()
+    s = base + prod
+    back = s - base                                           # TwoSum
+    err = (base - (s - back)) + (prod - back)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def meta_update(w, w_hat, alpha):
     """Reptile interpolation ``w + alpha * (w_hat - w)`` in fp32 math,
     stored in w's dtype. ``alpha`` is a float or a one-element fp32
@@ -29,22 +46,69 @@ def meta_update(w, w_hat, alpha):
 
     The difference is rounded to fp32, then the product and the sum are
     rounded once together: ``fma(alpha, w_hat - w, w)``, as the JAX
-    engine's jitted interpolation compiles. The sum is taken in float64,
-    where ``alpha * d`` is exact, and rounded to odd (one float64 ulp
-    toward the rounding error where it is nonzero and the last bit
-    even), so the one cast to fp32 that follows rounds exactly as a
-    single fp32 FMA does."""
+    engine's jitted interpolation compiles (``_fma_f32``)."""
     w32 = w.float()
     a = torch.as_tensor(alpha, dtype=torch.float32, device=w.device)
-    prod = a.double() * (w_hat.float() - w32).double()        # exact
-    base = w32.double()
-    s = base + prod
-    back = s - base                                           # TwoSum
-    err = (base - (s - back)) + (prod - back)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, math.inf, -math.inf).to(s.dtype)
-    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return s.float().to(w.dtype)
+    return _fma_f32(a, w_hat.float() - w32, w32).to(w.dtype)
+
+
+#: the longest cohort whose weighted mean XLA on the CPU fuses into one
+#: chain of fused multiply-adds; longer ones are summed in windows of it
+CLIENT_MEAN_CHAIN = 32
+
+
+def client_mean_plan(clients: int):
+    """The windows of the weighted client mean above
+    ``CLIENT_MEAN_CHAIN`` clients, level by level: ``[(n, lo), ...]``,
+    n entries summed in windows of 32 with ``lo`` zeros in front (and
+    the rest of the last window behind), until at most 32 entries are
+    left. Empty at or below 32."""
+    plan, n, k = [], clients, CLIENT_MEAN_CHAIN
+    while n > k:
+        windows = -(-n // k)
+        plan.append((n, (windows * k - n) // 2))
+        n = windows
+    return plan
+
+
+def client_mean(results, weights):
+    """``sum_c weights[c] * where(weights[c] > 0, results[c], 0)`` over
+    the leading clients axis, in fp32, as the JAX engine's jitted
+    ``weighted_client_mean`` computes it on the CPU. results: (C, ...)
+    fp32; weights: (C,) fp32. Zero-weight clients are zeroed before the
+    sum, so a scheduled-out client's NaN never reaches it.
+
+    XLA fuses the multiply and the reduction of up to 32 clients into
+    one loop, which LLVM contracts into a chain of fused multiply-adds
+    in client order from 0: ``acc = fma(w[c], q[c], acc)``, one rounding
+    a step (``_fma_f32``). Above 32 the products are rounded on their
+    own and summed by ``reduce-window``s of 32 with the padding split
+    in front and behind (``client_mean_plan``), each window in order
+    from 0, level by level until at most 32 partial sums are left,
+    which are summed in order from 0."""
+    C = results.shape[0]
+    q = results.float().reshape(C, -1)
+    w = weights.float().reshape(C, 1)
+    x = torch.where(w > 0, q, torch.zeros((), device=q.device))
+    plan = client_mean_plan(C)
+    acc = torch.zeros(q.shape[1], dtype=torch.float32, device=q.device)
+    if not plan:
+        for c in range(C):
+            acc = _fma_f32(w[c], x[c], acc)
+        return acc.reshape(results.shape[1:])
+    x = w * x                                     # each product rounded
+    k = CLIENT_MEAN_CHAIN
+    for n, lo in plan:
+        windows = -(-n // k)
+        x = torch.nn.functional.pad(x, (0, 0, lo, windows * k - n - lo))
+        x = x.reshape(windows, k, -1)
+        part = torch.zeros_like(x[:, 0])
+        for i in range(k):
+            part = part + x[:, i]
+        x = part
+    for c in range(x.shape[0]):
+        acc = acc + x[c]
+    return acc.reshape(results.shape[1:])
 
 
 def online_sgd(p, g, lr, m=None, momentum=0.0):

@@ -4,14 +4,18 @@ Two modes, picked by ``--mode``, with the JAX launcher's parse-time
 check (flags of the other mode are rejected before any tensor work):
 
 - ``decode`` (the default): batched autoregressive decoding of a dense
-  LM with a KV cache. Waves of ``--batch`` prompts fill the slots (the
-  last wave padded with zero prompts), each prompt is fed through
-  teacher-forced decode steps, then ``--max-new`` tokens are decoded
-  greedily. Every layer's attention runs through the ``flash_decode``
-  kernel. One JSON row with tokens/s:
+  LM with a KV cache, or of a Mamba2 LM with its conv window and state.
+  Waves of ``--batch`` prompts fill the slots (the last wave padded with
+  zero prompts), each prompt is fed through teacher-forced decode steps,
+  then ``--max-new`` tokens are decoded greedily. Every attention
+  layer's attention runs through the ``flash_decode`` kernel; the Mamba2
+  step is plain tensor ops, as in the JAX package. One JSON row with
+  tokens/s:
 
       PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
           --arch tinyllama-1.1b --reduced --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
+          --arch mamba2-130m --reduced --device cpu
 
 - ``adapt``: a continuous-batching ``serving.AdaptationServer`` over
   the sine-MLP meta-init sustains a ragged stream of client-adaptation
@@ -28,8 +32,8 @@ CPU instead. The weights (the LM, or phi) are a fresh init from
 others; ``--ckpt-dir`` serves the phi of a round-state checkpoint that
 ``run_federated(ckpt_dir=...)`` of either package wrote, or of a bare
 ``save_checkpoint`` snapshot). Decode runs the dense family
-(tinyllama-1.1b, starcoder2-15b); the other families are not ported
-yet.
+(tinyllama-1.1b, starcoder2-15b) and the SSM family (mamba2-130m); the
+other families are not ported yet.
 """
 from __future__ import annotations
 
@@ -53,9 +57,10 @@ _ADAPT_ONLY = (("--strategy", "strategy", "fp32"), ("--slots", "slots", 64),
 
 
 def decode_archs():
-    """The architectures whose decode path is ported: the dense family."""
+    """The architectures whose decode path is ported: the dense and SSM
+    families."""
     return tuple(a for a in list_archs()
-                 if a in ALL_ARCHS and get_arch(a).family == "dense")
+                 if a in ALL_ARCHS and get_arch(a).family in ("dense", "ssm"))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "phi instead)")
     # decode-mode flags
     ap.add_argument("--arch", default=None,
-                    help="LM to decode with (ported: the dense family, "
+                    help="LM to decode with (ported: the dense and SSM "
+                         "families, "
                          f"{', '.join(decode_archs())})")
     ap.add_argument("--reduced", action="store_true",
                     help="the family's smoke config (2 layers, d_model "
@@ -114,7 +120,7 @@ def parse_args(argv=None) -> argparse.Namespace:
             ap.error(f"--arch {args.arch!r} not in {sorted(ALL_ARCHS)}")
         if args.arch not in decode_archs():
             ap.error(f"--arch {args.arch} is not ported yet: the port's "
-                     f"decode mode runs the dense family "
+                     f"decode mode runs the dense and SSM families "
                      f"({'|'.join(decode_archs())})")
         for flag, v, least in (("--batch", args.batch, 1),
                                ("--prompt-len", args.prompt_len, 1),

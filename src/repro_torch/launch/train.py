@@ -2,6 +2,7 @@
 row per round (the LM launcher) or one summary row (the round engine).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m
+    PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2 \
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --strategy reptile
@@ -9,13 +10,14 @@ row per round (the LM launcher) or one summary row (the round engine).
 The default ``--strategy tinyreptile`` is the JAX package's LM launcher
 on its plain route: each round takes one client's ``LMClientStream``
 batch, splits it into ``--k-inner`` microbatches, runs that many
-streaming SGD steps (``online_sgd``) through the Mamba2 model (whose
-SSD scan is the ``ssd_scan`` kernel), and interpolates phi toward the
-result with the annealed alpha (``meta_update``). Its defaults are the
-JAX launcher's (20 rounds, batch 8, seq 64, k-inner 4, beta 0.02, alpha
-1, 64 clients, seed 0); ``--reduced`` runs the family's smoke config.
-Only the SSM family is ported: ``--arch mamba2-130m`` (or the family
-keyword ``mamba2``).
+streaming SGD steps (``online_sgd``) through the LM, and interpolates
+phi toward the result with the annealed alpha (``meta_update``). Its
+defaults are the JAX launcher's (20 rounds, batch 8, seq 64, k-inner 4,
+beta 0.02, alpha 1, 64 clients, seed 0); ``--reduced`` runs the
+family's smoke config. The SSM family (``--arch mamba2-130m``, family
+keyword ``mamba2``; its SSD scan is the ``ssd_scan`` kernel) and the
+dense family (``--arch tinyllama-1.1b`` or ``starcoder2-15b``, family
+keyword ``transformer``) are ported.
 
 ``--strategy reptile|fedavg|fedsgd|transfer|tifed`` runs
 ``run_federated`` with the JAX launcher's defaults (64 clients per round,
@@ -40,7 +42,8 @@ Both routes run on the GPU; ``--device cpu`` runs the plain PyTorch
 path on the CPU instead. The init is drawn from ``--seed`` with torch's
 generator, which does not reproduce ``jax.random``'s init at the same
 seed (``init_params=`` carries the JAX package's init in). The flags of
-routes not ported yet (the other architectures, the engine's LM route
+routes not ported yet (the MoE, hybrid, encoder-decoder and VLM
+architectures, the engine's LM route
 ``--strategy ... --arch``, meshes, multi-process runs, and checkpoints
 and resume on the LM launcher) are rejected at parse time.
 """
@@ -57,7 +60,7 @@ ENGINE_STRATEGIES = ("reptile", "fedavg", "fedsgd", "transfer", "tifed")
 #: JAX launcher)
 ARCH_FAMILIES = {"transformer": "tinyllama-1.1b", "mamba2": "mamba2-130m",
                  "moe": "mixtral-8x22b"}
-PORTED_ARCHS = ("mamba2-130m",)
+PORTED_ARCHS = ("mamba2-130m", "tinyllama-1.1b", "starcoder2-15b")
 #: flags not ported yet, by the slice that ports them
 NOT_PORTED_FLAGS = {
     "--devices": "the multi-device slice", "--mesh": "the multi-device slice",
@@ -111,7 +114,9 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("tinyreptile",) + ENGINE_STRATEGIES)
     ap.add_argument("--arch", choices=list(ALL_ARCHS) + sorted(ARCH_FAMILIES),
                     help="LM architecture of the tinyreptile launcher "
-                         "(ported: mamba2-130m, family keyword mamba2)")
+                         "(ported: mamba2-130m, tinyllama-1.1b, "
+                         "starcoder2-15b; family keywords mamba2, "
+                         "transformer)")
     ap.add_argument("--reduced", action="store_true",
                     help="the family's smoke config (2 layers, d_model "
                          "256, fp32)")
@@ -202,7 +207,7 @@ def parse_args(argv=None) -> argparse.Namespace:
         if args.arch not in PORTED_ARCHS:
             ap.error(f"--arch {args.arch} is not ported yet: the port's LM "
                      f"launcher runs {'|'.join(PORTED_ARCHS)} (--arch "
-                     f"mamba2)")
+                     f"mamba2, --arch transformer)")
         if args.participation < 1.0:
             ap.error("--participation is not ported yet on the LM "
                      "launcher (one client per round)")

@@ -1,6 +1,17 @@
-"""GQA attention on the decode path, the port of the JAX package's
-``models/attention.py``: RoPE, and single-token attention against a KV
-cache through the hand-written ``flash_decode`` kernel.
+"""GQA attention, the port of the JAX package's ``models/attention.py``:
+RoPE, the blockwise online-softmax attention of the train and prefill
+path, and single-token attention against a KV cache through the
+hand-written ``flash_decode`` kernel.
+
+``flash_attention`` and ``attention_block`` are plain jnp in the JAX
+package (no Pallas kernel), and plain tensor ops here: KV blocks of 512
+keys folded into a running max, sum and output per query block of 512,
+masked scores filled with ``NEG_INF`` (-1e30, not -inf: a KV block that
+is wholly masked for a row then leaves a finite sum that the row's first
+real block wipes, where -inf would give NaN). The scores and the PV
+product accumulate in fp32 whatever the operands' dtype (the JAX
+package's ``preferred_element_type``): bf16 operands are upcast first,
+which is exact, and p is rounded to v's dtype before PV as there.
 
 The JAX package's ``decode_attention`` is plain jnp (its module says the
 decode hot spot dispatches to ``repro.kernels.flash_decode``; no model
@@ -9,17 +20,22 @@ path calls the kernel there). The port's routes through
 version on the CPU. Both compute the same function; in fp32 the two
 packages agree to 1e-5.
 
-Only the decode half is ported: the train and prefill attention
-(``flash_attention``, ``attention_block``) waits for the dense training
-slice.
+Not ported: ``_banded_attention`` and the ``gqa_flat`` and ``seqpar``
+routes, which the JAX package takes only under ``runtime/flags.py``
+features, and ``attention_block``'s ``kv_x`` and ``use_rope=False``,
+which only the encoder-decoder family uses.
 """
 from __future__ import annotations
 
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.layers import normal_init
+
+NEG_INF = -1e30
 
 
 def attention_shapes(d_model, num_heads, num_kv_heads, head_dim, dtype):
@@ -29,6 +45,16 @@ def attention_shapes(d_model, num_heads, num_kv_heads, head_dim, dtype):
             "wk": ((d_model, num_kv_heads, head_dim), dtype),
             "wv": ((d_model, num_kv_heads, head_dim), dtype),
             "wo": ((num_heads, head_dim, d_model), dtype)}
+
+
+def init_attention(gen: torch.Generator, d_model, num_heads, num_kv_heads,
+                   head_dim, dtype, device=None):
+    """One attention sub-block's random weights (``normal_init`` of each
+    matrix, in sorted-name order), drawn on the CPU from ``gen``."""
+    shapes = attention_shapes(d_model, num_heads, num_kv_heads, head_dim,
+                              dtype)
+    return {name: normal_init(gen, shape, 1.0, dt, device)
+            for name, (shape, dt) in sorted(shapes.items())}
 
 
 def rope_angles(positions, head_dim, theta) -> Tuple[torch.Tensor,
@@ -105,3 +131,91 @@ def decode_attention_block(params, x, k_cache, v_cache, cache_len,
     out = decode_attention(q, k_cache, v_cache, cache_len + 1, window=window)
     out = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
     return out, k_cache, v_cache
+
+
+def _block_mask(qpos, kpos, causal, window):
+    """qpos: (qb,), kpos: (kb,) -> (qb, kb) validity; a position of -1
+    (padding) is never a valid key."""
+    valid = (kpos[None, :] >= 0).expand(qpos.shape[0], -1)
+    if causal:
+        valid = valid & (kpos[None, :] <= qpos[:, None])
+    if window:
+        valid = valid & (kpos[None, :] > qpos[:, None] - window)
+    return valid
+
+
+def flash_attention(q, k, v, *, causal, window=0, q_positions=None,
+                    kv_positions=None, q_block=512, kv_block=512):
+    """Blockwise online-softmax attention.
+
+    q: (B, Sq, H, hd); k, v: (B, Skv, Kv, hd), H = Kv * R (GQA);
+    positions (Sq,) and (Skv,) int tensors, default 0 ... S - 1.
+    Returns (B, Sq, H, hd) in q's dtype."""
+    B, Sq, H, hd = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    R = H // Kv
+    dev = q.device
+    if q_positions is None:
+        q_positions = torch.arange(Sq, device=dev)
+    if kv_positions is None:
+        kv_positions = torch.arange(Skv, device=dev)
+
+    q_block, kv_block = min(q_block, Sq), min(kv_block, Skv)
+    pq, pk = (-Sq) % q_block, (-Skv) % kv_block
+    if pq:
+        q = F.pad(q, (0, 0, 0, 0, 0, pq))
+        q_positions = F.pad(q_positions, (0, pq), value=-1)
+    if pk:
+        k = F.pad(k, (0, 0, 0, 0, 0, pk))
+        v = F.pad(v, (0, 0, 0, 0, 0, pk))
+        kv_positions = F.pad(kv_positions, (0, pk), value=-1)
+    nq, nk = q.shape[1] // q_block, k.shape[1] // kv_block
+    # the scale rounded to q's dtype and applied there, as in the JAX
+    # package; the products then accumulate in fp32
+    qs = (q * torch.tensor(hd ** -0.5, dtype=q.dtype, device=dev)).float()
+    k32 = k.float()
+    outs = []
+    for i in range(nq):
+        q_i = qs[:, i * q_block:(i + 1) * q_block].reshape(
+            B, q_block, Kv, R, hd)
+        qp_i = q_positions[i * q_block:(i + 1) * q_block]
+        m = torch.full((B, Kv, R, q_block), NEG_INF, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((B, Kv, R, q_block, hd), dtype=torch.float32,
+                          device=dev)
+        for j in range(nk):
+            sl = slice(j * kv_block, (j + 1) * kv_block)
+            s = torch.einsum("bqkrh,bskh->bkrqs", q_i, k32[:, sl])
+            mask = _block_mask(qp_i, kv_positions[sl], causal, window)
+            s = torch.where(mask, s, torch.full((), NEG_INF, device=dev))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bkrqs,bskh->bkrqh", p.to(v.dtype).float(),
+                v[:, sl].float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.permute(0, 3, 1, 2, 4))          # (B, qb, Kv, R, hd)
+    out = torch.cat(outs, dim=1).reshape(B, nq * q_block, H, hd)
+    return out[:, :Sq].to(q.dtype)
+
+
+def attention_block(params, x, *, num_kv_heads, rope_theta, causal=True,
+                    window=0, positions=None):
+    """Full attention sub-block (projections, RoPE, ``flash_attention``,
+    output projection) on x (B, S, d); positions (S,), default 0 ... S -
+    1. Returns (B, S, d)."""
+    S = x.shape[1]
+    q = torch.einsum("bsd,dnh->bsnh", x, params["wq"])
+    k = torch.einsum("bsd,dnh->bsnh", x, params["wk"])
+    v = torch.einsum("bsd,dnh->bsnh", x, params["wv"])
+    pos = (torch.arange(S, device=x.device) if positions is None
+           else positions)
+    q = apply_rope(q, pos, rope_theta)
+    k = apply_rope(k, pos, rope_theta)
+    out = flash_attention(q, k, v, causal=causal, window=window,
+                          q_positions=positions, kv_positions=positions)
+    return torch.einsum("bsnh,nhd->bsd", out, params["wo"])

@@ -11,7 +11,10 @@ package's ``_ssd_pallas_bwd`` does: the JAX package has no backward
 kernel. That is its design, not a fallback: the forward never takes the
 plain version on a CUDA tensor.
 
-The one-token decode block (``mamba_decode_block``) is not ported yet.
+The one-token decode block (``mamba_decode_block``) is plain tensor
+ops, as it is plain jnp in the JAX package: the conv window shifted by
+one, softplus dt, the decay ``dA``, and the ``dBx`` outer product into
+the fp32 state.
 """
 from __future__ import annotations
 
@@ -209,3 +212,39 @@ def mamba_block(params, x, *, d_state, head_dim, expand, conv_width, chunk,
     y = y.reshape(B, S, d_inner)
     y = rms_norm(y * silu(z), params["gate_norm"], norm_eps)
     return y @ params["w_out"]
+
+
+def mamba_decode_block(params, x, conv_state, ssm_state, *, d_state,
+                       head_dim, expand, conv_width, norm_eps=1e-5):
+    """One-token decode. x: (B, 1, d); conv_state: (B, W-1, conv_dim) in
+    the model dtype; ssm_state: (B, h, p, n) fp32. Returns (y, the new
+    conv state, the new ssm state): new tensors, which the caller writes
+    into its cache."""
+    B, _, d = x.shape
+    d_inner, nheads, conv_dim = mamba_dims(d, expand, head_dim, d_state)
+    z = x @ params["w_z"]
+    xin = x @ params["w_x"]
+    Bm = x @ params["w_B"]
+    Cm = x @ params["w_C"]
+    dt_raw = x @ params["w_dt"]
+
+    xbc = torch.cat([xin, Bm, Cm], dim=-1)                    # (B,1,conv_dim)
+    window = torch.cat([conv_state, xbc], dim=1)              # (B,W,conv_dim)
+    new_conv_state = window[:, 1:]
+    conv_out = (window * params["conv_w"][None]).sum(dim=1, keepdim=True)
+    xbc = silu(conv_out + params["conv_b"])
+    xin, Bm, Cm = torch.split(xbc, [d_inner, d_state, d_state], dim=-1)
+
+    dt = softplus(dt_raw.float() + params["dt_bias"])         # (B,1,h)
+    A = -torch.exp(params["A_log"])
+    dA = torch.exp(dt[:, 0] * A)                              # (B,h)
+    xh = xin.reshape(B, nheads, head_dim).float()
+    # dt B first, then x, the order the JAX package's einsum contracts in
+    dtB = dt[:, 0, :, None] * Bm[:, 0].float()[:, None, :]    # (B,h,n)
+    dBx = xh[..., None] * dtB[:, :, None, :]                  # (B,h,p,n)
+    new_ssm_state = ssm_state * dA[:, :, None, None] + dBx
+    y = torch.einsum("bn,bhpn->bhp", Cm[:, 0].float(), new_ssm_state)
+    y = y + xh * params["D"][None, :, None]
+    y = y.reshape(B, 1, d_inner).to(x.dtype)
+    y = rms_norm(y * silu(z), params["gate_norm"], norm_eps)
+    return y @ params["w_out"], new_conv_state, new_ssm_state

@@ -1,28 +1,29 @@
 """Model assembly for the LM family, the port of the JAX package's
 ``models/transformer.py``: decoder LMs built from an ``ArchConfig``.
 
-Ported so far:
-
-- the SSM family (Mamba2 blocks, e.g. mamba2-130m) on the train/prefill
-  path: ``Model.init``, ``loss_fn`` (mean next-token cross entropy) and
-  ``prefill_fn`` (last-token logits);
-- the dense family (attention + MLP blocks, e.g. tinyllama-1.1b) on the
-  decode path: ``Model.init``, ``init_cache`` and ``decode_fn``, whose
-  attention runs through the ``flash_decode`` kernel.
-
-The dense family's ``loss_fn`` and ``prefill_fn``, the SSM family's
-decode, and the MoE, hybrid, encoder-decoder and VLM families raise
-"not ported yet".
+Ported: the dense family (attention + MLP blocks, e.g. tinyllama-1.1b,
+starcoder2-15b) and the SSM family (Mamba2 blocks, e.g. mamba2-130m), on
+every path: ``Model.init``, ``loss_fn`` (mean next-token cross entropy),
+``prefill_fn`` (last-token logits), ``init_cache`` and ``decode_fn``.
+Dense decode attention runs through the ``flash_decode`` kernel, the
+SSM family's train and prefill scan through ``ssd_scan``; the dense
+train and prefill attention and the SSM decode step are plain tensor
+ops, as they are plain jnp in the JAX package. The MoE, hybrid,
+encoder-decoder and VLM families raise "not ported yet".
 
 The port keeps ``params["layers"]`` as a list with one dict per layer,
-and the decode cache as ``{"layers": [{"k", "v"} per layer]}``. The JAX
-package stacks the layers of a homogeneous model of four or more
-layers over a leading axis (scan over layers, ``Model.use_scan``), its
-cache too; ``bridge.lm_params_from_jax`` / ``lm_params_to_jax`` and
-``lm_cache_from_jax`` / ``lm_cache_to_jax`` map between the two layouts
-with ``Model.scan_period``. The JAX package recomputes each layer
-group's forward in the backward pass (``jax.checkpoint``); the port
-keeps the activations instead (they fit on the card), so the ``ssd_scan``
+and the decode cache as ``{"layers": [entry per layer]}``, an entry
+being ``{"k", "v"}`` for an attention layer and ``{"conv", "ssm"}`` for
+a Mamba2 layer. The JAX package stacks the layers of a homogeneous model
+of four or more layers over a leading axis (scan over layers,
+``Model.use_scan``), its cache too; ``bridge.lm_params_from_jax`` /
+``lm_params_to_jax`` and ``lm_cache_from_jax`` / ``lm_cache_to_jax`` map
+between the two layouts with ``Model.scan_period``. Where it scans, the
+JAX package recomputes each layer group's forward in the backward pass
+(``jax.checkpoint``); the port does the same for the dense family, one
+attention block at a time (``torch.utils.checkpoint``, non-reentrant so
+``torch.autograd.grad`` takes it), since its scores would not fit
+otherwise. The SSM family keeps its activations, so the ``ssd_scan``
 kernel runs once per layer per forward and not again in the backward.
 """
 from __future__ import annotations
@@ -32,6 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.bridge import tree_leaves, unflatten_tree
 from repro_torch.configs.base import ATTN, MAMBA, MOE, SHARED_ATTN, ArchConfig
@@ -43,7 +45,7 @@ from repro_torch.models.layers import mlp, mlp_shapes, normal_init, rms_norm
 LABEL_IGNORE = -1
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-#: the families the port builds: SSM for training, dense for decoding
+#: the families the port builds, each on every path
 PORTED_FAMILIES = ("ssm", "dense")
 
 
@@ -111,15 +113,21 @@ def _init_leaf(name, shape, dtype, gen, device):
     return normal_init(gen, shape, 1.0, dtype, device)
 
 
-def _apply_block(cfg: ArchConfig, kind: str, bp, x):
-    """Forward one block (train/prefill); the SSM family's blocks carry
-    no auxiliary loss."""
-    h = mamba_lib.mamba_block(
-        bp["mamba"], rms_norm(x, bp["norm1"], cfg.norm_eps),
-        d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
-        expand=cfg.ssm_expand, conv_width=cfg.ssm_conv_width,
-        chunk=cfg.ssm_chunk, norm_eps=cfg.norm_eps)
-    return x + h
+def _apply_block(cfg: ArchConfig, kind: str, window: int, bp, x):
+    """Forward one block (train/prefill); the dense and SSM families'
+    blocks carry no auxiliary loss."""
+    eps = cfg.norm_eps
+    if kind == MAMBA:
+        return x + mamba_lib.mamba_block(
+            bp["mamba"], rms_norm(x, bp["norm1"], eps),
+            d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+            expand=cfg.ssm_expand, conv_width=cfg.ssm_conv_width,
+            chunk=cfg.ssm_chunk, norm_eps=eps)
+    x = x + attn_lib.attention_block(
+        bp["attn"], rms_norm(x, bp["norm1"], eps),
+        num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta,
+        causal=True, window=window)
+    return x + mlp(bp["mlp"], rms_norm(x, bp["norm2"], eps), cfg.act)
 
 
 @dataclasses.dataclass
@@ -130,8 +138,9 @@ class Model:
         if self.cfg.family not in PORTED_FAMILIES:
             raise NotImplementedError(
                 f"the {self.cfg.family!r} family ({self.cfg.name}) is not "
-                f"ported yet: the port runs the SSM family (mamba2) and the "
-                f"dense family's decode path")
+                f"ported yet: the port runs the dense family (tinyllama, "
+                f"starcoder2) and the SSM family (mamba2), each on its "
+                f"train, prefill and decode paths")
         if self.cfg.dtype not in _DTYPES:
             raise NotImplementedError(f"dtype {self.cfg.dtype!r}")
 
@@ -185,8 +194,15 @@ class Model:
         return params["embed"][batch["tokens"].long()]
 
     def _backbone(self, params, x):
-        for bp, (kind, _) in zip(params["layers"], self.specs):
-            x = _apply_block(self.cfg, kind, bp, x)
+        """All blocks. Where the JAX package scans the layers, each
+        attention block's forward is recomputed in the backward."""
+        recompute = self.use_scan and torch.is_grad_enabled()
+        for bp, (kind, window) in zip(params["layers"], self.specs):
+            if recompute and kind == ATTN:
+                x = checkpoint(_apply_block, self.cfg, kind, window, bp, x,
+                               use_reentrant=False)
+            else:
+                x = _apply_block(self.cfg, kind, window, bp, x)
         return x
 
     def _lm_head(self, params):
@@ -194,18 +210,9 @@ class Model:
             return params["embed"].T
         return params["lm_head"]
 
-    def _only(self, family, path):
-        if self.cfg.family != family:
-            raise NotImplementedError(
-                f"the {self.cfg.family!r} family's {path} path "
-                f"({self.cfg.name}) is not ported yet: the port runs the "
-                f"SSM family's training path and the dense family's decode "
-                f"path")
-
     # ----- training loss ---------------------------------------------------
     def loss_fn(self, params, batch):
         """Mean next-token cross-entropy over labels != -1."""
-        self._only("ssm", "training")
         x = self._embed_inputs(params, batch)
         x = self._backbone(params, x)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
@@ -215,39 +222,65 @@ class Model:
     # ----- prefill ----------------------------------------------------------
     def prefill_fn(self, params, batch):
         """Last-token logits (B, 1, V) in fp32."""
-        self._only("ssm", "prefill")
         x = self._embed_inputs(params, batch)
         x = self._backbone(params, x)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return (x[:, -1:] @ self._lm_head(params)).float()
 
-
     # ----- decode -----------------------------------------------------------
     def init_cache(self, batch_size: int, seq_len: int,
                    device: DeviceLike = None) -> Dict[str, Any]:
-        """The decode cache on ``device`` (default ``cuda``): one ``{"k",
-        "v"}`` dict of zeros (batch, seq_len, Kv, hd) in the model dtype per
-        layer (the JAX package stacks them over layer groups when it
-        scans; ``bridge.lm_cache_from_jax`` maps the layouts)."""
-        self._only("dense", "decode")
+        """The decode cache on ``device`` (default ``cuda``), zeros, one
+        entry per layer: ``{"k", "v"}`` (batch, seq_len, Kv, hd) in the
+        model dtype for an attention layer; ``{"conv"}`` (batch, W - 1,
+        conv_dim) in the model dtype and ``{"ssm"}`` (batch, heads,
+        head_dim, d_state) fp32 for a Mamba2 layer, which holds no
+        sequence axis (the JAX package stacks the entries over layer
+        groups when it scans; ``bridge.lm_cache_from_jax`` maps the
+        layouts)."""
         cfg = self.cfg
         dev = resolve_device(device)
         dtype = _DTYPES[cfg.dtype]
-        shape = (batch_size, seq_len, cfg.num_kv_heads,
-                 cfg.resolved_head_dim)
-        return {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=dev),
-                            "v": torch.zeros(shape, dtype=dtype, device=dev)}
-                           for _ in self.specs]}
+        layers = []
+        for kind, _ in self.specs:
+            if kind == MAMBA:
+                _, nheads, conv_dim = mamba_lib.mamba_dims(
+                    cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
+                    cfg.ssm_state)
+                layers.append({
+                    "conv": torch.zeros(
+                        (batch_size, cfg.ssm_conv_width - 1, conv_dim),
+                        dtype=dtype, device=dev),
+                    "ssm": torch.zeros(
+                        (batch_size, nheads, cfg.ssm_head_dim,
+                         cfg.ssm_state), dtype=torch.float32, device=dev)})
+            else:
+                shape = (batch_size, seq_len, cfg.num_kv_heads,
+                         cfg.resolved_head_dim)
+                layers.append({
+                    "k": torch.zeros(shape, dtype=dtype, device=dev),
+                    "v": torch.zeros(shape, dtype=dtype, device=dev)})
+        return {"layers": layers}
 
-    def _decode_block(self, window, bp, x, entry, cache_len, rope):
-        """One attention + MLP block on one token; writes its K and V into
-        ``entry`` in place."""
-        eps = self.cfg.norm_eps
+    def _decode_block(self, kind, window, bp, x, entry, cache_len, rope):
+        """One block on one token; writes its cache entry in place (K and
+        V at ``cache_len``, or the Mamba2 conv window and state)."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        if kind == MAMBA:
+            out, conv, ssm = mamba_lib.mamba_decode_block(
+                bp["mamba"], rms_norm(x, bp["norm1"], eps), entry["conv"],
+                entry["ssm"], d_state=cfg.ssm_state,
+                head_dim=cfg.ssm_head_dim, expand=cfg.ssm_expand,
+                conv_width=cfg.ssm_conv_width, norm_eps=eps)
+            entry["conv"].copy_(conv)
+            entry["ssm"].copy_(ssm)
+            return x + out
         out, _, _ = attn_lib.decode_attention_block(
             bp["attn"], rms_norm(x, bp["norm1"], eps), entry["k"],
             entry["v"], cache_len, rope, window=window)
         x = x + out
-        return x + mlp(bp["mlp"], rms_norm(x, bp["norm2"], eps), self.cfg.act)
+        return x + mlp(bp["mlp"], rms_norm(x, bp["norm2"], eps), cfg.act)
 
     def decode_fn(self, params, batch):
         """One decode step. batch: ``tokens`` (B, 1), ``cache``
@@ -258,27 +291,30 @@ class Model:
 
         The cache is updated in place and returned (the JAX package
         returns a new one): a caller never reuses a cache from before a
-        step. Each layer launches ``flash_decode`` once on the card. The
-        RoPE angles of the position are computed once for all layers. A
+        step. Each attention layer launches ``flash_decode`` once on the
+        card; its RoPE angles are computed once for all layers. A Mamba2
+        layer reads no position: its entry carries the whole past. A
         tensor ``cache_len`` is never read on the host, so the step can be
         captured once and replayed at every position
         (``runtime/steps.py::DecodeRunner``); its caller keeps it below
         the cache length."""
-        self._only("dense", "decode")
         cfg = self.cfg
         tokens, cache, cache_len = (batch["tokens"], batch["cache"],
                                     batch["cache_len"])
         x = params["embed"][tokens.long()]
-        if isinstance(cache_len, torch.Tensor):
-            pos = cache_len.reshape(1, 1).expand(tuple(tokens.shape))
-        else:
-            pos = torch.full(tuple(tokens.shape), cache_len,
-                             dtype=torch.int32, device=x.device)
-        rope = attn_lib.rope_angles(pos, cfg.resolved_head_dim,
-                                    cfg.rope_theta)
-        for bp, entry, (_, window) in zip(params["layers"], cache["layers"],
-                                          self.specs):
-            x = self._decode_block(window, bp, x, entry, cache_len, rope)
+        rope = None
+        if any(kind != MAMBA for kind, _ in self.specs):
+            if isinstance(cache_len, torch.Tensor):
+                pos = cache_len.reshape(1, 1).expand(tuple(tokens.shape))
+            else:
+                pos = torch.full(tuple(tokens.shape), cache_len,
+                                 dtype=torch.int32, device=x.device)
+            rope = attn_lib.rope_angles(pos, cfg.resolved_head_dim,
+                                        cfg.rope_theta)
+        for bp, entry, (kind, window) in zip(params["layers"],
+                                             cache["layers"], self.specs):
+            x = self._decode_block(kind, window, bp, x, entry, cache_len,
+                                   rope)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return (x @ self._lm_head(params)).float(), cache
 

@@ -12,7 +12,10 @@ from the round engine's building blocks (``core/engine.py``):
   <- phi + alpha (phi_hat - phi), one ``meta_update`` launch per dtype
   group.
 
-``make_decode_step`` is the dense LM's decode step (``Model.decode_fn``).
+``make_joint_train_step`` is the joint-training baseline (one optimizer
+step of ``optim.sgd`` or ``optim.adamw`` a batch), ``make_prefill_step``
+the last-token logits, and ``make_decode_step`` the LM's decode step
+(``Model.decode_fn``).
 ``DecodeRunner`` is what the serve launcher's decode mode drives: a whole
 greedy decode step (the token, ``decode_fn``, the argmax) built once and
 replayed, as the JAX launcher jits ``decode_fn`` once with ``cache_len``
@@ -24,6 +27,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 
+from repro_torch.bridge import tree_leaves, unflatten_tree
 from repro_torch.core.engine import streaming_sgd
 from repro_torch.core.pipeline import prefetch_items
 from repro_torch.device import DeviceLike, resolve_device
@@ -48,6 +52,37 @@ def make_meta_train_step(model, *, beta: float = 0.01,
     return step
 
 
+def make_joint_train_step(model, optimizer, schedule) -> Callable:
+    """Baseline joint training (the transfer-learning / FedAVG-objective
+    regime the paper compares against): one optimizer step per batch.
+
+    ``step(params, opt_state, opt_step, batch)`` returns ``(params,
+    opt_state, opt_step + 1, {"loss", "lr"})``: the loss an fp32 tensor
+    on the device, lr the schedule's float32 at ``opt_step`` (an int)."""
+    def step(params, opt_state, opt_step, batch):
+        leaves = dict(tree_leaves(params))
+        live = {k: v.detach().requires_grad_() for k, v in leaves.items()}
+        loss = model.loss_fn(unflatten_tree(live), batch)
+        grads = unflatten_tree(dict(zip(live, torch.autograd.grad(
+            loss, list(live.values())))))
+        lr = schedule(opt_step)
+        with torch.no_grad():
+            new_params, new_state = optimizer.update(grads, opt_state,
+                                                     params, lr)
+        return new_params, new_state, opt_step + 1, {"loss": loss.detach(),
+                                                     "lr": lr}
+    return step
+
+
+def make_prefill_step(model) -> Callable:
+    """``step(params, batch)`` is ``model.prefill_fn`` without autograd:
+    the last-token logits (B, 1, V) fp32."""
+    def step(params, batch):
+        with torch.no_grad():
+            return model.prefill_fn(params, batch)
+    return step
+
+
 def make_decode_step(model) -> Callable:
     """One decode step: ``step(params, batch)`` is ``model.decode_fn``
     (batch: tokens (B, 1), cache, cache_len), returning (logits, cache)."""
@@ -65,14 +100,18 @@ class DecodeRunner:
     The step reads and writes only buffers at fixed addresses: the
     wave's prompts (B, P), an int32 cursor (the position), one KV cache of
     (B, ``cache_len``, Kv, hd) per layer, the logits (B, 1, V) fp32 and
-    every step's argmax (B, P + ``max_new``). At cursor c it takes the
-    prompt's token c while c < P, else the argmax of step c - 1; runs
-    ``decode_fn`` at c; writes the logits and their argmax at c; and
-    advances the cursor, all on the device. A wave is P + ``max_new``
+    every step's argmax (B, P + ``max_new``); a Mamba2 layer's cache is
+    its conv window and fp32 state instead, written in place (``copy_``)
+    at every step. At cursor c it takes the prompt's token c while c < P,
+    else the argmax of step c - 1; runs ``decode_fn`` at c; writes the
+    logits and their argmax at c; and advances the cursor, all on the
+    device. A wave is P + ``max_new``
     steps from a reset cursor; its new tokens are the argmaxes of steps
-    P - 1 ... P + ``max_new`` - 2, read once. The cache is reused across
+    P - 1 ... P + ``max_new`` - 2, read once. A KV cache is reused across
     waves: each step writes row c before it attends to rows [0, c], and
-    nothing reads past them.
+    nothing reads past them. A Mamba2 state carries the whole past, so
+    each wave zeroes it first, as the JAX launcher starts each wave from
+    a fresh cache.
 
     ``step()`` runs one step at the cursor (``wave`` runs a whole wave);
     ``trace_count`` counts the builds (1), ``capture_s`` and ``nodes``
@@ -92,6 +131,10 @@ class DecodeRunner:
                                    device=dev)
         self.cursor = torch.zeros(1, dtype=torch.int32, device=dev)
         self.cache = model.init_cache(batch, cache_len, device=dev)
+        # the recurrent entries (the SSM family's), zeroed at each wave
+        self._recurrent = [t for entry in self.cache["layers"]
+                           for name, t in entry.items()
+                           if name in ("conv", "ssm")]
         self.logits = torch.zeros((batch, 1, model.cfg.vocab_size),
                                   dtype=torch.float32, device=dev)
         self.chosen = torch.zeros((batch, self.steps), dtype=torch.int64,
@@ -136,6 +179,8 @@ class DecodeRunner:
         self.build()
         self.prompts.copy_(prompts)
         self.cursor.zero_()
+        for t in self._recurrent:
+            t.zero_()
         for _ in range(self.steps):
             self.step()
             if on_logits is not None:

@@ -238,6 +238,31 @@ def test_meta_update_kernel_matches_plain(cuda, dtype, n, offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("clients", [1, 4, 8, 32, 33, 48, 64, 1025])
+@pytest.mark.parametrize("shape", [(1153,), (20612,), (32, 32), (257,)])
+def test_client_mean_kernel_matches_plain(cuda, clients, shape):
+    """Exact: the kernel's FMA chain (up to 32 clients) and its windows
+    of 32 rounded products (above) equal the plain version's, with some
+    weights zero and a zeroed client's NaNs left out of the sum."""
+    g = torch.Generator().manual_seed(clients)
+    q = torch.randn((clients,) + shape, generator=g) * 3
+    w = torch.rand(clients, generator=g)
+    w[torch.rand(clients, generator=g) < 0.2] = 0.0
+    if clients > 1:
+        w[1] = 0.0
+        q[1].view(-1)[:3] = float("nan")
+    w = w / w.sum().clamp_min(1e-6)
+    q, w = q.to(cuda), w.to(cuda)
+    before = ops.client_mean.launches
+    out = ops.client_mean(q, w)
+    torch.cuda.synchronize()
+    assert ops.client_mean.launches == before + 1
+    assert out.shape == shape and out.dtype == torch.float32
+    assert not torch.isnan(out).any()
+    assert torch.equal(out, ref.client_mean(q, w))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_online_sgd_momentum_kernel_matches_plain(cuda, dtype):
     """Exact: mu * m + g and p - lr * m' are rounded op by op, as the

@@ -418,7 +418,7 @@ def test_decode_without_cuda_raises():
 @pytest.mark.parametrize("argv,msg", [
     (["--mode", "decode"], "--arch is required for --mode decode"),
     (["--arch", "nope"], "not in"),
-    (["--arch", "mamba2-130m"], "--arch mamba2-130m is not ported yet"),
+    (["--arch", "zamba2-1.2b"], "--arch zamba2-1.2b is not ported yet"),
     (["--arch", "mixtral-8x22b"], "--arch mixtral-8x22b is not ported yet"),
     (["--arch", "glm4-9b"], "--arch glm4-9b is not ported yet"),
     (["--arch", "whisper-tiny"], "is not ported yet"),

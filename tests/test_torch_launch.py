@@ -60,7 +60,8 @@ def test_cpu_run_prints_the_json_row(strategy, extra):
     assert row["kernel_launches"] == {"online_sgd": 0, "dfa_epoch_int8": 0,
                                       "meta_update": 0,
                                       "online_sgd_momentum": 0,
-                                      "ssd_scan": 0, "flash_decode": 0}
+                                      "ssd_scan": 0, "flash_decode": 0,
+                                      "client_mean": 0}
     assert set(row["latency_ms"]) == {"p50", "p95", "p99"}
     assert row["mean_query_loss"] == row["mean_query_loss"]     # finite
 

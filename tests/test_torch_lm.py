@@ -174,8 +174,9 @@ def test_full_width_param_shapes_match_the_jax_init():
 
 
 def test_other_families_are_not_ported_yet():
-    """A dense model builds and decodes, but its training path is not
-    ported yet; the MoE family still raises at construction."""
+    """The dense and SSM families build and run every path (a dense model
+    trains, prefills and decodes; a Mamba2 model has a decode cache); the
+    MoE and hybrid families still raise at construction."""
     cfg = ArchConfig(name="dense", family="dense", source="-", num_layers=2,
                      d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
                      vocab_size=64, head_dim=64, dtype="float32")
@@ -190,15 +191,17 @@ def test_other_families_are_not_ported_yet():
     assert cache["layers"][0]["k"][:, 0].abs().sum() > 0
     batch = {"tokens": torch.zeros(2, 8, dtype=torch.int32),
              "labels": torch.zeros(2, 8, dtype=torch.int32)}
-    for fn in (model.loss_fn, model.prefill_fn):
+    with torch.no_grad():
+        assert torch.isfinite(model.loss_fn(params, batch))
+        assert model.prefill_fn(params, batch).shape == (2, 1, 64)
+    for family, extra in (("moe", dict(num_experts=4, experts_per_token=2)),
+                          ("hybrid", dict(hybrid_attn_every=2))):
+        other = dataclasses.replace(cfg, name=family, family=family, **extra)
         with pytest.raises(NotImplementedError, match="not ported yet"):
-            fn(params, batch)
-    moe = dataclasses.replace(cfg, name="moe", family="moe", num_experts=4,
-                              experts_per_token=2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Model(moe)
-    with pytest.raises(NotImplementedError, match="decode path"):
-        Model(get_arch("mamba2-130m").reduced()).init_cache(2, 8, device="cpu")
+            Model(other)
+    ssm = Model(get_arch("mamba2-130m").reduced()).init_cache(2, 8,
+                                                              device="cpu")
+    assert set(ssm["layers"][0]) == {"conv", "ssm"}
 
 
 # -- the model and one round, fp32 ------------------------------------------
@@ -399,8 +402,8 @@ def test_lm_launcher_rows_match_the_jax_launcher(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--arch", "tinyllama-1.1b"], "--arch tinyllama-1.1b is not ported yet"),
-    (["--arch", "transformer"], "--arch tinyllama-1.1b is not ported yet"),
+    (["--arch", "moe"], "--arch mixtral-8x22b is not ported yet"),
+    (["--arch", "zamba2-1.2b"], "--arch zamba2-1.2b is not ported yet"),
     (["--arch", "mamba2", "--participation", "0.5"],
      "--participation is not ported yet"),
     (["--arch", "mamba2", "--batch", "6", "--k-inner", "4"],

@@ -15,8 +15,11 @@ fused multiply-add. The port's ``meta_update`` computes that same FMA
 annealed alphas, where the products round, and the server hooks are
 held to the jitted JAX hooks, the arithmetic the engine actually runs.
 Under jit XLA also contracts the weighted client mean (a multiply and a
-reduction) into a chain of FMAs, which the port does not follow; the
-weighted hook is held with that mean taken op by op.
+reduction) into a chain of FMAs in client order up to 32 clients, and
+sums windows of 32 rounded products above that; the port's
+``client_mean`` follows both (``kernels/ref.py::client_mean``), so the
+weighted hook and ``weighted_client_mean`` alone are held to the jitted
+JAX functions exactly.
 """
 import numpy as np
 import pytest
@@ -149,14 +152,11 @@ def test_tifed_hooks_match_jax_at_annealed_alphas(init, alpha, steps):
     for k, v in jnew.items():
         np.testing.assert_array_equal(tnew[k].numpy(), np.asarray(v),
                                       err_msg=k)
-    # the weighted route: the interpolation and requantization under jit,
-    # on the weighted client mean taken op by op (XLA also contracts that
-    # multiply-reduce into an FMA chain, which the port does not follow:
-    # ROADMAP queue C)
-    mean = jstrat.weighted_client_mean(
-        jax.vmap(jstrat.tifed_dequantize)(jres), jnp.asarray(w))
-    jnew = jax.jit(lambda p, m, a: jstrat.tifed_requantize(
-        jengine.meta_interpolate(p, m, a)))(jphi, mean, a)
+    # the weighted route: the whole hook under jit, as the engine runs it
+    # (XLA contracts the weighted mean's multiply-reduce into a chain of
+    # FMAs, and the interpolation into one FMA; the port follows both)
+    jnew = jax.jit(lambda p, r, a, ww: js.server_aggregate_weighted(
+        p, r, a, 0.0, ww))(jphi, jres, a, jnp.asarray(w))
     tnew = layout.views(ts.server_aggregate_weighted(
         layout, tphi, tres, torch.tensor([alpha]), 0.0, torch.tensor(w)))
     for k, v in jnew.items():
@@ -324,3 +324,25 @@ def test_tifed_without_cuda_raises(init):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcore.tifed_train(init, SineTasks(), rounds=1)
 
+
+
+@pytest.mark.parametrize("clients", [1, 2, 4, 8, 32, 33, 48, 64, 128])
+def test_weighted_client_mean_matches_jitted_jax(clients):
+    """``weighted_client_mean`` equals the jitted JAX function bit for bit
+    over 2^16 seeded entries a client, some weights zero and a zeroed
+    client's NaNs: the FMA chain up to 32 clients, the windows of 32
+    above (the order found in XLA's compiled HLO at 33, 48, 64 and 128)."""
+    rng = np.random.default_rng(clients)
+    q = (rng.standard_normal((clients, 1 << 16))
+         * rng.uniform(0.1, 10.0, (clients, 1))).astype(np.float32)
+    w = rng.uniform(0.0, 1.0, clients).astype(np.float32)
+    w[rng.uniform(size=clients) < 0.2] = 0.0
+    if clients > 1:
+        w[1], q[1, :5] = 0.0, np.nan
+    w = (w / max(w.sum(), 1e-6)).astype(np.float32)
+    want = np.asarray(jax.jit(lambda q, w: jstrat.weighted_client_mean(
+        {"a": q}, w)["a"])(q, w))
+    got = tcore.strategies.weighted_client_mean(torch.from_numpy(q),
+                                                torch.from_numpy(w)).numpy()
+    assert not np.isnan(got).any()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
