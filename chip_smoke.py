@@ -154,7 +154,7 @@ Phases, each printing one JSON line, in this order:
     --batch 8 --seq 2048 --k-inner 4``: finite losses, the client adapts
     (mean last inner loss below the first), launches as reckoned,
     rounds/s, tokens/s and peak device memory;
-23. profile LM: two full-width rounds under torch.profiler: idle share,
+23. profile LM: one full-width round under torch.profiler: idle share,
     top kernels, the shares of ``ssd_scan`` (its three kernels) and of
     its plain backward; then the dense LM: ``train_dense_reduced`` (the
     reduced tinyllama and starcoder2, window 64 at 256 tokens, on the
@@ -183,6 +183,43 @@ Phases, each printing one JSON line, in this order:
     snapshot every 10 rounds, timed in turns: rounds/s of each, their
     ratio (the JAX package's target is under 5%; reported, not gated),
     and a snapshot's milliseconds on the training and writer threads.
+27. engine LM reduced (run right after the kernels, before phase 4):
+    the train launcher's engine LM route, ``--strategy
+    reptile|fedavg|fedsgd|transfer --arch mamba2`` and ``--strategy
+    reptile --arch transformer`` at ``--clients 8 --rounds 6`` (the
+    launcher's ``--batch 8 --seq 64``), and a pooled run (1,000
+    vectorized devices, diurnal check-ins, ``--buffer-size 4``), each on
+    the card from a seeded init: launches as reckoned, bills exact, each
+    round built once (trace_count, capture seconds, graph nodes); each
+    run's first round on the card against the same round on the CPU:
+    params and query loss within 1e-4, bills and the pool state exact;
+    TinyReptile through ``run_federated`` at the same size, held the
+    same way;
+    a Reptile run crashed right after its round-3 snapshot of 6 and
+    resumed, equal to the uninterrupted card run exactly, one build
+    across the three runs; then ``--strategy reptile --arch mamba2`` at
+    the launcher's defaults (64 clients, 20 rounds) on the card alone:
+    rounds/s, tokens/s, graph size, the query loss below the init's;
+28. engine LM mamba2-130m: full width and depth in fp32 (128,983,488
+    parameters), ``ReptileStrategy(epochs=8)`` at a cohort of 8 (not the
+    launcher's 64: one (C, P) fp32 buffer is 33.0 GB at 64), 8 x 64
+    tokens a client, 4 rounds at beta 0.002, one eval: each round's inner
+    loss by epoch (read from the captured round's own outputs) falling,
+    the query loss below the init's; one inner SGD step at cohort 2 and
+    support 2 against the CPU: the engine's cohort gradient leaf by leaf
+    within a share of each leaf's largest entry (FULL_LM_GRAD_TOL: 1e-4
+    at the widths cut to 2 layers, 1e-2 at the 24), the losses within
+    1e-5, the worst leaves named;
+    rounds/s, tokens/s, peak memory, graph size; one replayed round
+    under the profiler (idle share, top kernels, ``ssd_scan``'s share)
+    and one eager epoch's plain ``ssd_chunked`` backward share;
+29. examples: ``repro_torch.examples.llm_meta_training`` on
+    tinyllama-1.1b and mamba2-130m reduced (30 rounds, its asserts, 8
+    greedy tokens through ``DecodeRunner``) and
+    ``repro_torch.examples.quickstart`` at its 600 rounds, their printed
+    lines in the row. The kernels phase also holds ``ssd_scan`` at the
+    engine's two shapes, ``online_sgd`` at the full-width cohort (8,
+    128,983,488) fp32 and ``meta_update`` at its phi.
 
 Then the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure is a
@@ -236,7 +273,12 @@ SSD_SHAPES = (("test_1x2x2x16x64x16", (1, 2, 2, 16, 64, 16)),
               ("test_2x3x4x32x64x32", (2, 3, 4, 32, 64, 32)),
               ("test_1x24x2x64x64x128", (1, 24, 2, 64, 64, 128)),
               ("path_2x24x8x256x64x128", (2, 24, 8, 256, 64, 128)),
-              ("nc16_1x24x16x256x64x128", (1, 24, 16, 256, 64, 128)))
+              ("nc16_1x24x16x256x64x128", (1, 24, 16, 256, 64, 128)),
+              # the engine LM route's: a client's 8 sequences of 64 tokens,
+              # the reduced mamba2 (8 heads, chunks of 32, state 32) and
+              # mamba2-130m (one 256-position chunk, padded from 64)
+              ("engine_reduced_8x8x2x32x64x32", (8, 8, 2, 32, 64, 32)),
+              ("engine_full_8x24x1x256x64x128", (8, 24, 1, 256, 64, 128)))
 # 2e-4 is the JAX package's tolerance for the scan (tests/test_kernels.py);
 # it holds at the path's shape too: the outputs stay below about 25, the
 # in-chunk sums are damped by exp(sum dA), and both versions sum fp32
@@ -251,7 +293,7 @@ LM_REDUCED = ["--arch", "mamba2", "--reduced", "--rounds", "4", "--seq", "64",
               "--batch", "4", "--k-inner", "2"]
 LM_FULL = ["--arch", "mamba2-130m", "--rounds", "6", "--batch", "8",
            "--seq", "2048", "--k-inner", "4"]
-LM_PROFILE_ROUNDS = 2
+LM_PROFILE_ROUNDS = 1          # two until PR 24: one keeps the script short
 # mamba2-130m's parameters: the bf16 group and the fp32 group (dt_bias,
 # A_log and D of 24 layers), the two flat buffers of every update
 LM_BF16, LM_FP32 = 128_981_760, 1_728
@@ -419,6 +461,52 @@ DECODE_MAMBA = ["--mode", "decode", "--arch", "mamba2-130m", "--requests",
                 "16", "--batch", "8", "--prompt-len", "512", "--max-new",
                 "128", "--cache-len", "640"]
 MAMBA_AT = (0, 63, 511)
+# the engine's LM route (--strategy ... --arch): the launcher's --batch 8
+# --seq 64 at a cohort of 8 for 6 rounds, each run on the card and on the
+# CPU (the CPU takes 3-18 s a run here; the launcher's 64 clients x 20
+# rounds would take minutes a strategy), then the launcher's defaults on
+# the card alone (ENGINE_LM_RATE)
+ENGINE_LM = ["--clients", "8", "--rounds", "6"]
+ENGINE_LM_RUNS = (
+    ("reptile_mamba2", ["--strategy", "reptile", "--arch", "mamba2"]),
+    ("fedavg_mamba2", ["--strategy", "fedavg", "--arch", "mamba2"]),
+    ("fedsgd_mamba2", ["--strategy", "fedsgd", "--arch", "mamba2"]),
+    ("transfer_mamba2", ["--strategy", "transfer", "--arch", "mamba2"]),
+    ("reptile_transformer", ["--strategy", "reptile", "--arch",
+                             "transformer"]),
+    ("reptile_mamba2_pool", ["--strategy", "reptile", "--arch", "mamba2",
+                             "--pool-size", "1000", "--pool-sampler",
+                             "vectorized", "--availability", "diurnal",
+                             "--buffer-size", "4"]))
+ENGINE_LM_RATE = ["--strategy", "reptile", "--arch", "mamba2"]
+ENGINE_LM_CKPT = 3             # the crash: right after round 3 of 6
+LM_EVAL = dict(num_tasks=2, support=4, k_steps=4, lr=0.01, query=8)
+# card against CPU: each engine LM run's first round, params and query
+# loss within LM_ENGINE_TOL. Later rounds are not compared: 8 epochs of
+# full-batch SGD a round amplify last-bit differences (one ulp on the
+# init moves the reduced mamba2's 6-round Reptile run by 3.1e-4 on the
+# card; tests/test_torch_lm_engine.py), so a whole run's distance says
+# how chaotic the trajectory is, not whether the port is right
+LM_ENGINE_TOL = 1e-4
+# mamba2-130m on the engine at full width and depth, fp32 (the engine
+# packs one buffer): a cohort of 8, not the launcher's 64, since one
+# (C, P) fp32 buffer is 33.0 GB at 64 and at least three are live. At the
+# launcher's beta 0.02 each client's 8 epochs fit its own domain's head
+# (the inner loss 10.83 -> 10.26-10.44 a round), and after 4 rounds the
+# adapted query loss of the init is above the random init's (10.8116
+# against 10.8014), so the clients' rate here is 0.002
+FULL_LM_CLIENTS, FULL_LM_ROUNDS, FULL_LM_BETA = 8, 4, 0.002
+FULL_LM_PARAMS = 128_983_488
+# its backward held to the CPU's: one inner SGD step's cohort gradient (2
+# clients, 2 sequences each), leaf by leaf, within a fixed share of each
+# leaf's largest entry, by depth. At the full widths cut to 2 layers
+# 1e-4, the bound the CPU port is held to against the JAX package's
+# gradient there (tests/test_torch_lm_rounding.py). The gradient's
+# rounding grows with depth in both packages: one ulp on the init moves
+# the JAX package's 12-layer gradient by 2.1e-4 of a leaf's largest
+# entry (that file, run as a script; PERF.md), so the 24 layers are held
+# at 1e-2, where a wrong term would stand out by orders of magnitude
+FULL_LM_GRAD_TOL = {2: 1e-4, 24: 1e-2}
 
 
 T0 = time.perf_counter()
@@ -2456,8 +2544,9 @@ def phase_train_lm_full(torch, np, tm):
 
 
 def phase_profile_lm(torch, np, tm, phi):
-    """Two full-width rounds of the LM step (the launcher's per-round
-    work: K inner steps, one interpolation, one read of the losses)
+    """LM_PROFILE_ROUNDS full-width rounds of the LM step (the launcher's
+    per-round work: K inner steps, one interpolation, one read of the
+    losses)
     under torch.profiler, twice. Device activity alone: the device's idle
     share, the top kernels and ssd_scan's share. Host ops too (which slow
     the host, so no idle share is read there): the share of the plain
@@ -3411,6 +3500,518 @@ def phase_decode_mamba_full(torch, np, tm):
     return {"decode_mamba2_130m": counts}
 
 
+# -- the engine's LM route (--strategy ... --arch) ---------------------------
+
+def engine_lm_launches(strategy, arch, rounds, clients, support,
+                       pooled=False):
+    """Launches one engine LM run must make, eval included (2 tasks, 4
+    fine-tune steps, then the query loss): online_sgd per inner step of
+    the cohort, meta_update per Reptile interpolation, client_mean per
+    weighted aggregation (the pooled round computes its FedBuff flush
+    every round), and for the SSM family ssd_scan once per layer per
+    client forward (Transfer's server step is one forward of the pooled
+    batch)."""
+    ev = LM_EVAL
+    epochs = 8
+    steps, forwards = {"reptile": (epochs, epochs * clients),
+                       "fedavg": (epochs, epochs * clients),
+                       "fedsgd": (0, clients), "transfer": (0, 1),
+                       "tinyreptile": (support, support * clients)}[strategy]
+    want = {"online_sgd": rounds * steps + ev["k_steps"]}
+    if strategy in ("reptile", "tinyreptile"):
+        want["meta_update"] = rounds
+    if pooled:
+        want["client_mean"] = rounds
+        want["meta_update"] = rounds
+    if arch == "mamba2":
+        want["ssd_scan"] = 2 * (rounds * forwards + ev["num_tasks"]
+                                * (ev["k_steps"] + 1))
+    return want
+
+
+def lm_params_diff(np, bridge, got, want):
+    """The largest difference between two param trees (card and CPU)."""
+    g, w = bridge.flatten_tree(got), bridge.flatten_tree(want)
+    check(set(g) == set(w), "param trees differ in their leaves")
+    return max(float(np.abs(g[k].float().cpu().numpy()
+                            - w[k].float().cpu().numpy()).max()) for k in w)
+
+
+def first_round_vs_cpu(np, bridge, name, run):
+    """``run(rounds, device)`` for one round on the card and on the CPU:
+    params and the eval within LM_ENGINE_TOL, bills and the pool state
+    (where the run keeps one) exact."""
+    a, b = run(1, "cuda"), run(1, "cpu")
+    diff = lm_params_diff(np, bridge, a["params"], b["params"])
+    check(diff <= LM_ENGINE_TOL, f"{name}: first round card vs CPU {diff}")
+    q, wq = (o["history"][-1]["query_loss"] for o in (a, b))
+    check(abs(q - wq) <= LM_ENGINE_TOL, f"{name}: first round query loss "
+                                        f"{q} vs the CPU's {wq}")
+    check(a.get("comm_bytes") == b.get("comm_bytes"), f"{name}: comm")
+    for k, v in b.get("pool_state", {}).items():
+        check(np.array_equal(np.asarray(a["pool_state"][k]), np.asarray(v)),
+              f"{name}: pool state {k}")
+    return {"first_round_max_abs_diff": diff, "tol": LM_ENGINE_TOL,
+            "first_round_query_loss_diff": abs(q - wq)}
+
+
+def lm_engine_run(torch, np, tm, name, argv):
+    """The launcher's engine LM route on the card from the seeded init
+    (its row printed, launches counted from 0, the round built once,
+    the bills as reckoned), and its first round on the card and on the
+    CPU (``first_round_vs_cpu``)."""
+    tl, ops, bridge = tm["train"], tm["ops"], tm["bridge"]
+    args = tl.parse_args(argv)
+    model = tm["build_model"](tm["get_arch"](
+        tl.ARCH_FAMILIES[args.arch]).reduced())
+    init = model.init(torch.Generator().manual_seed(args.seed), "cuda")
+    tm["core"].clear_runner_cache()
+    (row, out), wall, counts = timed_run(
+        torch, ops, lambda: tl.run_engine_strategy(args, init_params=init))
+    graph = built_round(tm["engine"])
+    check_launches(name, counts, engine_lm_launches(
+        args.strategy, args.arch, args.rounds, args.clients, args.batch,
+        pooled=args.pool_size is not None))
+    q = out["history"][-1]["query_loss"]
+    check(math.isfinite(q), f"{name}: query loss {q}")
+    if args.strategy != "transfer" and args.pool_size is None:
+        bill = 2 * args.rounds * args.clients * tm["core"].CommChannel(
+        ).payload_bytes(init)
+        check(out["comm_bytes"] == bill, f"{name}: comm {out['comm_bytes']}")
+    t0 = time.perf_counter()
+    vs_cpu = first_round_vs_cpu(
+        np, bridge, name, lambda r, dev: tl.run_engine_strategy(
+            tl.parse_args(argv + ["--rounds", str(r), "--device", dev]))[1])
+    return {"run": name, "argv": argv, "rounds": args.rounds,
+            "clients": args.clients, "wall_s": wall,
+            "rounds_per_s": args.rounds / wall,
+            "vs_cpu_s": time.perf_counter() - t0, "launches": counts,
+            **graph, "query_loss": q, "comm_mb": row.get("comm_mb"),
+            "vs_cpu": vs_cpu,
+            **({"pool_state": {k: (int(v) if np.ndim(v) == 0 else
+                                   int(np.asarray(v).sum()))
+                               for k, v in out["pool_state"].items()}}
+               if "pool_state" in out else {})}
+
+
+def phase_engine_lm_reduced(torch, np, tm):
+    """The engine's LM route on the reduced families (phase 27): the
+    launcher's runs against the CPU, TinyReptile through run_federated,
+    a crash after round 3 of 6 and its resume, and the launcher's
+    default size on the card alone for its rate."""
+    core, ops, bridge, tl = tm["core"], tm["ops"], tm["bridge"], tm["train"]
+    from repro_torch.data import LmTaskDistribution, lm_loss
+    from repro_torch.testing import faults
+
+    runs = [lm_engine_run(torch, np, tm, name, argv + ENGINE_LM)
+            for name, argv in ENGINE_LM_RUNS]
+    paths = {f"engine_lm_{r['run']}": r["launches"] for r in runs}
+
+    # TinyReptile's stream through the API, at the same size
+    model = tm["build_model"](tm["get_arch"]("mamba2-130m").reduced())
+    init = model.init(torch.Generator().manual_seed(0), "cuda")
+    dist = LmTaskDistribution(model.cfg.vocab_size, 64)
+    strategy = core.TinyReptileStrategy(lm_loss(model))
+    kw = dict(rounds=6, clients_per_round=8, support=8, alpha=1.0,
+              beta=0.02, seed=4, eval_every=6, eval_kwargs=LM_EVAL)
+    core.clear_runner_cache()
+    out, wall, counts = timed_run(torch, ops, lambda: core.run_federated(
+        init, dist, strategy, device="cuda", **kw))
+    graph = built_round(tm["engine"])
+    check_launches("engine_lm_tinyreptile", counts, engine_lm_launches(
+        "tinyreptile", "mamba2", 6, 8, 8))
+    q = out["history"][-1]["query_loss"]
+    check(math.isfinite(q), f"engine_lm_tinyreptile: query loss {q}")
+    runs.append({"run": "tinyreptile_mamba2_api", "rounds": 6, "clients": 8,
+                 "wall_s": wall, "rounds_per_s": 6 / wall,
+                 "launches": counts, **graph, "query_loss": q,
+                 "vs_cpu": first_round_vs_cpu(
+                     np, bridge, "engine_lm_tinyreptile",
+                     lambda r, dev: core.run_federated(
+                         init, dist, strategy, device=dev,
+                         **dict(kw, rounds=r, eval_every=r)))})
+    paths["engine_lm_tinyreptile_api"] = counts
+
+    # crash after the round-3 snapshot, resume: equal to the uninterrupted
+    # card run exactly, one build across the three runs
+    strategy = core.ReptileStrategy(lm_loss(model), epochs=8)
+    kw = dict(kw, seed=0)
+
+    def ckpt_run(d, **extra):
+        return core.run_federated(init, dist, strategy, device="cuda",
+                                  ckpt_dir=d, ckpt_every=ENGINE_LM_CKPT,
+                                  **kw, **extra)
+
+    core.clear_runner_cache()
+    with tempfile.TemporaryDirectory() as d:
+        ref = ckpt_run(f"{d}/ref")
+        try:
+            with faults.crash_at_round(ENGINE_LM_CKPT):
+                ckpt_run(f"{d}/run", ckpt_async=False)
+            check(False, "engine_lm ckpt: the crash did not happen")
+        except faults.SimulatedPreemption:
+            pass
+        ops.reset_launch_counts()
+        res = ckpt_run(f"{d}/run", resume=True)
+        torch.cuda.synchronize()
+        resumed_counts = ops.launch_counts()
+    (runner,) = tm["engine"]._RUNNER_CACHE._entries.values()
+    check(runner.trace_count == 1, f"ckpt: {runner.trace_count} builds")
+    for (path, a), (_, b) in zip(bridge.tree_leaves(res["params"]),
+                                 bridge.tree_leaves(ref["params"])):
+        check(torch.equal(a, b), f"engine_lm ckpt: {path} differs")
+    check(res["history"] == ref["history"]
+          and res["comm_bytes"] == ref["comm_bytes"],
+          "engine_lm ckpt: history or bills differ")
+    paths["engine_lm_ckpt_resumed"] = resumed_counts
+
+    # the launcher's default size (64 clients, 20 rounds) on the card alone
+    args = tl.parse_args(ENGINE_LM_RATE)
+    base = core.evaluate_init(
+        lm_loss(model), init, LmTaskDistribution(model.cfg.vocab_size,
+                                                 args.seq),
+        np.random.default_rng(10_000 + args.rounds - 1),
+        **LM_EVAL)["query_loss"]
+    core.clear_runner_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (row, out), wall, counts = timed_run(
+        torch, ops, lambda: tl.run_engine_strategy(args))
+    graph = built_round(tm["engine"])
+    check_launches("engine_lm_rate", counts, engine_lm_launches(
+        "reptile", "mamba2", args.rounds, args.clients, args.batch))
+    q = out["history"][-1]["query_loss"]
+    tokens = args.rounds * args.clients * tl.EPOCHS * args.batch * args.seq
+    rate = {"run": "reptile_mamba2_launcher_defaults", "argv": ENGINE_LM_RATE,
+            "rounds": args.rounds, "clients": args.clients, "wall_s": wall,
+            "rounds_per_s": args.rounds / wall,
+            "tokens_per_s": tokens / wall, "launches": counts, **graph,
+            "query_loss": q, "random_init_query_loss": base,
+            "max_memory_allocated_gb":
+                torch.cuda.max_memory_allocated() / 1e9}
+    paths["engine_lm_rate"] = counts
+    emit({"phase": "engine_lm_reduced", "runs": runs,
+          "ckpt": {"crash_after": ENGINE_LM_CKPT, "rounds": 6,
+                   "exact": True, "trace_count": runner.trace_count},
+          "rate": rate})
+    check(math.isfinite(q) and q < base,
+          f"engine_lm_rate: query loss {q} not below the init's {base}")
+    return paths
+
+
+class EpochLosses:
+    """A loss that keeps a detached view of each call's (C,) losses. In a
+    captured round those tensors are the graph's own outputs, which every
+    replay rewrites: read after a round, the warm-up's (round 0) or the
+    capture's (every later round) are that round's losses by epoch."""
+
+    def __init__(self, loss):
+        self.loss = loss
+        self.calls = []
+
+    def __call__(self, params, batch):
+        out = self.loss(params, batch)
+        self.calls.append(out.detach())
+        return out
+
+
+def grad_vs_cpu(torch, np, loss, init, dist, tol):
+    """One inner SGD step of the engine at full width, the card against
+    the CPU: ``cohort_grad`` of a cohort of 2 clients at ``init`` (CPU
+    tensors), on 2 sequences each, leaf by leaf within ``tol`` of each
+    leaf's largest entry on the CPU, the losses within 1e-5 relative
+    (``check_grad_vs_cpu``). Returns the losses, the five worst leaves
+    (relative and absolute distance, and the leaf's largest gradient
+    entry) and the leaf of the largest absolute distance."""
+    from repro_torch.bridge import FlatLayout
+    from repro_torch.core.meta import cohort_grad
+
+    layout = FlatLayout.of_tree(init)
+    flat = layout.pack(layout.named(init)).expand(2, -1)
+    block = dist.sample_support_block(np.random.default_rng(1), 1, 2, 2)
+    t0 = time.perf_counter()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        lo, g = cohort_grad(loss, layout, flat.to(dev).contiguous(),
+                            {k: torch.from_numpy(v[0]).to(dev)
+                             for k, v in block.items()})
+        out[dev] = (lo.cpu().numpy(), {
+            k: v.cpu().numpy() for k, v in layout.views(g).items()})
+        del g
+    (lc, gc), (lp, gp) = out["cuda"], out["cpu"]
+    leaves = []
+    for k, want in gp.items():
+        top = float(np.abs(want).max())
+        diff = float(np.abs(gc[k] - want).max())
+        leaves.append({"leaf": "/".join(map(str, k)), "rel": diff / top,
+                       "abs": diff, "max_abs_grad": top})
+    leaves.sort(key=lambda r: -r["rel"])
+    return {"clients": 2, "support": 2, "tol": tol,
+            "losses": {"card": lc.tolist(), "cpu": lp.tolist()},
+            "max_abs_grad": max(r["max_abs_grad"] for r in leaves),
+            "worst_leaves": leaves[:5],
+            "worst_abs_leaf": max(leaves, key=lambda r: r["abs"]),
+            "leaves_over_tol": sum(r["rel"] > tol for r in leaves),
+            "leaves": len(leaves), "s": time.perf_counter() - t0}
+
+
+def check_grad_vs_cpu(np, name, row):
+    """``grad_vs_cpu``'s gates, once its row is printed."""
+    lc, lp = (np.asarray(row["losses"][d]) for d in ("card", "cpu"))
+    check(abs(lc - lp).max() <= 1e-5 * abs(lp).max(),
+          f"{name}: losses {lc} vs the CPU's {lp}")
+    check(row["leaves_over_tol"] == 0,
+          f"{name}: {row['leaves_over_tol']} leaves' gradients past "
+          f"{row['tol']} of their largest entry, the worst "
+          f"{row['worst_leaves'][0]}")
+
+
+def phase_engine_lm_full(torch, np, tm):
+    """mamba2-130m at full width and depth in fp32 on the engine (phase
+    28): ReptileStrategy(epochs=8) at the launcher's --batch 8 --seq 64, a
+    cohort of FULL_LM_CLIENTS, FULL_LM_ROUNDS rounds, one eval; every
+    round's inner loss by epoch read from the captured round's own
+    tensors (one round a block); one inner SGD step at cohort 2, support
+    2 against the CPU (``grad_vs_cpu``); a profile of one replayed round
+    and of one eager client update (for the plain ssd_chunked backward's
+    share)."""
+    core, ops, bridge, mamba2 = tm["core"], tm["ops"], tm["bridge"], \
+        tm["mamba2"]
+    from repro_torch.bridge import FlatLayout
+    from repro_torch.data import LmTaskDistribution, lm_loss
+
+    cfg = dataclasses.replace(tm["get_arch"]("mamba2-130m"), dtype="float32")
+    model = tm["build_model"](cfg)
+    init = model.init(torch.Generator().manual_seed(0), "cpu")
+    n_params = sum(v.numel() for _, v in bridge.tree_leaves(init))
+    check(n_params == FULL_LM_PARAMS, f"mamba2-130m: {n_params} params")
+    dist = LmTaskDistribution(cfg.vocab_size, 64)
+    loss = lm_loss(model)
+    epochs, clients, rounds = 8, FULL_LM_CLIENTS, FULL_LM_ROUNDS
+
+    # one inner SGD step at cohort 2, support 2, the card against the
+    # CPU: the widths cut to 2 layers, then the whole depth
+    one_step = {}
+    for depth, tol in FULL_LM_GRAD_TOL.items():
+        cut = tm["build_model"](dataclasses.replace(cfg, num_layers=depth))
+        one_step[f"layers_{depth}"] = grad_vs_cpu(
+            torch, np, lm_loss(cut), init if depth == cfg.num_layers else
+            cut.init(torch.Generator().manual_seed(0), "cpu"), dist, tol)
+    init = bridge.unflatten_tree({k: v.cuda() for k, v in
+                                  bridge.flatten_tree(init).items()})
+    base = core.evaluate_init(loss, init, dist,
+                              np.random.default_rng(10_000 + rounds - 1),
+                              **LM_EVAL)["query_loss"]
+
+    probe = EpochLosses(loss)
+    by_round = []
+
+    class Rounds(tm["MetricsTracker"]):
+        def on_block(self, start, end, losses):
+            super().on_block(start, end, losses)
+            src = probe.calls[:epochs] if start == 0 else \
+                probe.calls[epochs:2 * epochs]
+            by_round.append((time.perf_counter(),
+                             torch.stack(src, 1).cpu().numpy()))
+
+    strategy = core.ReptileStrategy(probe, epochs=epochs)
+    core.clear_runner_cache()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, wall, counts = timed_run(torch, ops, lambda: core.run_federated(
+        init, dist, strategy, rounds=rounds, clients_per_round=clients,
+        support=8, alpha=1.0, beta=FULL_LM_BETA, seed=0,
+        eval_every=rounds, eval_kwargs=LM_EVAL, max_block=1,
+        tracker=Rounds(),
+        device="cuda"))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    graph = built_round(tm["engine"])
+    check_launches("engine_lm_mamba2_130m", counts, {
+        "online_sgd": rounds * epochs + LM_EVAL["k_steps"],
+        "meta_update": rounds,
+        "ssd_scan": cfg.num_layers * (rounds * epochs * clients
+                                      + LM_EVAL["num_tasks"]
+                                      * (LM_EVAL["k_steps"] + 1))})
+    check(len(by_round) == rounds, f"{len(by_round)} rounds read")
+    # the clients' mean loss by epoch, each round
+    inner = [per_epoch.mean(axis=0).tolist() for _, per_epoch in by_round]
+    q = out["history"][-1]["query_loss"]
+    steady = (by_round[-1][0] - by_round[0][0]) / (rounds - 1)
+    tokens = rounds * clients * epochs * 8 * 64
+    row = {"phase": "engine_lm_mamba2_130m", "arch": cfg.name,
+           "dtype": "float32", "params": n_params, "layers": cfg.num_layers,
+           "strategy": "reptile", "epochs": epochs, "beta": FULL_LM_BETA,
+           "batch": 8, "seq": 64,
+           "clients": clients, "rounds": rounds,
+           "reduced": {"clients": f"{clients}, not the launcher's 64: one "
+                                  f"(C, P) fp32 buffer is "
+                                  f"{64 * n_params * 4 / 1e9:.1f} GB at 64 "
+                                  f"and at least three are live"},
+           "wall_s": wall, "rounds_per_s": rounds / wall,
+           "tokens_per_s": tokens / wall,
+           "steady_round_s": steady,
+           "steady_tokens_per_s": clients * epochs * 8 * 64 / steady,
+           "max_memory_allocated_gb": peak, "launches": counts, **graph,
+           "inner_loss_by_epoch": inner, "query_loss": q,
+           "random_init_query_loss": base,
+           "vs_cpu_one_step": one_step}
+
+    # one replayed round under the profiler (device activity only)
+    (runner,) = tm["engine"]._RUNNER_CACHE._entries.values()
+    (prog,) = runner._programs.values()
+    cuda = torch.autograd.DeviceType.CUDA
+    act = torch.profiler.ProfilerActivity
+    prog.cursor.zero_()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        prog.step()
+        torch.cuda.synchronize()
+        round_wall = time.perf_counter() - t0
+    by_name = {ev.key: (ev.self_device_time_total, ev.count)
+               for ev in prof.key_averages()
+               if ev.device_type == cuda and ev.self_device_time_total > 0}
+    dev_us = sum(t for t, _ in by_name.values())
+    check(dev_us > 0, "the profiler saw no device time in the round")
+    ssd_us = sum(t for k, (t, _) in by_name.items() if "ssd_scan" in k)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    # one eager epoch of one client of the same round, host ranges
+    # traced: the share of the plain ssd_chunked backward's kernels
+    layout = FlatLayout.of_tree(init)
+    batch = {k: v[0, :1] for k, v in prog.batch.items()}  # a staged client
+    bwd_range = mamba2.SSD_BACKWARD_RANGE
+
+    def kernel_us(ev):
+        return (sum(k.duration for k in ev.kernels if k.name != bwd_range)
+                + sum(kernel_us(child) for child in ev.cpu_children))
+
+    plain = core.ReptileStrategy(loss, epochs=1)      # one epoch's share
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        plain.client_update(layout, prog.phi, batch, FULL_LM_BETA)
+        torch.cuda.synchronize()
+    eager = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
+             if ev.device_type == cuda and ev.self_device_time_total > 0
+             and ev.key != bwd_range}
+    eager_us = sum(eager.values())
+    bwd_us = sum(kernel_us(ev) for ev in prof.events()
+                 if ev.name == bwd_range and ev.device_type != cuda)
+    row["profile_round"] = {
+        "wall_ms": 1e3 * round_wall, "device_busy_ms": dev_us / 1e3,
+        "device_idle_share": 1 - dev_us / 1e6 / round_wall,
+        "kernels": sum(c for _, c in by_name.values()),
+        "ssd_scan_ms": ssd_us / 1e3, "ssd_scan_share_of_busy": ssd_us / dev_us,
+        "top_device": [[k[:80], t / 1e3, c, t / dev_us]
+                       for k, (t, c) in top],
+        "eager_epoch_device_ms": eager_us / 1e3,
+        "ssd_backward_ms": bwd_us / 1e3,
+        "ssd_backward_share_of_busy": bwd_us / eager_us if eager_us else None}
+    emit(row)
+    for depth, row_ in one_step.items():
+        check_grad_vs_cpu(np, f"engine_lm_mamba2_130m one step, {depth}",
+                          row_)
+    for r, (_, per_epoch) in enumerate(by_round):
+        check(np.isfinite(per_epoch).all(), f"round {r}: inner losses")
+        check(inner[r][-1] < inner[r][0], f"round {r}: the inner loss did "
+                                          f"not fall: {inner[r]}")
+    check(math.isfinite(q) and q < base,
+          f"engine_lm_mamba2_130m: query loss {q} not below the init's "
+          f"{base}")
+    del prog, runner, out, init
+    core.clear_runner_cache()
+    torch.cuda.empty_cache()
+    return {"engine_lm_mamba2_130m": counts}
+
+
+def phase_examples(torch, np, tm):
+    """The port's examples on the card (phase 29): the LM meta-training
+    example on both families and the quickstart at its 600 rounds, their
+    own asserts held, their printed lines in this phase's row."""
+    from repro_torch.examples import llm_meta_training, quickstart
+
+    def printed(fn):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = fn()
+        return out, buf.getvalue().splitlines()
+
+    paths, rows = {}, []
+    for arch, kernel in (("tinyllama-1.1b", "flash_decode"),
+                         ("mamba2-130m", "ssd_scan")):
+        (out, lines), wall, counts = timed_run(
+            torch, tm["ops"], lambda: printed(lambda: llm_meta_training.main(
+                [arch, "--device", "cuda"])))
+        check(all(math.isfinite(x) for x in out["losses"]),
+              f"example {arch}: losses {out['losses']}")
+        check(len(out["greedy"]) == llm_meta_training.NEW_TOKENS,
+              f"example {arch}: greedy {out['greedy']}")
+        check(all(counts[k] > 0 for k in ("online_sgd", "meta_update",
+                                          kernel)),
+              f"example {arch}: launches {counts}")
+        rows.append({"example": "llm_meta_training", "arch": arch,
+                     "wall_s": wall, "launches": counts,
+                     "first_loss": out["losses"][0],
+                     "last_loss": out["losses"][-1],
+                     "greedy": out["greedy"], "output": lines})
+        paths[f"example_llm_meta_training_{arch}"] = counts
+    (out, lines), wall, counts = timed_run(
+        torch, tm["ops"], lambda: printed(lambda: quickstart.main(
+            ["--device", "cuda"])))
+    check(out["tinyreptile"] < out["random_init"] / 2,
+          f"quickstart: TinyReptile {out['tinyreptile']} against the "
+          f"random init's {out['random_init']}")
+    check(out["comm_bytes"] == 4 * out["comm_bytes_int8"],
+          "quickstart: the int8 wire is not a quarter of fp32")
+    check(counts["online_sgd"] > 0 and counts["meta_update"] > 0,
+          f"quickstart: launches {counts}")
+    rows.append({"example": "quickstart", "wall_s": wall,
+                 "launches": counts, **out, "output": lines})
+    paths["example_quickstart"] = counts
+    emit({"phase": "examples", "runs": rows})
+    return paths
+
+
+def phase_kernels_engine_lm(torch, np, ops, ref, rows):
+    """online_sgd at the engine's full-width cohort ((FULL_LM_CLIENTS,
+    FULL_LM_PARAMS) fp32, 1.03e9 elements: the kernel indexes in 64 bits)
+    and meta_update at its phi (FULL_LM_PARAMS fp32), bit for bit against
+    their plain versions, beside torch.add and torch.lerp and the bytes
+    bound (ssd_scan's engine shapes are among SSD_SHAPES)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    alpha = torch.tensor([0.37], device=dev)
+    for kernel, shape in (("online_sgd", (FULL_LM_CLIENTS, FULL_LM_PARAMS)),
+                          ("meta_update", (FULL_LM_PARAMS,))):
+        a, b = (torch.randn(shape, generator=gen, device=dev)
+                for _ in range(2))
+        n = a.numel()
+        if kernel == "online_sgd":
+            fn, plain = (lambda: ops.online_sgd(a, b, 0.02),
+                         lambda: ref.online_sgd(a, b, 0.02))
+            library, nops = lambda: torch.add(a, b, alpha=-0.02), 2 * n
+        else:
+            fn, plain = (lambda: ops.meta_update(a, b, alpha),
+                         lambda: ref.meta_update(a, b, alpha))
+            library, nops = lambda: torch.lerp(a, b, 0.37), 3 * n
+        check(torch.equal(fn(), plain()), f"{kernel} engine: not bit-exact")
+        moved = 3 * n * 4
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S
+        tag = "engine_" + "x".join(map(str, shape)) + "_fp32"
+        row = {"shape": list(shape), "n": n, "dtype": "float32",
+               "tol": "exact", "max_abs_err": 0.0,
+               "ms": cuda_ms(torch, fn, 5), **device_ms(torch, fn, calls=5),
+               "plain_ms": cuda_ms(torch, plain, 2),
+               "library_ms": cuda_ms(torch, library, 5),
+               **device_ms(torch, library, "library_device_ms", calls=5),
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": moved}
+        rows[f"{kernel}/{tag}"] = row
+        emit({"phase": "kernel", "kernel": kernel, "case": tag, **row})
+        del a, b
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main():
     import numpy as np
     import torch
@@ -3440,12 +4041,25 @@ def main():
     phase_kernels_decode(torch, np, ops, ref, rows)
     phase_kernels_client_mean(torch, np, ops, ref, rows)
     phase_kernels_tinyllama(torch, np, ops, ref, rows)
+    phase_kernels_engine_lm(torch, np, ops, ref, rows)
 
-    # the decode slice first: its paths are the newest
-    from repro_torch import bridge, graphs
+    from repro_torch import bridge, core, graphs
     from repro_torch.configs import get_arch
+    from repro_torch.core import engine
     from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train
+    from repro_torch.models import mamba2
     from repro_torch.models.transformer import build_model
+
+    # the engine's LM route first: its paths are the newest
+    lm = {"core": core, "ops": ops, "train": train, "bridge": bridge,
+          "engine": engine, "mamba2": mamba2, "build_model": build_model,
+          "get_arch": get_arch, "MetricsTracker": MetricsTracker}
+    engine_lm_paths = {**phase_engine_lm_reduced(torch, np, lm),
+                       **phase_engine_lm_full(torch, np, lm),
+                       **phase_examples(torch, np, lm)}
+
+    # then the decode slice
 
     dm = {"ops": ops, "bridge": bridge, "serve": serve_launcher,
           "get_arch": get_arch, "build_model": build_model,
@@ -3475,13 +4089,10 @@ def main():
                           T_K_MAX, "dfa_epoch_int8", exact_params=True)
     phase_profile(torch, np, mods, fp32, phi, reqs)
 
-    from repro_torch import core
     from repro_torch.configs.paper_models import PAPER_MODELS
-    from repro_torch.core import engine
     from repro_torch.data import KWSTasks, OmniglotTasks, SineTasks
     from repro_torch.examples import federated_keyword_spotting as kws
-    from repro_torch.launch import train
-    from repro_torch.models import mamba2, paper_nets
+    from repro_torch.models import paper_nets
 
     tm = {"core": core, "ops": ops, "train": train, "SineTasks": SineTasks,
           "loss": functools.partial(paper_model_loss, SINE_MLP), "phi": phi,
@@ -3533,7 +4144,7 @@ def main():
              "serve_decode_reduced": s_dec_red["launches"],
              "serve_decode_tinyllama_1_1b": s_dec["launches"],
              **fig4_paths, **fleet_paths, **ckpt_paths, **queue_c,
-             **dense_paths, **dec_mamba}
+             **dense_paths, **dec_mamba, **engine_lm_paths}
     kernels = []
     for kernel, route, source, replaces, row in (
             ("online_sgd", "cuda", "src/repro_torch/kernels/csrc/online_sgd.cu",

@@ -13,9 +13,12 @@ layer), and ``lm_cache_from_jax`` / ``lm_cache_to_jax`` the decode
 cache's, which follows the same layout.
 
 ``FlatLayout`` packs a tree into one flat buffer, the form the port's
-kernels update in one launch; ``FlatLayout.per_dtype`` gives one layout
-per leaf dtype, for trees that mix dtypes (the LM's bf16 matrices beside
-its fp32 SSM scalars).
+kernels update in one launch: a flat ``{name: leaf}`` dict by its names,
+a nested tree (the LM's ``{"embed", ..., "layers": [...]}``) by its
+``flatten_tree`` paths (``FlatLayout.of_tree``), either way in the JAX
+package's leaf order. ``FlatLayout.per_dtype`` gives one layout per leaf
+dtype, for trees that mix dtypes (the LM's bf16 matrices beside its fp32
+SSM scalars).
 """
 from __future__ import annotations
 
@@ -110,7 +113,7 @@ def lm_params_from_jax(tree, scan_period: Optional[int] = None,
     if scan_period is not None:
         def unstack(stacks):
             n_groups = len(next(iter(flatten_tree(stacks[0]).values())))
-            return [_index_tree(stacks[pos], g)
+            return [index_tree(stacks[pos], g)
                     for g in range(n_groups) for pos in range(scan_period)]
         tree = _map_layers(tree, unstack)
     return params_from_numpy(tree, device)
@@ -149,7 +152,8 @@ def lm_cache_to_jax(cache, scan_period: Optional[int] = None):
     return lm_params_to_jax(cache, scan_period)
 
 
-def _index_tree(tree, i):
+def index_tree(tree, i):
+    """Row ``i`` of every leaf of a nested tree (views for tensors)."""
     return unflatten_tree({k: v[i] for k, v in flatten_tree(tree).items()})
 
 
@@ -168,12 +172,39 @@ class FlatLayout:
     per-model losses with respect to it is each model's own gradient."""
     names: Tuple[Any, ...]
     shapes: Tuple[Tuple[int, ...], ...]
+    #: the names are ``flatten_tree`` paths of a nested tree (``of_tree``)
+    nested: bool = False
 
     @classmethod
     def of(cls, tree, batch_dims: int = 0) -> "FlatLayout":
         names = tuple(sorted(tree))
         return cls(names, tuple(tuple(tree[k].shape[batch_dims:])
                                 for k in names))
+
+    @classmethod
+    def of_tree(cls, tree) -> "FlatLayout":
+        """The layout of one model's params: a flat ``{name: leaf}`` dict
+        by its names (``of``), a nested tree of dicts and lists by its
+        ``flatten_tree`` paths. Sorted names and sorted paths are both
+        ``jax.tree.leaves``' order, so leaf i here is leaf i there."""
+        if isinstance(tree, dict) and not any(
+                isinstance(v, (dict, list)) for v in tree.values()):
+            return cls.of(tree)
+        return dataclasses.replace(cls.of(flatten_tree(tree)), nested=True)
+
+    def named(self, tree) -> Dict[Any, Any]:
+        """A tree of this layout's structure as ``{name: leaf}``."""
+        return flatten_tree(tree) if self.nested else dict(tree)
+
+    def tree(self, named: Dict[Any, Any]):
+        """``named``'s inverse: ``{name: leaf}`` in the structure the
+        layout was made from (the nested tree, or the flat dict)."""
+        return unflatten_tree(named) if self.nested else named
+
+    def tree_views(self, flat: torch.Tensor):
+        """``views`` of a ``(*batch, size)`` buffer in the structure the
+        layout was made from; no copy."""
+        return self.tree(self.views(flat))
 
     @classmethod
     def per_dtype(cls, tree) -> Dict[torch.dtype, "FlatLayout"]:

@@ -14,10 +14,14 @@ accepted and raises NotImplementedError until its slice is ported.)
   algorithm-specific hooks: ``client_update`` (what the round's cohort
   does with the broadcast phi and its local data) and
   ``server_aggregate`` (how the server folds the results back).
-* phi lives in one flat ``(P,)`` buffer (``bridge.FlatLayout``, leaves
-  in sorted-name order) and a round's cohort in one ``(C, P)`` buffer,
-  so each inner SGD step of every client is one ``online_sgd`` launch
-  and each Reptile interpolation one ``meta_update`` launch.
+* phi lives in one flat ``(P,)`` buffer (``bridge.FlatLayout.of_tree``:
+  a flat ``{leaf: tensor}`` dict by its sorted names, a nested tree such
+  as the LM's by its sorted paths, the JAX package's leaf order either
+  way) and a round's cohort in one ``(C, P)`` buffer, so each inner SGD
+  step of every client is one ``online_sgd`` launch and each Reptile
+  interpolation one ``meta_update`` launch. The losses, the evals, the
+  checkpoints and the returned params see the init's own structure. The
+  leaves must share one dtype (the buffer has one).
 * One round is one function, ``_BlockRunner._round``, built once per
   config and shape (``graphs.GraphStep``): captured as a CUDA graph on
   the card and replayed, run as it is on the CPU. It reads round j of
@@ -836,11 +840,11 @@ _NOT_PORTED = {
 
 def _pool_named(ps: PoolState, layout: FlatLayout) -> PoolState:
     """The pool state as checkpoints hold it: a flat ``(capacity, P)``
-    FedBuff buffer as named ``(capacity, *leaf)`` views, the JAX
-    package's phi-shaped buffer leaves."""
+    FedBuff buffer as ``(capacity, *leaf)`` views in phi's structure, the
+    JAX package's phi-shaped buffer leaves."""
     if isinstance(ps.buf_updates, torch.Tensor):
-        ps = dataclasses.replace(ps, buf_updates=layout.views(
-            ps.buf_updates))
+        ps = dataclasses.replace(ps,
+                                 buf_updates=layout.tree_views(ps.buf_updates))
     return ps
 
 
@@ -851,7 +855,7 @@ def _pool_from_saved(saved: PoolState, layout: FlatLayout, flat: bool,
     ps = map_leaves(lambda a: torch.as_tensor(a, device=dev), saved)
     if flat and ps.buf_updates is not None:
         ps = dataclasses.replace(ps, buf_updates=layout.pack(
-            ps.buf_updates, batch_dims=1))
+            layout.named(ps.buf_updates), batch_dims=1))
     return ps
 
 
@@ -879,14 +883,17 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
     """Run ``rounds`` federated rounds of ``strategy`` on ``device``
     (default ``cuda``; the CPU only when asked).
 
-    ``init_params`` is one model's ``{leaf: array}`` tree (NumPy arrays,
-    e.g. the JAX package's init, or tensors). Returns ``{"params",
+    ``init_params`` is one model's tree of arrays (NumPy, e.g. the JAX
+    package's init, or tensors): a flat ``{leaf: array}`` dict, or a
+    nested tree of dicts and lists such as the LM's (``{"embed",
+    "final_norm", "layers": [...]}``), all of one dtype (a tree mixing
+    dtypes raises: the engine packs one buffer). Returns ``{"params",
     "history"}`` (+ ``"comm_bytes"`` and ``"per_client_bytes"`` for
     strategies that meter communication; ``per_client_bytes[c]`` is the
     transport paid by cohort slot c, or by pool client c on pooled runs,
-    billed only in rounds it takes part in). ``params`` is a ``{leaf:
-    tensor}`` dict on ``device``; history rows are per-eval dicts:
-    ``evaluate_init`` fields + round [+ comm_bytes, inner_loss].
+    billed only in rounds it takes part in). ``params`` is a tree of the
+    init's structure, tensors on ``device``; history rows are per-eval
+    dicts: ``evaluate_init`` fields + round [+ comm_bytes, inner_loss].
 
     The host RNG is ``np.random.default_rng(seed)``; each block draws its
     schedule (``sampling.plan_schedule``, or ``plan_pool_schedule`` over
@@ -976,11 +983,21 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
             f"channel that also quantizes would mask that data by its "
             f"own tree, which the port does not do: use fraction=1.0 or "
             f"quantize=False")
-    layout = FlatLayout.of(init_params)
-    # a private copy: the caller's init stays usable across runs
-    phi = layout.pack({k: torch.as_tensor(
+    layout = FlatLayout.of_tree(init_params)
+    leaves = {k: torch.as_tensor(
         v if isinstance(v, torch.Tensor) else np.array(v), device=dev)
-        for k, v in init_params.items()})
+        for k, v in layout.named(init_params).items()}
+    dtypes = sorted({str(t.dtype) for t in leaves.values()})
+    if len(dtypes) > 1:
+        raise ValueError(
+            f"run_federated: the init mixes leaf dtypes "
+            f"({', '.join(dtypes)}); the engine packs phi into one buffer, "
+            f"which would promote them all to one. The engine over "
+            f"mixed-dtype trees is not ported yet (ROADMAP queue A item "
+            f"6i); cast the init to one dtype (the engine's LM route runs "
+            f"its models in fp32)")
+    # a private copy: the caller's init stays usable across runs
+    phi = layout.pack(leaves)
     rng = np.random.default_rng(seed)
     history: List[Dict] = []
     comm_bytes = 0
@@ -1024,7 +1041,7 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
             device="cpu"), layout) if pooled else None)
         try:
             saved = restore_round_state(
-                ckpt_dir, phi=layout.views(phi), pool_state=template,
+                ckpt_dir, phi=layout.tree_views(phi), pool_state=template,
                 per_client_bytes=per_client_bytes)
         except FileNotFoundError:
             logger.info("resume: no snapshot in %s yet; starting fresh",
@@ -1043,7 +1060,7 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                     f"past rounds={rounds}; raise the horizon to continue")
             start_round = int(saved.round)
             phi = layout.pack({k: torch.as_tensor(v, device=dev)
-                               for k, v in saved.phi.items()})
+                               for k, v in layout.named(saved.phi).items()})
             if pooled:
                 pool.load_host_state(saved.host.get("pool", {}))
             per_client_bytes = np.asarray(saved.per_client_bytes,
@@ -1190,7 +1207,7 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                     f: slabs[f] for f in ClientPool.SLAB_FIELDS})
             pool_snap = map_leaves(_snapshot_copy, ps)
         state = RoundState(
-            round=end, phi=layout.views(prog.phi.clone()),
+            round=end, phi=layout.tree_views(prog.phi.clone()),
             pool_state=pool_snap, per_client_bytes=per_client_bytes.copy(),
             comm_bytes=comm_bytes, history=list(history),
             host=host_snaps.pop(end), fingerprint=fingerprint)
@@ -1259,8 +1276,8 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                 if tracker is not None:
                     tracker.on_transport(end, block_bytes, comm_bytes)
             if needs_eval:
-                ev = evaluate_init(strategy.loss_fn, layout.views(prog.phi),
-                                   task_dist,
+                ev = evaluate_init(strategy.loss_fn,
+                                   layout.tree_views(prog.phi), task_dist,
                                    np.random.default_rng(10_000 + end - 1),
                                    **(eval_kwargs or {}))
                 ev["round"] = end
@@ -1294,7 +1311,7 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
 
     if prog is not None:
         phi = prog.phi.clone()     # the runner's buffer serves later runs
-    out = {"params": layout.views(phi), "history": history}
+    out = {"params": layout.tree_views(phi), "history": history}
     if strategy.meters_comm:
         out["comm_bytes"] = comm_bytes
         out["per_client_bytes"] = per_client_bytes.tolist()

@@ -7,7 +7,9 @@ then measure the loss on the query set Q, averaged over clients — Eq.
 
 The inner loops work on a COHORT: C models as one flat ``(C, P)``
 buffer laid out by a ``bridge.FlatLayout``, with ``loss_fn(params,
-batch)`` returning one loss per model. The gradient of the summed
+batch)`` returning one loss per model. The loss sees the params in the
+structure the layout was made from: a flat ``{leaf: tensor}`` dict, or
+the LM's nested tree (``FlatLayout.of_tree``). The gradient of the summed
 losses with respect to the buffer is every model's own gradient, so
 each SGD step of the whole cohort is one backward pass and one
 ``online_sgd`` launch, where the JAX package vmaps one model's loop.
@@ -51,7 +53,7 @@ def cohort_grad(loss_fn: Callable, layout: FlatLayout, flat: torch.Tensor,
     with torch.enable_grad():
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in layout.views(flat).items()}
-        loss = loss_fn(leaves, batch)
+        loss = loss_fn(layout.tree(leaves), batch)
         grads = torch.autograd.grad(loss.sum(),
                                     [leaves[k] for k in layout.names])
     g = torch.cat([gr.reshape(flat.shape[:-1] + (-1,)) for gr in grads],
@@ -116,30 +118,33 @@ def evaluate_init(loss_fn: Callable, params, task_dist: TaskDistribution,
                   metric_fn: Optional[Callable] = None) -> Dict[str, float]:
     """Paper protocol: per testing client, fine-tune ``k_steps`` on S
     then score on Q; average over clients. ``params`` is one model's
-    ``{leaf: tensor}`` tree; the clients are drawn from ``rng`` in the
-    JAX package's order (task, query, then support, client by client),
-    then fine-tuned together as one cohort. ``metric_fn(params, query)``
-    (e.g. ``paper_model_accuracy``), called as ``loss_fn`` is, gives one
-    value per client; their mean is ``query_metric``."""
+    tree (a flat ``{leaf: tensor}`` dict or a nested one); the clients
+    are drawn from ``rng`` in the JAX package's order (task, query, then
+    support, client by client), then fine-tuned together as one cohort.
+    ``metric_fn(params, query)`` (e.g. ``paper_model_accuracy``), called
+    as ``loss_fn`` is, gives one value per client; their mean is
+    ``query_metric``."""
     draws = []
     for _ in range(num_tasks):
         task = task_dist.sample_task(rng)
         qry = task.query_batch(rng, query)
         sup = task.support_batch(rng, support) if support > 0 else None
         draws.append((qry, sup))
-    layout = FlatLayout.of(params)
-    dev = params[layout.names[0]].device
+    layout = FlatLayout.of_tree(params)
+    named = layout.named(params)
+    dev = named[layout.names[0]].device
 
     def stack(batches):
         return {k: torch.from_numpy(np.stack([b[k] for b in batches])).to(dev)
                 for k in ("x", "y")}
 
-    flat = layout.pack(params).expand(num_tasks, -1).contiguous()
+    flat = layout.pack(named).expand(num_tasks, -1).contiguous()
     if support > 0:
         flat, _ = finetune_batch(loss_fn, layout, flat,
                                  stack([s for _, s in draws]), k_steps, lr)
     # support == 0: no adaptation (paper Fig. 6)
-    views, qry = layout.views(flat), stack([q for q, _ in draws])
+    views = layout.tree_views(flat)
+    qry = stack([q for q, _ in draws])
     out = {"query_loss": float(np.mean(loss_fn(views, qry).tolist()))}
     if metric_fn is not None:
         out["query_metric"] = float(np.mean(metric_fn(views, qry).tolist()))

@@ -6,6 +6,8 @@ row per round (the LM launcher) or one summary row (the round engine).
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2 \
         --reduced --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --strategy reptile
+    PYTHONPATH=src python -m repro_torch.launch.train --strategy reptile \
+        --arch mamba2 --device cpu
 
 The default ``--strategy tinyreptile`` is the JAX package's LM launcher
 on its plain route: each round takes one client's ``LMClientStream``
@@ -30,6 +32,12 @@ plugins as in the JAX launcher: ``--pool-size`` -> ``ClientPool``
 ``--availability diurnal|markov`` -> the sampling policy,
 ``--buffer-size`` -> ``BufferedAggregation``; incompatible combinations
 are rejected at parse time with the JAX launcher's messages.
+``--arch transformer|mamba2`` on an engine strategy swaps the sine MLP
+for next-token personalization of the family's reduced config
+(tinyllama-1.1b or mamba2-130m ``.reduced()``, fp32) over heterogeneous
+LM clients (``data.LmTaskDistribution``, support = ``--batch``
+sequences of ``--seq`` tokens, ``data.lm_loss``), as the JAX launcher's
+engine route does; every fleet and checkpoint flag applies to it too.
 ``--ckpt-dir`` snapshots the engine's whole round state every
 ``--ckpt-every`` rounds (a background writer, the JAX package's file
 format) and ``--resume`` continues a preempted run bit for bit, also
@@ -43,9 +51,9 @@ path on the CPU instead. The init is drawn from ``--seed`` with torch's
 generator, which does not reproduce ``jax.random``'s init at the same
 seed (``init_params=`` carries the JAX package's init in). The flags of
 routes not ported yet (the MoE, hybrid, encoder-decoder and VLM
-architectures, the engine's LM route
-``--strategy ... --arch``, meshes, multi-process runs, and checkpoints
-and resume on the LM launcher) are rejected at parse time.
+architectures, ``--arch moe`` on the engine, meshes, multi-process runs,
+and checkpoints and resume on the LM launcher) are rejected at parse
+time.
 """
 from __future__ import annotations
 
@@ -61,6 +69,8 @@ ENGINE_STRATEGIES = ("reptile", "fedavg", "fedsgd", "transfer", "tifed")
 ARCH_FAMILIES = {"transformer": "tinyllama-1.1b", "mamba2": "mamba2-130m",
                  "moe": "mixtral-8x22b"}
 PORTED_ARCHS = ("mamba2-130m", "tinyllama-1.1b", "starcoder2-15b")
+#: the engine LM route's ported family keywords
+ENGINE_FAMILIES = ("mamba2", "transformer")
 #: flags not ported yet, by the slice that ports them
 NOT_PORTED_FLAGS = {
     "--devices": "the multi-device slice", "--mesh": "the multi-device slice",
@@ -73,6 +83,8 @@ EVAL_KWARGS = dict(num_tasks=5, support=10, k_steps=16, lr=0.02, query=20)
 TIFED_EVAL_LR = 0.005
 SUPPORT = 32
 EPOCHS = 8
+# eval protocol of the JAX launcher's engine LM route
+LM_EVAL_KWARGS = dict(num_tasks=2, support=4, k_steps=4, lr=0.01, query=8)
 
 
 class _NotPorted(argparse.Action):
@@ -116,10 +128,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="LM architecture of the tinyreptile launcher "
                          "(ported: mamba2-130m, tinyllama-1.1b, "
                          "starcoder2-15b; family keywords mamba2, "
-                         "transformer)")
+                         "transformer); with an engine --strategy, the "
+                         "family keyword mamba2|transformer meta-trains "
+                         "that family's reduced config instead of the "
+                         "sine MLP")
     ap.add_argument("--reduced", action="store_true",
                     help="the family's smoke config (2 layers, d_model "
-                         "256, fp32)")
+                         "256, fp32); the engine route always reduces")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--k-inner", type=int, default=4)
@@ -226,16 +241,26 @@ def parse_args(argv=None) -> argparse.Namespace:
         if args.batch % args.k_inner:
             ap.error(f"--batch {args.batch} must split into --k-inner "
                      f"{args.k_inner} equal microbatches")
-    elif args.strategy == "tifed" and (args.arch is not None
-                                       or args.reduced):
-        ap.error("--strategy tifed runs TIFeD integer-only training on "
-                 "the paper's ReLU sine net; the LM families are fp32 — "
-                 "drop --arch")
-    elif args.arch is not None or args.reduced:
-        ap.error(f"--strategy {args.strategy} with an LM (--arch/--reduced)"
-                 f" is the engine LM route, which is not ported yet (it "
-                 f"needs a client-batched LM); drop --arch/--reduced for "
-                 f"the sine MLP, or run the tinyreptile LM launcher")
+    elif args.arch is not None:
+        if args.arch not in ARCH_FAMILIES:
+            ap.error(f"--strategy {args.strategy} meta-trains a reduced LM "
+                     f"family (--arch {'|'.join(sorted(ARCH_FAMILIES))}) or, "
+                     f"without --arch, the paper sine MLP; the canonical "
+                     f"config {args.arch!r} runs the tinyreptile LM "
+                     f"launcher")
+        if args.strategy == "tifed":
+            ap.error("--strategy tifed runs TIFeD integer-only training on "
+                     "the paper's ReLU sine net; the LM families are fp32 "
+                     "— drop --arch")
+        if args.arch not in ENGINE_FAMILIES:
+            ap.error(f"--arch {args.arch} ({ARCH_FAMILIES[args.arch]}) is "
+                     f"not ported yet on the engine route: models/moe.py "
+                     f"comes with the other families (ROADMAP queue A item "
+                     f"6f); the engine LM route runs --arch "
+                     f"{'|'.join(ENGINE_FAMILIES)}")
+        for flag, v in (("--batch", args.batch), ("--seq", args.seq)):
+            if v < 1:
+                ap.error(f"{flag} must be >= 1, got {v}")
     if args.ckpt_every is None:
         args.ckpt_every = 10
     if args.rounds < 1:
@@ -269,13 +294,17 @@ def run_engine_strategy(args, init_params=None):
     """One ``run_federated`` call as the JAX launcher's engine route
     makes it, the fleet flags mapped onto the engine's plugins; prints
     the summary row and returns ``(row, out)``, out being
-    ``run_federated``'s result. ``init_params`` (a ``{leaf: array}``
-    tree) replaces the seeded torch init — how a caller starts from the
-    JAX package's init."""
+    ``run_federated``'s result. ``init_params`` replaces the seeded
+    torch init — how a caller starts from the JAX package's init: the
+    sine MLP's ``{leaf: array}`` tree, or with ``--arch`` the reduced
+    LM's nested tree (the JAX init through
+    ``bridge.lm_params_from_jax``; the reduced configs keep one dict per
+    layer in both packages)."""
     import functools
 
     import torch
 
+    from repro_torch.configs import get_arch
     from repro_torch.configs.paper_models import SINE_MLP
     from repro_torch.core import (BufferedAggregation, ClientPool,
                                   CommChannel, DiurnalAvailability,
@@ -284,18 +313,35 @@ def run_engine_strategy(args, init_params=None):
     from repro_torch.core.strategies import (FedAvgStrategy, FedSGDStrategy,
                                              ReptileStrategy, TifedStrategy,
                                              TransferStrategy)
-    from repro_torch.data import SineTasks
+    from repro_torch.data import LmTaskDistribution, SineTasks, lm_loss
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
     from repro_torch.models.paper_nets import (init_paper_model,
                                                paper_model_loss,
                                                relu_mlp_loss)
+    from repro_torch.models.transformer import build_model
 
     dev = resolve_device(args.device)
-    loss = functools.partial(paper_model_loss, SINE_MLP)
-    if init_params is None:
-        init_params = init_paper_model(
-            SINE_MLP, torch.Generator().manual_seed(args.seed), dev)
+    tifed = args.strategy == "tifed"
+    if args.arch is not None:
+        # the family keyword -> its canonical config, reduced: the engine
+        # trains every cohort client every round
+        model = build_model(get_arch(ARCH_FAMILIES[args.arch]).reduced())
+        loss = lm_loss(model)
+        dist = LmTaskDistribution(model.cfg.vocab_size, args.seq)
+        support, eval_kwargs = args.batch, LM_EVAL_KWARGS
+        if init_params is None:
+            init_params = model.init(
+                torch.Generator().manual_seed(args.seed), dev)
+    else:
+        loss = functools.partial(paper_model_loss, SINE_MLP)
+        dist = SineTasks()
+        support = SUPPORT
+        eval_kwargs = dict(EVAL_KWARGS, lr=TIFED_EVAL_LR) if tifed \
+            else EVAL_KWARGS
+        if init_params is None:
+            init_params = init_paper_model(
+                SINE_MLP, torch.Generator().manual_seed(args.seed), dev)
     strategy = {
         "reptile": lambda: ReptileStrategy(loss, epochs=EPOCHS),
         "fedavg": lambda: FedAvgStrategy(loss, epochs=EPOCHS),
@@ -303,11 +349,7 @@ def run_engine_strategy(args, init_params=None):
         "transfer": lambda: TransferStrategy(loss),
         "tifed": lambda: TifedStrategy(relu_mlp_loss, epochs=EPOCHS),
     }[args.strategy]()
-    tifed = args.strategy == "tifed"
     channel = CommChannel("int8", quantize=False) if tifed else CommChannel()
-    eval_kwargs = dict(EVAL_KWARGS, lr=TIFED_EVAL_LR) if tifed \
-        else EVAL_KWARGS
-    dist = SineTasks()
     pool = (ClientPool(dist, args.pool_size, seed=args.seed,
                        sampler=args.pool_sampler,
                        residency=args.pool_residency)
@@ -328,7 +370,7 @@ def run_engine_strategy(args, init_params=None):
     out = run_federated(
         init_params, dist, strategy, rounds=args.rounds,
         clients_per_round=args.clients, alpha=args.alpha, beta=args.beta,
-        support=SUPPORT, seed=args.seed, eval_every=args.rounds,
+        support=support, seed=args.seed, eval_every=args.rounds,
         eval_kwargs=eval_kwargs, channel=channel, sampling=sampling,
         pool=pool, buffered=buffered, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, resume=args.resume, device=dev)
@@ -339,6 +381,8 @@ def run_engine_strategy(args, init_params=None):
            "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                       else "cpu"),
            "kernel_launches": ops.launch_counts()}
+    if args.arch is not None:
+        row["arch"] = args.arch
     if out["history"]:
         row["query_loss"] = round(float(out["history"][-1]["query_loss"]),
                                   4)

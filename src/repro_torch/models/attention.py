@@ -172,7 +172,9 @@ def flash_attention(q, k, v, *, causal, window=0, q_positions=None,
     nq, nk = q.shape[1] // q_block, k.shape[1] // kv_block
     # the scale rounded to q's dtype and applied there, as in the JAX
     # package; the products then accumulate in fp32
-    qs = (q * torch.tensor(hd ** -0.5, dtype=q.dtype, device=dev)).float()
+    # the scale as a tensor of q's dtype, made on the device (a host copy
+    # cannot be captured in a CUDA graph)
+    qs = (q * torch.full((), hd ** -0.5, dtype=q.dtype, device=dev)).float()
     k32 = k.float()
     outs = []
     for i in range(nq):
