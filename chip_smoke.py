@@ -198,7 +198,8 @@ Phases, each printing one JSON line, in this order:
     a Reptile run crashed right after its round-3 snapshot of 6 and
     resumed, equal to the uninterrupted card run exactly, one build
     across the three runs; then ``--strategy reptile --arch mamba2`` at
-    the launcher's defaults (64 clients, 20 rounds) on the card alone:
+    32 clients (cut from the launcher's 64 for the script's time) x 20
+    rounds on the card alone:
     rounds/s, tokens/s, graph size, the query loss below the init's;
 28. engine LM mamba2-130m: full width and depth in fp32 (128,983,488
     parameters), ``ReptileStrategy(epochs=8)`` at a cohort of 8 (not the
@@ -221,6 +222,35 @@ Phases, each printing one JSON line, in this order:
     engine's two shapes, ``online_sgd`` at the full-width cohort (8,
     128,983,488) fp32 and ``meta_update`` at its phi.
 
+30. families reduced (after phase 23): the decoder-only families of
+    slice 15 at their reduced widths (FAMILY_REDUCED: mixtral at 2 and 4
+    layers, maverick at 4 with its dense and MoE blocks alternating,
+    zamba2 at 5, glm4, minicpm), each from one seeded init on the card
+    against the CPU: the loss and every gradient leaf (1e-4; 1e-3 with
+    Mamba2 layers), the routing alike, one decode wave (1e-3 of the
+    largest logit, the same tokens) replayed bit-equal to eager; then
+    ``--strategy reptile --arch moe`` at ``--clients 8 --rounds 6``, its
+    first round within 1e-4 of the CPU, its round built once;
+31. families decode: mixtral-8x22b cut to 8 layers, llama4-maverick cut
+    to 2 (dense, MoE), zamba2-1.2b, glm4-9b and minicpm-2b at full width
+    and depth, bf16, weights drawn on the card, through ``serve.
+    run_decode`` at phase 5's traffic: flash_decode launches as
+    reckoned, finite logits, one build, tokens/s, step time, peak memory;
+    each in fp32 teacher-forced on the card and the CPU (cut to
+    FAMILY_DECODE's layers; the routing alike), maverick's MoE block alone
+    at full width in bf16 (4 bf16 steps), and one replayed mixtral step
+    profiled (idle share, top kernels, the experts' share);
+32. families train: TinyReptile LM meta-training at full width, bf16,
+    ``--batch 8 --seq 2048 --k-inner 4`` at beta 0.002: mixtral-8x22b
+    cut to 4 layers (3 rounds), zamba2-1.2b at full depth (4 rounds):
+    launches as reckoned, the inner loss by round, tokens/s, peak
+    memory; one fp32 gradient at full width (mixtral 1 layer, zamba2 one
+    group) on the card against the CPU leaf by leaf, the routing alike.
+    The kernels phase also times flash_decode at these families' decode
+    shapes (head_dim 128 at R = 6, 5 and 16; head_dim 64 as MHA), each
+    against SDPA and its bound, online_sgd in place, and ssd_scan at
+    zamba2's (2, 64, 8, 256, 64, 64).
+
 Then the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure is a
 traceback and a non-zero exit; without a CUDA device, or without the
@@ -231,6 +261,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import io
 import itertools
 import json
@@ -278,7 +309,10 @@ SSD_SHAPES = (("test_1x2x2x16x64x16", (1, 2, 2, 16, 64, 16)),
               # the reduced mamba2 (8 heads, chunks of 32, state 32) and
               # mamba2-130m (one 256-position chunk, padded from 64)
               ("engine_reduced_8x8x2x32x64x32", (8, 8, 2, 32, 64, 32)),
-              ("engine_full_8x24x1x256x64x128", (8, 24, 1, 256, 64, 128)))
+              ("engine_full_8x24x1x256x64x128", (8, 24, 1, 256, 64, 128)),
+              # zamba2-1.2b at --batch 8 --seq 2048 --k-inner 4: 64 heads
+              # of 64, state 64
+              ("zamba2_2x64x8x256x64x64", (2, 64, 8, 256, 64, 64)))
 # 2e-4 is the JAX package's tolerance for the scan (tests/test_kernels.py);
 # it holds at the path's shape too: the outputs stay below about 25, the
 # in-chunk sums are damped by exp(sum dA), and both versions sum fp32
@@ -464,8 +498,10 @@ MAMBA_AT = (0, 63, 511)
 # the engine's LM route (--strategy ... --arch): the launcher's --batch 8
 # --seq 64 at a cohort of 8 for 6 rounds, each run on the card and on the
 # CPU (the CPU takes 3-18 s a run here; the launcher's 64 clients x 20
-# rounds would take minutes a strategy), then the launcher's defaults on
-# the card alone (ENGINE_LM_RATE)
+# rounds would take minutes a strategy), then a larger cohort on the card
+# alone (ENGINE_LM_RATE): 32 clients x 20 rounds, cut from the launcher's
+# 64 to keep the script inside its limit (the 64-client run took 61.1 s on
+# an H100, 28.0 of them capturing its 352,595-node round)
 ENGINE_LM = ["--clients", "8", "--rounds", "6"]
 ENGINE_LM_RUNS = (
     ("reptile_mamba2", ["--strategy", "reptile", "--arch", "mamba2"]),
@@ -478,7 +514,8 @@ ENGINE_LM_RUNS = (
                              "--pool-size", "1000", "--pool-sampler",
                              "vectorized", "--availability", "diurnal",
                              "--buffer-size", "4"]))
-ENGINE_LM_RATE = ["--strategy", "reptile", "--arch", "mamba2"]
+ENGINE_LM_RATE = ["--strategy", "reptile", "--arch", "mamba2", "--clients",
+                  "32"]
 ENGINE_LM_CKPT = 3             # the crash: right after round 3 of 6
 LM_EVAL = dict(num_tasks=2, support=4, k_steps=4, lr=0.01, query=8)
 # card against CPU: each engine LM run's first round, params and query
@@ -507,6 +544,68 @@ FULL_LM_PARAMS = 128_983_488
 # entry (that file, run as a script; PERF.md), so the 24 layers are held
 # at 1e-2, where a wrong term would stand out by orders of magnitude
 FULL_LM_GRAD_TOL = {2: 1e-4, 24: 1e-2}
+
+# the decoder-only families of slice 15. The reduced configs held against
+# the CPU (phase 30): (name, arch, overrides of .reduced()): mixtral at 2
+# layers and at 4 (the JAX package's scan layout), maverick at 4 with its
+# dense and MoE blocks alternating and its global layer, zamba2 at 5 (two
+# groups of 2 Mamba2 layers and a tail of 1, the shared block applied 3
+# times), glm4 and minicpm
+FAMILY_REDUCED = (
+    ("mixtral_2l", "mixtral-8x22b", {}),
+    ("mixtral_4l", "mixtral-8x22b", {"num_layers": 4}),
+    ("maverick_4l", "llama4-maverick-400b-a17b",
+     {"num_layers": 4, "moe_every": 2}),
+    ("zamba2_5l", "zamba2-1.2b", {"num_layers": 5}),
+    ("glm4", "glm4-9b", {}),
+    ("minicpm", "minicpm-2b", {}))
+FAMILY_TOKENS = (2, 64)        # the loss's batch of next-token sequences
+FAMILY_TOL = 1e-4              # the loss (relative), each gradient leaf
+# a gradient leaf of a config with Mamba2 layers: the ssd_scan kernel's
+# forward is itself held at 2e-4 of the plain scan (SSD_TOL), and the
+# small SSM leaves' gradients (A_log's largest entry is some 4e-4) are
+# sums of many terms that cancel; set after an H100 run read 2.0e-4 at
+# the reduced zamba2's layers/2/mamba/A_log
+FAMILY_SSM_GRAD_TOL = 1e-3
+FAMILY_WAVE = dict(batch=2, prompt_len=8, max_new=8, cache_len=32)
+ENGINE_MOE = ["--strategy", "reptile", "--arch", "moe"] + ENGINE_LM
+# a token routed otherwise on the card than on the CPU is a rounding place
+# only where its k-th and (k+1)-th probabilities are this close
+ROUTE_FLIP_GAP = 1e-6
+BF16_RTOL_4 = 2 ** -6          # 4 bf16 steps
+# full-width decode at DECODE_FULL's traffic (phase 31): (arch, layers cut
+# to fit one card in bf16 or None for full depth, the layers of the fp32
+# check against the CPU or None). mixtral's 56 layers are 112 GB, 8 are
+# 40.9 GB; one maverick MoE layer is 32.2 GB, so 2 layers (dense, MoE) are
+# 37.1 GB and 4 would be 70.1 GB beside the cache; the fp32 check takes
+# one mixtral MoE layer (11.6 GB), maverick's dense one (its MoE block is
+# held alone in bf16), and as many of the others as the CPU runs quickly
+FAMILY_DECODE = (("mixtral-8x22b", 8, 1),
+                 ("llama4-maverick-400b-a17b", 2, 1),
+                 ("zamba2-1.2b", None, None), ("glm4-9b", None, 4),
+                 ("minicpm-2b", None, 8))
+FAMILY_CHECK_STEPS = 8
+# full-width TinyReptile meta-training (phase 32): (arch, layers, rounds,
+# the layers of the fp32 gradient against the CPU). mixtral at 4 layers is
+# 10.4 B params, 20.8 GB in bf16; the inner loop holds phi, the working
+# params and their gradient (62.5 GB) beside the activations. zamba2 at
+# full depth; its gradient check takes one group (6 Mamba2 layers and the
+# shared block)
+FAMILY_TRAIN = (("mixtral-8x22b", 4, 3, 1), ("zamba2-1.2b", None, 4, 6))
+FAMILY_TRAIN_SHAPE = dict(batch=8, seq=2048, k_inner=4)
+FAMILY_TRAIN_BETA = 0.002
+FAMILY_GRAD_TOKENS = (1, 64)
+# online_sgd in place (out = p), as the LM inner loop runs it: 2^28 bf16
+INPLACE_SGD_N = 1 << 28
+# flash_decode at the new families' decode shapes (B, H, Kv, hd, S): head
+# dim 128 at 6 (mixtral), 5 (maverick) and 16 (glm4) query heads a KV
+# head, head dim 64 as MHA (minicpm's 36 heads, zamba2's shared block's 32)
+FD_FAMILY_SHAPES = (("mixtral", (8, 48, 8, 128, 2048)),
+                    ("maverick", (8, 40, 8, 128, 2048)),
+                    ("glm4", (8, 32, 2, 128, 2048)),
+                    ("minicpm", (8, 36, 36, 64, 2048)),
+                    ("zamba2", (8, 32, 32, 64, 2048)))
+FD_FAMILY_L = (1, 320, 640, 2048)
 
 
 T0 = time.perf_counter()
@@ -3665,7 +3764,8 @@ def phase_engine_lm_reduced(torch, np, tm):
           "engine_lm ckpt: history or bills differ")
     paths["engine_lm_ckpt_resumed"] = resumed_counts
 
-    # the launcher's default size (64 clients, 20 rounds) on the card alone
+    # a larger cohort (ENGINE_LM_RATE: 32 clients, 20 rounds) on the card
+    # alone
     args = tl.parse_args(ENGINE_LM_RATE)
     base = core.evaluate_init(
         lm_loss(model), init, LmTaskDistribution(model.cfg.vocab_size,
@@ -3681,7 +3781,7 @@ def phase_engine_lm_reduced(torch, np, tm):
         "reptile", "mamba2", args.rounds, args.clients, args.batch))
     q = out["history"][-1]["query_loss"]
     tokens = args.rounds * args.clients * tl.EPOCHS * args.batch * args.seq
-    rate = {"run": "reptile_mamba2_launcher_defaults", "argv": ENGINE_LM_RATE,
+    rate = {"run": "reptile_mamba2_c32", "argv": ENGINE_LM_RATE,
             "rounds": args.rounds, "clients": args.clients, "wall_s": wall,
             "rounds_per_s": args.rounds / wall,
             "tokens_per_s": tokens / wall, "launches": counts, **graph,
@@ -4012,6 +4112,705 @@ def phase_kernels_engine_lm(torch, np, ops, ref, rows):
     return rows
 
 
+# -- the decoder-only families of slice 15: the MoE family (mixtral-8x22b,
+# -- llama4-maverick), the hybrid zamba2-1.2b, and glm4-9b and minicpm-2b ----
+
+def phase_kernels_families(torch, np, ops, ref, rows):
+    """flash_decode at the new families' shapes (head_dim 128 with 6, 5
+    and 16 query heads a KV head, head_dim 64 as MHA), through the
+    device-L route at FD_FAMILY_L, each against its plain version (and
+    the host-int call, bit for bit), beside its bound and one
+    scaled_dot_product_attention call, and their mean over a wave's L = 1
+    ... 640; online_sgd in place (out = p, as the LM inner loop runs it)
+    bit-equal to the out-of-place call at INPLACE_SGD_N bf16 elements.
+    ssd_scan's zamba2 shape is among SSD_SHAPES."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    for i, (name, shape) in enumerate(FD_FAMILY_SHAPES):
+        tag = f"family_{name}_{'x'.join(map(str, shape))}"
+        q, k, v = fd_inputs(torch, np, shape, torch.bfloat16, 80 + i, dev)
+        B, H, Kv, hd, S = shape
+        kvs = [(k, v)] + [(k.clone(), v.clone()) for _ in range(7)]
+        caches = itertools.cycle(kvs)
+        by_L = []
+        for L in FD_FAMILY_L:
+            length = torch.tensor([L], dtype=torch.int32, device=dev)
+            got = ops.flash_decode(q, k, v, length)
+            host = ops.flash_decode(q, k, v, L)
+            want = ref.flash_decode(q, k, v, L)
+            views = itertools.cycle([(q.view(B, H, 1, hd),
+                                      kc[:, :L].transpose(1, 2),
+                                      vc[:, :L].transpose(1, 2))
+                                     for kc, vc in kvs])
+            torch.cuda.synchronize()
+            check(torch.equal(got, host), f"flash_decode {tag} L{L}: the "
+                                          f"device-L route differs from "
+                                          f"the host-int call")
+            tol = FD_TOL["bfloat16"]
+            atol = tol * min(1.0, want.abs().max().item())
+            torch.testing.assert_close(got.float(), want, rtol=tol,
+                                       atol=atol)
+            moved, nops = fd_bytes_ops(shape, L, 0, q.element_size())
+            t_bytes, t_ops = moved / HBM_BYTES_PER_S, nops / BF16_OPS_PER_S
+            row = {"shape_BHKvhdS": list(shape), "dtype": "bfloat16",
+                   "L": L, "window": 0, "route": "device_L",
+                   "R": H // Kv, "rtol": tol, "atol": atol,
+                   "max_abs_err": (got.float() - want).abs().max().item(),
+                   "ms": cuda_ms(torch, lambda: ops.flash_decode(
+                       q, *next(caches), length), 100),
+                   **device_ms(torch, lambda: ops.flash_decode(
+                       q, *next(caches), length)),
+                   "plain_ms": cuda_ms(torch, lambda: ref.flash_decode(
+                       q, *next(caches), L), 20),
+                   "library_ms": cuda_ms(
+                       torch, lambda: F.scaled_dot_product_attention(
+                           *next(views), enable_gqa=True), 100),
+                   **device_ms(
+                       torch, lambda: F.scaled_dot_product_attention(
+                           *next(views), enable_gqa=True),
+                       "library_device_ms"),
+                   "bound_ms": 1e3 * max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes": moved, "flop": nops}
+            rows[f"flash_decode/{tag}_L{L}_devL"] = row
+            emit({"phase": "kernel", "kernel": "flash_decode",
+                  "case": f"{tag}_L{L}_devL", **row})
+            by_L.append((L, row))
+        grid = np.arange(PATH_RUN[0], PATH_RUN[1] + 1)
+        Ls = [L for L, _ in by_L if L <= PATH_RUN[1]]
+        mean = {"shape_BHKvhdS": list(shape), "dtype": "bfloat16",
+                "route": "device_L", "L_range": list(PATH_RUN), "from_L": Ls,
+                **{key: float(np.interp(grid, Ls, [r[key] for L, r in by_L
+                                                   if L <= PATH_RUN[1]])
+                              .mean())
+                   for key in ("ms", "device_ms", "library_ms",
+                               "library_device_ms", "bound_ms")}}
+        rows[f"flash_decode/{tag}_run_mean"] = mean
+        emit({"phase": "kernel", "kernel": "flash_decode",
+              "case": f"{tag}_run_mean", **mean})
+        del q, k, v, kvs, caches
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    p, g = (torch.randn(INPLACE_SGD_N, generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    want = ops.online_sgd(p, g, 0.002)
+    before = ops.launch_counts()["online_sgd"]
+    got = ops.online_sgd(p, g, 0.002, p)
+    torch.cuda.synchronize()
+    check(got.data_ptr() == p.data_ptr() and torch.equal(p, want),
+          "online_sgd in place differs from the out-of-place call")
+    check(ops.launch_counts()["online_sgd"] == before + 1,
+          "online_sgd in place: one launch")
+    n = p.numel()
+    t_bytes = 3 * n * 2 / HBM_BYTES_PER_S
+    row = {"n": n, "dtype": "bfloat16", "tol": "exact", "in_place": True,
+           "max_abs_err": 0.0,
+           "ms": cuda_ms(torch, lambda: ops.online_sgd(p, g, 0.002, p), 5),
+           **device_ms(torch, lambda: ops.online_sgd(p, g, 0.002, p),
+                       calls=5),
+           "plain_ms": cuda_ms(torch, lambda: ref.online_sgd(p, g, 0.002),
+                               2),
+           "library_ms": cuda_ms(torch, lambda: p.add_(g, alpha=-0.002), 5),
+           "bound_ms": 1e3 * max(t_bytes, 2 * n / FP32_OPS_PER_S),
+           "bound_by": "bytes"}
+    rows["online_sgd/in_place_2p28_bf16"] = row
+    emit({"phase": "kernel", "kernel": "online_sgd",
+          "case": "in_place_2p28_bf16", **row})
+    del p, g, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+@contextlib.contextmanager
+def routes_seen(moe):
+    """Every ``moe.route`` call while open, in call order: its chosen
+    experts and probabilities, on the host (a captured step's replays
+    call no Python: run the step eagerly to see each one)."""
+    real, seen = moe.route, []
+
+    def tap(params, xf, k):
+        probs, gate, idx = real(params, xf, k)
+        seen.append((idx.cpu(), probs.detach().float().cpu()))
+        return probs, gate, idx
+    moe.route = tap
+    try:
+        yield seen
+    finally:
+        moe.route = real
+
+
+def routing_agreement(torch, name, card, cpu):
+    """The card's chosen experts against the CPU's, route call by route
+    call: the tokens routed alike, and the smallest gap between the k-th
+    and (k+1)-th largest probability on the CPU (where a choice can flip
+    by rounding). A token routed otherwise fails unless its gap is below
+    ROUTE_FLIP_GAP (a rounding place, reported)."""
+    check(len(card) == len(cpu), f"{name}: {len(card)} route calls on the "
+                                 f"card, {len(cpu)} on the CPU")
+    if not cpu:
+        return None
+    tokens = agree = 0
+    gap, flips = math.inf, []
+    for (ia, _), (ib, pb) in zip(card, cpu):
+        k = ib.shape[-1]
+        top = pb.sort(dim=-1, descending=True).values
+        g = (top[:, k - 1] - top[:, k] if top.shape[-1] > k
+             else torch.full((top.shape[0],), math.inf))
+        same = (ia == ib).all(dim=-1)
+        tokens += same.numel()
+        agree += int(same.sum())
+        gap = min(gap, g.min().item())
+        flips += g[~same].tolist()
+    check(all(f < ROUTE_FLIP_GAP for f in flips),
+          f"{name}: {len(flips)} tokens routed otherwise than on the CPU, "
+          f"at gaps {sorted(flips)[:5]}")
+    return {"route_calls": len(cpu), "tokens": tokens,
+            "agree_share": agree / tokens, "min_gap": gap,
+            "flip_gaps": flips}
+
+
+def free_card(torch):
+    """Free what a finished config left on the card: a decode runner and
+    its captured step refer to each other, so only the cyclic collector
+    frees its params and caches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def to_device(bridge, tree, dev, dtype=None):
+    """A copy of a params tree on ``dev`` (its floats cast to ``dtype``
+    where given; the fp32 router stays fp32 either way)."""
+    return bridge.unflatten_tree({
+        path: t.to(dev, dtype if dtype is not None and t.is_floating_point()
+                   else t.dtype)
+        for path, t in bridge.tree_leaves(tree)})
+
+
+def draw_on_card(torch, model, seed):
+    """``model``'s params drawn on the card from ``seed`` (a CUDA
+    generator: torch's numbers, not the CPU draw's), with the JAX init's
+    constants (zeros for norms and biases, A_log = log(linspace(1, 16)),
+    D = 1) and ``normal_init``'s scale, 1 / sqrt(fan_in) with fan_in the
+    first axis; laid out as one flat buffer per leaf dtype whose views
+    are the leaves (sorted paths, ``bridge.FlatLayout``'s order), so the
+    update kernels read them without a copy. A host draw runs at some
+    140 M params/s; this takes seconds for 20 B."""
+    from repro_torch.bridge import tree_leaves, unflatten_tree
+    from repro_torch.models.transformer import _ZERO_LEAVES
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    groups = {}
+    for path, (shape, dtype) in tree_leaves(model.param_shapes()):
+        groups.setdefault(dtype, []).append((path, tuple(shape)))
+    leaves = {}
+    for dtype, items in groups.items():
+        buf = torch.empty(sum(math.prod(s) for _, s in items), dtype=dtype,
+                          device="cuda")
+        at = 0
+        for path, shape in items:
+            n = math.prod(shape)
+            view = buf[at:at + n].view(shape)
+            at += n
+            name = path[-1]
+            if name == "A_log":
+                view.copy_(torch.log(torch.linspace(1.0, 16.0, shape[0],
+                                                    device="cuda")))
+            elif name == "D":
+                view.fill_(1.0)
+            elif name in _ZERO_LEAVES:
+                view.zero_()
+            else:
+                fan_in = shape[0] if len(shape) >= 2 else n
+                rows = view.view(shape[0], -1)
+                step = max(1, (1 << 28) // rows.shape[1])
+                for r in range(0, shape[0], step):
+                    part = rows[r:r + step]
+                    part.copy_(torch.randn(part.shape, generator=gen,
+                                           device="cuda")
+                               / math.sqrt(fan_in))
+            leaves[path] = view
+    return unflatten_tree(leaves)
+
+
+def lm_batch(torch, np, cfg, shape, seed, dev):
+    """Next-token tokens and labels (-1 at the end) of ``shape`` from a
+    NumPy seed, on ``dev``."""
+    r = np.random.default_rng(seed)
+    tok = r.integers(0, cfg.vocab_size, shape)
+    lab = np.concatenate([tok[:, 1:], np.full((shape[0], 1), -1)], axis=1)
+    return {"tokens": torch.from_numpy(tok).to(dev),
+            "labels": torch.from_numpy(lab).to(dev)}
+
+
+def loss_grads(torch, bridge, moe, model, params, batch):
+    """``model.loss_fn`` and each leaf's gradient (on the host), with the
+    route calls the forward made."""
+    leaves = {k: v.detach().requires_grad_()
+              for k, v in bridge.tree_leaves(params)}
+    with routes_seen(moe) as seen:
+        loss = model.loss_fn(bridge.unflatten_tree(leaves), batch)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return loss.item(), {k: g.float().cpu() for k, g in zip(leaves, grads)}, \
+        seen
+
+
+def leaves_vs_cpu(name, card, cpu, tol):
+    """Leaf by leaf: the card's gradient within ``tol`` of the leaf's
+    largest entry on the CPU. Returns the worst leaves."""
+    leaves = []
+    for k, want in cpu.items():
+        top = want.abs().max().item()
+        diff = (card[k] - want).abs().max().item()
+        leaves.append({"leaf": "/".join(map(str, k)),
+                       "rel": diff / top if top else diff, "abs": diff,
+                       "max_abs_grad": top})
+    leaves.sort(key=lambda r: -r["rel"])
+    check(leaves[0]["rel"] <= tol,
+          f"{name}: gradient {leaves[0]} past {tol} of its largest entry")
+    return {"tol": tol, "leaves": len(leaves),
+            "leaves_over_1e-4": sum(r["rel"] > 1e-4 for r in leaves),
+            "worst_leaves": leaves[:3]}
+
+
+def grad_tol(model):
+    """A config's gradient tolerance: FAMILY_SSM_GRAD_TOL with Mamba2
+    layers, else FAMILY_TOL."""
+    return (FAMILY_SSM_GRAD_TOL if any(k == "mamba" for k, _ in model.specs)
+            else FAMILY_TOL)
+
+
+def family_wave(torch, model, params, prompts, dev):
+    """One decode wave (FAMILY_WAVE) through a decode runner built once:
+    (runner, every step's logits on the host, the tokens, launches)."""
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.steps import DecodeRunner
+    runner = DecodeRunner(model, params, device=dev, **FAMILY_WAVE)
+    runner.build()
+    logits = []
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    tokens = runner.wave(prompts, on_logits=lambda lg: logits.append(
+        lg.cpu()))
+    return runner, logits, tokens, ops.launch_counts()
+
+
+def attn_applications(model):
+    """Attention applications of one decode step: flash_decode launches."""
+    return sum(kind != "mamba" for kind, _ in model.specs)
+
+
+def phase_families_reduced(torch, np, fm):
+    """Each FAMILY_REDUCED config (phase 30), from one seeded CPU init:
+    the loss and every leaf's gradient on the card against the CPU (the
+    loss within FAMILY_TOL relative, each leaf within ``grad_tol`` of its
+    largest entry, the routing alike), then one decode wave through the
+    decode runner (its step captured and replayed) against the CPU
+    (every step's logits within CHECK_TOL of the largest, the same
+    tokens) and against the same wave run eagerly on the card (bit for
+    bit, launches equal: one flash_decode per attention application per
+    step); then the train launcher's engine route on the reduced mixtral
+    (ENGINE_MOE), its first round against the CPU at 1e-4."""
+    bridge, moe, graphs = fm["bridge"], fm["moe"], fm["graphs"]
+    runs, paths = [], {}
+    for i, (name, arch, over) in enumerate(FAMILY_REDUCED):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(fm["get_arch"](arch).reduced(), **over)
+        model = fm["build_model"](cfg)
+        p_cpu = model.init(torch.Generator().manual_seed(7 + i), "cpu")
+        p_card = to_device(bridge, p_cpu, "cuda")
+        out = {dev: loss_grads(torch, bridge, moe, model, p, lm_batch(
+            torch, np, cfg, FAMILY_TOKENS, 20 + i, dev))
+            for dev, p in (("cuda", p_card), ("cpu", p_cpu))}
+        (lc, gc, rc), (lp, gp, rp) = out["cuda"], out["cpu"]
+        check(abs(lc - lp) <= FAMILY_TOL * abs(lp),
+              f"{name}: loss {lc} vs the CPU's {lp}")
+        grads = leaves_vs_cpu(name, gc, gp, grad_tol(model))
+        routing = routing_agreement(torch, name, rc, rp)
+
+        prompts = torch.from_numpy(np.random.default_rng(30 + i).integers(
+            0, cfg.vocab_size, (FAMILY_WAVE["batch"],
+                                FAMILY_WAVE["prompt_len"])))
+        runner, got, got_tok, counts = family_wave(torch, model, p_card,
+                                                   prompts, "cuda")
+        check(runner.trace_count == 1 and runner.step.graph is not None,
+              f"{name}: the decode step was not captured once")
+        info = {"trace_count": runner.trace_count,
+                "capture_s": runner.capture_s, "graph_nodes": runner.nodes}
+        del runner
+        _, want, want_tok, _ = family_wave(torch, model, p_cpu, prompts,
+                                           "cpu")
+        with uncaptured(graphs):
+            _, eager, eager_tok, eager_counts = family_wave(
+                torch, model, p_card, prompts, "cuda")
+        steps = FAMILY_WAVE["prompt_len"] + FAMILY_WAVE["max_new"]
+        check(counts == eager_counts and counts["flash_decode"]
+              == steps * attn_applications(model),
+              f"{name}: wave launches {counts} vs eager {eager_counts}")
+        scale = max(w.abs().max().item() for w in want)
+        diff = max((a - b).abs().max().item() for a, b in zip(got, want))
+        check(diff <= CHECK_TOL * scale,
+              f"{name}: wave logits {diff} from the CPU's ({scale} largest)")
+        check(got_tok == want_tok, f"{name}: wave tokens differ from the CPU")
+        check(got_tok == eager_tok and all(
+            torch.equal(a, b) for a, b in zip(got, eager)),
+            f"{name}: the replayed wave differs from the eager one")
+        runs.append({"phase": "families_reduced", "config": name,
+                     "arch": cfg.name,
+                     "layers": cfg.num_layers,
+                     "specs": [list(s) for s in model.specs],
+                     "loss": {"card": lc, "cpu": lp,
+                              "rel_diff": abs(lc - lp) / abs(lp)},
+                     "grads": grads, "routing": routing,
+                     "wave": {**FAMILY_WAVE, **info, "launches": counts,
+                              "logits_max_abs_diff": diff,
+                              "max_abs_logit": scale, "tol_of_max": CHECK_TOL,
+                              "tokens": "equal", "replay_vs_eager":
+                              "bit_equal"},
+                     "s": time.perf_counter() - t0})
+        emit(runs[-1])
+        paths[f"family_wave_{name}"] = counts
+    engine = lm_engine_run(torch, np, fm, "reptile_moe", ENGINE_MOE)
+    paths["engine_lm_reptile_moe"] = engine["launches"]
+    emit({"phase": "families_reduced_engine", **engine})
+    return paths
+
+
+def cut_params(model, params):
+    """``params`` (a deeper config of the same family) cut to ``model``'s
+    layers: the first ones, the rest of the tree whole."""
+    out = dict(params)
+    out["layers"] = params["layers"][:len(model.param_shapes()["layers"])]
+    return out
+
+
+def teacher_forced_routes(torch, fm, model, params, tokens, dev):
+    """``teacher_forced`` run eagerly (the step not captured, so every
+    route call is seen): (logits, route calls)."""
+    with uncaptured(fm["graphs"]), routes_seen(fm["moe"]) as seen:
+        logits = teacher_forced(torch, model, params, tokens, dev)
+    return logits, seen
+
+
+def phase_families_decode(torch, np, fm):
+    """Each FAMILY_DECODE config at full width (phase 31), bf16, cut to
+    the layers that fit (None: full depth), weights drawn on the card:
+    ``serve.run_decode`` with the cut model at DECODE_FULL's traffic (16
+    requests at batch 8, 512 + 128 tokens, cache 2,048), the step built
+    once and replayed: flash_decode launches as reckoned, finite logits,
+    tokens/s, step time, peak memory. Then the same weights in fp32, cut
+    to the check's layers, CHECK_BATCH x FAMILY_CHECK_STEPS
+    teacher-forced steps on the card and on the CPU: the logits within
+    CHECK_TOL of the largest, the routing alike. For maverick also its
+    MoE block alone (layer 1, 128 experts at full width, bf16) on one
+    step's 8 tokens, the card against the CPU within 4 bf16 steps of the
+    largest output. mixtral's replayed step is profiled
+    (``profile_moe_decode``)."""
+    import dataclasses as dc
+
+    bridge, serve, ops, moe = fm["bridge"], fm["serve"], fm["ops"], fm["moe"]
+    paths = {}
+    for arch, layers, check_layers in FAMILY_DECODE:
+        tag = arch.split("-")[0]
+        cfg = fm["get_arch"](arch)
+        if layers:
+            cfg = dc.replace(cfg, num_layers=layers)
+        model = fm["build_model"](cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = draw_on_card(torch, model, 0)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for _, t in bridge.tree_leaves(params))
+        args = serve.parse_args(["--mode", "decode", "--arch", arch]
+                                + DECODE_FULL[4:])
+        finite, built, marks = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(io.StringIO()):
+            (row, out), wall, counts = timed_run(
+                torch, ops, lambda: serve.run_decode(
+                    args, params=params, model=model,
+                    on_logits=lambda lg: finite.append(
+                        torch.isfinite(lg).all()),
+                    on_build=lambda r: (built.append(r),
+                                        marks.append(time.perf_counter()))))
+        decode_s = time.perf_counter() - marks[0]
+        peak = torch.cuda.max_memory_allocated()
+        build = decode_build(f"decode_{tag}", built)
+        del built
+        steps = decode_steps(args)
+        check_launches(f"decode_{tag}", counts,
+                       {"flash_decode": steps * attn_applications(model)})
+        check(len(finite) == steps and bool(torch.stack(finite).all()),
+              f"decode_{tag}: a logit is not finite")
+        check(len(out) == args.requests
+              and all(len(o) == args.max_new for o in out),
+              f"decode_{tag}: outputs")
+        del finite
+        if arch == "mixtral-8x22b":
+            profile = profile_moe_decode(torch, np, fm, model, params)
+
+        cut = cfg if check_layers is None else dc.replace(
+            cfg, num_layers=check_layers)
+        m32 = fm["build_model"](dc.replace(cut, dtype="float32"))
+        tokens = np.random.default_rng(5).integers(
+            0, cfg.vocab_size, (CHECK_BATCH, FAMILY_CHECK_STEPS))
+        p32 = to_device(bridge, cut_params(m32, params), "cuda",
+                        torch.float32)
+        card, r_card = teacher_forced_routes(torch, fm, m32, p32, tokens,
+                                             "cuda")
+        p32 = to_device(bridge, p32, "cpu")
+        free_card(torch)
+        t1 = time.perf_counter()
+        cpu, r_cpu = teacher_forced_routes(torch, fm, m32, p32, tokens, "cpu")
+        cpu_s = time.perf_counter() - t1
+        del p32
+        scale = cpu.abs().max().item()
+        diff = (card - cpu).abs().max().item()
+        check(diff <= CHECK_TOL * scale,
+              f"decode_{tag} fp32 vs CPU: {diff} > {CHECK_TOL} x {scale}")
+        res = {"phase": f"decode_{tag}_full", "arch": arch,
+               "layers": cfg.num_layers, "params": n_params,
+               "init_on_card_s": init_s,
+               "argv": {k: getattr(args, k) for k in (
+                   "arch", "requests", "batch", "prompt_len", "max_new",
+                   "cache_len")},
+               "wall_s": wall, "tok_per_s": row["tokens_generated"] / wall,
+               "decode_steps": steps, "step_ms": 1e3 * wall / steps,
+               "after_build": {"wall_s": decode_s,
+                               "tok_per_s": row["tokens_generated"]
+                               / decode_s,
+                               "step_ms": 1e3 * decode_s / steps},
+               "max_memory_allocated_gb": peak / 1e9, "launches": counts,
+               "build": build, "sample_output": row["sample_output"],
+               "fp32_vs_cpu": {"layers": m32.cfg.num_layers,
+                               "steps": FAMILY_CHECK_STEPS,
+                               "batch": CHECK_BATCH, "tol_of_max": CHECK_TOL,
+                               "max_abs_logit": scale,
+                               "logits_max_abs_diff": diff, "cpu_s": cpu_s,
+                               "routing": routing_agreement(
+                                   torch, f"decode_{tag} fp32", r_card,
+                                   r_cpu)}}
+        if arch == "mixtral-8x22b":
+            res["profile"] = profile
+        if arch == "llama4-maverick-400b-a17b":
+            res["moe_block_bf16_vs_cpu"] = moe_block_vs_cpu(
+                torch, np, fm, model, params["layers"][1]["moe"])
+        emit(res)
+        paths[f"decode_{tag}_full"] = counts
+        del params, out
+        free_card(torch)
+    return paths
+
+
+def moe_block_vs_cpu(torch, np, fm, model, mp):
+    """One MoE block at full width in bf16 on a decode step's 8 tokens
+    (seeded, rms-scale inputs), the card against the CPU: the output
+    within 4 bf16 steps of its largest entry, the aux loss within 1e-5,
+    the routing alike."""
+    moe, bridge = fm["moe"], fm["bridge"]
+    cfg = model.cfg
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (8, 1, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    out = {}
+    for dev, p in (("cuda", mp), ("cpu", None)):
+        if p is None:
+            p = to_device(bridge, mp, "cpu")
+        t0 = time.perf_counter()
+        with torch.no_grad(), routes_seen(moe) as seen:
+            y, aux = moe.moe_block(p, x.to(dev),
+                                   experts_per_token=cfg.experts_per_token)
+        out[dev] = (y.float().cpu(), aux.item(), seen,
+                    time.perf_counter() - t0)
+        del p
+    (yc, ac, rc, _), (yp, ap, rp, cpu_s) = out["cuda"], out["cpu"]
+    scale = yp.abs().max().item()
+    diff = (yc - yp).abs().max().item()
+    check(diff <= BF16_RTOL_4 * scale,
+          f"maverick MoE block bf16: {diff} > 4 bf16 steps of {scale}")
+    check(abs(ac - ap) <= 1e-5 * abs(ap), f"maverick aux {ac} vs {ap}")
+    return {"tokens": 8, "experts": cfg.num_experts,
+            "k": cfg.experts_per_token, "max_abs_out": scale,
+            "max_abs_diff": diff, "tol_of_max": BF16_RTOL_4,
+            "aux": {"card": ac, "cpu": ap}, "cpu_s": cpu_s,
+            "routing": routing_agreement(torch, "maverick MoE block", rc,
+                                         rp)}
+
+
+def profile_moe_decode(torch, np, fm, model, params):
+    """One replayed full-width MoE decode step at batch 8 from position
+    DECODE_PROFILE_AT under torch.profiler (device activity only): idle
+    share, kernels, the top ones; then the same step run eagerly with the
+    host traced too, for the share of the experts' three batched
+    products (the kernels under moe.EXPERTS_RANGE)."""
+    from repro_torch.runtime.steps import DecodeRunner
+    B = 8
+    runner = DecodeRunner(model, params, batch=B,
+                          prompt_len=DECODE_PROFILE_AT + 2, cache_len=2048,
+                          max_new=0, device="cuda")
+    runner.prompts.copy_(torch.from_numpy(np.random.default_rng(9).integers(
+        0, model.cfg.vocab_size, tuple(runner.prompts.shape))))
+    runner.build()
+    runner.cursor.fill_(DECODE_PROFILE_AT)
+    runner.step()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    cuda = torch.autograd.DeviceType.CUDA
+    rng_name = fm["moe"].EXPERTS_RANGE
+    with torch.profiler.profile(activities=[act.CUDA]) as prof:
+        t0 = time.perf_counter()
+        runner.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name = {ev.key: (ev.self_device_time_total, ev.count)
+               for ev in prof.key_averages()
+               if ev.device_type == cuda and ev.self_device_time_total > 0
+               and ev.key != rng_name}
+    dev_us = sum(t for t, _ in by_name.values())
+    check(dev_us > 0, "profile_moe_decode: the profiler saw no device time")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    del runner
+    free_card(torch)
+
+    def kernel_us(ev):
+        return (sum(k.duration for k in ev.kernels if k.name != rng_name)
+                + sum(kernel_us(child) for child in ev.cpu_children))
+
+    with uncaptured(fm["graphs"]):
+        eager = DecodeRunner(model, params, batch=B,
+                             prompt_len=DECODE_PROFILE_AT + 2,
+                             cache_len=2048, max_new=0, device="cuda")
+        eager.build()
+        eager.cursor.fill_(DECODE_PROFILE_AT)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            eager.step()
+            torch.cuda.synchronize()
+    eager_us = sum(ev.self_device_time_total for ev in prof.key_averages()
+                   if ev.device_type == cuda and ev.key != rng_name)
+    experts_us = sum(kernel_us(ev) for ev in prof.events()
+                     if ev.name == rng_name and ev.device_type != cuda)
+    check(experts_us > 0, "profile_moe_decode: no expert kernel traced")
+    del eager
+    free_card(torch)
+    return {"batch": B, "from_position": DECODE_PROFILE_AT,
+            "replayed": True, "wall_ms": 1e3 * wall,
+            "device_busy_ms": dev_us / 1e3,
+            "device_idle_share": 1 - dev_us / 1e6 / wall,
+            "kernels": sum(c for _, c in by_name.values()),
+            "top_device": [[k[:80], t / 1e3, c, t / dev_us]
+                           for k, (t, c) in top],
+            "eager_step_device_ms": eager_us / 1e3,
+            "experts_ms": experts_us / 1e3,
+            "experts_share_of_busy": experts_us / eager_us}
+
+
+def phase_families_train(torch, np, fm):
+    """TinyReptile LM meta-training at full width (phase 32), bf16, each
+    FAMILY_TRAIN config cut to its layers (None: full depth), weights
+    drawn on the card: ``make_meta_train_step`` (the LM launcher's step)
+    on one LMClientStream client batch a round at FAMILY_TRAIN_SHAPE and
+    beta FAMILY_TRAIN_BETA, alpha annealed from 1 as the launcher does:
+    launches as reckoned (online_sgd per dtype group per inner step,
+    meta_update per group per round, ssd_scan once per Mamba2 layer per
+    inner forward), finite losses, the inner loss by round, tokens/s,
+    peak memory. Then one gradient at full width in fp32, cut to
+    FAMILY_TRAIN's grad layers, the card against the CPU leaf by leaf
+    within ``grad_tol`` of each leaf's largest entry, the routing
+    alike."""
+    import dataclasses as dc
+
+    from repro_torch.data import LMClientStream
+    from repro_torch.optim.schedules import linear_anneal
+    from repro_torch.runtime.steps import make_meta_train_step, microbatch
+
+    bridge, ops, moe = fm["bridge"], fm["ops"], fm["moe"]
+    shape = FAMILY_TRAIN_SHAPE
+    paths = {}
+    for arch, layers, rounds, grad_layers in FAMILY_TRAIN:
+        tag = arch.split("-")[0]
+        cfg = fm["get_arch"](arch)
+        if layers:
+            cfg = dc.replace(cfg, num_layers=layers)
+        model = fm["build_model"](cfg)
+        free_card(torch)
+        torch.cuda.reset_peak_memory_stats()
+        phi = draw_on_card(torch, model, 1)
+        n_params = sum(t.numel() for _, t in bridge.tree_leaves(phi))
+        groups = len({t.dtype for _, t in bridge.tree_leaves(phi)})
+        step = make_meta_train_step(model, beta=FAMILY_TRAIN_BETA)
+        sched = linear_anneal(1.0, rounds, floor=0.1)
+        rng = np.random.default_rng(2)
+        batches = []
+        for r in range(rounds):
+            raw = microbatch(LMClientStream(cfg.vocab_size, r).batch(
+                rng, shape["batch"], shape["seq"]), shape["k_inner"])
+            batches.append(({k: torch.from_numpy(v).cuda()
+                             for k, v in raw.items()},
+                            torch.tensor([sched(r)], device="cuda")))
+        rows = []
+
+        def run():
+            nonlocal phi
+            for r, (batch, alpha) in enumerate(batches):
+                t0 = time.perf_counter()
+                phi, m = step(phi, batch, alpha)
+                loss, first, last = torch.stack(
+                    [m["loss"], m["inner_first"], m["inner_last"]]).tolist()
+                rows.append({"round": r, "loss": loss, "inner_first": first,
+                             "inner_last": last, "alpha": float(alpha),
+                             "dt_s": time.perf_counter() - t0})
+        _, wall, counts = timed_run(torch, ops, run)
+        peak = torch.cuda.max_memory_allocated()
+        k = shape["k_inner"]
+        mamba = sum(kind == "mamba" for kind, _ in model.specs)
+        want = {"online_sgd": rounds * k * groups,
+                "meta_update": rounds * groups}
+        if mamba:
+            want["ssd_scan"] = rounds * k * mamba
+        check_launches(f"train_{tag}_full", counts, want)
+        for r in rows:
+            for key in ("loss", "inner_first", "inner_last"):
+                check(math.isfinite(r[key]),
+                      f"train_{tag}: round {r['round']} {key} = {r[key]}")
+        del phi, batches
+        free_card(torch)
+        tokens = rounds * shape["batch"] * shape["seq"]
+        rounds_s = sum(r["dt_s"] for r in rows)
+
+        # one gradient at full width in fp32, cut, the card against the CPU
+        gcfg = dc.replace(cfg, num_layers=grad_layers, dtype="float32")
+        gmodel = fm["build_model"](gcfg)
+        t1 = time.perf_counter()
+        p_card = draw_on_card(torch, gmodel, 3)
+        batch = lm_batch(torch, np, gcfg, FAMILY_GRAD_TOKENS, 4, "cuda")
+        lc, gc, rc = loss_grads(torch, bridge, moe, gmodel, p_card, batch)
+        p_cpu = to_device(bridge, p_card, "cpu")
+        del p_card
+        free_card(torch)
+        lp, gp, rp = loss_grads(torch, bridge, moe, gmodel, p_cpu,
+                                {k: v.cpu() for k, v in batch.items()})
+        del p_cpu
+        check(abs(lc - lp) <= 1e-5 * abs(lp),
+              f"train_{tag} grad: loss {lc} vs the CPU's {lp}")
+        grad = {"layers": grad_layers, "tokens": list(FAMILY_GRAD_TOKENS),
+                "loss": {"card": lc, "cpu": lp},
+                **leaves_vs_cpu(f"train_{tag} grad", gc, gp,
+                                grad_tol(gmodel)),
+                "routing": routing_agreement(torch, f"train_{tag} grad", rc,
+                                             rp),
+                "s": time.perf_counter() - t1}
+        emit({"phase": f"train_{tag}_full", "arch": arch,
+              "layers": cfg.num_layers, "params": n_params,
+              "dtype_groups": groups, **shape, "rounds": rounds,
+              "beta": FAMILY_TRAIN_BETA, "wall_s": wall,
+              "tokens_per_s": tokens / wall, "rounds_only_s": rounds_s,
+              "max_memory_allocated_gb": peak / 1e9, "launches": counts,
+              "rows": rows, "grad_vs_cpu": grad})
+        paths[f"train_{tag}_full"] = counts
+    return paths
+
+
 def main():
     import numpy as np
     import torch
@@ -4042,6 +4841,7 @@ def main():
     phase_kernels_client_mean(torch, np, ops, ref, rows)
     phase_kernels_tinyllama(torch, np, ops, ref, rows)
     phase_kernels_engine_lm(torch, np, ops, ref, rows)
+    phase_kernels_families(torch, np, ops, ref, rows)
 
     from repro_torch import bridge, core, graphs
     from repro_torch.configs import get_arch
@@ -4132,6 +4932,13 @@ def main():
     dense_paths = {**phase_train_dense_reduced(torch, np, tm),
                    **phase_train_dense_full(torch, np, tm)}
 
+    # the decoder-only families of slice 15
+    from repro_torch.models import moe
+    fm = {**tm, "serve": serve_launcher, "moe": moe}
+    family_paths = {**phase_families_reduced(torch, np, fm),
+                    **phase_families_decode(torch, np, fm),
+                    **phase_families_train(torch, np, fm)}
+
 
     # every main path's launches, each counted from 0 just before it
     paths = {"serve_fp32": s_fp32["launches"],
@@ -4144,7 +4951,7 @@ def main():
              "serve_decode_reduced": s_dec_red["launches"],
              "serve_decode_tinyllama_1_1b": s_dec["launches"],
              **fig4_paths, **fleet_paths, **ckpt_paths, **queue_c,
-             **dense_paths, **dec_mamba, **engine_lm_paths}
+             **dense_paths, **dec_mamba, **engine_lm_paths, **family_paths}
     kernels = []
     for kernel, route, source, replaces, row in (
             ("online_sgd", "cuda", "src/repro_torch/kernels/csrc/online_sgd.cu",

@@ -7,10 +7,28 @@ package's bf16 leaves are ``ml_dtypes`` arrays, which ``torch`` cannot
 take, so they cross as fp32, which holds every bf16 value exactly, and
 are cast back on the far side (``params_to_numpy`` hands bf16 tensors
 back as fp32 arrays). ``lm_params_from_jax`` / ``lm_params_to_jax`` also
-map the LM family's layer layout (the JAX package stacks the layers of a
-deep homogeneous model over a leading axis; the port keeps one dict per
-layer), and ``lm_cache_from_jax`` / ``lm_cache_to_jax`` the decode
-cache's, which follows the same layout.
+map the LM family's layer layout, and ``lm_cache_from_jax`` /
+``lm_cache_to_jax`` the decode cache's, which follows it. The port keeps
+one dict per layer and one cache entry per application; the JAX package
+stacks the layers of a deep homogeneous model over a leading axis (its
+period an int), and always stacks the hybrid family's (``HybridLayout``):
+
+- params: JAX ``layers`` is ``hybrid_attn_every`` (k) dicts stacked over
+  the n_full full groups, Mamba2 layer g * k + pos being row g of dict
+  pos, then ``tail`` lists the r = num_layers - k n_full layers left;
+  ``shared_block`` is one block. The port's ``layers`` lists all
+  num_layers Mamba2 layers in order (``tail`` appended, the key
+  dropped) and keeps ``shared_block``.
+- caches: JAX ``group_attn`` (one ``{"k", "v"}`` stacked over the
+  groups: the shared block's cache at each group's application),
+  ``group_mamba`` (k entries stacked over the groups), and with a tail
+  ``tail_attn`` and ``tail_mamba`` (r entries). The port's ``layers``
+  has one entry per application in order: group g's attention entry,
+  its k Mamba2 entries, ..., then the tail's attention entry and its r
+  Mamba2 entries.
+
+A round-state snapshot holds phi in the layout of the package that wrote
+it, so a hybrid's snapshots stay within one package.
 
 ``FlatLayout`` packs a tree into one flat buffer, the form the port's
 kernels update in one launch: a flat ``{name: leaf}`` dict by its names,
@@ -24,7 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Tuple
 
 import numpy as np
 import torch
@@ -95,61 +113,105 @@ def unflatten_tree(flat: Dict[Tuple, Any]):
     return {k: unflatten_tree(v) for k, v in groups.items()}
 
 
+@dataclasses.dataclass(frozen=True)
+class HybridLayout:
+    """The JAX package's hybrid layout (``Model.jax_layout`` of the
+    hybrid family): ``every`` Mamba2 layers to a group."""
+    every: int
+
+
 def _map_layers(tree, fn):
     out = dict(tree)
     out["layers"] = fn(tree["layers"])
     return out
 
 
-def lm_params_from_jax(tree, scan_period: Optional[int] = None,
-                       device: DeviceLike = None):
+def _unstack(stacks, period):
+    """Scan-stacked dicts -> one dict per layer (layer g * p + pos is row
+    g of dict pos)."""
+    n_groups = len(next(iter(flatten_tree(stacks[0]).values())))
+    return [index_tree(stacks[pos], g)
+            for g in range(n_groups) for pos in range(period)]
+
+
+def _stack(layers, period):
+    """``_unstack``'s inverse, as NumPy."""
+    return [unflatten_tree({
+        path: np.stack([flatten_tree(layers[g * period + pos])[path]
+                        for g in range(len(layers) // period)])
+        for path in flatten_tree(layers[pos])}) for pos in range(period)]
+
+
+def lm_params_from_jax(tree, layout=None, device: DeviceLike = None):
     """The JAX package's LM params (NumPy or ``jax.Array`` leaves) -> the
-    port's tree on ``device``. With ``scan_period`` p (``Model.
-    scan_period``), ``tree["layers"]`` is the JAX scan layout: p dicts
-    whose leaves are stacked over the layer groups, layer g * p + pos
-    being row g of dict pos; the port unstacks them into one dict per
-    layer."""
+    port's tree on ``device``, by ``layout`` (``Model.jax_layout``): None
+    where both keep one dict per layer; a period p where
+    ``tree["layers"]`` is the JAX scan layout, p dicts whose leaves are
+    stacked over the layer groups, layer g * p + pos being row g of dict
+    pos; a ``HybridLayout`` for the hybrid's groups and tail (the module
+    docstring). The port unstacks them into one dict per layer."""
     tree = _as_numpy(tree)
-    if scan_period is not None:
-        def unstack(stacks):
-            n_groups = len(next(iter(flatten_tree(stacks[0]).values())))
-            return [index_tree(stacks[pos], g)
-                    for g in range(n_groups) for pos in range(scan_period)]
-        tree = _map_layers(tree, unstack)
+    if isinstance(layout, HybridLayout):
+        tree = dict(tree)
+        tree["layers"] = (_unstack(tree["layers"], layout.every)
+                          + list(tree.pop("tail", [])))
+    elif layout is not None:
+        tree = _map_layers(tree, lambda s: _unstack(s, layout))
     return params_from_numpy(tree, device)
 
 
-def lm_params_to_jax(params, scan_period: Optional[int] = None):
-    """The port's LM params -> NumPy in the JAX package's layout (stacked
-    over layer groups when ``scan_period`` is given); bf16 leaves come
-    back as fp32 arrays."""
+def lm_params_to_jax(params, layout=None):
+    """The port's LM params -> NumPy in the JAX package's ``layout``
+    (``lm_params_from_jax``'s inverse); bf16 leaves come back as fp32
+    arrays."""
     tree = params_to_numpy(params)
-    if scan_period is not None:
-        def stack(layers):
-            p = scan_period
-            return [unflatten_tree({
-                path: np.stack([flatten_tree(layers[g * p + pos])[path]
-                                for g in range(len(layers) // p)])
-                for path in flatten_tree(layers[pos])}) for pos in range(p)]
-        tree = _map_layers(tree, stack)
+    if isinstance(layout, HybridLayout):
+        layers = tree["layers"]
+        full = len(layers) // layout.every * layout.every
+        tree["layers"] = _stack(layers[:full], layout.every)
+        tree["tail"] = layers[full:]
+    elif layout is not None:
+        tree = _map_layers(tree, lambda ls: _stack(ls, layout))
     return tree
 
 
-def lm_cache_from_jax(cache, scan_period: Optional[int] = None,
-                      device: DeviceLike = None):
+def lm_cache_from_jax(cache, layout=None, device: DeviceLike = None):
     """The JAX package's decode cache -> the port's, on ``device``. The
     JAX cache is ``{"layers": [{"k": ..., "v": ...}, ...]}``, with the
     scan layout's p entries of ``(G, B, S, Kv, hd)`` (G layer groups)
-    when ``scan_period`` p is given, else one entry per layer; the port's
-    has one ``(B, S, Kv, hd)`` entry per layer. The layers map as
-    ``lm_params_from_jax`` maps params."""
-    return lm_params_from_jax(cache, scan_period, device)
+    when ``layout`` is a period p, else one entry per layer, and the
+    hybrid's ``group_attn``, ``group_mamba``, ``tail_attn`` and
+    ``tail_mamba`` under a ``HybridLayout``; the port's has one entry per
+    application. The layers map as ``lm_params_from_jax`` maps params."""
+    if not isinstance(layout, HybridLayout):
+        return lm_params_from_jax(cache, layout, device)
+    cache = _as_numpy(cache)
+    layers = []
+    attn, mamba = cache["group_attn"], cache["group_mamba"]
+    for g in range(len(attn["k"])):
+        layers.append(index_tree(attn, g))
+        layers.extend(index_tree(m, g) for m in mamba)
+    if "tail_attn" in cache:
+        layers.append(cache["tail_attn"])
+        layers.extend(cache["tail_mamba"])
+    return params_from_numpy({"layers": layers}, device)
 
 
-def lm_cache_to_jax(cache, scan_period: Optional[int] = None):
-    """The port's decode cache -> NumPy in the JAX package's layout (bf16
-    as fp32 arrays), as ``lm_params_to_jax`` maps params."""
-    return lm_params_to_jax(cache, scan_period)
+def lm_cache_to_jax(cache, layout=None):
+    """The port's decode cache -> NumPy in the JAX package's ``layout``
+    (bf16 as fp32 arrays), ``lm_cache_from_jax``'s inverse."""
+    if not isinstance(layout, HybridLayout):
+        return lm_params_to_jax(cache, layout)
+    layers = params_to_numpy(cache)["layers"]
+    n = layout.every + 1           # a group: its attention entry, k Mamba2
+    full = len(layers) // n * n
+    groups = [layers[i:i + n] for i in range(0, full, n)]
+    out = {"group_attn": _stack([g[0] for g in groups], 1)[0],
+           "group_mamba": _stack([m for g in groups for m in g[1:]],
+                                 layout.every)}
+    if full < len(layers):
+        out["tail_attn"], out["tail_mamba"] = layers[full], layers[full + 1:]
+    return out
 
 
 def index_tree(tree, i):
@@ -215,6 +277,24 @@ class FlatLayout:
         for path, leaf in tree_leaves(tree):
             groups.setdefault(leaf.dtype, {})[path] = leaf
         return {dt: cls.of(g) for dt, g in groups.items()}
+
+    def buffer(self, tree):
+        """The 1-D buffer whose ``views`` the leaves of ``tree`` (a
+        ``{name: leaf}`` dict) are, in this layout's order, or None: a tree
+        that ``views`` handed out is its buffer without a copy."""
+        base = tree[self.names[0]]._base
+        if (base is None or base.dim() != 1 or not base.is_contiguous()
+                or base.numel() != sum(map(math.prod, self.shapes))):
+            return None
+        at = base.storage_offset()
+        for k, shape in zip(self.names, self.shapes):
+            leaf = tree[k]
+            if (leaf._base is not base or leaf.storage_offset() != at
+                    or tuple(leaf.shape) != shape
+                    or not leaf.is_contiguous()):
+                return None
+            at += leaf.numel()
+        return base
 
     def pack(self, tree, batch_dims: int = 0) -> torch.Tensor:
         """The tree as one buffer ``(*batch, size)`` (a copy)."""

@@ -119,24 +119,34 @@ def streaming_sgd(loss_fn, phi, batch, beta):
     buffer, so a step is one backward and one ``online_sgd`` launch per
     dtype group over the concatenated gradients. Returns ``(phi_hat,
     losses)``: the tree as views of the final buffers, and the K losses
-    as one fp32 tensor on phi's device (nothing is read to the host)."""
+    as one fp32 tensor on phi's device (nothing is read to the host).
+
+    Beside phi the loop holds two copies of the model, whatever its size:
+    the working params and their gradient, one flat buffer each per dtype
+    group. The backward accumulates each leaf's gradient straight into
+    its view of the gradient buffer (the leaves' ``.grad``, zeroed before
+    each step: 0 + g is g), and ``online_sgd`` updates the params in
+    place."""
     layouts = list(FlatLayout.per_dtype(phi).values())
     leaves = flatten_tree(phi)
     flats = [lay.pack(leaves) for lay in layouts]
+    grads = [torch.zeros_like(flat) for flat in flats]
     steps = next(iter(batch.values())).shape[0]
     losses = []
     for i in range(steps):
         micro = {k: v[i] for k, v in batch.items()}
         params = {}
-        for lay, flat in zip(layouts, flats):
-            params.update({k: v.detach().requires_grad_()
-                           for k, v in lay.views(flat).items()})
-        names = list(params)
+        for lay, flat, grad in zip(layouts, flats, grads):
+            if i:
+                grad.zero_()
+            grad_views = lay.views(grad)
+            for k, v in lay.views(flat).items():
+                params[k] = v.detach().requires_grad_()
+                params[k].grad = grad_views[k]
         loss = loss_fn(unflatten_tree(params), micro)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [params[k] for k in names])))
-        flats = [kops.online_sgd(flat, lay.pack(grads), beta)
-                 for lay, flat in zip(layouts, flats)]
+        loss.backward()
+        for lay, flat, grad in zip(layouts, flats, grads):
+            kops.online_sgd(flat, grad, beta, flat)         # in place
         losses.append(loss.detach().float())
     out = {}
     for lay, flat in zip(layouts, flats):

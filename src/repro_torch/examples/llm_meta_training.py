@@ -18,7 +18,9 @@ through the public API the launchers use:
   once and replayed on the card).
 
 The arch is ``tinyllama-1.1b`` reduced by default (any ported arch runs:
-``mamba2-130m``, ``starcoder2-15b``). The init is drawn with torch's
+``mamba2-130m``, ``starcoder2-15b``, ``glm4-9b``, ``minicpm-2b``, the
+MoE ``mixtral-8x22b`` and ``llama4-maverick-400b-a17b``, the hybrid
+``zamba2-1.2b``). The init is drawn with torch's
 generator from seed 0, not ``jax.random``'s (``main(init_params=)``
 takes the JAX package's init, through ``bridge.lm_params_from_jax``). It
 runs on the GPU; ``--device cpu`` runs the plain PyTorch path.
@@ -62,7 +64,7 @@ def main(argv=None, init_params=None):
     if init_params is None:
         phi = model.init(torch.Generator().manual_seed(0), dev)
     else:
-        phi = lm_params_from_jax(init_params, model.scan_period, dev)
+        phi = lm_params_from_jax(init_params, model.jax_layout, dev)
     clients = [LMClientStream(model.cfg.vocab_size, cid)
                for cid in range(CLIENTS)]
     step = make_meta_train_step(model, beta=0.02, alpha=1.0)

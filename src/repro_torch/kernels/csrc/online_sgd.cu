@@ -28,6 +28,11 @@
 // vector go to the first threads of the grid. Unaligned buffers take the
 // scalar kernel, U elements a thread.
 //
+// out may be p (the update in place, as the LM inner loop runs it on a
+// model too large for a second copy): each thread loads its elements of p
+// and g before it stores them to out, and no other thread touches them, so
+// these two kernels declare no pointer __restrict__.
+//
 // The math is fp32 whatever the storage. lr * g and the difference are
 // rounded on their own (__fmul_rn, __fsub_rn), so nvcc cannot contract
 // them into an FMA and the result equals the plain PyTorch version
@@ -79,8 +84,7 @@ __device__ __forceinline__ void store(float v, __nv_bfloat16* o) {
 // vectors, then the tail n - nv V (< V) by the first threads.
 template <typename T, int kThreads, int kUnroll>
 __global__ void __launch_bounds__(kThreads)
-online_sgd_vec(const T* __restrict__ p, const T* __restrict__ g,
-               T* __restrict__ out, long long n, float lr) {
+online_sgd_vec(const T* p, const T* g, T* out, long long n, float lr) {
   constexpr int V = 16 / sizeof(T);  // elements per 16-byte access
   const long long nv = n / V;
   const uint4* p4 = reinterpret_cast<const uint4*>(p);
@@ -120,8 +124,7 @@ online_sgd_vec(const T* __restrict__ p, const T* __restrict__ g,
 // any alignment: kUnroll elements a thread, loaded before any is used
 template <typename T, int kThreads, int kUnroll>
 __global__ void __launch_bounds__(kThreads)
-online_sgd_scalar(const T* __restrict__ p, const T* __restrict__ g,
-                  T* __restrict__ out, long long n, float lr) {
+online_sgd_scalar(const T* p, const T* g, T* out, long long n, float lr) {
   const long long base =
       (long long)blockIdx.x * kThreads * kUnroll + threadIdx.x;
   float x[kUnroll], y[kUnroll];

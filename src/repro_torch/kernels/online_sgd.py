@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -72,19 +73,26 @@ def _check(p, g):
     return code, index
 
 
-def online_sgd(p: torch.Tensor, g: torch.Tensor, lr: float) -> torch.Tensor:
+def online_sgd(p: torch.Tensor, g: torch.Tensor, lr: float,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``(p - lr * g)`` in fp32 math, stored in p's dtype, as a new
-    tensor. A CPU tensor gets the plain version; a CUDA tensor gets the
-    kernel (``online_sgd.launches`` counts its launches) or an error."""
+    tensor, or into ``out`` (p's shape, dtype and device; it may be p
+    itself, the update in place). A CPU tensor gets the plain version; a
+    CUDA tensor gets the kernel (``online_sgd.launches`` counts its
+    launches) or an error."""
     code, index = _check(p, g)
+    if out is not None:
+        _check(p, out)
     if index < 0:
         if p.device.type != "cpu" or g.device.type != "cpu":
             raise ValueError(f"online_sgd: unsupported device {p.device}, "
                              f"{g.device}")
-        return ref.online_sgd(p, g, float(lr))
-    if not (p.is_contiguous() and g.is_contiguous()):
-        raise ValueError("online_sgd: p and g must be contiguous")
-    out = torch.empty_like(p)
+        new = ref.online_sgd(p, g, float(lr))
+        return new if out is None else out.copy_(new)
+    if out is None:
+        out = torch.empty_like(p)
+    if not (p.is_contiguous() and g.is_contiguous() and out.is_contiguous()):
+        raise ValueError("online_sgd: p, g and out must be contiguous")
     n = p.numel()
     if n:
         err = build.launch_on(index, _bind()[0], p.data_ptr(), g.data_ptr(),

@@ -38,10 +38,14 @@ def tree_meta_update(phi, phi_hat, alpha):
     """Reptile interpolation over a whole params tree (nested dicts and
     lists) in ONE launch per leaf dtype: the leaves of each dtype are
     packed into one flat buffer (sorted paths), updated, and handed back
-    as views of the result, each leaf in its own dtype."""
-    hat = flatten_tree(phi_hat)
+    as views of the result, each leaf in its own dtype. A tree that is
+    already such views (an earlier result, ``streaming_sgd``'s phi_hat)
+    is read from its buffer, without a copy."""
+    trees = flatten_tree(phi), flatten_tree(phi_hat)
     out = {}
     for layout in FlatLayout.per_dtype(phi).values():
+        w, w_hat = (layout.buffer(t) for t in trees)
         out.update(layout.views(meta_update(
-            layout.pack(flatten_tree(phi)), layout.pack(hat), alpha)))
+            layout.pack(trees[0]) if w is None else w,
+            layout.pack(trees[1]) if w_hat is None else w_hat, alpha)))
     return unflatten_tree(out)

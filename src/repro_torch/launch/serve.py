@@ -3,19 +3,22 @@
 Two modes, picked by ``--mode``, with the JAX launcher's parse-time
 check (flags of the other mode are rejected before any tensor work):
 
-- ``decode`` (the default): batched autoregressive decoding of a dense
-  LM with a KV cache, or of a Mamba2 LM with its conv window and state.
+- ``decode`` (the default): batched autoregressive decoding of an LM:
+  a dense or MoE one with a KV cache per layer, a Mamba2 one with its
+  conv window and state, or the hybrid with both.
   Waves of ``--batch`` prompts fill the slots (the last wave padded with
   zero prompts), each prompt is fed through teacher-forced decode steps,
   then ``--max-new`` tokens are decoded greedily. Every attention
-  layer's attention runs through the ``flash_decode`` kernel; the Mamba2
-  step is plain tensor ops, as in the JAX package. One JSON row with
-  tokens/s:
+  application runs through the ``flash_decode`` kernel; the Mamba2 step
+  and the experts are plain tensor ops, as in the JAX package. One JSON
+  row with tokens/s:
 
       PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
           --arch tinyllama-1.1b --reduced --device cpu
       PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
           --arch mamba2-130m --reduced --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
+          --arch mixtral-8x22b --reduced --device cpu
 
 - ``adapt``: a continuous-batching ``serving.AdaptationServer`` over
   the sine-MLP meta-init sustains a ragged stream of client-adaptation
@@ -31,9 +34,9 @@ CPU instead. The weights (the LM, or phi) are a fresh init from
 ``jax.random``'s init at the same seed (``run_decode(params=)`` takes
 others; ``--ckpt-dir`` serves the phi of a round-state checkpoint that
 ``run_federated(ckpt_dir=...)`` of either package wrote, or of a bare
-``save_checkpoint`` snapshot). Decode runs the dense family
-(tinyllama-1.1b, starcoder2-15b) and the SSM family (mamba2-130m); the
-other families are not ported yet.
+``save_checkpoint`` snapshot). Decode runs every registered LM but the
+encoder-decoder whisper-tiny and the VLM paligemma-3b, which are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -57,10 +60,11 @@ _ADAPT_ONLY = (("--strategy", "strategy", "fp32"), ("--slots", "slots", 64),
 
 
 def decode_archs():
-    """The architectures whose decode path is ported: the dense and SSM
-    families."""
+    """The architectures whose decode path is ported: the dense, MoE, SSM
+    and hybrid families."""
     return tuple(a for a in list_archs()
-                 if a in ALL_ARCHS and get_arch(a).family in ("dense", "ssm"))
+                 if a in ALL_ARCHS and get_arch(a).family in (
+                     "dense", "moe", "ssm", "hybrid"))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,8 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "phi instead)")
     # decode-mode flags
     ap.add_argument("--arch", default=None,
-                    help="LM to decode with (ported: the dense and SSM "
-                         "families, "
+                    help="LM to decode with (ported: the dense, MoE, SSM "
+                         "and hybrid families, "
                          f"{', '.join(decode_archs())})")
     ap.add_argument("--reduced", action="store_true",
                     help="the family's smoke config (2 layers, d_model "
@@ -119,9 +123,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         if args.arch not in ALL_ARCHS:
             ap.error(f"--arch {args.arch!r} not in {sorted(ALL_ARCHS)}")
         if args.arch not in decode_archs():
-            ap.error(f"--arch {args.arch} is not ported yet: the port's "
-                     f"decode mode runs the dense and SSM families "
-                     f"({'|'.join(decode_archs())})")
+            ap.error(f"--arch {args.arch} is not ported yet (ROADMAP queue "
+                     f"A item 6f ports the encoder-decoder and VLM "
+                     f"families): the port's decode mode runs "
+                     f"{'|'.join(decode_archs())}")
         for flag, v, least in (("--batch", args.batch, 1),
                                ("--prompt-len", args.prompt_len, 1),
                                ("--max-new", args.max_new, 0)):
@@ -178,17 +183,21 @@ def decode_requests(runner, prompts, *, on_logits=None):
     return outputs, tokens_out
 
 
-def run_decode(args, params=None, on_logits=None, on_build=None):
+def run_decode(args, params=None, on_logits=None, on_build=None,
+               model=None):
     """The decode mode's run: prints one JSON row with the JAX launcher's
     keys (``tokens_generated`` counts the pad slots, as there), then the
     device and the kernel launches, and returns (row, the generated
     tokens of each request). ``params`` (the port's tree on the device;
     ``bridge.lm_params_from_jax`` carries the JAX package's init over)
-    replaces the seeded torch init. The decode step is built once before
-    the clock and the launch counters start (``runtime/steps.py::
-    DecodeRunner``: on the card its first step runs, then it is captured
-    as a CUDA graph, replayed at every later step); ``on_build(runner)``
-    sees the built runner (``trace_count``, ``capture_s``, ``nodes``)."""
+    replaces the seeded torch init, and ``model`` the one ``--arch``
+    builds (a config of the same family cut to fewer layers, which a
+    full-width run on one card needs for the largest models). The decode
+    step is built once before the clock and the launch counters start
+    (``runtime/steps.py::DecodeRunner``: on the card its first step
+    runs, then it is captured as a CUDA graph, replayed at every later
+    step); ``on_build(runner)`` sees the built runner (``trace_count``,
+    ``capture_s``, ``nodes``)."""
     import torch
 
     from repro_torch.device import resolve_device
@@ -197,10 +206,10 @@ def run_decode(args, params=None, on_logits=None, on_build=None):
     from repro_torch.runtime.steps import DecodeRunner
 
     dev = resolve_device(args.device)
-    cfg = get_arch(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    model = build_model(cfg)
+    if model is None:
+        cfg = get_arch(args.arch)
+        model = build_model(cfg.reduced() if args.reduced else cfg)
+    cfg = model.cfg
     if params is None:
         params = model.init(torch.Generator().manual_seed(args.seed), dev)
     rng = np.random.default_rng(args.seed)

@@ -16,10 +16,14 @@ streaming SGD steps (``online_sgd``) through the LM, and interpolates
 phi toward the result with the annealed alpha (``meta_update``). Its
 defaults are the JAX launcher's (20 rounds, batch 8, seq 64, k-inner 4,
 beta 0.02, alpha 1, 64 clients, seed 0); ``--reduced`` runs the
-family's smoke config. The SSM family (``--arch mamba2-130m``, family
-keyword ``mamba2``; its SSD scan is the ``ssd_scan`` kernel) and the
-dense family (``--arch tinyllama-1.1b`` or ``starcoder2-15b``, family
-keyword ``transformer``) are ported.
+family's smoke config. Ported: the SSM family (``--arch mamba2-130m``,
+family keyword ``mamba2``; its SSD scan is the ``ssd_scan`` kernel), the
+dense family (``--arch tinyllama-1.1b``, ``starcoder2-15b``,
+``glm4-9b`` or ``minicpm-2b``, family keyword ``transformer``), the MoE
+family (``--arch mixtral-8x22b`` or ``llama4-maverick-400b-a17b``,
+family keyword ``moe``) and the hybrid ``--arch zamba2-1.2b``. A
+full-width MoE tree mixes dtypes (the fp32 router in a bf16 model): the
+inner loop's per-dtype groups take it.
 
 ``--strategy reptile|fedavg|fedsgd|transfer|tifed`` runs
 ``run_federated`` with the JAX launcher's defaults (64 clients per round,
@@ -32,9 +36,10 @@ plugins as in the JAX launcher: ``--pool-size`` -> ``ClientPool``
 ``--availability diurnal|markov`` -> the sampling policy,
 ``--buffer-size`` -> ``BufferedAggregation``; incompatible combinations
 are rejected at parse time with the JAX launcher's messages.
-``--arch transformer|mamba2`` on an engine strategy swaps the sine MLP
-for next-token personalization of the family's reduced config
-(tinyllama-1.1b or mamba2-130m ``.reduced()``, fp32) over heterogeneous
+``--arch transformer|mamba2|moe`` on an engine strategy swaps the sine
+MLP for next-token personalization of the family's reduced config
+(tinyllama-1.1b, mamba2-130m or mixtral-8x22b ``.reduced()``, fp32; the
+engine takes no tree that mixes dtypes) over heterogeneous
 LM clients (``data.LmTaskDistribution``, support = ``--batch``
 sequences of ``--seq`` tokens, ``data.lm_loss``), as the JAX launcher's
 engine route does; every fleet and checkpoint flag applies to it too.
@@ -50,10 +55,9 @@ Both routes run on the GPU; ``--device cpu`` runs the plain PyTorch
 path on the CPU instead. The init is drawn from ``--seed`` with torch's
 generator, which does not reproduce ``jax.random``'s init at the same
 seed (``init_params=`` carries the JAX package's init in). The flags of
-routes not ported yet (the MoE, hybrid, encoder-decoder and VLM
-architectures, ``--arch moe`` on the engine, meshes, multi-process runs,
-and checkpoints and resume on the LM launcher) are rejected at parse
-time.
+routes not ported yet (the encoder-decoder and VLM architectures,
+meshes, multi-process runs, and checkpoints and resume on the LM
+launcher) are rejected at parse time.
 """
 from __future__ import annotations
 
@@ -68,9 +72,9 @@ ENGINE_STRATEGIES = ("reptile", "fedavg", "fedsgd", "transfer", "tifed")
 #: JAX launcher)
 ARCH_FAMILIES = {"transformer": "tinyllama-1.1b", "mamba2": "mamba2-130m",
                  "moe": "mixtral-8x22b"}
-PORTED_ARCHS = ("mamba2-130m", "tinyllama-1.1b", "starcoder2-15b")
-#: the engine LM route's ported family keywords
-ENGINE_FAMILIES = ("mamba2", "transformer")
+PORTED_ARCHS = ("mamba2-130m", "tinyllama-1.1b", "starcoder2-15b",
+                "glm4-9b", "minicpm-2b", "mixtral-8x22b",
+                "llama4-maverick-400b-a17b", "zamba2-1.2b")
 #: flags not ported yet, by the slice that ports them
 NOT_PORTED_FLAGS = {
     "--devices": "the multi-device slice", "--mesh": "the multi-device slice",
@@ -126,12 +130,12 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("tinyreptile",) + ENGINE_STRATEGIES)
     ap.add_argument("--arch", choices=list(ALL_ARCHS) + sorted(ARCH_FAMILIES),
                     help="LM architecture of the tinyreptile launcher "
-                         "(ported: mamba2-130m, tinyllama-1.1b, "
-                         "starcoder2-15b; family keywords mamba2, "
-                         "transformer); with an engine --strategy, the "
-                         "family keyword mamba2|transformer meta-trains "
-                         "that family's reduced config instead of the "
-                         "sine MLP")
+                         "(ported: all but whisper-tiny and paligemma-3b; "
+                         "family keywords mamba2, transformer, moe); with "
+                         "an engine --strategy, the family keyword "
+                         "mamba2|transformer|moe meta-trains that "
+                         "family's reduced config instead of the sine "
+                         "MLP")
     ap.add_argument("--reduced", action="store_true",
                     help="the family's smoke config (2 layers, d_model "
                          "256, fp32); the engine route always reduces")
@@ -220,9 +224,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         # family keyword -> the canonical config it names
         args.arch = ARCH_FAMILIES.get(args.arch, args.arch)
         if args.arch not in PORTED_ARCHS:
-            ap.error(f"--arch {args.arch} is not ported yet: the port's LM "
-                     f"launcher runs {'|'.join(PORTED_ARCHS)} (--arch "
-                     f"mamba2, --arch transformer)")
+            ap.error(f"--arch {args.arch} is not ported yet (ROADMAP queue "
+                     f"A item 6f ports the encoder-decoder and VLM "
+                     f"families): the port's LM launcher runs "
+                     f"{'|'.join(PORTED_ARCHS)} (family keywords "
+                     f"{'|'.join(sorted(ARCH_FAMILIES))})")
         if args.participation < 1.0:
             ap.error("--participation is not ported yet on the LM "
                      "launcher (one client per round)")
@@ -252,12 +258,6 @@ def parse_args(argv=None) -> argparse.Namespace:
             ap.error("--strategy tifed runs TIFeD integer-only training on "
                      "the paper's ReLU sine net; the LM families are fp32 "
                      "— drop --arch")
-        if args.arch not in ENGINE_FAMILIES:
-            ap.error(f"--arch {args.arch} ({ARCH_FAMILIES[args.arch]}) is "
-                     f"not ported yet on the engine route: models/moe.py "
-                     f"comes with the other families (ROADMAP queue A item "
-                     f"6f); the engine LM route runs --arch "
-                     f"{'|'.join(ENGINE_FAMILIES)}")
         for flag, v in (("--batch", args.batch), ("--seq", args.seq)):
             if v < 1:
                 ap.error(f"{flag} must be >= 1, got {v}")
@@ -420,7 +420,7 @@ def run_lm(args, init_params=None):
     if init_params is None:
         phi = model.init(torch.Generator().manual_seed(args.seed), dev)
     else:
-        phi = lm_params_from_jax(init_params, model.scan_period, dev)
+        phi = lm_params_from_jax(init_params, model.jax_layout, dev)
     clients = [LMClientStream(cfg.vocab_size, cid)
                for cid in range(args.clients)]
     alpha_sched = linear_anneal(args.alpha, args.rounds,

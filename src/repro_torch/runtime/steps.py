@@ -99,13 +99,13 @@ class DecodeRunner:
 
     The step reads and writes only buffers at fixed addresses: the
     wave's prompts (B, P), an int32 cursor (the position), one KV cache of
-    (B, ``cache_len``, Kv, hd) per layer, the logits (B, 1, V) fp32 and
-    every step's argmax (B, P + ``max_new``); a Mamba2 layer's cache is
-    its conv window and fp32 state instead, written in place (``copy_``)
-    at every step. At cursor c it takes the prompt's token c while c < P,
-    else the argmax of step c - 1; runs ``decode_fn`` at c; writes the
-    logits and their argmax at c; and advances the cursor, all on the
-    device. A wave is P + ``max_new``
+    (B, ``cache_len``, Kv, hd) per attention application, the logits (B,
+    1, V) fp32 and every step's argmax (B, P + ``max_new``); a Mamba2
+    layer's cache is its conv window and fp32 state instead, written in
+    place (``copy_``) at every step. At cursor c it takes the prompt's
+    token c while c < P, else the argmax of step c - 1; runs
+    ``decode_fn`` at c; writes the logits and their argmax at c; and
+    advances the cursor, all on the device. A wave is P + ``max_new``
     steps from a reset cursor; its new tokens are the argmaxes of steps
     P - 1 ... P + ``max_new`` - 2, read once. A KV cache is reused across
     waves: each step writes row c before it attends to rows [0, c], and
@@ -131,10 +131,10 @@ class DecodeRunner:
                                    device=dev)
         self.cursor = torch.zeros(1, dtype=torch.int32, device=dev)
         self.cache = model.init_cache(batch, cache_len, device=dev)
-        # the recurrent entries (the SSM family's), zeroed at each wave
-        self._recurrent = [t for entry in self.cache["layers"]
-                           for name, t in entry.items()
-                           if name in ("conv", "ssm")]
+        # the recurrent entries (every Mamba2 layer's, wherever the cache
+        # holds them), zeroed at each wave
+        self._recurrent = [t for path, t in tree_leaves(self.cache)
+                           if path[-1] in ("conv", "ssm")]
         self.logits = torch.zeros((batch, 1, model.cfg.vocab_size),
                                   dtype=torch.float32, device=dev)
         self.chosen = torch.zeros((batch, self.steps), dtype=torch.int64,

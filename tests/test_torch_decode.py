@@ -308,9 +308,9 @@ def _configs(name):
 def test_decode_fn_matches_jax(name):
     jcfg, tcfg, cache_len, steps = _configs(name)
     jm, tm = jbuild(jcfg), build_model(tcfg)
-    assert tm.scan_period == (1 if name == "tinyllama_gqa_scan" else None)
+    assert tm.jax_layout == (1 if name == "tinyllama_gqa_scan" else None)
     jparams = jm.init(jax.random.PRNGKey(0))
-    tparams = bridge.lm_params_from_jax(jparams, tm.scan_period, "cpu")
+    tparams = bridge.lm_params_from_jax(jparams, tm.jax_layout, "cpu")
     assert {p: (tuple(s), str(d).split(".")[1]) for p, (s, d) in
             bridge.tree_leaves(tm.param_shapes())} == {
         p: (tuple(t.shape), str(t.dtype).split(".")[1])
@@ -340,7 +340,7 @@ def test_decode_fn_matches_jax(name):
             else:
                 np.testing.assert_allclose(tl.numpy(), want, rtol=1e-5,
                                            atol=1e-5, err_msg=str(t))
-    got = bridge.flatten_tree(bridge.lm_cache_to_jax(tcache, tm.scan_period))
+    got = bridge.flatten_tree(bridge.lm_cache_to_jax(tcache, tm.jax_layout))
     want = bridge.flatten_tree(jcache)
     assert set(got) == set(want)
     for path, w in want.items():
@@ -351,7 +351,7 @@ def test_decode_fn_matches_jax(name):
                                        atol=BF16_RTOL * np.abs(w).max())
         else:
             np.testing.assert_allclose(got[path], w, rtol=1e-5, atol=1e-5)
-    back = bridge.lm_cache_from_jax(jcache, tm.scan_period, "cpu")
+    back = bridge.lm_cache_from_jax(jcache, tm.jax_layout, "cpu")
     for (pa, a), (pb, b) in zip(bridge.tree_leaves(back),
                                 bridge.tree_leaves(tcache)):
         assert pa == pb and a.shape == b.shape and a.dtype == b.dtype
@@ -365,7 +365,7 @@ def test_dense_model_param_count_and_full_width_shapes():
     n = sum(int(np.prod(s)) for _, (s, _) in leaves)
     assert n == cfg.param_count() == 1_100_048_384
     assert all(d == torch.bfloat16 for _, (_, d) in leaves)
-    assert model.scan_period == 1 and len(model.specs) == 22
+    assert model.jax_layout == 1 and len(model.specs) == 22
 
 
 # -- the launcher ------------------------------------------------------------
@@ -381,7 +381,7 @@ def test_launcher_matches_jax_run_decode(capsys):
     init = jbuild(jcfg).init(jax.random.PRNGKey(jargs.seed))
     args = serve.parse_args(["--mode", "decode", *argv, "--device", "cpu"])
     row, outputs = serve.run_decode(args, params=bridge.lm_params_from_jax(
-        init, build_model(get_arch(args.arch).reduced()).scan_period, "cpu"))
+        init, build_model(get_arch(args.arch).reduced()).jax_layout, "cpu"))
     capsys.readouterr()
     assert set(want) | {"device", "kernel_launches"} == set(row)
     for key in ("arch", "requests", "tokens_generated", "sample_output"):
@@ -418,9 +418,10 @@ def test_decode_without_cuda_raises():
 @pytest.mark.parametrize("argv,msg", [
     (["--mode", "decode"], "--arch is required for --mode decode"),
     (["--arch", "nope"], "not in"),
-    (["--arch", "zamba2-1.2b"], "--arch zamba2-1.2b is not ported yet"),
-    (["--arch", "mixtral-8x22b"], "--arch mixtral-8x22b is not ported yet"),
-    (["--arch", "glm4-9b"], "--arch glm4-9b is not ported yet"),
+    (["--arch", "paligemma-3b"], "--arch paligemma-3b is not ported yet"),
+    (["--mode", "adapt", "--arch", "zamba2-1.2b"],
+     "--arch only applies with --mode decode"),
+    (["--arch", "mixtral-8x22b", "--max-new", "-1"], "--max-new must be"),
     (["--arch", "whisper-tiny"], "is not ported yet"),
     (["--arch", "tinyllama-1.1b", "--slots", "4"],
      "--slots only applies with --mode adapt"),

@@ -151,7 +151,7 @@ def test_decode_fn_tensor_len_matches_jitted_jax(name):
     (jcfg, tcfg), steps = _CONFIGS[name]
     jm, tm = jbuild(jcfg), build_model(tcfg)
     jparams = jm.init(jax.random.PRNGKey(1))
-    tparams = bridge.lm_params_from_jax(jparams, tm.scan_period, "cpu")
+    tparams = bridge.lm_params_from_jax(jparams, tm.jax_layout, "cpu")
     B = 2
     tokens = np.random.default_rng(2).integers(0, jcfg.vocab_size,
                                                (B, steps))
@@ -290,7 +290,7 @@ def test_runner_matches_the_jax_launcher(capsys):
     args = serve.parse_args(["--mode", "decode", *argv, "--device", "cpu"])
     built = []
     row, got = serve.run_decode(args, params=bridge.lm_params_from_jax(
-        jparams, build_model(get_arch(args.arch).reduced()).scan_period,
+        jparams, build_model(get_arch(args.arch).reduced()).jax_layout,
         "cpu"), on_build=built.append)
     capsys.readouterr()
     assert got == want

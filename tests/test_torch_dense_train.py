@@ -190,7 +190,7 @@ class _Case:
             metrics={k: float(v) for k, v in metrics.items()})
 
     def port_params(self):
-        return bridge.lm_params_from_jax(self.phi, self.tm.scan_period,
+        return bridge.lm_params_from_jax(self.phi, self.tm.jax_layout,
                                          "cpu")
 
 
@@ -244,7 +244,7 @@ def test_every_gradient_matches_jax(case, monkeypatch):
     assert n_fwd == layers
     assert len(calls) == (2 * layers if case.tm.use_scan else layers)
     got = bridge.flatten_tree(bridge.lm_params_to_jax(
-        bridge.unflatten_tree(grads), case.tm.scan_period))
+        bridge.unflatten_tree(grads), case.tm.jax_layout))
     want = case.want["grads"]
     assert set(got) == set(want)
     for path, g in want.items():
@@ -266,7 +266,7 @@ def test_meta_train_step_matches_jax(case):
         assert abs(float(metrics[k]) - v) <= (1e-3 * abs(v) if bf16
                                               else 1e-4), k
     got = bridge.flatten_tree(bridge.lm_params_to_jax(new_phi,
-                                                      case.tm.scan_period))
+                                                      case.tm.jax_layout))
     for path, p in case.want["new_phi"].items():
         if bf16:
             np.testing.assert_allclose(got[path], p, rtol=BF16_RTOL,

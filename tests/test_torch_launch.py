@@ -115,8 +115,7 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     ([], "--arch is required for the tinyreptile LM launcher"),
     (["--strategy", "tifed", "--arch", "mamba2"],
      "--strategy tifed runs TIFeD integer-only training"),
-    (["--strategy", "reptile", "--arch", "moe"],
-     "ROADMAP queue A item 6f"),
+    (["--arch", "paligemma-3b"], "ROADMAP queue A item 6f"),
     (["--strategy", "reptile", "--arch", "tinyllama-1.1b"],
      "meta-trains a reduced LM family"),
     (["--strategy", "fedavg", "--pool-size", "10"],

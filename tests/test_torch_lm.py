@@ -86,7 +86,7 @@ class _Case:
         self._jax = {}
 
     def port_params(self):
-        return bridge.lm_params_from_jax(self.phi, self.tm.scan_period,
+        return bridge.lm_params_from_jax(self.phi, self.tm.jax_layout,
                                          "cpu")
 
     def jax(self, route):
@@ -124,7 +124,7 @@ def _port_grads(case):
     loss.backward()
     grads = bridge.lm_params_to_jax(
         bridge.unflatten_tree({k: v.grad for k, v in leaves.items()}),
-        case.tm.scan_period)
+        case.tm.jax_layout)
     return loss.item(), bridge.flatten_tree(grads)
 
 
@@ -132,7 +132,7 @@ def _port_round(case):
     step = make_meta_train_step(case.tm, beta=BETA)
     new_phi, metrics = step(case.port_params(), _tb(case.meta_batch), ALPHA)
     return (new_phi, bridge.flatten_tree(bridge.lm_params_to_jax(
-        new_phi, case.tm.scan_period)),
+        new_phi, case.tm.jax_layout)),
         {k: float(v) for k, v in metrics.items()})
 
 
@@ -152,7 +152,7 @@ def test_full_width_param_shapes_match_the_jax_init():
     jax.eval_shape of the JAX package's init (no allocation)."""
     jm, tm = jbuild(jget_arch("mamba2-130m")), build_model(
         get_arch("mamba2-130m"))
-    assert tm.use_scan == jm.use_scan and tm.scan_period == 1
+    assert tm.use_scan == jm.use_scan and tm.jax_layout == 1
     want = bridge.flatten_tree(jax.eval_shape(jm.init, jax.random.PRNGKey(0)))
     got = {}
     for path, (shape, dtype) in bridge.tree_leaves(tm.param_shapes()):
@@ -176,7 +176,9 @@ def test_full_width_param_shapes_match_the_jax_init():
 def test_other_families_are_not_ported_yet():
     """The dense and SSM families build and run every path (a dense model
     trains, prefills and decodes; a Mamba2 model has a decode cache); the
-    MoE and hybrid families still raise at construction."""
+    encoder-decoder and VLM families still raise at construction (the
+    MoE and hybrid families are held in test_torch_moe.py and
+    test_torch_hybrid.py)."""
     cfg = ArchConfig(name="dense", family="dense", source="-", num_layers=2,
                      d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
                      vocab_size=64, head_dim=64, dtype="float32")
@@ -194,8 +196,10 @@ def test_other_families_are_not_ported_yet():
     with torch.no_grad():
         assert torch.isfinite(model.loss_fn(params, batch))
         assert model.prefill_fn(params, batch).shape == (2, 1, 64)
-    for family, extra in (("moe", dict(num_experts=4, experts_per_token=2)),
-                          ("hybrid", dict(hybrid_attn_every=2))):
+    for family, extra in (("audio", dict(encoder_layers=2,
+                                         encoder_tokens=16)),
+                          ("vlm", dict(frontend="vision",
+                                       frontend_tokens=8))):
         other = dataclasses.replace(cfg, name=family, family=family, **extra)
         with pytest.raises(NotImplementedError, match="not ported yet"):
             Model(other)
@@ -245,7 +249,7 @@ def test_scan_stacked_layout_maps_both_ways():
     bridge unstacks it into one dict per layer and stacks it back
     exactly, and the loss agrees at 1e-5."""
     case = _Case(4, "float32")
-    assert case.jm.use_scan and case.tm.scan_period == 1
+    assert case.jm.use_scan and case.tm.jax_layout == 1
     params = case.port_params()
     assert isinstance(params["layers"], list) and len(params["layers"]) == 4
     np.testing.assert_array_equal(
@@ -402,8 +406,8 @@ def test_lm_launcher_rows_match_the_jax_launcher(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--arch", "moe"], "--arch mixtral-8x22b is not ported yet"),
-    (["--arch", "zamba2-1.2b"], "--arch zamba2-1.2b is not ported yet"),
+    (["--arch", "whisper-tiny"], "--arch whisper-tiny is not ported yet"),
+    (["--arch", "paligemma-3b"], "--arch paligemma-3b is not ported yet"),
     (["--arch", "mamba2", "--participation", "0.5"],
      "--participation is not ported yet"),
     (["--arch", "mamba2", "--batch", "6", "--k-inner", "4"],

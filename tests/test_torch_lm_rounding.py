@@ -48,7 +48,7 @@ class Witness:
         self.jm = jbuild(dataclasses.replace(jget_arch("mamba2-130m"), **cut))
         self.tm = build_model(dataclasses.replace(get_arch("mamba2-130m"),
                                                   **cut))
-        self.period = self.tm.scan_period
+        self.period = self.tm.jax_layout
         self.init = bridge.flatten_tree(bridge.lm_params_to_jax(
             bridge.lm_params_from_jax(self.jm.init(jax.random.PRNGKey(0)),
                                       self.period, "cpu")))

@@ -136,7 +136,7 @@ def test_bf16_decode_parts_from_prefill_as_jax_does():
     jcfg, tcfg = _configs(24, "bfloat16")
     jm, tm = jbuild(jcfg), build_model(tcfg)
     jparams = jm.init(jax.random.PRNGKey(0))
-    tparams = bridge.lm_params_from_jax(jparams, tm.scan_period, "cpu")
+    tparams = bridge.lm_params_from_jax(jparams, tm.jax_layout, "cpu")
     at, B = (0, 31, 63), 2
     tokens = np.random.default_rng(17).integers(0, jcfg.vocab_size,
                                                 (B, max(at) + 1))
@@ -177,9 +177,9 @@ def test_decode_fn_matches_jax(layers, dtype):
     layers) and forward again, each entry's shape and dtype kept."""
     jcfg, tcfg = _configs(layers, dtype)
     jm, tm = jbuild(jcfg), build_model(tcfg)
-    assert tm.scan_period == (1 if layers == 4 else None)
+    assert tm.jax_layout == (1 if layers == 4 else None)
     jparams = jm.init(jax.random.PRNGKey(0))
-    tparams = bridge.lm_params_from_jax(jparams, tm.scan_period, "cpu")
+    tparams = bridge.lm_params_from_jax(jparams, tm.jax_layout, "cpu")
     B, steps = 2, 32
     tokens = np.random.default_rng(1).integers(0, jcfg.vocab_size,
                                                (B, steps))
@@ -201,14 +201,14 @@ def test_decode_fn_matches_jax(layers, dtype):
                 "cache": tcache, "cache_len": t})
             assert tl.dtype == torch.float32 and tuple(tl.shape) == jl.shape
             _close(tl.numpy(), _np(jl), bf16)
-    got = bridge.flatten_tree(bridge.lm_cache_to_jax(tcache, tm.scan_period))
+    got = bridge.flatten_tree(bridge.lm_cache_to_jax(tcache, tm.jax_layout))
     want = bridge.flatten_tree(jcache)
     assert set(got) == set(want)
     for path, w in want.items():
         w = _np(w)
         assert got[path].shape == w.shape, path
         _close(got[path], w, bf16)
-    back = bridge.lm_cache_from_jax(jcache, tm.scan_period, "cpu")
+    back = bridge.lm_cache_from_jax(jcache, tm.jax_layout, "cpu")
     for (pa, a), (pb, b) in zip(bridge.tree_leaves(back),
                                 bridge.tree_leaves(tcache)):
         assert pa == pb and a.shape == b.shape and a.dtype == b.dtype
@@ -279,7 +279,7 @@ def test_serve_launcher_matches_jax_run_decode(capsys):
         jax.random.PRNGKey(jargs.seed))
     args = serve.parse_args(["--mode", "decode", *argv, "--device", "cpu"])
     row, outputs = serve.run_decode(args, params=bridge.lm_params_from_jax(
-        init, build_model(get_arch(args.arch).reduced()).scan_period, "cpu"))
+        init, build_model(get_arch(args.arch).reduced()).jax_layout, "cpu"))
     capsys.readouterr()
     assert set(want) | {"device", "kernel_launches"} == set(row)
     for key in ("arch", "requests", "tokens_generated", "sample_output"):

@@ -160,7 +160,7 @@ def test_joint_train_step_matches_jax(opt):
     jstep = jjoint(jm, jopt, joptim.cosine(lr, 3, warmup=1))
     tstep = make_joint_train_step(tm, topt, optim.cosine(lr, 3, warmup=1))
     jp, js, jn = phi, jopt.init(phi), jnp.int32(0)
-    tp = bridge.lm_params_from_jax(phi, tm.scan_period, "cpu")
+    tp = bridge.lm_params_from_jax(phi, tm.jax_layout, "cpu")
     ts, tn = topt.init(tp), 0
     for i in range(3):
         jp, js, jn, jmet = jstep(jp, js, jn, jb)
@@ -170,7 +170,7 @@ def test_joint_train_step_matches_jax(opt):
             float(jmet["loss"]))
         np.testing.assert_allclose(float(tmet["lr"]), float(jmet["lr"]),
                                    rtol=1e-6)
-    got = bridge.flatten_tree(bridge.lm_params_to_jax(tp, tm.scan_period))
+    got = bridge.flatten_tree(bridge.lm_params_to_jax(tp, tm.jax_layout))
     for path, w in bridge.flatten_tree(jax.tree.map(np.asarray, jp)).items():
         diff = np.abs(got[path] - w)
         off = diff > 1e-5 + 1e-5 * np.abs(w)
