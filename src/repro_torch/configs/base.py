@@ -2,8 +2,8 @@
 package's ``configs/base.py``: pure data, no JAX).
 
 Every architecture is expressed as an ``ArchConfig``. The port registers
-the configurations whose model it has ported (all but whisper-tiny and
-paligemma-3b); CPU tests use ``reduced()`` variants of the same family.
+every configuration the JAX package does; CPU tests use ``reduced()``
+variants of the same family.
 """
 from __future__ import annotations
 

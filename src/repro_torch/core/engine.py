@@ -74,6 +74,7 @@ import dataclasses
 import logging
 import math
 import time
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -93,7 +94,7 @@ from repro_torch.core.pool import (BufferedAggregation, ClientPool,
 from repro_torch.core.threefry import leaf_permutations
 from repro_torch.data.tasks import TaskDistribution
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.graphs import GraphStep
+from repro_torch.graphs import GraphStep, weak_method
 from repro_torch.kernels import ops as kops
 
 logger = logging.getLogger(__name__)
@@ -522,7 +523,14 @@ class _Program:
                 if buffered else None,
                 torch.zeros(1, dtype=torch.int32, device=dev)
                 if buffered else None)
-        self.step = GraphStep(lambda: runner._round(self), dev)
+        # the runner holds its programs and a program its step: weak
+        # references back, so a dropped runner frees its buffers and
+        # graphs at once, not when Python's cyclic collector runs
+        self._runner = weakref.ref(runner)
+        self.step = GraphStep(weak_method(self._run), dev)
+
+    def _run(self) -> None:
+        self._runner()._round(self)
 
     def load_pool(self, ps: PoolState) -> None:
         """Copy a run's ``PoolState`` in (the sink rows are cleared)."""

@@ -19,6 +19,12 @@ never reaches. So the capture notes each counter's rise, puts the
 counters back (a capture launches nothing), and every replay adds the
 rise again: ``kernels.ops.launch_counts`` reads the same on both routes.
 
+A step's owner (a decode runner, a serving tick, a round program) hands
+``GraphStep`` its method through ``weak_method``: a bound method would
+make the owner and its step refer to each other, and then dropping the
+owner's last reference would free neither its device buffers nor the
+graph until Python's cyclic collector ran.
+
 A capture or replay that fails raises; nothing falls back to running
 the step eagerly. Python's cyclic garbage collector is off while a graph
 is captured: a collection may free another, unreachable graph, and
@@ -29,6 +35,7 @@ from __future__ import annotations
 import ctypes
 import gc
 import time
+import weakref
 from typing import Callable, Optional
 
 import torch
@@ -56,6 +63,14 @@ def _new_graph():
         return torch.cuda.CUDAGraph(keep_graph=True), True
     except TypeError:                  # a PyTorch without keep_graph
         return torch.cuda.CUDAGraph(), False
+
+
+def weak_method(method) -> Callable[[], None]:
+    """``method`` (bound to the step's owner) as a function of no
+    arguments that reaches its owner through a weak reference, so the
+    owner's ``GraphStep`` keeps no cycle with it."""
+    ref = weakref.WeakMethod(method)
+    return lambda: ref()()
 
 
 class GraphStep:

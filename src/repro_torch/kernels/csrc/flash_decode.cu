@@ -82,8 +82,19 @@
 // (the next tile's while the current one is computed) and stored to
 // shared memory as fp32, rows padded by one float; each warp owns query
 // rows and computes one position per lane, then each thread owns one
-// (row, dim) output and accumulates P V. Rows a block lacks (R < 8) are
-// skipped, not computed.
+// (row, dim) output (two dims at hd 256) and accumulates P V. Rows a
+// block lacks (R < 8) are skipped, not computed. The K and V tiles are
+// dynamic shared memory: at hd 256 they are 65.8 KB, past the 48 KB a
+// block gets without opting in, and the next tile would take 128 more
+// registers a thread, so there each tile is loaded straight into shared
+// memory, with no prefetch.
+//
+// Head dim 256 (paligemma-3b: 8 query heads over one KV head), bf16:
+// the same kernel with 32 16-byte chunks a row, so a thread's 16 copies
+// of a tile sit 4 rows apart and each takes its own row's swizzle. The
+// ring is 128 KB (two stages of 64-position K and V tiles), one block an
+// SM; a lane holds the output fragment o[32][4] and q's 16 k-steps, some
+// 160 registers before the rest (ptxas's count is in PERF.md).
 //
 // L on the host or on the device. flash_decode_launch takes [lo, hi)
 // and the split as host ints, so a call's grid fits its L.
@@ -99,7 +110,7 @@
 // the cluster's two barriers; in fp32 they leave at once, and the last-
 // block ticket counts the n_split active blocks.
 //
-// Limits, checked by the Python wrapper too: hd in {64, 128}; fp32 or
+// Limits, checked by the Python wrapper too: hd in {64, 128, 256}; fp32 or
 // bf16, the same for q, K and V; contiguous tensors, the caches 16-byte
 // aligned; stretches of whole 64-position tiles; at most kMaxSplits
 // splits in fp32 and kMaxCluster in bf16.
@@ -122,6 +133,24 @@ constexpr int kMaxCluster = 8;       // bf16: splits a (portable) cluster holds
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxDevices = 64;
+
+// Above 48 KB a kernel takes dynamic shared memory only after opting in,
+// once per device: opted is the kernel's own flags.
+template <typename Kernel>
+int opt_in(Kernel kernel, int smem, bool (&opted)[kMaxDevices]) {
+  if (smem <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (!opted[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    opted[dev] = true;
+  }
+  return 0;
+}
 
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
@@ -279,8 +308,8 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q,
   constexpr int RSTEP = kThreads / CPR;        // rows between them
   constexpr int KS = HD / 16;                  // k-steps of q K^T
   constexpr int NB = HD / 8;                   // 8-dim blocks of P V
-  static_assert(kThreads % CPR == 0 && RSTEP % 8 == 0,
-                "a thread's copies share one column and swizzle");
+  static_assert(kThreads % CPR == 0 && kTile % RSTEP == 0,
+                "a thread's copies share one column of whole tiles");
   static_assert(((kWarps + 1) * kRows * HD + (2 * kWarps + 2) * kRows) * 4 <=
                     bf16_smem_bytes<HD>(),
                 "the warp and split merges fit in the ring");
@@ -306,21 +335,21 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q,
     const int n_tiles = (p_end - p_begin + kTile - 1) / kTile;
 
     // this thread copies rows r0, r0 + RSTEP, ... of every tile at chunk
-    // c, which lands at chunk c ^ (row % 8), the same for all of them
+    // c, which lands at chunk c ^ (row % 8) of its row
     const long long row = (long long)Kv * HD;    // elements between positions
     const int r0 = t / CPR, c = t % CPR;
     const long long off0 = ((long long)b * S * Kv + kv) * HD + c * 8;
     const uint32_t ring = smem_addr(smem);
-    const uint32_t dst0 = (r0 * CPR + (c ^ (r0 & 7))) * 16;
     auto fetch = [&](int i) {
       const int p0 = p_begin + i * kTile;
-      const uint32_t sk = ring + (i % kStages) * 2 * TILE_BYTES + dst0;
+      const uint32_t sk = ring + (i % kStages) * 2 * TILE_BYTES;
       const long long off = off0 + (p0 + r0) * row;
 #pragma unroll
       for (int j = 0; j < LOADS; ++j) {
-        const bool ok = p0 + r0 + j * RSTEP < p_end;
+        const int rj = r0 + j * RSTEP;
+        const bool ok = p0 + rj < p_end;
         const long long o = ok ? off + j * RSTEP * row : off0;
-        const uint32_t d = sk + j * RSTEP * CPR * 16;
+        const uint32_t d = sk + (rj * CPR + (c ^ (rj & 7))) * 16;
         cp_async16(d, k + o, ok ? 16 : 0);
         cp_async16(d + TILE_BYTES, v + o, ok ? 16 : 0);
       }
@@ -526,14 +555,18 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
                  int H, int Kv, int R, Span span, float scale) {
   constexpr int KP = HD + 1;                   // padded shared row
   constexpr int VPR = HD / 4;                  // float4 loads per row
-  constexpr int RSTEP = kThreads / HD;         // output rows per pass
+  constexpr int DW = HD < kThreads ? HD : kThreads;  // threads along a row
+  constexpr int DPT = HD / DW;                 // output dims per thread
+  constexpr int RSTEP = kThreads / DW;         // output rows per pass
   constexpr int ACC = (kRows + RSTEP - 1) / RSTEP;
   constexpr int RPW = (kRows + kWarps - 1) / kWarps;  // score rows per warp
+  constexpr bool kPrefetch = HD <= 128;        // the next tile in registers
   static_assert(2 * kRows * kMaxSplits <= kTile32 * KP,
                 "the split merge fits in sK");
 
-  __shared__ float sK[kTile32 * KP];
-  __shared__ float sV[kTile32 * KP];
+  extern __shared__ __align__(16) float fsmem[];
+  float* sK = fsmem;                           // (kTile32, KP), dynamic
+  float* sV = fsmem + kTile32 * KP;
   __shared__ float sQ[kRows * HD];
   __shared__ float sP[kRows * kTile32];
   __shared__ float sCorr[kRows];
@@ -548,7 +581,7 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int h0 = kv * R + g * kRows;
   const int nr = min(kRows, R - g * kRows);
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const int d_own = t % HD, r_own = t / HD;
+  const int d_own = t % DW, r_own = t / DW;    // dims d_own + u DW
 
   const int p_begin = span.lo + split * span.chunk;
   const int p_end = min(span.hi, p_begin + span.chunk);
@@ -558,51 +591,69 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
     sQ[e] = r < nr ? q[((long long)b * H + h0 + r) * HD + e % HD] * scale
                    : 0.f;
   }
-  float m[RPW], l[RPW], acc[ACC];
+  float m[RPW], l[RPW], acc[ACC][DPT];
 #pragma unroll
   for (int j = 0; j < RPW; ++j) {
     m[j] = -INFINITY;
     l[j] = 0.f;
   }
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+  for (int i = 0; i < ACC; ++i)
+#pragma unroll
+    for (int u = 0; u < DPT; ++u) acc[i][u] = 0.f;
 
   const long long row = (long long)Kv * HD;
   const float* kb = k + ((long long)b * S * Kv + kv) * HD;
   const float* vb = v + ((long long)b * S * Kv + kv) * HD;
 
   // each thread's share of one tile's K and V rows (zero past the
-  // stretch): the next tile's loads are in flight during the current
-  // tile's arithmetic
+  // stretch): up to hd 128 the next tile's loads are in flight during the
+  // current tile's arithmetic; at hd 256 each tile is loaded when due
   constexpr int LPT = (kTile32 * VPR + kThreads - 1) / kThreads;
-  float4 rk[LPT], rv[LPT];
-  auto fetch = [&](int p0) {
-#pragma unroll
-    for (int i = 0; i < LPT; ++i) {
-      const int e = t + i * kThreads, r = e / VPR, c = e % VPR;
-      rk[i] = rv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (e < kTile32 * VPR && p0 + r < p_end) {
-        rk[i] = *reinterpret_cast<const float4*>(kb + (p0 + r) * row + c * 4);
-        rv[i] = *reinterpret_cast<const float4*>(vb + (p0 + r) * row + c * 4);
-      }
+  float4 rk[kPrefetch ? LPT : 1], rv[kPrefetch ? LPT : 1];
+  auto load = [&](int p0, int i, float4& k4, float4& v4) {
+    const int e = t + i * kThreads, r = e / VPR, c = e % VPR;
+    k4 = v4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (e < kTile32 * VPR && p0 + r < p_end) {
+      k4 = *reinterpret_cast<const float4*>(kb + (p0 + r) * row + c * 4);
+      v4 = *reinterpret_cast<const float4*>(vb + (p0 + r) * row + c * 4);
     }
   };
+  auto put = [&](int i, const float4& k4, const float4& v4) {
+    const int e = t + i * kThreads, r = e / VPR, c = e % VPR;
+    if (e < kTile32 * VPR) {
+      float* dk = sK + r * KP + c * 4;
+      float* dv = sV + r * KP + c * 4;
+      dk[0] = k4.x; dk[1] = k4.y; dk[2] = k4.z; dk[3] = k4.w;
+      dv[0] = v4.x; dv[1] = v4.y; dv[2] = v4.z; dv[3] = v4.w;
+    }
+  };
+  auto fetch = [&](int p0) {
+#pragma unroll
+    for (int i = 0; i < (kPrefetch ? LPT : 0); ++i)
+      load(p0, i, rk[i], rv[i]);
+  };
 
-  if (p_begin < p_end) fetch(p_begin);
+  if constexpr (kPrefetch) {
+    if (p_begin < p_end) fetch(p_begin);
+  }
   for (int p0 = p_begin; p0 < p_end; p0 += kTile32) {
     __syncthreads();                           // the last tile is consumed
+    if constexpr (kPrefetch) {
 #pragma unroll
-    for (int i = 0; i < LPT; ++i) {
-      const int e = t + i * kThreads, r = e / VPR, c = e % VPR;
-      if (e < kTile32 * VPR) {
-        float* dk = sK + r * KP + c * 4;
-        float* dv = sV + r * KP + c * 4;
-        dk[0] = rk[i].x; dk[1] = rk[i].y; dk[2] = rk[i].z; dk[3] = rk[i].w;
-        dv[0] = rv[i].x; dv[1] = rv[i].y; dv[2] = rv[i].z; dv[3] = rv[i].w;
+      for (int i = 0; i < LPT; ++i) put(i, rk[i], rv[i]);
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < LPT; ++i) {
+        float4 k4, v4;
+        load(p0, i, k4, v4);
+        put(i, k4, v4);
       }
     }
     __syncthreads();
-    if (p0 + kTile32 < p_end) fetch(p0 + kTile32);
+    if constexpr (kPrefetch) {
+      if (p0 + kTile32 < p_end) fetch(p0 + kTile32);
+    }
 
     // scores and the online softmax: warp w owns rows w, w + 4; lane =
     // position in the tile. m and l live in the owning warp's registers
@@ -640,11 +691,14 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < ACC; ++i) {
       const int r = r_own + i * RSTEP;
       if (r < nr) {
-        float a = acc[i] * sCorr[r];
 #pragma unroll
-        for (int j = 0; j < kTile32; ++j)
-          a = fmaf(sP[r * kTile32 + j], sV[j * KP + d_own], a);
-        acc[i] = a;
+        for (int u = 0; u < DPT; ++u) {
+          float a = acc[i][u] * sCorr[r];
+#pragma unroll
+          for (int j = 0; j < kTile32; ++j)
+            a = fmaf(sP[r * kTile32 + j], sV[j * KP + d_own + u * DW], a);
+          acc[i][u] = a;
+        }
       }
     }
   }
@@ -662,7 +716,10 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = 0; i < ACC; ++i) {
       const int r = r_own + i * RSTEP;
       if (r < nr)
-        out[(row0 + r) * HD + d_own] = acc[i] / fmaxf(sL[r], 1e-30f);
+#pragma unroll
+        for (int u = 0; u < DPT; ++u)
+          out[(row0 + r) * HD + d_own + u * DW] =
+              acc[i][u] / fmaxf(sL[r], 1e-30f);
     }
     return;
   }
@@ -675,7 +732,9 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < ACC; ++i) {
     const int r = r_own + i * RSTEP;
     if (r < nr) {
-      ws[(base + r) * HD + d_own] = acc[i];
+#pragma unroll
+      for (int u = 0; u < DPT; ++u)
+        ws[(base + r) * HD + d_own + u * DW] = acc[i][u];
       if (d_own == 0) ws_l[base + r] = sL[r];
     }
   }
@@ -696,22 +755,9 @@ int launch_bf16(dim3 grid, const void* q, const void* k, const void* v,
                 void* out, int S, int H, int Kv, Span span, float scale,
                 cudaStream_t stream) {
   constexpr int smem = bf16_smem_bytes<HD>();
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    // above 48 KB only after opting in, once per device
-    static bool opted[kMaxDevices];
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-    if (!opted[dev]) {
-      err = cudaFuncSetAttribute(flash_decode_bf16<HD>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-      if (err != cudaSuccess) return (int)err;
-      opted[dev] = true;
-    }
-  }
+  static bool opted[kMaxDevices];
+  const int refused = opt_in(flash_decode_bf16<HD>, smem, opted);
+  if (refused != 0) return refused;
   // one cluster of grid.x blocks per (b, group): the splits
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -725,7 +771,7 @@ int launch_bf16(dim3 grid, const void* q, const void* k, const void* v,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = grid.x > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(
+  const cudaError_t err = cudaLaunchKernelEx(
       &cfg, flash_decode_bf16<HD>,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -739,7 +785,11 @@ template <int HD>
 int launch_f32(dim3 grid, const void* q, const void* k, const void* v,
                void* out, float* ws, int* counters, int S, int H, int Kv,
                Span span, float scale, cudaStream_t stream) {
-  flash_decode_f32<HD><<<grid, kThreads, 0, stream>>>(
+  constexpr int smem = 2 * kTile32 * (HD + 1) * 4;   // sK and sV
+  static bool opted[kMaxDevices];
+  const int refused = opt_in(flash_decode_f32<HD>, smem, opted);
+  if (refused != 0) return refused;
+  flash_decode_f32<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), ws, counters,
       S, H, Kv, H / Kv, span, scale);
@@ -760,10 +810,15 @@ int launch(int n_grid, const void* q, const void* k, const void* v,
   if (dtype == 0 && hd == 128)
     return launch_f32<128>(grid, q, k, v, out, w, c, S, H, Kv, span, scale,
                            s);
+  if (dtype == 0 && hd == 256)
+    return launch_f32<256>(grid, q, k, v, out, w, c, S, H, Kv, span, scale,
+                           s);
   if (dtype == 1 && hd == 64)
     return launch_bf16<64>(grid, q, k, v, out, S, H, Kv, span, scale, s);
   if (dtype == 1 && hd == 128)
     return launch_bf16<128>(grid, q, k, v, out, S, H, Kv, span, scale, s);
+  if (dtype == 1 && hd == 256)
+    return launch_bf16<256>(grid, q, k, v, out, S, H, Kv, span, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -39,7 +39,7 @@ import torch
 
 from repro_torch.kernels import build, ref
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64                  # positions per tile of the bf16 kernel
 MAX_ROWS = 8               # query heads one block takes (kRows)
@@ -166,8 +166,8 @@ def _check_len(cache_len: torch.Tensor, dev: int) -> None:
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, cache_len, *,
                  window: int = 0) -> torch.Tensor:
-    """q (B, H, hd), caches (B, S, Kv, hd) with H a multiple of Kv, hd 64
-    or 128, all fp32 or all bf16; ``cache_len`` an int in [1, S], or an
+    """q (B, H, hd), caches (B, S, Kv, hd) with H a multiple of Kv, hd 64,
+    128 or 256, all fp32 or all bf16; ``cache_len`` an int in [1, S], or an
     int32 tensor of one element on q's device -> (B, H, hd) in q's dtype,
     as ``ref.flash_decode`` computes it over the positions ``[max(0,
     cache_len - window), cache_len)``. A CPU tensor gets the plain version;

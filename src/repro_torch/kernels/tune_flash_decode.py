@@ -7,9 +7,11 @@ plan is set, and ``flash_decode`` is held against its plain version and
 timed on the device (torch.profiler: the kernel's own time per launch,
 40 calls cycling over 8 copies of the caches, past the L2) at the
 decode path's shape (tinyllama-1.1b at batch 8, cache 2,048, bf16) for
-L = 1 ... 2,048, and at the 32k fp32 shape. Prints one JSON line per
-setting and case, then the launch-weighted mean over the L a decode wave
-passes through (1 ... 640) per setting. Needs a CUDA device.
+L = 1 ... 2,048, at the 32k fp32 shape, and at paligemma-3b's decode
+(head dim 256, 8 query heads over one KV head, bf16) at L = 2,048.
+Prints one JSON line per setting and case, then the launch-weighted mean
+over the L a decode wave passes through (1 ... 640) per setting. Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from repro_torch.kernels import flash_decode as fd
 from repro_torch.kernels import ref
 
 PATH, K32 = (8, 32, 4, 64, 2048), (4, 8, 4, 64, 32768)
+HD256 = (8, 8, 1, 256, 2048)     # paligemma-3b's decode
 PATH_L = (1, 64, 128, 320, 577, 640, 1024, 2048)
 WAVE = (1, 640)                  # L a decode wave of 512 + 128 runs over
 SETTINGS = [(t, m) for t in (264, 528) for m in (1, 2, 4)]
@@ -78,15 +81,17 @@ def main(argv=None):
     lines = [{"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}]
     q, kvs = inputs(PATH, torch.bfloat16, 8, 0)
     q32, kvs32 = inputs(K32, torch.float32, 1, 1)
-    cases = [("path", q, kvs, L, 0) for L in PATH_L]
-    cases += [("path_w256", q, kvs, 1024, 256), ("32k_fp32", q32, kvs32,
-                                                  32768, 0)]
+    q256, kvs256 = inputs(HD256, torch.bfloat16, 8, 2)
+    cases = [("path", PATH, q, kvs, L, 0) for L in PATH_L]
+    cases += [("path_w256", PATH, q, kvs, 1024, 256),
+              ("32k_fp32", K32, q32, kvs32, 32768, 0),
+              ("hd256", HD256, q256, kvs256, 2048, 0)]
     summary = {}
     for target, min_tiles in SETTINGS:
         fd.TARGET_BLOCKS, fd.MIN_TILES = target, min_tiles
         fd.plan.cache_clear()
         us_by_L = {}
-        for tag, qq, kk, L, w in cases:
+        for tag, shape, qq, kk, L, w in cases:
             k, v = kk[0]
             got = fd.flash_decode(qq, k, v, L, window=w)
             want = ref.flash_decode(qq, k, v, L, window=w)
@@ -98,12 +103,12 @@ def main(argv=None):
             cyc = itertools.cycle(kk)
             us = device_us(lambda: fd.flash_decode(qq, *next(cyc), L,
                                                    window=w))
-            B, H, Kv, hd, S = (PATH if tag != "32k_fp32" else K32)
+            B, H, Kv, hd, S = shape
             lo = max(0, L - w) if w else 0
             line = {"target_blocks": target, "min_tiles": min_tiles,
                     "case": tag, "L": L, "window": w,
                     "plan": fd.plan(B, Kv, H // Kv, L - lo,
-                                    fd.MAX_SPLITS if tag == "32k_fp32"
+                                    fd.MAX_SPLITS if qq.dtype == torch.float32
                                     else fd.CLUSTER_SPLITS),
                     "device_us": us, "max_abs_err": err}
             lines.append(line)

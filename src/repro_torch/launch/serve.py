@@ -4,8 +4,11 @@ Two modes, picked by ``--mode``, with the JAX launcher's parse-time
 check (flags of the other mode are rejected before any tensor work):
 
 - ``decode`` (the default): batched autoregressive decoding of an LM:
-  a dense or MoE one with a KV cache per layer, a Mamba2 one with its
-  conv window and state, or the hybrid with both.
+  a dense, MoE or VLM one with a KV cache per layer, a Mamba2 one with
+  its conv window and state, the hybrid with both, or the
+  encoder-decoder whisper-tiny with a KV cache and a cross cache of
+  ``encoder_tokens`` rows per decoder layer (zeros, as the JAX launcher
+  leaves it: no encoder run fills it).
   Waves of ``--batch`` prompts fill the slots (the last wave padded with
   zero prompts), each prompt is fed through teacher-forced decode steps,
   then ``--max-new`` tokens are decoded greedily. Every attention
@@ -19,6 +22,8 @@ check (flags of the other mode are rejected before any tensor work):
           --arch mamba2-130m --reduced --device cpu
       PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
           --arch mixtral-8x22b --reduced --device cpu
+      PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
+          --arch whisper-tiny --reduced --device cpu
 
 - ``adapt``: a continuous-batching ``serving.AdaptationServer`` over
   the sine-MLP meta-init sustains a ragged stream of client-adaptation
@@ -34,9 +39,7 @@ CPU instead. The weights (the LM, or phi) are a fresh init from
 ``jax.random``'s init at the same seed (``run_decode(params=)`` takes
 others; ``--ckpt-dir`` serves the phi of a round-state checkpoint that
 ``run_federated(ckpt_dir=...)`` of either package wrote, or of a bare
-``save_checkpoint`` snapshot). Decode runs every registered LM but the
-encoder-decoder whisper-tiny and the VLM paligemma-3b, which are not
-ported yet.
+``save_checkpoint`` snapshot). Decode runs every registered LM.
 """
 from __future__ import annotations
 
@@ -60,11 +63,8 @@ _ADAPT_ONLY = (("--strategy", "strategy", "fp32"), ("--slots", "slots", 64),
 
 
 def decode_archs():
-    """The architectures whose decode path is ported: the dense, MoE, SSM
-    and hybrid families."""
-    return tuple(a for a in list_archs()
-                 if a in ALL_ARCHS and get_arch(a).family in (
-                     "dense", "moe", "ssm", "hybrid"))
+    """The architectures decode mode runs: every registered LM."""
+    return tuple(a for a in list_archs() if a in ALL_ARCHS)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -82,8 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "phi instead)")
     # decode-mode flags
     ap.add_argument("--arch", default=None,
-                    help="LM to decode with (ported: the dense, MoE, SSM "
-                         "and hybrid families, "
+                    help="LM to decode with (one of "
                          f"{', '.join(decode_archs())})")
     ap.add_argument("--reduced", action="store_true",
                     help="the family's smoke config (2 layers, d_model "
@@ -122,11 +121,6 @@ def parse_args(argv=None) -> argparse.Namespace:
             ap.error("--arch is required for --mode decode")
         if args.arch not in ALL_ARCHS:
             ap.error(f"--arch {args.arch!r} not in {sorted(ALL_ARCHS)}")
-        if args.arch not in decode_archs():
-            ap.error(f"--arch {args.arch} is not ported yet (ROADMAP queue "
-                     f"A item 6f ports the encoder-decoder and VLM "
-                     f"families): the port's decode mode runs "
-                     f"{'|'.join(decode_archs())}")
         for flag, v, least in (("--batch", args.batch, 1),
                                ("--prompt-len", args.prompt_len, 1),
                                ("--max-new", args.max_new, 0)):

@@ -21,9 +21,14 @@ family keyword ``mamba2``; its SSD scan is the ``ssd_scan`` kernel), the
 dense family (``--arch tinyllama-1.1b``, ``starcoder2-15b``,
 ``glm4-9b`` or ``minicpm-2b``, family keyword ``transformer``), the MoE
 family (``--arch mixtral-8x22b`` or ``llama4-maverick-400b-a17b``,
-family keyword ``moe``) and the hybrid ``--arch zamba2-1.2b``. A
-full-width MoE tree mixes dtypes (the fp32 router in a bf16 model): the
-inner loop's per-dtype groups take it.
+family keyword ``moe``), the hybrid ``--arch zamba2-1.2b``, the
+encoder-decoder ``--arch whisper-tiny`` and the VLM ``--arch
+paligemma-3b``. As in the JAX launcher, each round's batch also carries
+random float32 ``frames`` (batch, encoder_tokens, d_model) for
+whisper-tiny and ``patch_embeds`` (batch, frontend_tokens, d_model) for
+paligemma-3b, whose sequence is then ``--seq`` + frontend_tokens long
+(the loss over the text). A full-width MoE tree mixes dtypes (the fp32
+router in a bf16 model): the inner loop's per-dtype groups take it.
 
 ``--strategy reptile|fedavg|fedsgd|transfer|tifed`` runs
 ``run_federated`` with the JAX launcher's defaults (64 clients per round,
@@ -55,9 +60,8 @@ Both routes run on the GPU; ``--device cpu`` runs the plain PyTorch
 path on the CPU instead. The init is drawn from ``--seed`` with torch's
 generator, which does not reproduce ``jax.random``'s init at the same
 seed (``init_params=`` carries the JAX package's init in). The flags of
-routes not ported yet (the encoder-decoder and VLM architectures,
-meshes, multi-process runs, and checkpoints and resume on the LM
-launcher) are rejected at parse time.
+routes not ported yet (meshes, multi-process runs, and checkpoints and
+resume on the LM launcher) are rejected at parse time.
 """
 from __future__ import annotations
 
@@ -72,9 +76,6 @@ ENGINE_STRATEGIES = ("reptile", "fedavg", "fedsgd", "transfer", "tifed")
 #: JAX launcher)
 ARCH_FAMILIES = {"transformer": "tinyllama-1.1b", "mamba2": "mamba2-130m",
                  "moe": "mixtral-8x22b"}
-PORTED_ARCHS = ("mamba2-130m", "tinyllama-1.1b", "starcoder2-15b",
-                "glm4-9b", "minicpm-2b", "mixtral-8x22b",
-                "llama4-maverick-400b-a17b", "zamba2-1.2b")
 #: flags not ported yet, by the slice that ports them
 NOT_PORTED_FLAGS = {
     "--devices": "the multi-device slice", "--mesh": "the multi-device slice",
@@ -130,8 +131,7 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=("tinyreptile",) + ENGINE_STRATEGIES)
     ap.add_argument("--arch", choices=list(ALL_ARCHS) + sorted(ARCH_FAMILIES),
                     help="LM architecture of the tinyreptile launcher "
-                         "(ported: all but whisper-tiny and paligemma-3b; "
-                         "family keywords mamba2, transformer, moe); with "
+                         "(family keywords mamba2, transformer, moe); with "
                          "an engine --strategy, the family keyword "
                          "mamba2|transformer|moe meta-trains that "
                          "family's reduced config instead of the sine "
@@ -223,12 +223,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                      "sine workload instead)")
         # family keyword -> the canonical config it names
         args.arch = ARCH_FAMILIES.get(args.arch, args.arch)
-        if args.arch not in PORTED_ARCHS:
-            ap.error(f"--arch {args.arch} is not ported yet (ROADMAP queue "
-                     f"A item 6f ports the encoder-decoder and VLM "
-                     f"families): the port's LM launcher runs "
-                     f"{'|'.join(PORTED_ARCHS)} (family keywords "
-                     f"{'|'.join(sorted(ARCH_FAMILIES))})")
         if args.participation < 1.0:
             ap.error("--participation is not ported yet on the LM "
                      "launcher (one client per round)")
@@ -392,6 +386,23 @@ def run_engine_strategy(args, init_params=None):
     return row, out
 
 
+def frontend_inputs(cfg, rng, batch: int):
+    """The random frontend embeddings the JAX LM launcher draws after a
+    round's tokens, from the same NumPy ``rng`` and in its order, as
+    float32: ``patch_embeds`` (batch, frontend_tokens, d_model) for a
+    vision frontend, then ``frames`` (batch, encoder_tokens, d_model) for
+    the audio family; none for the other families."""
+    import numpy as np
+    out = {}
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = np.asarray(rng.normal(size=(
+            batch, cfg.frontend_tokens, cfg.d_model)), np.float32)
+    if cfg.family == "audio":
+        out["frames"] = np.asarray(rng.normal(size=(
+            batch, cfg.encoder_tokens, cfg.d_model)), np.float32)
+    return out
+
+
 def run_lm(args, init_params=None):
     """The tinyreptile LM launcher's run, as the JAX launcher's plain
     route makes it: prints one row per round and a summary row, and
@@ -431,25 +442,27 @@ def run_lm(args, init_params=None):
 
     def make_round_batch(rnd):
         # one client per round, drawn on the prefetch thread strictly in
-        # round order, so the seeded rng gives the synchronous sequence
+        # round order, so the seeded rng gives the synchronous sequence;
+        # then the frontend's random embeddings, in the JAX launcher's
+        # order
         client = clients[int(rng.integers(len(clients)))]
-        raw = microbatch(client.batch(rng, args.batch, args.seq),
-                         args.k_inner)
+        raw = client.batch(rng, args.batch, args.seq)
+        raw.update(frontend_inputs(cfg, rng, args.batch))
+        raw = microbatch(raw, args.k_inner)
         alpha_t = alpha_sched(rnd)                       # float32
-        staged = _stage([raw["tokens"], raw["labels"],
-                         np.array([alpha_t], np.float32)], dev)
-        return rnd, client.zipf_a, float(alpha_t), staged
+        staged = _stage(list(raw.values())
+                        + [np.array([alpha_t], np.float32)], dev)
+        return rnd, client.zipf_a, float(alpha_t), list(raw), staged
 
     ops.reset_launch_counts()
     t_start = time.time()
     rows = []
-    for rnd, zipf_a, alpha_t, (tensors, event) in prefetch_batches(
+    for rnd, zipf_a, alpha_t, names, (tensors, event) in prefetch_batches(
             make_round_batch, args.rounds):
         t0 = time.time()
         _consume(tensors, event)
-        tokens, labels, alpha_dev = tensors
-        phi, metrics = step(phi, {"tokens": tokens, "labels": labels},
-                            alpha_dev)
+        phi, metrics = step(phi, dict(zip(names, tensors[:-1])),
+                            tensors[-1])
         loss, first, last = torch.stack(
             [metrics["loss"], metrics["inner_first"],
              metrics["inner_last"]]).tolist()          # one host read

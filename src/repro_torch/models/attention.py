@@ -20,20 +20,27 @@ path calls the kernel there). The port's routes through
 version on the CPU. Both compute the same function; in fp32 the two
 packages agree to 1e-5.
 
+The encoder-decoder family's pieces: ``attention_block(kv_x=...)`` is
+cross-attention (k and v from ``kv_x``, no RoPE, no positions, so only
+padded keys are masked), ``use_rope=False`` drops the rotation (the
+encoder and whisper's decoder), and ``decode_attention_block`` without
+``rope`` is the JAX package's ``use_rope=False`` decode step. Operands
+of mixed dtypes (whisper's fp32 frames against bf16 weights) are
+promoted, as jnp promotes them.
+
 Not ported: ``_banded_attention`` and the ``gqa_flat`` and ``seqpar``
 routes, which the JAX package takes only under ``runtime/flags.py``
-features, and ``attention_block``'s ``kv_x`` and ``use_rope=False``,
-which only the encoder-decoder family uses.
+features.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.models.layers import normal_init
+from repro_torch.models.layers import normal_init, promoted
 
 NEG_INF = -1e30
 
@@ -55,6 +62,16 @@ def init_attention(gen: torch.Generator, d_model, num_heads, num_kv_heads,
                               dtype)
     return {name: normal_init(gen, shape, 1.0, dt, device)
             for name, (shape, dt) in sorted(shapes.items())}
+
+
+def project(x, w):
+    """``einsum("bsd,dnh->bsnh", x, w)`` in the promoted dtype."""
+    return torch.einsum("bsd,dnh->bsnh", *promoted(x, w))
+
+
+def unproject(out, w):
+    """``einsum("bsnh,nhd->bsd", out, w)`` in the promoted dtype."""
+    return torch.einsum("bsnh,nhd->bsd", *promoted(out, w))
 
 
 def rope_angles(positions, head_dim, theta) -> Tuple[torch.Tensor,
@@ -98,13 +115,14 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
 
 
 def decode_attention_block(params, x, k_cache, v_cache, cache_len,
-                           rope: Tuple[torch.Tensor, torch.Tensor], *,
+                           rope: Optional[Tuple[torch.Tensor,
+                                                torch.Tensor]], *,
                            window=0):
     """Decode sub-block: project one token, rotate q and k by ``rope``
     (``rope_angles`` of the position ``cache_len``, which the caller
-    computes once per step for all layers), write k and v at
-    ``cache_len``, attend over ``cache_len + 1`` entries. Returns (out,
-    k_cache, v_cache).
+    computes once per step for all layers; None for no rotation, the JAX
+    package's ``use_rope=False``), write k and v at ``cache_len``, attend
+    over ``cache_len + 1`` entries. Returns (out, k_cache, v_cache).
 
     The caches are written in place (the JAX package returns new
     arrays): its callers never reuse a cache from before a step.
@@ -123,14 +141,15 @@ def decode_attention_block(params, x, k_cache, v_cache, cache_len,
                              f"{S_cache} entries; cannot write at "
                              f"{cache_len}")
         at = slice(cache_len, cache_len + 1)
-    q = rotate(torch.einsum("bsd,dnh->bsnh", x, params["wq"]), *rope)
-    k = rotate(torch.einsum("bsd,dnh->bsnh", x, params["wk"]), *rope)
-    v = torch.einsum("bsd,dnh->bsnh", x, params["wv"])
+    q = project(x, params["wq"])
+    k = project(x, params["wk"])
+    v = project(x, params["wv"])
+    if rope is not None:
+        q, k = rotate(q, *rope), rotate(k, *rope)
     k_cache[:, at] = k.to(k_cache.dtype)
     v_cache[:, at] = v.to(v_cache.dtype)
     out = decode_attention(q, k_cache, v_cache, cache_len + 1, window=window)
-    out = torch.einsum("bsnh,nhd->bsd", out, params["wo"])
-    return out, k_cache, v_cache
+    return unproject(out, params["wo"]), k_cache, v_cache
 
 
 def _block_mask(qpos, kpos, causal, window):
@@ -206,18 +225,24 @@ def flash_attention(q, k, v, *, causal, window=0, q_positions=None,
 
 
 def attention_block(params, x, *, num_kv_heads, rope_theta, causal=True,
-                    window=0, positions=None):
+                    window=0, positions=None, kv_x=None, use_rope=True):
     """Full attention sub-block (projections, RoPE, ``flash_attention``,
     output projection) on x (B, S, d); positions (S,), default 0 ... S -
-    1. Returns (B, S, d)."""
+    1. With ``kv_x`` (B, Skv, d) it is cross-attention: k and v project
+    ``kv_x``, nothing is rotated, and queries and keys take the default
+    positions (so ``causal`` and ``window`` see 0 ... S - 1 against 0
+    ... Skv - 1). Returns (B, S, d)."""
     S = x.shape[1]
-    q = torch.einsum("bsd,dnh->bsnh", x, params["wq"])
-    k = torch.einsum("bsd,dnh->bsnh", x, params["wk"])
-    v = torch.einsum("bsd,dnh->bsnh", x, params["wv"])
-    pos = (torch.arange(S, device=x.device) if positions is None
-           else positions)
-    q = apply_rope(q, pos, rope_theta)
-    k = apply_rope(k, pos, rope_theta)
+    src = x if kv_x is None else kv_x
+    q = project(x, params["wq"])
+    k = project(src, params["wk"])
+    v = project(src, params["wv"])
+    if use_rope and kv_x is None:
+        pos = (torch.arange(S, device=x.device) if positions is None
+               else positions)
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+    own = positions if kv_x is None else None
     out = flash_attention(q, k, v, causal=causal, window=window,
-                          q_positions=positions, kv_positions=positions)
-    return torch.einsum("bsnh,nhd->bsd", out, params["wo"])
+                          q_positions=own, kv_positions=own)
+    return unproject(out, params["wo"])

@@ -45,11 +45,28 @@ def mlp_shapes(d_model, d_ff, act, dtype):
             "w_out": ((d_ff, d_model), dtype), "b_out": ((d_model,), dtype)}
 
 
+def promoted(*xs):
+    """The tensors cast to their promoted dtype, as jnp promotes mixed
+    operands of a product (torch's matmul refuses them): the
+    encoder-decoder family's fp32 frames meet bf16 weights."""
+    dt = xs[0].dtype
+    for x in xs[1:]:
+        dt = torch.promote_types(dt, x.dtype)
+    return tuple(x.to(dt) for x in xs)
+
+
+def matmul(a, w):
+    """``a @ w`` in the operands' promoted dtype."""
+    return torch.matmul(*promoted(a, w))
+
+
 def mlp(params, x, act):
     """SwiGLU, or the gelu MLP with ``jax.nn.gelu``'s default: the tanh
-    approximation (torch's default is the exact erf form)."""
+    approximation (torch's default is the exact erf form). Mixed operand
+    dtypes are promoted, as in jnp."""
     if act == "silu":
-        g = silu(x @ params["w_gate"])
-        return (g * (x @ params["w_up"])) @ params["w_down"]
-    h = F.gelu(x @ params["w_in"] + params["b_in"], approximate="tanh")
-    return h @ params["w_out"] + params["b_out"]
+        g = silu(matmul(x, params["w_gate"]))
+        return matmul(g * matmul(x, params["w_up"]), params["w_down"])
+    h = F.gelu(matmul(x, params["w_in"]) + params["b_in"],
+               approximate="tanh")
+    return matmul(h, params["w_out"]) + params["b_out"]

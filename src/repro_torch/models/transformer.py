@@ -1,21 +1,26 @@
 """Model assembly for the LM family, the port of the JAX package's
 ``models/transformer.py``: decoder LMs built from an ``ArchConfig``.
 
-Ported: the dense family (attention + MLP blocks: tinyllama-1.1b,
-starcoder2-15b, glm4-9b, minicpm-2b), the MoE family (attention + MoE
-blocks, ``models/moe.py``: mixtral-8x22b, llama4-maverick-400b-a17b,
-whose dense and MoE blocks alternate), the SSM family (Mamba2 blocks,
-mamba2-130m) and the hybrid family (Mamba2 blocks with one weight-shared
-attention block applied before each group of ``hybrid_attn_every``
-of them and once more before the tail: zamba2-1.2b), on every path:
-``Model.init``, ``loss_fn`` (mean next-token cross entropy, plus 0.01
-times the MoE blocks' summed aux loss), ``prefill_fn`` (last-token
-logits), ``init_cache`` and ``decode_fn``. Decode attention runs
-through the ``flash_decode`` kernel, the Mamba2 train and prefill scan
-through ``ssd_scan``; the train and prefill attention, the experts and
-the Mamba2 decode step are plain tensor ops, as they are plain jnp in
-the JAX package. The encoder-decoder and VLM families raise "not ported
-yet".
+Every family of the JAX package: the dense family (attention + MLP
+blocks: tinyllama-1.1b, starcoder2-15b, glm4-9b, minicpm-2b), the MoE
+family (attention + MoE blocks, ``models/moe.py``: mixtral-8x22b,
+llama4-maverick-400b-a17b, whose dense and MoE blocks alternate), the SSM
+family (Mamba2 blocks, mamba2-130m), the hybrid family (Mamba2 blocks
+with one weight-shared attention block applied before each group of
+``hybrid_attn_every`` of them and once more before the tail:
+zamba2-1.2b), the encoder-decoder whisper-tiny (an encoder over
+precomputed frame embeddings with sinusoidal positions, decoder blocks
+with cross-attention, sinusoidal positions and no RoPE) and the VLM
+paligemma-3b (patch embeddings through ``vision_proj`` prepended to the
+text, the loss over the text only), on every path: ``Model.init``,
+``loss_fn`` (mean next-token cross entropy, plus 0.01 times the MoE
+blocks' summed aux loss), ``prefill_fn`` (last-token logits),
+``init_cache`` and ``decode_fn``. Decode attention (whisper's cross
+step too) runs through the ``flash_decode`` kernel, the Mamba2 train and
+prefill scan through ``ssd_scan``; the train and prefill attention, the
+experts and the Mamba2 decode step are plain tensor ops, as they are
+plain jnp in the JAX package. As there, decode starts from a cross cache
+of zeros (``init_cache``): no path fills it from an encoder run.
 
 The port keeps ``params["layers"]`` as a list with one dict per layer
 (the hybrid's Mamba2 layers in order, its shared block beside them as
@@ -57,8 +62,6 @@ AUX_LOSS_WEIGHT = 0.01
 LABEL_IGNORE = -1
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-#: the families the port builds, each on every path
-PORTED_FAMILIES = ("ssm", "dense", "moe", "hybrid")
 
 
 def layer_specs(cfg: ArchConfig) -> List[Tuple[str, int]]:
@@ -87,18 +90,34 @@ def find_period(specs: List[Tuple[str, int]]) -> int:
     return L
 
 
-def _block_shapes(cfg: ArchConfig, kind: str, dtype) -> Dict[str, Any]:
+def _sinusoidal(positions, d_model):
+    """positions: (S,) or (B, S) -> (..., d_model) fp32: sin then cos of
+    ``positions * exp(-i log(10000) / max(half - 1, 1))``, the JAX
+    package's fp32 frequencies. Made on the positions' device (an int32
+    cursor there is never read on the host)."""
+    half = d_model // 2
+    # log(10000) and its quotient rounded to fp32, as jnp computes them
+    step = (torch.log(torch.tensor(10000.0)) / max(half - 1, 1)).item()
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) * step)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _block_shapes(cfg: ArchConfig, kind: str, dtype,
+                  cross: bool = False) -> Dict[str, Any]:
     d = cfg.d_model
     if kind == MAMBA:
         return {"norm1": ((d,), dtype),
                 "mamba": mamba_lib.mamba_shapes(
                     d, cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_expand,
                     cfg.ssm_conv_width, dtype)}
-    shapes = {"norm1": ((d,), dtype),
-              "attn": attn_lib.attention_shapes(
-                  d, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
-                  dtype),
-              "norm2": ((d,), dtype)}
+    attn = attn_lib.attention_shapes(d, cfg.num_heads, cfg.num_kv_heads,
+                                     cfg.resolved_head_dim, dtype)
+    shapes = {"norm1": ((d,), dtype), "attn": attn, "norm2": ((d,), dtype)}
+    if cross:
+        shapes["norm_x"] = ((d,), dtype)
+        shapes["cross"] = dict(attn)
     if kind == MOE:
         shapes["moe"] = moe_lib.moe_shapes(d, cfg.d_ff, cfg.num_experts,
                                            cfg.shared_expert, dtype)
@@ -108,8 +127,8 @@ def _block_shapes(cfg: ArchConfig, kind: str, dtype) -> Dict[str, Any]:
 
 
 #: leaves that start at zero (norm weights, used as 1 + w, and biases)
-_ZERO_LEAVES = ("final_norm", "norm1", "norm2", "dt_bias", "conv_b",
-                "gate_norm", "b_in", "b_out")
+_ZERO_LEAVES = ("final_norm", "norm1", "norm2", "norm_x", "dt_bias",
+                "conv_b", "gate_norm", "b_in", "b_out")
 
 
 def _init_leaf(name, shape, dtype, gen, device):
@@ -126,10 +145,12 @@ def _init_leaf(name, shape, dtype, gen, device):
     return normal_init(gen, shape, 1.0, dtype, device)
 
 
-def _apply_block(cfg: ArchConfig, kind: str, window: int, bp, x):
+def _apply_block(cfg: ArchConfig, kind: str, window: int, bp, x,
+                 enc_out=None, use_rope=True):
     """Forward one block (train/prefill). Returns (x, aux): the MoE
     block's aux loss, None for a block without experts (the JAX package
-    adds an exact 0 there)."""
+    adds an exact 0 there). A decoder block of the encoder-decoder family
+    (``"cross"`` in bp) attends to ``enc_out`` after its self-attention."""
     eps = cfg.norm_eps
     if kind == MAMBA:
         return x + mamba_lib.mamba_block(
@@ -140,7 +161,12 @@ def _apply_block(cfg: ArchConfig, kind: str, window: int, bp, x):
     x = x + attn_lib.attention_block(
         bp["attn"], rms_norm(x, bp["norm1"], eps),
         num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta,
-        causal=True, window=window)
+        causal=True, window=window, use_rope=use_rope)
+    if "cross" in bp:
+        x = x + attn_lib.attention_block(
+            bp["cross"], rms_norm(x, bp["norm_x"], eps),
+            num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta,
+            causal=False, kv_x=enc_out, use_rope=False)
     return _ffn(cfg, kind, bp, x)
 
 
@@ -160,12 +186,6 @@ class Model:
     cfg: ArchConfig
 
     def __post_init__(self):
-        if self.cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"the {self.cfg.family!r} family ({self.cfg.name}) is not "
-                f"ported yet: the port runs the dense, MoE, SSM and hybrid "
-                f"families, each on its train, prefill and decode paths "
-                f"(ROADMAP queue A item 6f)")
         if self.cfg.dtype not in _DTYPES:
             raise NotImplementedError(f"dtype {self.cfg.dtype!r}")
 
@@ -179,11 +199,16 @@ class Model:
         return self.cfg.family == "hybrid"
 
     @property
+    def is_encdec(self) -> bool:
+        return self.cfg.encoder_layers > 0
+
+    @property
     def use_scan(self) -> bool:
         """Whether the JAX package stacks this model's layers (a period
         of blocks repeated four or more times; never for the hybrid,
-        whose groups it stacks in a layout of their own)."""
-        if self.is_hybrid:
+        whose groups it stacks in a layout of their own, nor for the
+        encoder-decoder)."""
+        if self.is_hybrid or self.is_encdec:
             return False
         p = find_period(self.specs)
         return len(self.specs) // p >= 4
@@ -208,8 +233,16 @@ class Model:
             shapes["lm_head"] = ((cfg.d_model, cfg.vocab_size), dtype)
         if self.is_hybrid:
             shapes["shared_block"] = _block_shapes(cfg, ATTN, dtype)
-        shapes["layers"] = [_block_shapes(cfg, kind, dtype)
+        shapes["layers"] = [_block_shapes(cfg, kind, dtype,
+                                          cross=self.is_encdec)
                             for kind, _ in self.specs if kind != SHARED_ATTN]
+        if self.is_encdec:
+            shapes["encoder"] = {
+                "layers": [_block_shapes(cfg, ATTN, dtype)
+                           for _ in range(cfg.encoder_layers)],
+                "final_norm": ((cfg.d_model,), dtype)}
+        if cfg.frontend == "vision":
+            shapes["vision_proj"] = ((cfg.d_model, cfg.d_model), dtype)
         return shapes
 
     # ----- init -----------------------------------------------------------
@@ -226,9 +259,43 @@ class Model:
             for path, (shape, dtype) in tree_leaves(self.param_shapes())})
 
     # ----- forward pieces ---------------------------------------------------
+    def _encode(self, params, frames):
+        """The encoder over precomputed frame embeddings (B, S, d) (the
+        JAX package's stub frontend): sinusoidal positions in the frames'
+        dtype, non-causal blocks without RoPE, the final norm. Runs in
+        the frames' dtype where it is wider than the weights' (fp32
+        frames against bf16 weights, promoted as in jnp)."""
+        cfg = self.cfg
+        x = frames + _sinusoidal(torch.arange(frames.shape[1],
+                                              device=frames.device),
+                                 cfg.d_model).to(frames.dtype)
+        for bp in params["encoder"]["layers"]:
+            x = x + attn_lib.attention_block(
+                bp["attn"], rms_norm(x, bp["norm1"], cfg.norm_eps),
+                num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta,
+                causal=False, use_rope=False)
+            x = x + mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps),
+                        cfg.act)
+        return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
     def _embed_inputs(self, params, batch):
-        """Token embedding (these families have no frontend)."""
-        return params["embed"][batch["tokens"].long()]
+        """Token (and frontend) embedding. Returns (x, enc_out, offset):
+        the VLM's patch embeddings (cast to x's dtype, times
+        ``vision_proj``) go in front of the text, ``offset`` of them; the
+        encoder-decoder's tokens get sinusoidal positions and its encoder
+        runs over ``batch["frames"]``."""
+        x = params["embed"][batch["tokens"].long()]
+        enc_out, offset = None, 0
+        if self.cfg.frontend == "vision" and "patch_embeds" in batch:
+            patches = batch["patch_embeds"].to(x.dtype) @ params[
+                "vision_proj"]
+            x = torch.cat([patches, x], dim=1)
+            offset = patches.shape[1]
+        if self.is_encdec:
+            enc_out = self._encode(params, batch["frames"])
+            x = x + _sinusoidal(torch.arange(x.shape[1], device=x.device),
+                                self.cfg.d_model).to(x.dtype)
+        return x, enc_out, offset
 
     def _blocks(self, params):
         """``(kind, window, block params)`` per application, in order: the
@@ -242,20 +309,23 @@ class Model:
             else:
                 yield kind, window, next(layers)
 
-    def _backbone(self, params, x):
-        """All blocks. Returns (x, the summed MoE aux loss or None).
+    def _backbone(self, params, x, enc_out=None):
+        """All blocks (the decoder's, attending to ``enc_out``, for the
+        encoder-decoder). Returns (x, the summed MoE aux loss or None).
         Where the JAX package scans the layers (and always for the
         hybrid), each attention or MoE block's forward is recomputed in
         the backward."""
         recompute = ((self.use_scan or self.is_hybrid)
                      and torch.is_grad_enabled())
+        use_rope = not self.is_encdec
         aux = None
         for kind, window, bp in self._blocks(params):
             if recompute and kind != MAMBA:
                 x, a = checkpoint(_apply_block, self.cfg, kind, window, bp,
-                                  x, use_reentrant=False)
+                                  x, enc_out, use_rope, use_reentrant=False)
             else:
-                x, a = _apply_block(self.cfg, kind, window, bp, x)
+                x, a = _apply_block(self.cfg, kind, window, bp, x, enc_out,
+                                    use_rope)
             if a is not None:
                 aux = a if aux is None else aux + a
         return x, aux
@@ -267,11 +337,14 @@ class Model:
 
     # ----- training loss ---------------------------------------------------
     def loss_fn(self, params, batch):
-        """Mean next-token cross-entropy over labels != -1, plus
-        ``AUX_LOSS_WEIGHT`` times the MoE blocks' aux loss."""
-        x = self._embed_inputs(params, batch)
-        x, aux = self._backbone(params, x)
+        """Mean next-token cross-entropy over labels != -1 (the text
+        positions only, behind a VLM's patches), plus ``AUX_LOSS_WEIGHT``
+        times the MoE blocks' aux loss."""
+        x, enc_out, offset = self._embed_inputs(params, batch)
+        x, aux = self._backbone(params, x, enc_out)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        if offset:
+            x = x[:, offset:]
         loss = chunked_cross_entropy(x, self._lm_head(params),
                                      batch["labels"])
         return loss if aux is None else loss + AUX_LOSS_WEIGHT * aux
@@ -279,8 +352,8 @@ class Model:
     # ----- prefill ----------------------------------------------------------
     def prefill_fn(self, params, batch):
         """Last-token logits (B, 1, V) in fp32."""
-        x = self._embed_inputs(params, batch)
-        x, _ = self._backbone(params, x)
+        x, enc_out, _ = self._embed_inputs(params, batch)
+        x, _ = self._backbone(params, x, enc_out)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return (x[:, -1:] @ self._lm_head(params)).float()
 
@@ -294,7 +367,9 @@ class Model:
         W - 1, conv_dim) in the model dtype and ``{"ssm"}`` (batch,
         heads, head_dim, d_state) fp32 for a Mamba2 layer, which holds no
         sequence axis (``bridge.lm_cache_from_jax`` maps the JAX
-        package's layouts)."""
+        package's layouts); for the encoder-decoder also ``"cross"``, a
+        ``{"k", "v"}`` of (batch, encoder_tokens, Kv, hd) per decoder
+        layer, zeros as the JAX package leaves them."""
         cfg = self.cfg
         dev = resolve_device(device)
         dtype = _DTYPES[cfg.dtype]
@@ -317,12 +392,24 @@ class Model:
                 layers.append({
                     "k": torch.zeros(shape, dtype=dtype, device=dev),
                     "v": torch.zeros(shape, dtype=dtype, device=dev)})
-        return {"layers": layers}
+        cache = {"layers": layers}
+        if self.is_encdec:
+            shape = (batch_size, cfg.encoder_tokens, cfg.num_kv_heads,
+                     cfg.resolved_head_dim)
+            cache["cross"] = [
+                {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                 "v": torch.zeros(shape, dtype=dtype, device=dev)}
+                for _ in self.specs]
+        return cache
 
-    def _decode_block(self, kind, window, bp, x, entry, cache_len, rope):
+    def _decode_block(self, kind, window, bp, x, entry, cache_len, rope,
+                      cross=None):
         """One block on one token; writes its cache entry in place (K and
         V at ``cache_len``, or the Mamba2 conv window and state). A MoE
-        block dispatches the step's B tokens as the train path does."""
+        block dispatches the step's B tokens as the train path does. A
+        decoder block of the encoder-decoder then attends to its ``cross``
+        entry, all ``encoder_tokens`` rows of it (``flash_decode`` at that
+        fixed length), with no new key written."""
         cfg = self.cfg
         eps = cfg.norm_eps
         if kind == MAMBA:
@@ -337,7 +424,14 @@ class Model:
         out, _, _ = attn_lib.decode_attention_block(
             bp["attn"], rms_norm(x, bp["norm1"], eps), entry["k"],
             entry["v"], cache_len, rope, window=window)
-        return _ffn(cfg, kind, bp, x + out)[0]
+        x = x + out
+        if cross is not None:
+            q = attn_lib.project(rms_norm(x, bp["norm_x"], eps),
+                                 bp["cross"]["wq"])
+            c = attn_lib.decode_attention(q, cross["k"], cross["v"],
+                                          cfg.encoder_tokens)
+            x = x + attn_lib.unproject(c, bp["cross"]["wo"])
+        return _ffn(cfg, kind, bp, x)[0]
 
     def decode_fn(self, params, batch):
         """One decode step. batch: ``tokens`` (B, 1), ``cache``
@@ -354,7 +448,9 @@ class Model:
         A tensor ``cache_len`` is never read on the host, so the step can
         be captured once and replayed at every position
         (``runtime/steps.py::DecodeRunner``); its caller keeps it below
-        the cache length."""
+        the cache length. The encoder-decoder's token gets the
+        sinusoidal position of ``cache_len`` (made on the device from a
+        tensor cursor) instead of RoPE."""
         cfg = self.cfg
         tokens, cache, cache_len = (batch["tokens"], batch["cache"],
                                     batch["cache_len"])
@@ -366,12 +462,16 @@ class Model:
             else:
                 pos = torch.full(tuple(tokens.shape), cache_len,
                                  dtype=torch.int32, device=x.device)
-            rope = attn_lib.rope_angles(pos, cfg.resolved_head_dim,
-                                        cfg.rope_theta)
-        for (kind, window, bp), entry in zip(self._blocks(params),
-                                             cache["layers"]):
+            if self.is_encdec:
+                x = x + _sinusoidal(pos, cfg.d_model).to(x.dtype)
+            else:
+                rope = attn_lib.rope_angles(pos, cfg.resolved_head_dim,
+                                            cfg.rope_theta)
+        crosses = cache.get("cross") or [None] * len(cache["layers"])
+        for (kind, window, bp), entry, cross in zip(
+                self._blocks(params), cache["layers"], crosses):
             x = self._decode_block(kind, window, bp, x, entry, cache_len,
-                                   rope)
+                                   rope, cross)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         return (x @ self._lm_head(params)).float(), cache
 

@@ -31,7 +31,7 @@ from repro_torch.bridge import tree_leaves, unflatten_tree
 from repro_torch.core.engine import streaming_sgd
 from repro_torch.core.pipeline import prefetch_items
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.graphs import GraphStep
+from repro_torch.graphs import GraphStep, weak_method
 from repro_torch.kernels.ops import tree_meta_update
 
 
@@ -111,7 +111,9 @@ class DecodeRunner:
     waves: each step writes row c before it attends to rows [0, c], and
     nothing reads past them. A Mamba2 state carries the whole past, so
     each wave zeroes it first, as the JAX launcher starts each wave from
-    a fresh cache.
+    a fresh cache. An encoder-decoder's cross cache is read, never
+    written: it keeps its zeros (as the JAX launcher leaves it) through
+    the build and every wave.
 
     ``step()`` runs one step at the cursor (``wave`` runs a whole wave);
     ``trace_count`` counts the builds (1), ``capture_s`` and ``nodes``
@@ -140,7 +142,7 @@ class DecodeRunner:
         self.chosen = torch.zeros((batch, self.steps), dtype=torch.int64,
                                   device=dev)
         self.trace_count = 0
-        self.step = GraphStep(self._decode_step, dev)
+        self.step = GraphStep(weak_method(self._decode_step), dev)
 
     @property
     def capture_s(self) -> Optional[float]:

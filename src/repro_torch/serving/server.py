@@ -35,7 +35,7 @@ import torch
 
 from repro_torch.bridge import params_from_numpy, params_to_numpy
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.graphs import GraphStep
+from repro_torch.graphs import GraphStep, weak_method
 
 
 @dataclasses.dataclass
@@ -196,7 +196,7 @@ class AdaptationServer:
             at += n
         # finished, query loss and steps per slot, read once per tick
         self._out = torch.zeros((3, B), dtype=f32, device=dev)
-        self._tick_step = GraphStep(self._tick, dev)
+        self._tick_step = GraphStep(weak_method(self._tick), dev)
 
     @torch.no_grad()
     def _tick(self):
@@ -338,7 +338,7 @@ class AdaptationServer:
             return
         self._pack = pack
         if self._state is not None:
-            self._tick_step = GraphStep(self._tick, self.device)
+            self._tick_step = GraphStep(weak_method(self._tick), self.device)
 
     def reset(self) -> None:
         """Drop all queued work and zero the slot state (phi and the

@@ -703,7 +703,11 @@ def _fd_inputs(shape, dtype, seed, dev):
     ((2, 8, 2, 128, 512), torch.bfloat16),    # hd 128, R = 4
     ((2, 8, 2, 128, 512), torch.float32),
     ((1, 24, 2, 128, 640), torch.bfloat16),   # R = 12: two head groups
-    ((1, 24, 2, 128, 640), torch.float32)])
+    ((1, 24, 2, 128, 640), torch.float32),
+    ((8, 8, 1, 256, 2048), torch.bfloat16),   # paligemma's decode, hd 256
+    ((8, 8, 1, 256, 2048), torch.float32),
+    ((8, 6, 6, 64, 1500), torch.bfloat16),    # whisper's cross decode
+    ((8, 6, 6, 64, 1500), torch.float32)])
 def test_flash_decode_kernel_matches_plain(cuda, shape, dtype, monkeypatch):
     """L at 1, a tile's edges (63, 64, 65), mid-cache and S; windows that
     start mid-tile; one split and several (the plan's least tiles a block
@@ -768,6 +772,7 @@ def test_flash_decode_back_to_back_calls(cuda, monkeypatch):
 
 FD_PATH = (8, 32, 4, 64, 2048)              # tinyllama's decode, bf16
 FD_32K = (4, 8, 4, 64, 32768)               # benchmarks/kernels_bench.py's
+FD_HD256 = (8, 8, 1, 256, 2048)             # paligemma-3b's decode
 
 
 def _device_len_cases(shape, dtype):
@@ -780,12 +785,14 @@ def _device_len_cases(shape, dtype):
         return [(L, w) for w in (0, 256) for L in Ls]
     return [(L, w) for w in (0, 3000)
             for L in (1, 64, 255, 256, 257, 1000, 4096, 8191, 8448, 20000,
-                      S)]
+                      S) if L <= S]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [(FD_PATH, torch.bfloat16),
-                                         (FD_32K, torch.float32)])
+                                         (FD_32K, torch.float32),
+                                         (FD_HD256, torch.bfloat16),
+                                         (FD_HD256, torch.float32)])
 def test_flash_decode_device_len_equals_host_int(cuda, shape, dtype):
     """The device-L route (cache_len an int32 on the card, never read on
     the host; one grid for every L) is bit-equal to the host-int call at
@@ -821,7 +828,9 @@ def test_flash_decode_device_len_equals_host_int(cuda, shape, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", [(FD_PATH, torch.bfloat16),
-                                         (FD_32K, torch.float32)])
+                                         (FD_32K, torch.float32),
+                                         (FD_HD256, torch.bfloat16),
+                                         (FD_HD256, torch.float32)])
 def test_flash_decode_device_len_in_a_captured_graph(cuda, shape, dtype):
     """One launch captured in a CUDA graph, replayed at several L set on
     the device between replays, equals the host-int call at each L bit
@@ -1078,3 +1087,40 @@ def test_ckpt_async_snapshots_on_card_hold_their_round(cuda, tmp_path):
             assert za.files == zb.files
             for k in zb.files:
                 np.testing.assert_array_equal(za[k], zb[k], err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-tiny", "paligemma-3b"])
+def test_dropped_decode_runner_frees_the_card(cuda, arch):
+    """With Python's cyclic collector off, dropping a decode runner whose
+    step was captured gives its caches back at once: ``memory_allocated``
+    falls by at least the caches' bytes, and a collection afterwards frees
+    nothing more."""
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+    from repro_torch.runtime.steps import DecodeRunner
+
+    model = build_model(get_arch(arch).reduced())
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        runner = DecodeRunner(model, params, batch=2, prompt_len=4,
+                              cache_len=256, max_new=4, device=cuda)
+        runner.wave(torch.zeros(2, 4, dtype=torch.int64))
+        assert runner.step.graph is not None
+        cache_bytes = sum(t.numel() * t.element_size()
+                          for _, t in tree_leaves(runner.cache))
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        del runner
+        torch.cuda.synchronize()
+        dropped = torch.cuda.memory_allocated()
+        assert held - dropped >= cache_bytes
+        gc.collect()
+        torch.cuda.synchronize()
+        assert torch.cuda.memory_allocated() == dropped
+    finally:
+        if collecting:
+            gc.enable()

@@ -102,6 +102,23 @@ def test_plain_flash_decode_matches_the_pallas_kernel(dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,L,block_s", [
+    ((2, 8, 1, 256, 512), 300, 256),     # paligemma's head dim 256, R = 8
+    ((2, 6, 6, 64, 1500), 1500, 500)])   # whisper's cross decode, L = S
+def test_slice16_shapes_match_the_pallas_kernel(shape, L, block_s, dtype):
+    """The shapes slice 16 adds to the decode path, through the Pallas
+    kernel in interpret mode: the wrapper on the CPU (its plain
+    version) within the kernel tolerance."""
+    (jq, tq), (jk, tk), (jv, tv) = _fd_inputs(*shape, dtype, seed=L)
+    want = jops.flash_decode(jq, jk, jv, L, block_s=block_s)
+    got = ops.flash_decode(tq, tk, tv, L)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_wrapper_on_cpu_is_the_plain_version(dtype):
     (_, q), (_, k), (_, v) = _fd_inputs(2, 8, 2, 64, 100, dtype, 6)
     ops.reset_launch_counts()
@@ -146,7 +163,8 @@ def test_wrapper_rejects(case, err, msg):
 @pytest.mark.parametrize("B,Kv,R,n,splits", [
     (8, 4, 8, 1, 1), (8, 4, 8, 577, 2), (8, 4, 8, 2048, 8),
     (4, 4, 2, 32768, 32), (1, 1, 8, 2048, 8), (2, 2, 4, 33, 1),
-    (1, 4, 1, 512, 2), (2, 1, 12, 100, 1), (1, 2, 3, 1000, 4)])
+    (1, 4, 1, 512, 2), (2, 1, 12, 100, 1), (1, 2, 3, 1000, 4),
+    (8, 1, 8, 2048, 8), (8, 6, 1, 1500, 6)])
 def test_split_plan_covers_the_positions(B, Kv, R, n, splits):
     """Head groups of at most 8, stretches of whole 64-position tiles,
     none empty, at least 4 tiles a block where n has them, some 528
@@ -165,7 +183,8 @@ def test_split_plan_covers_the_positions(B, Kv, R, n, splits):
 @pytest.mark.parametrize("B,H,Kv,hd,n_split,want", [
     (8, 32, 4, 64, 1, (0, 0)), (8, 32, 4, 64, 8, (8 * 8 * 32 * 66, 32)),
     (1, 24, 2, 128, 3, (3 * 24 * 130, 4)), (4, 8, 4, 64, 17,
-                                             (17 * 4 * 8 * 66, 16))])
+                                             (17 * 4 * 8 * 66, 16)),
+    (8, 8, 1, 256, 8, (8 * 8 * 8 * 258, 8))])
 def test_scratch_sizes(B, H, Kv, hd, n_split, want):
     """A split call's workspace holds every split's accumulator, max and
     sum per (b, h); its counters one per (b, head group of up to 8)."""
@@ -418,11 +437,9 @@ def test_decode_without_cuda_raises():
 @pytest.mark.parametrize("argv,msg", [
     (["--mode", "decode"], "--arch is required for --mode decode"),
     (["--arch", "nope"], "not in"),
-    (["--arch", "paligemma-3b"], "--arch paligemma-3b is not ported yet"),
     (["--mode", "adapt", "--arch", "zamba2-1.2b"],
      "--arch only applies with --mode decode"),
     (["--arch", "mixtral-8x22b", "--max-new", "-1"], "--max-new must be"),
-    (["--arch", "whisper-tiny"], "is not ported yet"),
     (["--arch", "tinyllama-1.1b", "--slots", "4"],
      "--slots only applies with --mode adapt"),
     (["--arch", "tinyllama-1.1b", "--strategy", "tifed"],
@@ -441,3 +458,12 @@ def test_decode_parse_rejections(argv, msg, capsys):
     with pytest.raises(SystemExit):
         serve.parse_args(argv)
     assert msg in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [["--arch", "paligemma-3b"],
+                                  ["--arch", "whisper-tiny"]])
+def test_decode_parse_takes_the_encdec_and_vlm_configs(argv):
+    """The VLM and the encoder-decoder decode (rejected until slice 16)."""
+    args = serve.parse_args(argv)
+    assert args.mode == "decode" and args.arch == argv[1]
+    assert args.arch in serve.decode_archs()

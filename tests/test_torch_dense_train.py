@@ -36,7 +36,7 @@ from repro.models import build_model as jbuild  # noqa: E402
 from repro.runtime.steps import make_meta_train_step as jmeta_step  # noqa: E402
 from repro.runtime.steps import make_prefill_step as jprefill_step  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import ALL_ARCHS, get_arch  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
@@ -313,4 +313,4 @@ def test_lm_launcher_rows_match_the_jax_launcher(arch, monkeypatch):
                                        ("starcoder2-15b", "starcoder2-15b")])
 def test_lm_launcher_takes_the_dense_family(arch, name):
     args = train.parse_args(["--arch", arch])
-    assert args.arch == name and name in train.PORTED_ARCHS
+    assert args.arch == name and name in ALL_ARCHS

@@ -32,7 +32,7 @@ from repro.configs import get_arch as jget_arch  # noqa: E402
 from repro.launch import serve as jserve  # noqa: E402
 from repro.models import build_model as jbuild  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import ALL_ARCHS, get_arch  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import attention as tattn  # noqa: E402
@@ -212,6 +212,6 @@ def test_lm_launcher_rows_match_the_jax_launcher(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["zamba2-1.2b", "glm4-9b", "minicpm-2b"])
 def test_launchers_take_the_hybrid_and_dense_configs(arch):
-    assert train.parse_args(["--arch", arch]).arch in train.PORTED_ARCHS
+    assert train.parse_args(["--arch", arch]).arch in ALL_ARCHS
     assert arch in serve.decode_archs()
     assert serve.parse_args(["--arch", arch]).mode == "decode"

@@ -115,7 +115,6 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     ([], "--arch is required for the tinyreptile LM launcher"),
     (["--strategy", "tifed", "--arch", "mamba2"],
      "--strategy tifed runs TIFeD integer-only training"),
-    (["--arch", "paligemma-3b"], "ROADMAP queue A item 6f"),
     (["--strategy", "reptile", "--arch", "tinyllama-1.1b"],
      "meta-trains a reduced LM family"),
     (["--strategy", "fedavg", "--pool-size", "10"],
@@ -143,6 +142,12 @@ def test_train_parse_rejects_unported_flags(argv, msg, capsys):
     with pytest.raises(SystemExit):
         train.parse_args(argv)
     assert msg in capsys.readouterr().err
+
+
+def test_train_parse_takes_the_vlm_config():
+    """``--arch paligemma-3b`` parses (rejected until slice 16)."""
+    args = train.parse_args(["--arch", "paligemma-3b"])
+    assert args.arch == "paligemma-3b" and args.strategy == "tinyreptile"
 
 
 def test_train_cpu_run_prints_the_json_row():

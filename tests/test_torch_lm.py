@@ -174,11 +174,13 @@ def test_full_width_param_shapes_match_the_jax_init():
 
 
 def test_other_families_are_not_ported_yet():
-    """The dense and SSM families build and run every path (a dense model
-    trains, prefills and decodes; a Mamba2 model has a decode cache); the
-    encoder-decoder and VLM families still raise at construction (the
-    MoE and hybrid families are held in test_torch_moe.py and
-    test_torch_hybrid.py)."""
+    """Every family builds and runs every path: a dense model trains,
+    prefills and decodes, a Mamba2 model has a decode cache, and since
+    slice 16 the encoder-decoder (with its frames and a cross cache) and
+    the VLM (with its patch embeddings) do too, where they raised at
+    construction before (the MoE and hybrid families are held in
+    test_torch_moe.py and test_torch_hybrid.py, these two against the JAX
+    package in test_torch_encdec_vlm.py)."""
     cfg = ArchConfig(name="dense", family="dense", source="-", num_layers=2,
                      d_model=64, num_heads=4, num_kv_heads=4, d_ff=128,
                      vocab_size=64, head_dim=64, dtype="float32")
@@ -200,9 +202,22 @@ def test_other_families_are_not_ported_yet():
                                          encoder_tokens=16)),
                           ("vlm", dict(frontend="vision",
                                        frontend_tokens=8))):
-        other = dataclasses.replace(cfg, name=family, family=family, **extra)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            Model(other)
+        other = Model(dataclasses.replace(cfg, name=family, family=family,
+                                          **extra))
+        p = other.init(torch.Generator().manual_seed(1), "cpu")
+        b = dict(batch)
+        if family == "audio":
+            b["frames"] = torch.randn(2, 16, 64)
+        else:
+            b["patch_embeds"] = torch.randn(2, 8, 64)
+        c = other.init_cache(2, 8, device="cpu")
+        assert ("cross" in c) == (family == "audio")
+        with torch.no_grad():
+            assert torch.isfinite(other.loss_fn(p, b))
+            assert other.prefill_fn(p, b).shape == (2, 1, 64)
+            lg, _ = other.decode_fn(p, {"tokens": torch.tensor([[3], [5]]),
+                                        "cache": c, "cache_len": 0})
+        assert lg.shape == (2, 1, 64) and torch.isfinite(lg).all()
     ssm = Model(get_arch("mamba2-130m").reduced()).init_cache(2, 8,
                                                               device="cpu")
     assert set(ssm["layers"][0]) == {"conv", "ssm"}
@@ -406,8 +421,6 @@ def test_lm_launcher_rows_match_the_jax_launcher(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--arch", "whisper-tiny"], "--arch whisper-tiny is not ported yet"),
-    (["--arch", "paligemma-3b"], "--arch paligemma-3b is not ported yet"),
     (["--arch", "mamba2", "--participation", "0.5"],
      "--participation is not ported yet"),
     (["--arch", "mamba2", "--batch", "6", "--k-inner", "4"],
@@ -420,6 +433,14 @@ def test_lm_launcher_rejects_unported_routes(argv, msg, capsys):
     with pytest.raises(SystemExit):
         train.parse_args(argv)
     assert msg in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "paligemma-3b"])
+def test_lm_launcher_takes_the_encdec_and_vlm_configs(arch):
+    """The encoder-decoder and the VLM meta-train on the LM launcher
+    (rejected until slice 16)."""
+    args = train.parse_args(["--arch", arch])
+    assert args.arch == arch and args.strategy == "tinyreptile"
 
 
 def test_lm_launcher_takes_the_family_keyword():

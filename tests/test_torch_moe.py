@@ -41,7 +41,7 @@ from repro.models import moe as jmoe  # noqa: E402
 from repro.models import transformer as jtransformer  # noqa: E402
 from repro.runtime.steps import make_meta_train_step as jmeta_step  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.configs import ALL_ARCHS, get_arch  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import moe as tmoe  # noqa: E402
@@ -557,7 +557,7 @@ def test_lm_launcher_rows_match_the_jax_launcher(monkeypatch):
                                   "llama4-maverick-400b-a17b", "moe"])
 def test_launchers_take_the_moe_family(arch):
     args = train.parse_args(["--arch", arch])
-    assert args.arch in train.PORTED_ARCHS
+    assert args.arch in ALL_ARCHS
     assert train.parse_args(["--strategy", "fedavg", "--arch",
                              "moe"]).arch == "moe"
     if arch != "moe":
