@@ -276,6 +276,31 @@ Phases, each printing one JSON line, in this order:
     fp32, and at whisper's cross (8, 6, 6, 64) over L = 1,500 through
     the host-int route, each beside its bound and SDPA, with ptxas's
     register report of the head-dim-256 instantiations.
+34. slice 17, the LMs in their own dtypes, right after the kernel
+    phases (``kernels_mixed``: ``client_mean`` on bf16 rows at (8, 2^20)
+    and (64, 1,153), bit for bit, beside its bytes bound and
+    torch.sum(w q.float(), 0); ``meta_update`` with a bf16 w and an fp32
+    w_hat at 1,153 and mamba2-130m's bf16 group): ``engine_lm_mixed_
+    reduced``, the reduced mamba2 with bf16 weights and fp32 SSM
+    scalars on ``run_federated`` under Reptile, FedAvg, FedSGD, a pooled
+    FedBuff fleet under diurnal availability and PartialCommChannel(0.25),
+    8 clients x 6 rounds (MIXED_*): launches per dtype group as
+    reckoned, every leaf in its dtype, each captured run bit-equal to
+    the same run eager on the card, each first round within 4 bf16 steps
+    of the CPU's, the pooled run's crash after round 3 and resume exact;
+    ``engine_lm_mamba2_130m_mixed``, mamba2-130m in its own dtypes at
+    full width cut to 4 layers, Reptile(epochs=8) at a cohort of 8 for 2
+    rounds beside one round of the same run in fp32 (peak memory,
+    launches per group), its first round at 1 client and 1 epoch within
+    4 bf16 steps of the CPU's; ``train_lm_fleet``, the LM launcher with ``--pool-size 1000
+    --availability diurnal --buffer-size 2 --ckpt-every 2``: the reduced
+    fp32 mamba2 against the CPU row by row (1e-4), then mamba2-130m at
+    full width and depth, ``--batch 8 --seq 2048 --k-inner 4``, 6 rounds
+    in a child process SIGKILLed right after its round-4 snapshot and
+    resumed here, its rows and every leaf equal bit for bit to a run
+    stopped cleanly after that snapshot (in this process, while the
+    child runs) and resumed. Each prints its
+    seconds; ``slice_17`` their sum and the script's time so far.
 
 Then the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure is a
@@ -296,6 +321,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import weakref
 from pathlib import Path
@@ -564,7 +590,8 @@ FULL_LM_PARAMS = 128_983_488
 # the engine run's layers: 16 of mamba2-130m's 24. At all 24 and 2 rounds
 # the whole script took 1,105.9 s (its aim is 1,100; this phase 146.5 s,
 # the round's capture alone 33-36 s); the one-step gradient checks keep
-# all 24
+# all 24. At 12 layers and 2 rounds the query loss ends above the init's
+# (10.7576 against 10.7516), failing its gate, so 16 stays
 FULL_LM_RUN_LAYERS = 16
 # its backward held to the CPU's: one inner SGD step's cohort gradient (2
 # clients, 2 sequences each), leaf by leaf, within a fixed share of each
@@ -3947,7 +3974,6 @@ def phase_engine_lm_full(torch, np, tm):
     share)."""
     core, ops, bridge, mamba2 = tm["core"], tm["ops"], tm["bridge"], \
         tm["mamba2"]
-    from repro_torch.bridge import FlatLayout
     from repro_torch.data import LmTaskDistribution, lm_loss
 
     cfg = dataclasses.replace(tm["get_arch"]("mamba2-130m"), dtype="float32")
@@ -4055,7 +4081,7 @@ def phase_engine_lm_full(torch, np, tm):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
     # one eager epoch of one client of the same round, host ranges
     # traced: the share of the plain ssd_chunked backward's kernels
-    layout = FlatLayout.of_tree(init)
+    layout = prog.layout
     batch = {k: v[0, :1] for k, v in prog.batch.items()}  # a staged client
     bwd_range = mamba2.SSD_BACKWARD_RANGE
 
@@ -5065,6 +5091,507 @@ def phase_encdec_vlm_train(torch, np, fm):
     return paths
 
 
+# -- slice 17: the engine over mixed-dtype trees, the LM launcher's fleet --
+
+# the bf16 client_mean and the mixed meta_update (a bf16 w with an fp32
+# w_hat, the engine's fp32 client mean of a bf16 group): bit for bit
+# against their plain versions at these (C, P) and sizes
+CM_BF16 = ((8, 1 << 20), (64, 1_153))
+MU_MIXED_SIZES = (1_153, LM_BF16)
+# the engine on the reduced mamba2 in its own dtypes (bf16 weights, fp32
+# SSM scalars): 8 clients x 6 rounds as ENGINE_LM, 2 epochs (the CPU
+# tests' count: 8 epochs of bf16 SGD part the two frameworks by more than
+# the bf16 tolerance, tests/test_torch_mixed_engine.py), sequences of 32
+# tokens, not 64 (the CPU side's time: this phase took 43.1 s at 64 on an
+# H100 host), each run's first
+# round against the CPU port at the repo's 4 bf16 steps (rtol 2^-6, atol
+# 2^-8, every leaf: the fp32 ones get their gradients through bf16
+# activations), each captured run against the same run eager on the card
+# bit for bit, and the pooled run's crash after round 3 and resume exact
+MIXED_CLIENTS, MIXED_ROUNDS, MIXED_EPOCHS, MIXED_SEQ = 8, 6, 2, 32
+MIXED_TOL = dict(rtol=2 ** -6, atol=2 ** -8)
+MIXED_RUNS = ("reptile", "fedavg", "fedsgd", "pooled_fedbuff", "partial")
+# mamba2-130m in its own dtypes on the engine at full width, cut to 4 of
+# its 24 layers for the script's time (the fp32 run of
+# engine_lm_mamba2_130m keeps 16); Reptile(epochs=8), --batch 8 --seq 64,
+# a cohort of 8, 2 rounds; one round of the same run in fp32 at the same
+# depth for its peak memory (reached in the first, built, round); the
+# first round against the CPU at 1 client and 1 epoch (the CPU takes
+# minutes for a cohort of 8 at 8 epochs, 23.4 s at 2 clients and 2
+# epochs and 12.6 s at 2 and 1, beside an H100)
+MIXED_FULL_LAYERS = 4
+MIXED_FULL_CHECK = dict(clients=1, epochs=1)
+# the LM launcher's fleet and checkpoint flags: the reduced fp32 mamba2
+# against the CPU, and mamba2-130m at full width and depth SIGKILLed right
+# after its round-4 snapshot, then resumed
+LM_FLEET = ["--pool-size", "1000", "--availability", "diurnal",
+            "--buffer-size", "2", "--ckpt-every", "2"]
+LM_FLEET_FULL = ["--arch", "mamba2-130m", "--rounds", "6", "--batch", "8",
+                 "--seq", "2048", "--k-inner", "4"] + LM_FLEET
+LM_FLEET_KILL_AT = 4
+
+
+def phase_kernels_mixed(torch, np, ops, ref, rows):
+    """``client_mean``'s bf16 instantiation at CM_BF16 and
+    ``meta_update``'s mixed one at MU_MIXED_SIZES (the sine MLP and
+    mamba2-130m's bf16 group), bit for bit against their plain versions,
+    timed beside their bytes bounds; the client mean also beside
+    torch.sum(w q.float(), 0), on the device too."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(27)
+    for C, P in CM_BF16:
+        q = (torch.randn((C, P), generator=g, device=dev) * 3).to(
+            torch.bfloat16)
+        w = torch.rand(C, generator=g, device=dev)
+        w[1] = 0.0
+        w = w / w.sum()
+        got = ops.client_mean(q, w)
+        check(torch.equal(got, ref.client_mean(q, w))
+              and torch.equal(got, ops.client_mean(q.float(), w)),
+              f"client_mean bf16 C {C} P {P}: not bit-exact")
+
+        def fn():
+            return ops.client_mean(q, w)
+
+        def library():
+            return torch.sum(w[:, None] * q.float(), 0)
+        live = int((w > 0).sum())
+        moved = 2 * live * P + 4 * C + 4 * P
+        t_bytes = moved / HBM_BYTES_PER_S
+        t_ops = 2 * live * P / FP32_OPS_PER_S
+        iters = 200 if C * P < 1e6 else 20
+        row = {"C": C, "P": P, "dtype": "bfloat16", "tol": "exact",
+               "max_abs_err": 0.0,
+               "order": ("fma_chain" if C <= ref.CLIENT_MEAN_CHAIN
+                         else "windows_of_32"),
+               "ms": cuda_ms(torch, fn, iters),
+               "plain_ms": cuda_ms(torch, lambda: ref.client_mean(q, w),
+                                   max(iters // 20, 2)),
+               "library_ms": cuda_ms(torch, library, iters),
+               "bound_ms": 1e3 * max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": moved, "clients_read": live,
+               **device_ms(torch, fn, windows=2),
+               **device_ms(torch, library, "library_device_ms",
+                           windows=2)}
+        rows[f"client_mean/bf16_C{C}_P{P}"] = row
+        emit({"phase": "kernel", "kernel": "client_mean",
+              "case": f"bf16_C{C}_P{P}", **row})
+    for n in MU_MIXED_SIZES:
+        w = torch.randn(n, generator=g, device=dev).to(torch.bfloat16)
+        wh = w.float() + torch.randn(n, generator=g, device=dev) * 1e-2
+        alpha = torch.tensor([0.37], device=dev)
+        got = ops.meta_update(w, wh, alpha)
+        check(got.dtype == torch.bfloat16
+              and torch.equal(got, ref.meta_update(w, wh, alpha)),
+              f"meta_update bf16 w, fp32 w_hat, n {n}: not bit-exact")
+
+        def fn():
+            return ops.meta_update(w, wh, alpha)
+        moved = 8 * n
+        iters = 200 if n < 1e6 else 10
+        row = {"n": n, "dtype": "bfloat16_w_float32_w_hat", "tol": "exact",
+               "max_abs_err": 0.0, "ms": cuda_ms(torch, fn, iters),
+               "plain_ms": cuda_ms(torch, lambda: ref.meta_update(
+                   w, wh, alpha), 2),
+               "library_ms": None,
+               "bound_ms": 1e3 * max(moved / HBM_BYTES_PER_S,
+                                     3 * n / FP32_OPS_PER_S),
+               "bound_by": "bytes", "bytes": moved,
+               **(device_ms(torch, fn, windows=2) if n > 1e6 else {})}
+        rows[f"meta_update/mixed_{n}"] = row
+        emit({"phase": "kernel", "kernel": "meta_update",
+              "case": f"mixed_{n}", **row})
+    emit({"phase": "kernels_mixed", "phase_s": time.perf_counter() - t0})
+    return rows
+
+
+def mamba2_bf16_model(tm, layers=None, full=False):
+    """mamba2-130m in bf16 by config (bf16 weights, fp32 SSM scalars):
+    the reduced config, or the canonical one cut to ``layers``."""
+    cfg = tm["get_arch"]("mamba2-130m")
+    cfg = cfg if full else dataclasses.replace(cfg.reduced(),
+                                               dtype="bfloat16")
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return tm["build_model"](cfg)
+
+
+def mixed_groups(torch, bridge, tree):
+    return {str(dt).split(".")[1]: sum(
+        t.numel() for _, t in bridge.tree_leaves(tree) if t.dtype == dt)
+        for dt in (torch.bfloat16, torch.float32)}
+
+
+def mixed_vs_cpu(np, bridge, name, card, cpu):
+    """Two runs' params leaf by leaf within MIXED_TOL (each leaf in its
+    own dtype on both), bills and pool state exact; the worst share of
+    the tolerance."""
+    g, w = bridge.flatten_tree(card["params"]), bridge.flatten_tree(
+        cpu["params"])
+    check(set(g) == set(w), f"{name}: leaves differ")
+    worst = 0.0
+    for k, want in w.items():
+        check(g[k].dtype == want.dtype, f"{name}: {k} dtype {g[k].dtype}")
+        a = g[k].float().cpu().numpy()
+        b = want.float().cpu().numpy()
+        share = float(np.max(np.abs(a - b) / (MIXED_TOL["atol"]
+                                              + MIXED_TOL["rtol"]
+                                              * np.abs(b))))
+        check(share <= 1.0, f"{name}: {k} card vs CPU at {share:.2f} of "
+                            f"the bf16 tolerance")
+        worst = max(worst, share)
+    check(card.get("comm_bytes") == cpu.get("comm_bytes"), f"{name}: comm")
+    for k, v in cpu.get("pool_state", {}).items():
+        check(np.array_equal(np.asarray(card["pool_state"][k]),
+                             np.asarray(v)), f"{name}: pool state {k}")
+    return {"tol": "rtol 2^-6, atol 2^-8", "worst_share_of_tol": worst}
+
+
+def mixed_launches(run, layers, rounds, epochs, clients, groups=2):
+    """Launches of one grouped engine run (no eval): per dtype group one
+    online_sgd an inner step, one meta_update a Reptile interpolation,
+    one client_mean a weighted aggregation (the pooled round computes
+    its FedBuff flush every round); ssd_scan once a layer a client
+    forward."""
+    steps = 0 if run == "fedsgd" else epochs
+    want = {"online_sgd": rounds * steps * groups,
+            "ssd_scan": layers * rounds * clients * max(steps, 1)}
+    if run in ("reptile", "partial", "pooled_fedbuff"):
+        want["meta_update"] = rounds * groups
+    if run == "pooled_fedbuff":
+        want["client_mean"] = rounds * groups
+    return want
+
+
+def phase_engine_lm_mixed_reduced(torch, np, tm):
+    """The engine over the reduced mamba2 in its own dtypes (MIXED_RUNS):
+    each on the card (one capture), eager on the card (bit-equal), its
+    first round on the CPU (MIXED_TOL); the pooled run crashed after
+    round 3 and resumed, exact."""
+    core, ops, bridge = tm["core"], tm["ops"], tm["bridge"]
+    from repro_torch.data import LmTaskDistribution, lm_loss
+    from repro_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    model = mamba2_bf16_model(tm)
+    init = model.init(torch.Generator().manual_seed(0), "cpu")
+    groups = mixed_groups(torch, bridge, init)
+    loss = lm_loss(model)
+    vocab = model.cfg.vocab_size
+
+    def plugins(run):
+        if run == "pooled_fedbuff":
+            return dict(pool=core.ClientPool(LmTaskDistribution(
+                vocab, MIXED_SEQ), 1000, seed=0, sampler="vectorized"),
+                buffered=core.BufferedAggregation(4),
+                sampling=core.DiurnalAvailability(period=24,
+                                                  sampler="vectorized"))
+        if run == "partial":
+            return dict(channel=core.PartialCommChannel(fraction=0.25,
+                                                        rotate=True))
+        return {}
+
+    def strategy(run):
+        if run == "fedsgd":
+            return core.FedSGDStrategy(loss)
+        cls = core.FedAvgStrategy if run == "fedavg" else \
+            core.ReptileStrategy
+        return cls(loss, epochs=MIXED_EPOCHS)
+
+    def run_of(run, rounds, device, **extra):
+        return core.run_federated(
+            init, LmTaskDistribution(vocab, MIXED_SEQ), strategy(run),
+            rounds=rounds, clients_per_round=MIXED_CLIENTS,
+            support=8, alpha=1.0, beta=0.02, seed=1, device=device,
+            **plugins(run), **extra)
+
+    runs, paths = [], {}
+    for run in MIXED_RUNS:
+        core.clear_runner_cache()
+        out, wall, counts = timed_run(
+            torch, ops, lambda: run_of(run, MIXED_ROUNDS, "cuda"))
+        graph = built_round(tm["engine"])
+        check_launches(f"engine_lm_mixed_{run}", counts, mixed_launches(
+            run, model.cfg.num_layers, MIXED_ROUNDS, MIXED_EPOCHS,
+            MIXED_CLIENTS))
+        leaves = bridge.flatten_tree(out["params"])
+        check(all(torch.isfinite(v.float()).all() for v in leaves.values()),
+              f"engine_lm_mixed_{run}: non-finite params")
+        check(mixed_groups(torch, bridge, out["params"]) == groups,
+              f"engine_lm_mixed_{run}: leaf dtypes changed")
+        core.clear_runner_cache()
+        # eager on the card (no capture): the whole run, held to the
+        # captured one bit for bit, and its first round, held to the CPU
+        with uncaptured(tm["graphs"]):
+            eager = run_of(run, MIXED_ROUNDS, "cuda")
+            first = run_of(run, 1, "cuda")
+        for k, v in bridge.flatten_tree(eager["params"]).items():
+            check(torch.equal(v, leaves[k]),
+                  f"engine_lm_mixed_{run}: the captured run differs from "
+                  f"eager at {k}")
+        t0 = time.perf_counter()
+        vs_cpu = mixed_vs_cpu(np, bridge, f"engine_lm_mixed_{run}", first,
+                              run_of(run, 1, "cpu"))
+        runs.append({"run": run, "wall_s": wall,
+                     "rounds_per_s": MIXED_ROUNDS / wall,
+                     "vs_cpu_s": time.perf_counter() - t0,
+                     "launches": counts, **graph, "graph_vs_eager": "exact",
+                     "vs_cpu_first_round": vs_cpu,
+                     **({"pool_state": {
+                         k: (int(v) if np.ndim(v) == 0 else
+                             int(np.asarray(v).sum()))
+                         for k, v in out["pool_state"].items()}}
+                        if "pool_state" in out else {})})
+        paths[f"engine_lm_mixed_{run}"] = counts
+
+    # the pooled run crashed right after its round-3 snapshot, resumed:
+    # equal to the uninterrupted run (snapshotting at the same rounds)
+    core.clear_runner_cache()
+    with tempfile.TemporaryDirectory() as d:
+        ck = dict(ckpt_every=ENGINE_LM_CKPT)
+        ref = run_of("pooled_fedbuff", MIXED_ROUNDS, "cuda",
+                     ckpt_dir=f"{d}/ref", **ck)
+        try:
+            with faults.crash_at_round(ENGINE_LM_CKPT):
+                run_of("pooled_fedbuff", MIXED_ROUNDS, "cuda",
+                       ckpt_dir=f"{d}/run", ckpt_async=False, **ck)
+            check(False, "engine_lm_mixed ckpt: the crash did not happen")
+        except faults.SimulatedPreemption:
+            pass
+        res = run_of("pooled_fedbuff", MIXED_ROUNDS, "cuda",
+                     ckpt_dir=f"{d}/run", resume=True, **ck)
+    for path, v in bridge.flatten_tree(ref["params"]).items():
+        got = bridge.flatten_tree(res["params"])[path]
+        check(got.dtype == v.dtype and torch.equal(got, v),
+              f"engine_lm_mixed ckpt: {path} differs")
+    check(res["per_client_bytes"] == ref["per_client_bytes"],
+          "engine_lm_mixed ckpt: bills differ")
+    for k, v in ref["pool_state"].items():
+        check(np.array_equal(np.asarray(res["pool_state"][k]),
+                             np.asarray(v)), f"engine_lm_mixed ckpt: {k}")
+    emit({"phase": "engine_lm_mixed_reduced", "arch": model.cfg.name,
+          "params_by_dtype": groups, "clients": MIXED_CLIENTS,
+          "rounds": MIXED_ROUNDS, "epochs": MIXED_EPOCHS, "seq": MIXED_SEQ,
+          "runs": runs, "ckpt": {"crash_after": ENGINE_LM_CKPT,
+                                 "exact": True},
+          "phase_s": time.perf_counter() - t_phase})
+    core.clear_runner_cache()
+    return paths
+
+
+def phase_engine_lm_full_mixed(torch, np, tm):
+    """mamba2-130m in its own dtypes (bf16 weights, fp32 SSM scalars) at
+    full width on the engine, MIXED_FULL_LAYERS deep: Reptile(epochs=8)
+    at --batch 8 --seq 64, a cohort of FULL_LM_CLIENTS, FULL_LM_ROUNDS
+    rounds, its per-group launches and peak memory beside the same run in
+    fp32 at the same depth; its first round against the CPU at
+    MIXED_FULL_CHECK."""
+    core, ops, bridge = tm["core"], tm["ops"], tm["bridge"]
+    from repro_torch.data import LmTaskDistribution, lm_loss
+
+    t_phase = time.perf_counter()
+    model = mamba2_bf16_model(tm, MIXED_FULL_LAYERS, full=True)
+    init = model.init(torch.Generator().manual_seed(0), "cpu")
+    groups = mixed_groups(torch, bridge, init)
+    dist = LmTaskDistribution(model.cfg.vocab_size, 64)
+    loss = lm_loss(model)
+    epochs, clients, rounds = 8, FULL_LM_CLIENTS, FULL_LM_ROUNDS
+
+    def run_of(params, n_clients, n_epochs, n_rounds, device):
+        return core.run_federated(
+            params, dist, core.ReptileStrategy(loss, epochs=n_epochs),
+            rounds=n_rounds, clients_per_round=n_clients, support=8,
+            alpha=1.0, beta=FULL_LM_BETA, seed=0, device=device)
+
+    peaks, out_rows = {}, {}
+    for dtype, n_rounds in (("mixed", rounds), ("float32", 1)):
+        params = to_device(bridge, init, "cuda",
+                           torch.float32 if dtype == "float32" else None)
+        core.clear_runner_cache()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, wall, counts = timed_run(torch, ops, lambda: run_of(
+            params, clients, epochs, n_rounds, "cuda"))
+        peaks[dtype] = torch.cuda.max_memory_allocated() / 1e9
+        graph = built_round(tm["engine"])
+        check_launches(f"engine_lm_mamba2_130m_{dtype}", counts,
+                       mixed_launches("reptile", MIXED_FULL_LAYERS, n_rounds,
+                                      epochs, clients,
+                                      groups=2 if dtype == "mixed" else 1))
+        leaves = bridge.flatten_tree(out["params"])
+        check(all(torch.isfinite(v.float()).all() for v in leaves.values()),
+              f"engine_lm_mamba2_130m_{dtype}: non-finite params")
+        out_rows[dtype] = {"rounds": n_rounds, "wall_s": wall,
+                           "rounds_per_s": n_rounds / wall,
+                           # the rounds after the first (built) one
+                           "after_capture_s": wall - graph["capture_s"],
+                           "launches": counts, **graph,
+                           "max_memory_allocated_gb": peaks[dtype]}
+        if dtype == "mixed":
+            mixed_counts = counts
+            check(mixed_groups(torch, bridge, out["params"]) == groups,
+                  "engine_lm_mamba2_130m_mixed: leaf dtypes changed")
+        del out, params, leaves
+    core.clear_runner_cache()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    check_kw = dict(n_clients=MIXED_FULL_CHECK["clients"],
+                    n_epochs=MIXED_FULL_CHECK["epochs"], n_rounds=1)
+    vs_cpu = mixed_vs_cpu(
+        np, bridge, "engine_lm_mamba2_130m_mixed",
+        run_of(to_device(bridge, init, "cuda"), device="cuda", **check_kw),
+        run_of(init, device="cpu", **check_kw))
+    core.clear_runner_cache()
+    torch.cuda.empty_cache()
+    emit({"phase": "engine_lm_mamba2_130m_mixed", "arch": model.cfg.name,
+          "params_by_dtype": groups, "layers": MIXED_FULL_LAYERS,
+          "strategy": "reptile", "epochs": epochs, "beta": FULL_LM_BETA,
+          "batch": 8, "seq": 64, "clients": clients, "rounds": rounds,
+          "reduced": {"layers": f"{MIXED_FULL_LAYERS} of 24, for the "
+                                f"script's time",
+                      "clients": f"{clients}, not the launcher's 64"},
+          "cohort_buffer_gb_at_64": {
+              "mixed": 64 * (2 * LM_BF16 + 4 * LM_FP32) / 1e9,
+              "float32": 64 * 4 * FULL_LM_PARAMS / 1e9},
+          "runs": out_rows,
+          "peak_gb": peaks, "peak_ratio_mixed_to_fp32":
+              peaks["mixed"] / peaks["float32"],
+          "vs_cpu_first_round": {**MIXED_FULL_CHECK, **vs_cpu,
+                                 "s": time.perf_counter() - t0},
+          "phase_s": time.perf_counter() - t_phase})
+    return {"engine_lm_mamba2_130m_mixed": mixed_counts}
+
+
+LM_FLEET_CHILD = """
+import sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.checkpoint import ckpt
+from repro_torch.launch import train
+from repro_torch.testing import faults
+
+def hold(step):
+    # announce the snapshot at the kill round, then wait for the kill
+    if step >= {kill_at}:
+        print(faults.SNAPSHOT_TAG, step, flush=True)
+        import time
+        time.sleep(600)
+
+ckpt._post_save_hook = hold
+train.run_lm(train.parse_args(sys.argv[2:]))
+"""
+
+
+def phase_train_lm_fleet(torch, np, tm):
+    """The LM launcher's fleet and checkpoint flags (LM_FLEET): the
+    reduced fp32 mamba2 on the card against the CPU, row by row; then
+    mamba2-130m at full width and depth in its own dtypes (LM_FLEET_FULL)
+    in a child process SIGKILLed right after its round-4 snapshot and
+    resumed here, equal row by row and leaf by leaf, bit for bit, to a
+    run stopped cleanly after the same snapshot and resumed."""
+    tl, ops, bridge = tm["train"], tm["ops"], tm["bridge"]
+    from repro_torch.checkpoint import list_checkpoints
+    from repro_torch.kernels import build
+    from repro_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        argv = LM_REDUCED + LM_FLEET + ["--ckpt-dir", f"{d}/card"]
+        args = tl.parse_args(argv)
+        (rows, summary, phi), wall, counts = timed_run(
+            torch, ops, lambda: tl.run_lm(args))
+        want_rows, want_sum, want_phi = tl.run_lm(tl.parse_args(
+            LM_REDUCED + LM_FLEET + ["--ckpt-dir", f"{d}/cpu", "--device",
+                                     "cpu"]))
+        snaps = [Path(p).name for p in list_checkpoints(f"{d}/card")]
+    billed = [r for r in rows if not r.get("idle")]
+    check_launches("train_lm_fleet_reduced", counts, {
+        "online_sgd": len(billed) * args.k_inner,
+        "meta_update": summary["flushes"],
+        "ssd_scan": len(billed) * args.k_inner * 2})
+    for got, want in zip(rows, want_rows):
+        for k in ("idle", "buffered", "flushes"):
+            check(got.get(k) == want.get(k), f"train_lm_fleet: {k}")
+    vs_cpu = lm_rows_vs_cpu(np, bridge, "train_lm_fleet_reduced", billed,
+                            phi, [r for r in want_rows if not r.get("idle")],
+                            want_phi)
+    check(summary["flushes"] == want_sum["flushes"], "flushes vs CPU")
+    reduced = {"argv": argv[:-2], "wall_s": wall, "launches": counts,
+               "rows": rows, "snapshots": snaps, "vs_cpu": vs_cpu,
+               "flushes": summary["flushes"]}
+    paths = {"train_lm_fleet_reduced": counts}
+
+    torch.cuda.empty_cache()
+    libs = sorted(build.BUILD_DIR.glob("*.so"))
+    with tempfile.TemporaryDirectory() as d:
+        # the child runs (and is killed) on a thread of its own while this
+        # process stops its own run cleanly after the same snapshot
+        child = {}
+
+        def kill():
+            t0 = time.perf_counter()
+            child["rc"], child["out"] = faults.kill_after_snapshot(
+                [sys.executable, "-c",
+                 LM_FLEET_CHILD.replace("{kill_at}", str(LM_FLEET_KILL_AT)),
+                 str(SRC)] + LM_FLEET_FULL + ["--ckpt-dir", f"{d}/killed"],
+                n=1, timeout=600)
+            child["s"] = time.perf_counter() - t0
+
+        killer = threading.Thread(target=kill)
+        t0 = time.perf_counter()
+        killer.start()
+        try:
+            with faults.crash_at_round(LM_FLEET_KILL_AT):
+                tl.run_lm(tl.parse_args(LM_FLEET_FULL + [
+                    "--ckpt-dir", f"{d}/clean"]))
+            check(False, "train_lm_fleet: the clean stop did not happen")
+        except faults.SimulatedPreemption:
+            pass
+        killer.join()
+        both_s = time.perf_counter() - t0
+        rc, out, child_s = child["rc"], child["out"], child["s"]
+        check(rc is not None and rc != 0,
+              f"train_lm_fleet: the child exited {rc}, not killed:\n{out}")
+        check(sorted(build.BUILD_DIR.glob("*.so")) == libs,
+              "train_lm_fleet: the child built kernels")
+        on_disk = [Path(p).name for p in list_checkpoints(f"{d}/killed")]
+        check(on_disk[-1] == f"ckpt_{LM_FLEET_KILL_AT:08d}.npz",
+              f"train_lm_fleet: snapshots {on_disk}")
+        (got_rows, got_sum, got_phi), resume_wall, counts = timed_run(
+            torch, ops, lambda: tl.run_lm(tl.parse_args(
+                LM_FLEET_FULL + ["--ckpt-dir", f"{d}/killed", "--resume"])))
+        t0 = time.perf_counter()
+        want_rows, _, want_phi = tl.run_lm(tl.parse_args(
+            LM_FLEET_FULL + ["--ckpt-dir", f"{d}/clean", "--resume"]))
+        clean_s = time.perf_counter() - t0
+    check([r["round"] for r in got_rows] == list(range(LM_FLEET_KILL_AT, 6)),
+          f"train_lm_fleet: resumed rounds {got_rows}")
+    for g, w in zip(got_rows, want_rows):
+        check({k: v for k, v in g.items() if k != "dt_s"}
+              == {k: v for k, v in w.items() if k != "dt_s"},
+              f"train_lm_fleet: resumed rows differ: {g} {w}")
+    gl, wl = bridge.flatten_tree(got_phi), bridge.flatten_tree(want_phi)
+    for k, v in wl.items():
+        check(gl[k].dtype == v.dtype and torch.equal(gl[k], v),
+              f"train_lm_fleet: resumed {k} differs")
+    by_dtype = mixed_groups(torch, bridge, got_phi)
+    check(by_dtype == {"bfloat16": LM_BF16, "float32": LM_FP32},
+          f"train_lm_fleet: parameter counts {by_dtype}")
+    emit({"phase": "train_lm_fleet", "reduced": reduced,
+          "full": {"argv": LM_FLEET_FULL, "killed_after": LM_FLEET_KILL_AT,
+                   "child_rc": rc, "child_s": child_s,
+                   "snapshots_on_disk": on_disk,
+                   "resume_wall_s": resume_wall, "launches": counts,
+                   "rows": got_rows, "flushes": got_sum["flushes"],
+                   "child_and_clean_stop_s": both_s,
+                   "clean_resume_s": clean_s,
+                   "vs_clean_resume": "exact"},
+          "phase_s": time.perf_counter() - t_phase})
+    paths["train_lm_fleet_full_resumed"] = counts
+    return paths
+
+
 def main():
     import numpy as np
     import torch
@@ -5097,6 +5624,7 @@ def main():
     phase_kernels_engine_lm(torch, np, ops, ref, rows)
     phase_kernels_families(torch, np, ops, ref, rows)
     phase_kernels_encdec_vlm(torch, np, ops, ref, rows, ptxas)
+    phase_kernels_mixed(torch, np, ops, ref, rows)
 
     from repro_torch import bridge, core, graphs
     from repro_torch.configs import get_arch
@@ -5110,6 +5638,15 @@ def main():
     lm = {"core": core, "ops": ops, "train": train, "bridge": bridge,
           "engine": engine, "mamba2": mamba2, "build_model": build_model,
           "get_arch": get_arch, "MetricsTracker": MetricsTracker}
+    # slice 17's first: the engine in the LMs' own dtypes, the LM
+    # launcher's fleet and checkpoint flags
+    t_mixed = time.perf_counter()
+    mixed_paths = {**phase_engine_lm_mixed_reduced(torch, np,
+                                                   {**lm, "graphs": graphs}),
+                   **phase_engine_lm_full_mixed(torch, np, lm),
+                   **phase_train_lm_fleet(torch, np, lm)}
+    emit({"phase": "slice_17", "phases_s": time.perf_counter() - t_mixed,
+          "script_s_so_far": time.perf_counter() - t_start})
     engine_lm_paths = {**phase_engine_lm_reduced(torch, np, lm),
                        **phase_engine_lm_full(torch, np, lm),
                        **phase_examples(torch, np, lm)}
@@ -5209,7 +5746,8 @@ def main():
              "serve_decode_reduced": s_dec_red["launches"],
              "serve_decode_tinyllama_1_1b": s_dec["launches"],
              **fig4_paths, **fleet_paths, **ckpt_paths, **queue_c,
-             **dense_paths, **dec_mamba, **engine_lm_paths, **family_paths}
+             **dense_paths, **dec_mamba, **engine_lm_paths, **family_paths,
+             **mixed_paths}
     kernels = []
     for kernel, route, source, replaces, row in (
             ("online_sgd", "cuda", "src/repro_torch/kernels/csrc/online_sgd.cu",
@@ -5265,6 +5803,15 @@ def main():
                 if kernel == "flash_decode" else {}),
              **({"kernels_per_call": row["kernels_per_call"]}
                 if "kernels_per_call" in row else {}),
+             # slice 17's instantiations: bf16 rows, a bf16 w with an
+             # fp32 w_hat
+             **({"bf16": {f"C{C}_P{P}": rows[f"client_mean/bf16_C{C}_P{P}"]
+                          for C, P in CM_BF16}}
+                if kernel == "client_mean" else {}),
+             **({"bf16_w_fp32_w_hat": {
+                 str(n): rows[f"meta_update/mixed_{n}"]
+                 for n in MU_MIXED_SIZES}}
+                if kernel == "meta_update" else {}),
              **({"engine_shape": {
                  k: rows[f"dfa_epoch_int8/{ENGINE_DFA}"][k] for k in (
                      "B", "S", "dims", "ms", "device_ms", "generic_ms",

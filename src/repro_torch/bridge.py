@@ -34,9 +34,11 @@ it, so a hybrid's snapshots stay within one package.
 kernels update in one launch: a flat ``{name: leaf}`` dict by its names,
 a nested tree (the LM's ``{"embed", ..., "layers": [...]}``) by its
 ``flatten_tree`` paths (``FlatLayout.of_tree``), either way in the JAX
-package's leaf order. ``FlatLayout.per_dtype`` gives one layout per leaf
-dtype, for trees that mix dtypes (the LM's bf16 matrices beside its fp32
-SSM scalars).
+package's leaf order. ``GroupedLayout`` is the form for trees that mix
+leaf dtypes (the LM's bf16 matrices beside its fp32 SSM scalars): one
+``FlatLayout`` per dtype group and the whole tree's leaf order, with the
+``FlatLayout`` methods over a tuple of buffers, one a group
+(``group_map`` maps a function over such tuples, or over one buffer).
 """
 from __future__ import annotations
 
@@ -268,16 +270,6 @@ class FlatLayout:
         layout was made from; no copy."""
         return self.tree(self.views(flat))
 
-    @classmethod
-    def per_dtype(cls, tree) -> Dict[torch.dtype, "FlatLayout"]:
-        """One layout per leaf dtype of a nested dict/list tree, named by
-        ``flatten_tree``'s paths; ``pack`` and ``views`` of each take and
-        give ``{path: tensor}`` dicts. Dtypes in first-seen order."""
-        groups: Dict[torch.dtype, Dict[Tuple, Any]] = {}
-        for path, leaf in tree_leaves(tree):
-            groups.setdefault(leaf.dtype, {})[path] = leaf
-        return {dt: cls.of(g) for dt, g in groups.items()}
-
     def buffer(self, tree):
         """The 1-D buffer whose ``views`` the leaves of ``tree`` (a
         ``{name: leaf}`` dict) are, in this layout's order, or None: a tree
@@ -311,3 +303,79 @@ class FlatLayout:
             out[k] = flat[..., off:off + n].reshape(flat.shape[:-1] + shape)
             off += n
         return out
+
+
+def group_map(fn, *bufs):
+    """``fn`` over the groups of ``GroupedLayout`` buffers (tuples, one
+    tensor a group, zipped), returning a tuple; over plain tensors (a
+    ``FlatLayout``'s buffers) ``fn(*bufs)`` itself."""
+    if isinstance(bufs[0], tuple):
+        return tuple(fn(*group) for group in zip(*bufs))
+    return fn(*bufs)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupedLayout:
+    """A tree that may mix leaf dtypes as one flat buffer per dtype: a
+    ``FlatLayout`` a group (the group's leaves in the whole tree's
+    order), groups in the order their dtype first appears in that order.
+    Buffers are tuples, one tensor a group; ``views``, ``pack``,
+    ``named``, ``tree`` and ``tree_views`` are ``FlatLayout``'s over
+    them, the views keyed in the whole tree's order. ``names`` and
+    ``shapes`` are the whole tree's, the order the JAX package's leaves
+    take (``jax.tree.leaves``), so anything drawn per leaf (a partial
+    wire's permutations, its chunk ids) follows it and is cut into the
+    groups afterwards. A single-dtype tree is one group whose layout is
+    ``FlatLayout.of_tree``'s, so its buffer is that layout's buffer."""
+    groups: Tuple[FlatLayout, ...]
+    dtypes: Tuple[torch.dtype, ...]
+    names: Tuple[Any, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    nested: bool = False
+
+    @classmethod
+    def of_tree(cls, tree) -> "GroupedLayout":
+        """The layout of one model's params (tensor leaves), grouped by
+        their dtypes."""
+        whole = FlatLayout.of_tree(tree)
+        named = whole.named(tree)
+        members: Dict[torch.dtype, list] = {}
+        for k, shape in zip(whole.names, whole.shapes):
+            members.setdefault(named[k].dtype, []).append((k, shape))
+        if len(members) == 1:
+            groups = (whole,)
+        else:
+            groups = tuple(
+                FlatLayout(tuple(k for k, _ in m), tuple(s for _, s in m),
+                           whole.nested) for m in members.values())
+        return cls(groups, tuple(members), whole.names, whole.shapes,
+                   whole.nested)
+
+    def named(self, tree) -> Dict[Any, Any]:
+        return flatten_tree(tree) if self.nested else dict(tree)
+
+    def tree(self, named: Dict[Any, Any]):
+        return unflatten_tree(named) if self.nested else named
+
+    def views(self, flats) -> Dict[Any, torch.Tensor]:
+        """``{name: view}`` of the group buffers, in the whole tree's
+        order; no copy."""
+        merged = {}
+        for lay, flat in zip(self.groups, flats):
+            merged.update(lay.views(flat))
+        return {k: merged[k] for k in self.names}
+
+    def tree_views(self, flats):
+        return self.tree(self.views(flats))
+
+    def pack(self, tree, batch_dims: int = 0) -> Tuple[torch.Tensor, ...]:
+        """The ``{name: leaf}`` tree as one buffer a group (copies)."""
+        return tuple(lay.pack(tree, batch_dims) for lay in self.groups)
+
+    def cut(self, per_leaf) -> Tuple[np.ndarray, ...]:
+        """Per-leaf NumPy arrays, in the whole tree's order, raveled and
+        concatenated group by group."""
+        by_name = dict(zip(self.names, per_leaf))
+        return tuple(np.concatenate([np.ravel(by_name[k])
+                                     for k in lay.names])
+                     for lay in self.groups)

@@ -14,14 +14,16 @@ accepted and raises NotImplementedError until its slice is ported.)
   algorithm-specific hooks: ``client_update`` (what the round's cohort
   does with the broadcast phi and its local data) and
   ``server_aggregate`` (how the server folds the results back).
-* phi lives in one flat ``(P,)`` buffer (``bridge.FlatLayout.of_tree``:
-  a flat ``{leaf: tensor}`` dict by its sorted names, a nested tree such
-  as the LM's by its sorted paths, the JAX package's leaf order either
-  way) and a round's cohort in one ``(C, P)`` buffer, so each inner SGD
-  step of every client is one ``online_sgd`` launch and each Reptile
-  interpolation one ``meta_update`` launch. The losses, the evals, the
-  checkpoints and the returned params see the init's own structure. The
-  leaves must share one dtype (the buffer has one).
+* phi lives in one flat ``(P_g,)`` buffer per leaf dtype
+  (``bridge.GroupedLayout.of_tree``: a flat ``{leaf: tensor}`` dict by
+  its sorted names, a nested tree such as the LM's by its sorted paths,
+  the JAX package's leaf order either way; a single-dtype tree is one
+  group) and a round's cohort in one ``(C, P_g)`` buffer per group, so
+  each inner SGD step of every client is one ``online_sgd`` launch a
+  group and each Reptile interpolation one ``meta_update`` launch a
+  group. Every leaf keeps its dtype: an LM's bf16 weights stay bf16
+  beside its fp32 SSM scalars or router. The losses, the evals, the
+  checkpoints and the returned params see the init's own structure.
 * One round is one function, ``_BlockRunner._round``, built once per
   config and shape (``graphs.GraphStep``): captured as a CUDA graph on
   the card and replayed, run as it is on the CPU. It reads round j of
@@ -80,8 +82,8 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.bridge import (FlatLayout, flatten_tree, tree_leaves,
-                                unflatten_tree)
+from repro_torch.bridge import (FlatLayout, GroupedLayout, group_map,
+                                params_from_numpy, tree_leaves)
 from repro_torch.checkpoint.ckpt import (AsyncCheckpointWriter, RoundState,
                                          map_leaves, restore_round_state,
                                          save_round_state)
@@ -106,10 +108,13 @@ PAYLOAD_ITEMSIZE = {"float32": 4, "float16": 2, "int8": 1}
 
 def meta_interpolate(phi, phi_hat, alpha):
     """Reptile server update phi <- phi + alpha (phi_hat - phi) on flat
-    buffers, fp32 math, stored in phi's dtype: one ``meta_update``
-    launch. ``alpha`` is a one-element fp32 tensor on phi's device (or a
-    float)."""
-    return kops.meta_update(phi, phi_hat.to(phi.dtype), alpha)
+    buffers (one, or a tuple of groups), fp32 math, stored in phi's
+    dtype: one ``meta_update`` launch a group. An fp32 ``phi_hat`` (a
+    client mean) is read unrounded by a bf16 group, as the JAX package's
+    plain interpolation reads it. ``alpha`` is a one-element fp32 tensor
+    on phi's device (or a float)."""
+    return group_map(lambda p, q: kops.meta_update(p, q, alpha), phi,
+                     phi_hat)
 
 
 def streaming_sgd(loss_fn, phi, batch, beta):
@@ -128,31 +133,26 @@ def streaming_sgd(loss_fn, phi, batch, beta):
     its view of the gradient buffer (the leaves' ``.grad``, zeroed before
     each step: 0 + g is g), and ``online_sgd`` updates the params in
     place."""
-    layouts = list(FlatLayout.per_dtype(phi).values())
-    leaves = flatten_tree(phi)
-    flats = [lay.pack(leaves) for lay in layouts]
-    grads = [torch.zeros_like(flat) for flat in flats]
+    layout = GroupedLayout.of_tree(phi)
+    flats = layout.pack(layout.named(phi))
+    grads = group_map(torch.zeros_like, flats)
     steps = next(iter(batch.values())).shape[0]
     losses = []
     for i in range(steps):
         micro = {k: v[i] for k, v in batch.items()}
+        if i:
+            group_map(torch.Tensor.zero_, grads)
+        grad_views = layout.views(grads)
         params = {}
-        for lay, flat, grad in zip(layouts, flats, grads):
-            if i:
-                grad.zero_()
-            grad_views = lay.views(grad)
-            for k, v in lay.views(flat).items():
-                params[k] = v.detach().requires_grad_()
-                params[k].grad = grad_views[k]
-        loss = loss_fn(unflatten_tree(params), micro)
+        for k, v in layout.views(flats).items():
+            params[k] = v.detach().requires_grad_()
+            params[k].grad = grad_views[k]
+        loss = loss_fn(layout.tree(params), micro)
         loss.backward()
-        for lay, flat, grad in zip(layouts, flats, grads):
+        for flat, grad in zip(flats, grads):
             kops.online_sgd(flat, grad, beta, flat)         # in place
         losses.append(loss.detach().float())
-    out = {}
-    for lay, flat in zip(layouts, flats):
-        out.update(lay.views(flat))
-    return unflatten_tree(out), torch.stack(losses)
+    return layout.tree_views(flats), torch.stack(losses)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,10 +223,17 @@ class CommChannel:
             return (q.to(x.dtype) * scale).to(x.dtype)
         return x
 
-    def _wire_flat(self, layout: FlatLayout, flat: torch.Tensor):
-        return layout.pack({k: self._wire(v)
-                            for k, v in layout.views(flat).items()},
-                           batch_dims=flat.dim() - 1)
+    def _wire_flat(self, layout, flat):
+        """The wire round-trip of flat buffers, leaf by leaf, each leaf
+        in its own dtype."""
+        def one(lay, buf):
+            return lay.pack({k: self._wire(v)
+                             for k, v in lay.views(buf).items()},
+                            batch_dims=buf.dim() - 1)
+        if isinstance(flat, tuple):
+            return tuple(one(lay, buf) for lay, buf in zip(layout.groups,
+                                                           flat))
+        return one(layout, flat)
 
     def transmit(self, tree: Dict, ref=None, masks=None,
                  round_index=None) -> Dict:
@@ -238,9 +245,11 @@ class CommChannel:
             return tree
         return {k: self._wire(v) for k, v in tree.items()}
 
-    def transmit_flat(self, layout: FlatLayout, flat: torch.Tensor,
-                      ref=None, masks=None):
-        """``transmit`` of a flat ``(..., P)`` buffer, leaf by leaf."""
+    def transmit_flat(self, layout, flat, ref=None, masks=None):
+        """``transmit`` of a flat ``(..., P)`` buffer (or a
+        ``GroupedLayout``'s tuple of them), leaf by leaf. The bill is
+        ``payload_bytes``: the wire's itemsize a parameter, whatever the
+        leaf's dtype, as in the JAX package."""
         del ref, masks
         if not self.simulates_quantization:
             return flat
@@ -364,13 +373,13 @@ class PartialCommChannel(CommChannel):
                 for k, v in zip(names, self._chunk_ids_np(shapes))}
 
     def masks_for_round(self, chunk_ids, round_index):
-        """Round ``round_index``'s keep masks from chunk ids (a tensor or
-        a ``{leaf: tensor}`` tree); ``round_index`` may be a tensor on
-        the device."""
+        """Round ``round_index``'s keep masks from chunk ids (a tensor, a
+        tuple of group tensors or a ``{leaf: tensor}`` tree);
+        ``round_index`` may be a tensor on the device."""
         phase = round_index % self.rotation_period
         if isinstance(chunk_ids, dict):
             return {k: ids == phase for k, ids in chunk_ids.items()}
-        return chunk_ids == phase
+        return group_map(lambda ids: ids == phase, chunk_ids)
 
     def mask_tree(self, tree, round_index=None, device: DeviceLike = None):
         """Boolean keep masks, one per leaf, on ``device`` (default: the
@@ -387,18 +396,24 @@ class PartialCommChannel(CommChannel):
         return {k: torch.from_numpy(m).to(device)
                 for k, m in zip(names, self._fixed_masks_np(shapes))}
 
-    def flat_mask_state(self, layout: FlatLayout, device):
+    def flat_mask_state(self, layout, device):
         """The run's mask state over a flat buffer, built once: ``(masks,
         None)`` with a ``(P,)`` bool keep mask for fixed masks, or
         ``(None, chunk_ids)`` with ``(P,)`` int32 chunk ids for rotating
-        ones."""
+        ones. For a ``GroupedLayout`` each is a tuple, one ``(P_g,)``
+        tensor a group: the permutations are drawn over all the leaves in
+        the whole tree's order (leaf i's is ``fold_in(key, i)``'s, as the
+        JAX package draws them) and cut into the groups afterwards."""
         shapes = list(layout.shapes)
-        if self.rotate:
-            ids = np.concatenate([a.ravel() for a in
-                                  self._chunk_ids_np(shapes)])
-            return None, torch.from_numpy(ids).to(device)
-        m = np.concatenate([a.ravel() for a in self._fixed_masks_np(shapes)])
-        return torch.from_numpy(m).to(device), None
+        per_leaf = (self._chunk_ids_np(shapes) if self.rotate
+                    else self._fixed_masks_np(shapes))
+        if isinstance(layout, GroupedLayout):
+            state = tuple(torch.from_numpy(a).to(device)
+                          for a in layout.cut(per_leaf))
+        else:
+            state = torch.from_numpy(np.concatenate(
+                [a.ravel() for a in per_leaf])).to(device)
+        return (None, state) if self.rotate else (state, None)
 
     def transmit(self, tree, ref=None, masks=None, round_index=None):
         base_wire = self._base_wire
@@ -424,10 +439,12 @@ class PartialCommChannel(CommChannel):
         if ref is None and not base_wire:
             return flat
         if masks is None:
-            fixed, ids = self.flat_mask_state(layout, flat.device)
-            masks = fixed if ids is None else ids == 0
+            dev = (flat[0] if isinstance(flat, tuple) else flat).device
+            fixed, ids = self.flat_mask_state(layout, dev)
+            masks = fixed if ids is None else self.masks_for_round(ids, 0)
         sent = self._wire_flat(layout, flat) if base_wire else flat
-        return torch.where(masks, sent, flat if ref is None else ref)
+        return group_map(torch.where, masks, sent,
+                         flat if ref is None else ref)
 
 
 def _stage(arrays, dev: torch.device):
@@ -481,6 +498,8 @@ def _tree_tensors(tree):
         return []
     if isinstance(tree, dict):
         return [t for k in sorted(tree) for t in _tree_tensors(tree[k])]
+    if isinstance(tree, tuple):
+        return [t for x in tree for t in _tree_tensors(x)]
     return [tree]
 
 
@@ -495,11 +514,11 @@ class _Program:
     slots write their rows there (torch has no scatter that drops
     out-of-range indices), and nothing reads it."""
 
-    def __init__(self, runner, layout: FlatLayout, phi: torch.Tensor,
-                 staged, names, fields, pool_state: Optional[PoolState]):
-        dev = phi.device
+    def __init__(self, runner, layout: GroupedLayout, phi, staged, names,
+                 fields, pool_state: Optional[PoolState]):
+        dev = phi[0].device
         self.layout = layout
-        self.phi = torch.empty_like(phi)
+        self.phi = group_map(torch.empty_like, phi)
         self.block = [torch.empty_like(t) for t in staged]
         nf = len(fields)
         self.sched = ClientSchedule(**dict(zip(fields, self.block[:nf])))
@@ -609,20 +628,19 @@ class _BlockRunner:
         self.trace_count = 0
         self._programs: Dict = {}
 
-    def mask_state(self, layout: FlatLayout, dev):
+    def mask_state(self, layout: GroupedLayout, dev):
         """The partial channel's run-constant masks: ``(masks, None)`` or
         ``(None, chunk_ids)`` on the device, else ``(None, None)``."""
         if not (self.simulate and self.partial):
             return None, None
         return self.channel.flat_mask_state(layout, dev)
 
-    def program(self, layout: FlatLayout, phi: torch.Tensor, staged,
-                names, fields, pool_state: Optional[PoolState] = None
-                ) -> _Program:
+    def program(self, layout: GroupedLayout, phi, staged, names, fields,
+                pool_state: Optional[PoolState] = None) -> _Program:
         """The buffers for this shape of run, made on first use."""
         pool_sig = (None if pool_state is None else tuple(
             (tuple(t.shape), t.dtype) for t in _pool_leaves(pool_state)))
-        key = (str(phi.device), layout, phi.dtype, tuple(names),
+        key = (str(phi[0].device), layout, tuple(names),
                tuple(fields), pool_sig,
                tuple((tuple(t.shape), t.dtype) for t in staged))
         prog = self._programs.get(key)
@@ -655,7 +673,7 @@ class _BlockRunner:
             if kind == "params":
                 ref = phi
             elif kind == "zeros":
-                ref = torch.zeros_like(phi)
+                ref = group_map(torch.zeros_like, phi)
         return channel.transmit_flat(layout, results, ref=ref,
                                      masks=masks if ref is not None
                                      else None)
@@ -697,7 +715,7 @@ class _BlockRunner:
             new = strategy.server_aggregate(layout, phi, results, alpha_t,
                                             beta)
             loss = losses.float().mean()
-        phi.copy_(new)
+        group_map(torch.Tensor.copy_, phi, new)
         prog.losses.index_copy_(0, j, loss.reshape(1))
         j.add_(1)
 
@@ -706,6 +724,7 @@ class _BlockRunner:
         flush), update the cohort's identity rows; returns (phi, loss)."""
         strategy, layout, phi, beta = (self.strategy, prog.layout, prog.phi,
                                        self.beta)
+        dev = prog.cursor.device
         sched, ps, j, buffered = prog.sched, prog.pool, prog.cursor, \
             self.buffered
 
@@ -720,8 +739,11 @@ class _BlockRunner:
         clients = part.shape[0]
         i32 = torch.int32
         if buffered is None:
-            new = torch.where(valid, strategy.server_aggregate_weighted(
-                layout, phi, results, alpha_t, beta, weights), phi)
+            new = group_map(
+                lambda a, p: torch.where(valid, a, p),
+                strategy.server_aggregate_weighted(layout, phi, results,
+                                                   alpha_t, beta, weights),
+                phi)
         else:
             # this round's arrivals go to the buffer's next free slots
             # (a prefix sum of the participation row); the rest to the
@@ -736,7 +758,7 @@ class _BlockRunner:
             ps.buf_round.index_copy_(0, slot, rnd.expand(clients))
             count = ps.buf_count + arrive.sum(dtype=i32)
             tags = ps.buf_round[:cap]
-            held = torch.arange(cap, device=phi.device) < count
+            held = torch.arange(cap, device=dev) < count
             w = buffered.staleness_fn((rnd - tags).float()) * held
             w = (w / torch.clamp(w.sum(), min=1e-8)).float()
             flushed = strategy.server_aggregate_weighted(
@@ -748,7 +770,8 @@ class _BlockRunner:
                 do_flush = do_flush | ((count > 0) & (
                     rnd - oldest + 1 >= buffered.flush_staleness))
             do_flush = do_flush & valid
-            new = torch.where(do_flush, flushed, phi)
+            new = group_map(lambda f, p: torch.where(do_flush, f, p),
+                            flushed, phi)
             ps.buf_count.copy_(torch.where(do_flush, 0, count))
             ps.flushes.add_(do_flush.to(i32))
         # the cohort's identity rows; scheduled-out slots write the sink
@@ -856,20 +879,22 @@ _NOT_PORTED = {
 }
 
 
-def _pool_named(ps: PoolState, layout: FlatLayout) -> PoolState:
-    """The pool state as checkpoints hold it: a flat ``(capacity, P)``
-    FedBuff buffer as ``(capacity, *leaf)`` views in phi's structure, the
-    JAX package's phi-shaped buffer leaves."""
-    if isinstance(ps.buf_updates, torch.Tensor):
+def _pool_named(ps: PoolState, layout: GroupedLayout) -> PoolState:
+    """The pool state as checkpoints hold it: the flat ``(capacity,
+    P_g)`` FedBuff buffers as ``(capacity, *leaf)`` views in phi's
+    structure, each leaf in its dtype, the JAX package's phi-shaped
+    buffer leaves."""
+    if isinstance(ps.buf_updates, tuple):
         ps = dataclasses.replace(ps,
                                  buf_updates=layout.tree_views(ps.buf_updates))
     return ps
 
 
-def _pool_from_saved(saved: PoolState, layout: FlatLayout, flat: bool,
+def _pool_from_saved(saved: PoolState, layout: GroupedLayout, flat: bool,
                      dev) -> PoolState:
-    """A restored (NumPy) pool state as tensors on ``dev``, the buffer
-    packed back into one flat buffer where the run keeps it so."""
+    """A restored pool state (NumPy leaves, bf16 ones as tensors) on
+    ``dev``, the buffer packed back into one flat buffer a group where
+    the run keeps it so."""
     ps = map_leaves(lambda a: torch.as_tensor(a, device=dev), saved)
     if flat and ps.buf_updates is not None:
         ps = dataclasses.replace(ps, buf_updates=layout.pack(
@@ -902,10 +927,11 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
     (default ``cuda``; the CPU only when asked).
 
     ``init_params`` is one model's tree of arrays (NumPy, e.g. the JAX
-    package's init, or tensors): a flat ``{leaf: array}`` dict, or a
-    nested tree of dicts and lists such as the LM's (``{"embed",
-    "final_norm", "layers": [...]}``), all of one dtype (a tree mixing
-    dtypes raises: the engine packs one buffer). Returns ``{"params",
+    package's init, bf16 leaves included, or tensors): a flat ``{leaf:
+    array}`` dict, or a nested tree of dicts and lists such as the LM's
+    (``{"embed", "final_norm", "layers": [...]}``), its leaves of any
+    float dtypes, each kept in its dtype (one flat buffer a dtype).
+    Returns ``{"params",
     "history"}`` (+ ``"comm_bytes"`` and ``"per_client_bytes"`` for
     strategies that meter communication; ``per_client_bytes[c]`` is the
     transport paid by cohort slot c, or by pool client c on pooled runs,
@@ -1001,19 +1027,11 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
             f"channel that also quantizes would mask that data by its "
             f"own tree, which the port does not do: use fraction=1.0 or "
             f"quantize=False")
-    layout = FlatLayout.of_tree(init_params)
-    leaves = {k: torch.as_tensor(
-        v if isinstance(v, torch.Tensor) else np.array(v), device=dev)
-        for k, v in layout.named(init_params).items()}
-    dtypes = sorted({str(t.dtype) for t in leaves.values()})
-    if len(dtypes) > 1:
-        raise ValueError(
-            f"run_federated: the init mixes leaf dtypes "
-            f"({', '.join(dtypes)}); the engine packs phi into one buffer, "
-            f"which would promote them all to one. The engine over "
-            f"mixed-dtype trees is not ported yet (ROADMAP queue A item "
-            f"6i); cast the init to one dtype (the engine's LM route runs "
-            f"its models in fp32)")
+    whole = FlatLayout.of_tree(init_params)
+    leaves = {k: v.to(dev) if isinstance(v, torch.Tensor)
+              else params_from_numpy(v, dev)
+              for k, v in whole.named(init_params).items()}
+    layout = GroupedLayout.of_tree(whole.tree(leaves))
     # a private copy: the caller's init stays usable across runs
     phi = layout.pack(leaves)
     rng = np.random.default_rng(seed)
@@ -1106,7 +1124,7 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
         device=dev) if pooled else None)
     if saved is not None and pooled:
         restored = _pool_from_saved(saved.pool_state, layout,
-                                    isinstance(uplink, torch.Tensor), dev)
+                                    isinstance(uplink, tuple), dev)
         if host_resident:
             # the identity goes to the slabs before the first block's
             # gather; the device keeps its window and the FedBuff buffer
@@ -1225,7 +1243,8 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                     f: slabs[f] for f in ClientPool.SLAB_FIELDS})
             pool_snap = map_leaves(_snapshot_copy, ps)
         state = RoundState(
-            round=end, phi=layout.tree_views(prog.phi.clone()),
+            round=end, phi=layout.tree_views(group_map(torch.clone,
+                                                       prog.phi)),
             pool_state=pool_snap, per_client_bytes=per_client_bytes.copy(),
             comm_bytes=comm_bytes, history=list(history),
             host=host_snaps.pop(end), fingerprint=fingerprint)
@@ -1253,7 +1272,7 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
             if prog is None:
                 prog = runner.program(layout, phi, staged, names, fields,
                                       pool_state)
-                prog.phi.copy_(phi)
+                group_map(torch.Tensor.copy_, prog.phi, phi)
                 if pooled:
                     prog.load_pool(pool_state)
             if host_resident:
@@ -1328,7 +1347,8 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
             tracker.stop_profile()
 
     if prog is not None:
-        phi = prog.phi.clone()     # the runner's buffer serves later runs
+        # the runner's buffers serve later runs
+        phi = group_map(torch.clone, prog.phi)
     out = {"params": layout.tree_views(phi), "history": history}
     if strategy.meters_comm:
         out["comm_bytes"] = comm_bytes

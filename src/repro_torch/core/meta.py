@@ -6,13 +6,16 @@ then measure the loss on the query set Q, averaged over clients — Eq.
 (1): L(phi) = sum_n l_n(phi_n^k).
 
 The inner loops work on a COHORT: C models as one flat ``(C, P)``
-buffer laid out by a ``bridge.FlatLayout``, with ``loss_fn(params,
-batch)`` returning one loss per model. The loss sees the params in the
+buffer laid out by a ``bridge.FlatLayout``, or, for a tree that mixes
+leaf dtypes, one ``(C, P_g)`` buffer per dtype group in a tuple laid out
+by a ``bridge.GroupedLayout``, with ``loss_fn(params, batch)`` returning
+one loss per model. The loss sees the params in the
 structure the layout was made from: a flat ``{leaf: tensor}`` dict, or
 the LM's nested tree (``FlatLayout.of_tree``). The gradient of the summed
 losses with respect to the buffer is every model's own gradient, so
 each SGD step of the whole cohort is one backward pass and one
-``online_sgd`` launch, where the JAX package vmaps one model's loop.
+``online_sgd`` launch per group, where the JAX package vmaps one model's
+loop.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from typing import Callable, Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from repro_torch.bridge import FlatLayout
+from repro_torch.bridge import GroupedLayout, group_map
 from repro_torch.data.tasks import TaskDistribution
 from repro_torch.kernels import ops as kops
 
@@ -43,39 +46,44 @@ def tree_bytes(params) -> int:
     return sum(x.numel() * x.element_size() for x in params.values())
 
 
-def cohort_grad(loss_fn: Callable, layout: FlatLayout, flat: torch.Tensor,
-                batch: Dict):
-    """Per-model losses ``(C,)`` and gradients ``(C, P)`` of a cohort
-    buffer on its ``(C, ...)`` batch. Each leaf's view of the buffer is
-    its own autograd leaf and the leaf gradients are concatenated once:
-    differentiating through the slices instead would zero-fill, copy
-    and add a full ``(C, P)`` buffer per leaf on every step."""
+def _batch_dims(flat) -> int:
+    return (flat[0] if isinstance(flat, tuple) else flat).dim() - 1
+
+
+def cohort_grad(loss_fn: Callable, layout, flat, batch: Dict):
+    """Per-model losses ``(C,)`` and gradients of a cohort buffer on its
+    ``(C, ...)`` batch: ``(C, P)`` for a ``FlatLayout`` buffer, a tuple
+    of ``(C, P_g)`` for a ``GroupedLayout`` one, each leaf's gradient in
+    its own dtype. Each leaf's view of the buffer is its own autograd
+    leaf and the leaf gradients are concatenated once: differentiating
+    through the slices instead would zero-fill, copy and add a full
+    ``(C, P)`` buffer per leaf on every step."""
     with torch.enable_grad():
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in layout.views(flat).items()}
         loss = loss_fn(layout.tree(leaves), batch)
         grads = torch.autograd.grad(loss.sum(),
                                     [leaves[k] for k in layout.names])
-    g = torch.cat([gr.reshape(flat.shape[:-1] + (-1,)) for gr in grads],
-                  dim=-1)
+    g = layout.pack(dict(zip(layout.names, grads)),
+                    batch_dims=_batch_dims(flat))
     return loss.detach(), g
 
 
 def _sgd(loss_fn, layout, flat, batches: Iterable[Dict], lr,
          k: Optional[torch.Tensor] = None):
-    """One ``online_sgd`` step per batch of ``batches``. With ``k``
-    ``(C,)`` (a per-model live-step budget), step i is dead for models
-    with ``k <= i``: their gradient and loss are zeroed, so their
-    params pass through exactly (``p - lr * 0 == p``). Returns the new
-    buffer and the losses ``(C, steps)``."""
+    """One ``online_sgd`` step per batch of ``batches`` (one launch per
+    dtype group). With ``k`` ``(C,)`` (a per-model live-step budget),
+    step i is dead for models with ``k <= i``: their gradient and loss
+    are zeroed, so their params pass through exactly (``p - lr * 0 ==
+    p``). Returns the new buffer and the losses ``(C, steps)``."""
     losses = []
     for i, batch in enumerate(batches):
         loss, g = cohort_grad(loss_fn, layout, flat, batch)
         if k is not None:
             live = k > i
-            g = torch.where(live[:, None], g, 0.0)
+            g = group_map(lambda t: torch.where(live[:, None], t, 0.0), g)
             loss = torch.where(live, loss, 0.0)
-        flat = kops.online_sgd(flat, g, lr)
+        flat = group_map(lambda p, t: kops.online_sgd(p, t, lr), flat, g)
         losses.append(loss)
     return flat, torch.stack(losses, dim=1)
 
@@ -130,7 +138,7 @@ def evaluate_init(loss_fn: Callable, params, task_dist: TaskDistribution,
         qry = task.query_batch(rng, query)
         sup = task.support_batch(rng, support) if support > 0 else None
         draws.append((qry, sup))
-    layout = FlatLayout.of_tree(params)
+    layout = GroupedLayout.of_tree(params)
     named = layout.named(params)
     dev = named[layout.names[0]].device
 
@@ -138,7 +146,8 @@ def evaluate_init(loss_fn: Callable, params, task_dist: TaskDistribution,
         return {k: torch.from_numpy(np.stack([b[k] for b in batches])).to(dev)
                 for k in ("x", "y")}
 
-    flat = layout.pack(named).expand(num_tasks, -1).contiguous()
+    flat = group_map(lambda t: t.expand(num_tasks, -1).contiguous(),
+                     layout.pack(named))
     if support > 0:
         flat, _ = finetune_batch(loss_fn, layout, flat,
                                  stack([s for _, s in draws]), k_steps, lr)

@@ -90,9 +90,12 @@ class PoolState:
 
 
 def tree_map(fn, *trees):
-    """``fn`` over the leaves of tensors or nested dicts of tensors."""
+    """``fn`` over the leaves of tensors or nested dicts of tensors, or
+    tuples of them (the engine's dtype groups)."""
     if isinstance(trees[0], dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], tuple):
+        return tuple(tree_map(fn, *leaves) for leaves in zip(*trees))
     return fn(*trees)
 
 
@@ -355,7 +358,8 @@ class ClientPool:
         cohort_size arrivals land per round on a count of at most
         buffer_size - 1). ``template`` (default ``phi``) gives the
         shapes and dtypes of one buffer slot: the strategy's uplink (a
-        tensor or a dict of tensors). ``rows`` overrides the per-client
+        tensor, a tuple of one a dtype group, or a dict of tensors), each
+        slot in its own dtype. ``rows`` overrides the per-client
         axis (the ``residency="host"`` window of staged rows)."""
         dev = resolve_device(device)
         n = self.size if rows is None else int(rows)

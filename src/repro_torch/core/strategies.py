@@ -4,15 +4,16 @@ TIFeD's integer grids.
 A ``FedStrategy`` tells the round engine (``core/engine.py``) WHAT a
 client computes and HOW the server folds the results back; the engine
 owns everything else (scheduling, metering, annealing, eval). The
-hooks work on the engine's flat buffers (``bridge.FlatLayout``): phi is
-one ``(P,)`` tensor and a round's cohort of C clients is one ``(C, P)``
-buffer, so every client's inner step is one launch for the whole
-cohort:
+hooks work on the engine's flat buffers (``bridge.GroupedLayout``): phi
+is one ``(P_g,)`` tensor per leaf dtype group (a tuple; one group for a
+single-dtype tree) and a round's cohort of C clients one ``(C, P_g)``
+buffer per group, so every client's inner step is one launch per group
+for the whole cohort:
 
   client_update(layout, phi, client_batch, beta) -> (results, losses)
-      phi: the broadcast ``(P,)`` parameters; client_batch: {"x","y"}
-      with leading (C, support) axes; results: ``(C, P)`` (or the raw
-      batch, for Transfer); losses: ``(C, ...)`` inner losses.
+      phi: the broadcast parameters; client_batch: {"x","y"} with
+      leading (C, support) axes; results: the ``(C, P_g)`` buffers (or
+      the raw batch, for Transfer); losses: ``(C, ...)`` inner losses.
   server_aggregate(layout, phi, results, alpha_t, beta) -> phi
       alpha_t: the round's (possibly annealed) server rate, a
       one-element fp32 tensor on phi's device.
@@ -36,6 +37,14 @@ gives their shapes, for the FedBuff buffer; ``payload_dtype`` declares
 the native wire dtype). ``uplink_ref`` says what a partial channel's
 dropped uplink entries fall back to.
 
+Each leaf keeps the JAX package's dtype rules (``repro/core/
+strategies.py``) with ``beta`` a weakly typed Python float: the client
+means are fp32 (Reptile's and every weighted one); the Reptile
+interpolation is fp32 math on the unrounded mean, stored in the leaf's
+dtype (``meta_update``); FedAvg's and FedSGD's unweighted server steps
+and Transfer's run in the leaf's own dtype; their weighted ones in fp32,
+cast back to it.
+
 TIFeD's grids: exponents are powers of two throughout, so every
 requantization multiplier is an exact fp32 scaling: inputs on the 2^EX
 grid, hidden activations on 2^ACT as unsigned 7-bit, the quantized error
@@ -51,6 +60,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.bridge import group_map
 from repro_torch.core.engine import meta_interpolate
 from repro_torch.core.meta import (cohort_grad, finetune_batch,
                                    finetune_batch_masked, finetune_online,
@@ -108,20 +118,29 @@ def tifed_requantize(phi):
     return out
 
 
-def weighted_client_mean(results: torch.Tensor, weights: torch.Tensor):
+def weighted_client_mean(results, weights: torch.Tensor):
     """``sum_c weights[c] * results[c]`` along the leading clients axis,
-    in fp32. Zero-weight clients are zeroed before the sum, so a
-    scheduled-out client cannot poison the round with a NaN. One
-    ``client_mean`` launch on the card; it rounds where the JAX engine's
-    jitted mean rounds (``kernels/ref.py::client_mean``)."""
-    return kops.client_mean(results, weights)
+    in fp32, per group. Zero-weight clients are zeroed before the sum,
+    so a scheduled-out client cannot poison the round with a NaN. One
+    ``client_mean`` launch a group on the card (a bf16 group's rows are
+    read as they are); it rounds where the JAX engine's jitted mean
+    rounds (``kernels/ref.py::client_mean``)."""
+    return group_map(lambda q: kops.client_mean(q, weights), results)
+
+
+def _client_mean(q):
+    """The unweighted client mean in fp32; a bf16 group is summed in
+    fp32 as it is read, with no fp32 copy of the cohort."""
+    if q.dtype == torch.float32:
+        return q.mean(dim=0)
+    return q.mean(dim=0, dtype=torch.float32)
 
 
 def reptile_aggregate(phi, phi_hats, alpha_t):
     """Server update shared by TinyReptile (C=1) and batched Reptile:
     phi <- phi + alpha_t * (mean_c(phi_hat_c) - phi), the client mean in
     fp32, the interpolation through the ``meta_update`` kernel."""
-    return meta_interpolate(phi, phi_hats.float().mean(dim=0), alpha_t)
+    return meta_interpolate(phi, group_map(_client_mean, phi_hats), alpha_t)
 
 
 def reptile_aggregate_weighted(phi, phi_hats, alpha_t, weights):
@@ -132,8 +151,13 @@ def reptile_aggregate_weighted(phi, phi_hats, alpha_t, weights):
 
 
 def _cohort(phi, clients: int):
-    """The downlink: one private copy of phi per client, ``(C, P)``."""
-    return phi.expand(clients, -1).contiguous()
+    """The downlink: one private copy of phi per client, ``(C, P_g)``
+    per group."""
+    return group_map(lambda p: p.expand(clients, -1).contiguous(), phi)
+
+
+def _device(phi) -> torch.device:
+    return (phi[0] if isinstance(phi, tuple) else phi).device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,8 +182,8 @@ class FedStrategy:
     def uplink_template(self, layout, phi):
         """One client's result with zeros: its shapes and dtypes (a
         tensor, or a dict of tensors), from which the engine sizes the
-        FedBuff buffer. Default: phi's flat ``(P,)`` buffer."""
-        return torch.zeros_like(phi)
+        FedBuff buffer. Default: phi's flat buffers."""
+        return group_map(torch.zeros_like, phi)
 
     def client_update(self, layout, phi, client_batch, beta):
         raise NotImplementedError
@@ -267,12 +291,13 @@ class FedAvgStrategy(FedStrategy):
                                      client_batch, self.epochs, beta, k)
 
     def server_aggregate(self, layout, phi, results, alpha_t, beta):
-        return results.sum(dim=0) / results.shape[0]
+        return group_map(lambda q: q.sum(dim=0) / q.shape[0], results)
 
     def server_aggregate_weighted(self, layout, phi, results, alpha_t,
                                   beta, weights):
         """Weighted model average over the participating clients only."""
-        return weighted_client_mean(results, weights).to(phi.dtype)
+        return group_map(lambda p, q: q.to(p.dtype), phi,
+                         weighted_client_mean(results, weights))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -292,13 +317,14 @@ class FedSGDStrategy(FedStrategy):
         return 1                 # one gradient: no straggler axis
 
     def server_aggregate(self, layout, phi, results, alpha_t, beta):
-        return phi - beta * results.sum(dim=0) / results.shape[0]
+        return group_map(lambda p, g: p - beta * g.sum(dim=0) / g.shape[0],
+                         phi, results)
 
     def server_aggregate_weighted(self, layout, phi, results, alpha_t,
                                   beta, weights):
         """Apply the participation-weighted mean gradient."""
-        g = weighted_client_mean(results, weights)
-        return (phi - beta * g).to(phi.dtype)
+        return group_map(lambda p, g: (p - beta * g).to(p.dtype), phi,
+                         weighted_client_mean(results, weights))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -312,7 +338,7 @@ class TransferStrategy(FedStrategy):
 
     def client_update(self, layout, phi, client_batch, beta):
         return client_batch, torch.zeros(len(client_batch["x"]),
-                                         device=phi.device)
+                                         device=_device(phi))
 
     def local_step_budget(self, support):
         return 1                 # raw-batch forward: no straggler axis
@@ -320,8 +346,9 @@ class TransferStrategy(FedStrategy):
     def server_aggregate(self, layout, phi, results, alpha_t, beta):
         pooled = {k: v.reshape((1, -1) + tuple(v.shape[2:]))
                   for k, v in results.items()}
-        _, g = cohort_grad(self.loss_fn, layout, phi[None], pooled)
-        return phi - beta * g[0]
+        _, g = cohort_grad(self.loss_fn, layout,
+                           group_map(lambda p: p[None], phi), pooled)
+        return group_map(lambda p, gg: p - beta * gg[0], phi, g)
 
     def server_aggregate_weighted(self, layout, phi, results, alpha_t,
                                   beta, weights):
@@ -329,7 +356,8 @@ class TransferStrategy(FedStrategy):
         (zeroed) batches get weight 0."""
         _, g = cohort_grad(self.loss_fn, layout,
                            _cohort(phi, len(results["x"])), results)
-        return (phi - beta * weighted_client_mean(g, weights)).to(phi.dtype)
+        return group_map(lambda p, gg: (p - beta * gg).to(p.dtype), phi,
+                         weighted_client_mean(g, weights))
 
 
 # the device copies of the TIFeD constants by (feedback seed, epochs,
@@ -411,13 +439,14 @@ class TifedStrategy(FedStrategy):
     def uplink_template(self, layout, phi):
         views = layout.views(phi)
         self._dims(views)
+        dev = _device(phi)
         q = {f"w{i}": torch.zeros(views[f"w{i}"].shape, dtype=torch.int8,
-                                  device=phi.device) for i in range(3)}
+                                  device=dev) for i in range(3)}
         q.update({f"b{i}": torch.zeros(views[f"b{i}"].shape,
-                                       dtype=torch.int32, device=phi.device)
+                                       dtype=torch.int32, device=dev)
                   for i in range(3)})
         return {"q": q, "exp": {k: torch.zeros((), dtype=torch.int32,
-                                               device=phi.device)
+                                               device=dev)
                                 for k in q}}
 
     def _run_epochs(self, layout, phi, client_batch, k):
@@ -431,7 +460,7 @@ class TifedStrategy(FedStrategy):
         # fold the 1/n batch mean into the shift (exact for pow2 n)
         lrs = self.lr_shift + int(np.floor(np.log2(n)))
         fb, dith, layers = _tifed_device_constants(
-            self.feedback_seed, self.epochs, dims, clients, phi.device)
+            self.feedback_seed, self.epochs, dims, clients, _device(phi))
         p2 = kref.exp2_int
         ws, ew = [], []
         for i in range(3):

@@ -10,6 +10,9 @@ server updates equal the jitted JAX engine's bit for bit. This module
 checks the operands and launches it through ``ctypes``; a CPU tensor
 gets the plain version ``ref.client_mean`` instead. The weights are read
 on the device, so a captured round replays it with each round's weights.
+bf16 results (a bf16 dtype group of the engine's cohort) are read as
+they are, each value widened to fp32 in registers: the sums are the fp32
+kernel's on ``results.float()``, without that copy of the cohort.
 """
 from __future__ import annotations
 
@@ -20,20 +23,23 @@ import torch
 
 from repro_torch.kernels import build, ref
 
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
 
 @functools.lru_cache(maxsize=1)
 def _bind():
     """The library's entry point, typed; built at first use."""
     fn = build.load("client_mean").client_mean_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
+                                           ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def client_mean(results: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """The weighted mean of ``results`` (C, ...) over its leading clients
-    axis with ``weights`` (C,), in fp32, shaped ``results.shape[1:]``. A
+    axis with ``weights`` (C,), in fp32, shaped ``results.shape[1:]``;
+    ``results`` fp32 or bf16 (other dtypes are widened to fp32 first). A
     CPU tensor gets the plain version; a CUDA tensor gets the kernel
     (``client_mean.launches`` counts its launches) or an error."""
     if results.dim() < 1 or weights.shape != results.shape[:1]:
@@ -52,12 +58,14 @@ def client_mean(results: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     C = results.shape[0]
     if C < 1:
         raise ValueError("client_mean: no clients")
-    q = results.float().reshape(C, -1).contiguous()
+    q = results if results.dtype in _DTYPES else results.float()
+    q = q.reshape(C, -1).contiguous()
     w = weights.float().contiguous()
     out = torch.empty(q.shape[1], dtype=torch.float32, device=q.device)
     if q.shape[1]:
         err = build.launch_on(q.get_device(), _bind(), q.data_ptr(),
-                              w.data_ptr(), out.data_ptr(), q.shape[1], C)
+                              w.data_ptr(), out.data_ptr(), q.shape[1], C,
+                              _DTYPES[q.dtype])
         if err != 0:
             raise RuntimeError(f"client_mean launch failed: cudaError {err}")
         client_mean.launches += 1

@@ -24,9 +24,16 @@
 // a window; it sums each window in a tight loop, and only the windows'
 // sums walk the levels above (their state unrolled into registers).
 // Bound on an H100: (n P + C + P) x 4 bytes over 3.35 TB/s, n the clients
-// whose weight is above 0 (no other client's row is read). At the
+// whose weight is above 0 (no other client's row is read).
+//
+// q may also be bf16 (dtype code 1: a bf16 dtype group of the engine's
+// cohort): each value is widened to fp32 in registers as it is loaded,
+// which is exact, and the sums are the fp32 ones above in the same
+// order, so the result equals the fp32 kernel's on q.float() bit for bit
+// without that (C, P) fp32 copy. Its bound is (2 n P + 4 C + 4 P) bytes. At the
 // engine's shapes (C <= 64, P = 1,153 or 20,612) the launch and the
 // loads' latency, not memory bandwidth, set the pace.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -42,9 +49,15 @@ struct Plan {
   int lo[kMaxLevels];         // zeros in front of each level's windows
 };
 
+__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+
 // Up to kWindow clients' weights and values of parameter i, all loads
 // issued before any is used: x[u] = w[c0 + u] > 0 ? q[c0 + u][i] : 0.
-__device__ __forceinline__ void load_window(const float* __restrict__ q,
+template <typename T>
+__device__ __forceinline__ void load_window(const T* __restrict__ q,
                                             const float* __restrict__ w,
                                             long long P, long long i, int c0,
                                             int n, float* wv, float* x) {
@@ -52,11 +65,12 @@ __device__ __forceinline__ void load_window(const float* __restrict__ q,
   for (int u = 0; u < kWindow; ++u) wv[u] = u < n ? __ldg(w + c0 + u) : 0.f;
 #pragma unroll
   for (int u = 0; u < kWindow; ++u)
-    x[u] = wv[u] > 0.f ? __ldg(q + (long long)(c0 + u) * P + i) : 0.f;
+    x[u] = wv[u] > 0.f ? load_f32(q + (long long)(c0 + u) * P + i) : 0.f;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-client_mean_chain(const float* __restrict__ q, const float* __restrict__ w,
+client_mean_chain(const T* __restrict__ q, const float* __restrict__ w,
                   float* __restrict__ out, long long P, int C) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= P) return;
@@ -64,14 +78,15 @@ client_mean_chain(const float* __restrict__ q, const float* __restrict__ w,
 #pragma unroll 8
   for (int c = 0; c < C; ++c) {
     const float wc = __ldg(w + c);
-    const float x = wc > 0.f ? __ldg(q + (long long)c * P + i) : 0.f;
+    const float x = wc > 0.f ? load_f32(q + (long long)c * P + i) : 0.f;
     acc = __fmaf_rn(wc, x, acc);
   }
   out[i] = acc;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-client_mean_windows(const float* __restrict__ q, const float* __restrict__ w,
+client_mean_windows(const T* __restrict__ q, const float* __restrict__ w,
                     float* __restrict__ out, long long P, int C, Plan plan) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= P) return;
@@ -122,18 +137,30 @@ client_mean_windows(const float* __restrict__ q, const float* __restrict__ w,
   out[i] = total;
 }
 
+template <typename T>
+void launch(const void* q, const float* wf, float* of, long long P, int C,
+            const Plan& plan, unsigned blocks, cudaStream_t s) {
+  const T* qt = static_cast<const T*>(q);
+  if (plan.levels == 0)
+    client_mean_chain<T><<<blocks, kThreads, 0, s>>>(qt, wf, of, P, C);
+  else
+    client_mean_windows<T><<<blocks, kThreads, 0, s>>>(qt, wf, of, P, C,
+                                                       plan);
+}
+
 }  // namespace
 
-// q: (C, P) fp32, row stride P; w: (C,) fp32; out: (P,) fp32, all on the
-// device. Returns the cudaError_t of the launch.
+// q: (C, P), row stride P, fp32 (dtype 0) or bf16 (dtype 1); w: (C,)
+// fp32; out: (P,) fp32, all on the device. Returns the cudaError_t of the
+// launch.
 extern "C" int client_mean_launch(const void* q, const void* w, void* out,
-                                  long long P, int C, void* stream) {
+                                  long long P, int C, int dtype,
+                                  void* stream) {
   if (P <= 0) return 0;
-  if (C < 1) return (int)cudaErrorInvalidValue;
+  if (C < 1 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   const long long blocks = (P + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
   const float* wf = static_cast<const float*>(w);
   float* of = static_cast<float*>(out);
   Plan plan{};
@@ -144,10 +171,9 @@ extern "C" int client_mean_launch(const void* q, const void* w, void* out,
     plan.lo[plan.levels] = (windows * kWindow - n) / 2;
     ++plan.levels;
   }
-  if (plan.levels == 0)
-    client_mean_chain<<<(unsigned)blocks, kThreads, 0, s>>>(qf, wf, of, P, C);
+  if (dtype == 0)
+    launch<float>(q, wf, of, P, C, plan, (unsigned)blocks, s);
   else
-    client_mean_windows<<<(unsigned)blocks, kThreads, 0, s>>>(qf, wf, of, P,
-                                                              C, plan);
+    launch<__nv_bfloat16>(q, wf, of, P, C, plan, (unsigned)blocks, s);
   return (int)cudaGetLastError();
 }

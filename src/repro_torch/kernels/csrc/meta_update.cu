@@ -32,6 +32,12 @@
 // agree bit for bit; the intrinsics leave nvcc nothing to reassociate.
 // bf16 output rounds that fp32 result to nearest even, as torch's cast
 // does.
+//
+// A bf16 w may come with an fp32 w_hat (dtype code 2: the engine's fp32
+// client mean of a bf16 dtype group), read unrounded, as the JAX
+// package's plain interpolation reads it; the pass then moves 8 bytes an
+// element (2 + 4 + 2), and each thread's vector is 8 bf16 of w and out
+// and two float4 of w_hat.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,6 +51,7 @@ __device__ __forceinline__ float lerp_rn(float w, float wh, float a) {
   return __fmaf_rn(a, __fsub_rn(wh, w), w);
 }
 
+// w and out of type T, w_hat of type TH (T itself, or fp32 beside bf16)
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
@@ -55,13 +62,15 @@ __device__ __forceinline__ void store(float v, __nv_bfloat16* o) {
 }
 
 // n elements, all three pointers 16-byte aligned: nv = n / V whole
-// vectors, then the tail n - nv V (< V) by the first threads.
-template <typename T>
+// vectors (one 16-byte access of w and out, H of w_hat), then the tail
+// n - nv V (< V) by the first threads.
+template <typename T, typename TH>
 __global__ void __launch_bounds__(kThreads)
-meta_update_vec(const T* __restrict__ w, const T* __restrict__ wh,
+meta_update_vec(const T* __restrict__ w, const TH* __restrict__ wh,
                 const float* __restrict__ alpha, T* __restrict__ out,
                 long long n) {
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte access
+  constexpr int V = 16 / sizeof(T);  // elements per 16-byte access of w
+  constexpr int H = V * sizeof(TH) / 16;  // w_hat accesses per vector
   const float a = __ldg(alpha);
   const long long nv = n / V;
   const uint4* w4 = reinterpret_cast<const uint4*>(w);
@@ -69,13 +78,14 @@ meta_update_vec(const T* __restrict__ w, const T* __restrict__ wh,
   uint4* o4 = reinterpret_cast<uint4*>(out);
   const long long base =
       (long long)blockIdx.x * kThreads * kUnroll + threadIdx.x;
-  uint4 x[kUnroll], y[kUnroll];
+  uint4 x[kUnroll], y[kUnroll][H];
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
     const long long i = base + u * kThreads;
     if (i < nv) {
       x[u] = __ldcs(w4 + i);
-      y[u] = __ldcs(h4 + i);
+#pragma unroll
+      for (int h = 0; h < H; ++h) y[u][h] = __ldcs(h4 + i * H + h);
     }
   }
 #pragma unroll
@@ -84,7 +94,7 @@ meta_update_vec(const T* __restrict__ w, const T* __restrict__ wh,
     if (i < nv) {
       uint4 r;
       const T* xs = reinterpret_cast<const T*>(&x[u]);
-      const T* ys = reinterpret_cast<const T*>(&y[u]);
+      const TH* ys = reinterpret_cast<const TH*>(&y[u][0]);
       T* rs = reinterpret_cast<T*>(&r);
 #pragma unroll
       for (int j = 0; j < V; ++j)
@@ -99,9 +109,9 @@ meta_update_vec(const T* __restrict__ w, const T* __restrict__ wh,
 }
 
 // any alignment: kUnroll elements a thread, loaded before any is used
-template <typename T>
+template <typename T, typename TH>
 __global__ void __launch_bounds__(kThreads)
-meta_update_scalar(const T* __restrict__ w, const T* __restrict__ wh,
+meta_update_scalar(const T* __restrict__ w, const TH* __restrict__ wh,
                    const float* __restrict__ alpha, T* __restrict__ out,
                    long long n) {
   const float a = __ldg(alpha);
@@ -123,7 +133,7 @@ meta_update_scalar(const T* __restrict__ w, const T* __restrict__ wh,
   }
 }
 
-template <typename T>
+template <typename T, typename TH>
 cudaError_t launch(const void* w, const void* wh, const float* alpha,
                    void* out, long long n, cudaStream_t stream) {
   const bool vectorized =
@@ -134,27 +144,31 @@ cudaError_t launch(const void* w, const void* wh, const float* alpha,
   if (blocks < 1) blocks = 1;                  // a tail only
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   const T* wt = static_cast<const T*>(w);
-  const T* ht = static_cast<const T*>(wh);
+  const TH* ht = static_cast<const TH*>(wh);
   T* ot = static_cast<T*>(out);
   if (vectorized)
-    meta_update_vec<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+    meta_update_vec<T, TH><<<(unsigned)blocks, kThreads, 0, stream>>>(
         wt, ht, alpha, ot, n);
   else
-    meta_update_scalar<T><<<(unsigned)blocks, kThreads, 0, stream>>>(
+    meta_update_scalar<T, TH><<<(unsigned)blocks, kThreads, 0, stream>>>(
         wt, ht, alpha, ot, n);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 = float32, 1 = bfloat16, 2 = bfloat16 w and out with a float32
+// w_hat. Returns the cudaError_t of the launch.
 extern "C" int meta_update_launch(const void* w, const void* w_hat,
                                   const void* alpha, void* out, long long n,
                                   int dtype, void* stream) {
   if (n <= 0) return 0;
   const float* a = static_cast<const float*>(alpha);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)launch<float>(w, w_hat, a, out, n, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(w, w_hat, a, out, n, s);
+  if (dtype == 0) return (int)launch<float, float>(w, w_hat, a, out, n, s);
+  if (dtype == 1)
+    return (int)launch<__nv_bfloat16, __nv_bfloat16>(w, w_hat, a, out, n, s);
+  if (dtype == 2)
+    return (int)launch<__nv_bfloat16, float>(w, w_hat, a, out, n, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,6 +13,13 @@ gets the plain version ``ref.meta_update`` instead.
 TPU kernel reads it from SMEM, so the engine hands the kernel a slice of
 the block's staged annealing schedule and no round pays a host->device
 copy. A Python float is accepted too and copied to the device.
+
+A bf16 ``w`` takes an fp32 ``w_hat`` as it is (the engine's fp32 client
+mean of a bf16 dtype group): the kernel's mixed instantiation reads it
+unrounded, which is the JAX package's plain interpolation
+(``repro/core/engine.py::meta_interpolate``, the route its LM
+launcher's FedBuff flush asks for), not its Pallas wrapper, which casts
+``w_hat`` to w's dtype first.
 """
 from __future__ import annotations
 
@@ -24,6 +31,11 @@ import torch
 from repro_torch.kernels import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: (w, w_hat) dtype pairs the kernel takes as they are, by launch code;
+#: any other w_hat is cast to w's dtype first
+_CODES = {(torch.float32, torch.float32): 0,
+          (torch.bfloat16, torch.bfloat16): 1,
+          (torch.bfloat16, torch.float32): 2}
 
 
 @functools.lru_cache(maxsize=1)
@@ -51,21 +63,22 @@ def _alpha_tensor(alpha, w):
 def meta_update(w: torch.Tensor, w_hat: torch.Tensor,
                 alpha) -> torch.Tensor:
     """``w + alpha * (w_hat - w)`` in fp32 math, stored in w's dtype, as
-    a new tensor; ``w_hat`` is cast to w's dtype first, as the JAX
-    wrapper does. A CPU tensor gets the plain version; a CUDA tensor gets
-    the kernel (``meta_update.launches`` counts its launches) or an
+    a new tensor. An fp32 ``w_hat`` beside a bf16 ``w`` is read
+    unrounded; any other ``w_hat`` is cast to w's dtype first, as the
+    JAX wrapper does. A CPU tensor gets the plain version; a CUDA tensor
+    gets the kernel (``meta_update.launches`` counts its launches) or an
     error."""
     if w.shape != w_hat.shape:
         raise ValueError(f"w {tuple(w.shape)} and w_hat "
                          f"{tuple(w_hat.shape)} differ in shape")
-    code = _DTYPES.get(w.dtype)
-    if code is None:
+    if w.dtype not in _DTYPES:
         raise TypeError(f"meta_update: w must be one of {tuple(_DTYPES)}; "
                         f"got {w.dtype}")
     if w_hat.get_device() != w.get_device() or w_hat.is_cuda != w.is_cuda:
         raise ValueError(f"w on {w.device}, w_hat on {w_hat.device}")
-    if w_hat.dtype != w.dtype:
+    if (w.dtype, w_hat.dtype) not in _CODES:
         w_hat = w_hat.to(w.dtype)
+    code = _CODES[w.dtype, w_hat.dtype]
     a = _alpha_tensor(alpha, w)
     if not w.is_cuda:
         if w.device.type != "cpu":

@@ -10,7 +10,7 @@ a decode step can be captured once and replayed.
 """
 from __future__ import annotations
 
-from repro_torch.bridge import FlatLayout, flatten_tree, unflatten_tree
+from repro_torch.bridge import GroupedLayout
 from repro_torch.kernels.client_mean import client_mean
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.meta_update import meta_update
@@ -41,11 +41,12 @@ def tree_meta_update(phi, phi_hat, alpha):
     as views of the result, each leaf in its own dtype. A tree that is
     already such views (an earlier result, ``streaming_sgd``'s phi_hat)
     is read from its buffer, without a copy."""
-    trees = flatten_tree(phi), flatten_tree(phi_hat)
+    layout = GroupedLayout.of_tree(phi)
+    trees = layout.named(phi), layout.named(phi_hat)
     out = {}
-    for layout in FlatLayout.per_dtype(phi).values():
-        w, w_hat = (layout.buffer(t) for t in trees)
-        out.update(layout.views(meta_update(
-            layout.pack(trees[0]) if w is None else w,
-            layout.pack(trees[1]) if w_hat is None else w_hat, alpha)))
-    return unflatten_tree(out)
+    for group in layout.groups:
+        w, w_hat = (group.buffer(t) for t in trees)
+        out.update(group.views(meta_update(
+            group.pack(trees[0]) if w is None else w,
+            group.pack(trees[1]) if w_hat is None else w_hat, alpha)))
+    return layout.tree(out)

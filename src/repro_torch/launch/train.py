@@ -30,6 +30,32 @@ paligemma-3b, whose sequence is then ``--seq`` + frontend_tokens long
 (the loss over the text). A full-width MoE tree mixes dtypes (the fp32
 router in a bf16 model): the inner loop's per-dtype groups take it.
 
+The JAX LM launcher's fleet and checkpoint flags apply as they do there:
+``--pool-size N`` is a persistent fleet of N ``LMClientStream``s, client
+i seeded by i (a client's stream is built when it is drawn: the JAX
+launcher builds all N up front, two vocab-sized arrays a client, some
+80 GB of host memory at 100,000 clients of mamba2-130m's vocabulary;
+the draws are the same); ``--participation f`` thins each round's check-ins i.i.d.
+and ``--availability diurnal|markov`` draws them from a diurnal or
+Markov process over the whole run, troughs leaving a round idle (a row
+``{"round", "idle": true, "alpha"}``, nothing trained or billed); the
+round's client is drawn among those checked in. ``--buffer-size K``
+splits the round: the client's streaming SGD runs at once and its delta
+(phi_hat - phi, in each leaf's dtype) is buffered; every K deltas the
+buffer flushes, staleness-weighted by ``default_staleness_weight`` and
+normalised, as one Reptile step (``meta_update``), also before every
+snapshot and at the end of the run; rows carry ``buffered`` and
+``flushes``. ``--ckpt-dir`` writes phi with ``save_checkpoint`` every
+``--ckpt-every`` rounds and at the end, each leaf in its dtype (bf16 as
+its raw ``|V2`` bits); ``--resume`` restores phi and the round from the
+newest snapshot. As in the JAX launcher, a resumed run draws its host RNG
+anew from ``--seed``: it equals the JAX launcher's resumed run, not the
+run that was never interrupted, and bills the rounds before the resume
+that were not idle. The JAX launcher cannot restore a bf16 snapshot (it
+refuses to cast its own ``|V2`` leaves); the port restores them bit for
+bit. An fp32 snapshot of a reduced config (one dict per layer in both
+packages) resumes in either package.
+
 ``--strategy reptile|fedavg|fedsgd|transfer|tifed`` runs
 ``run_federated`` with the JAX launcher's defaults (64 clients per round,
 20 rounds, beta 0.02, support 32, 8 local epochs, one eval at the end)
@@ -44,8 +70,9 @@ are rejected at parse time with the JAX launcher's messages.
 ``--arch transformer|mamba2|moe`` on an engine strategy swaps the sine
 MLP for next-token personalization of the family's reduced config
 (tinyllama-1.1b, mamba2-130m or mixtral-8x22b ``.reduced()``, fp32; the
-engine takes no tree that mixes dtypes) over heterogeneous
-LM clients (``data.LmTaskDistribution``, support = ``--batch``
+engine also takes the families' trees in their own dtypes, one flat
+buffer per dtype group, when ``init_params`` carries them) over
+heterogeneous LM clients (``data.LmTaskDistribution``, support = ``--batch``
 sequences of ``--seq`` tokens, ``data.lm_loss``), as the JAX launcher's
 engine route does; every fleet and checkpoint flag applies to it too.
 ``--ckpt-dir`` snapshots the engine's whole round state every
@@ -60,8 +87,8 @@ Both routes run on the GPU; ``--device cpu`` runs the plain PyTorch
 path on the CPU instead. The init is drawn from ``--seed`` with torch's
 generator, which does not reproduce ``jax.random``'s init at the same
 seed (``init_params=`` carries the JAX package's init in). The flags of
-routes not ported yet (meshes, multi-process runs, and checkpoints and
-resume on the LM launcher) are rejected at parse time.
+routes not ported yet (meshes and multi-process runs) are rejected at
+parse time.
 """
 from __future__ import annotations
 
@@ -179,7 +206,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "the whole round state (phi, pool state, rng, "
                          "bills) every --ckpt-every rounds on a "
                          "background thread and resume bit for bit with "
-                         "--resume")
+                         "--resume; the LM launcher snapshots phi")
     ap.add_argument("--ckpt-every", type=positive_int_arg, default=None,
                     help="rounds between snapshots (default 10)")
     ap.add_argument("--resume", action="store_true",
@@ -203,19 +230,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--availability replaces the i.i.d. --participation "
                  "schedule; pass one or the other")
     if args.strategy == "tinyreptile":
-        for flag, v in (("--ckpt-dir", args.ckpt_dir),
-                        ("--ckpt-every", args.ckpt_every),
-                        ("--resume", args.resume or None)):
-            if v is not None:
-                ap.error(
-                    f"{flag} is not ported yet on the LM launcher: its "
-                    f"checkpoints come with its pool, availability and "
-                    f"FedBuff flags (ROADMAP queue A item 6h); the JAX "
-                    f"launcher's own resume of a bf16 model fails there "
-                    f"(its bf16 leaves are saved as raw |V2 bits, which "
-                    f"its restore refuses to cast). Pass an engine "
-                    f"--strategy ({'|'.join(ENGINE_STRATEGIES)}) to "
-                    f"checkpoint")
         if args.arch is None:
             ap.error("--arch is required for the tinyreptile LM launcher "
                      "(engine strategies --strategy "
@@ -223,17 +237,6 @@ def parse_args(argv=None) -> argparse.Namespace:
                      "sine workload instead)")
         # family keyword -> the canonical config it names
         args.arch = ARCH_FAMILIES.get(args.arch, args.arch)
-        if args.participation < 1.0:
-            ap.error("--participation is not ported yet on the LM "
-                     "launcher (one client per round)")
-        for flag, v in (("--pool-size", args.pool_size),
-                        ("--buffer-size", args.buffer_size),
-                        ("--availability",
-                         None if args.availability == "iid" else 1)):
-            if v is not None:
-                ap.error(f"{flag} is not ported yet on the LM launcher "
-                         f"(its fleet flags come after the LM family's "
-                         f"engine route); pass an engine --strategy")
         for flag, v in (("--batch", args.batch), ("--seq", args.seq),
                         ("--k-inner", args.k_inner)):
             if v < 1:
@@ -261,6 +264,10 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error(f"--rounds must be >= 1, got {args.rounds}")
     if args.clients < 1:
         ap.error(f"--clients must be >= 1, got {args.clients}")
+    if args.strategy == "tinyreptile":
+        # the JAX launcher checks the fleet flags below on the engine
+        # path only: the LM launcher's fleet is --pool-size or --clients
+        return args
     if args.strategy == "transfer" and args.buffer_size:
         ap.error("--strategy transfer uplinks raw client batches "
                  "(uplink_ref='none'); the FedBuff buffer stages "
@@ -403,18 +410,59 @@ def frontend_inputs(cfg, rng, batch: int):
     return out
 
 
-def run_lm(args, init_params=None):
-    """The tinyreptile LM launcher's run, as the JAX launcher's plain
-    route makes it: prints one row per round and a summary row, and
-    returns ``(rows, summary, phi)``. ``init_params`` (the JAX package's
-    ``Model.init`` tree, in its own layout, as NumPy or ``jax.Array``
-    leaves) replaces the seeded torch init."""
+def fedbuff_flush(phi, buffer, flush_rnd: int, alpha_t: float):
+    """The LM launcher's FedBuff flush, as the JAX launcher computes it:
+    the buffered ``(round, {path: delta})`` pairs weighted by
+    ``default_staleness_weight(flush_rnd - round)`` (fp32 on the host) and
+    normalised, their weighted sum per leaf in fp32 in the JAX launcher's
+    Python order (``0 + w0 d0 + w1 d1 ...``, each op rounded on its own,
+    a bf16 delta widened to fp32 first, as JAX promotes it), phi plus that
+    mean in fp32, then the Reptile interpolation toward it
+    (``tree_meta_update``: one ``meta_update`` launch per dtype group, a
+    bf16 group reading the fp32 target unrounded)."""
     import numpy as np
     import torch
 
-    from repro_torch.bridge import lm_params_from_jax
+    from repro_torch.bridge import flatten_tree, unflatten_tree
+    from repro_torch.core.pool import default_staleness_weight
+    from repro_torch.kernels.ops import tree_meta_update
+
+    taus = torch.tensor([float(flush_rnd - r) for r, _ in buffer],
+                        dtype=torch.float32)
+    ws = default_staleness_weight(taus).numpy()
+    total = np.float32(0.0)
+    for w in ws:                  # the host sum, in order
+        total = np.float32(total + w)
+    ws = [float(np.float32(w / total)) for w in ws]
+    deltas = [d for _, d in buffer]
+    target = {}
+    for path, p in flatten_tree(phi).items():
+        acc = 0
+        for w, d in zip(ws, deltas):
+            acc = acc + d[path].float() * w
+        target[path] = p.float() + acc
+    return tree_meta_update(phi, unflatten_tree(target), alpha_t)
+
+
+def run_lm(args, init_params=None):
+    """The tinyreptile LM launcher's run, as the JAX launcher's plain
+    route makes it: prints one row per round (an idle one for a round
+    nobody checked in) and a summary row, and returns ``(rows, summary,
+    phi)``. ``init_params`` (the JAX package's ``Model.init`` tree, in its
+    own layout, as NumPy or ``jax.Array`` leaves) replaces the seeded
+    torch init; ``--resume`` then restores over it, as the JAX launcher
+    restores over its init."""
+    import numpy as np
+    import torch
+
+    from repro_torch.bridge import flatten_tree, lm_params_from_jax
+    from repro_torch.checkpoint.ckpt import (map_leaves, restore_checkpoint,
+                                             save_checkpoint)
     from repro_torch.configs import get_arch
     from repro_torch.core.engine import CommChannel, _consume, _stage
+    from repro_torch.core.engine import streaming_sgd
+    from repro_torch.core.pipeline import PartialParticipation
+    from repro_torch.core.pool import DiurnalAvailability, MarkovAvailability
     from repro_torch.data import LMClientStream
     from repro_torch.device import resolve_device
     from repro_torch.kernels import ops
@@ -432,24 +480,57 @@ def run_lm(args, init_params=None):
         phi = model.init(torch.Generator().manual_seed(args.seed), dev)
     else:
         phi = lm_params_from_jax(init_params, model.jax_layout, dev)
-    clients = [LMClientStream(cfg.vocab_size, cid)
-               for cid in range(args.clients)]
+    start_round = 0
+    if args.resume:
+        try:
+            saved, start_round, _ = restore_checkpoint(args.ckpt_dir, phi)
+            phi = map_leaves(lambda a: torch.as_tensor(a).to(dev), saved)
+            print(f"resumed from round {start_round}", flush=True)
+        except FileNotFoundError:
+            pass
+    fleet = args.pool_size or args.clients
     alpha_sched = linear_anneal(args.alpha, args.rounds,
                                 floor=args.alpha * 0.1)
     rng = np.random.default_rng(args.seed)
+    # check-ins over the fleet, drawn from the rng before any round's
+    # data, as the JAX launcher draws them; a resume bills the rounds
+    # before it that were not idle
+    checkin = None
+    billed_rounds = start_round
+    if args.availability != "iid":
+        proc = (DiurnalAvailability(period=24)
+                if args.availability == "diurnal" else MarkovAvailability())
+        full = np.asarray(proc.availability(rng, 0, args.rounds, fleet),
+                          bool)
+        billed_rounds = int(full[:start_round].any(axis=1).sum())
+        checkin = full[start_round:]
+    elif args.participation < 1.0:
+        checkin = PartialParticipation(args.participation).plan_schedule(
+            rng, start_round, args.rounds, fleet,
+            args.k_inner)["participation"]
     round_bill = 2 * CommChannel().payload_bytes(phi)   # down + uplink
     step = make_meta_train_step(model, beta=args.beta, alpha=args.alpha)
+    buffer = []                   # (round, delta) pairs awaiting a flush
+    flushes = 0
 
-    def make_round_batch(rnd):
+    def make_round_batch(i):
         # one client per round, drawn on the prefetch thread strictly in
         # round order, so the seeded rng gives the synchronous sequence;
         # then the frontend's random embeddings, in the JAX launcher's
         # order
-        client = clients[int(rng.integers(len(clients)))]
+        rnd = start_round + i
+        alpha_t = alpha_sched(rnd)                       # float32
+        if checkin is None:
+            cid = int(rng.integers(fleet))
+        else:
+            avail = np.flatnonzero(checkin[i])
+            if len(avail) == 0:                          # nobody: idle
+                return rnd, None, float(alpha_t), None, None
+            cid = int(avail[rng.integers(len(avail))])
+        client = LMClientStream(cfg.vocab_size, cid)
         raw = client.batch(rng, args.batch, args.seq)
         raw.update(frontend_inputs(cfg, rng, args.batch))
         raw = microbatch(raw, args.k_inner)
-        alpha_t = alpha_sched(rnd)                       # float32
         staged = _stage(list(raw.values())
                         + [np.array([alpha_t], np.float32)], dev)
         return rnd, client.zipf_a, float(alpha_t), list(raw), staged
@@ -457,30 +538,74 @@ def run_lm(args, init_params=None):
     ops.reset_launch_counts()
     t_start = time.time()
     rows = []
-    for rnd, zipf_a, alpha_t, names, (tensors, event) in prefetch_batches(
-            make_round_batch, args.rounds):
-        t0 = time.time()
-        _consume(tensors, event)
-        phi, metrics = step(phi, dict(zip(names, tensors[:-1])),
-                            tensors[-1])
-        loss, first, last = torch.stack(
-            [metrics["loss"], metrics["inner_first"],
-             metrics["inner_last"]]).tolist()          # one host read
-        row = {"round": rnd, "client": zipf_a, "loss": loss,
-               "inner_first": first, "inner_last": last, "alpha": alpha_t,
-               "comm_mb": round((rnd + 1) * round_bill / 2 ** 20, 2),
-               "dt_s": round(time.time() - t0, 3)}
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+    batches = prefetch_batches(make_round_batch, args.rounds - start_round)
+    try:
+        for rnd, zipf_a, alpha_t, names, staged in batches:
+            t0 = time.time()
+            if names is None:
+                row = {"round": rnd, "idle": True, "alpha": alpha_t}
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+                continue
+            tensors, event = staged
+            _consume(tensors, event)
+            batch = dict(zip(names, tensors[:-1]))
+            if args.buffer_size:
+                phi_hat, losses = streaming_sgd(model.loss_fn, phi, batch,
+                                                args.beta)
+                hat = flatten_tree(phi_hat)
+                buffer.append((rnd, {k: hat[k] - p for k, p in
+                                     flatten_tree(phi).items()}))
+                del phi_hat, hat
+                metrics = {"loss": losses.mean(), "inner_first": losses[0],
+                           "inner_last": losses[-1]}
+                if len(buffer) >= args.buffer_size:
+                    phi = fedbuff_flush(phi, buffer, rnd, alpha_t)
+                    buffer.clear()
+                    flushes += 1
+            else:
+                phi, metrics = step(phi, batch, tensors[-1])
+            loss, first, last = torch.stack(
+                [metrics["loss"], metrics["inner_first"],
+                 metrics["inner_last"]]).tolist()          # one host read
+            billed_rounds += 1
+            row = {"round": rnd, "client": zipf_a, "loss": loss,
+                   "inner_first": first, "inner_last": last, "alpha": alpha_t,
+                   "comm_mb": round(billed_rounds * round_bill / 2 ** 20, 2),
+                   "dt_s": round(time.time() - t0, 3)}
+            if args.buffer_size:
+                row["buffered"] = len(buffer)
+                row["flushes"] = flushes
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+            if args.ckpt_dir and (rnd + 1) % args.ckpt_every == 0:
+                if buffer:                       # a snapshot sees every update
+                    phi = fedbuff_flush(phi, buffer, rnd, alpha_t)
+                    buffer.clear()
+                    flushes += 1
+                save_checkpoint(args.ckpt_dir, phi, rnd + 1,
+                                extra={"arch": args.arch})
+    finally:
+        batches.close()      # stops the producer if a round raised
+    if buffer:                               # drain the pending tail
+        last = buffer[-1][0]
+        phi = fedbuff_flush(phi, buffer, last, float(alpha_sched(last)))
+        buffer.clear()
+        flushes += 1
+    if args.ckpt_dir:
+        save_checkpoint(args.ckpt_dir, phi, args.rounds,
+                        extra={"arch": args.arch})
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     summary = {"arch": cfg.name, "rounds": args.rounds,
                "tokens_per_round": args.batch * args.seq,
                "dt_s": round(time.time() - t_start, 3),
-               "comm_mb": round(args.rounds * round_bill / 2 ** 20, 2),
+               "comm_mb": round(billed_rounds * round_bill / 2 ** 20, 2),
                "device": (torch.cuda.get_device_name(dev)
                           if dev.type == "cuda" else "cpu"),
                "kernel_launches": ops.launch_counts()}
+    if args.buffer_size:
+        summary["flushes"] = flushes
     print(json.dumps(summary), flush=True)
     return rows, summary, phi
 

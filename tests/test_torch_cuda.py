@@ -238,6 +238,51 @@ def test_meta_update_kernel_matches_plain(cuda, dtype, n, offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(1153, 0), (1 << 20, 0), (4099, 1),
+                                      (13, 0), (4 * 8 * 256 + 1, 0),
+                                      (4 * 8 * 256 + 1, 3)])
+def test_meta_update_bf16_with_fp32_target_matches_plain(cuda, n, offset):
+    """The mixed instantiation (a bf16 w, an fp32 w_hat read unrounded,
+    dtype code 2) equals the plain version bit for bit, vectorized (8
+    bf16 of w, two float4 of w_hat a vector) and misaligned."""
+    g = torch.Generator().manual_seed(n)
+    w = torch.randn(n + offset, generator=g).to(cuda, torch.bfloat16)[
+        offset:]
+    wh = torch.randn(n + offset, generator=g).to(cuda)[offset:]
+    for a in (0.0, 0.37, 1 / 3, 1.0):
+        alpha = torch.tensor([a], device=cuda)
+        before = ops.meta_update.launches
+        out = ops.meta_update(w, wh, alpha)
+        torch.cuda.synchronize()
+        assert ops.meta_update.launches == before + 1
+        assert out.dtype == torch.bfloat16
+        assert torch.equal(out, ref.meta_update(w, wh, alpha))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clients", [1, 8, 33, 64])
+@pytest.mark.parametrize("shape", [(1153,), (1 << 20,), (257,)])
+def test_client_mean_bf16_kernel_matches_plain(cuda, clients, shape):
+    """Exact: bf16 rows read as they are and widened in registers give
+    the fp32 kernel's sums on their fp32 widening, in both orders."""
+    g = torch.Generator().manual_seed(clients)
+    q = (torch.randn((clients,) + shape, generator=g) * 3).to(torch.bfloat16)
+    w = torch.rand(clients, generator=g)
+    if clients > 1:
+        w[1] = 0.0
+        q[1].view(-1)[:3] = float("nan")
+    w = w / w.sum()
+    q, w = q.to(cuda), w.to(cuda)
+    before = ops.client_mean.launches
+    out = ops.client_mean(q, w)
+    torch.cuda.synchronize()
+    assert ops.client_mean.launches == before + 1
+    assert out.shape == shape and out.dtype == torch.float32
+    assert torch.equal(out, ref.client_mean(q, w))
+    assert torch.equal(out, ops.client_mean(q.float(), w))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("clients", [1, 4, 8, 32, 33, 48, 64, 1025])
 @pytest.mark.parametrize("shape", [(1153,), (20612,), (32, 32), (257,)])
 def test_client_mean_kernel_matches_plain(cuda, clients, shape):

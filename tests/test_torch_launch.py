@@ -126,22 +126,37 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
     (["--strategy", "reptile", "--mesh", "clients:2"],
      "--mesh is not ported yet"),
     (["--strategy", "reptile", "--devices", "2"], "--devices is not ported"),
-    (["--arch", "mamba2", "--ckpt-dir", "x"],
-     "--ckpt-dir is not ported yet on the LM launcher"),
+    (["--arch", "mamba2", "--participation", "0.5", "--availability",
+      "diurnal"], "--availability replaces the i.i.d. --participation"),
     (["--strategy", "reptile", "--resume"],
      "--resume restores from --ckpt-dir; pass both"),
     (["--strategy", "reptile", "--num-processes", "2"],
      "--num-processes is not ported yet"),
     (["--strategy", "reptile", "--participation", "0"], "participation"),
     (["--strategy", "reptile", "--device", "tpu"], "invalid choice"),
-    (["--arch", "mamba2", "--ckpt-every", "5"], "queue A item 6h"),
-    (["--arch", "mamba2", "--ckpt-dir", "x", "--resume"], "raw |V2 bits"),
+    (["--arch", "mamba2", "--resume"],
+     "--resume restores from --ckpt-dir; pass both"),
+    (["--arch", "mamba2", "--ckpt-every", "0"], "must be >= 1"),
     (["--strategy", "tifed", "--ckpt-every", "0"], "must be >= 1"),
 ])
 def test_train_parse_rejects_unported_flags(argv, msg, capsys):
     with pytest.raises(SystemExit):
         train.parse_args(argv)
     assert msg in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "mamba2", "--ckpt-dir", "x"],
+    ["--arch", "mamba2", "--ckpt-every", "5"],
+    ["--arch", "mamba2", "--ckpt-dir", "x", "--resume"],
+])
+def test_train_parse_takes_the_lm_checkpoint_flags(argv):
+    """The LM launcher's checkpoint flags parse (rejected until slice
+    17)."""
+    args = train.parse_args(argv)
+    assert args.strategy == "tinyreptile" and args.arch == "mamba2-130m"
+    assert args.ckpt_every == (5 if "--ckpt-every" in argv else 10)
+    assert args.resume == ("--resume" in argv)
 
 
 def test_train_parse_takes_the_vlm_config():

@@ -359,18 +359,16 @@ def test_bridge_takes_nested_lists_and_bf16():
 
 
 def test_flat_layout_per_dtype_round_trips():
+    """One flat buffer per leaf dtype (``GroupedLayout``, which took the
+    place of ``FlatLayout.per_dtype``), groups in first-seen order."""
     tree = {"e": torch.randn(3, 2).bfloat16(),
             "layers": [{"A": torch.randn(2), "w": torch.randn(2, 2).bfloat16()}]}
-    layouts = bridge.FlatLayout.per_dtype(tree)
-    assert list(layouts) == [torch.bfloat16, torch.float32]
-    leaves = bridge.flatten_tree(tree)
-    flats = {dt: lay.pack(leaves) for dt, lay in layouts.items()}
-    assert flats[torch.bfloat16].shape == (10,)
-    assert flats[torch.float32].dtype == torch.float32
-    out = {}
-    for dt, lay in layouts.items():
-        out.update(lay.views(flats[dt]))
-    rebuilt = bridge.unflatten_tree(out)
+    layout = bridge.GroupedLayout.of_tree(tree)
+    assert layout.dtypes == (torch.bfloat16, torch.float32)
+    flats = layout.pack(layout.named(tree))
+    assert flats[0].shape == (10,) and flats[0].dtype == torch.bfloat16
+    assert flats[1].dtype == torch.float32
+    rebuilt = layout.tree_views(flats)
     for path, leaf in bridge.tree_leaves(tree):
         torch.testing.assert_close(bridge.flatten_tree(rebuilt)[path], leaf,
                                    rtol=0, atol=0)
@@ -421,18 +419,31 @@ def test_lm_launcher_rows_match_the_jax_launcher(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--arch", "mamba2", "--participation", "0.5"],
-     "--participation is not ported yet"),
+    (["--arch", "mamba2", "--participation", "0.5", "--availability",
+      "markov"], "--availability replaces the i.i.d. --participation"),
     (["--arch", "mamba2", "--batch", "6", "--k-inner", "4"],
      "equal microbatches"),
     (["--arch", "mamba2", "--mesh", "data"], "--mesh is not ported yet"),
-    (["--arch", "mamba2", "--ckpt-dir", "x"], "--ckpt-dir is not ported"),
+    (["--arch", "mamba2", "--resume"],
+     "--resume restores from --ckpt-dir; pass both"),
     (["--arch", "nope"], "invalid choice"),
 ])
 def test_lm_launcher_rejects_unported_routes(argv, msg, capsys):
     with pytest.raises(SystemExit):
         train.parse_args(argv)
     assert msg in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--arch", "mamba2", "--participation", "0.5"],
+    ["--arch", "mamba2", "--ckpt-dir", "x"],
+])
+def test_lm_launcher_takes_the_fleet_and_checkpoint_flags(argv):
+    """``--participation`` and ``--ckpt-dir`` parse on the LM launcher
+    (rejected until slice 17; their runs are held in
+    test_torch_lm_launch_fleet.py)."""
+    args = train.parse_args(argv)
+    assert args.strategy == "tinyreptile" and args.arch == "mamba2-130m"
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "paligemma-3b"])

@@ -127,11 +127,22 @@ def test_lm_round_state_crosses_packages(mamba2, direction,  # noqa: F811
 
 
 def test_mixed_dtype_tree_raises(mamba2):  # noqa: F811
-    """The engine packs phi into one buffer: a tree mixing fp32 and bf16
-    leaves raises, naming the queue A item that ports mixed trees."""
-    init = bridge.lm_params_from_jax(mamba2.init, None, "cpu")
-    init["embed"] = init["embed"].to(torch.bfloat16)
+    """A tree mixing fp32 and bf16 leaves raised until slice 17; the
+    engine now keeps one flat buffer per dtype group, so it runs and
+    hands every leaf back in its own dtype (held against the JAX engine
+    in test_torch_mixed_engine.py)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import build_model
+    tm = build_model(dataclasses.replace(get_arch("mamba2-130m").reduced(),
+                                         dtype="bfloat16"))
+    init = tm.init(torch.Generator().manual_seed(0), "cpu")
+    assert {v.dtype for v in bridge.flatten_tree(init).values()} == {
+        torch.bfloat16, torch.float32}
     _, td = mamba2.dists()
-    with pytest.raises(ValueError, match="mixed-dtype trees.*item 6i"):
-        tcore.run_federated(init, td, tcore.ReptileStrategy(lm_loss(
-            mamba2.tm)), device="cpu", **RUN)
+    out = tcore.run_federated(init, td, tcore.ReptileStrategy(lm_loss(tm)),
+                              device="cpu", **RUN)
+    leaves = bridge.flatten_tree(out["params"])
+    for path, leaf in bridge.flatten_tree(init).items():
+        assert leaves[path].dtype == leaf.dtype, path
+        assert torch.isfinite(leaves[path].float()).all(), path
