@@ -9,7 +9,9 @@ Phases, each printing one JSON line, in this order:
    no TF32) the parity checks need, and cuDNN's flags as found; the
    conv nets' forward and gradients on the card within 1e-5 of the CPU
    under those flags (the port's convolutions run in fp32 with
-   deterministic algorithms whatever the global flags say);
+   deterministic algorithms whatever the global flags say); a short
+   trace's device rows read through ``device_rows`` equal to
+   ``key_averages``' (every later profile is read the first way);
 2. build: the CUDA kernels (``nvcc``, sm_90a, one process per source:
    ``online_sgd`` (with ``online_sgd_momentum``), ``dfa_epoch_int8``,
    ``meta_update``, ``ssd_scan``, ``flash_decode``, ``client_mean``) are
@@ -301,6 +303,37 @@ Phases, each printing one JSON line, in this order:
     stopped cleanly after that snapshot (in this process, while the
     child runs) and resumed. Each prints its
     seconds; ``slice_17`` their sum and the script's time so far.
+35. ``runtime/flags.py``'s levers on starcoder2-15b (a window of 4,096
+    in all 40 layers), before phase 34's
+    (``kernels_ringkv``: flash_decode as the ringkv route launches it,
+    (8, 48, 4, 128) over a ring of 4,096 rows, window 0, L = min(c + 1,
+    S) computed on the card from a cursor past the wrap, against its
+    plain version, beside its bound and SDPA): ``ringkv_reduced``, the
+    reduced starcoder2 at window 16 in fp32, one 24 + 24-token wave
+    through the decode runner with the ring and without, on the card
+    against the CPU (1e-3 of the largest logit, the same tokens), each
+    replay bit-equal to its eager step; ``decode_starcoder2_ringkv``,
+    full width cut to 4 of its 40 layers, bf16, 8 prompts of 4,160
+    tokens and 64 new through a ring of 4,096 rows and a cache of 4,224,
+    every shared step past the window within 4 bf16 steps of the
+    largest logit, the tokens equal where the top-two gap clears
+    BF16_CHOICE_TOL, step time and cache bytes; ``prefill_starcoder2_
+    banded``, the same weights' prefill of 8,192 tokens under ``banded``
+    against the masked route (4 bf16 steps of the largest logit), both
+    timed; ``decode_starcoder2_full``, full width and depth (31.9 GB),
+    ``serve --mode decode --batch 8 --cache-len 16384``, 64 + 64 tokens
+    with the ring and without, bit for bit, tokens/s and step time
+    beside the weights' bound, peak memory and graph nodes. ``levers``
+    prints their seconds.
+
+The CPU references that depend only on a seed or an argv (the engine LM
+runs' first rounds, the partial wire's, the pool's and the pool drift's
+CPU runs, the KWS fleet) run in one worker process (``CpuRefs``),
+submitted after the kernels and the levers phases (whose host-paced
+times it would share the host with), while the card runs the engine's
+LM phases before theirs.
+``phase_seconds`` gives each phase's seconds, and ``cpu_refs`` how long
+a phase waited for each reference and when the worker was done with it.
 
 Then the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure is a
@@ -704,13 +737,119 @@ FD_WHISPER_CROSS = (8, 6, 6, 64, 1500)
 
 
 T0 = time.perf_counter()
+# seconds by phase: the time from the previous phase line to each phase
+# line, summed by the phase's name (printed before the kernels line); the
+# lines a phase prints on its way (SUB_LINES) leave their time to it
+PHASE_S: dict = {}
+SUB_LINES = ("decode_build", "free_card")
+_LAST_LINE = [T0]
 
 
 def emit(obj):
-    """One JSON line; a phase's line carries the seconds since start."""
+    """One JSON line; a phase's line carries the seconds since start, and
+    the seconds since the previous phase line go to its phase's sum."""
     if "phase" in obj:
-        obj = {**obj, "t_s": time.perf_counter() - T0}
+        now = time.perf_counter()
+        if obj["phase"] not in SUB_LINES:
+            PHASE_S[obj["phase"]] = PHASE_S.get(obj["phase"], 0.0) + (
+                now - _LAST_LINE[0])
+            _LAST_LINE[0] = now
+        obj = {**obj, "t_s": now - T0}
     print(json.dumps(obj), flush=True)
+
+
+# -- CPU references in a worker process ---------------------------------------
+
+# CPU references that depend only on their arguments (a launcher's argv, a
+# seed) run in one worker process, submitted once the phases that time
+# kernels on the host are done, while the card runs the phases before the
+# one that holds the card to them; that phase waits for its result
+# (CpuRefs.take). The worker takes CPU_REF_THREADS of the host's 8 cores
+# for torch (with 4, the phases that run CPU work in this process beside
+# it ran slower)
+CPU_REF_THREADS = 2
+
+
+def _cpu_worker_init():
+    sys.path.insert(0, str(SRC))
+    import torch
+    torch.set_num_threads(CPU_REF_THREADS)
+
+
+def cpu_ref(kind, *args):
+    """One CPU reference, computed in the worker (its printout dropped):
+    ``("engine_lm", argv)`` the train launcher's engine route for one
+    round; ``("kws",)`` the KWS example's fleet (KWS_FLEET);
+    ``("partial", rotate)`` fleet_partial's check run; ``("pool", size,
+    rounds, residency)`` a ``pool_run``. Returns (the result, the wall
+    clock when it was done)."""
+    return _cpu_ref(kind, *args), time.time()
+
+
+def _cpu_ref(kind, *args):
+    with contextlib.redirect_stdout(io.StringIO()):
+        if kind == "engine_lm":
+            from repro_torch.launch import train as tl
+            (argv,) = args
+            return tl.run_engine_strategy(tl.parse_args(
+                list(argv) + ["--rounds", "1", "--device", "cpu"]))[1]
+        if kind == "kws":
+            from repro_torch.examples import federated_keyword_spotting
+            return federated_keyword_spotting.main(KWS_FLEET
+                                                   + ["--device", "cpu"])
+        if kind == "partial":
+            return partial_run(sine_tm(), *args, FLEET_CHECK_ROUNDS, "cpu")
+        if kind == "pool":
+            return pool_run(sine_tm(), *args, "cpu")
+    raise ValueError(f"cpu_ref: unknown reference {kind!r}")
+
+
+class CpuRefs:
+    """The worker process and its references, by key (``cpu_ref``'s
+    arguments; a key submitted again is computed once). ``take`` waits
+    for one (any number of times) and records, by key, the seconds waited
+    and when the worker was done with it (seconds since the start);
+    ``close`` stops the worker."""
+
+    def __init__(self):
+        import concurrent.futures
+        import multiprocessing
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init)
+        self.start = time.time()
+        self.jobs = {}
+        self.log = {}
+
+    def submit(self, *key):
+        if key not in self.jobs:
+            self.jobs[key] = self.pool.submit(cpu_ref, *key)
+
+    def take(self, *key):
+        t0 = time.perf_counter()
+        out, done = self.jobs[key].result()
+        name = " ".join(" ".join(a) if isinstance(a, tuple) else str(a)
+                        for a in key)
+        self.log[name] = {"waited_s": time.perf_counter() - t0,
+                          "done_at_s": done - self.start}
+        return out
+
+    def close(self):
+        self.pool.shutdown(wait=True, cancel_futures=True)
+
+
+def submit_cpu_refs(refs):
+    """Every reference, in the order the phases take them."""
+    for _, argv in ENGINE_LM_RUNS:
+        refs.submit("engine_lm", tuple(argv + ENGINE_LM))
+    for rotate in (False, True):
+        refs.submit("partial", rotate)
+    refs.submit("pool", POOL_SIZE, POOL_CHECK_ROUNDS, "device")
+    refs.submit("pool", POOL_BIG, POOL_BIG_ROUNDS, "host")
+    for rounds in POOL_DRIFT_ROUNDS:
+        refs.submit("pool", POOL_SIZE, rounds, "device")
+    refs.submit("kws")
+    refs.submit("engine_lm", tuple(ENGINE_MOE))
 
 
 def check(cond, msg):
@@ -737,6 +876,46 @@ def cuda_ms(torch, fn, iters):
     return statistics.median(times)
 
 
+def device_rows(torch, prof):
+    """The device rows of ``prof.key_averages()``, as (key, self device
+    us, count) for each group of device events of one name, read from
+    the profiler's own events without building its tree of function
+    events (whose Python objects took minutes over this script's traces
+    of 10^5 kernels; ``check_device_rows`` holds the two readings
+    equal)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    groups = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda or getattr(
+                e, "is_hidden_event", lambda: False)():
+            continue
+        name = e.name()
+        if name.startswith("ProfilerStep#"):
+            name = "ProfilerStep*"
+        # an async event counts no device time, as in FunctionEvent
+        us = (0.0 if e.is_async() or e.start_thread_id() != e.end_thread_id()
+              else (e.end_ns() - e.start_ns()) / 1e3)
+        g = groups.setdefault((name, getattr(e, "is_user_annotation",
+                                             lambda: False)()), [0.0, 0])
+        g[0] += us
+        g[1] += 1
+    return [(name, us, n) for (name, _), (us, n) in groups.items()]
+
+
+def check_device_rows(torch, prof, where):
+    """``device_rows`` against ``key_averages``' device rows on a trace
+    whose tree is built anyway: the same groups, counts and times."""
+    cuda = torch.autograd.DeviceType.CUDA
+    want = sorted((ev.key, ev.self_device_time_total, ev.count)
+                  for ev in prof.key_averages() if ev.device_type == cuda)
+    got = sorted(device_rows(torch, prof))
+    check(len(got) == len(want) and all(
+        a[0] == b[0] and a[2] == b[2] and abs(a[1] - b[1]) <= 1e-6 * max(
+            1.0, abs(b[1])) for a, b in zip(got, want)),
+        f"{where}: the profiler's device rows read two ways differ")
+    return len(got)
+
+
 def device_ms(torch, fn, key="device_ms", calls=20, windows=3,
               max_windows=10, match=None):
     """Mean device time of one call of ``fn``, from torch.profiler: the
@@ -758,7 +937,6 @@ def device_ms(torch, fn, key="device_ms", calls=20, windows=3,
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    cuda = torch.autograd.DeviceType.CUDA
     n = 2 * calls
     time_us, count, per_call = ({} for _ in range(3))
     opened = 0
@@ -768,13 +946,11 @@ def device_ms(torch, fn, key="device_ms", calls=20, windows=3,
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        for ev in prof.key_averages():
-            if ev.device_type == cuda and ev.count and (
-                    match is None or match in ev.key):
-                k = ev.key
-                time_us[k] = time_us.get(k, 0) + ev.self_device_time_total
-                count[k] = count.get(k, 0) + ev.count
-                per_call[k] = max(per_call.get(k, 0), -(-ev.count // n))
+        for k, us, c in device_rows(torch, prof):
+            if c and (match is None or match in k):
+                time_us[k] = time_us.get(k, 0) + us
+                count[k] = count.get(k, 0) + c
+                per_call[k] = max(per_call.get(k, 0), -(-c // n))
     check(count, f"the profiler saw no device time in {opened} windows")
     ms = sum(time_us[k] / count[k] * per_call[k] for k in count) / 1e3
     out = {key: ms, key + "_traced": sum(count.values())
@@ -867,8 +1043,27 @@ def phase_device(torch, np):
           "cudnn_allow_tf32": cudnn.allow_tf32,
           "cudnn_deterministic": cudnn.deterministic,
           "cudnn_benchmark": cudnn.benchmark,
-          "conv_fp32": conv_fp32_check(torch, np)})
+          "conv_fp32": conv_fp32_check(torch, np),
+          "profiler_device_rows": profiler_rows_check(torch)})
     return name, smi
+
+
+def profiler_rows_check(torch):
+    """``device_rows`` held to ``key_averages`` at once, on a traced
+    range of small products and copies on the card, before any phase
+    reads a profile through it: the number of device groups."""
+    x = torch.randn(256, 256, device="cuda")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("profiler_rows_check"):
+            for _ in range(8):
+                x = torch.tanh(x @ x / 256)
+            x.cpu()
+        torch.cuda.synchronize()
+    n = check_device_rows(torch, prof, "profiler_rows_check")
+    check(n >= 2, f"profiler_rows_check: {n} device groups")
+    return n
 
 
 def conv_fp32_check(torch, np):
@@ -1452,10 +1647,8 @@ def phase_profile(torch, np, mods, adapter, phi, reqs):
         serve(server, reqs[:4 * SLOTS])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    by_name = {ev.key: ev.self_device_time_total
-               for ev in prof.key_averages()
-               if ev.device_type == cuda and ev.self_device_time_total > 0}
+    rows = device_rows(torch, prof)
+    by_name = {k: t for k, t, _ in rows if t > 0}
     dev_us = sum(by_name.values())
     check(dev_us > 0, "the profiler saw no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -1463,8 +1656,7 @@ def phase_profile(torch, np, mods, adapter, phi, reqs):
           "wall_ms": 1e3 * wall,
           "device_busy_ms": dev_us / 1e3,
           "device_idle_share": 1 - dev_us / 1e6 / wall,
-          "kernels_launched": sum(ev.count for ev in prof.key_averages()
-                                  if ev.device_type == cuda),
+          "kernels_launched": sum(c for _, _, c in rows),
           "top_device_ms": [[k[:80], v / 1e3] for k, v in top]})
 
 
@@ -1644,10 +1836,8 @@ def phase_profile_train(torch, tm):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    by_name = {ev.key: (ev.self_device_time_total, ev.count)
-               for ev in prof.key_averages()
-               if ev.device_type == cuda and ev.self_device_time_total > 0}
+    by_name = {k: (t, c) for k, t, c in device_rows(torch, prof)
+               if t > 0}
     dev_us = sum(t for t, _ in by_name.values())
     check(dev_us > 0, "the profiler saw no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
@@ -1707,19 +1897,12 @@ def phase_fleet_partial(torch, np, tm):
     exact, launches as reckoned), and the same config's first
     FLEET_CHECK_ROUNDS on the card and on the CPU (params within 1e-4,
     bills exact)."""
-    core, loss, phi = tm["core"], tm["loss"], tm["phi"]
+    core, phi = tm["core"], tm["phi"]
     rows, paths = [], {}
     for rotate in (False, True):
         channel = core.PartialCommChannel(fraction=PARTIAL_FRACTION,
                                           rotate=rotate)
-
-        def run(rounds, device, channel=channel):
-            return core.tinyreptile_train(
-                loss, phi, tm["SineTasks"](), rounds=rounds, beta=0.02,
-                support=TR_SUPPORT, clients_per_round=PARTIAL_CLIENTS,
-                seed=5, channel=channel, eval_every=rounds,
-                eval_kwargs=TR_EVAL, device=device)
-
+        run = functools.partial(partial_run, tm, rotate)
         name = f"fleet_partial_{'rotating' if rotate else 'fixed'}"
         core.clear_runner_cache()
         out, wall, counts = timed_run(
@@ -1736,7 +1919,7 @@ def phase_fleet_partial(torch, np, tm):
         q = out["history"][-1]["query_loss"]
         check(math.isfinite(q), f"{name}: query loss {q}")
         worst = compare_runs(np, run(FLEET_CHECK_ROUNDS, "cuda"),
-                             run(FLEET_CHECK_ROUNDS, "cpu"))
+                             tm["refs"].take("partial", rotate))
         rows.append({"run": name, "fraction": PARTIAL_FRACTION,
                      "rotation_period": (channel.rotation_period if rotate
                                          else None),
@@ -1751,6 +1934,18 @@ def phase_fleet_partial(torch, np, tm):
         paths[name] = counts
     emit({"phase": "fleet_partial", "runs": rows})
     return paths
+
+
+def partial_run(tm, rotate, rounds, device):
+    """fleet_partial's run: TinyReptile at PARTIAL_CLIENTS clients on
+    PartialCommChannel(PARTIAL_FRACTION), the mask fixed or rotating."""
+    core = tm["core"]
+    return core.tinyreptile_train(
+        tm["loss"], tm["phi"], tm["SineTasks"](), rounds=rounds, beta=0.02,
+        support=TR_SUPPORT, clients_per_round=PARTIAL_CLIENTS, seed=5,
+        channel=core.PartialCommChannel(fraction=PARTIAL_FRACTION,
+                                        rotate=rotate),
+        eval_every=rounds, eval_kwargs=TR_EVAL, device=device)
 
 
 def pool_run(tm, size, rounds, residency, device):
@@ -1805,8 +2000,8 @@ def pool_drift(torch, tm, device):
     from the seeded init and from it with one ulp added to every weight,
     on ``device`` (POOL_SIZE devices for each of POOL_DRIFT_ROUNDS,
     POOL_BIG in host slabs for POOL_BIG_ROUNDS), and on the card each
-    POOL_SIZE run against the CPU's too. Reported, not gated: emits and
-    returns the rows."""
+    POOL_SIZE run against the CPU's too (the worker's run, from
+    ``tm["refs"]``). Reported, not gated: emits and returns the rows."""
     bumped = dict(tm, phi={k: torch.nextafter(v, torch.full_like(v, math.inf))
                            for k, v in tm["phi"].items()})
     cases = [(POOL_SIZE, r, "device") for r in POOL_DRIFT_ROUNDS]
@@ -1819,7 +2014,7 @@ def pool_drift(torch, tm, device):
                    a, pool_run(bumped, size, rounds, residency, device))}
         if device != "cpu" and residency == "device":
             row["vs_cpu"] = run_drift(
-                a, pool_run(tm, size, rounds, residency, "cpu"))
+                a, tm["refs"].take("pool", size, rounds, residency))
         rows.append(row)
         emit({"phase": "fleet_pool_drift", **row})
     return rows
@@ -1881,7 +2076,7 @@ def phase_fleet_pool(torch, np, tm):
             "meta_update": rounds, "client_mean": rounds})
         got = (out if check_rounds == rounds else
                pool_run(tm, size, check_rounds, residency, "cuda"))
-        want = pool_run(tm, size, check_rounds, residency, "cpu")
+        want = tm["refs"].take("pool", size, check_rounds, residency)
         worst = compare_runs(np, got, want)
         for k, v in want["pool_state"].items():
             check(np.array_equal(np.asarray(got["pool_state"][k]),
@@ -1929,10 +2124,8 @@ def profile_fleet(torch, tm):
     (runner,) = tm["engine"]._RUNNER_CACHE._entries.values()
     check(runner.trace_count == 1, "the profiled pooled round was built "
           "again")
-    cuda = torch.autograd.DeviceType.CUDA
-    by_name = {ev.key: (ev.self_device_time_total, ev.count)
-               for ev in prof.key_averages()
-               if ev.device_type == cuda and ev.self_device_time_total > 0}
+    by_name = {k: (t, c) for k, t, c in device_rows(torch, prof)
+               if t > 0}
     dev_us = sum(t for t, _ in by_name.values())
     check(dev_us > 0, "the profiler saw no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
@@ -1958,7 +2151,7 @@ def phase_fleet_kws(torch, np, tm):
         got, wall, counts = timed_run(
             torch, tm["ops"], lambda: kws.main(KWS_FLEET + ["--device",
                                                             "cuda"]))
-        out = {"cuda": got, "cpu": kws.main(KWS_FLEET + ["--device", "cpu"])}
+        out = {"cuda": got, "cpu": tm["refs"].take("kws")}
     one = 1.0 / (kws.EVAL["num_tasks"] * kws.EVAL["query"])
     accs = {}
     for run in ("tinyreptile", "fleet"):
@@ -2493,10 +2686,8 @@ def profile_conv(torch, tm):
         wall = time.perf_counter() - t0
     (runner,) = tm["engine"]._RUNNER_CACHE._entries.values()
     check(runner.trace_count == 1, "the profiled conv round was built again")
-    cuda = torch.autograd.DeviceType.CUDA
-    by_name = {ev.key: (ev.self_device_time_total, ev.count)
-               for ev in prof.key_averages()
-               if ev.device_type == cuda and ev.self_device_time_total > 0}
+    by_name = {k: (t, c) for k, t, c in device_rows(torch, prof)
+               if t > 0}
     dev_us = sum(t for t, _ in by_name.values())
     check(dev_us > 0, "the profiler saw no device time")
     conv_us = sum(t for k, (t, _) in by_name.items()
@@ -2780,10 +2971,8 @@ def phase_profile_lm(torch, np, tm, phi):
             wall = time.perf_counter() - t0
         # device rows: kernels and copies (the range's own span on the GPU
         # timeline, where the profiler adds one, is no work of its own)
-        by_name = {ev.key: (ev.self_device_time_total, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.device_type == cuda and ev.self_device_time_total > 0
-                   and ev.key != bwd_range}
+        by_name = {k: (t, c) for k, t, c in device_rows(torch, prof)
+                   if t > 0 and k != bwd_range}
         dev_us = sum(t for t, _ in by_name.values())
         check(dev_us > 0, "the profiler saw no device time")
         return prof, wall, by_name, dev_us
@@ -2799,6 +2988,7 @@ def phase_profile_lm(torch, np, tm, phi):
                 + sum(kernel_us(child) for child in ev.cpu_children))
 
     prof, traced_wall, _, traced_dev_us = profiled([act.CPU, act.CUDA])
+    check_device_rows(torch, prof, "profile_lm traced")
     bwd = [ev for ev in prof.events()
            if ev.name == bwd_range and ev.device_type != cuda]
     bwd_us, bwd_count = sum(kernel_us(ev) for ev in bwd), len(bwd)
@@ -3162,10 +3352,8 @@ def phase_profile_decode(torch, np, model, params):
           f"{launches} flash_decode launches in {DECODE_PROFILE_STEPS} "
           f"replayed steps")
     check(runner.trace_count == 1, "the profiled step was built again")
-    cuda = torch.autograd.DeviceType.CUDA
-    by_name = {ev.key: (ev.self_device_time_total, ev.count)
-               for ev in prof.key_averages()
-               if ev.device_type == cuda and ev.self_device_time_total > 0}
+    by_name = {k: (t, c) for k, t, c in device_rows(torch, prof)
+               if t > 0}
     dev_us = sum(t for t, _ in by_name.values())
     check(dev_us > 0, "the profiler saw no device time")
     fd_us = sum(t for k, (t, _) in by_name.items() if "flash_decode" in k)
@@ -3450,7 +3638,6 @@ def profile_dense_round(torch, np, tm, args, phi):
     batch = {k: torch.from_numpy(v).cuda() for k, v in raw.items()}
     alpha = torch.tensor([0.5], device="cuda")
     torch.cuda.synchronize()
-    cuda = torch.autograd.DeviceType.CUDA
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3459,9 +3646,8 @@ def profile_dense_round(torch, np, tm, args, phi):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     del new
-    by_name = {ev.key: (ev.self_device_time_total, ev.count)
-               for ev in prof.key_averages()
-               if ev.device_type == cuda and ev.self_device_time_total > 0}
+    by_name = {k: (t, c) for k, t, c in device_rows(torch, prof)
+               if t > 0}
     dev_us = sum(t for t, _ in by_name.values())
     check(dev_us > 0, "the profiler saw no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
@@ -3734,11 +3920,13 @@ def lm_params_diff(np, bridge, got, want):
                             - w[k].float().cpu().numpy()).max()) for k in w)
 
 
-def first_round_vs_cpu(np, bridge, name, run):
-    """``run(rounds, device)`` for one round on the card and on the CPU:
-    params and the eval within LM_ENGINE_TOL, bills and the pool state
-    (where the run keeps one) exact."""
-    a, b = run(1, "cuda"), run(1, "cpu")
+def first_round_vs_cpu(np, bridge, name, run, cpu=None):
+    """``run(rounds, device)`` for one round on the card and on the CPU
+    (or ``cpu``, that run's result from the worker): params and the eval
+    within LM_ENGINE_TOL, bills and the pool state (where the run keeps
+    one) exact."""
+    a = run(1, "cuda")
+    b = run(1, "cpu") if cpu is None else cpu
     diff = lm_params_diff(np, bridge, a["params"], b["params"])
     check(diff <= LM_ENGINE_TOL, f"{name}: first round card vs CPU {diff}")
     q, wq = (o["history"][-1]["query_loss"] for o in (a, b))
@@ -3778,7 +3966,8 @@ def lm_engine_run(torch, np, tm, name, argv):
     t0 = time.perf_counter()
     vs_cpu = first_round_vs_cpu(
         np, bridge, name, lambda r, dev: tl.run_engine_strategy(
-            tl.parse_args(argv + ["--rounds", str(r), "--device", dev]))[1])
+            tl.parse_args(argv + ["--rounds", str(r), "--device", dev]))[1],
+        cpu=tm["refs"].take("engine_lm", tuple(argv)))
     return {"run": name, "argv": argv, "rounds": args.rounds,
             "clients": args.clients, "wall_s": wall,
             "rounds_per_s": args.rounds / wall,
@@ -4072,9 +4261,8 @@ def phase_engine_lm_full(torch, np, tm):
         prog.step()
         torch.cuda.synchronize()
         round_wall = time.perf_counter() - t0
-    by_name = {ev.key: (ev.self_device_time_total, ev.count)
-               for ev in prof.key_averages()
-               if ev.device_type == cuda and ev.self_device_time_total > 0}
+    by_name = {k: (t, c) for k, t, c in device_rows(torch, prof)
+               if t > 0}
     dev_us = sum(t for t, _ in by_name.values())
     check(dev_us > 0, "the profiler saw no device time in the round")
     ssd_us = sum(t for k, (t, _) in by_name.items() if "ssd_scan" in k)
@@ -4094,9 +4282,9 @@ def phase_engine_lm_full(torch, np, tm):
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
         plain.client_update(layout, prog.phi, batch, FULL_LM_BETA)
         torch.cuda.synchronize()
-    eager = {ev.key: ev.self_device_time_total for ev in prof.key_averages()
-             if ev.device_type == cuda and ev.self_device_time_total > 0
-             and ev.key != bwd_range}
+    check_device_rows(torch, prof, "engine_lm_mamba2_130m eager epoch")
+    eager = {k: t for k, t, _ in device_rows(torch, prof)
+             if t > 0 and k != bwd_range}
     eager_us = sum(eager.values())
     bwd_us = sum(kernel_us(ev) for ev in prof.events()
                  if ev.name == bwd_range and ev.device_type != cuda)
@@ -4891,10 +5079,8 @@ def profile_moe_decode(torch, np, fm, model, params):
         runner.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    by_name = {ev.key: (ev.self_device_time_total, ev.count)
-               for ev in prof.key_averages()
-               if ev.device_type == cuda and ev.self_device_time_total > 0
-               and ev.key != rng_name}
+    by_name = {k: (t, c) for k, t, c in device_rows(torch, prof)
+               if t > 0 and k != rng_name}
     dev_us = sum(t for t, _ in by_name.values())
     check(dev_us > 0, "profile_moe_decode: the profiler saw no device time")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
@@ -4915,8 +5101,9 @@ def profile_moe_decode(torch, np, fm, model, params):
         with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
             eager.step()
             torch.cuda.synchronize()
-    eager_us = sum(ev.self_device_time_total for ev in prof.key_averages()
-                   if ev.device_type == cuda and ev.key != rng_name)
+    check_device_rows(torch, prof, "profile_moe_decode eager")
+    eager_us = sum(t for k, t, _ in device_rows(torch, prof)
+                   if k != rng_name)
     experts_us = sum(kernel_us(ev) for ev in prof.events()
                      if ev.name == rng_name and ev.device_type != cuda)
     check(experts_us > 0, "profile_moe_decode: no expert kernel traced")
@@ -5592,6 +5779,393 @@ def phase_train_lm_fleet(torch, np, tm):
     return paths
 
 
+# -- runtime/flags.py's levers on one card ------------------------------------
+
+# starcoder2-15b: a window of 4,096 in all 40 layers, 48 query heads over
+# 4 KV heads of 128. flash_decode as the ringkv route launches it at
+# batch 8: window 0 over a ring of the window's 4,096 rows, L = min(c + 1,
+# S) computed on the card from a cursor past the wrap (L = S)
+STARCODER2 = "starcoder2-15b"
+STARCODER2_PARAMS = 15_956_858_880
+FD_RINGKV = (8, 48, 4, 128, 4096)
+FD_RINGKV_AT = 4159
+# the reduced starcoder2 cut to window 16 (as tests/test_perf_levers.py
+# cuts mixtral), fp32: 24 + 24 tokens, a logical cache of 48, so the ring
+# of 16 rows wraps in the prompt and again while decoding
+RINGKV_REDUCED_WINDOW = 16
+RINGKV_REDUCED = dict(batch=2, prompt_len=24, max_new=24, cache_len=48)
+# starcoder2-15b at full width cut to 4 of its 40 layers (2.14 B params,
+# 4.3 GB in bf16, drawn on the card): 8 prompts of 4,160 tokens and 64 new,
+# a ring of 4,096 rows against a full cache of 4,224 rows. Past the
+# window the ring holds the same rows in another order, so the kernel
+# sums them in another split and its bf16 output may round one step
+# otherwise; through 4 bf16 layers that is held, as the other bf16 decode
+# gates are, at 4 bf16 steps of the largest logit (fixed before the first
+# reading)
+RINGKV_CUT_LAYERS = 4
+RINGKV_CUT = dict(batch=8, prompt_len=4160, max_new=64, cache_len=4224)
+RINGKV_TOL = BF16_RTOL_4
+# full depth (31.9 GB in bf16), batch 8, the launcher's --cache-len 16384
+# (a KV cache of 10.7 GB, a ring of 2.68 GB), one wave of 64 + 64 tokens:
+# no step passes the window, so the two routes attend the same rows in
+# the same split and their logits are held bit for bit
+STARCODER2_FULL = ["--mode", "decode", "--arch", STARCODER2, "--requests",
+                   "8", "--batch", "8", "--prompt-len", "64", "--max-new",
+                   "64", "--cache-len", "16384"]
+# the banded prefill on the 4-layer cut: one sequence of 8,192 tokens, its
+# last-token logits against the masked route's (the band's one softmax
+# against 512-key blocks: other sums, bf16 outputs) at 4 bf16 steps of the
+# largest, fixed before the first reading; each timed PREFILL_REPEATS
+# times after a warm-up
+BANDED_PREFILL_SEQ = 8192
+PREFILL_REPEATS = 3
+
+
+def phase_kernels_ringkv(torch, np, ops, ref, rows):
+    """flash_decode as the ringkv route launches it (phase 35):
+    FD_RINGKV, bf16, window 0 over the ring, L = min(c + 1, S) an int32
+    computed on the card from the cursor FD_RINGKV_AT, against the
+    host-int call (bit for bit) and the plain version (FD_TOL), beside
+    its bound and one scaled_dot_product_attention call. starcoder2's 12
+    query heads a KV head are two row groups of the kernel's 8: each
+    reads the same K and V."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    S = FD_RINGKV[-1]
+    q, k, v = fd_inputs(torch, np, FD_RINGKV, torch.bfloat16, 90, dev)
+    kvs = [(k, v)] + [(k.clone(), v.clone()) for _ in range(7)]
+    cursor = torch.tensor([FD_RINGKV_AT], dtype=torch.int32, device=dev)
+    length = torch.clamp(cursor + 1, max=S)
+    check(length.item() == S, f"ringkv: L = {length.item()}, not {S}")
+    row = fd_row(torch, F, ops, ref, q, kvs, S, length, FD_RINGKV,
+                 FD_TOL["bfloat16"])
+    row.update(cursor=FD_RINGKV_AT, ring_rows=S,
+               row_groups_per_kv_head=-(-FD_RINGKV[1] // FD_RINGKV[2]
+                                        // 8))
+    key = "ringkv_" + "x".join(map(str, FD_RINGKV)) + "_bfloat16_devL"
+    rows[f"flash_decode/{key}"] = row
+    emit({"phase": "kernels_ringkv", "kernel": "flash_decode", "case": key,
+          **row})
+    del q, k, v, kvs
+    torch.cuda.empty_cache()
+
+
+def cache_bytes(bridge, cache):
+    return sum(t.numel() * t.element_size()
+               for _, t in bridge.tree_leaves(cache))
+
+
+def ring_wave(torch, sm, model, params, prompts, dev, ring, shape,
+              keep_from=0, eager=False):
+    """One wave through a DecodeRunner whose cache was made with the
+    ringkv lever ``ring``, its step captured and replayed (or run eagerly,
+    ``eager``), launches counted from 0 after the build: (runner, the
+    logits of the steps from ``keep_from``, the tokens, wall seconds,
+    launches)."""
+    from repro_torch.runtime.steps import DecodeRunner
+    with sm["flags"].feature_scope(ringkv=ring):
+        runner = DecodeRunner(model, params, device=dev, **shape)
+    with (uncaptured(sm["graphs"]) if eager else contextlib.nullcontext()):
+        runner.build()
+        seen, kept = [0], []
+
+        def keep(logits):
+            if seen[0] >= keep_from:
+                kept.append(logits)
+            seen[0] += 1
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        sm["ops"].reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens = runner.wave(prompts, on_logits=keep)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return runner, kept, tokens, wall, sm["ops"].launch_counts()
+
+
+def phase_ringkv_reduced(torch, np, sm):
+    """The reduced starcoder2 at window RINGKV_REDUCED_WINDOW, fp32, one
+    seeded CPU init (phase 35): a RINGKV_REDUCED wave through the decode
+    runner with the ring and without, on the card (captured, replayed)
+    and on the CPU: every step's logits within CHECK_TOL of the CPU's
+    largest, the same tokens, one flash_decode per layer per step; each
+    route's replayed wave bit-equal to its step run eagerly on the card;
+    the ring's cache the window's rows."""
+    bridge = sm["bridge"]
+    cfg = dataclasses.replace(sm["get_arch"](STARCODER2).reduced(),
+                              sliding_window=RINGKV_REDUCED_WINDOW)
+    model = sm["build_model"](cfg)
+    p_cpu = model.init(torch.Generator().manual_seed(12), "cpu")
+    p_card = to_device(bridge, p_cpu, "cuda")
+    prompts = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (RINGKV_REDUCED["batch"],
+                            RINGKV_REDUCED["prompt_len"])))
+    steps = RINGKV_REDUCED["prompt_len"] + RINGKV_REDUCED["max_new"]
+    runs, paths = {}, {}
+    for ring in (True, False):
+        tag = "ring" if ring else "full"
+        runner, got, got_tok, wall, counts = ring_wave(
+            torch, sm, model, p_card, prompts, "cuda", ring, RINGKV_REDUCED)
+        rows_kv = sorted({e["k"].shape[1] for e in runner.cache["layers"]})
+        check(runner.ring is ring and rows_kv == [
+            RINGKV_REDUCED_WINDOW if ring else RINGKV_REDUCED["cache_len"]],
+            f"ringkv_reduced {tag}: cache rows {rows_kv}")
+        check(runner.trace_count == 1 and runner.step.graph is not None,
+              f"ringkv_reduced {tag}: the step was not captured once")
+        info = {"trace_count": runner.trace_count,
+                "capture_s": runner.capture_s, "graph_nodes": runner.nodes,
+                "cache_rows": rows_kv[0],
+                "cache_bytes": cache_bytes(bridge, runner.cache)}
+        del runner
+        _, eager, eager_tok, _, eager_counts = ring_wave(
+            torch, sm, model, p_card, prompts, "cuda", ring, RINGKV_REDUCED,
+            eager=True)
+        _, want, want_tok, cpu_s, _ = ring_wave(
+            torch, sm, model, p_cpu, prompts, "cpu", ring, RINGKV_REDUCED)
+        check(counts == eager_counts and counts["flash_decode"]
+              == steps * cfg.num_layers,
+              f"ringkv_reduced {tag}: launches {counts} vs {eager_counts}")
+        check(got_tok == eager_tok and all(
+            torch.equal(a, b) for a, b in zip(got, eager)),
+            f"ringkv_reduced {tag}: the replayed wave differs from eager")
+        scale = max(w.abs().max().item() for w in want)
+        diff = max((a.cpu() - b).abs().max().item()
+                   for a, b in zip(got, want))
+        check(diff <= CHECK_TOL * scale,
+              f"ringkv_reduced {tag}: logits {diff} from the CPU's "
+              f"({scale} largest)")
+        check(got_tok == want_tok,
+              f"ringkv_reduced {tag}: tokens differ from the CPU")
+        runs[tag] = {**info, "wall_s": wall, "launches": counts,
+                     "cpu_wall_s": cpu_s, "logits_max_abs_diff": diff,
+                     "max_abs_logit": scale, "tol_of_max": CHECK_TOL,
+                     "tokens": got_tok[0][:8], "replay_vs_eager":
+                     "bit_equal", "logits": got}
+        paths[f"ringkv_reduced_{tag}"] = counts
+    ring_vs_full = max((a - b).abs().max().item() for a, b in zip(
+        runs["ring"].pop("logits"), runs["full"].pop("logits")))
+    emit({"phase": "ringkv_reduced", "arch": cfg.name,
+          "window": RINGKV_REDUCED_WINDOW, **RINGKV_REDUCED,
+          "steps": steps, "runs": runs,
+          "ring_vs_full_logits_max_abs_diff": ring_vs_full})
+    return paths
+
+
+def phase_decode_starcoder2_ringkv(torch, np, sm):
+    """starcoder2-15b at full width cut to RINGKV_CUT_LAYERS layers, bf16,
+    weights drawn on the card (phase 35): a RINGKV_CUT wave through the
+    decode runner with a ring of the window's rows and with the full
+    cache, each step captured once and replayed. Every step past the
+    window whose inputs the two runs share (the teacher-forced prompt
+    from position 4,096, then the decode steps up to a choice the gap
+    lets differ) holds the ring's logits within RINGKV_TOL of the
+    largest; the greedy tokens equal wherever the full cache's top-two
+    gap clears BF16_CHOICE_TOL of the largest logit; one flash_decode per
+    layer per step; step ms and each run's cache bytes. Returns (paths,
+    the model and its params, for the banded prefill)."""
+    bridge = sm["bridge"]
+    cfg = dataclasses.replace(sm["get_arch"](STARCODER2),
+                              num_layers=RINGKV_CUT_LAYERS)
+    model = sm["build_model"](cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = draw_on_card(torch, model, 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    W, P = cfg.sliding_window, RINGKV_CUT["prompt_len"]
+    steps = P + RINGKV_CUT["max_new"]
+    prompts = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (RINGKV_CUT["batch"], P)))
+    runs, out = {}, {}
+    for ring in (True, False):
+        tag = "ring" if ring else "full"
+        runner, logits, tokens, wall, counts = ring_wave(
+            torch, sm, model, params, prompts, "cuda", ring, RINGKV_CUT,
+            keep_from=W)
+        build = decode_build(f"decode_starcoder2_ringkv_{tag}", [runner])
+        rows_kv = sorted({e["k"].shape[1] for e in runner.cache["layers"]})
+        check(rows_kv == [W if ring else RINGKV_CUT["cache_len"]],
+              f"decode_starcoder2_ringkv {tag}: cache rows {rows_kv}")
+        check_launches(f"decode_starcoder2_ringkv_{tag}", counts,
+                       {"flash_decode": steps * cfg.num_layers})
+        runs[tag] = {"cache_rows": rows_kv[0],
+                     "cache_bytes": cache_bytes(bridge, runner.cache),
+                     "build": build, "wall_s": wall,
+                     "step_ms": 1e3 * wall / steps,
+                     "tok_per_s": RINGKV_CUT["batch"]
+                     * RINGKV_CUT["max_new"] / wall,
+                     "launches": counts}
+        out[tag] = (torch.stack(logits)[:, :, 0], np.asarray(tokens))
+        del runner, logits
+    (ring_l, ring_t), (full_l, full_t) = out["ring"], out["full"]
+    check(bool(torch.isfinite(ring_l).all() and torch.isfinite(full_l)
+               .all()), "decode_starcoder2_ringkv: a logit is not finite")
+    scale = full_l.abs().max().item()
+    top2 = full_l.topk(2, dim=-1).values
+    gaps = (top2[..., 0] - top2[..., 1]).cpu().numpy()    # (steps - W, B)
+    worst, compared, flip, clear, equal = 0.0, 0, None, 0, 0
+    for i, t in enumerate(range(W, steps)):
+        if flip is not None:
+            break                     # the runs' inputs differ from here
+        diff = (ring_l[i] - full_l[i]).abs().max().item()
+        check(diff <= RINGKV_TOL * scale,
+              f"decode_starcoder2_ringkv: step {t} logits {diff} past "
+              f"{RINGKV_TOL} x {scale}")
+        worst, compared = max(worst, diff), compared + 1
+        if P - 1 <= t < steps - 1:            # a greedy choice at step t
+            j = t - (P - 1)
+            same = ring_t[:, j] == full_t[:, j]
+            cleared = gaps[i] > BF16_CHOICE_TOL * scale
+            check(bool(same[cleared].all()),
+                  f"decode_starcoder2_ringkv: step {t}: a token differs "
+                  f"where the top-two gap clears {BF16_CHOICE_TOL}")
+            clear += int(cleared.sum())
+            equal += int(same.sum())
+            if not same.all():
+                flip = t
+    emit({"phase": "decode_starcoder2_ringkv", "arch": STARCODER2,
+          "layers": cfg.num_layers, "cut_from": 40, "window": W,
+          "params": sum(t.numel() for _, t in bridge.tree_leaves(params)),
+          "init_on_card_s": init_s, **RINGKV_CUT, "steps": steps,
+          "runs": runs,
+          "ring_vs_full": {"steps_compared": compared,
+                           "first_compared_step": W, "tol_of_max": RINGKV_TOL,
+                           "max_abs_logit": scale,
+                           "logits_max_abs_diff": worst,
+                           "choices_clearing_gap": clear,
+                           "choices_equal": equal, "first_flip_step": flip,
+                           "choice_gap_tol_of_max": BF16_CHOICE_TOL}})
+    return ({f"decode_starcoder2_ringkv_{tag}": r["launches"]
+             for tag, r in runs.items()}, model, params)
+
+
+def phase_prefill_starcoder2_banded(torch, np, sm, model, params):
+    """The banded lever on the 4-layer cut (phase 35): ``prefill_fn`` of
+    one sequence of BANDED_PREFILL_SEQ tokens with the masked route and
+    under ``banded`` (each query block of 512 against its band of 5,120
+    keys, not all 8,192), the last-token logits within RINGKV_TOL of the
+    masked route's largest; each route's seconds (the median of
+    PREFILL_REPEATS after a warm-up)."""
+    from repro_torch.runtime.steps import make_prefill_step
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(
+        0, model.cfg.vocab_size, (1, BANDED_PREFILL_SEQ))).cuda()
+    step = make_prefill_step(model)
+    res = {}
+    for banded in (False, True):
+        with sm["flags"].feature_scope(banded=banded):
+            logits = step(params, {"tokens": tokens})
+            times = []
+            for _ in range(PREFILL_REPEATS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step(params, {"tokens": tokens})
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        res["banded" if banded else "masked"] = (
+            logits[:, -1].float(), statistics.median(times))
+    (masked, t_masked), (band, t_band) = res["masked"], res["banded"]
+    check(bool(torch.isfinite(band).all()), "banded prefill: not finite")
+    scale = masked.abs().max().item()
+    diff = (band - masked).abs().max().item()
+    check(diff <= RINGKV_TOL * scale,
+          f"banded prefill: logits {diff} past {RINGKV_TOL} x {scale}")
+    qb = 512
+    emit({"phase": "prefill_starcoder2_banded",
+          "layers": model.cfg.num_layers, "seq": BANDED_PREFILL_SEQ,
+          "window": model.cfg.sliding_window, "q_block": qb,
+          "band_keys": min((model.cfg.sliding_window // qb + 2) * qb,
+                           BANDED_PREFILL_SEQ),
+          "masked_s": t_masked, "banded_s": t_band,
+          "tokens_per_s": {"masked": BANDED_PREFILL_SEQ / t_masked,
+                           "banded": BANDED_PREFILL_SEQ / t_band},
+          "tol_of_max": RINGKV_TOL, "max_abs_logit": scale,
+          "logits_max_abs_diff": diff})
+
+
+def phase_decode_starcoder2_full(torch, np, sm):
+    """starcoder2-15b at full width and depth, bf16, weights drawn on the
+    card (phase 35): ``serve.run_decode`` at STARCODER2_FULL with the
+    ringkv lever and without, each step captured once and replayed:
+    flash_decode launches as reckoned, finite logits, the two routes'
+    logits and tokens bit for bit (no step passes the window), decode
+    tokens/s and step ms beside the bound of reading every weight once a
+    step (the embedding's 8 rows only), each route's peak memory and
+    graph nodes."""
+    bridge, serve, ops = sm["bridge"], sm["serve"], sm["ops"]
+    model = sm["build_model"](sm["get_arch"](STARCODER2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = draw_on_card(torch, model, 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for _, t in bridge.tree_leaves(params))
+    check(n_params == STARCODER2_PARAMS, f"starcoder2-15b: {n_params} "
+                                         f"params")
+    weights = torch.cuda.memory_allocated()
+    args = serve.parse_args(STARCODER2_FULL)
+    steps = decode_steps(args)
+    embed = params["embed"]
+    read = 2 * (n_params - embed.numel()) + 2 * args.batch * embed.shape[1]
+    runs, out, paths = {}, {}, {}
+    for ring in (True, False):
+        tag = "ring" if ring else "full"
+        logits, built, marks = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        with sm["flags"].feature_scope(ringkv=ring), \
+                contextlib.redirect_stdout(io.StringIO()):
+            (row, toks), wall, counts = timed_run(
+                torch, ops, lambda: serve.run_decode(
+                    args, params=params, model=model,
+                    on_logits=logits.append,
+                    on_build=lambda r: (built.append(r),
+                                        marks.append(time.perf_counter()))))
+        decode_s = time.perf_counter() - marks[0]
+        peak = torch.cuda.max_memory_allocated()
+        (runner,) = built
+        check(runner.ring is ring, f"decode_starcoder2_full {tag}: ring "
+                                   f"{runner.ring}")
+        kv = cache_bytes(bridge, runner.cache)
+        build = decode_build(f"decode_starcoder2_full_{tag}", built)
+        del built, runner
+        check_launches(f"decode_starcoder2_full_{tag}", counts,
+                       {"flash_decode": steps * model.cfg.num_layers})
+        check(len(logits) == steps and all(
+            bool(torch.isfinite(lg).all()) for lg in logits),
+            f"decode_starcoder2_full {tag}: a logit is not finite")
+        runs[tag] = {"cache_bytes": kv, "build": build, "wall_s": wall,
+                     "tok_per_s": row["tokens_generated"] / wall,
+                     "step_ms": 1e3 * wall / steps,
+                     "after_build": {"wall_s": decode_s,
+                                     "tok_per_s": row["tokens_generated"]
+                                     / decode_s,
+                                     "step_ms": 1e3 * decode_s / steps},
+                     "max_memory_allocated_gb": peak / 1e9,
+                     "above_weights_gb": (peak - weights) / 1e9,
+                     "launches": counts,
+                     "sample_output": row["sample_output"]}
+        out[tag] = (logits, toks)
+        paths[f"decode_starcoder2_full_{tag}"] = counts
+        torch.cuda.empty_cache()
+    check(out["ring"][1] == out["full"][1] and all(
+        torch.equal(a, b) for a, b in zip(out["ring"][0], out["full"][0])),
+        "decode_starcoder2_full: the ring's logits differ from the full "
+        "cache's")
+    emit({"phase": "decode_starcoder2_full", "arch": STARCODER2,
+          "layers": model.cfg.num_layers, "params": n_params,
+          "init_on_card_s": init_s, "weights_gb": weights / 1e9,
+          "argv": {k: getattr(args, k) for k in (
+              "requests", "batch", "prompt_len", "max_new", "cache_len")},
+          "decode_steps": steps, "runs": runs,
+          "weights_read_bytes": read,
+          "weights_bound_ms": 1e3 * read / HBM_BYTES_PER_S,
+          "ring_vs_full": "bit_equal"})
+    del out, params
+    free_card(torch, "decode_starcoder2_full")
+    return paths
+
+
 def main():
     import numpy as np
     import torch
@@ -5604,6 +6178,17 @@ def main():
                          f"{SRC}; run this script from a checkout")
     sys.path.insert(0, str(SRC))
 
+    t_start = time.perf_counter()
+    refs = CpuRefs()
+    try:
+        run_phases(torch, np, refs, t_start)
+    finally:
+        refs.close()
+
+
+def run_phases(torch, np, refs, t_start):
+    """Every phase in order, then the kernels line, the card's line and the
+    ok line."""
     from repro_torch.configs.paper_models import SINE_MLP
     from repro_torch.core.strategies import tifed_requantize
     from repro_torch.kernels import build, ops, ref
@@ -5613,7 +6198,6 @@ def main():
     from repro_torch.serving import (AdaptationServer, Fp32Adapter,
                                      TifedAdapter)
 
-    t_start = time.perf_counter()
     phase_device(torch, np)
     ptxas = phase_build(build)
     rows = phase_kernels(torch, np, ops, ref)
@@ -5625,6 +6209,7 @@ def main():
     phase_kernels_families(torch, np, ops, ref, rows)
     phase_kernels_encdec_vlm(torch, np, ops, ref, rows, ptxas)
     phase_kernels_mixed(torch, np, ops, ref, rows)
+    phase_kernels_ringkv(torch, np, ops, ref, rows)
 
     from repro_torch import bridge, core, graphs
     from repro_torch.configs import get_arch
@@ -5633,11 +6218,33 @@ def main():
     from repro_torch.launch import train
     from repro_torch.models import mamba2
     from repro_torch.models.transformer import build_model
+    from repro_torch.runtime import flags
+
+    # runtime/flags.py's levers first, on starcoder2-15b
+    t18 = time.perf_counter()
+    sm = {"ops": ops, "bridge": bridge, "serve": serve_launcher,
+          "get_arch": get_arch, "build_model": build_model,
+          "graphs": graphs, "flags": flags}
+    levers_paths = phase_ringkv_reduced(torch, np, sm)
+    with gc_off():
+        paths_cut, cut_model, cut_params = phase_decode_starcoder2_ringkv(
+            torch, np, sm)
+        phase_prefill_starcoder2_banded(torch, np, sm, cut_model, cut_params)
+        del cut_model, cut_params
+        free_card(torch, "decode_starcoder2_ringkv")
+        levers_paths.update(paths_cut)
+        levers_paths.update(phase_decode_starcoder2_full(torch, np, sm))
+    emit({"phase": "levers", "phases_s": time.perf_counter() - t18,
+          "script_s_so_far": time.perf_counter() - t_start})
+    # the CPU references from here on: no later phase times a kernel on
+    # the host
+    submit_cpu_refs(refs)
 
     # the engine's LM route first: its paths are the newest
     lm = {"core": core, "ops": ops, "train": train, "bridge": bridge,
           "engine": engine, "mamba2": mamba2, "build_model": build_model,
-          "get_arch": get_arch, "MetricsTracker": MetricsTracker}
+          "get_arch": get_arch, "MetricsTracker": MetricsTracker,
+          "refs": refs}
     # slice 17's first: the engine in the LMs' own dtypes, the LM
     # launcher's fleet and checkpoint flags
     t_mixed = time.perf_counter()
@@ -5696,7 +6303,8 @@ def main():
           "loss_of": lambda cfg: functools.partial(
               paper_nets.paper_model_loss, cfg),
           "acc_of": lambda cfg: functools.partial(
-              paper_nets.paper_model_accuracy, cfg)}
+              paper_nets.paper_model_accuracy, cfg),
+          "refs": refs}
     t_tiny = phase_train_tinyreptile(torch, np, tm)
     t_rep = phase_train_reptile(torch, np, tm)
     t_base = phase_train_baselines(torch, np, tm)
@@ -5747,7 +6355,7 @@ def main():
              "serve_decode_tinyllama_1_1b": s_dec["launches"],
              **fig4_paths, **fleet_paths, **ckpt_paths, **queue_c,
              **dense_paths, **dec_mamba, **engine_lm_paths, **family_paths,
-             **mixed_paths}
+             **mixed_paths, **levers_paths}
     kernels = []
     for kernel, route, source, replaces, row in (
             ("online_sgd", "cuda", "src/repro_torch/kernels/csrc/online_sgd.cu",
@@ -5799,7 +6407,11 @@ def main():
                      ("paligemma_hd256_fp32",
                       "encdec_vlm_8x8x1x256x2048_float32_L2048_device_L"),
                      ("whisper_cross_bf16",
-                      "encdec_vlm_8x6x6x64x1500_bfloat16_L1500_host_int"))}}
+                      "encdec_vlm_8x6x6x64x1500_bfloat16_L1500_host_int"))},
+                 # the ringkv route at starcoder2-15b's ring
+                 "ringkv": rows["flash_decode/ringkv_"
+                                + "x".join(map(str, FD_RINGKV))
+                                + "_bfloat16_devL"]}
                 if kernel == "flash_decode" else {}),
              **({"kernels_per_call": row["kernels_per_call"]}
                 if "kernels_per_call" in row else {}),
@@ -5818,6 +6430,7 @@ def main():
                      "generic_device_ms", "plain_ms", "bound_ms", "bound_by",
                      "max_abs_err", "loss_max_rel_err")}}
                 if kernel == "dfa_epoch_int8" else {})})
+    emit({"phase_seconds": PHASE_S, "cpu_refs": refs.log})
     emit({"total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi_line(), flush=True)

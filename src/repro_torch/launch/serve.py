@@ -13,8 +13,10 @@ check (flags of the other mode are rejected before any tensor work):
   zero prompts), each prompt is fed through teacher-forced decode steps,
   then ``--max-new`` tokens are decoded greedily. Every attention
   application runs through the ``flash_decode`` kernel; the Mamba2 step
-  and the experts are plain tensor ops, as in the JAX package. One JSON
-  row with tokens/s:
+  and the experts are plain tensor ops, as in the JAX package. Under
+  ``REPRO_OPT_RINGKV=1`` (``runtime/flags.py``, as for the JAX launcher)
+  a sliding-window layer's cache is a ring of ``window`` rows;
+  ``--cache-len`` stays the logical length. One JSON row with tokens/s:
 
       PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
           --arch tinyllama-1.1b --reduced --device cpu

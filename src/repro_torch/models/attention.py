@@ -28,9 +28,16 @@ encoder and whisper's decoder), and ``decode_attention_block`` without
 of mixed dtypes (whisper's fp32 frames against bf16 weights) are
 promoted, as jnp promotes them.
 
-Not ported: ``_banded_attention`` and the ``gqa_flat`` and ``seqpar``
-routes, which the JAX package takes only under ``runtime/flags.py``
-features.
+Of the routes the JAX package takes under ``runtime/flags.py``'s
+levers, two change the work on one device and are ported: ``banded``
+(``_banded_attention``: each query block against its KV band only) and
+the ``ringkv`` decode step (a cache of ``window`` rows written as a
+ring, attended through ``flash_decode`` with window 0). The others
+compute what the default route computes: ``gqa_flat`` (K and V repeated
+to the H query heads) and ``seqpar`` (one query block) exist to be
+sharded over a device mesh, which is not ported, and probe mode's
+single-shot masked attention serves XLA's cost analysis. Under them
+``flash_attention`` takes its default route.
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import normal_init, promoted
+from repro_torch.runtime.flags import feature
 
 NEG_INF = -1e30
 
@@ -124,23 +132,36 @@ def decode_attention_block(params, x, k_cache, v_cache, cache_len,
     package's ``use_rope=False``), write k and v at ``cache_len``, attend
     over ``cache_len + 1`` entries. Returns (out, k_cache, v_cache).
 
+    With the ``ringkv`` lever on, a windowed layer whose cache has
+    exactly ``window`` rows keeps it as a ring: k and v are written at
+    ``cache_len % window`` and the token attends to all ``min(cache_len +
+    1, window)`` rows with no window mask. K carries the RoPE of its true
+    position, so the ring is the window whatever order its rows are in.
+
     The caches are written in place (the JAX package returns new
     arrays): its callers never reuse a cache from before a step.
     ``cache_len`` is an int or an int32 tensor of one element on x's
-    device; then the write and the attention take it on the device, with
-    no host index. It must be below the cache length: the JAX package's
-    ``dynamic_update_slice`` clamps the write index and silently
-    overwrites the last row instead. An int is checked here; a tensor's
-    caller, which knows the step, keeps it in range."""
+    device; then the write index and the attended length are computed
+    on the device, with no host index. Off the ring it must be below the
+    cache length: the JAX package's ``dynamic_update_slice`` clamps the
+    write index and silently overwrites the last row instead. An int is
+    checked here; a tensor's caller, which knows the step, keeps it in
+    range."""
+    S_cache = k_cache.shape[1]
+    ring = bool(feature("ringkv") and window and S_cache == window)
     if isinstance(cache_len, torch.Tensor):
-        at = cache_len.reshape(1)
+        at = (torch.remainder(cache_len, S_cache) if ring
+              else cache_len).reshape(1)
+        length = (torch.clamp(cache_len + 1, max=S_cache) if ring
+                  else cache_len + 1)
     else:
-        S_cache = k_cache.shape[1]
-        if not 0 <= cache_len < S_cache:
+        if cache_len < 0 or (not ring and cache_len >= S_cache):
             raise ValueError(f"decode_attention_block: the cache holds "
                              f"{S_cache} entries; cannot write at "
                              f"{cache_len}")
-        at = slice(cache_len, cache_len + 1)
+        w = cache_len % S_cache if ring else cache_len
+        at = slice(w, w + 1)
+        length = min(cache_len + 1, S_cache) if ring else cache_len + 1
     q = project(x, params["wq"])
     k = project(x, params["wk"])
     v = project(x, params["wv"])
@@ -148,7 +169,8 @@ def decode_attention_block(params, x, k_cache, v_cache, cache_len,
         q, k = rotate(q, *rope), rotate(k, *rope)
     k_cache[:, at] = k.to(k_cache.dtype)
     v_cache[:, at] = v.to(v_cache.dtype)
-    out = decode_attention(q, k_cache, v_cache, cache_len + 1, window=window)
+    out = decode_attention(q, k_cache, v_cache, length,
+                           window=0 if ring else window)
     return unproject(out, params["wo"]), k_cache, v_cache
 
 
@@ -163,17 +185,78 @@ def _block_mask(qpos, kpos, causal, window):
     return valid
 
 
+def _scaled(q, scale):
+    """q times ``scale`` rounded to q's dtype (as the JAX package scales),
+    then fp32 for the products. The scale is a tensor made on the
+    device (a host copy cannot be captured in a CUDA graph)."""
+    return (q * torch.full((), scale, dtype=q.dtype,
+                           device=q.device)).float()
+
+
+def _masked_softmax_attention(q, k, v, valid, R):
+    """One query block's attention, q (B, Sq, Kv * R, hd) against its KV
+    band k, v (B, Skv, Kv, hd) under ``valid`` (Sq, Skv): fp32 scores,
+    masked scores ``NEG_INF``, the softmax, p rounded to v's dtype, fp32
+    PV. q is already scaled and fp32. Returns (B, Sq, H, hd) fp32."""
+    B, Sq, H, hd = q.shape
+    qg = q.reshape(B, Sq, H // R, R, hd)
+    s = torch.einsum("bqkrh,bskh->bkrqs", qg, k.float())
+    s = torch.where(valid, s, torch.full((), NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkrqs,bskh->bkrqh", p.to(v.dtype).float(),
+                       v.float())
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+
+def _banded_attention(q, k, v, *, window, q_block=512):
+    """The ``banded`` lever: causal sliding-window self-attention (aligned
+    q and kv, positions 0 ... S - 1) that gathers only the KV band of each
+    query block, ``band = (window // qb + 2) * qb`` keys starting at
+    ``qs + qb - band`` clipped to ``[0, Skv - band]``, which covers
+    ``(qs - window, qs + qb)``: O(S window) work, not O(S^2). Each block
+    is one masked softmax over its band (the JAX package scans the blocks,
+    or unrolls them in probe mode; here they are a loop either way)."""
+    B, Sq, H, hd = q.shape
+    Skv, Kv = k.shape[1], k.shape[2]
+    R = H // Kv
+    qb = min(q_block, Sq)
+    pad = (-Sq) % qb
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+    nq = q.shape[1] // qb
+    band = min((window // qb + 2) * qb, Skv)
+    qs = _scaled(q, hd ** -0.5)
+    dev = q.device
+    outs = []
+    for i in range(nq):
+        start = min(max(i * qb + qb - band, 0), Skv - band)
+        kpos = start + torch.arange(band, device=dev)
+        qpos = i * qb + torch.arange(qb, device=dev)
+        valid = ((kpos[None, :] <= qpos[:, None])
+                 & (kpos[None, :] > qpos[:, None] - window))
+        outs.append(_masked_softmax_attention(
+            qs[:, i * qb:(i + 1) * qb], k[:, start:start + band],
+            v[:, start:start + band], valid, R))
+    return torch.cat(outs, dim=1)[:, :Sq].to(q.dtype)
+
+
 def flash_attention(q, k, v, *, causal, window=0, q_positions=None,
                     kv_positions=None, q_block=512, kv_block=512):
     """Blockwise online-softmax attention.
 
     q: (B, Sq, H, hd); k, v: (B, Skv, Kv, hd), H = Kv * R (GQA);
     positions (Sq,) and (Skv,) int tensors, default 0 ... S - 1.
-    Returns (B, Sq, H, hd) in q's dtype."""
+    Returns (B, Sq, H, hd) in q's dtype.
+
+    Under the ``banded`` lever, with a window, causal, and more keys
+    than the window, it goes to ``_banded_attention``, as the JAX
+    package does."""
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     R = H // Kv
     dev = q.device
+    if feature("banded") and window and causal and Skv > window:
+        return _banded_attention(q, k, v, window=window, q_block=q_block)
     if q_positions is None:
         q_positions = torch.arange(Sq, device=dev)
     if kv_positions is None:
@@ -189,11 +272,7 @@ def flash_attention(q, k, v, *, causal, window=0, q_positions=None,
         v = F.pad(v, (0, 0, 0, 0, 0, pk))
         kv_positions = F.pad(kv_positions, (0, pk), value=-1)
     nq, nk = q.shape[1] // q_block, k.shape[1] // kv_block
-    # the scale rounded to q's dtype and applied there, as in the JAX
-    # package; the products then accumulate in fp32
-    # the scale as a tensor of q's dtype, made on the device (a host copy
-    # cannot be captured in a CUDA graph)
-    qs = (q * torch.full((), hd ** -0.5, dtype=q.dtype, device=dev)).float()
+    qs = _scaled(q, hd ** -0.5)
     k32 = k.float()
     outs = []
     for i in range(nq):

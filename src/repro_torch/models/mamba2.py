@@ -5,11 +5,16 @@ ngroups = 1 (B and C shared across heads), as in the released models.
 The chunked SSD scan runs through the hand-written kernel
 (``kernels/ssd_scan.py``) in its forward: ``ssd_chunked_kernel`` is the
 port of ``ssd_chunked_pallas`` and the only route ``mamba_block`` takes
-(the port has no ``ssd_pallas`` flag). Its backward differentiates the
+(the ``ssd_pallas`` lever of ``runtime/flags.py`` is accepted and
+switches nothing). Its backward differentiates the
 plain ``ssd_chunked``, which computes the same math, exactly as the JAX
 package's ``_ssd_pallas_bwd`` does: the JAX package has no backward
 kernel. That is its design, not a fallback: the forward never takes the
 plain version on a CUDA tensor.
+
+Probe mode changes nothing here: the JAX package unrolls its
+inter-chunk recurrence there, and ``ssd_chunked``'s recurrence is a
+Python loop already.
 
 The one-token decode block (``mamba_decode_block``) is plain tensor
 ops, as it is plain jnp in the JAX package: the conv window shifted by

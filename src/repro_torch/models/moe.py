@@ -17,8 +17,11 @@ probabilities and picks experts 0 ... k - 1, as there.
 The expert products are plain ``jnp.einsum`` in the JAX package and
 plain ``torch.bmm`` here: no Pallas kernel computes them.
 
-Not ported: the ``moelocal`` and ``moe2d`` levers, which act only under
-a device mesh (ROADMAP "Dropped options").
+The ``moelocal`` and ``moe2d`` levers (``runtime/flags.py``) are
+accepted and change nothing here: with no device mesh the JAX package's
+block runs ``moelocal`` as one token group and ``moe2d`` only places
+shards, so both compute the unsharded dispatch this module computes.
+Their sharding needs a mesh and is not ported.
 """
 from __future__ import annotations
 

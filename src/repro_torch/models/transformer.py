@@ -40,6 +40,14 @@ attention or MoE block (and each shared-block application) at a time
 takes it), since their activations would not fit otherwise. The Mamba2
 blocks keep their activations, so the ``ssd_scan`` kernel runs once per
 layer per forward and not again in the backward.
+
+``runtime/flags.py``: under probe mode nothing is stacked, as in the
+JAX package (``jax_layout`` is None for a homogeneous model, so the
+bridge carries the per-layer layout); its one-chunk cross entropy and
+unrolled loops, which serve XLA's cost analysis, compute what the
+default route computes and are not taken. With the ``ringkv`` lever a
+windowed attention application's decode cache has ``min(seq_len,
+window)`` rows, a ring (``models/attention.py::decode_attention_block``).
 """
 from __future__ import annotations
 
@@ -57,6 +65,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import mlp, mlp_shapes, normal_init, rms_norm
+from repro_torch.runtime.flags import feature, probe_mode
 
 AUX_LOSS_WEIGHT = 0.01
 LABEL_IGNORE = -1
@@ -207,8 +216,8 @@ class Model:
         """Whether the JAX package stacks this model's layers (a period
         of blocks repeated four or more times; never for the hybrid,
         whose groups it stacks in a layout of their own, nor for the
-        encoder-decoder)."""
-        if self.is_hybrid or self.is_encdec:
+        encoder-decoder, nor in probe mode, which unrolls them)."""
+        if probe_mode() or self.is_hybrid or self.is_encdec:
             return False
         p = find_period(self.specs)
         return len(self.specs) // p >= 4
@@ -358,13 +367,24 @@ class Model:
         return (x[:, -1:] @ self._lm_head(params)).float()
 
     # ----- decode -----------------------------------------------------------
+    def cache_rows(self, seq_len: int) -> List[Any]:
+        """The rows of each ``specs`` entry's KV cache for ``seq_len``
+        positions (None for a Mamba2 layer): ``min(seq_len, window)``
+        for a windowed application under the ``ringkv`` lever (a ring;
+        a periodic global layer's window is 0), else ``seq_len``."""
+        ring = feature("ringkv")
+        return [None if kind == MAMBA else
+                min(seq_len, window) if ring and window else seq_len
+                for kind, window in self.specs]
+
     def init_cache(self, batch_size: int, seq_len: int,
                    device: DeviceLike = None) -> Dict[str, Any]:
         """The decode cache on ``device`` (default ``cuda``), zeros, one
-        entry per ``specs`` entry: ``{"k", "v"}`` (batch, seq_len, Kv, hd)
-        in the model dtype for an attention application (the hybrid's
-        shared block gets one at each application); ``{"conv"}`` (batch,
-        W - 1, conv_dim) in the model dtype and ``{"ssm"}`` (batch,
+        entry per ``specs`` entry: ``{"k", "v"}`` (batch, rows, Kv, hd)
+        in the model dtype for an attention application, rows by
+        ``cache_rows`` (the hybrid's shared block gets one at each
+        application); ``{"conv"}`` (batch, W - 1, conv_dim) in the model
+        dtype and ``{"ssm"}`` (batch,
         heads, head_dim, d_state) fp32 for a Mamba2 layer, which holds no
         sequence axis (``bridge.lm_cache_from_jax`` maps the JAX
         package's layouts); for the encoder-decoder also ``"cross"``, a
@@ -374,7 +394,7 @@ class Model:
         dev = resolve_device(device)
         dtype = _DTYPES[cfg.dtype]
         layers = []
-        for kind, _ in self.specs:
+        for (kind, _), rows in zip(self.specs, self.cache_rows(seq_len)):
             if kind == MAMBA:
                 _, nheads, conv_dim = mamba_lib.mamba_dims(
                     cfg.d_model, cfg.ssm_expand, cfg.ssm_head_dim,
@@ -387,7 +407,7 @@ class Model:
                         (batch_size, nheads, cfg.ssm_head_dim,
                          cfg.ssm_state), dtype=torch.float32, device=dev)})
             else:
-                shape = (batch_size, seq_len, cfg.num_kv_heads,
+                shape = (batch_size, rows, cfg.num_kv_heads,
                          cfg.resolved_head_dim)
                 layers.append({
                     "k": torch.zeros(shape, dtype=dtype, device=dev),
@@ -448,9 +468,10 @@ class Model:
         A tensor ``cache_len`` is never read on the host, so the step can
         be captured once and replayed at every position
         (``runtime/steps.py::DecodeRunner``); its caller keeps it below
-        the cache length. The encoder-decoder's token gets the
-        sinusoidal position of ``cache_len`` (made on the device from a
-        tensor cursor) instead of RoPE."""
+        the cache length (a ring's layers take any position). The
+        encoder-decoder's token gets the sinusoidal position of
+        ``cache_len`` (made on the device from a tensor cursor) instead
+        of RoPE."""
         cfg = self.cfg
         tokens, cache, cache_len = (batch["tokens"], batch["cache"],
                                     batch["cache_len"])

@@ -33,6 +33,7 @@ from repro_torch.core.pipeline import prefetch_items
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs import GraphStep, weak_method
 from repro_torch.kernels.ops import tree_meta_update
+from repro_torch.runtime.flags import feature, feature_scope
 
 
 def make_meta_train_step(model, *, beta: float = 0.01,
@@ -117,7 +118,15 @@ class DecodeRunner:
 
     ``step()`` runs one step at the cursor (``wave`` runs a whole wave);
     ``trace_count`` counts the builds (1), ``capture_s`` and ``nodes``
-    describe the capture on the card (None on the CPU)."""
+    describe the capture on the card (None on the CPU).
+
+    The ``ringkv`` lever is read once, when the cache is made, and kept
+    as ``ring``: a windowed layer's cache is then a ring of ``window``
+    rows, and every step runs under that setting, so the cache, the
+    built step and the route always agree (a cache that does not match
+    ``ring`` raises). ``cache_len`` stays the logical length: prompt and
+    new tokens must fit in it, whatever a ring holds; the prompt buffer
+    and the chosen tokens are sized by the steps."""
 
     def __init__(self, model, params, *, batch: int, prompt_len: int,
                  cache_len: int, max_new: int, device: DeviceLike = None):
@@ -132,6 +141,8 @@ class DecodeRunner:
         self.prompts = torch.zeros((batch, prompt_len), dtype=torch.int64,
                                    device=dev)
         self.cursor = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.ring = feature("ringkv")
+        self._rows = model.cache_rows(cache_len)
         self.cache = model.init_cache(batch, cache_len, device=dev)
         # the recurrent entries (every Mamba2 layer's, wherever the cache
         # holds them), zeroed at each wave
@@ -152,9 +163,18 @@ class DecodeRunner:
     def nodes(self) -> Optional[int]:
         return self.step.nodes
 
+    def _check_cache(self) -> None:
+        """The cache's KV rows must be what ``ring`` gives the model."""
+        got = [e["k"].shape[1] if "k" in e else None
+               for e in self.cache["layers"]]
+        if got != self._rows:
+            raise ValueError(f"DecodeRunner: the cache's KV rows {got} do "
+                             f"not match the route it was built for "
+                             f"(ring={self.ring}: {self._rows})")
+
     def _decode_step(self) -> None:
         c, P = self.cursor, self.prompt_len
-        with torch.no_grad():
+        with torch.no_grad(), feature_scope(ringkv=self.ring):
             tokens = torch.where(
                 c < P, self.prompts.index_select(1, c.clamp(max=P - 1)),
                 self.chosen.index_select(1, (c - 1).clamp(min=0)))
@@ -167,6 +187,7 @@ class DecodeRunner:
     def build(self) -> None:
         """Build the step once (on the card: run it, then capture it) on
         whatever the buffers hold; each wave starts from a reset cursor."""
+        self._check_cache()
         if not self.step.ready:
             self.cursor.zero_()
             self.step()
