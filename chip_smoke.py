@@ -15,7 +15,8 @@ Phases, each printing one JSON line, in this order:
 2. build: the CUDA kernels (``nvcc``, sm_90a, one process per source:
    ``online_sgd`` (with ``online_sgd_momentum``), ``dfa_epoch_int8``,
    ``meta_update``, ``ssd_scan``, ``flash_decode``, ``client_mean``) are
-   built from this checkout's sources, all at the same time;
+   built from this checkout's sources, all at the same time, beside
+   phase 1;
 3. kernels: each kernel against its plain PyTorch version on the same
    CUDA tensors, at the shapes the main paths give it and at harder
    ones, timed with CUDA events (median of repeats) and the profiler
@@ -62,10 +63,10 @@ Phases, each printing one JSON line, in this order:
    the step built once (``decode_build``: trace_count 1, capture seconds,
    graph nodes) and replayed;
 5. serve decode tinyllama-1.1b: full width and depth, bf16, random
-   weights from seed 0, 16 requests at batch 8, 512 + 128 tokens, cache
-   2048, the step built once and replayed 1,280 times: finite logits,
-   28,160 ``flash_decode`` launches, tokens/s, step time and peak
-   memory; then the same weights in fp32, 16 teacher-forced steps at
+   weights from seed 0, 8 requests at batch 8 (one wave), 512 + 128
+   tokens, cache 2048, the step built once and replayed 640 times:
+   finite logits, 14,080 ``flash_decode`` launches, tokens/s, step time
+   and peak memory; then the same weights in fp32, 16 teacher-forced steps at
    batch 2 on the card and on the CPU (within 1e-3 of the largest
    logit), and the bf16 choices held near the fp32 maximum;
 6. profile decode: 16 replays of the full-width decode step under
@@ -78,7 +79,7 @@ Phases, each printing one JSON line, in this order:
    ``make_joint_train_step`` steps of the same weights (AdamW, cosine(3e-5,
    3, warmup=1)) on one batch of 8 x 2,048, the loss falling, peak
    memory; ``decode_mamba2_130m``: ``serve --mode decode --arch
-   mamba2-130m`` at phase 5's traffic (16 requests at batch 8, 512 + 128
+   mamba2-130m`` at phase 5's traffic (8 requests at batch 8, 512 + 128
    tokens), the step built once and replayed, no kernel launched,
    tokens/s and step time, a 64 + 32-token wave replayed bit-equal to
    eager, and the decode logits at positions 0, 63 and 511 against
@@ -326,14 +327,50 @@ Phases, each printing one JSON line, in this order:
     beside the weights' bound, peak memory and graph nodes. ``levers``
     prints their seconds.
 
+36. slice 19, the engine across processes, right after the levers
+    phases: ``mesh_engine_sine``, two ranks (started beside the build
+    and set up before the kernel phases, idle until their go; they share
+    the card through gloo) run ``run_federated(mesh=2)`` on the
+    sine MLP for the five fp32 strategies, TIFeD and a pooled FedBuff
+    fleet under diurnal availability (the CPU test's cases): both ranks'
+    phi bit for bit, the bills and identity state exactly the card's
+    mesh=None run's, phi within the CPU test's tolerance of it, each
+    round built once (run eagerly: gloo cannot be captured); the round
+    of Reptile at the launcher's defaults timed on mesh=2 and mesh=None,
+    the gloo all-reduce alone at 1,153 parameters and at mamba2-130m's
+    groups; ``pod_client_mamba2_130m``, the LM launcher with ``--mesh pod``
+    on the two ranks at full width and depth (beta 0.002), its first round
+    against the same round computed in one rank (each pod's inner loop in
+    turn, the weighted mean, the interpolation; 4 bf16 steps), ssd_scan,
+    online_sgd, meta_update and client_mean launched on both ranks;
+    ``mesh_engine_nccl1``, a one-rank NCCL group in this process:
+    ``run_federated(mesh=1)`` with its all-reduce inside the captured
+    round (made at the capture, at no replay), bit for bit mesh=None,
+    built once, and its round timed; ``launcher_two_process``, started
+    and read before any later phase runs: the launcher's
+    ``--num-processes 2 --coordinator 127.0.0.1:<port> --process-id
+    0|1`` row equal to its ``--devices 2`` row. The CPU references are
+    submitted after these phases, which time host-paced collectives.
+    Phases 5 and 23 and ``train_paligemma_full`` draw their weights
+    on the card (``draw_on_card``): the host draws of tinyllama-1.1b
+    (three times) and paligemma-3b took some 45 s.
+
+The order: the kernel phases, the levers (35) and slice 19 (36) run
+first, with nothing beside them. Then three streams run at once, each in
+a process of its own on the card (STREAMS): this process runs slice
+17's two engine phases (34), 27 and 28; ``decode_lm`` runs 4-6,
+``train_lm_fleet`` (34) and 23's dense LM; ``sine`` runs 7-13b, 24-26,
+18-20, 29, 14-17 and 21-23's mamba2 LM. A stream's lines are printed when it ends, each with its
+``stream``. The families (30-33) run last, alone on the card.
+
 The CPU references that depend only on a seed or an argv (the engine LM
 runs' first rounds, the partial wire's, the pool's and the pool drift's
-CPU runs, the KWS fleet) run in one worker process (``CpuRefs``),
-submitted after the kernels and the levers phases (whose host-paced
-times it would share the host with), while the card runs the engine's
-LM phases before theirs.
-``phase_seconds`` gives each phase's seconds, and ``cpu_refs`` how long
-a phase waited for each reference and when the worker was done with it.
+CPU runs, the KWS fleet) run in a worker process (``CpuRefs``) of the
+process whose phases take them, submitted after slice 19's phases
+(whose host-paced times it would share the host with).
+``phase_seconds`` gives each phase's seconds in this process,
+``streams`` each stream's, and ``cpu_refs`` how long a phase waited for
+each reference and when the worker was done with it.
 
 Then the kernels line, the card's ``nvidia-smi`` name and power limit,
 and, last, ``{"ok": true, "device": {...}}``. Any failure is a
@@ -350,6 +387,7 @@ import io
 import itertools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -438,13 +476,14 @@ PATH_RUN = (1, 640)
 FD_TOL = {"float32": 3e-4, "bfloat16": 2e-2}
 # the serve launcher's decode runs: the reduced config against the CPU,
 # then tinyllama-1.1b at full width and depth (TinyLlama's context is
-# 2,048 tokens)
+# 2,048 tokens) for one wave at batch 8: a second wave doubled every
+# full-width decode phase's time and checked nothing the first does not
 DECODE_REDUCED = ["--mode", "decode", "--arch", "tinyllama-1.1b",
                   "--reduced", "--requests", "4", "--batch", "2",
                   "--prompt-len", "16", "--max-new", "16", "--cache-len",
                   "64"]
 DECODE_FULL = ["--mode", "decode", "--arch", "tinyllama-1.1b", "--requests",
-               "16", "--batch", "8", "--prompt-len", "512", "--max-new",
+               "8", "--batch", "8", "--prompt-len", "512", "--max-new",
                "128", "--cache-len", "2048"]
 TINYLLAMA_PARAMS = 1_100_048_384
 # the fp32 stretch at full width: 16 teacher-forced steps at batch 2, the
@@ -578,7 +617,7 @@ PREFILL_BATCH, PREFILL_LEN, PREFILL_TOL = 8, 512, 4 * 2 ** -8
 # (PERF.md, "mamba2 bf16"): reported there, and the card's bf16 decode
 # step is held to the CPU's layer by layer at PREFILL_TOL
 DECODE_MAMBA = ["--mode", "decode", "--arch", "mamba2-130m", "--requests",
-                "16", "--batch", "8", "--prompt-len", "512", "--max-new",
+                "8", "--batch", "8", "--prompt-len", "512", "--max-new",
                 "128", "--cache-len", "640"]
 MAMBA_AT = (0, 63, 511)
 # the engine's LM route (--strategy ... --arch): the launcher's --batch 8
@@ -743,11 +782,14 @@ T0 = time.perf_counter()
 PHASE_S: dict = {}
 SUB_LINES = ("decode_build", "free_card")
 _LAST_LINE = [T0]
+STREAM: list = [None]          # this process's stream (STREAMS), in its lines
 
 
 def emit(obj):
     """One JSON line; a phase's line carries the seconds since start, and
     the seconds since the previous phase line go to its phase's sum."""
+    if STREAM[0] is not None:
+        obj = {**obj, "stream": STREAM[0]}
     if "phase" in obj:
         now = time.perf_counter()
         if obj["phase"] not in SUB_LINES:
@@ -838,10 +880,15 @@ class CpuRefs:
         self.pool.shutdown(wait=True, cancel_futures=True)
 
 
-def submit_cpu_refs(refs):
-    """Every reference, in the order the phases take them."""
-    for _, argv in ENGINE_LM_RUNS:
-        refs.submit("engine_lm", tuple(argv + ENGINE_LM))
+def submit_cpu_refs(refs, which="engine"):
+    """The references of the script's process (``"engine"``: the engine's
+    LM runs and the families') or of the sine stream (``"sine"``: the
+    fleet's), in the order the phases take them."""
+    if which == "engine":
+        for _, argv in ENGINE_LM_RUNS:
+            refs.submit("engine_lm", tuple(argv + ENGINE_LM))
+        refs.submit("engine_lm", tuple(ENGINE_MOE))
+        return
     for rotate in (False, True):
         refs.submit("partial", rotate)
     refs.submit("pool", POOL_SIZE, POOL_CHECK_ROUNDS, "device")
@@ -849,7 +896,6 @@ def submit_cpu_refs(refs):
     for rounds in POOL_DRIFT_ROUNDS:
         refs.submit("pool", POOL_SIZE, rounds, "device")
     refs.submit("kws")
-    refs.submit("engine_lm", tuple(ENGINE_MOE))
 
 
 def check(cond, msg):
@@ -1138,19 +1184,40 @@ def conv_fp32_check(torch, np):
     return out
 
 
-def phase_build(build):
-    """One nvcc per CUDA source, all started at once. Returns ptxas's
-    lines (registers, spills) by source."""
-    sources = ["online_sgd", "dfa_epoch_int8", "meta_update", "ssd_scan",
-               "flash_decode", "client_mean"]
-    t0 = time.perf_counter()
-    reports = build.build(sources)
-    nvcc_s = time.perf_counter() - t0
+BUILD_SOURCES = ("online_sgd", "dfa_epoch_int8", "meta_update", "ssd_scan",
+                 "flash_decode", "client_mean")
+
+
+def start_build(build):
+    """One nvcc per CUDA source, all started at once, waited for on a
+    thread, so that the device phase runs beside the compilers. Returns
+    the thread; ``phase_build`` joins it."""
+    def run():
+        t0 = time.perf_counter()
+        try:
+            thread.result = build.build(BUILD_SOURCES)
+        except BaseException as e:              # raised in phase_build
+            thread.result = e
+        thread.nvcc_s = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return thread
+
+
+def phase_build(build, thread):
+    """``start_build``'s compilers joined and the libraries loaded.
+    Returns ptxas's lines (registers, spills) by source."""
+    thread.join()
+    reports = thread.result
+    if isinstance(reports, BaseException):
+        raise reports
+    nvcc_s = thread.nvcc_s
     ptxas = {name: [ln.strip() for ln in rep.splitlines()
                     if "registers" in ln or "spill" in ln
                     or "Compiling entry" in ln]
              for name, rep in reports.items()}
-    for name in sources:
+    for name in BUILD_SOURCES:
         build.load(name)
     emit({"phase": "build", "nvcc_s": round(nvcc_s, 3), "ptxas": ptxas})
     return ptxas
@@ -2741,7 +2808,7 @@ def conv_graph_runs(torch, tm):
     return out
 
 
-def phase_graphs(torch, np, tm, serves, extra, conv_runs):
+def phase_graphs(torch, np, tm, serves, conv_runs):
     """The captured round and tick, replayed, against the same round and
     tick run eagerly on the card: params, histories, served results and
     launch counts equal, bit for bit. The round: TinyReptile (the
@@ -2821,7 +2888,7 @@ def phase_graphs(torch, np, tm, serves, extra, conv_runs):
                       "capture_s": server._tick_step.capture_s,
                       "graph_nodes": server._tick_step.nodes,
                       "launches": counts, "bit_equal": True}
-    emit({"phase": "graphs_vs_eager", **rows, **extra})
+    emit({"phase": "graphs_vs_eager", **rows})
 
 
 def lm_launches(args):
@@ -3243,7 +3310,8 @@ def phase_serve_decode_full(torch, np, tm):
     cfg = tm["get_arch"](args.arch)
     model = build_model(cfg)
     t0 = time.perf_counter()
-    params = model.init(torch.Generator().manual_seed(args.seed), "cuda")
+    # drawn on the card: the host draw of 1.1 B weights took some 8 s
+    params = draw_on_card(torch, model, args.seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for _, t in bridge.tree_leaves(params))
@@ -3586,10 +3654,14 @@ def phase_train_dense_full(torch, np, tm):
     losses reported."""
     tl, ops = tm["train"], tm["ops"]
     args = tl.parse_args(DENSE_FULL)
+    model = tm["build_model"](tm["get_arch"](args.arch))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # the weights drawn on the card (the launcher's host draw of 1.1 B
+    # weights took some 8 s a run)
     (rows, summary, phi), wall, counts = timed_run(
-        torch, ops, lambda: tl.run_lm(args))
+        torch, ops, lambda: tl.run_lm(
+            args, init_params=draw_on_card(torch, model, args.seed)))
     peak = torch.cuda.max_memory_allocated()
     check_launches("train_dense_tinyllama_1_1b", counts, lm_launches(args))
     for r in rows:
@@ -3606,7 +3678,9 @@ def phase_train_dense_full(torch, np, tm):
     del phi
     torch.cuda.empty_cache()
     with contextlib.redirect_stdout(io.StringIO()):
-        default, _, phi = tl.run_lm(tl.parse_args(DENSE_DEFAULT_BETA))
+        default, _, phi = tl.run_lm(tl.parse_args(DENSE_DEFAULT_BETA),
+                                    init_params=draw_on_card(torch, model,
+                                                             0))
     del phi
     torch.cuda.empty_cache()
     row = {"phase": "train_dense_tinyllama_1_1b", "argv": DENSE_FULL,
@@ -4907,7 +4981,7 @@ def teacher_forced_routes(torch, fm, model, params, tokens, dev):
 def phase_families_decode(torch, np, fm):
     """Each FAMILY_DECODE config at full width (phase 31), bf16, cut to
     the layers that fit (None: full depth), weights drawn on the card:
-    ``serve.run_decode`` with the cut model at DECODE_FULL's traffic (16
+    ``serve.run_decode`` with the cut model at DECODE_FULL's traffic (8
     requests at batch 8, 512 + 128 tokens, cache 2,048), the step built
     once and replayed: flash_decode launches as reckoned, finite logits,
     tokens/s, step time, peak memory. Then the same weights in fp32, cut
@@ -5241,9 +5315,11 @@ def phase_encdec_vlm_train(torch, np, fm):
     """whisper-tiny and paligemma-3b meta-trained at full width and depth
     in bf16 (phase 33) through the LM launcher itself,
     ``train.run_lm(train.parse_args(ENCDEC_VLM_ARGV + [--arch, --rounds]))``:
-    the launcher's host init from ``--seed``, its per-round draws of the
-    tokens and the float32 frames or patch embeddings and their copy to
-    the card on its prefetch thread. Launches as ``lm_launches`` reckons,
+    the launcher's host init from ``--seed`` (paligemma-3b's weights drawn
+    on the card instead, ``run_lm(init_params=)``: the host draw of 2.9 B
+    took some 21 s), its per-round draws of the tokens and the float32
+    frames or patch embeddings and their copy to the card on its
+    prefetch thread. Launches as ``lm_launches`` reckons,
     finite losses, the inner loss falls in every round, tokens/s over the
     launcher's wall (its init included) and over its rounds, peak memory.
     Then ``family_grad_vs_cpu`` at ENCDEC_VLM_TRAIN's grad layers."""
@@ -5255,8 +5331,11 @@ def phase_encdec_vlm_train(torch, np, fm):
         args = tl.parse_args(argv)
         free_card(torch, f"before train_{tag}_full")
         torch.cuda.reset_peak_memory_stats()
+        card = arch == "paligemma-3b"
         (rows, summary, phi), wall, counts = timed_run(
-            torch, ops, lambda: tl.run_lm(args))
+            torch, ops, lambda: tl.run_lm(args, init_params=draw_on_card(
+                torch, fm["build_model"](fm["get_arch"](arch)), args.seed)
+                if card else None))
         peak = torch.cuda.max_memory_allocated()
         check_launches(f"train_{tag}_full", counts, lm_launches(args))
         check_inner_losses(tag, rows)
@@ -6166,6 +6245,774 @@ def phase_decode_starcoder2_full(torch, np, sm):
     return paths
 
 
+# -- slice 19: the engine across processes -------------------------------------
+
+# The multi-rank phases run in one set of MESH_RANKS ranks started with
+# the script (``runtime/ranks.py::run_ranks``: spawned, joined through a
+# file store), which share the one card through gloo (NCCL refuses two
+# ranks on one device). They wait for a ``go`` file, so their start and
+# CUDA set-up hide behind the build and the kernel phases.
+MESH_RANKS = 2
+# the CPU test's cases (tests/test_torch_mesh_engine.py), at the sine
+# MLP's full width; phi is held to the card's mesh=None run within the
+# tolerances that test measured between the port's mesh=2 and mesh=None
+MESH_EVAL = dict(num_tasks=2, support=4, k_steps=2, lr=0.02, query=8)
+MESH_RUN = dict(rounds=6, beta=0.02, support=4, seed=1, eval_every=3,
+                eval_kwargs=MESH_EVAL)
+MESH_CASES = {
+    "reptile": ("ReptileStrategy", dict(epochs=2),
+                dict(clients_per_round=5), None, None, None),
+    "tinyreptile": ("TinyReptileStrategy", {},
+                    dict(clients_per_round=5), None, None, None),
+    "fedavg": ("FedAvgStrategy", dict(epochs=2),
+               dict(clients_per_round=6), None, None, None),
+    "fedsgd": ("FedSGDStrategy", {}, dict(clients_per_round=4),
+               None, None, None),
+    "transfer": ("TransferStrategy", {}, dict(clients_per_round=3),
+                 None, None, None),
+    "tifed": ("TifedStrategy", dict(epochs=2),
+              dict(clients_per_round=3, support=8), None, None, None),
+    "pooled_fedbuff": ("ReptileStrategy", dict(epochs=2),
+                       dict(clients_per_round=3), dict(size=7, seed=3),
+                       dict(buffer_size=4, flush_staleness=3),
+                       ("DiurnalAvailability", dict(period=6))),
+}
+MESH_VS_ONE_TOL = {"tifed": 2.0 ** -6}
+MESH_VS_ONE_FP32 = 1e-5
+# the kernels each case launches on every rank
+MESH_KERNELS = {"reptile": ("online_sgd", "meta_update", "client_mean"),
+                "tinyreptile": ("online_sgd", "meta_update", "client_mean"),
+                "fedavg": ("online_sgd", "client_mean"),
+                "fedsgd": ("client_mean",), "transfer": ("client_mean",),
+                "tifed": ("dfa_epoch_int8", "meta_update", "client_mean"),
+                "pooled_fedbuff": ("online_sgd", "meta_update",
+                                   "client_mean")}
+# the round timed on every topology: Reptile at the launcher's defaults
+# (64 clients, support 32, 8 epochs, beta 0.02), no eval
+MESH_TIMED = dict(rounds=20, clients_per_round=64, beta=0.02, support=32,
+                  seed=0)
+# the collective alone: the sine MLP's fp32 phi, and mamba2-130m's two
+# dtype groups as the pod round sums them (each group's fp32 client mean)
+ALLREDUCE_SIZES = (("sine_mlp_1153", (1_153,), 10),
+                   ("mamba2_130m_groups", (LM_BF16, LM_FP32), 3))
+# pod-client mode at mamba2-130m's full width and depth, bf16, through the
+# LM launcher at its defaults (batch 8, seq 64, k-inner 4: each pod one
+# row of each microbatch) but beta 0.002, the full-width families' rate
+# (at the launcher's 0.02 the loss climbs from 11 to 221 in 3 rounds); its
+# first round also computed in one rank
+POD_ARGV = ["--arch", "mamba2-130m", "--mesh", "pod", "--devices",
+            str(MESH_RANKS), "--beta", str(FAMILY_TRAIN_BETA)]
+POD_ROUNDS = 3
+POD_TOL = dict(rtol=2 ** -6, atol=2 ** -8)     # 4 bf16 steps
+# the train launcher's two-process route, against its --devices route
+LAUNCH_2P = ["--strategy", "reptile"]
+EPOCHS_SINE = 8                # the launcher's local epochs
+CHILDREN: list = []            # subprocesses main() stops if a phase fails
+STREAM_PROCS: list = []        # the streams' processes, likewise
+
+
+def mesh_case(core, loss, relu_loss, dist, name):
+    """One MESH_CASES entry's strategy and ``run_federated`` arguments."""
+    strat, skw, kw, pool, buf, avail = MESH_CASES[name]
+    kw = dict(MESH_RUN, **kw)
+    if strat == "TifedStrategy":
+        strategy = core.TifedStrategy(relu_loss, **skw)
+        kw["channel"] = core.CommChannel("int8", quantize=False)
+    else:
+        strategy = getattr(core, strat)(loss, **skw)
+    if pool is not None:
+        kw["pool"] = core.ClientPool(dist, **pool)
+    if buf is not None:
+        kw["buffered"] = core.BufferedAggregation(**buf)
+    if avail is not None:
+        kw["sampling"] = getattr(core, avail[0])(**avail[1])
+    return strategy, kw
+
+
+def run_numpy(np, out):
+    """A run's result as NumPy: params, history losses, bills, pool."""
+    res = {"params": {k: v.cpu().numpy() for k, v in out["params"].items()},
+           "query_loss": [float(h["query_loss"]) for h in out["history"]],
+           "per_client_bytes": out.get("per_client_bytes"),
+           "comm_bytes": out.get("comm_bytes")}
+    if "pool_state" in out:
+        res["pool_state"] = {k: np.asarray(v)
+                             for k, v in out["pool_state"].items()}
+    return res
+
+
+def sine_mods():
+    """The port's modules and the seeded sine MLP init the mesh phases
+    take (the same in every rank)."""
+    import torch
+
+    from repro_torch import core
+    from repro_torch.configs.paper_models import SINE_MLP
+    from repro_torch.core import engine
+    from repro_torch.data import SineTasks
+    from repro_torch.kernels import ops
+    from repro_torch.models.paper_nets import (init_paper_model,
+                                               paper_model_loss,
+                                               relu_mlp_loss)
+    return {"core": core, "engine": engine, "ops": ops, "dist": SineTasks(),
+            "loss": functools.partial(paper_model_loss, SINE_MLP),
+            "relu": relu_mlp_loss,
+            "phi": init_paper_model(SINE_MLP,
+                                    torch.Generator().manual_seed(0), "cpu")}
+
+
+def timed_round(torch, run):
+    """``run()`` (MESH_TIMED's rounds) on the card: host and device (CUDA
+    events) milliseconds a round, from the second run (the first
+    builds)."""
+    run()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    run()
+    end.record()
+    torch.cuda.synchronize()
+    rounds = MESH_TIMED["rounds"]
+    return {"host_ms_per_round": 1e3 * (time.perf_counter() - t0) / rounds,
+            "event_ms_per_round": start.elapsed_time(end) / rounds}
+
+
+def mesh_worker(rank, workdir):
+    """Every multi-rank phase, in one rank of the MESH_RANKS: the sine
+    MLP's cases on ``mesh=2``, the timed round, the collective alone, and
+    pod-client mode through the LM launcher. Sets up CUDA and imports,
+    writes ``workdir/ready<rank>``, then sleeps until ``workdir/go``.
+    Returns NumPy results, each run's launches and timings."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    # the CUDA context and the imports, then ready: idle until the go
+    torch.zeros(1, device="cuda")
+    from repro_torch.runtime.sharding import all_reduce
+    sm = sine_mods()
+    core, ops = sm["core"], sm["ops"]
+    torch.cuda.synchronize()
+    (Path(workdir) / f"ready{rank}").touch()
+    go = Path(workdir) / "go"
+    while not go.exists():
+        time.sleep(0.05)
+    out = {"rank": rank, "backend": dist.get_backend(),
+           "device": str(torch.cuda.current_device()), "cases": {},
+           "launches": {}, "t_go": time.time()}
+    for name in MESH_CASES:
+        strategy, kw = mesh_case(core, sm["loss"], sm["relu"], sm["dist"],
+                                 name)
+        core.clear_runner_cache()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        run = core.run_federated(sm["phi"], sm["dist"], strategy, mesh=2,
+                                 device="cuda", **kw)
+        torch.cuda.synchronize()
+        out["launches"][f"mesh_engine_sine_{name}"] = ops.launch_counts()
+        (runner,) = sm["engine"]._RUNNER_CACHE._entries.values()
+        (prog,) = runner._programs.values()
+        out["cases"][name] = dict(run_numpy(np, run),
+                                  trace_count=runner.trace_count,
+                                  captured=prog.step.graph is not None)
+    strategy = core.ReptileStrategy(sm["loss"], epochs=EPOCHS_SINE)
+    core.clear_runner_cache()
+    out["timed_mesh2"] = timed_round(torch, lambda: core.run_federated(
+        sm["phi"], sm["dist"], strategy, mesh=2, device="cuda",
+        **MESH_TIMED))
+    # the collective alone, on the card's tensors as the rounds give it
+    group = dist.group.WORLD
+    timings = {}
+    for key, sizes, calls in ALLREDUCE_SIZES:
+        bufs = [torch.ones(n, dtype=torch.float32, device="cuda")
+                for n in sizes]
+        for b in bufs:
+            all_reduce(b, group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            for b in bufs:
+                all_reduce(b, group)
+        torch.cuda.synchronize()
+        timings[key] = {"bytes": 4 * sum(sizes), "calls": calls,
+                        "host_ms": 1e3 * (time.perf_counter() - t0) / calls}
+        del bufs
+    out["allreduce"] = timings
+    out["pod"] = pod_rank(torch, np, hashlib, dist, rank)
+    return out
+
+
+def pod_rank(torch, np, hashlib, dist, rank):
+    """Pod-client mode through the LM launcher: one round, held on rank 0
+    against the same round computed there alone (each pod's inner loop in
+    turn, the weighted mean of the two, the interpolation); then
+    POD_ROUNDS rounds, timed, their launches counted."""
+    from repro_torch import bridge
+    from repro_torch.configs import get_arch
+    from repro_torch.core.engine import streaming_sgd
+    from repro_torch.core.strategies import reptile_aggregate_weighted
+    from repro_torch.data import LMClientStream
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import build_model
+    from repro_torch.optim.schedules import linear_anneal
+    from repro_torch.runtime.steps import microbatch
+
+    res = {}
+    args = train.parse_args(POD_ARGV + ["--rounds", "1"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows, _, phi = train.run_lm(args)
+    torch.cuda.synchronize()
+    layout = bridge.GroupedLayout.of_tree(phi)
+    flat = layout.pack(layout.named(phi))
+    res["phi_sha256"] = [hashlib.sha256(t.view(torch.uint8).cpu().numpy()
+                                        .tobytes()).hexdigest()
+                         for t in flat]
+    res["round0"] = rows[0]
+    del phi
+    if rank == 0:
+        # the same round in this rank alone: the launcher's init and
+        # draws, each pod's rows in turn
+        cfg = get_arch(args.arch)
+        model = build_model(cfg.reduced() if args.reduced else cfg)
+        phi0 = model.init(torch.Generator().manual_seed(args.seed), "cuda")
+        rng = np.random.default_rng(args.seed)
+        cid = int(rng.integers(args.clients))
+        raw = LMClientStream(model.cfg.vocab_size, cid).batch(
+            rng, args.batch, args.seq)
+        batch = {k: torch.from_numpy(np.asarray(v)).cuda()
+                 for k, v in microbatch(raw, args.k_inner).items()}
+        rows_per_pod = batch["tokens"].shape[1] // MESH_RANKS
+        hats, losses = [], []
+        for p in range(MESH_RANKS):
+            part = {k: v[:, p * rows_per_pod:(p + 1) * rows_per_pod]
+                    for k, v in batch.items()}
+            hat, loss = streaming_sgd(model.loss_fn, phi0, part, args.beta)
+            hats.append(layout.pack(layout.named(hat)))
+            losses.append(loss)
+            del hat
+        cohort = tuple(torch.stack(g) for g in zip(*hats))
+        del hats
+        alpha = float(linear_anneal(args.alpha, args.rounds,
+                                    floor=args.alpha * 0.1)(0))
+        want = reptile_aggregate_weighted(
+            layout.pack(layout.named(phi0)), cohort,
+            torch.tensor([alpha], dtype=torch.float32, device="cuda"),
+            torch.full((MESH_RANKS,), 1.0 / MESH_RANKS, device="cuda"))
+        worst = []
+        for g, w in zip(flat, want):
+            diff = (g.float() - w.float()).abs()
+            bound = POD_TOL["atol"] + POD_TOL["rtol"] * w.float().abs()
+            worst.append({"dtype": str(g.dtype), "max_abs_diff":
+                          diff.max().item(), "within": bool(
+                              (diff <= bound).all().item()),
+                          "bit_equal": bool(torch.equal(g, w))})
+        res["vs_one_rank"] = worst
+        res["loss_one_rank"] = torch.stack(losses).mean().item()
+        del want, cohort, phi0
+    del flat
+    dist.barrier()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = train.parse_args(POD_ARGV + ["--rounds", str(POD_ROUNDS)])
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rows, summary, _ = train.run_lm(args)
+    torch.cuda.synchronize()
+    res.update(wall_s=time.perf_counter() - t0, rows=rows,
+               launches=ops.launch_counts(),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               comm_mb=summary["comm_mb"])
+    return res
+
+
+def start_mesh_workers(workdir):
+    """The MESH_RANKS ranks, started now in the background; they wait for
+    ``go_mesh_workers``. Returns the thread that collects their results
+    (``.result``: the ranks' return values, or the error)."""
+    from repro_torch.runtime.ranks import run_ranks
+
+    def collect():
+        try:
+            thread.result = run_ranks(mesh_worker, MESH_RANKS, workdir,
+                                      workdir, device="cuda", threads=2,
+                                      timeout=600)
+        except BaseException as e:              # raised in the phase
+            thread.result = e
+
+    thread = threading.Thread(target=collect, daemon=True)
+    thread.start()
+    return thread
+
+
+def wait_mesh_workers_ready(thread, workdir):
+    """Block until every rank of ``start_mesh_workers`` is set up and idle,
+    so that no timed phase shares the host with their start."""
+    t0 = time.perf_counter()
+    ready = [Path(workdir) / f"ready{r}" for r in range(MESH_RANKS)]
+    while not all(p.exists() for p in ready):
+        if not thread.is_alive():
+            raise RuntimeError(f"mesh ranks ended before they were ready: "
+                               f"{thread.result}")
+        time.sleep(0.05)
+    emit({"phase": "mesh_ranks_ready",
+          "waited_after_build_s": time.perf_counter() - t0})
+
+
+def phase_mesh_engine_sine(torch, np, thread, workdir, t_start):
+    """Give the ranks their go, wait, and hold their runs to the card's
+    mesh=None runs: every case bit for bit across the ranks, the bills
+    and the pool's identity state exactly, phi within the CPU test's
+    tolerance; then the round timed on mesh=2 against mesh=None."""
+    sm = sine_mods()
+    core, ops = sm["core"], sm["ops"]
+    t0 = time.perf_counter()
+    (Path(workdir) / "go").touch()
+    thread.join()
+    outs = thread.result
+    if isinstance(outs, BaseException):
+        raise outs
+    wait_s = time.perf_counter() - t0
+    r0, r1 = outs
+    rows = {}
+    paths = {}
+    for name in MESH_CASES:
+        a, b = r0["cases"][name], r1["cases"][name]
+        for k in a["params"]:
+            check(np.array_equal(a["params"][k], b["params"][k]),
+                  f"mesh_engine_sine {name}: the ranks' {k} differ")
+        check(a["query_loss"] == b["query_loss"],
+              f"mesh_engine_sine {name}: the ranks' histories differ")
+        strategy, kw = mesh_case(core, sm["loss"], sm["relu"], sm["dist"],
+                                 name)
+        one = run_numpy(np, core.run_federated(sm["phi"], sm["dist"],
+                                               strategy, device="cuda",
+                                               **kw))
+        check(a["per_client_bytes"] == one["per_client_bytes"]
+              and a["comm_bytes"] == one["comm_bytes"],
+              f"mesh_engine_sine {name}: bills differ from mesh=None's")
+        for f, v in one.get("pool_state", {}).items():
+            check(np.array_equal(a["pool_state"][f], v),
+                  f"mesh_engine_sine {name}: pool {f} differs")
+        tol = MESH_VS_ONE_TOL.get(name, MESH_VS_ONE_FP32)
+        diff = max(float(np.abs(a["params"][k] - v).max())
+                   for k, v in one["params"].items())
+        check(diff <= tol, f"mesh_engine_sine {name}: phi {diff} from "
+                           f"mesh=None's, tolerance {tol}")
+        for r in (r0, r1):
+            c = r["cases"][name]
+            check(c["trace_count"] == 1 and not c["captured"],
+                  f"mesh_engine_sine {name}: rank {r['rank']} built "
+                  f"{c['trace_count']} times (captured: {c['captured']})")
+        for r in (r0, r1):
+            counts = r["launches"][f"mesh_engine_sine_{name}"]
+            for kernel in MESH_KERNELS[name]:
+                check(counts[kernel] > 0, f"mesh_engine_sine {name}: rank "
+                      f"{r['rank']} launched no {kernel}")
+        paths[f"mesh_engine_sine_{name}"] = {
+            k: r0["launches"][f"mesh_engine_sine_{name}"][k]
+            + r1["launches"][f"mesh_engine_sine_{name}"][k]
+            for k in ops.KERNELS}
+        rows[name] = {"params_vs_mesh_none": diff, "tol": tol,
+                      "trace_count": [r0["cases"][name]["trace_count"],
+                                      r1["cases"][name]["trace_count"]],
+                      "launches_rank0": r0["launches"][
+                          f"mesh_engine_sine_{name}"]}
+    strategy = core.ReptileStrategy(sm["loss"], epochs=EPOCHS_SINE)
+    core.clear_runner_cache()
+    one = timed_round(torch, lambda: core.run_federated(
+        sm["phi"], sm["dist"], strategy, device="cuda", **MESH_TIMED))
+    emit({"phase": "mesh_engine_sine", "ranks": MESH_RANKS,
+          "backend": r0["backend"], "round_form": "eager (gloo stages "
+          "through the host; not capturable)",
+          "cases": rows, "timed_config": MESH_TIMED,
+          "round_mesh2": [r0["timed_mesh2"], r1["timed_mesh2"]],
+          "round_mesh_none_captured": one,
+          "allreduce_gloo_cuda": r0["allreduce"],
+          "ranks_waited_s": wait_s,
+          "script_s_so_far": time.perf_counter() - t_start})
+    return outs, paths
+
+
+def phase_pod_client(torch, np, outs):
+    """Pod-client mode's checks from the ranks' results."""
+    r0, r1 = (o["pod"] for o in outs)
+    check(r0["phi_sha256"] == r1["phi_sha256"],
+          "pod_client: the ranks' phi differ")
+    for g in r0["vs_one_rank"]:
+        check(g["within"], f"pod_client: round 0 against one rank: {g}")
+    check(abs(r0["round0"]["loss"] - r0["loss_one_rank"])
+          <= 1e-3 * abs(r0["loss_one_rank"]),
+          f"pod_client: loss {r0['round0']['loss']} vs one rank "
+          f"{r0['loss_one_rank']}")
+    paths = {}
+    for r, o in ((r0, outs[0]), (r1, outs[1])):
+        for kernel in ("ssd_scan", "online_sgd", "meta_update",
+                       "client_mean"):
+            check(r["launches"][kernel] > 0,
+                  f"pod_client: rank {o['rank']} launched no {kernel}")
+        for row in r["rows"]:
+            check(all(math.isfinite(row[k]) for k in
+                      ("loss", "inner_first", "inner_last")),
+                  f"pod_client: round {row['round']} not finite")
+    paths["pod_client_mamba2_130m"] = {
+        k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}
+    tokens = POD_ROUNDS * 8 * 64
+    emit({"phase": "pod_client_mamba2_130m", "argv": POD_ARGV,
+          "rounds": POD_ROUNDS, "backend": outs[0]["backend"],
+          "wall_s": [r0["wall_s"], r1["wall_s"]],
+          "round_s": [row["dt_s"] for row in r0["rows"]],
+          "tokens_per_s": tokens / r0["wall_s"],
+          "peak_gb": [r0["peak_gb"], r1["peak_gb"]],
+          "launches": [r0["launches"], r1["launches"]],
+          "round0_vs_one_rank": r0["vs_one_rank"], "tol": POD_TOL,
+          "rows": r0["rows"], "comm_mb": r0["comm_mb"]})
+    return paths
+
+
+def phase_mesh_engine_nccl1(torch, np):
+    """A one-rank NCCL group: run_federated(mesh=1) with its collective
+    inside the captured round, bit for bit mesh=None, built once; then
+    the timed round on it."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.sharding import init_distributed
+    sm = sine_mods()
+    core, ops = sm["core"], sm["ops"]
+    backend, dev = init_distributed(None, 1, 0, device="cuda:0")
+    check(backend == "nccl", f"mesh_engine_nccl1: a rank with its own card "
+                             f"took {backend}")
+    rows, paths = {}, {}
+    try:
+        for name in ("reptile_partial", "pooled_fedbuff"):
+            runs, calls = {}, {}
+            for mesh in (None, 1):
+                # a weighted round (partial participation, a pooled
+                # FedBuff fleet): its hook sums through the group
+                if name == "pooled_fedbuff":
+                    strategy, kw = mesh_case(core, sm["loss"], sm["relu"],
+                                             sm["dist"], name)
+                else:
+                    strategy = core.ReptileStrategy(sm["loss"], epochs=2)
+                    kw = dict(MESH_RUN, clients_per_round=8,
+                              sampling=core.PartialParticipation(0.5))
+                core.clear_runner_cache()
+                before = sharding.CALLS["all_reduce"]
+                (out, wall, counts) = timed_run(
+                    torch, ops, lambda: core.run_federated(
+                        sm["phi"], sm["dist"], strategy, mesh=mesh,
+                        device="cuda", **kw))
+                calls[mesh] = sharding.CALLS["all_reduce"] - before
+                runs[mesh] = (run_numpy(np, out), built_round(sm["engine"]),
+                              counts)
+            (a, ga, ca), (b, gb, cb) = runs[None], runs[1]
+            for k in a["params"]:
+                check(np.array_equal(a["params"][k], b["params"][k]),
+                      f"mesh_engine_nccl1 {name}: {k} differs from "
+                      f"mesh=None's")
+            check(a["per_client_bytes"] == b["per_client_bytes"],
+                  f"mesh_engine_nccl1 {name}: bills")
+            check(ca == cb, f"mesh_engine_nccl1 {name}: launches {cb} vs "
+                            f"{ca}")
+            # the round's one all-reduce (the weighted mean), made by the
+            # first round's warm-up and by its capture, by no replay
+            check(calls[None] == 0 and calls[1] == 2,
+                  f"mesh_engine_nccl1 {name}: all_reduce calls {calls}: "
+                  f"the collective was not inside the captured round")
+            paths[f"mesh_engine_nccl1_{name}"] = cb
+            rows[name] = {"bit_equal": True, "mesh_none": ga, "mesh1": gb,
+                          "all_reduce_calls": calls[1], "launches": cb}
+        strategy = core.ReptileStrategy(sm["loss"], epochs=EPOCHS_SINE)
+        core.clear_runner_cache()
+        timed = timed_round(torch, lambda: core.run_federated(
+            sm["phi"], sm["dist"], strategy, mesh=1, device="cuda",
+            **MESH_TIMED))
+    finally:
+        core.clear_runner_cache()
+        dist.destroy_process_group()
+    emit({"phase": "mesh_engine_nccl1", "backend": backend,
+          "device": str(dev), "round_form": "captured (NCCL)",
+          "note": "a one-rank NCCL all_reduce launches no kernel (the "
+                  "profiler sees none, the graph no node): the call is "
+                  "made inside the capture; NCCL across ranks not run",
+          "runs": rows, "timed_config": MESH_TIMED,
+          "round_mesh1_nccl_captured": timed})
+    return paths
+
+
+def start_launchers_two_process():
+    """The train launcher's two-process route (two processes the script
+    starts, ``--num-processes 2 --coordinator 127.0.0.1:<port>
+    --process-id 0|1``) and its ``--devices 2`` route (ranks the launcher
+    starts), all at once, in the background; returns the processes."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    base = [sys.executable, "-m", "repro_torch.launch.train"] + LAUNCH_2P
+    cmds = {"process_1": base + ["--num-processes", "2", "--coordinator",
+                                 f"127.0.0.1:{port}", "--process-id", "1"],
+            "process_0": base + ["--num-processes", "2", "--coordinator",
+                                 f"127.0.0.1:{port}", "--process-id", "0"],
+            "devices_2": base + ["--devices", "2"]}
+    procs = {k: (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True,
+                                       cwd=str(ROOT), env=env))
+             for k, cmd in cmds.items()}
+    CHILDREN.extend(p for _, p in procs.values())
+    return procs
+
+
+def phase_launcher_two_process(procs):
+    """The two-process run's summary row equals the --devices 2 run's
+    (every key but its seconds)."""
+    rows = {}
+    for k, (cmd, p) in procs.items():
+        out, err = p.communicate(timeout=300)
+        check(p.returncode == 0, f"launcher_two_process {k}: exit "
+                                 f"{p.returncode}: {err[-2000:]}")
+        lines = [json.loads(line) for line in out.splitlines()
+                 if line.startswith("{")]
+        rows[k] = lines[-1] if lines else None
+    check(rows["process_1"] is None, "launcher_two_process: rank 1 printed")
+    a, b = rows["process_0"], rows["devices_2"]
+    check({k: v for k, v in a.items() if k != "dt_s"}
+          == {k: v for k, v in b.items() if k != "dt_s"},
+          f"launcher_two_process: {a} vs {b}")
+    for kernel in ("online_sgd", "meta_update", "client_mean"):
+        check(a["kernel_launches"][kernel] > 0,
+              f"launcher_two_process: no {kernel}")
+    emit({"phase": "launcher_two_process", "argv": LAUNCH_2P,
+          "row_two_process": a, "row_devices_2": b,
+          "nccl_across_cards": "not run: one card"})
+    return {"launcher_two_process_rank0": a["kernel_launches"],
+            "launcher_devices_2_rank0": b["kernel_launches"]}
+
+
+# -- streams: groups of phases in processes of their own ------------------------
+
+# After slice 19 three streams of phases run at once on the one card,
+# each in a process of its own: the script's process takes slice 17's
+# engine phases and the engine's LM route, STREAMS the rest but the
+# families, which run alone once all three are done (train_mixtral_full
+# holds 75.6 GB of the card's 80). A stream's peak is at most 33.5 GB
+# (joint_step_full), the script's own 22.8 GB (engine_lm_mamba2_130m), so
+# the three fit beside each other. The phases are the serial script's,
+# unchanged, each with its launch counters set to 0 just before it and
+# read just after in its own process; what a phase times, it times beside
+# the other streams (the host's 8 cores and the card shared; the kernel
+# phases, the levers and slice 19 run before, with nothing beside them).
+# A stream's lines are printed after it ends, each with its "stream".
+STREAM_THREADS = 3             # torch's CPU threads in a stream's process
+STREAM_TIMEOUT = 600           # seconds from the streams' start
+
+
+def port_modules(refs):
+    """The port's modules and the seeded sine MLP init every phase after
+    slice 19 takes (``tm``), with ``refs``, this process's CPU
+    references."""
+    import torch
+
+    from repro_torch import bridge, core, graphs
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.paper_models import PAPER_MODELS, SINE_MLP
+    from repro_torch.core import engine
+    from repro_torch.data import KWSTasks, OmniglotTasks, SineTasks
+    from repro_torch.examples import federated_keyword_spotting as kws
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_launcher
+    from repro_torch.launch import train
+    from repro_torch.metering import MetricsTracker
+    from repro_torch.models import mamba2, moe, paper_nets
+    from repro_torch.models.transformer import build_model
+    return {"core": core, "ops": ops, "train": train, "SineTasks": SineTasks,
+            "loss": functools.partial(paper_nets.paper_model_loss, SINE_MLP),
+            "phi": paper_nets.init_paper_model(
+                SINE_MLP, torch.Generator().manual_seed(0), "cpu"),
+            "bridge": bridge, "mamba2": mamba2, "engine": engine,
+            "build_model": build_model, "get_arch": get_arch,
+            "graphs": graphs, "nets": paper_nets, "cfgs": PAPER_MODELS,
+            "kws": kws, "MetricsTracker": MetricsTracker,
+            "serve": serve_launcher, "moe": moe,
+            "dists": {"kws_conv": KWSTasks(),
+                      "omniglot_conv": OmniglotTasks()},
+            "loss_of": lambda cfg: functools.partial(
+                paper_nets.paper_model_loss, cfg),
+            "acc_of": lambda cfg: functools.partial(
+                paper_nets.paper_model_accuracy, cfg),
+            "refs": refs}
+
+
+def stream_decode_lm(torch, np, tm):
+    """The decode slice (tinyllama-1.1b, then mamba2-130m), the LM
+    launcher's fleet and checkpoint flags (slice 17), and the dense
+    family through the LM launcher. Returns the launches by path."""
+    s_dec_red = phase_serve_decode_reduced(torch, np, tm)
+    s_dec, dec_model, dec_params = phase_serve_decode_full(torch, np, tm)
+    phase_profile_decode(torch, np, dec_model, dec_params)
+    emit({"phase": "graphs_vs_eager_decode",
+          "decode_tinyllama_1_1b": graphs_vs_eager_decode(
+              torch, np, tm["graphs"], dec_model, dec_params)})
+    # the dense family's prefill and joint step on the same weights
+    phase_prefill_dense_full(torch, np, tm, dec_model, dec_params)
+    phase_joint_step_full(torch, np, tm, dec_model, dec_params)
+    del dec_params
+    torch.cuda.empty_cache()
+    paths = {"serve_decode_reduced": s_dec_red["launches"],
+             "serve_decode_tinyllama_1_1b": s_dec["launches"],
+             **phase_decode_mamba_full(torch, np, tm),
+             **phase_train_lm_fleet(torch, np, tm)}
+    torch.cuda.empty_cache()
+    return {**paths, **phase_train_dense_reduced(torch, np, tm),
+            **phase_train_dense_full(torch, np, tm)}
+
+
+def stream_sine(torch, np, tm):
+    """The paper's models: serving, the train launcher's strategies, the
+    checkpoints, Tables I-IV, Fig. 4, the captured rounds against eager,
+    the port's examples, then the fleet (whose CPU references this
+    process's worker computes meanwhile); last the LM launcher on
+    mamba2 (reduced, then mamba2-130m, profiled). Returns the launches
+    by path."""
+    from repro_torch.core.strategies import tifed_requantize
+    from repro_torch.serving import (AdaptationServer, Fp32Adapter,
+                                     TifedAdapter)
+    submit_cpu_refs(tm["refs"], "sine")
+    ops, phi = tm["ops"], tm["phi"]
+    mods = (tm["MetricsTracker"], AdaptationServer, ops)
+    fp32 = Fp32Adapter(loss_fn=tm["loss"])
+    reqs = make_requests(np, N_REQUESTS, SUPPORT, QUERY, K_MAX, seed=0)
+    s_fp32 = phase_serve(torch, np, mods, "fp32", fp32, phi, reqs, K_MAX,
+                         "online_sgd", exact_params=False)
+    phi_q = tifed_requantize(phi)
+    tifed = TifedAdapter(support=T_SUPPORT, k_max=T_K_MAX)
+    t_reqs = make_requests(np, N_REQUESTS, T_SUPPORT, QUERY, T_K_MAX, seed=1)
+    s_tifed = phase_serve(torch, np, mods, "tifed", tifed, phi_q, t_reqs,
+                          T_K_MAX, "dfa_epoch_int8", exact_params=True)
+    phase_profile(torch, np, mods, fp32, phi, reqs)
+
+    t_tiny = phase_train_tinyreptile(torch, np, tm)
+    t_rep = phase_train_reptile(torch, np, tm)
+    t_base = phase_train_baselines(torch, np, tm)
+    phase_profile_train(torch, tm)
+    queue_c = phase_client_mean_queue_c(torch, np, tm)
+    ckpt_paths, ckpt_ref = phase_ckpt_resume(torch, np, tm)
+    ckpt_paths.update(phase_ckpt_sigkill(torch, np, tm, ckpt_ref))
+    phase_ckpt_overhead(torch, np, tm)
+    phase_paper_models(torch, np, tm)
+    fig4_paths = phase_fig4_conv(torch, np, tm)
+    phase_graphs(torch, np, tm, {
+        "server": AdaptationServer,
+        "routes": {"serve_fp32": (fp32, phi, reqs, K_MAX),
+                   "serve_tifed": (tifed, phi_q, t_reqs, T_K_MAX)}},
+                 conv_graph_runs(torch, tm))
+    examples = phase_examples(torch, np, tm)
+    fleet_paths = {**phase_fleet_tifed(torch, np, tm),
+                   **phase_fleet_partial(torch, np, tm),
+                   **phase_fleet_pool(torch, np, tm),
+                   **phase_fleet_kws(torch, np, tm)}
+    t_lm_red = phase_train_lm_reduced(torch, np, tm)
+    t_lm, lm_phi = phase_train_lm_full(torch, np, tm)
+    phase_profile_lm(torch, np, tm, lm_phi)
+    del lm_phi
+    torch.cuda.empty_cache()
+    return {"train_lm_reduced": t_lm_red["launches"],
+            "train_lm_mamba2_130m": t_lm["launches"],
+            "serve_fp32": s_fp32["launches"],
+            "serve_tifed": s_tifed["launches"],
+            "train_tinyreptile": t_tiny["launches"],
+            "train_reptile_c64": t_rep["launches"],
+            **{f"train_{r['run']}": r["launches"] for r in t_base},
+            **fig4_paths, **fleet_paths, **ckpt_paths, **queue_c,
+            **examples}
+
+
+STREAMS = {"decode_lm": stream_decode_lm, "sine": stream_sine}
+
+
+def stream_main(name, out_dir):
+    """One of STREAMS in a process of its own (spawned): its lines to
+    ``out_dir/<name>.jsonl``, then its launches by path, its seconds by
+    phase and its CPU references' log to ``out_dir/<name>.json``. A
+    failed phase ends the process with its message (exit code 1)."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import build
+    torch.set_num_threads(STREAM_THREADS)
+    STREAM[0] = name
+    for lib in BUILD_SOURCES:
+        build.load(lib)
+    refs = CpuRefs()
+    try:
+        with open(Path(out_dir) / f"{name}.jsonl", "w") as f, \
+                contextlib.redirect_stdout(f):
+            paths = STREAMS[name](torch, np, port_modules(refs))
+    finally:
+        refs.close()
+        for p in CHILDREN:
+            if p.poll() is None:
+                p.kill()
+    with open(Path(out_dir) / f"{name}.json", "w") as f:
+        json.dump({"paths": paths, "phase_seconds": PHASE_S,
+                   "cpu_refs": refs.log,
+                   "stream_s": time.perf_counter() - T0}, f)
+
+
+def start_streams(out_dir):
+    """Every stream of STREAMS started now (spawned); returns the
+    processes by name and when they started."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("spawn")
+    procs = {name: ctx.Process(target=stream_main, args=(name, out_dir))
+             for name in STREAMS}
+    for p in procs.values():
+        p.start()
+    STREAM_PROCS.extend(procs.values())
+    return procs, time.monotonic()
+
+
+def join_streams(started, out_dir):
+    """Wait for every stream of ``start_streams``, print its lines, and
+    fail if one failed. Returns their launches by path and, for the
+    phase_seconds line, each stream's seconds by phase, its own seconds
+    and its CPU references."""
+    procs, at = started
+    t0 = time.perf_counter()
+    deadline = at + STREAM_TIMEOUT
+    for p in procs.values():
+        p.join(max(deadline - time.monotonic(), 0.0))
+    waited = time.perf_counter() - t0
+    paths, log = {}, {}
+    for name, p in procs.items():
+        lines = Path(out_dir) / f"{name}.jsonl"
+        if lines.exists():
+            sys.stdout.write(lines.read_text())
+            sys.stdout.flush()
+        if p.is_alive():
+            p.kill()
+            p.join()
+            check(False, f"stream {name} still ran after {STREAM_TIMEOUT} s")
+        check(p.exitcode == 0, f"stream {name} failed (exit code "
+                               f"{p.exitcode}); its message is on stderr")
+        with open(Path(out_dir) / f"{name}.json") as f:
+            out = json.load(f)
+        paths.update(out["paths"])
+        log[name] = {k: out[k] for k in ("phase_seconds", "cpu_refs",
+                                         "stream_s")}
+    emit({"phase": "streams_joined", "waited_s": waited,
+          "streams_s": {k: v["stream_s"] for k, v in log.items()}})
+    return paths, {"streams": log}
+
+
 def main():
     import numpy as np
     import torch
@@ -6184,22 +7031,28 @@ def main():
         run_phases(torch, np, refs, t_start)
     finally:
         refs.close()
+        for p in CHILDREN:               # stop what a failed phase left
+            if p.poll() is None:
+                p.kill()
+        for p in STREAM_PROCS:
+            if p.is_alive():
+                p.kill()
 
 
 def run_phases(torch, np, refs, t_start):
-    """Every phase in order, then the kernels line, the card's line and the
-    ok line."""
-    from repro_torch.configs.paper_models import SINE_MLP
-    from repro_torch.core.strategies import tifed_requantize
+    """Every phase in order (those of STREAMS in their own processes),
+    then the kernels line, the card's line and the ok line."""
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.metering import MetricsTracker
-    from repro_torch.models.paper_nets import (init_paper_model,
-                                               paper_model_loss)
-    from repro_torch.serving import (AdaptationServer, Fp32Adapter,
-                                     TifedAdapter)
 
+    # the compilers and slice 19's ranks start first, beside the device
+    # phase; the kernel phases wait until the ranks are set up and idle,
+    # and the ranks run after the levers
+    build_thread = start_build(build)
+    mesh_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    mesh_thread = start_mesh_workers(mesh_dir)
     phase_device(torch, np)
-    ptxas = phase_build(build)
+    ptxas = phase_build(build, build_thread)
+    wait_mesh_workers_ready(mesh_thread, mesh_dir)
     rows = phase_kernels(torch, np, ops, ref)
     phase_kernels_lm(torch, np, ops, ref, rows)
     phase_kernels_decode(torch, np, ops, ref, rows)
@@ -6211,12 +7064,9 @@ def run_phases(torch, np, refs, t_start):
     phase_kernels_mixed(torch, np, ops, ref, rows)
     phase_kernels_ringkv(torch, np, ops, ref, rows)
 
-    from repro_torch import bridge, core, graphs
+    from repro_torch import bridge, graphs
     from repro_torch.configs import get_arch
-    from repro_torch.core import engine
     from repro_torch.launch import serve as serve_launcher
-    from repro_torch.launch import train
-    from repro_torch.models import mamba2
     from repro_torch.models.transformer import build_model
     from repro_torch.runtime import flags
 
@@ -6236,126 +7086,51 @@ def run_phases(torch, np, refs, t_start):
         levers_paths.update(phase_decode_starcoder2_full(torch, np, sm))
     emit({"phase": "levers", "phases_s": time.perf_counter() - t18,
           "script_s_so_far": time.perf_counter() - t_start})
-    # the CPU references from here on: no later phase times a kernel on
-    # the host
+    # slice 19: the engine across processes
+    t19 = time.perf_counter()
+    mesh_outs, mesh_paths = phase_mesh_engine_sine(torch, np, mesh_thread,
+                                                   mesh_dir, t_start)
+    mesh_paths.update(phase_pod_client(torch, np, mesh_outs))
+    del mesh_outs
+    mesh_paths.update(phase_mesh_engine_nccl1(torch, np))
+    # alone on the card and the host: no other phase runs beside them
+    mesh_paths.update(phase_launcher_two_process(
+        start_launchers_two_process()))
+    emit({"phase": "slice_19", "phases_s": time.perf_counter() - t19,
+          "script_s_so_far": time.perf_counter() - t_start})
+    # from here on three streams of phases run at once, each in a process
+    # of its own on the card (STREAMS): this process takes slice 17 and
+    # the engine's LM route; the families run after them, alone
+    stream_dir = tempfile.mkdtemp(prefix="chip_smoke_streams_")
+    streams = start_streams(stream_dir)
+    # the CPU references from here on: no later phase times a kernel or a
+    # collective with nothing beside it
     submit_cpu_refs(refs)
+    tm = port_modules(refs)
 
-    # the engine's LM route first: its paths are the newest
-    lm = {"core": core, "ops": ops, "train": train, "bridge": bridge,
-          "engine": engine, "mamba2": mamba2, "build_model": build_model,
-          "get_arch": get_arch, "MetricsTracker": MetricsTracker,
-          "refs": refs}
-    # slice 17's first: the engine in the LMs' own dtypes, the LM
-    # launcher's fleet and checkpoint flags
+    # slice 17's first: the engine in the LMs' own dtypes
     t_mixed = time.perf_counter()
-    mixed_paths = {**phase_engine_lm_mixed_reduced(torch, np,
-                                                   {**lm, "graphs": graphs}),
-                   **phase_engine_lm_full_mixed(torch, np, lm),
-                   **phase_train_lm_fleet(torch, np, lm)}
+    mixed_paths = {**phase_engine_lm_mixed_reduced(torch, np, tm),
+                   **phase_engine_lm_full_mixed(torch, np, tm)}
     emit({"phase": "slice_17", "phases_s": time.perf_counter() - t_mixed,
           "script_s_so_far": time.perf_counter() - t_start})
-    engine_lm_paths = {**phase_engine_lm_reduced(torch, np, lm),
-                       **phase_engine_lm_full(torch, np, lm),
-                       **phase_examples(torch, np, lm)}
-
-    # then the decode slice
-
-    dm = {"ops": ops, "bridge": bridge, "serve": serve_launcher,
-          "get_arch": get_arch, "build_model": build_model,
-          "graphs": graphs}
-    s_dec_red = phase_serve_decode_reduced(torch, np, dm)
-    s_dec, dec_model, dec_params = phase_serve_decode_full(torch, np, dm)
-    phase_profile_decode(torch, np, dec_model, dec_params)
-    g_dec = graphs_vs_eager_decode(torch, np, graphs, dec_model, dec_params)
-    # the dense family's prefill and joint step on the same weights
-    phase_prefill_dense_full(torch, np, dm, dec_model, dec_params)
-    phase_joint_step_full(torch, np, dm, dec_model, dec_params)
-    del dec_params
-    torch.cuda.empty_cache()
-    dec_mamba = phase_decode_mamba_full(torch, np, dm)
-
-    mods = (MetricsTracker, AdaptationServer, ops)
-    phi = init_paper_model(SINE_MLP, torch.Generator().manual_seed(0), "cpu")
-    fp32 = Fp32Adapter(loss_fn=functools.partial(paper_model_loss, SINE_MLP))
-    reqs = make_requests(np, N_REQUESTS, SUPPORT, QUERY, K_MAX, seed=0)
-    s_fp32 = phase_serve(torch, np, mods, "fp32", fp32, phi, reqs, K_MAX,
-                         "online_sgd", exact_params=False)
-
-    phi_q = tifed_requantize(phi)
-    tifed = TifedAdapter(support=T_SUPPORT, k_max=T_K_MAX)
-    t_reqs = make_requests(np, N_REQUESTS, T_SUPPORT, QUERY, T_K_MAX, seed=1)
-    s_tifed = phase_serve(torch, np, mods, "tifed", tifed, phi_q, t_reqs,
-                          T_K_MAX, "dfa_epoch_int8", exact_params=True)
-    phase_profile(torch, np, mods, fp32, phi, reqs)
-
-    from repro_torch.configs.paper_models import PAPER_MODELS
-    from repro_torch.data import KWSTasks, OmniglotTasks, SineTasks
-    from repro_torch.examples import federated_keyword_spotting as kws
-    from repro_torch.models import paper_nets
-
-    tm = {"core": core, "ops": ops, "train": train, "SineTasks": SineTasks,
-          "loss": functools.partial(paper_model_loss, SINE_MLP), "phi": phi,
-          "bridge": bridge, "mamba2": mamba2, "engine": engine,
-          "build_model": build_model, "get_arch": get_arch,
-          "graphs": graphs, "nets": paper_nets, "cfgs": PAPER_MODELS,
-          "kws": kws, "MetricsTracker": MetricsTracker,
-          "dists": {"kws_conv": KWSTasks(), "omniglot_conv": OmniglotTasks()},
-          "loss_of": lambda cfg: functools.partial(
-              paper_nets.paper_model_loss, cfg),
-          "acc_of": lambda cfg: functools.partial(
-              paper_nets.paper_model_accuracy, cfg),
-          "refs": refs}
-    t_tiny = phase_train_tinyreptile(torch, np, tm)
-    t_rep = phase_train_reptile(torch, np, tm)
-    t_base = phase_train_baselines(torch, np, tm)
-    phase_profile_train(torch, tm)
-    queue_c = phase_client_mean_queue_c(torch, np, tm)
-    fleet_paths = {**phase_fleet_tifed(torch, np, tm),
-                   **phase_fleet_partial(torch, np, tm),
-                   **phase_fleet_pool(torch, np, tm),
-                   **phase_fleet_kws(torch, np, tm)}
-    ckpt_paths, ckpt_ref = phase_ckpt_resume(torch, np, tm)
-    ckpt_paths.update(phase_ckpt_sigkill(torch, np, tm, ckpt_ref))
-    phase_ckpt_overhead(torch, np, tm)
-    phase_paper_models(torch, np, tm)
-    fig4_paths = phase_fig4_conv(torch, np, tm)
-    phase_graphs(torch, np, tm, {
-        "server": AdaptationServer,
-        "routes": {"serve_fp32": (fp32, phi, reqs, K_MAX),
-                   "serve_tifed": (tifed, phi_q, t_reqs, T_K_MAX)}},
-                 {"decode_tinyllama_1_1b": g_dec}, conv_graph_runs(torch, tm))
-    t_lm_red = phase_train_lm_reduced(torch, np, tm)
-    t_lm, lm_phi = phase_train_lm_full(torch, np, tm)
-    phase_profile_lm(torch, np, tm, lm_phi)
-    del lm_phi
-    torch.cuda.empty_cache()
-    dense_paths = {**phase_train_dense_reduced(torch, np, tm),
-                   **phase_train_dense_full(torch, np, tm)}
+    engine_lm_paths = {**phase_engine_lm_reduced(torch, np, tm),
+                       **phase_engine_lm_full(torch, np, tm)}
+    stream_paths, stream_log = join_streams(streams, stream_dir)
 
     # the decoder-only families of slice 15 and the encoder-decoder and
-    # VLM of slice 16; the decode runners dropped with the cyclic
-    # collector off, so that free_card sees what they leave
-    from repro_torch.models import moe
-    fm = {**tm, "serve": serve_launcher, "moe": moe}
-    family_paths = phase_families_reduced(torch, np, fm)
+    # VLM of slice 16, alone on the card; the decode runners dropped with
+    # the cyclic collector off, so that free_card sees what they leave
+    family_paths = phase_families_reduced(torch, np, tm)
     with gc_off():
-        family_paths.update(phase_families_decode(torch, np, fm))
-    family_paths.update(phase_families_train(torch, np, fm))
-    family_paths.update(phase_encdec_vlm_train(torch, np, fm))
+        family_paths.update(phase_families_decode(torch, np, tm))
+    family_paths.update(phase_families_train(torch, np, tm))
+    family_paths.update(phase_encdec_vlm_train(torch, np, tm))
 
-    # every main path's launches, each counted from 0 just before it
-    paths = {"serve_fp32": s_fp32["launches"],
-             "serve_tifed": s_tifed["launches"],
-             "train_tinyreptile": t_tiny["launches"],
-             "train_reptile_c64": t_rep["launches"],
-             **{f"train_{r['run']}": r["launches"] for r in t_base},
-             "train_lm_reduced": t_lm_red["launches"],
-             "train_lm_mamba2_130m": t_lm["launches"],
-             "serve_decode_reduced": s_dec_red["launches"],
-             "serve_decode_tinyllama_1_1b": s_dec["launches"],
-             **fig4_paths, **fleet_paths, **ckpt_paths, **queue_c,
-             **dense_paths, **dec_mamba, **engine_lm_paths, **family_paths,
-             **mixed_paths, **levers_paths}
+    # every main path's launches, each counted from 0 just before it (in
+    # the process that drove it)
+    paths = {**stream_paths, **engine_lm_paths, **family_paths,
+             **mixed_paths, **levers_paths, **mesh_paths}
     kernels = []
     for kernel, route, source, replaces, row in (
             ("online_sgd", "cuda", "src/repro_torch/kernels/csrc/online_sgd.cu",
@@ -6430,7 +7205,7 @@ def run_phases(torch, np, refs, t_start):
                      "generic_device_ms", "plain_ms", "bound_ms", "bound_by",
                      "max_abs_err", "loss_max_rel_err")}}
                 if kernel == "dfa_epoch_int8" else {})})
-    emit({"phase_seconds": PHASE_S, "cpu_refs": refs.log})
+    emit({"phase_seconds": PHASE_S, "cpu_refs": refs.log, **stream_log})
     emit({"total_s": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(smi_line(), flush=True)

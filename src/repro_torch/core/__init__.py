@@ -4,10 +4,12 @@ the full design. Ported: the single-device route with the five fp32
 strategies and TIFeD's int8 one, the uniform, partial-participation and
 straggler schedules, the fp32/fp16/int8 and partial channels, and the
 persistent ``ClientPool`` with FedBuff buffering and the diurnal and
-Markov availability processes."""
+Markov availability processes, and the cohort split over the ranks of a
+1-D ``clients`` mesh (``client_mesh``)."""
 from repro_torch.core.engine import (CommChannel,  # noqa: F401
                                      PartialCommChannel, clear_runner_cache,
-                                     run_federated, runner_cache_stats)
+                                     client_mesh, run_federated,
+                                     runner_cache_stats)
 from repro_torch.core.fedavg import fedavg_train, fedsgd_train  # noqa: F401
 from repro_torch.core.meta import (evaluate_init,  # noqa: F401
                                    finetune_batch, finetune_online)

@@ -7,8 +7,8 @@ device: anonymous cohorts resampled every round, or a persistent
 ``ClientPool`` (``core/pool.py``) with FedBuff buffering and
 availability processes; every strategy, TIFeD's int8 one included; the
 fp32/fp16/int8 wire and TinyMetaFed's partial one; round-state
-checkpoints and resume (``ckpt_dir=``, ``resume=``). (``mesh=`` is
-accepted and raises NotImplementedError until its slice is ported.)
+checkpoints and resume (``ckpt_dir=``, ``resume=``); and the cohort
+split over the ranks of a ``torch.distributed`` client mesh (``mesh=``).
 
 * A ``FedStrategy`` (``core/strategies.py``) supplies the two
   algorithm-specific hooks: ``client_update`` (what the round's cohort
@@ -60,6 +60,24 @@ accepted and raises NotImplementedError until its slice is ported.)
   block, which a background writer copies to the host once an event
   recorded after them has passed. ``resume=True`` continues from the
   newest valid snapshot bit for bit.
+* ``mesh=`` (an int, ``"auto"`` or a 1-D ``("clients",)`` mesh,
+  ``client_mesh``) splits each round's cohort over the ranks of a
+  process group, one process a rank, each on its own device. Every rank
+  runs the same host loop on the same seed (plans, draws, bills and
+  evals are the same on every rank), stages its part of each block
+  (``pipeline.block_shardings``), runs the round on its shard of the
+  cohort and sums the aggregation across the ranks: one ``all_reduce`` a
+  dtype group (``strategies.weighted_client_mean(group=)``), the round
+  losses once a block. A pooled run splits the pool's rows and the
+  FedBuff buffer over the ranks (``ClientPool.init_state(shards=)``):
+  one gather of the round's cohort and participation rows lets each
+  rank update the clients it owns, and a flush sums its weights'
+  denominator across the ranks. Only rank 0 writes snapshots; every
+  rank joins the gather that builds one. The round is captured where
+  its collectives can be (NCCL, or no group) and runs eagerly where they
+  cannot (gloo stages through the host). A one-rank mesh runs the
+  one-device round itself, its weighted aggregation through the
+  one-rank group: bit for bit ``mesh=None``.
 
 The LM launcher's round (``runtime/steps.py``) is built from two more
 pieces here: ``streaming_sgd``, K streaming SGD steps over a nested
@@ -89,17 +107,83 @@ from repro_torch.checkpoint.ckpt import (AsyncCheckpointWriter, RoundState,
                                          save_round_state)
 from repro_torch.core.meta import evaluate_init
 from repro_torch.core.pipeline import (ClientSchedule, SamplingPolicy,
-                                       UniformSampling, plan_blocks,
-                                       prefetch_items)
+                                       UniformSampling, block_shardings,
+                                       plan_blocks, prefetch_items)
 from repro_torch.core.pool import (BufferedAggregation, ClientPool,
-                                   PoolState, tree_map)
+                                   PoolState, pool_state_specs, tree_map)
 from repro_torch.core.threefry import leaf_permutations
 from repro_torch.data.tasks import TaskDistribution
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs import GraphStep, weak_method
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime.sharding import (ProcessMesh, all_reduce,
+                                          gather_rows, make_mesh)
 
 logger = logging.getLogger(__name__)
+
+#: the engine's mesh axis: run_federated(mesh=...) splits the per-round
+#: cohort over it (see client_mesh)
+CLIENT_AXIS = "clients"
+#: the second axis of a 2-D (clients, model) mesh, which shards phi's
+#: weight matrices (runtime/sharding.py::client_model_mesh)
+MODEL_AXIS = "model"
+
+
+def client_mesh(devices=None, device: DeviceLike = None) -> ProcessMesh:
+    """A 1-D mesh over the engine's client axis ("clients"): ``devices``
+    ranks of the process group, one process each, on this rank's
+    ``device``. None takes every rank of the group (one, without a
+    group); an int must be the group's size, since every rank runs the
+    engine's host loop. Pass the result (or the int, or "auto") to
+    ``run_federated(mesh=...)``."""
+    import torch.distributed as dist
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n = world if devices is None else devices
+    if not isinstance(n, int) or n != world:
+        raise ValueError(
+            f"client_mesh asked for {n} devices; this process group has "
+            f"{world} rank(s) (the port runs one process a rank, and the "
+            f"mesh spans the group: start {n} ranks joined by "
+            f"repro_torch.runtime.sharding.init_distributed, or run the "
+            f"launcher with --devices {n})")
+    return make_mesh((n,), (CLIENT_AXIS,), device)
+
+
+def _resolve_mesh(mesh, dev: torch.device) -> Optional[ProcessMesh]:
+    """Normalize run_federated's mesh argument: None passes through,
+    "auto" builds a mesh over every rank, an int over that many (the
+    whole group), and an explicit mesh (a ``ProcessMesh``, or a
+    ``DeviceMesh``, wrapped) must be 1-D over the "clients" axis, on this
+    run's device. The 2-D ("clients", "model") mesh is refused until the
+    DTensor slice."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, str) and mesh == "auto":
+        return client_mesh(device=dev)
+    if isinstance(mesh, int) and not isinstance(mesh, bool):
+        return client_mesh(mesh, device=dev)
+    if not isinstance(mesh, ProcessMesh) and hasattr(mesh,
+                                                     "mesh_dim_names"):
+        mesh = ProcessMesh.of(mesh, dev)
+    names = tuple(mesh.axis_names)
+    if names == (CLIENT_AXIS, MODEL_AXIS):
+        raise NotImplementedError(
+            f"run_federated on a 2-D ('{CLIENT_AXIS}', '{MODEL_AXIS}') "
+            f"mesh is not ported yet (the DTensor slice ports it, with "
+            f"the ModelPartitioner's shardings of phi); run a 1-D "
+            f"('{CLIENT_AXIS}',) mesh")
+    if names != (CLIENT_AXIS,):
+        raise ValueError(
+            f"run_federated shards the cohort over a '{CLIENT_AXIS}' mesh "
+            f"axis — 1-D ('{CLIENT_AXIS}',) or 2-D ('{CLIENT_AXIS}', "
+            f"'{MODEL_AXIS}'); got axes {names} (build one with "
+            f"repro_torch.core.engine.client_mesh, or pass an int / "
+            f"'auto')")
+    if mesh.device != dev:
+        raise ValueError(f"the mesh's rank runs on {mesh.device}, the run "
+                         f"on {dev}: pass the mesh's device= or build the "
+                         f"mesh on {dev}")
+    return mesh
 
 #: bytes per parameter for each transport payload dtype (paper Table II
 #: generalized: the paper ships fp32; fp16/int8 model compressed uplinks).
@@ -117,7 +201,7 @@ def meta_interpolate(phi, phi_hat, alpha):
                      phi_hat)
 
 
-def streaming_sgd(loss_fn, phi, batch, beta):
+def streaming_sgd(loss_fn, phi, batch, beta, group=None):
     """The LM inner loop: one SGD step per microbatch of ``batch`` (the
     paper's online learning), fp32 update math, each leaf stored back in
     its own dtype. ``phi`` is a nested tree; ``batch`` a dict of
@@ -132,11 +216,18 @@ def streaming_sgd(loss_fn, phi, batch, beta):
     group. The backward accumulates each leaf's gradient straight into
     its view of the gradient buffer (the leaves' ``.grad``, zeroed before
     each step: 0 + g is g), and ``online_sgd`` updates the params in
-    place."""
+    place.
+
+    ``group``: ``batch`` holds this rank's rows of each microbatch (the
+    ``--mesh data`` route), so each step's gradient buffers are summed
+    across the group's ranks and divided by their count, one
+    ``all_reduce`` a dtype group, giving every rank the whole
+    microbatch's mean gradient; the losses are averaged alike, once."""
     layout = GroupedLayout.of_tree(phi)
     flats = layout.pack(layout.named(phi))
     grads = group_map(torch.zeros_like, flats)
     steps = next(iter(batch.values())).shape[0]
+    ranks = group.size() if group is not None else 1
     losses = []
     for i in range(steps):
         micro = {k: v[i] for k, v in batch.items()}
@@ -149,10 +240,16 @@ def streaming_sgd(loss_fn, phi, batch, beta):
             params[k].grad = grad_views[k]
         loss = loss_fn(layout.tree(params), micro)
         loss.backward()
+        if group is not None:
+            for grad in grads:
+                all_reduce(grad, group).div_(ranks)
         for flat, grad in zip(flats, grads):
             kops.online_sgd(flat, grad, beta, flat)         # in place
         losses.append(loss.detach().float())
-    return layout.tree_views(flats), torch.stack(losses)
+    losses = torch.stack(losses)
+    if group is not None:
+        all_reduce(losses, group).div_(ranks)
+    return layout.tree_views(flats), losses
 
 
 @dataclasses.dataclass(frozen=True)
@@ -509,10 +606,14 @@ class _Program:
     losses, the round cursor, the partial channel's mask state and, on
     pooled runs, the pool state; the round is a ``GraphStep``.
 
-    The pool state is the run's ``PoolState`` with one more row on every
-    per-client array and on the FedBuff buffer: a sink. Scheduled-out
-    slots write their rows there (torch has no scatter that drops
-    out-of-range indices), and nothing reads it."""
+    The pool state is the run's ``PoolState`` (on a mesh, this rank's
+    part of it) with one more row on every per-client array and on the
+    FedBuff buffer: a sink. Scheduled-out slots, and on a mesh the
+    clients another rank owns, write their rows there (torch has no
+    scatter that drops out-of-range indices), and nothing reads it. A
+    mesh run's buffered pool also keeps the flush's counters, the same
+    on every rank: ``gcount`` (arrivals since the flush, summed over the
+    ranks) and ``goldest`` (the oldest buffered round)."""
 
     def __init__(self, runner, layout: GroupedLayout, phi, staged, names,
                  fields, pool_state: Optional[PoolState]):
@@ -528,7 +629,12 @@ class _Program:
         self.cursor = torch.zeros(1, dtype=torch.int64, device=dev)
         self.masks, self.chunk_ids = runner.mask_state(layout, dev)
         self.pool = None
+        self.gcount = torch.zeros(1, dtype=torch.int32, device=dev)
+        self.goldest = torch.full((1,), _NEVER, dtype=torch.int32,
+                                  device=dev)
         if pool_state is not None:
+            self.count_dims = (pool_state.buf_count.dim()
+                               if pool_state.buf_count is not None else 0)
             def sunk(t):
                 return torch.zeros((t.shape[0] + 1,) + tuple(t.shape[1:]),
                                    dtype=t.dtype, device=dev)
@@ -546,7 +652,8 @@ class _Program:
         # references back, so a dropped runner frees its buffers and
         # graphs at once, not when Python's cyclic collector runs
         self._runner = weakref.ref(runner)
-        self.step = GraphStep(weak_method(self._run), dev)
+        self.step = GraphStep(weak_method(self._run), dev,
+                              capture=runner.capture)
 
     def _run(self) -> None:
         self._runner()._round(self)
@@ -574,7 +681,8 @@ class _Program:
             tree_map(lambda t: t[:-1], mine.buf_updates)
             if buffered else None,
             mine.buf_round[:-1] if buffered else None,
-            mine.buf_count[0] if buffered else None,
+            (mine.buf_count if self.count_dims else mine.buf_count[0])
+            if buffered else None,
             mine.flushes[0] if buffered else None)
 
 
@@ -610,12 +718,28 @@ class _BlockRunner:
     kept per shape of run (layout, padded block, pool state, device),
     and ``trace_count`` counts their builds: with the engine's fixed
     per-run block shape it stays at 1 per config, as the JAX runner's
-    trace count does."""
+    trace count does.
+
+    On a ``mesh`` the weighted hooks get the client axis's process group
+    (``group=``); over more than one rank (``sharded``) the round runs on
+    this rank's shard of the cohort, a pooled round through
+    ``_pooled_aggregate_sharded``, and ``run_block`` sums the block's
+    round losses across the ranks once it has run. The round is captured
+    where the mesh's collectives can be (``ProcessMesh.capturable``)."""
 
     def __init__(self, strategy, beta, channel: CommChannel,
                  scheduled: bool = False, pooled: bool = False,
                  buffered: Optional[BufferedAggregation] = None,
-                 masked: Optional[bool] = None):
+                 masked: Optional[bool] = None,
+                 mesh: Optional[ProcessMesh] = None):
+        if mesh is not None:
+            _check_collective_hook(strategy)
+        self.group = mesh.group(CLIENT_AXIS) if mesh is not None else None
+        self.shards = mesh.shape[CLIENT_AXIS] if mesh is not None else 1
+        self.shard = mesh.coordinate(CLIENT_AXIS) if mesh is not None else 0
+        self.sharded = self.shards > 1
+        self.capture = mesh is None or mesh.capturable
+        self.agg_kw = {"group": self.group} if mesh is not None else {}
         self.strategy = strategy
         self.beta = float(beta)
         self.channel = channel
@@ -656,10 +780,24 @@ class _BlockRunner:
         for dst, src in zip(prog.block, staged):
             dst.copy_(src)
         prog.cursor.zero_()
+        if rounds and self.sharded and self.buffered is not None:
+            # the flush's counters enter the block the same on every
+            # rank: one sum and one min here, none a round
+            ps = prog.pool
+            cap = ps.buf_round.shape[0] - 1
+            count = ps.buf_count[:1]
+            prog.gcount.copy_(all_reduce(count.clone(), self.group))
+            held = torch.arange(cap, device=count.device) < count
+            oldest = torch.where(held, ps.buf_round[:cap], _NEVER).min()
+            prog.goldest.copy_(all_reduce(oldest.reshape(1), self.group,
+                                          "min"))
         if rounds and not prog.step.ready:
             self.trace_count += 1          # this block's first round builds
         for _ in range(rounds):
             prog.step()
+        if rounds and self.sharded:
+            # each round's loss was this rank's partial sum
+            all_reduce(prog.losses, self.group)
 
     def _uplink(self, layout, phi, results, masks):
         """The results through the channel's uplink; a partial channel's
@@ -703,12 +841,13 @@ class _BlockRunner:
             results = self._uplink(layout, phi, results, masks)
         alpha_t = sched.alpha.index_select(0, j)        # on the device
         if self.pooled:
-            new, loss = self._pooled_aggregate(prog, results, losses,
-                                               alpha_t)
+            aggregate = (self._pooled_aggregate_sharded if self.sharded
+                         else self._pooled_aggregate)
+            new, loss = aggregate(prog, results, losses, alpha_t)
         elif self.scheduled:
             weights = row(sched.weights)
             new = strategy.server_aggregate_weighted(
-                layout, phi, results, alpha_t, beta, weights)
+                layout, phi, results, alpha_t, beta, weights, **self.agg_kw)
             loss = _weighted_round_loss(losses, row(sched.local_steps),
                                         weights)
         else:
@@ -742,7 +881,8 @@ class _BlockRunner:
             new = group_map(
                 lambda a, p: torch.where(valid, a, p),
                 strategy.server_aggregate_weighted(layout, phi, results,
-                                                   alpha_t, beta, weights),
+                                                   alpha_t, beta, weights,
+                                                   **self.agg_kw),
                 phi)
         else:
             # this round's arrivals go to the buffer's next free slots
@@ -763,7 +903,7 @@ class _BlockRunner:
             w = (w / torch.clamp(w.sum(), min=1e-8)).float()
             flushed = strategy.server_aggregate_weighted(
                 layout, phi, tree_map(lambda b: b[:cap], ps.buf_updates),
-                alpha_t, beta, w)
+                alpha_t, beta, w, **self.agg_kw)
             do_flush = count >= buffered.buffer_size
             if buffered.flush_staleness is not None:
                 oldest = torch.where(held, tags, _NEVER).min()
@@ -785,6 +925,110 @@ class _BlockRunner:
         loss = torch.where(valid, _weighted_round_loss(losses, steps,
                                                        weights), 0.0)
         return new, loss
+
+    def _pooled_aggregate_sharded(self, prog: _Program, results, losses,
+                                  alpha_t):
+        """A pooled round's server side on this rank's shard: the cohort
+        and its pool rows split over the ranks. One gather of the round's
+        cohort and participation rows; the weighted aggregation (or the
+        FedBuff flush of the buffer's per-rank slabs, its weights
+        normalized by their sum over the ranks, the flush decided on the
+        counters every rank carries alike); then the identity rows of the
+        clients this rank owns. Returns (phi, this rank's partial loss)."""
+        strategy, layout, phi, beta = (self.strategy, prog.layout, prog.phi,
+                                       self.beta)
+        dev = prog.cursor.device
+        sched, ps, j, buffered = prog.sched, prog.pool, prog.cursor, \
+            self.buffered
+        group = self.group
+
+        def row(t):
+            return t.index_select(0, j)[0]
+
+        part = row(sched.participation)
+        weights = row(sched.weights)
+        steps = row(sched.local_steps)
+        rnd = sched.round_index.index_select(0, j)            # (1,) i32
+        valid = sched.valid.index_select(0, j)                # (1,) bool
+        clients = part.shape[0]
+        i32 = torch.int32
+        packed = gather_rows(torch.cat([row(sched.cohort), part.to(i32)]),
+                             group, self.shard, self.shards)
+        cohort_f = packed[:, :clients].reshape(-1).long()
+        part_f = packed[:, clients:].reshape(-1) > 0
+        if buffered is None:
+            new = group_map(
+                lambda a, p: torch.where(valid, a, p),
+                strategy.server_aggregate_weighted(
+                    layout, phi, results, alpha_t, beta, weights,
+                    group=group), phi)
+        else:
+            # this rank's arrivals go to its slab's next free slots
+            cap = ps.buf_round.shape[0] - 1
+            arrive = part.to(i32)
+            slot = torch.where(
+                part, ps.buf_count + torch.cumsum(arrive, 0, dtype=i32) - 1,
+                cap).long()
+            tree_map(lambda b, q: b.index_copy_(0, slot, q.to(b.dtype)),
+                     ps.buf_updates, results)
+            ps.buf_round.index_copy_(0, slot, rnd.expand(clients))
+            count = ps.buf_count + arrive.sum(dtype=i32)
+            gcount = prog.gcount + part_f.sum(dtype=i32)
+            goldest = torch.where(part_f.any(),
+                                  torch.minimum(prog.goldest, rnd),
+                                  prog.goldest)
+            tags = ps.buf_round[:cap]
+            held = torch.arange(cap, device=dev) < count
+            w = buffered.staleness_fn((rnd - tags).float()) * held
+            denom = all_reduce(w.sum().reshape(1), group)
+            w = (w / torch.clamp(denom, min=1e-8)).float()
+            flushed = strategy.server_aggregate_weighted(
+                layout, phi, tree_map(lambda b: b[:cap], ps.buf_updates),
+                alpha_t, beta, w, group=group)
+            do_flush = gcount >= buffered.buffer_size
+            if buffered.flush_staleness is not None:
+                do_flush = do_flush | ((gcount > 0) & (
+                    rnd - goldest + 1 >= buffered.flush_staleness))
+            do_flush = do_flush & valid
+            new = group_map(lambda f, p: torch.where(do_flush, f, p),
+                            flushed, phi)
+            ps.buf_count.copy_(torch.where(do_flush, 0, count))
+            ps.flushes.add_(do_flush.to(i32))
+            prog.gcount.copy_(torch.where(do_flush, 0, gcount))
+            prog.goldest.copy_(torch.where(do_flush, _NEVER, goldest))
+        # the identity rows of the clients this rank owns, wherever in
+        # the cohort they sat; the others write the sink
+        n_local = ps.last_seen.shape[0] - 1
+        loc = cohort_f - self.shard * n_local
+        own = part_f & (loc >= 0) & (loc < n_local)
+        idx = torch.where(own, loc, n_local)
+        gap = rnd - ps.last_seen.index_select(
+            0, torch.clamp(loc, 0, n_local - 1))
+        ps.staleness.index_copy_(0, idx, gap)
+        ps.last_seen.index_copy_(0, idx, rnd.expand(idx.shape[0]))
+        ps.checkins.index_add_(0, idx, torch.ones_like(idx, dtype=i32))
+        loss = torch.where(valid, _weighted_round_loss(losses, steps,
+                                                       weights), 0.0)
+        return new, loss
+
+
+def _check_collective_hook(strategy) -> None:
+    """Mesh runs hand the weighted hook its ``group=``; fail when the
+    run starts, naming the fix, not inside the first round."""
+    import inspect
+    try:
+        sig = inspect.signature(strategy.server_aggregate_weighted)
+    except (TypeError, ValueError):
+        return
+    params = sig.parameters.values()
+    if not ("group" in sig.parameters or any(
+            p.kind is inspect.Parameter.VAR_KEYWORD for p in params)):
+        raise ValueError(
+            f"{type(strategy).__name__}.server_aggregate_weighted does not "
+            f"accept group=: mesh runs sum the weighted client aggregate "
+            f"across the '{CLIENT_AXIS}' mesh axis's ranks — add "
+            f"group=None to the hook and route it through "
+            f"weighted_client_mean(..., group=group)")
 
 
 class _RunnerLRU:
@@ -825,21 +1069,25 @@ _UNHASHABLE_MISSES = {"count": 0}
 def _block_runner(strategy, beta, channel: CommChannel,
                   scheduled: bool = False, pooled: bool = False,
                   buffered: Optional[BufferedAggregation] = None,
-                  masked: Optional[bool] = None) -> _BlockRunner:
+                  masked: Optional[bool] = None,
+                  mesh: Optional[ProcessMesh] = None) -> _BlockRunner:
     """The cached runner of this config. Strategies and channels are
     frozen dataclasses, so identically configured runs share one runner
     and its built rounds, keyed as the JAX package keys its runners
-    (``(strategy, beta, channel, scheduled, pooled, buffered, masked)``;
-    its partitioner and mesh parts are not ported). An unhashable
-    strategy gets an uncached runner, a fresh build per run, counted and
-    logged."""
+    (``(strategy, beta, channel, scheduled, pooled, buffered, masked,
+    mesh)``, the partitioner part waiting for the 2-D slice). The mesh
+    part is ``ProcessMesh.key``: its axes and sizes, the backend, every
+    rank's device and the process groups a built round calls, so a round
+    is never replayed on another topology or a group since destroyed.
+    An unhashable strategy gets an uncached runner, a fresh build per
+    run, counted and logged."""
     masked = bool(scheduled) if masked is None else bool(masked)
     key = (strategy, float(beta), channel, bool(scheduled), bool(pooled),
-           buffered, masked)
+           buffered, masked, mesh.key() if mesh is not None else None)
 
     def build():
         return _BlockRunner(strategy, beta, channel, scheduled, pooled,
-                            buffered, masked)
+                            buffered, masked, mesh)
 
     try:
         return _RUNNER_CACHE.get(key, build)
@@ -857,13 +1105,14 @@ def _block_runner(strategy, beta, channel: CommChannel,
 def runner_cache_stats() -> Dict[str, int]:
     """Block-runner cache counters: hits, misses, size and bound, how
     many times an unhashable strategy forced an uncached runner, and how
-    many cached runners are pooled and buffered."""
+    many cached runners are pooled, buffered and built for a mesh."""
     keys = _RUNNER_CACHE.keys()
     return {"hits": _RUNNER_CACHE.hits, "misses": _RUNNER_CACHE.misses,
             "currsize": len(keys), "maxsize": _RUNNER_CACHE.maxsize,
             "unhashable_misses": _UNHASHABLE_MISSES["count"],
             "pooled_entries": sum(1 for k in keys if k[4]),
-            "buffered_entries": sum(1 for k in keys if k[5] is not None)}
+            "buffered_entries": sum(1 for k in keys if k[5] is not None),
+            "mesh_entries": sum(1 for k in keys if k[7] is not None)}
 
 
 def clear_runner_cache() -> None:
@@ -871,12 +1120,6 @@ def clear_runner_cache() -> None:
     the counters."""
     _RUNNER_CACHE.clear()
     _UNHASHABLE_MISSES["count"] = 0
-
-
-#: the slices that port run_federated's remaining arguments
-_NOT_PORTED = {
-    "mesh": "the multi-device slice (torch.distributed) ports it",
-}
 
 
 def _pool_named(ps: PoolState, layout: GroupedLayout) -> PoolState:
@@ -900,6 +1143,38 @@ def _pool_from_saved(saved: PoolState, layout: GroupedLayout, flat: bool,
         ps = dataclasses.replace(ps, buf_updates=layout.pack(
             layout.named(ps.buf_updates), batch_dims=1))
     return ps
+
+
+def _pool_part(ps: PoolState, index: int, shards: int) -> PoolState:
+    """Rank ``index``'s part of a mesh run's whole pool state: the split
+    fields (``pool_state_specs``) cut to its contiguous share of dim 0."""
+    specs = pool_state_specs(ps, CLIENT_AXIS)
+
+    def part(t, spec):
+        if not spec:
+            return t
+        n = t.shape[0] // shards
+        return t[index * n:(index + 1) * n]
+
+    return PoolState(*(None if getattr(ps, f.name) is None else tree_map(
+        part, getattr(ps, f.name), getattr(specs, f.name))
+        for f in dataclasses.fields(ps)))
+
+
+def _pool_whole(ps: PoolState, group, index: int, shards: int) -> PoolState:
+    """The whole pool state from every rank's part (a collective: every
+    rank calls it at the same point)."""
+    specs = pool_state_specs(ps, CLIENT_AXIS)
+
+    def whole(t, spec):
+        if not spec:
+            return t
+        rows = gather_rows(t, group, index, shards)
+        return rows.reshape((-1,) + tuple(t.shape[1:]))
+
+    return PoolState(*(None if getattr(ps, f.name) is None else tree_map(
+        whole, getattr(ps, f.name), getattr(specs, f.name))
+        for f in dataclasses.fields(ps)))
 
 
 def _snapshot_copy(leaf):
@@ -975,13 +1250,29 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
     losses, transport bytes, eval rows, wall clock, the final staleness
     of pooled runs, and each snapshot's milliseconds on the training
     thread, ``ckpt.snapshot_ms``, and on the writer's, ``ckpt.write_ms``);
-    it only observes. ``mesh`` is not ported yet and raises.
+    it only observes.
+
+    ``mesh`` splits the cohort over the ranks of a process group: a 1-D
+    ``("clients",)`` mesh (``client_mesh``; a ``DeviceMesh`` with that
+    axis is wrapped), an int (that many ranks: the whole group) or
+    "auto" (every rank), each rank on its own ``device``. Every rank
+    calls ``run_federated`` with the same arguments. The cohort is padded
+    to a multiple of the rank count with scheduled-out slots
+    (participation False, weight 0, a zero batch); schedules, draws,
+    bills, evals and the pool's identity state are the same on every
+    rank, and ``params`` equal the one-device run's up to the order of
+    the float sums. Only rank 0 writes snapshots; a resume needs the
+    mesh the snapshot was written on. A one-rank mesh computes
+    ``mesh=None``'s run bit for bit. A 2-D ``("clients", "model")`` mesh
+    is not ported yet and raises.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            f"run_federated(mesh=...) is not ported yet: "
-            f"{_NOT_PORTED['mesh']}; the port runs one device")
     dev = resolve_device(device)
+    mesh = _resolve_mesh(mesh, dev)
+    shards = mesh.shape[CLIENT_AXIS] if mesh is not None else 1
+    sharded = shards > 1
+    shard = mesh.coordinate(CLIENT_AXIS) if mesh is not None else 0
+    group = mesh.group(CLIENT_AXIS) if mesh is not None else None
+    writes = shard == 0         # the rank that writes snapshots
     if channel is None:
         channel = CommChannel()
     if sampling is None:
@@ -1040,7 +1331,12 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
     per_client_bytes = np.zeros(pool.size if pooled else clients_per_round,
                                 np.int64)
     uniform = getattr(sampling, "schedule_kind", "scheduled") == "uniform"
-    scheduled = pooled or not uniform
+    # a cohort split over ranks is padded and weighted: the scheduled
+    # round (uniform weights where the schedule is uniform)
+    scheduled = pooled or not uniform or sharded
+    # the cohort padded to a multiple of the rank count; the pad slots
+    # are scheduled out
+    c_pad = -(-clients_per_round // shards) * shards
     # uniform schedules run every client at the full budget: no per-step
     # masking (the masked hooks equal the plain ones at k == budget)
     masked = scheduled and not uniform
@@ -1061,7 +1357,9 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
         # replay a different run from this one's carry
         fingerprint = {
             "seed": int(seed), "clients_per_round": int(clients_per_round),
-            "support": int(support), "shards": 1, "mesh": "",
+            "support": int(support), "shards": int(shards),
+            "mesh": (",".join(f"{a}:{n}" for a, n in mesh.shape.items())
+                     if mesh is not None else ""),
             "partitioner": "", "strategy": type(strategy).__name__,
             "pool_size": int(pool.size) if pooled else 0,
             "pool_sampler": pool.sampler if pooled else "",
@@ -1073,8 +1371,8 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
         # the full (N,) layout, whatever the residency, with the buffer
         # as named leaves: the templates of the checkpoint's arrays
         template = (_pool_named(pool.init_state(
-            phi, clients_per_round, buffered, template=uplink,
-            device="cpu"), layout) if pooled else None)
+            phi, c_pad, buffered, template=uplink, device="cpu",
+            shards=shards), layout) if pooled else None)
         try:
             saved = restore_round_state(
                 ckpt_dir, phi=layout.tree_views(phi), pool_state=template,
@@ -1116,12 +1414,14 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                               ckpt_every=ckpt_every if ckpt_dir else 0)
     slabs = slab_rows = None
     if host_resident:
-        slabs = pool.init_slabs()
+        slabs = pool.init_slabs(shards=shards)
         # the device holds one row per distinct client a block can seat
-        slab_rows = min(pool.size, pad * clients_per_round)
+        # (on a mesh, each rank its part of them)
+        slab_rows = min(len(slabs["last_seen"]),
+                        -(-pad * c_pad // shards) * shards)
     pool_state = (pool.init_state(
-        phi, clients_per_round, buffered, template=uplink, rows=slab_rows,
-        device=dev) if pooled else None)
+        phi, c_pad, buffered, template=uplink, rows=slab_rows,
+        device=dev, shards=shards) if pooled else None)
     if saved is not None and pooled:
         restored = _pool_from_saved(saved.pool_state, layout,
                                     isinstance(uplink, tuple), dev)
@@ -1133,6 +1433,8 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
             restored = dataclasses.replace(restored, **{
                 f: getattr(pool_state, f) for f in ClientPool.SLAB_FIELDS})
         pool_state = restored
+    if sharded and pooled:
+        pool_state = _pool_part(pool_state, shard, shards)
     if strategy.meters_comm:
         # per-round payloads repeat with a rotating channel's period
         period = (channel.rotation_period
@@ -1187,8 +1489,8 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
         round_index[:blk] = r
 
         def pad_rows(a, dtype):
-            out = np.zeros((pad, clients_per_round), dtype)
-            out[:blk] = a
+            out = np.zeros((pad, c_pad), dtype)
+            out[:blk, :clients_per_round] = a
             return out
 
         sched = ClientSchedule(
@@ -1200,11 +1502,17 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
         fields = sched.present()
         names = sorted(batch)
         data = [np.asarray(batch[k]) for k in names]
+        if c_pad > clients_per_round:
+            data = [np.concatenate([v, np.zeros(
+                (v.shape[0], c_pad - clients_per_round) + v.shape[2:],
+                v.dtype)], axis=1) for v in data]
         if blk < pad:
             data = [np.concatenate([v, np.zeros((pad - blk,) + v.shape[1:],
                                                 v.dtype)]) for v in data]
-        staged, event = _stage([getattr(sched, f) for f in fields] + data,
-                               dev)
+        arrays = [getattr(sched, f) for f in fields] + data
+        if mesh is not None:
+            arrays = block_shardings(mesh, CLIENT_AXIS, arrays)
+        staged, event = _stage(arrays, dev)
         if ckpt_at(end):
             host_snaps[end] = snapshot_host()
         return part, cohort, uniq, staged, names, fields, event
@@ -1237,7 +1545,10 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
         event recorded after the clones for the writer to wait on."""
         pool_snap = None
         if pooled:
-            ps = _pool_named(prog.pool_state(), layout)
+            ps = prog.pool_state()
+            if sharded:
+                ps = _pool_whole(ps, group, shard, shards)
+            ps = _pool_named(ps, layout)
             if host_resident:
                 ps = dataclasses.replace(ps, **{
                     f: slabs[f] for f in ClientPool.SLAB_FIELDS})
@@ -1257,10 +1568,12 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
     host_snaps: Dict[int, dict] = {}
     writer = (AsyncCheckpointWriter(ckpt_dir, keep=ckpt_keep,
                                     tracker=tracker)
-              if ckpt_dir is not None and ckpt_async and blocks else None)
+              if ckpt_dir is not None and ckpt_async and blocks and writes
+              else None)
 
     runner = _block_runner(strategy, beta, channel, scheduled,
-                           pooled=pooled, buffered=buffered, masked=masked)
+                           pooled=pooled, buffered=buffered, masked=masked,
+                           mesh=mesh)
     prog = None
     staged_iter = prefetch_items(stage, len(blocks), depth=prefetch)
     if tracker is not None:
@@ -1277,19 +1590,28 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                     prog.load_pool(pool_state)
             if host_resident:
                 # the block's identity rows, from the slabs as the last
-                # block left them (window tail rows: client 0's, unused)
+                # block left them (window tail rows: client 0's, unused);
+                # on a mesh, this rank's part of the window
                 window = np.zeros(slab_rows, np.int64)
                 window[:uniq.size] = uniq
                 rows = pool.gather_rows(window)
+                part_rows = slab_rows // shards
                 for f in ClientPool.SLAB_FIELDS:
-                    getattr(prog.pool, f)[:-1].copy_(
-                        torch.from_numpy(rows[f]))
+                    getattr(prog.pool, f)[:-1].copy_(torch.from_numpy(
+                        rows[f][shard * part_rows:
+                                (shard + 1) * part_rows]))
             blk = end - start
             runner.run_block(prog, staged, blk)   # the pad rounds: never
             if host_resident and uniq.size:
+                window = {f: getattr(prog.pool, f)[:-1]
+                          for f in ClientPool.SLAB_FIELDS}
+                if sharded:
+                    # every rank keeps the whole slabs
+                    window = {f: gather_rows(w, group, shard, shards)
+                              .reshape(-1) for f, w in window.items()}
                 pool.scatter_rows(uniq, {
-                    f: getattr(prog.pool, f)[:uniq.size].cpu().numpy()
-                    for f in ClientPool.SLAB_FIELDS})
+                    f: w[:uniq.size].cpu().numpy()
+                    for f, w in window.items()})
             needs_eval = bool(eval_every) and end % eval_every == 0
             if tracker is not None or (needs_eval
                                        and strategy.tracks_inner_loss):
@@ -1328,7 +1650,9 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
             if ckpt_at(end):
                 t_snap = time.perf_counter()
                 state, ready = snapshot(end)
-                if writer is not None:
+                if not writes:
+                    pass                 # the other ranks joined the gather
+                elif writer is not None:
                     writer.submit_state(state, ready)
                 else:
                     save_round_state(ckpt_dir, state, keep=ckpt_keep)
@@ -1355,6 +1679,9 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
         out["per_client_bytes"] = per_client_bytes.tolist()
     if pooled:
         ps = prog.pool_state() if prog is not None else pool_state
+        if sharded:
+            ps = _pool_whole(ps, group, shard, shards)
+        # [:pool.size] drops a mesh run's padding rows
         ident = (slabs if host_resident else
                  {f: getattr(ps, f).cpu().numpy()
                   for f in ClientPool.SLAB_FIELDS})
@@ -1362,7 +1689,8 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                              for f in ClientPool.SLAB_FIELDS}
         if buffered is not None:
             out["pool_state"]["flushes"] = int(ps.flushes)
-            out["pool_state"]["buffered_pending"] = int(ps.buf_count)
+            # a mesh run's (shards,) fill levels, summed
+            out["pool_state"]["buffered_pending"] = int(ps.buf_count.sum())
     if tracker is not None:
         tracker.on_run_end(
             runner_cache_stats(),

@@ -1,8 +1,7 @@
 """Host side of the federated round engine: block planning, background
 prefetch, and pluggable client-scheduling policies.
 
-The port's counterpart of the JAX package's ``core/pipeline.py``, less
-its mesh helpers (those come with the mesh slice):
+The port's counterpart of the JAX package's ``core/pipeline.py``:
 
 - ``plan_blocks``: split a run into blocks at eval and checkpoint
   boundaries and ``max_block``, from round 0 or from a resumed round,
@@ -23,6 +22,9 @@ its mesh helpers (those come with the mesh slice):
   (``core/pool.py``) a policy also seats each round's cohort
   (``plan_pool_schedule``, ``seat_cohorts``), drawing the host RNG in
   the JAX package's order, so cohorts are equal seat for seat.
+- ``block_shardings``: a mesh run's rank takes its part of each padded
+  block's cohort axis; ``single_device_of``: the one device a tree's
+  tensors live on.
 """
 from __future__ import annotations
 
@@ -140,6 +142,45 @@ class BlockPrefetcher:
             except queue.Empty:
                 break
         self._thread.join(timeout=5.0)
+
+
+def block_shardings(mesh, axis: str, arrays):
+    """This rank's part of one padded block on a client mesh: every array
+    with a client axis (schedule rows and batch arrays, all shaped
+    (padded rounds, clients, ...)) cut to this rank's contiguous share
+    of dim 1, the per-round vectors (validity, alpha, round index) kept
+    whole. The engine pads the cohort axis to a multiple of the shard
+    count first, and stages the parts to the rank's own device."""
+    shards = mesh.shape[axis]
+    index = mesh.coordinate(axis)
+
+    def part(a):
+        if np.ndim(a) < 2:
+            return a
+        n = a.shape[1] // shards
+        return a[:, index * n:(index + 1) * n]
+
+    return [part(a) for a in arrays]
+
+
+def single_device_of(tree):
+    """The one device every tensor leaf of ``tree`` (a tensor, a tuple,
+    list or dict of them, nested) lives on, or None (no tensor, or
+    tensors on several devices)."""
+    devices = set()
+
+    def visit(x):
+        if isinstance(x, dict):
+            for v in x.values():
+                visit(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                visit(v)
+        elif hasattr(x, "device") and hasattr(x, "dtype"):
+            devices.add(x.device)
+
+    visit(tree)
+    return devices.pop() if len(devices) == 1 else None
 
 
 def prefetch_items(produce: Callable[[int], object], n: int,

@@ -1,7 +1,6 @@
 """Persistent client identities: the client pool, FedBuff and availability.
 
-The port's counterpart of the JAX package's ``core/pool.py`` (all but
-``pool_state_specs``, which belongs to the mesh route):
+The port's counterpart of the JAX package's ``core/pool.py``:
 
 - ``ClientPool``: N persistent clients. Client ``i``'s task is
   materialized once from ``(seed, i)`` (``TaskDistribution.
@@ -21,6 +20,9 @@ The port's counterpart of the JAX package's ``core/pool.py`` (all but
   ``DiurnalAvailability`` and ``MarkovAvailability``. Rounds where
   nobody checks in are no-ops: the server idles, nobody trains, nobody
   pays transport.
+- ``pool_state_specs``: which fields of a mesh run's ``PoolState`` are
+  split over the client axis (``ClientPool.init_state(shards=)``'s
+  layout) and which are replicated.
 
 The host side is NumPy and draws its RNG streams exactly as the JAX
 package does, so a pooled run seats the same cohorts with the same data.
@@ -79,6 +81,13 @@ class PoolState:
     buf_count:   () i32 — arrivals since the last flush. None when
                  unbuffered.
     flushes:     () i32 — flushes so far. None when unbuffered.
+
+    Mesh runs (``run_federated(mesh=...)`` over more than one rank) use
+    the layout of ``ClientPool.init_state(shards=...)``: per-client
+    arrays padded to a multiple of the shard count, rank r holding the
+    r-th contiguous part; the buffer as one slab a rank; ``buf_count`` a
+    (shards,) array of each slab's fill level. ``pool_state_specs``
+    names each field's split.
     """
     last_seen: object
     staleness: object
@@ -323,14 +332,18 @@ class ClientPool:
                             support, data_mode)
         return {"x": x, "y": y}
 
-    def init_slabs(self) -> Dict[str, np.ndarray]:
-        """Fresh host-resident ``(N,)`` int32 identity slabs of a
-        ``residency="host"`` pool (a run starts from them)."""
+    def init_slabs(self, shards: int = 1) -> Dict[str, np.ndarray]:
+        """Fresh host-resident ``(n,)`` int32 identity slabs of a
+        ``residency="host"`` pool (a run starts from them): n is the pool
+        size rounded up to a multiple of ``shards`` (padded rows are never
+        seated)."""
         if self.residency != "host":
             raise ValueError("init_slabs requires "
                              "ClientPool(residency='host')")
+        shards = max(int(shards), 1)
+        n = -(-self.size // shards) * shards
         fill = {"last_seen": -1, "staleness": 0, "checkins": 0}
-        self._slabs = {name: np.full((self.size,), fill[name], np.int32)
+        self._slabs = {name: np.full((n,), fill[name], np.int32)
                        for name in self.SLAB_FIELDS}
         return self._slabs
 
@@ -351,7 +364,7 @@ class ClientPool:
     def init_state(self, phi, cohort_size: int,
                    buffered: Optional[BufferedAggregation] = None,
                    template=None, rows: Optional[int] = None,
-                   device: DeviceLike = None) -> PoolState:
+                   device: DeviceLike = None, shards: int = 1) -> PoolState:
         """A fresh ``PoolState`` on ``device`` (default ``cuda``). The
         FedBuff buffer's capacity is ``buffer_size + cohort_size - 1``
         (a flush triggers at count >= buffer_size, and at most
@@ -360,22 +373,63 @@ class ClientPool:
         shapes and dtypes of one buffer slot: the strategy's uplink (a
         tensor, a tuple of one a dtype group, or a dict of tensors), each
         slot in its own dtype. ``rows`` overrides the per-client
-        axis (the ``residency="host"`` window of staged rows)."""
+        axis (the ``residency="host"`` window of staged rows).
+
+        ``shards`` > 1 builds a mesh run's layout (the whole of it; each
+        rank takes its part): the per-client arrays padded to a multiple
+        of ``shards``, one FedBuff slab of ``buffer_size + cohort_size //
+        shards - 1`` a shard (any one shard can hold the count
+        threshold's backlog plus its own round of arrivals, since the
+        flush reads the count summed over the shards), and ``buf_count``
+        a (shards,) array of the slabs' fill levels. ``shards == 1`` is
+        the one-device layout."""
+        if cohort_size % max(shards, 1):
+            raise ValueError(f"cohort_size={cohort_size} must be a "
+                             f"multiple of shards={shards} (the engine "
+                             f"pads the cohort before building state)")
         dev = resolve_device(device)
-        n = self.size if rows is None else int(rows)
+        if rows is None:
+            n = -(-self.size // shards) * shards
+        else:
+            if rows % max(shards, 1):
+                raise ValueError(f"rows={rows} must be a multiple of "
+                                 f"shards={shards}")
+            n = int(rows)
         i32 = dict(dtype=torch.int32, device=dev)
         last_seen = torch.full((n,), -1, **i32)
         staleness = torch.zeros((n,), **i32)
         checkins = torch.zeros((n,), **i32)
         if buffered is None:
             return PoolState(last_seen, staleness, checkins)
-        cap = buffered.buffer_size + cohort_size - 1
+        if shards == 1:
+            cap = buffered.buffer_size + cohort_size - 1
+            count = torch.zeros((), **i32)
+        else:
+            cap = shards * (buffered.buffer_size + cohort_size // shards - 1)
+            count = torch.zeros((shards,), **i32)
         buf = tree_map(lambda p: torch.zeros((cap,) + tuple(p.shape),
                                              dtype=p.dtype, device=dev),
                        phi if template is None else template)
         return PoolState(last_seen, staleness, checkins, buf,
-                         torch.zeros((cap,), **i32),
-                         torch.zeros((), **i32), torch.zeros((), **i32))
+                         torch.zeros((cap,), **i32), count,
+                         torch.zeros((), **i32))
+
+
+def pool_state_specs(state: PoolState, axis: str) -> PoolState:
+    """The split of each field of a mesh run's ``state`` as a spec tuple
+    (the JAX package's ``PartitionSpec``): the per-client arrays, the
+    FedBuff slabs and the slabs' (shards,) fill levels split over
+    ``axis`` on their first dim, ``(axis,)``; the one-device layout's
+    scalar fill level and the flush count replicated, ``()``."""
+    sharded = (axis,)
+    return PoolState(
+        last_seen=sharded, staleness=sharded, checkins=sharded,
+        buf_updates=(None if state.buf_updates is None else
+                     tree_map(lambda _: sharded, state.buf_updates)),
+        buf_round=None if state.buf_round is None else sharded,
+        buf_count=(None if state.buf_count is None else
+                   (sharded if np.ndim(state.buf_count) else ())),
+        flushes=None if state.flushes is None else ())
 
 
 @dataclasses.dataclass(frozen=True)

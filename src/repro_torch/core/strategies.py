@@ -25,10 +25,16 @@ schedule-aware forms instead:
       k: ``(C,)`` per-client local step budgets, in the strategy's own
       units (stream samples for TinyReptile, epochs for Reptile/FedAvg);
       the default ignores k (one-shot workloads).
-  server_aggregate_weighted(layout, phi, results, alpha_t, beta, weights)
+  server_aggregate_weighted(layout, phi, results, alpha_t, beta, weights,
+                            group=None)
       weights: ``(C,)`` per-round-normalized aggregation weights (0 for
       non-participants). A FedBuff flush calls it on the buffer, with a
-      leading capacity axis and staleness-discounted weights.
+      leading capacity axis and staleness-discounted weights. ``group``
+      is the collective form (mesh runs; the JAX package's
+      ``axis_name``): results and weights are this rank's cohort shard,
+      the weights normalized over the whole cohort, and routing the mean
+      through ``weighted_client_mean(..., group=group)`` sums the ranks'
+      partial means into the cohort's.
   local_step_budget(support) -> int
       The full per-client workload in scheduler units.
 
@@ -67,6 +73,7 @@ from repro_torch.core.meta import (cohort_grad, finetune_batch,
                                    finetune_online_masked)
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.runtime.sharding import all_reduce
 
 TIFED_EX = -4
 TIFED_ACT = -3
@@ -118,14 +125,28 @@ def tifed_requantize(phi):
     return out
 
 
-def weighted_client_mean(results, weights: torch.Tensor):
+def weighted_client_mean(results, weights: torch.Tensor, group=None):
     """``sum_c weights[c] * results[c]`` along the leading clients axis,
     in fp32, per group. Zero-weight clients are zeroed before the sum,
     so a scheduled-out client cannot poison the round with a NaN. One
     ``client_mean`` launch a group on the card (a bf16 group's rows are
     read as they are); it rounds where the JAX engine's jitted mean
-    rounds (``kernels/ref.py::client_mean``)."""
-    return group_map(lambda q: kops.client_mean(q, weights), results)
+    rounds (``kernels/ref.py::client_mean``).
+
+    ``group``: the rows are this rank's shard of the cohort, and the
+    weights are normalized over the whole cohort, so the sum of the
+    ranks' partial sums is the cohort's mean: one ``all_reduce`` a dtype
+    group (the JAX package's one multi-operand ``psum``)."""
+    return all_reduce_groups(
+        group_map(lambda q: kops.client_mean(q, weights), results), group)
+
+
+def all_reduce_groups(flats, group):
+    """Flat buffers (a tensor, or a tuple of one a dtype group) summed in
+    place across ``group``: one ``all_reduce`` a buffer."""
+    if group is not None:
+        group_map(lambda t: all_reduce(t, group), flats)
+    return flats
 
 
 def _client_mean(q):
@@ -143,11 +164,14 @@ def reptile_aggregate(phi, phi_hats, alpha_t):
     return meta_interpolate(phi, group_map(_client_mean, phi_hats), alpha_t)
 
 
-def reptile_aggregate_weighted(phi, phi_hats, alpha_t, weights):
+def reptile_aggregate_weighted(phi, phi_hats, alpha_t, weights,
+                               group=None):
     """Participation/arrival-weighted Reptile server update:
-    phi <- phi + alpha_t * (sum_c w_c phi_hat_c - phi)."""
-    return meta_interpolate(phi, weighted_client_mean(phi_hats, weights),
-                            alpha_t)
+    phi <- phi + alpha_t * (sum_c w_c phi_hat_c - phi). ``group`` reduces
+    the weighted client mean across ranks (a sharded cohort, pod
+    clients)."""
+    return meta_interpolate(
+        phi, weighted_client_mean(phi_hats, weights, group), alpha_t)
 
 
 def _cohort(phi, clients: int):
@@ -203,7 +227,7 @@ class FedStrategy:
         return self.client_update(layout, phi, client_batch, beta)
 
     def server_aggregate_weighted(self, layout, phi, results, alpha_t,
-                                  beta, weights):
+                                  beta, weights, group=None):
         raise NotImplementedError(
             f"{type(self).__name__} does not implement weighted "
             "aggregation; define server_aggregate_weighted to run under "
@@ -235,8 +259,9 @@ class TinyReptileStrategy(FedStrategy):
         return reptile_aggregate(phi, results, alpha_t)
 
     def server_aggregate_weighted(self, layout, phi, results, alpha_t,
-                                  beta, weights):
-        return reptile_aggregate_weighted(phi, results, alpha_t, weights)
+                                  beta, weights, group=None):
+        return reptile_aggregate_weighted(phi, results, alpha_t, weights,
+                                          group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -266,8 +291,9 @@ class ReptileStrategy(FedStrategy):
         return reptile_aggregate(phi, results, alpha_t)
 
     def server_aggregate_weighted(self, layout, phi, results, alpha_t,
-                                  beta, weights):
-        return reptile_aggregate_weighted(phi, results, alpha_t, weights)
+                                  beta, weights, group=None):
+        return reptile_aggregate_weighted(phi, results, alpha_t, weights,
+                                          group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,10 +320,10 @@ class FedAvgStrategy(FedStrategy):
         return group_map(lambda q: q.sum(dim=0) / q.shape[0], results)
 
     def server_aggregate_weighted(self, layout, phi, results, alpha_t,
-                                  beta, weights):
+                                  beta, weights, group=None):
         """Weighted model average over the participating clients only."""
         return group_map(lambda p, q: q.to(p.dtype), phi,
-                         weighted_client_mean(results, weights))
+                         weighted_client_mean(results, weights, group))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,10 +347,10 @@ class FedSGDStrategy(FedStrategy):
                          phi, results)
 
     def server_aggregate_weighted(self, layout, phi, results, alpha_t,
-                                  beta, weights):
+                                  beta, weights, group=None):
         """Apply the participation-weighted mean gradient."""
         return group_map(lambda p, g: (p - beta * g).to(p.dtype), phi,
-                         weighted_client_mean(results, weights))
+                         weighted_client_mean(results, weights, group))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -351,13 +377,13 @@ class TransferStrategy(FedStrategy):
         return group_map(lambda p, gg: p - beta * gg[0], phi, g)
 
     def server_aggregate_weighted(self, layout, phi, results, alpha_t,
-                                  beta, weights):
+                                  beta, weights, group=None):
         """Per-client pool gradients, weighted: scheduled-out clients'
         (zeroed) batches get weight 0."""
         _, g = cohort_grad(self.loss_fn, layout,
                            _cohort(phi, len(results["x"])), results)
         return group_map(lambda p, gg: (p - beta * gg).to(p.dtype), phi,
-                         weighted_client_mean(g, weights))
+                         weighted_client_mean(g, weights, group))
 
 
 # the device copies of the TIFeD constants by (feedback seed, epochs,
@@ -528,10 +554,13 @@ class TifedStrategy(FedStrategy):
         return self._snap(layout, meta_interpolate(phi, mean, alpha_t))
 
     def server_aggregate_weighted(self, layout, phi, results, alpha_t,
-                                  beta, weights):
+                                  beta, weights, group=None):
         """Dequantize each client's int8 tree, take the weighted client
-        mean, Reptile-interpolate, requantize onto the integer grids."""
+        mean, Reptile-interpolate, requantize onto the integer grids. On
+        a mesh the leaves' partial means are packed first, so the ranks
+        sum them in one ``all_reduce``."""
         deq = tifed_dequantize(results)
-        mean = layout.pack({k: weighted_client_mean(v, weights)
-                            for k, v in deq.items()})
+        mean = all_reduce_groups(
+            layout.pack({k: weighted_client_mean(v, weights)
+                         for k, v in deq.items()}), group)
         return self._snap(layout, meta_interpolate(phi, mean, alpha_t))

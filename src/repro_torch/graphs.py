@@ -25,6 +25,10 @@ make the owner and its step refer to each other, and then dropping the
 owner's last reference would free neither its device buffers nor the
 graph until Python's cyclic collector ran.
 
+A step whose function calls a collective that cannot be captured (gloo
+stages through the host) is built with ``capture=False`` and runs
+eagerly on the card too; its first call still counts as its build.
+
 A capture or replay that fails raises; nothing falls back to running
 the step eagerly. Python's cyclic garbage collector is off while a graph
 is captured: a collection may free another, unreachable graph, and
@@ -74,16 +78,18 @@ def weak_method(method) -> Callable[[], None]:
 
 
 class GraphStep:
-    """``fn`` run on ``device``: eagerly on the CPU, captured once and
-    replayed on the card. ``ready`` turns True at the first call, which
-    builds the program (the capture on the card). ``capture_s`` (the
-    capture and instantiation, host seconds) and ``nodes`` (the graph's
-    node count, None where PyTorch does not keep the graph) describe the
-    capture."""
+    """``fn`` run on ``device``: eagerly on the CPU (and on the card with
+    ``capture=False``), captured once and replayed on the card. ``ready``
+    turns True at the first call, which builds the program (the capture
+    on the card). ``capture_s`` (the capture and instantiation, host
+    seconds) and ``nodes`` (the graph's node count, None where PyTorch
+    does not keep the graph) describe the capture."""
 
-    def __init__(self, fn: Callable[[], None], device: torch.device):
+    def __init__(self, fn: Callable[[], None], device: torch.device,
+                 capture: bool = True):
         self.fn = fn
         self.device = device
+        self.capture = capture
         self.ready = False
         self.graph = None
         self.capture_s: Optional[float] = None
@@ -95,7 +101,7 @@ class GraphStep:
             self.graph.replay()
             for wrapper, rise in self._rises:
                 wrapper.launches += rise
-        elif self.device.type == "cuda":
+        elif self.device.type == "cuda" and self.capture:
             self._warm_up_and_capture()
         else:
             self.fn()

@@ -86,9 +86,30 @@ past the horizon it was written under:
 Both routes run on the GPU; ``--device cpu`` runs the plain PyTorch
 path on the CPU instead. The init is drawn from ``--seed`` with torch's
 generator, which does not reproduce ``jax.random``'s init at the same
-seed (``init_params=`` carries the JAX package's init in). The flags of
-routes not ported yet (meshes and multi-process runs) are rejected at
-parse time.
+seed (``init_params=`` carries the JAX package's init in).
+
+Across ranks, one process a rank (``runtime/sharding.py``), with the
+JAX launcher's flags and parse checks. ``--devices N`` or ``--mesh
+clients:K`` on an engine strategy splits each round's cohort over N (K)
+ranks, ``run_federated(mesh=N)``; ``--mesh data --devices N`` splits
+each microbatch of the LM launcher's round over N ranks (the cohort
+step, ``make_meta_train_step(mesh=)``), and ``--mesh pod --devices N``
+makes each rank one pod client (``core/federated.py``). The launcher
+starts those N local ranks itself (spawned, each joining a process
+group through a file store), each on card ``rank % cards``: NCCL where
+every rank has a card of its own, gloo over the CUDA tensors where ranks
+share one, gloo on the CPU with ``--device cpu``. ``--num-processes N
+--coordinator host:port --process-id i`` is the cross-host form: the
+user starts every rank, each with its own ``--process-id``, and the
+client mesh spans the N processes. Rank 0 alone prints the rows and
+writes the snapshots; its summary row carries ``"mesh"`` when
+``--mesh clients:K`` sized it, as the JAX launcher's does. ``--mesh
+clients:K,model:M`` (the 2-D mesh) is refused until the DTensor slice.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --strategy reptile \
+        --devices 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2 \
+        --reduced --mesh pod --devices 2 --device cpu
 """
 from __future__ import annotations
 
@@ -103,12 +124,6 @@ ENGINE_STRATEGIES = ("reptile", "fedavg", "fedsgd", "transfer", "tifed")
 #: JAX launcher)
 ARCH_FAMILIES = {"transformer": "tinyllama-1.1b", "mamba2": "mamba2-130m",
                  "moe": "mixtral-8x22b"}
-#: flags not ported yet, by the slice that ports them
-NOT_PORTED_FLAGS = {
-    "--devices": "the multi-device slice", "--mesh": "the multi-device slice",
-    "--coordinator": "the multi-device slice",
-    "--num-processes": "the multi-device slice",
-    "--process-id": "the multi-device slice"}
 # eval protocol of the JAX launcher's sine route (tifed's ReLU net
 # diverges at the tanh net's finetune rate: 0.005 there)
 EVAL_KWARGS = dict(num_tasks=5, support=10, k_steps=16, lr=0.02, query=20)
@@ -117,15 +132,6 @@ SUPPORT = 32
 EPOCHS = 8
 # eval protocol of the JAX launcher's engine LM route
 LM_EVAL_KWARGS = dict(num_tasks=2, support=4, k_steps=4, lr=0.01, query=8)
-
-
-class _NotPorted(argparse.Action):
-    def __call__(self, parser, namespace, values, option_string=None):
-        parser.error(f"{option_string} is not ported yet ("
-                     f"{NOT_PORTED_FLAGS[option_string]} ports it): the "
-                     f"port's launcher runs one device (the tinyreptile LM "
-                     f"launcher and --strategy {'|'.join(ENGINE_STRATEGIES)} "
-                     f"on the sine MLP)")
 
 
 def fraction_arg(s: str) -> float:
@@ -148,6 +154,52 @@ def positive_int_arg(s: str) -> int:
     if v < 1:
         raise argparse.ArgumentTypeError(f"must be >= 1, got {v}")
     return v
+
+
+def mesh_arg(s: str):
+    """argparse type for --mesh: the LM launcher's keywords
+    ('none'|'data'|'pod') pass through; an engine mesh spec
+    'clients:K[,model:M]' parses to a {'clients': K[, 'model': M]} dict,
+    rejected at parse time when malformed."""
+    if s in ("none", "data", "pod"):
+        return s
+    spec = {}
+    for part in s.split(","):
+        name, sep, extent = part.partition(":")
+        if not sep or name not in ("clients", "model") or name in spec:
+            raise argparse.ArgumentTypeError(
+                f"expected 'none', 'data', 'pod', or "
+                f"'clients:K[,model:M]', got {s!r}")
+        try:
+            v = int(extent)
+        except ValueError:
+            raise argparse.ArgumentTypeError(
+                f"mesh axis extent must be an integer, got {extent!r}")
+        if v < 1:
+            raise argparse.ArgumentTypeError(
+                f"mesh axis extent must be >= 1, got {v}")
+        spec[name] = v
+    if "clients" not in spec:
+        raise argparse.ArgumentTypeError(
+            f"an engine mesh spec needs a clients axis: "
+            f"'clients:K[,model:M]', got {s!r}")
+    return spec
+
+
+def _visible_cards(device: str) -> int:
+    """Ranks of a --mesh data|pod run without --devices: the visible
+    cards (at least 1), one on the CPU."""
+    if device == "cpu":
+        return 1
+    import torch
+    return max(torch.cuda.device_count(), 1)
+
+
+def _prints() -> bool:
+    """Whether this process prints the rows: rank 0, or a run without a
+    process group."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -212,11 +264,35 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true",
                     help="continue from the newest valid snapshot in "
                          "--ckpt-dir (a fresh start when there is none)")
+    ap.add_argument("--devices", type=positive_int_arg, default=None,
+                    help="ranks to run, one process each, started by the "
+                         "launcher: with an engine --strategy the client "
+                         "mesh's size; with --mesh data|pod the LM "
+                         "launcher's (default there: the visible cards, "
+                         "1 on the CPU)")
+    ap.add_argument("--mesh", default="none", type=mesh_arg,
+                    help="split the round across ranks: 'data' runs the "
+                         "cohort step on a 1-D data mesh (each rank its "
+                         "rows of every microbatch, the gradient "
+                         "all-reduced); 'pod' makes each rank one pod "
+                         "client (core/federated.py: inner SGD per pod, "
+                         "one all-reduce across pods a round); "
+                         "'clients:K' runs an engine strategy on a 1-D "
+                         "client mesh of K ranks; 'none' (default) one "
+                         "rank")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port of rank 0's store for a run whose "
+                         "ranks the user starts; required with "
+                         "--num-processes > 1 (every process passes the "
+                         "same address) and meaningless without it")
+    ap.add_argument("--num-processes", type=positive_int_arg, default=1,
+                    help="ranks of a run whose processes the user starts "
+                         "(one a rank, across hosts too); the client mesh "
+                         "then spans them")
+    ap.add_argument("--process-id", type=int, default=0,
+                    help="this process's rank in [0, --num-processes)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    for flag, by in NOT_PORTED_FLAGS.items():
-        ap.add_argument(flag, nargs="?", action=_NotPorted,
-                        help=f"not ported yet ({by})")
     return ap
 
 
@@ -224,17 +300,40 @@ def parse_args(argv=None) -> argparse.Namespace:
     """Parse and cross-validate before any tensor work."""
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.num_processes > 1 and not args.coordinator:
+        ap.error("--num-processes > 1 is a cross-host run; pass the "
+                 "shared --coordinator host:port")
+    if args.coordinator and args.num_processes == 1:
+        ap.error("--coordinator only applies with --num-processes > 1")
+    if not 0 <= args.process_id < args.num_processes:
+        ap.error(f"--process-id {args.process_id} out of range for "
+                 f"--num-processes {args.num_processes}")
+    if args.num_processes > 1 and args.strategy not in ENGINE_STRATEGIES:
+        ap.error("multi-process runs drive the round engine; pass an "
+                 f"engine --strategy ({'|'.join(ENGINE_STRATEGIES)})")
     if args.resume and not args.ckpt_dir:
         ap.error("--resume restores from --ckpt-dir; pass both")
     if args.availability != "iid" and args.participation < 1.0:
         ap.error("--availability replaces the i.i.d. --participation "
                  "schedule; pass one or the other")
+    if args.mesh == "pod" and args.buffer_size:
+        ap.error("--mesh pod runs the fused pod-client round; FedBuff "
+                 "buffering (--buffer-size) needs the split inner/flush "
+                 "step — pass one or the other")
     if args.strategy == "tinyreptile":
         if args.arch is None:
             ap.error("--arch is required for the tinyreptile LM launcher "
                      "(engine strategies --strategy "
                      f"{'|'.join(ENGINE_STRATEGIES)} default to the paper "
                      "sine workload instead)")
+        if isinstance(args.mesh, dict):
+            ap.error("--mesh clients:K[,model:M] drives the round "
+                     "engine; pass an engine --strategy "
+                     f"({'|'.join(ENGINE_STRATEGIES)})")
+        if args.devices is not None and args.mesh == "none":
+            ap.error("--devices only applies with --mesh data|pod (or "
+                     "with an engine --strategy, where it sizes the "
+                     "client mesh)")
         # family keyword -> the canonical config it names
         args.arch = ARCH_FAMILIES.get(args.arch, args.arch)
         for flag, v in (("--batch", args.batch), ("--seq", args.seq),
@@ -244,6 +343,14 @@ def parse_args(argv=None) -> argparse.Namespace:
         if args.batch % args.k_inner:
             ap.error(f"--batch {args.batch} must split into --k-inner "
                      f"{args.k_inner} equal microbatches")
+        args.ranks = 1
+        if args.mesh != "none":
+            args.ranks = args.devices or _visible_cards(args.device)
+            mb = args.batch // args.k_inner
+            if mb % args.ranks:
+                ap.error(f"--mesh {args.mesh}: the per-step microbatch "
+                         f"({mb} = --batch/--k-inner) must divide over "
+                         f"{args.ranks} devices")
     elif args.arch is not None:
         if args.arch not in ARCH_FAMILIES:
             ap.error(f"--strategy {args.strategy} meta-trains a reduced LM "
@@ -258,6 +365,36 @@ def parse_args(argv=None) -> argparse.Namespace:
         for flag, v in (("--batch", args.batch), ("--seq", args.seq)):
             if v < 1:
                 ap.error(f"{flag} must be >= 1, got {v}")
+    if args.strategy != "tinyreptile":
+        if args.mesh in ("data", "pod"):
+            ap.error(f"--strategy {args.strategy} shards the client axis "
+                     f"via --devices N or --mesh clients:K[,model:M]; "
+                     f"--mesh data|pod belongs to the LM launcher")
+        args.ranks = args.devices or 1
+        if isinstance(args.mesh, dict):
+            spec = ",".join(f"{k}:{v}" for k, v in args.mesh.items())
+            if args.devices is not None:
+                ap.error(f"--mesh {spec} already sizes the client mesh; "
+                         f"drop --devices")
+            if "model" in args.mesh and args.strategy == "tifed":
+                ap.error("--strategy tifed uplinks NATIVE int8 trees whose "
+                         "quantization grids need each parameter tensor "
+                         "whole on every device; a model-sharded mesh "
+                         "splits them — use --mesh clients:K (no model "
+                         "axis)")
+            if "model" in args.mesh:
+                ap.error(f"--mesh {spec}: the 2-D ('clients', 'model') "
+                         f"mesh is not ported yet (the DTensor slice ports "
+                         f"it); use --mesh clients:K")
+            args.ranks = args.mesh["clients"]
+        if args.num_processes > 1:
+            if args.devices is not None or isinstance(args.mesh, dict):
+                if args.ranks != args.num_processes:
+                    ap.error(f"--num-processes {args.num_processes}: the "
+                             f"port runs one process a rank, so the client "
+                             f"mesh is those {args.num_processes} ranks "
+                             f"(got a mesh of {args.ranks})")
+            args.ranks = args.num_processes
     if args.ckpt_every is None:
         args.ckpt_every = 10
     if args.rounds < 1:
@@ -366,6 +503,9 @@ def run_engine_strategy(args, init_params=None):
         sampling = None
     buffered = (BufferedAggregation(args.buffer_size)
                 if args.buffer_size else None)
+    # the client mesh: the process group's ranks (one rank without one)
+    mesh = (args.ranks if args.ranks > 1 or args.devices
+            or isinstance(args.mesh, dict) else None)
     ops.reset_launch_counts()
     t0 = time.time()
     out = run_federated(
@@ -373,7 +513,7 @@ def run_engine_strategy(args, init_params=None):
         clients_per_round=args.clients, alpha=args.alpha, beta=args.beta,
         support=support, seed=args.seed, eval_every=args.rounds,
         eval_kwargs=eval_kwargs, channel=channel, sampling=sampling,
-        pool=pool, buffered=buffered, ckpt_dir=args.ckpt_dir,
+        pool=pool, buffered=buffered, mesh=mesh, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, resume=args.resume, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -384,12 +524,15 @@ def run_engine_strategy(args, init_params=None):
            "kernel_launches": ops.launch_counts()}
     if args.arch is not None:
         row["arch"] = args.arch
+    if isinstance(args.mesh, dict):
+        row["mesh"] = ",".join(f"{k}:{v}" for k, v in args.mesh.items())
     if out["history"]:
         row["query_loss"] = round(float(out["history"][-1]["query_loss"]),
                                   4)
     if "comm_bytes" in out:
         row["comm_mb"] = round(out["comm_bytes"] / 2 ** 20, 3)
-    print(json.dumps(row), flush=True)
+    if _prints():
+        print(json.dumps(row), flush=True)
     return row, out
 
 
@@ -448,14 +591,17 @@ def run_lm(args, init_params=None):
     """The tinyreptile LM launcher's run, as the JAX launcher's plain
     route makes it: prints one row per round (an idle one for a round
     nobody checked in) and a summary row, and returns ``(rows, summary,
-    phi)``. ``init_params`` (the JAX package's ``Model.init`` tree, in its
-    own layout, as NumPy or ``jax.Array`` leaves) replaces the seeded
-    torch init; ``--resume`` then restores over it, as the JAX launcher
+    phi)``. ``init_params`` replaces the seeded torch init: the JAX
+    package's ``Model.init`` tree (its own layout, NumPy or ``jax.Array``
+    leaves), carried over by ``bridge.lm_params_from_jax``, or the port's
+    own tree (``torch.Tensor`` leaves on the run's device), taken as
+    given; ``--resume`` then restores over it, as the JAX launcher
     restores over its init."""
     import numpy as np
     import torch
 
-    from repro_torch.bridge import flatten_tree, lm_params_from_jax
+    from repro_torch.bridge import (flatten_tree, lm_params_from_jax,
+                                    tree_leaves)
     from repro_torch.checkpoint.ckpt import (map_leaves, restore_checkpoint,
                                              save_checkpoint)
     from repro_torch.configs import get_arch
@@ -468,16 +614,27 @@ def run_lm(args, init_params=None):
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import build_model
     from repro_torch.optim.schedules import linear_anneal
-    from repro_torch.runtime.steps import (make_meta_train_step, microbatch,
-                                           prefetch_batches)
+    from repro_torch.runtime.sharding import make_mesh
+    from repro_torch.runtime.steps import (data_rows, make_meta_train_step,
+                                           microbatch, prefetch_batches)
 
     dev = resolve_device(args.device)
+    # --mesh data|pod: the process group's ranks (one without a group)
+    mesh = None
+    if args.mesh == "data":
+        mesh = make_mesh((args.ranks,), ("data",), dev)
+    elif args.mesh == "pod":
+        mesh = make_mesh((args.ranks, 1), ("pod", "data"), dev)
+    prints = _prints()
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     model = build_model(cfg)
     if init_params is None:
         phi = model.init(torch.Generator().manual_seed(args.seed), dev)
+    elif all(isinstance(t, torch.Tensor)
+             for _, t in tree_leaves(init_params)):
+        phi = init_params
     else:
         phi = lm_params_from_jax(init_params, model.jax_layout, dev)
     start_round = 0
@@ -509,7 +666,13 @@ def run_lm(args, init_params=None):
             rng, start_round, args.rounds, fleet,
             args.k_inner)["participation"]
     round_bill = 2 * CommChannel().payload_bytes(phi)   # down + uplink
-    step = make_meta_train_step(model, beta=args.beta, alpha=args.alpha)
+    if args.mesh == "pod":
+        from repro_torch.core.federated import make_pod_client_meta_step
+        step = make_pod_client_meta_step(model, mesh, beta=args.beta,
+                                         alpha=args.alpha)
+    else:
+        step = make_meta_train_step(model, beta=args.beta, alpha=args.alpha,
+                                    mesh=mesh)
     buffer = []                   # (round, delta) pairs awaiting a flush
     flushes = 0
 
@@ -544,15 +707,20 @@ def run_lm(args, init_params=None):
             t0 = time.time()
             if names is None:
                 row = {"round": rnd, "idle": True, "alpha": alpha_t}
-                print(json.dumps(row), flush=True)
+                if prints:
+                    print(json.dumps(row), flush=True)
                 rows.append(row)
                 continue
             tensors, event = staged
             _consume(tensors, event)
             batch = dict(zip(names, tensors[:-1]))
             if args.buffer_size:
+                group = None
+                if mesh is not None:          # --mesh data: this rank's rows
+                    batch = data_rows(batch, mesh, "data")
+                    group = mesh.group("data")
                 phi_hat, losses = streaming_sgd(model.loss_fn, phi, batch,
-                                                args.beta)
+                                                args.beta, group)
                 hat = flatten_tree(phi_hat)
                 buffer.append((rnd, {k: hat[k] - p for k, p in
                                      flatten_tree(phi).items()}))
@@ -576,15 +744,17 @@ def run_lm(args, init_params=None):
             if args.buffer_size:
                 row["buffered"] = len(buffer)
                 row["flushes"] = flushes
-            print(json.dumps(row), flush=True)
+            if prints:
+                print(json.dumps(row), flush=True)
             rows.append(row)
             if args.ckpt_dir and (rnd + 1) % args.ckpt_every == 0:
                 if buffer:                       # a snapshot sees every update
                     phi = fedbuff_flush(phi, buffer, rnd, alpha_t)
                     buffer.clear()
                     flushes += 1
-                save_checkpoint(args.ckpt_dir, phi, rnd + 1,
-                                extra={"arch": args.arch})
+                if prints:                       # rank 0 writes
+                    save_checkpoint(args.ckpt_dir, phi, rnd + 1,
+                                    extra={"arch": args.arch})
     finally:
         batches.close()      # stops the producer if a round raised
     if buffer:                               # drain the pending tail
@@ -592,7 +762,7 @@ def run_lm(args, init_params=None):
         phi = fedbuff_flush(phi, buffer, last, float(alpha_sched(last)))
         buffer.clear()
         flushes += 1
-    if args.ckpt_dir:
+    if args.ckpt_dir and prints:
         save_checkpoint(args.ckpt_dir, phi, args.rounds,
                         extra={"arch": args.arch})
     if dev.type == "cuda":
@@ -606,16 +776,62 @@ def run_lm(args, init_params=None):
                "kernel_launches": ops.launch_counts()}
     if args.buffer_size:
         summary["flushes"] = flushes
-    print(json.dumps(summary), flush=True)
+    if mesh is not None:
+        summary["mesh"] = args.mesh
+    if prints:
+        print(json.dumps(summary), flush=True)
     return rows, summary, phi
 
 
-def main(argv=None):
-    args = parse_args(argv)
+def run(args):
+    """The route ``args`` name, in this process."""
     if args.strategy == "tinyreptile":
         run_lm(args)
     else:
         run_engine_strategy(args)
+
+
+def _rank_run(rank, argv):
+    """One rank of the ranks the launcher started: its process group is
+    up."""
+    del rank
+    run(parse_args(argv))
+
+
+def main(argv=None):
+    """Parse, then run: in this process; or, for ``--num-processes N``,
+    as rank ``--process-id`` of the N ranks the user starts; or, for
+    more ranks than one (``--devices``, ``--mesh clients:K``) and no
+    process group yet, in that many local ranks started here."""
+    import sys
+    import tempfile
+
+    import torch.distributed as dist
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_args(argv)
+    if args.num_processes > 1:
+        from repro_torch.runtime.sharding import init_distributed
+        init_distributed(args.coordinator, args.num_processes,
+                         args.process_id,
+                         device="cpu" if args.device == "cpu" else None)
+        try:
+            run(args)
+        finally:
+            dist.destroy_process_group()
+    elif args.ranks > 1 and not dist.is_initialized():
+        from repro_torch.device import resolve_device
+        from repro_torch.runtime.ranks import run_ranks
+        resolve_device(args.device)            # no card: raise here
+        import os
+        # CPU ranks share the host's cores; card ranks keep torch's default
+        threads = (max(1, (os.cpu_count() or 1) // args.ranks)
+                   if args.device == "cpu" else 0)
+        with tempfile.TemporaryDirectory() as workdir:
+            run_ranks(_rank_run, args.ranks, workdir, argv,
+                      device=args.device, threads=threads)
+    else:
+        run(args)
 
 
 if __name__ == "__main__":

@@ -1,2 +1,3 @@
-"""Step builders of the port (the JAX package's ``runtime`` as far as
-the ported LM path needs it)."""
+"""The port's runtime (the JAX package's ``runtime``): step builders,
+the levers, the sharding rules and process meshes, the ambient mesh,
+and ranks started in one call."""

@@ -36,16 +36,38 @@ from repro_torch.kernels.ops import tree_meta_update
 from repro_torch.runtime.flags import feature, feature_scope
 
 
-def make_meta_train_step(model, *, beta: float = 0.01,
-                         alpha: float = 0.5) -> Callable:
+def data_rows(batch, mesh, axis: str):
+    """This rank's rows of each microbatch: ``batch``'s leaves are (K, mb,
+    ...), and rank i of the ``axis`` mesh axis takes the i-th of its
+    equal parts of mb."""
+    n, i = mesh.shape[axis], mesh.coordinate(axis)
+    rows = next(iter(batch.values())).shape[1] // n
+    return {k: v[:, i * rows:(i + 1) * rows] for k, v in batch.items()}
+
+
+def make_meta_train_step(model, *, beta: float = 0.01, alpha: float = 0.5,
+                         mesh=None) -> Callable:
     """TinyReptile round. batch: {"tokens": (K, mb, S), "labels": ...}.
 
     ``step(phi, batch, alpha)`` returns (new_phi, metrics): the mean,
     first and last inner losses as fp32 tensors on the device. ``alpha``
     is a float or a one-element fp32 tensor on phi's device.
+
+    ``mesh`` (a ``ProcessMesh`` with a ``data`` axis: the JAX launcher's
+    ``--mesh data``, the cohort step) splits each microbatch over the
+    data axis's ranks: each takes its rows (``data_rows``) and the inner
+    step's gradient is summed to the whole microbatch's mean on every
+    rank (``streaming_sgd(group=)``), so phi stays the same on every
+    rank. The JAX package also shards leaves over 32 MB on ``data``
+    (FSDP), which saves memory only; here they stay whole on every rank.
     """
+    group = mesh.group("data") if mesh is not None else None
+
     def step(phi, batch, alpha=alpha):
-        phi_hat, losses = streaming_sgd(model.loss_fn, phi, batch, beta)
+        if mesh is not None:
+            batch = data_rows(batch, mesh, "data")
+        phi_hat, losses = streaming_sgd(model.loss_fn, phi, batch, beta,
+                                        group)
         new_phi = tree_meta_update(phi, phi_hat, alpha)
         return new_phi, {"loss": losses.mean(), "inner_first": losses[0],
                          "inner_last": losses[-1]}

@@ -221,18 +221,26 @@ def test_cpu_run_launches_no_kernel_and_returns_cpu_tensors(init):
 @pytest.mark.parametrize("kw", [dict(mesh=2), dict(mesh="auto"),
                                 dict(mesh=1)])
 def test_unported_routes_raise(init, kw):
-    """mesh= still raises, naming the slice that ports it (pool= and
-    buffered= run since the fleet slice: tests/test_torch_pool.py;
-    ckpt_dir= since the checkpoint slice:
-    tests/test_torch_preempt_resume.py)."""
-    with pytest.raises(NotImplementedError, match="not ported yet.*slice"):
-        tcore.run_federated(init, SineTasks(),
-                            tcore.ReptileStrategy(TLOSS), rounds=2,
-                            device="cpu", **kw)
-    if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tcore.reptile_train(TLOSS, init, SineTasks(), rounds=2,
-                                device="cpu", **kw)
+    """mesh= resolves since the multi-process slice (two ranks:
+    tests/test_torch_mesh_engine.py). Without a process group, "auto"
+    and 1 are a one-rank mesh, bit for bit mesh=None's run, through
+    run_federated and a train function alike; 2 asks for ranks this
+    process does not have and raises, naming what to start."""
+    kw2 = dict(rounds=2, clients_per_round=2, support=4, device="cpu")
+    if kw["mesh"] == 2:
+        with pytest.raises(ValueError, match="asked for 2 devices.*ranks"):
+            tcore.run_federated(init, SineTasks(),
+                                tcore.ReptileStrategy(TLOSS), **kw2, **kw)
+        with pytest.raises(ValueError, match="asked for 2 devices"):
+            tcore.reptile_train(TLOSS, init, SineTasks(), **kw2, **kw)
+        return
+    for run in (lambda **k: tcore.run_federated(
+            init, SineTasks(), tcore.ReptileStrategy(TLOSS), **k),
+            lambda **k: tcore.reptile_train(TLOSS, init, SineTasks(), **k)):
+        want, got = run(**kw2), run(**kw2, **kw)
+        for k, v in want["params"].items():
+            assert torch.equal(got["params"][k], v), k
+        assert got["per_client_bytes"] == want["per_client_bytes"]
 
 
 def test_without_cuda_the_train_functions_raise(init):

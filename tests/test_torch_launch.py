@@ -123,15 +123,18 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
      "--availability needs a persistent fleet"),
     (["--strategy", "reptile", "--buffer-size", "4"],
      "--buffer-size (FedBuff) needs persistent clients"),
-    (["--strategy", "reptile", "--mesh", "clients:2"],
-     "--mesh is not ported yet"),
-    (["--strategy", "reptile", "--devices", "2"], "--devices is not ported"),
+    (["--strategy", "reptile", "--mesh", "clients:2,model:2"],
+     "the 2-D ('clients', 'model') mesh is not ported yet (the DTensor "
+     "slice ports it)"),
+    (["--strategy", "reptile", "--mesh", "clients:2", "--devices", "2"],
+     "--mesh clients:2 already sizes the client mesh; drop --devices"),
     (["--arch", "mamba2", "--participation", "0.5", "--availability",
       "diurnal"], "--availability replaces the i.i.d. --participation"),
     (["--strategy", "reptile", "--resume"],
      "--resume restores from --ckpt-dir; pass both"),
     (["--strategy", "reptile", "--num-processes", "2"],
-     "--num-processes is not ported yet"),
+     "--num-processes > 1 is a cross-host run; pass the shared "
+     "--coordinator"),
     (["--strategy", "reptile", "--participation", "0"], "participation"),
     (["--strategy", "reptile", "--device", "tpu"], "invalid choice"),
     (["--arch", "mamba2", "--resume"],
@@ -143,6 +146,68 @@ def test_train_parse_rejects_unported_flags(argv, msg, capsys):
     with pytest.raises(SystemExit):
         train.parse_args(argv)
     assert msg in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--strategy", "reptile", "--num-processes", "2"],
+    ["--strategy", "reptile", "--coordinator", "h:1"],
+    ["--strategy", "reptile", "--coordinator", "h:1", "--num-processes",
+     "2", "--process-id", "2"],
+    ["--strategy", "tinyreptile", "--arch", "mamba2-130m", "--coordinator",
+     "h:1", "--num-processes", "2"],
+    ["--arch", "mamba2-130m", "--devices", "2"],
+    ["--arch", "mamba2-130m", "--mesh", "pod", "--buffer-size", "2"],
+    ["--arch", "mamba2-130m", "--mesh", "clients:2"],
+    ["--strategy", "reptile", "--mesh", "data"],
+    ["--strategy", "reptile", "--mesh", "clients:0"],
+    ["--strategy", "reptile", "--mesh", "model:2"],
+    ["--strategy", "reptile", "--mesh", "clients:2,clients:2"],
+    ["--strategy", "tifed", "--mesh", "clients:2,model:2"],
+    ["--strategy", "reptile", "--mesh", "clients:2", "--devices", "2"],
+])
+def test_train_parse_rejects_what_the_jax_launcher_rejects(argv):
+    """The JAX launcher's distributed and mesh parse checks
+    (tests/test_distributed.py, tests/test_launch.py): both launchers
+    refuse each of these at parse time."""
+    from repro.launch import train as jtrain
+    for parse in (jtrain.parse_args, train.parse_args):
+        with pytest.raises(SystemExit):
+            parse(argv)
+
+
+@pytest.mark.parametrize("argv,ranks,mesh", [
+    (["--strategy", "reptile", "--devices", "2"], 2, "none"),
+    (["--strategy", "reptile", "--mesh", "clients:3"], 3,
+     {"clients": 3}),
+    (["--strategy", "tifed", "--num-processes", "2", "--coordinator",
+      "h:1", "--process-id", "1"], 2, "none"),
+    (["--arch", "mamba2", "--mesh", "pod", "--devices", "2"], 2, "pod"),
+    (["--arch", "mamba2", "--mesh", "data", "--devices", "2", "--batch",
+      "16", "--device", "cpu"], 2, "data"),
+    (["--arch", "mamba2", "--mesh", "pod", "--device", "cpu"], 1, "pod"),
+])
+def test_train_parse_takes_the_mesh_and_process_flags(argv, ranks, mesh):
+    args = train.parse_args(argv)
+    assert args.ranks == ranks and args.mesh == mesh
+
+
+@pytest.mark.parametrize("argv", [
+    ["--strategy", "reptile", "--rounds", "3", "--clients", "3",
+     "--devices", "2"],
+    ["--arch", "mamba2", "--reduced", "--rounds", "2", "--mesh", "pod",
+     "--devices", "2"],
+])
+def test_train_starts_its_own_ranks_on_the_cpu(argv):
+    """--devices N starts N gloo ranks; rank 0 alone prints."""
+    out = _run(argv + ["--device", "cpu"], launcher="train", timeout=300)
+    assert out.returncode == 0, out.stderr
+    rows = [json.loads(line) for line in out.stdout.splitlines()]
+    assert len(rows) == (1 if "--strategy" in argv else 3)
+    if "--mesh" in argv:
+        assert rows[-1]["mesh"] == "pod"
+        assert all(np.isfinite(r["loss"]) for r in rows[:-1])
+    else:
+        assert np.isfinite(rows[0]["query_loss"])
 
 
 @pytest.mark.parametrize("argv", [

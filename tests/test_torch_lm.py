@@ -423,7 +423,8 @@ def test_lm_launcher_rows_match_the_jax_launcher(monkeypatch):
       "markov"], "--availability replaces the i.i.d. --participation"),
     (["--arch", "mamba2", "--batch", "6", "--k-inner", "4"],
      "equal microbatches"),
-    (["--arch", "mamba2", "--mesh", "data"], "--mesh is not ported yet"),
+    (["--arch", "mamba2", "--mesh", "pod", "--buffer-size", "2"],
+     "--mesh pod runs the fused pod-client round"),
     (["--arch", "mamba2", "--resume"],
      "--resume restores from --ckpt-dir; pass both"),
     (["--arch", "nope"], "invalid choice"),
