@@ -354,6 +354,28 @@ Phases, each printing one JSON line, in this order:
     Phases 5 and 23 and ``train_paligemma_full`` draw their weights
     on the card (``draw_on_card``): the host draws of tinyllama-1.1b
     (three times) and paligemma-3b took some 45 s.
+37. slice 20, the 2-D ``("clients", "model")`` route, after the streams
+    and before the families: four ranks on a 2 x 2 mesh sharing the card
+    through gloo (started with the streams, idle until their go).
+    ``mesh2d_engine_reduced``: the CPU test's cases (the tiny
+    transformer, the sine MLP plain, under partial participation and
+    with a FedBuff pool, the tiny mamba2 through ``ssd_scan``) on
+    ``run_federated(mesh=client_model_mesh(2, 2))``, each rank holding its
+    shards; gathered, every rank the same and within 1e-4 of the card's
+    mesh=None run, bills and pool state exact, built once, online_sgd,
+    meta_update, client_mean (and ssd_scan) launched on every rank.
+    ``launcher_mesh2d``: the launcher's ``--mesh clients:2,model:2
+    --arch transformer`` row on the four ranks against its row without
+    the mesh. ``mesh2d_tinyllama_1_1b``: tinyllama-1.1b at full width and
+    depth, bf16, drawn on the card (each rank keeps only its shards), on
+    the 2 x 2 mesh: Reptile on ``LmTaskDistribution(32000, 128)``, 4
+    clients a round, support 2, 2 epochs, 2 rounds, one eval; this process
+    runs it with mesh=None (eagerly) beside the ranks' reduced cases, and
+    the 2-D run's first round is held to that one's at 4 bf16 steps, the
+    bills exactly; each rank's parameter bytes
+    at most 0.6 of the whole's; its peak memory, the rounds' seconds, the
+    model group's all-reduces a client step and the clients group's bytes
+    a round.
 
 The order: the kernel phases, the levers (35) and slice 19 (36) run
 first, with nothing beside them. Then three streams run at once, each in
@@ -361,7 +383,8 @@ a process of its own on the card (STREAMS): this process runs slice
 17's two engine phases (34), 27 and 28; ``decode_lm`` runs 4-6,
 ``train_lm_fleet`` (34) and 23's dense LM; ``sine`` runs 7-13b, 24-26,
 18-20, 29, 14-17 and 21-23's mamba2 LM. A stream's lines are printed when it ends, each with its
-``stream``. The families (30-33) run last, alone on the card.
+``stream``. Slice 20 (37) runs once they are done; the families
+(30-33) run last, alone on the card.
 
 The CPU references that depend only on a seed or an argv (the engine LM
 runs' first rounds, the partial wire's, the pool's and the pool drift's
@@ -4766,7 +4789,6 @@ def draw_on_card(torch, model, seed):
     update kernels read them without a copy. A host draw runs at some
     140 M params/s; this takes seconds for 20 B."""
     from repro_torch.bridge import tree_leaves, unflatten_tree
-    from repro_torch.models.transformer import _ZERO_LEAVES
     gen = torch.Generator(device="cuda").manual_seed(seed)
     groups = {}
     for path, (shape, dtype) in tree_leaves(model.param_shapes()):
@@ -4780,25 +4802,31 @@ def draw_on_card(torch, model, seed):
             n = math.prod(shape)
             view = buf[at:at + n].view(shape)
             at += n
-            name = path[-1]
-            if name == "A_log":
-                view.copy_(torch.log(torch.linspace(1.0, 16.0, shape[0],
-                                                    device="cuda")))
-            elif name == "D":
-                view.fill_(1.0)
-            elif name in _ZERO_LEAVES:
-                view.zero_()
-            else:
-                fan_in = shape[0] if len(shape) >= 2 else n
-                rows = view.view(shape[0], -1)
-                step = max(1, (1 << 28) // rows.shape[1])
-                for r in range(0, shape[0], step):
-                    part = rows[r:r + step]
-                    part.copy_(torch.randn(part.shape, generator=gen,
-                                           device="cuda")
-                               / math.sqrt(fan_in))
+            draw_leaf(torch, gen, path[-1], view)
             leaves[path] = view
     return unflatten_tree(leaves)
+
+
+def draw_leaf(torch, gen, name, view):
+    """One leaf of ``draw_on_card`` written into ``view`` (on the card),
+    by its name, from ``gen``."""
+    from repro_torch.models.transformer import _ZERO_LEAVES
+    shape = tuple(view.shape)
+    if name == "A_log":
+        view.copy_(torch.log(torch.linspace(1.0, 16.0, shape[0],
+                                            device="cuda")))
+    elif name == "D":
+        view.fill_(1.0)
+    elif name in _ZERO_LEAVES:
+        view.zero_()
+    else:
+        fan_in = shape[0] if len(shape) >= 2 else math.prod(shape)
+        rows = view.view(shape[0], -1)
+        step = max(1, (1 << 28) // rows.shape[1])
+        for r in range(0, shape[0], step):
+            part = rows[r:r + step]
+            part.copy_(torch.randn(part.shape, generator=gen,
+                                   device="cuda") / math.sqrt(fan_in))
 
 
 def lm_batch(torch, np, cfg, shape, seed, dev):
@@ -6796,6 +6824,550 @@ def phase_launcher_two_process(procs):
             "launcher_devices_2_rank0": b["kernel_launches"]}
 
 
+# -- slice 20: the 2-D ("clients", "model") route -----------------------------
+
+# Four ranks on a 2 x 2 (clients, model) mesh, sharing the card through
+# gloo, started when the streams start (their set-up hidden behind the
+# streams) and idle until their go, which comes once the streams are
+# done: the card then has room for the tinyllama-1.1b reference beside
+# them, and no stream shares the host with the timed 2-D rounds. They run
+# before the families.
+MESH2D_RANKS = 4
+MESH2D_TOL = 1e-4              # the reduced cases against mesh=None's run
+# the CPU test's (tests/test_torch_mesh2d_engine.py) runs and tiny configs
+MESH2D_LM_EVAL = dict(num_tasks=2, support=4, k_steps=2, lr=0.01, query=4)
+MESH2D_RUNS = {
+    "transformer": dict(rounds=5, beta=0.02, support=3, seed=3,
+                        eval_every=2, eval_kwargs=MESH2D_LM_EVAL,
+                        clients_per_round=3),
+    "sine_plain": dict(rounds=11, beta=0.02, support=4, seed=6,
+                       eval_every=4, eval_kwargs=MESH_EVAL,
+                       clients_per_round=3),
+    "mamba2": dict(rounds=3, beta=0.02, support=2, seed=4,
+                   clients_per_round=2),
+}
+MESH2D_RUNS["sine_partial"] = MESH2D_RUNS["sine_plain"]
+MESH2D_RUNS["sine_fedbuff"] = MESH2D_RUNS["sine_plain"]
+MESH2D_KERNELS = ("online_sgd", "meta_update", "client_mean")
+# tinyllama-1.1b at its published width and depth, bf16, drawn on the card
+# from TL2D_SEED: Reptile (2 epochs) on LmTaskDistribution(32000, 128), 4
+# clients a round, support 2, 2 rounds (one block a round, so each round's
+# end is read), one eval at the end; beta 0.002, the full-width rate
+TL2D_RUN = dict(rounds=2, clients_per_round=4, support=2, beta=0.002,
+                seed=0, eval_every=2, max_block=1,
+                eval_kwargs=dict(num_tasks=2, support=2, k_steps=2,
+                                 lr=0.002, query=2))
+TL2D_SEED = 20
+TL2D_SEQ = 128
+TL2D_TOL = POD_TOL             # its first round: 4 bf16 steps of mesh=None's
+TL2D_BYTES_MAX = 0.6           # a rank's parameter bytes over the whole's
+# the train launcher's 2-D row, against its mesh=None row on the card
+LAUNCH_2D = ["--strategy", "reptile", "--arch", "transformer", "--rounds",
+             "2", "--clients", "4"]
+LAUNCH_2D_MESH = ["--mesh", "clients:2,model:2"]
+
+
+def tiny_lm(get_arch, family):
+    """``tests/test_mesh2d_engine.py``'s tiny configs."""
+    base = {"transformer": "tinyllama-1.1b", "mamba2": "mamba2-130m"}[family]
+    small = dict(name="tiny-" + family, vocab_size=128, d_model=64)
+    if family == "transformer":
+        small.update(d_ff=128, num_heads=2, num_kv_heads=2, head_dim=32)
+    else:
+        small.update(ssm_state=16, ssm_chunk=8)
+    return dataclasses.replace(get_arch(base).reduced(), **small)
+
+
+def mesh2d_case(torch, mods, name):
+    """One reduced case: (init, task distribution, strategy, run_federated
+    keyword arguments), the same in every process."""
+    core = mods["core"]
+    kw = dict(MESH2D_RUNS[name])
+    if name.startswith("sine"):
+        sm = mods["sine"]
+        if name == "sine_partial":
+            kw["sampling"] = core.PartialParticipation(0.5)
+        if name == "sine_fedbuff":
+            kw["buffered"] = core.BufferedAggregation(4)
+        if name != "sine_plain":
+            kw["pool"] = core.ClientPool(sm["dist"], 7)
+        return (sm["phi"], sm["dist"], core.TinyReptileStrategy(sm["loss"]),
+                kw)
+    model = mods["build_model"](tiny_lm(mods["get_arch"], name))
+    seed = 1 if name == "transformer" else 2
+    phi = model.init(torch.Generator().manual_seed(seed), "cpu")
+    return (phi, mods["LmTaskDistribution"](128, 16),
+            core.ReptileStrategy(mods["lm_loss"](model), epochs=2), kw)
+
+
+def mesh2d_mods():
+    """The port's modules the 2-D phases take."""
+    from repro_torch import bridge, core
+    from repro_torch.configs import get_arch
+    from repro_torch.core import engine
+    from repro_torch.data import LmTaskDistribution, lm_loss
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models.transformer import build_model
+    from repro_torch.runtime import sharding
+    return {"core": core, "engine": engine, "ops": ops, "sh": sharding,
+            "bridge": bridge, "train": train, "get_arch": get_arch,
+            "build_model": build_model, "lm_loss": lm_loss,
+            "LmTaskDistribution": LmTaskDistribution, "sine": sine_mods()}
+
+
+def whole_numpy(np, mods, out, init, mesh, partitioner=None):
+    """A 2-D run's params gathered whole over the model group, as NumPy
+    by leaf name (every rank of the mesh calls it)."""
+    sh, bridge = mods["sh"], mods["bridge"]
+    whole = bridge.FlatLayout.of_tree(init)
+    shards = sh.ModelShards.of(partitioner or sh.DEFAULT_PARTITIONER,
+                               dict(zip(whole.names, whole.shapes)), mesh)
+    local = bridge.FlatLayout.of_tree(out["params"]).named(out["params"])
+    return {str(k): shards.gather_exact(k, v).float().cpu().numpy()
+            for k, v in local.items()}
+
+
+class RoundClock:
+    """A ``run_federated`` tracker that reads the time at each block's
+    end (one round a block under ``max_block=1``) and keeps a copy of phi
+    after the first round: the program's flat buffers, read from the
+    engine's one cached runner (clear the cache before the run)."""
+
+    def __init__(self, torch, engine):
+        from repro_torch.metering import MetricsTracker
+        self.torch, self.engine = torch, engine
+        self.inner = MetricsTracker()
+        self.times, self.first = [], None
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def on_run_start(self):
+        self.times.append(time.perf_counter())
+        self.inner.on_run_start()
+
+    def on_block(self, start, end, losses):
+        self.times.append(time.perf_counter())
+        if start == 0:
+            (runner,) = self.engine._RUNNER_CACHE._entries.values()
+            (prog,) = runner._programs.values()
+            self.first = tuple(t.clone() for t in prog.phi)
+        self.inner.on_block(start, end, losses)
+
+    def round_s(self):
+        return [b - a for a, b in zip(self.times, self.times[1:])]
+
+
+def draw_shards_on_card(torch, model, seed, shards):
+    """``draw_on_card``'s weights, each leaf drawn whole in its order
+    (the same generator's numbers), only this rank's shard kept: the
+    whole model never exists on the rank. Returns the shards' tree."""
+    from repro_torch.bridge import tree_leaves, unflatten_tree
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    groups = {}
+    for path, (shape, dtype) in tree_leaves(model.param_shapes()):
+        groups.setdefault(dtype, []).append((path, tuple(shape)))
+    leaves = {}
+    for dtype, items in groups.items():
+        for path, shape in items:
+            full = torch.empty(shape, dtype=dtype, device="cuda")
+            draw_leaf(torch, gen, path[-1], full)
+            leaves[path] = shards.local(path, full).contiguous().clone()
+            del full
+    return unflatten_tree(leaves)
+
+
+def tinyllama_setup(mods):
+    """tinyllama-1.1b's model, task distribution, Reptile strategy and
+    leaf shapes, the same in every process."""
+    model = mods["build_model"](mods["get_arch"]("tinyllama-1.1b"))
+    lm = mods["LmTaskDistribution"](model.cfg.vocab_size, TL2D_SEQ)
+    S = mods["core"].ReptileStrategy(mods["lm_loss"](model), epochs=2)
+    shapes = {path: tuple(shape) for path, (shape, _) in
+              mods["bridge"].tree_leaves(model.param_shapes())}
+    return model, lm, S, shapes
+
+
+def tinyllama_reference(torch, mods, workdir):
+    """The mesh=None run of ``mesh2d_tinyllama_1_1b`` in this process
+    (the whole model drawn on the card), run eagerly as the 2-D ranks'
+    is (gloo): captured, its warm-up's blocks and the graph's pool
+    together pass the card's 80 GB, and a replay is the eager round bit
+    for bit. Its first round's leaves go to ``workdir/tl_first.pt`` for
+    rank 0 to hold the 2-D run's against; returns its readings."""
+    core, engine, ops, sh, bridge = (mods["core"], mods["engine"],
+                                     mods["ops"], mods["sh"],
+                                     mods["bridge"])
+    model, lm, S, _ = tinyllama_setup(mods)
+    phi = draw_on_card(torch, model, TL2D_SEED)
+    core.clear_runner_cache()
+    engine._block_runner(S, TL2D_RUN["beta"], core.CommChannel(), False,
+                         masked=False).capture = False
+    clock = RoundClock(torch, engine)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    ref = core.run_federated(phi, lm, S, device="cuda", tracker=clock,
+                             **TL2D_RUN)
+    torch.cuda.synchronize()
+    res = {"round_s": clock.round_s(),
+           "query_loss": [h["query_loss"] for h in ref["history"]],
+           "comm_bytes": ref["comm_bytes"],
+           "param_bytes": sh.per_device_param_bytes(phi),
+           "launches": ops.launch_counts(),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    layout = bridge.GroupedLayout.of_tree(phi)
+    torch.save({k: v.cpu() for k, v in layout.views(clock.first).items()},
+               Path(workdir) / "tl_first.pt")
+    del phi, ref, clock
+    core.clear_runner_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tinyllama_2d_rank(torch, np, hashlib, rank, mods, workdir):
+    """tinyllama-1.1b on the 2 x 2 mesh, once this process's mesh=None
+    reference is done (``workdir/go_tinyllama``): every rank draws its
+    shards, runs the 2-D route timed a round, and holds its first round:
+    the ranks of clients coordinate 0 gather it leaf by leaf for rank 0
+    to hold against the reference's. Then one client's inner step on the
+    shards, its model-group all-reduces counted."""
+    core, engine, ops, sh, bridge = (mods["core"], mods["engine"],
+                                     mods["ops"], mods["sh"],
+                                     mods["bridge"])
+    from repro_torch.runtime.shardctx import model_shards_scope
+    model, lm, S, shapes = tinyllama_setup(mods)
+    mesh = sh.client_model_mesh(2, 2, "cuda")
+    shards = sh.ModelShards.of(sh.DEFAULT_PARTITIONER, shapes, mesh)
+    res = {"whole_bytes": 2 * sum(math.prod(s) for s in shapes.values())}
+    go = Path(workdir) / "go_tinyllama"
+    while not go.exists():
+        time.sleep(0.05)
+    local = draw_shards_on_card(torch, model, TL2D_SEED, shards)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    core.clear_runner_cache()
+    clock = RoundClock(torch, engine)
+    calls0 = dict(sh.MODEL_CALLS)
+    reduces0 = sh.CALLS["all_reduce"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = core.run_federated(sh.LocalShards(local, shapes), lm, S,
+                             mesh=mesh, device="cuda", tracker=clock,
+                             **TL2D_RUN)
+    torch.cuda.synchronize()
+    res.update(wall_s=time.perf_counter() - t0, round_s=clock.round_s(),
+               launches=ops.launch_counts(),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               param_bytes=sh.per_device_param_bytes(out["params"]),
+               query_loss=[h["query_loss"] for h in out["history"]],
+               comm_bytes=out["comm_bytes"],
+               all_reduce_calls=sh.CALLS["all_reduce"] - reduces0,
+               model_calls_run={k: v - calls0[k]
+                                for k, v in sh.MODEL_CALLS.items()})
+    (runner,) = engine._RUNNER_CACHE._entries.values()
+    res["trace_count"] = runner.trace_count
+    layout = bridge.GroupedLayout.of_tree(out["params"])
+    # the round's one clients-group all-reduce: each dtype group's fp32
+    # client mean of this rank's shards
+    res["clients_all_reduce_bytes"] = 4 * sum(
+        math.prod(s) for s in layout.shapes)
+    first = layout.views(clock.first)
+    res["first_sha256"] = hashlib.sha256(b"".join(
+        t.view(torch.uint8).cpu().numpy().tobytes()
+        for t in clock.first)).hexdigest()
+    del clock
+    # the first round, whole, on rank 0 against the reference's
+    if mesh.coordinate("clients") == 0:
+        want = (torch.load(Path(workdir) / "tl_first.pt") if rank == 0
+                else None)
+        worst = {"max_abs_diff": 0.0, "within": True, "leaves": 0}
+        for k, v in first.items():
+            got = shards.gather_exact(k, v)
+            if rank == 0:
+                w = want[k].to(got.device).float()
+                diff = (got.float() - w).abs()
+                worst["max_abs_diff"] = max(worst["max_abs_diff"],
+                                            diff.max().item())
+                worst["within"] &= bool((diff <= TL2D_TOL["atol"]
+                                         + TL2D_TOL["rtol"] * w.abs())
+                                        .all().item())
+                worst["leaves"] += 1
+            del got
+        res["first_round_vs_mesh_none"] = worst if rank == 0 else None
+        del want
+    del first
+    # one client's inner step on the shards (support 2 x 128 tokens): the
+    # model group's all-reduces it makes
+    batch = lm.sample_support_block(np.random.default_rng(0), 1, 1,
+                                    TL2D_RUN["support"])
+    tokens = torch.from_numpy(batch["x"][0, 0]).to(mesh.device)
+    labels = torch.from_numpy(batch["y"][0, 0]).to(mesh.device)
+    params = bridge.unflatten_tree({
+        k: v.detach().requires_grad_() for k, v in
+        bridge.flatten_tree(out["params"]).items()})
+    before = dict(sh.MODEL_CALLS)
+    with model_shards_scope(shards):
+        model.loss_fn(params, {"tokens": tokens,
+                               "labels": labels}).backward()
+    torch.cuda.synchronize()
+    res["model_all_reduces_per_client_step"] = {
+        k: v - before[k] for k, v in sh.MODEL_CALLS.items()}
+    del params, out, local
+    core.clear_runner_cache()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def mesh2d_worker(rank, workdir):
+    """Every 2-D phase, in one rank of the MESH2D_RANKS: the reduced
+    cases, the launcher's row, then (after the mesh=None reference)
+    tinyllama-1.1b. Sets up CUDA and imports, writes
+    ``workdir/ready<rank>``, sleeps until ``workdir/go``. Returns NumPy
+    results, each run's launches and timings."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.zeros(1, device="cuda")
+    mods = mesh2d_mods()
+    core, ops, sh = mods["core"], mods["ops"], mods["sh"]
+    torch.cuda.synchronize()
+    (Path(workdir) / f"ready{rank}").touch()
+    go = Path(workdir) / "go"
+    while not go.exists():
+        time.sleep(0.05)
+    mesh = sh.client_model_mesh(2, 2, "cuda")
+    out = {"rank": rank, "backend": dist.get_backend(), "cases": {},
+           "launches": {}, "coords": (mesh.coordinate("clients"),
+                                      mesh.coordinate("model"))}
+    t0 = time.perf_counter()
+    for name in MESH2D_RUNS:
+        init, task_dist, strategy, kw = mesh2d_case(torch, mods, name)
+        core.clear_runner_cache()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        run = core.run_federated(init, task_dist, strategy, mesh=mesh,
+                                 device="cuda", **kw)
+        torch.cuda.synchronize()
+        out["launches"][name] = ops.launch_counts()
+        (runner,) = mods["engine"]._RUNNER_CACHE._entries.values()
+        out["cases"][name] = dict(
+            run_numpy(np, {**run, "params": {}}),
+            params=whole_numpy(np, mods, run, init, mesh),
+            local_bytes=sh.per_device_param_bytes(run["params"]),
+            trace_count=runner.trace_count)
+    out["reduced_s"] = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        row, _ = mods["train"].run_engine_strategy(mods["train"].parse_args(
+            LAUNCH_2D + LAUNCH_2D_MESH + [
+                "--num-processes", str(MESH2D_RANKS), "--coordinator",
+                "127.0.0.1:1", "--process-id", str(rank)]))
+    out["launcher"] = dict(row, wall_s=time.perf_counter() - t0)
+    core.clear_runner_cache()
+    out["tinyllama"] = tinyllama_2d_rank(torch, np, hashlib, rank, mods,
+                                         workdir)
+    return out
+
+
+def start_mesh2d_workers(workdir):
+    """The MESH2D_RANKS ranks, started now in the background; they wait
+    for their go. Returns the thread that collects their results."""
+    from repro_torch.runtime.ranks import run_ranks
+
+    def collect():
+        try:
+            thread.result = run_ranks(mesh2d_worker, MESH2D_RANKS, workdir,
+                                      workdir, device="cuda", threads=2,
+                                      timeout=STREAM_TIMEOUT + 600)
+        except BaseException as e:              # raised in the phase
+            thread.result = e
+
+    thread = threading.Thread(target=collect, daemon=True)
+    thread.start()
+    return thread
+
+
+def phase_mesh2d(torch, np, thread, workdir, t_start):
+    """Give the 2-D ranks their go; meanwhile compute the reduced cases',
+    the launcher's and tinyllama-1.1b's mesh=None references on the card
+    (then the ranks' tinyllama go); then hold the ranks' runs to them
+    (``mesh2d_engine_reduced``, ``launcher_mesh2d``,
+    ``mesh2d_tinyllama_1_1b``)."""
+    mods = mesh2d_mods()
+    core, ops = mods["core"], mods["ops"]
+    # the card's room for rank 0's mesh=None reference (some 53 GB): what
+    # this process's allocator still holds goes back first
+    gc.collect()
+    torch.cuda.empty_cache()
+    ready = [Path(workdir) / f"ready{r}" for r in range(MESH2D_RANKS)]
+    t0 = time.perf_counter()
+    while not all(p.exists() for p in ready):
+        if not thread.is_alive():
+            raise RuntimeError(f"2-D ranks ended before they were ready: "
+                               f"{thread.result}")
+        time.sleep(0.05)
+    waited_ready = time.perf_counter() - t0
+    (Path(workdir) / "go").touch()
+    refs = {}
+    for name in MESH2D_RUNS:
+        init, task_dist, strategy, kw = mesh2d_case(torch, mods, name)
+        core.clear_runner_cache()
+        run = core.run_federated(init, task_dist, strategy, device="cuda",
+                                 **kw)
+        refs[name] = dict(run_numpy(np, {**run, "params": {}}), params={
+            str(k): v.float().cpu().numpy() for k, v in
+            mods["bridge"].FlatLayout.of_tree(run["params"]).named(
+                run["params"]).items()})
+    core.clear_runner_cache()
+    with contextlib.redirect_stdout(io.StringIO()):
+        want_row, _ = mods["train"].run_engine_strategy(
+            mods["train"].parse_args(LAUNCH_2D))
+    core.clear_runner_cache()
+    ref = tinyllama_reference(torch, mods, workdir)
+    (Path(workdir) / "go_tinyllama").touch()
+    thread.join()
+    outs = thread.result
+    if isinstance(outs, BaseException):
+        raise outs
+    wait_s = time.perf_counter() - t0
+    r0 = outs[0]
+    rows, paths = {}, {}
+    for name in MESH2D_RUNS:
+        a, want = r0["cases"][name], refs[name]
+        for r in outs[1:]:
+            b = r["cases"][name]
+            check(all(np.array_equal(a["params"][k], b["params"][k])
+                      for k in a["params"]) and
+                  a["query_loss"] == b["query_loss"],
+                  f"mesh2d_engine_reduced {name}: the ranks differ")
+        check(a["per_client_bytes"] == want["per_client_bytes"]
+              and a["comm_bytes"] == want["comm_bytes"],
+              f"mesh2d_engine_reduced {name}: bills differ from mesh=None's")
+        for f, v in want.get("pool_state", {}).items():
+            check(np.array_equal(a["pool_state"][f], v),
+                  f"mesh2d_engine_reduced {name}: pool {f} differs")
+        diff = max(float(np.abs(a["params"][k] - v).max())
+                   for k, v in want["params"].items())
+        check(diff <= MESH2D_TOL, f"mesh2d_engine_reduced {name}: phi "
+                                  f"{diff} from mesh=None's, tolerance "
+                                  f"{MESH2D_TOL}")
+        check(np.allclose(a["query_loss"], want["query_loss"],
+                          rtol=MESH2D_TOL, atol=MESH2D_TOL),
+              f"mesh2d_engine_reduced {name}: history {a['query_loss']} vs "
+              f"{want['query_loss']}")
+        kernels = MESH2D_KERNELS + (("ssd_scan",) if name == "mamba2" else ())
+        for r in outs:
+            check(r["cases"][name]["trace_count"] == 1,
+                  f"mesh2d_engine_reduced {name}: rank {r['rank']} built "
+                  f"{r['cases'][name]['trace_count']} times")
+            for kernel in kernels:
+                check(r["launches"][name][kernel] > 0,
+                      f"mesh2d_engine_reduced {name}: rank {r['rank']} "
+                      f"launched no {kernel}")
+        paths[f"mesh2d_engine_reduced_{name}"] = {
+            k: sum(r["launches"][name][k] for r in outs) for k in ops.KERNELS}
+        rows[name] = {"params_vs_mesh_none": diff, "tol": MESH2D_TOL,
+                      "local_bytes": [r["cases"][name]["local_bytes"]
+                                      for r in outs],
+                      "launches_rank0": r0["launches"][name]}
+    emit({"phase": "mesh2d_engine_reduced", "ranks": MESH2D_RANKS,
+          "mesh": {"clients": 2, "model": 2}, "backend": r0["backend"],
+          "round_form": "eager (gloo stages through the host)",
+          "cases": rows, "ranks_s": r0["reduced_s"],
+          "ranks_waited_ready_s": waited_ready})
+
+    got = r0["launcher"]
+    for r in outs[1:]:
+        check({k: v for k, v in r["launcher"].items()
+               if k not in ("dt_s", "wall_s")}
+              == {k: v for k, v in got.items() if k not in ("dt_s", "wall_s")},
+              "launcher_mesh2d: the ranks' rows differ")
+    check(got["comm_mb"] == want_row["comm_mb"]
+          and got["mesh"] == "clients:2,model:2",
+          f"launcher_mesh2d: {got} vs {want_row}")
+    check(abs(got["query_loss"] - want_row["query_loss"]) <= 1e-4 + 1e-12,
+          f"launcher_mesh2d: query_loss {got['query_loss']} vs "
+          f"{want_row['query_loss']}")
+    for kernel in MESH2D_KERNELS:
+        check(got["kernel_launches"][kernel] > 0,
+              f"launcher_mesh2d: no {kernel}")
+    paths["launcher_mesh2d"] = {
+        k: sum(r["launcher"]["kernel_launches"][k] for r in outs)
+        for k in ops.KERNELS}
+    emit({"phase": "launcher_mesh2d", "argv": LAUNCH_2D + LAUNCH_2D_MESH,
+          "row_mesh2d_rank0": got, "row_mesh_none": want_row})
+
+    tls = [r["tinyllama"] for r in outs]
+    t0r = tls[0]
+    first = t0r["first_round_vs_mesh_none"]
+    check(first["within"], f"mesh2d_tinyllama_1_1b: first round against "
+                           f"mesh=None's: {first}")
+    for r, t in zip(outs, tls):
+        check(t["param_bytes"] <= TL2D_BYTES_MAX * t["whole_bytes"],
+              f"mesh2d_tinyllama_1_1b: rank {r['rank']} holds "
+              f"{t['param_bytes']} of {t['whole_bytes']} bytes")
+        check(t["comm_bytes"] == ref["comm_bytes"],
+              "mesh2d_tinyllama_1_1b: bills differ from mesh=None's")
+        check(t["trace_count"] == 1, f"mesh2d_tinyllama_1_1b: rank "
+                                     f"{r['rank']} built {t['trace_count']}")
+        check(all(math.isfinite(q) for q in t["query_loss"]),
+              "mesh2d_tinyllama_1_1b: eval not finite")
+        for kernel in MESH2D_KERNELS:
+            check(t["launches"][kernel] > 0, f"mesh2d_tinyllama_1_1b: rank "
+                                             f"{r['rank']} launched no "
+                                             f"{kernel}")
+    by_model = {}
+    for r, t in zip(outs, tls):
+        by_model.setdefault(r["coords"][1], set()).add(t["first_sha256"])
+    check(all(len(v) == 1 for v in by_model.values()),
+          "mesh2d_tinyllama_1_1b: the clients shards' first rounds differ")
+    check(abs(t0r["query_loss"][-1] - ref["query_loss"][-1])
+          <= 1e-2 * abs(ref["query_loss"][-1]),
+          f"mesh2d_tinyllama_1_1b: eval {t0r['query_loss']} vs "
+          f"{ref['query_loss']}")
+    paths["mesh2d_tinyllama_1_1b"] = {
+        k: sum(t["launches"][k] for t in tls) for k in ops.KERNELS}
+    step = t0r["model_all_reduces_per_client_step"]
+    emit({"phase": "mesh2d_tinyllama_1_1b", "mesh": {"clients": 2,
+                                                      "model": 2},
+          "config": "tinyllama-1.1b, 22 layers, d_model 2,048, bf16, drawn "
+                    "on the card", "run": {k: v for k, v in TL2D_RUN.items()
+                                            if k != "eval_kwargs"},
+          "seq": TL2D_SEQ,
+          "param_bytes_per_rank": [t["param_bytes"] for t in tls],
+          "param_bytes_mesh_none": ref["param_bytes"],
+          "param_bytes_ratio": [t["param_bytes"] / ref["param_bytes"]
+                                for t in tls],
+          "peak_gb_per_rank": [t["peak_gb"] for t in tls],
+          "peak_gb_mesh_none": ref["peak_gb"],
+          "round_s_rank0": t0r["round_s"], "round_s_mesh_none":
+          ref["round_s"], "wall_s": [t["wall_s"] for t in tls],
+          "model_all_reduces_per_client_step": step,
+          "model_all_reduces_per_inner_step_rank":
+          {k: 2 * v for k, v in step.items()},
+          "model_calls_run_rank0": t0r["model_calls_run"],
+          "clients_all_reduce_bytes_per_round":
+          t0r["clients_all_reduce_bytes"],
+          # every all-reduce of rank 0's run but the model group's
+          "clients_all_reduce_calls_run_rank0": t0r["all_reduce_calls"]
+          - t0r["model_calls_run"]["activation"]
+          - t0r["model_calls_run"]["gather"],
+          "first_round_vs_mesh_none": first, "tol": TL2D_TOL,
+          "query_loss": t0r["query_loss"],
+          "query_loss_mesh_none": ref["query_loss"],
+          "launches_rank0": t0r["launches"],
+          "launches_mesh_none": ref["launches"], "waited_s": wait_s})
+    return paths
+
+
 # -- streams: groups of phases in processes of their own ------------------------
 
 # After slice 19 three streams of phases run at once on the one card,
@@ -7103,6 +7675,9 @@ def run_phases(torch, np, refs, t_start):
     # the engine's LM route; the families run after them, alone
     stream_dir = tempfile.mkdtemp(prefix="chip_smoke_streams_")
     streams = start_streams(stream_dir)
+    # slice 20's four ranks set up beside the streams and wait for them
+    mesh2d_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh2d_")
+    mesh2d_thread = start_mesh2d_workers(mesh2d_dir)
     # the CPU references from here on: no later phase times a kernel or a
     # collective with nothing beside it
     submit_cpu_refs(refs)
@@ -7118,6 +7693,13 @@ def run_phases(torch, np, refs, t_start):
                        **phase_engine_lm_full(torch, np, tm)}
     stream_paths, stream_log = join_streams(streams, stream_dir)
 
+    # slice 20: the 2-D (clients, model) route, once the streams are done
+    t20 = time.perf_counter()
+    mesh2d_paths = phase_mesh2d(torch, np, mesh2d_thread, mesh2d_dir,
+                                t_start)
+    emit({"phase": "slice_20", "phases_s": time.perf_counter() - t20,
+          "script_s_so_far": time.perf_counter() - t_start})
+
     # the decoder-only families of slice 15 and the encoder-decoder and
     # VLM of slice 16, alone on the card; the decode runners dropped with
     # the cyclic collector off, so that free_card sees what they leave
@@ -7130,7 +7712,7 @@ def run_phases(torch, np, refs, t_start):
     # every main path's launches, each counted from 0 just before it (in
     # the process that drove it)
     paths = {**stream_paths, **engine_lm_paths, **family_paths,
-             **mixed_paths, **levers_paths, **mesh_paths}
+             **mixed_paths, **levers_paths, **mesh_paths, **mesh2d_paths}
     kernels = []
     for kernel, route, source, replaces, row in (
             ("online_sgd", "cuda", "src/repro_torch/kernels/csrc/online_sgd.cu",

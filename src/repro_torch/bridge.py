@@ -39,6 +39,13 @@ leaf dtypes (the LM's bf16 matrices beside its fp32 SSM scalars): one
 ``FlatLayout`` per dtype group and the whole tree's leaf order, with the
 ``FlatLayout`` methods over a tuple of buffers, one a group
 (``group_map`` maps a function over such tuples, or over one buffer).
+
+On the 2-D ``("clients", "model")`` route each rank holds its shard of
+every leaf: ``GroupedLayout.with_shapes`` is the layout of those shards
+(the whole tree's groups and leaf order, each leaf at its local shape),
+and ``shard_tree`` cuts a whole tree (the JAX package's init as NumPy,
+or tensors) into this rank's shards on its device, leaf by leaf, so the
+device never holds a whole split leaf.
 """
 from __future__ import annotations
 
@@ -216,6 +223,24 @@ def lm_cache_to_jax(cache, layout=None):
     return out
 
 
+def shard_tree(named: Dict[Any, Any], shards, device: DeviceLike = None
+               ) -> Dict[Any, torch.Tensor]:
+    """``{name: whole leaf}`` (NumPy arrays, bf16 ones included, or
+    tensors) -> ``{name: this rank's shard}`` as tensors on ``device``,
+    by ``shards`` (a ``runtime.sharding.ModelShards``): each leaf is cut
+    where it lies (a NumPy leaf on the host) and only the shard is
+    copied to the device."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in named.items():
+        part = shards.local(k, v)
+        if isinstance(part, torch.Tensor):
+            out[k] = part.to(dev).clone()
+        else:
+            out[k] = params_from_numpy(np.ascontiguousarray(part), dev)
+    return out
+
+
 def index_tree(tree, i):
     """Row ``i`` of every leaf of a nested tree (views for tensors)."""
     return unflatten_tree({k: v[i] for k, v in flatten_tree(tree).items()})
@@ -371,6 +396,17 @@ class GroupedLayout:
     def pack(self, tree, batch_dims: int = 0) -> Tuple[torch.Tensor, ...]:
         """The ``{name: leaf}`` tree as one buffer a group (copies)."""
         return tuple(lay.pack(tree, batch_dims) for lay in self.groups)
+
+    def with_shapes(self, shapes: Dict[Any, Tuple[int, ...]]
+                    ) -> "GroupedLayout":
+        """This layout with each leaf at ``shapes[name]``: the same groups,
+        dtypes and leaf order (a rank's shards of the tree on the 2-D
+        route)."""
+        groups = tuple(dataclasses.replace(
+            lay, shapes=tuple(tuple(shapes[k]) for k in lay.names))
+            for lay in self.groups)
+        return dataclasses.replace(self, groups=groups, shapes=tuple(
+            tuple(shapes[k]) for k in self.names))
 
     def cut(self, per_leaf) -> Tuple[np.ndarray, ...]:
         """Per-leaf NumPy arrays, in the whole tree's order, raveled and

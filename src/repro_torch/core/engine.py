@@ -78,6 +78,20 @@ split over the ranks of a ``torch.distributed`` client mesh (``mesh=``).
   cannot (gloo stages through the host). A one-rank mesh runs the
   one-device round itself, its weighted aggregation through the
   one-rank group: bit for bit ``mesh=None``.
+* A 2-D ``("clients", "model")`` mesh (``client_model_mesh``,
+  ``partitioner=``) splits the cohort over ``clients`` as above and each
+  leaf of phi over ``model`` as the run's ``ModelPartitioner`` places it:
+  every rank holds its shard of each split leaf (``runtime/sharding.py::
+  ModelShards``), the ranks of one ``clients`` coordinate compute the
+  same clients together, tensor-parallel where the model has the form
+  (``models/transformer.py``), and the flat buffers are those of the
+  local shards (``GroupedLayout.with_shapes``), so ``online_sgd``,
+  ``client_mean`` and ``meta_update`` keep one launch a dtype group and
+  the aggregation's ``all_reduce`` runs on the ``clients`` group. The
+  bills come from the whole tree; the partial wire's masks are drawn
+  over it and cut to the shards; the int8 wire's scale is the maximum
+  over every rank. Only a snapshot gathers whole leaves (to rank 0, its
+  writer); a resume cuts them again.
 
 The LM launcher's round (``runtime/steps.py``) is built from two more
 pieces here: ``streaming_sgd``, K streaming SGD steps over a nested
@@ -101,7 +115,7 @@ import numpy as np
 import torch
 
 from repro_torch.bridge import (FlatLayout, GroupedLayout, group_map,
-                                params_from_numpy, tree_leaves)
+                                params_from_numpy, shard_tree, tree_leaves)
 from repro_torch.checkpoint.ckpt import (AsyncCheckpointWriter, RoundState,
                                          map_leaves, restore_round_state,
                                          save_round_state)
@@ -116,7 +130,9 @@ from repro_torch.data.tasks import TaskDistribution
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs import GraphStep, weak_method
 from repro_torch.kernels import ops as kops
-from repro_torch.runtime.sharding import (ProcessMesh, all_reduce,
+from repro_torch.runtime.shardctx import model_shards_scope
+from repro_torch.runtime.sharding import (LocalShards, ModelShards,
+                                          ProcessMesh, all_reduce,
                                           gather_rows, make_mesh)
 
 logger = logging.getLogger(__name__)
@@ -135,7 +151,8 @@ def client_mesh(devices=None, device: DeviceLike = None) -> ProcessMesh:
     ``device``. None takes every rank of the group (one, without a
     group); an int must be the group's size, since every rank runs the
     engine's host loop. Pass the result (or the int, or "auto") to
-    ``run_federated(mesh=...)``."""
+    ``run_federated(mesh=...)``; the 2-D mesh is
+    ``runtime.sharding.client_model_mesh``."""
     import torch.distributed as dist
     world = dist.get_world_size() if dist.is_initialized() else 1
     n = world if devices is None else devices
@@ -153,9 +170,8 @@ def _resolve_mesh(mesh, dev: torch.device) -> Optional[ProcessMesh]:
     """Normalize run_federated's mesh argument: None passes through,
     "auto" builds a mesh over every rank, an int over that many (the
     whole group), and an explicit mesh (a ``ProcessMesh``, or a
-    ``DeviceMesh``, wrapped) must be 1-D over the "clients" axis, on this
-    run's device. The 2-D ("clients", "model") mesh is refused until the
-    DTensor slice."""
+    ``DeviceMesh``, wrapped) must be 1-D over the "clients" axis or 2-D
+    over ("clients", "model"), on this run's device."""
     if mesh is None:
         return None
     if isinstance(mesh, str) and mesh == "auto":
@@ -166,13 +182,7 @@ def _resolve_mesh(mesh, dev: torch.device) -> Optional[ProcessMesh]:
                                                      "mesh_dim_names"):
         mesh = ProcessMesh.of(mesh, dev)
     names = tuple(mesh.axis_names)
-    if names == (CLIENT_AXIS, MODEL_AXIS):
-        raise NotImplementedError(
-            f"run_federated on a 2-D ('{CLIENT_AXIS}', '{MODEL_AXIS}') "
-            f"mesh is not ported yet (the DTensor slice ports it, with "
-            f"the ModelPartitioner's shardings of phi); run a 1-D "
-            f"('{CLIENT_AXIS}',) mesh")
-    if names != (CLIENT_AXIS,):
+    if names not in ((CLIENT_AXIS,), (CLIENT_AXIS, MODEL_AXIS)):
         raise ValueError(
             f"run_federated shards the cohort over a '{CLIENT_AXIS}' mesh "
             f"axis — 1-D ('{CLIENT_AXIS}',) or 2-D ('{CLIENT_AXIS}', "
@@ -184,6 +194,11 @@ def _resolve_mesh(mesh, dev: torch.device) -> Optional[ProcessMesh]:
                          f"on {dev}: pass the mesh's device= or build the "
                          f"mesh on {dev}")
     return mesh
+
+
+def _model_sharded(mesh) -> bool:
+    return mesh is not None and MODEL_AXIS in mesh.axis_names
+
 
 #: bytes per parameter for each transport payload dtype (paper Table II
 #: generalized: the paper ships fp32; fp16/int8 model compressed uplinks).
@@ -308,29 +323,43 @@ class CommChannel:
         """Downlink (phi out) + uplink (result back) for every client."""
         return 2 * clients * self.payload_bytes(tree)
 
-    def _wire(self, x: torch.Tensor) -> torch.Tensor:
+    def _wire(self, x: torch.Tensor, amax=None) -> torch.Tensor:
         """Simulated dtype round-trip (encode + decode) of one leaf. The
         int8 scale is the leaf's max |x| (over every client, when the
-        leaf carries the cohort axis, as in the JAX package)."""
+        leaf carries the cohort axis, as in the JAX package), or
+        ``amax`` where the caller took it over more than this tensor."""
         if self.dtype == "float16":
             return x.to(torch.float16).to(x.dtype)
         if self.dtype == "int8":
-            scale = torch.clamp(x.abs().max(), min=1e-8) / 127.0
+            if amax is None:
+                amax = x.abs().max()
+            scale = torch.clamp(amax.to(x.dtype), min=1e-8) / 127.0
             q = torch.round(x / scale).to(torch.int8)   # half to even
             return (q.to(x.dtype) * scale).to(x.dtype)
         return x
 
-    def _wire_flat(self, layout, flat):
+    def _wire_flat(self, layout, flat, group=None):
         """The wire round-trip of flat buffers, leaf by leaf, each leaf
-        in its own dtype."""
-        def one(lay, buf):
-            return lay.pack({k: self._wire(v)
-                             for k, v in lay.views(buf).items()},
-                            batch_dims=buf.dim() - 1)
-        if isinstance(flat, tuple):
-            return tuple(one(lay, buf) for lay, buf in zip(layout.groups,
-                                                           flat))
-        return one(layout, flat)
+        in its own dtype. ``group``: each rank holds a part of every leaf
+        (the 2-D route: its cohort shard and its model shard), so the
+        int8 scales are the leaves' maxima over the group, one
+        ``all_reduce`` MAX of them all."""
+        bufs = flat if isinstance(flat, tuple) else (flat,)
+        lays = layout.groups if isinstance(flat, tuple) else (layout,)
+        views = [lay.views(buf) for lay, buf in zip(lays, bufs)]
+        amax = {}
+        if group is not None and self.dtype == "int8":
+            keys = [(g, k) for g, v in enumerate(views) for k in v]
+            top = torch.stack([views[g][k].abs().max().float()
+                               for g, k in keys])
+            all_reduce(top, group, "max")
+            amax = dict(zip(keys, top))
+        out = tuple(lay.pack({k: self._wire(x, amax.get((g, k)))
+                              for k, x in v.items()},
+                             batch_dims=buf.dim() - 1)
+                    for g, (lay, buf, v) in enumerate(zip(lays, bufs,
+                                                          views)))
+        return out if isinstance(flat, tuple) else out[0]
 
     def transmit(self, tree: Dict, ref=None, masks=None,
                  round_index=None) -> Dict:
@@ -342,15 +371,17 @@ class CommChannel:
             return tree
         return {k: self._wire(v) for k, v in tree.items()}
 
-    def transmit_flat(self, layout, flat, ref=None, masks=None):
+    def transmit_flat(self, layout, flat, ref=None, masks=None,
+                      group=None):
         """``transmit`` of a flat ``(..., P)`` buffer (or a
         ``GroupedLayout``'s tuple of them), leaf by leaf. The bill is
         ``payload_bytes``: the wire's itemsize a parameter, whatever the
-        leaf's dtype, as in the JAX package."""
+        leaf's dtype, as in the JAX package. ``group``: see
+        ``_wire_flat``."""
         del ref, masks
         if not self.simulates_quantization:
             return flat
-        return self._wire_flat(layout, flat)
+        return self._wire_flat(layout, flat, group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -493,17 +524,26 @@ class PartialCommChannel(CommChannel):
         return {k: torch.from_numpy(m).to(device)
                 for k, m in zip(names, self._fixed_masks_np(shapes))}
 
-    def flat_mask_state(self, layout, device):
+    def flat_mask_state(self, layout, device, shards=None):
         """The run's mask state over a flat buffer, built once: ``(masks,
         None)`` with a ``(P,)`` bool keep mask for fixed masks, or
         ``(None, chunk_ids)`` with ``(P,)`` int32 chunk ids for rotating
         ones. For a ``GroupedLayout`` each is a tuple, one ``(P_g,)``
         tensor a group: the permutations are drawn over all the leaves in
         the whole tree's order (leaf i's is ``fold_in(key, i)``'s, as the
-        JAX package draws them) and cut into the groups afterwards."""
-        shapes = list(layout.shapes)
+        JAX package draws them) and cut into the groups afterwards.
+        ``shards`` (a ``ModelShards``; ``layout`` then lays out this
+        rank's shards): each leaf's mask is drawn over the whole leaf and
+        cut to this rank's shard first."""
+        if shards is None:
+            shapes = list(layout.shapes)
+        else:
+            shapes = [shards.shapes[k] for k in layout.names]
         per_leaf = (self._chunk_ids_np(shapes) if self.rotate
                     else self._fixed_masks_np(shapes))
+        if shards is not None:
+            per_leaf = [np.ascontiguousarray(shards.local(k, a))
+                        for k, a in zip(layout.names, per_leaf)]
         if isinstance(layout, GroupedLayout):
             state = tuple(torch.from_numpy(a).to(device)
                           for a in layout.cut(per_leaf))
@@ -527,19 +567,21 @@ class PartialCommChannel(CommChannel):
         back = tree if ref is None else ref
         return {k: torch.where(masks[k], sent[k], back[k]) for k in tree}
 
-    def transmit_flat(self, layout, flat, ref=None, masks=None):
+    def transmit_flat(self, layout, flat, ref=None, masks=None,
+                      group=None):
         """``transmit`` of a flat ``(..., P)`` buffer; ``masks`` is the
         round's ``(P,)`` keep mask (default: round 0's, built here)."""
         base_wire = self._base_wire
         if self.fraction >= 1.0:
-            return self._wire_flat(layout, flat) if base_wire else flat
+            return (self._wire_flat(layout, flat, group) if base_wire
+                    else flat)
         if ref is None and not base_wire:
             return flat
         if masks is None:
             dev = (flat[0] if isinstance(flat, tuple) else flat).device
             fixed, ids = self.flat_mask_state(layout, dev)
             masks = fixed if ids is None else self.masks_for_round(ids, 0)
-        sent = self._wire_flat(layout, flat) if base_wire else flat
+        sent = self._wire_flat(layout, flat, group) if base_wire else flat
         return group_map(torch.where, masks, sent,
                          flat if ref is None else ref)
 
@@ -616,7 +658,7 @@ class _Program:
     ranks) and ``goldest`` (the oldest buffered round)."""
 
     def __init__(self, runner, layout: GroupedLayout, phi, staged, names,
-                 fields, pool_state: Optional[PoolState]):
+                 fields, pool_state: Optional[PoolState], shards=None):
         dev = phi[0].device
         self.layout = layout
         self.phi = group_map(torch.empty_like, phi)
@@ -627,7 +669,7 @@ class _Program:
         self.losses = torch.zeros(len(staged[0]), dtype=torch.float32,
                                   device=dev)
         self.cursor = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.masks, self.chunk_ids = runner.mask_state(layout, dev)
+        self.masks, self.chunk_ids = runner.mask_state(layout, dev, shards)
         self.pool = None
         self.gcount = torch.zeros(1, dtype=torch.int32, device=dev)
         self.goldest = torch.full((1,), _NEVER, dtype=torch.int32,
@@ -725,7 +767,13 @@ class _BlockRunner:
     this rank's shard of the cohort, a pooled round through
     ``_pooled_aggregate_sharded``, and ``run_block`` sums the block's
     round losses across the ranks once it has run. The round is captured
-    where the mesh's collectives can be (``ProcessMesh.capturable``)."""
+    where the mesh's collectives can be (``ProcessMesh.capturable``).
+
+    On a 2-D mesh the client axis is the mesh's ``clients`` axis (its
+    group sums the aggregation), the buffers hold this rank's shards of
+    phi, and the int8 wire's scales are taken over every rank
+    (``wire_group``); the model code reads the run's ``ModelShards``,
+    which ``run_federated`` installs while the round runs."""
 
     def __init__(self, strategy, beta, channel: CommChannel,
                  scheduled: bool = False, pooled: bool = False,
@@ -734,6 +782,10 @@ class _BlockRunner:
                  mesh: Optional[ProcessMesh] = None):
         if mesh is not None:
             _check_collective_hook(strategy)
+        self.wire_group = None
+        if _model_sharded(mesh) and mesh.size > 1:
+            import torch.distributed as dist
+            self.wire_group = dist.group.WORLD
         self.group = mesh.group(CLIENT_AXIS) if mesh is not None else None
         self.shards = mesh.shape[CLIENT_AXIS] if mesh is not None else 1
         self.shard = mesh.coordinate(CLIENT_AXIS) if mesh is not None else 0
@@ -752,15 +804,16 @@ class _BlockRunner:
         self.trace_count = 0
         self._programs: Dict = {}
 
-    def mask_state(self, layout: GroupedLayout, dev):
+    def mask_state(self, layout: GroupedLayout, dev, shards=None):
         """The partial channel's run-constant masks: ``(masks, None)`` or
         ``(None, chunk_ids)`` on the device, else ``(None, None)``."""
         if not (self.simulate and self.partial):
             return None, None
-        return self.channel.flat_mask_state(layout, dev)
+        return self.channel.flat_mask_state(layout, dev, shards)
 
     def program(self, layout: GroupedLayout, phi, staged, names, fields,
-                pool_state: Optional[PoolState] = None) -> _Program:
+                pool_state: Optional[PoolState] = None,
+                shards: Optional[ModelShards] = None) -> _Program:
         """The buffers for this shape of run, made on first use."""
         pool_sig = (None if pool_state is None else tuple(
             (tuple(t.shape), t.dtype) for t in _pool_leaves(pool_state)))
@@ -770,7 +823,7 @@ class _BlockRunner:
         prog = self._programs.get(key)
         if prog is None:
             prog = _Program(self, layout, phi, staged, names, fields,
-                            pool_state)
+                            pool_state, shards)
             self._programs[key] = prog
         return prog
 
@@ -814,7 +867,7 @@ class _BlockRunner:
                 ref = group_map(torch.zeros_like, phi)
         return channel.transmit_flat(layout, results, ref=ref,
                                      masks=masks if ref is not None
-                                     else None)
+                                     else None, group=self.wire_group)
 
     def _round(self, prog: _Program) -> None:
         strategy, channel, beta = self.strategy, self.channel, self.beta
@@ -829,7 +882,8 @@ class _BlockRunner:
         if prog.chunk_ids is not None:
             masks = channel.masks_for_round(
                 prog.chunk_ids, sched.round_index.index_select(0, j))
-        phi_down = (channel.transmit_flat(layout, phi, masks=masks)
+        phi_down = (channel.transmit_flat(layout, phi, masks=masks,
+                                          group=self.wire_group)
                     if self.simulate else phi)
         if self.masked:
             results, losses = strategy.client_update_steps(
@@ -1070,20 +1124,27 @@ def _block_runner(strategy, beta, channel: CommChannel,
                   scheduled: bool = False, pooled: bool = False,
                   buffered: Optional[BufferedAggregation] = None,
                   masked: Optional[bool] = None,
-                  mesh: Optional[ProcessMesh] = None) -> _BlockRunner:
+                  mesh: Optional[ProcessMesh] = None,
+                  partitioner=None) -> _BlockRunner:
     """The cached runner of this config. Strategies and channels are
     frozen dataclasses, so identically configured runs share one runner
     and its built rounds, keyed as the JAX package keys its runners
     (``(strategy, beta, channel, scheduled, pooled, buffered, masked,
-    mesh)``, the partitioner part waiting for the 2-D slice). The mesh
-    part is ``ProcessMesh.key``: its axes and sizes, the backend, every
-    rank's device and the process groups a built round calls, so a round
-    is never replayed on another topology or a group since destroyed.
-    An unhashable strategy gets an uncached runner, a fresh build per
-    run, counted and logged."""
+    mesh, partitioner)``). The mesh part is ``ProcessMesh.key``: its
+    axes and sizes, the backend, every rank's device and the process
+    groups a built round calls, so a round is never replayed on another
+    topology or a group since destroyed. The partitioner part is its
+    name (a ``ModelPartitioner``'s identity; on a 2-D mesh without one,
+    the default's), so rules registered under another name never get
+    another's round. An unhashable strategy gets an uncached runner, a
+    fresh build per run, counted and logged."""
     masked = bool(scheduled) if masked is None else bool(masked)
+    if _model_sharded(mesh) and partitioner is None:
+        from repro_torch.runtime.sharding import DEFAULT_PARTITIONER
+        partitioner = DEFAULT_PARTITIONER
     key = (strategy, float(beta), channel, bool(scheduled), bool(pooled),
-           buffered, masked, mesh.key() if mesh is not None else None)
+           buffered, masked, mesh.key() if mesh is not None else None,
+           partitioner.name if partitioner is not None else None)
 
     def build():
         return _BlockRunner(strategy, beta, channel, scheduled, pooled,
@@ -1134,10 +1195,15 @@ def _pool_named(ps: PoolState, layout: GroupedLayout) -> PoolState:
 
 
 def _pool_from_saved(saved: PoolState, layout: GroupedLayout, flat: bool,
-                     dev) -> PoolState:
+                     dev, shards: Optional[ModelShards] = None) -> PoolState:
     """A restored pool state (NumPy leaves, bf16 ones as tensors) on
     ``dev``, the buffer packed back into one flat buffer a group where
-    the run keeps it so."""
+    the run keeps it so; with ``shards`` (the 2-D route) each buffered
+    leaf cut to this rank's shard first."""
+    if shards is not None and flat and saved.buf_updates is not None:
+        saved = dataclasses.replace(saved, buf_updates=layout.tree({
+            k: shards.local(k, v, batch_dims=1)
+            for k, v in layout.named(saved.buf_updates).items()}))
     ps = map_leaves(lambda a: torch.as_tensor(a, device=dev), saved)
     if flat and ps.buf_updates is not None:
         ps = dataclasses.replace(ps, buf_updates=layout.pack(
@@ -1177,6 +1243,28 @@ def _pool_whole(ps: PoolState, group, index: int, shards: int) -> PoolState:
         for f in dataclasses.fields(ps)))
 
 
+def _meta_flats(layout: GroupedLayout, lead=()):
+    """Flat buffers of ``layout`` (a ``(*lead, P_g)`` one a group) on the
+    meta device: a restore's template, which holds no memory."""
+    return tuple(torch.empty(tuple(lead) + (sum(math.prod(x)
+                                                for x in lay.shapes),),
+                             dtype=dt, device="meta")
+                 for lay, dt in zip(layout.groups, layout.dtypes))
+
+
+def _whole_leaves(named, shards: ModelShards, keep: bool, batch_dims=0):
+    """``{name: this rank's shard}`` -> ``{name: the whole leaf}``, each
+    gathered over the model group in turn (every rank of it calls this at
+    the same point); only where ``keep`` are the leaves kept (the
+    snapshot's writer), elsewhere each is dropped once gathered."""
+    out = {}
+    for k, v in named.items():
+        whole = shards.gather_exact(k, v, batch_dims)
+        if keep:
+            out[k] = whole if whole is not v else v.clone()
+    return out
+
+
 def _snapshot_copy(leaf):
     """A snapshot's own copy of a leaf (on its device, or on the host),
     so the next block cannot overwrite what the writer reads."""
@@ -1194,7 +1282,8 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                   sampling: Optional[SamplingPolicy] = None,
                   pool: Optional[ClientPool] = None,
                   buffered: Optional[BufferedAggregation] = None,
-                  mesh=None, ckpt_dir: Optional[str] = None,
+                  mesh=None, partitioner=None,
+                  ckpt_dir: Optional[str] = None,
                   ckpt_every: int = 10, ckpt_keep: int = 3,
                   ckpt_async: bool = True, resume: bool = False,
                   tracker=None, device: DeviceLike = None) -> Dict:
@@ -1263,8 +1352,22 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
     rank, and ``params`` equal the one-device run's up to the order of
     the float sums. Only rank 0 writes snapshots; a resume needs the
     mesh the snapshot was written on. A one-rank mesh computes
-    ``mesh=None``'s run bit for bit. A 2-D ``("clients", "model")`` mesh
-    is not ported yet and raises.
+    ``mesh=None``'s run bit for bit.
+
+    A 2-D ``("clients", "model")`` mesh (``runtime.sharding.
+    client_model_mesh``) splits the cohort over its ``clients`` extent
+    and each leaf of phi over ``model`` by ``partitioner`` (a
+    ``ModelPartitioner``; default ``DEFAULT_PARTITIONER``, and refused
+    without a 2-D mesh): each rank holds, updates and returns its shard
+    of every split leaf (``params`` are this rank's shards; the run's
+    ``ModelShards.of(partitioner, shapes, mesh)`` gathers them), and the
+    ranks of one ``clients`` coordinate compute the same clients. Bills,
+    draws and pool state equal ``mesh=None``'s exactly. Strategies with
+    an int8 payload (TIFeD) are refused on it, as in the JAX package: a
+    per-tensor grid needs the whole tensor. ``client_model_mesh(1, 1)``
+    computes ``mesh=None``'s run bit for bit. There ``init_params`` may
+    also be a ``runtime.sharding.LocalShards`` (this rank's shards and
+    the whole tree's shapes), so the init never exists whole on a rank.
     """
     dev = resolve_device(device)
     mesh = _resolve_mesh(mesh, dev)
@@ -1272,7 +1375,10 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
     sharded = shards > 1
     shard = mesh.coordinate(CLIENT_AXIS) if mesh is not None else 0
     group = mesh.group(CLIENT_AXIS) if mesh is not None else None
-    writes = shard == 0         # the rank that writes snapshots
+    model_sharded = _model_sharded(mesh)
+    # the rank that writes snapshots
+    writes = shard == 0 and (not model_sharded
+                             or mesh.coordinate(MODEL_AXIS) == 0)
     if channel is None:
         channel = CommChannel()
     if sampling is None:
@@ -1311,6 +1417,25 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
             f"CommChannel({payload_dtype!r}, quantize=False), got "
             f"{type(channel).__name__}(dtype={channel.dtype!r}, "
             f"simulates_quantization={channel.simulates_quantization})")
+    if model_sharded:
+        from repro_torch.runtime.sharding import DEFAULT_PARTITIONER
+        if partitioner is None:
+            partitioner = DEFAULT_PARTITIONER
+        if payload_dtype == "int8":
+            raise ValueError(
+                f"{type(strategy).__name__} uplinks NATIVE int8 trees "
+                f"whose per-tensor quantization grids assume each "
+                f"parameter tensor is whole on every device; a 2-D "
+                f"('{CLIENT_AXIS}', '{MODEL_AXIS}') mesh shards phi's "
+                f"weight matrices — run int8 strategies on a 1-D "
+                f"'{CLIENT_AXIS}' mesh (or mesh=None) instead")
+    elif partitioner is not None:
+        raise ValueError(
+            f"partitioner= only applies to a 2-D ('{CLIENT_AXIS}', "
+            f"'{MODEL_AXIS}') mesh (build one with "
+            f"repro_torch.runtime.sharding.client_model_mesh); this run's "
+            f"mesh is {'1-D' if mesh is not None else 'None'} and phi "
+            f"stays replicated")
     if (uplink_ref == "none" and getattr(channel, "fraction", 1.0) < 1.0
             and channel._base_wire):
         raise NotImplementedError(
@@ -1318,11 +1443,46 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
             f"channel that also quantizes would mask that data by its "
             f"own tree, which the port does not do: use fraction=1.0 or "
             f"quantize=False")
-    whole = FlatLayout.of_tree(init_params)
-    leaves = {k: v.to(dev) if isinstance(v, torch.Tensor)
-              else params_from_numpy(v, dev)
-              for k, v in whole.named(init_params).items()}
+    local_init = isinstance(init_params, LocalShards)
+    if local_init and not model_sharded:
+        raise ValueError("a LocalShards init is a rank's shards of a 2-D "
+                         "('clients', 'model') mesh run; pass the whole "
+                         "tree otherwise")
+    whole = FlatLayout.of_tree(init_params.tree if local_init
+                               else init_params)
+    shapes = (dict(zip(whole.names, whole.shapes)) if not local_init else
+              {k: tuple(init_params.shapes[k]) for k in whole.names})
+    # the bills read the whole tree's shapes only
+    bill_tree = whole.tree({k: torch.empty(v, device="meta")
+                            for k, v in shapes.items()})
+    mshards = run_shards = None
+    if local_init:
+        mshards = ModelShards.of(partitioner, shapes, mesh)
+        leaves = {}
+        for k, v in whole.named(init_params.tree).items():
+            if tuple(v.shape) != mshards.local_shape(k):
+                raise ValueError(
+                    f"LocalShards leaf {k}: shape {tuple(v.shape)}, this "
+                    f"rank's shard of {shapes[k]} is "
+                    f"{mshards.local_shape(k)}")
+            leaves[k] = v.to(dev).clone()
+        run_shards = mshards if mshards.parts > 1 else None
+    elif model_sharded:
+        # each rank stages only its shard of every split leaf
+        mshards = ModelShards.of(partitioner, shapes, mesh)
+        leaves = shard_tree(whole.named(init_params), mshards, dev)
+        # the model code's shards while the rounds and evals run (none
+        # on a model extent of 1: every leaf is whole there)
+        run_shards = mshards if mshards.parts > 1 else None
+    else:
+        leaves = {k: v.to(dev) if isinstance(v, torch.Tensor)
+                  else params_from_numpy(v, dev)
+                  for k, v in whole.named(init_params).items()}
+    # the buffers' layout (this rank's shards on a 2-D mesh), and the
+    # whole tree's, which the snapshots keep
     layout = GroupedLayout.of_tree(whole.tree(leaves))
+    glayout = (layout if mshards is None
+               else layout.with_shapes(mshards.shapes))
     # a private copy: the caller's init stays usable across runs
     phi = layout.pack(leaves)
     rng = np.random.default_rng(seed)
@@ -1360,7 +1520,8 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
             "support": int(support), "shards": int(shards),
             "mesh": (",".join(f"{a}:{n}" for a, n in mesh.shape.items())
                      if mesh is not None else ""),
-            "partitioner": "", "strategy": type(strategy).__name__,
+            "partitioner": partitioner.name if model_sharded else "",
+            "strategy": type(strategy).__name__,
             "pool_size": int(pool.size) if pooled else 0,
             "pool_sampler": pool.sampler if pooled else "",
             "policy_sampler": getattr(sampling, "sampler", "reference"),
@@ -1370,12 +1531,22 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
     if resume:
         # the full (N,) layout, whatever the residency, with the buffer
         # as named leaves: the templates of the checkpoint's arrays
-        template = (_pool_named(pool.init_state(
+        template = (pool.init_state(
             phi, c_pad, buffered, template=uplink, device="cpu",
-            shards=shards), layout) if pooled else None)
+            shards=shards) if pooled else None)
+        phi_template = layout.tree_views(phi)
+        if mshards is not None:
+            # whole leaves: meta tensors of the whole tree's shapes
+            phi_template = glayout.tree_views(_meta_flats(glayout))
+            if pooled and isinstance(uplink, tuple) and buffered:
+                template = dataclasses.replace(
+                    template, buf_updates=_meta_flats(
+                        glayout, template.buf_round.shape))
+        if pooled:
+            template = _pool_named(template, glayout)
         try:
             saved = restore_round_state(
-                ckpt_dir, phi=layout.tree_views(phi), pool_state=template,
+                ckpt_dir, phi=phi_template, pool_state=template,
                 per_client_bytes=per_client_bytes)
         except FileNotFoundError:
             logger.info("resume: no snapshot in %s yet; starting fresh",
@@ -1393,8 +1564,13 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
                     f"checkpoint in {ckpt_dir} is at round {saved.round}, "
                     f"past rounds={rounds}; raise the horizon to continue")
             start_round = int(saved.round)
-            phi = layout.pack({k: torch.as_tensor(v, device=dev)
-                               for k, v in layout.named(saved.phi).items()})
+            if mshards is not None:
+                phi = layout.pack(shard_tree(glayout.named(saved.phi),
+                                             mshards, dev))
+            else:
+                phi = layout.pack({k: torch.as_tensor(v, device=dev)
+                                   for k, v in
+                                   layout.named(saved.phi).items()})
             if pooled:
                 pool.load_host_state(saved.host.get("pool", {}))
             per_client_bytes = np.asarray(saved.per_client_bytes,
@@ -1424,7 +1600,7 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
         device=dev, shards=shards) if pooled else None)
     if saved is not None and pooled:
         restored = _pool_from_saved(saved.pool_state, layout,
-                                    isinstance(uplink, tuple), dev)
+                                    isinstance(uplink, tuple), dev, mshards)
         if host_resident:
             # the identity goes to the slabs before the first block's
             # gather; the device keeps its window and the FedBuff buffer
@@ -1440,7 +1616,7 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
         period = (channel.rotation_period
                   if getattr(channel, "rotate", False) else 1)
         payload_by_phase = np.array(
-            [channel.payload_bytes_at(init_params, j) for j in range(period)],
+            [channel.payload_bytes_at(bill_tree, j) for j in range(period)],
             np.int64)
 
     def stage(i):
@@ -1544,18 +1720,30 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
         host-resident pool from its slabs after the write-back, and an
         event recorded after the clones for the writer to wait on."""
         pool_snap = None
+        # on a 2-D mesh the ranks of clients coordinate 0 gather the
+        # whole leaves to rank 0, the writer
+        gathers = run_shards is not None and shard == 0
         if pooled:
             ps = prog.pool_state()
             if sharded:
                 ps = _pool_whole(ps, group, shard, shards)
             ps = _pool_named(ps, layout)
+            if gathers and ps.buf_updates is not None and isinstance(
+                    uplink, tuple):
+                ps = dataclasses.replace(ps, buf_updates=layout.tree(
+                    _whole_leaves(layout.named(ps.buf_updates), run_shards,
+                                  writes, batch_dims=1)))
             if host_resident:
                 ps = dataclasses.replace(ps, **{
                     f: slabs[f] for f in ClientPool.SLAB_FIELDS})
             pool_snap = map_leaves(_snapshot_copy, ps)
+        if gathers:
+            phi_snap = layout.tree(_whole_leaves(
+                layout.views(prog.phi), run_shards, writes))
+        else:
+            phi_snap = layout.tree_views(group_map(torch.clone, prog.phi))
         state = RoundState(
-            round=end, phi=layout.tree_views(group_map(torch.clone,
-                                                       prog.phi)),
+            round=end, phi=phi_snap,
             pool_state=pool_snap, per_client_bytes=per_client_bytes.copy(),
             comm_bytes=comm_bytes, history=list(history),
             host=host_snaps.pop(end), fingerprint=fingerprint)
@@ -1573,18 +1761,21 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
 
     runner = _block_runner(strategy, beta, channel, scheduled,
                            pooled=pooled, buffered=buffered, masked=masked,
-                           mesh=mesh)
+                           mesh=mesh, partitioner=partitioner)
     prog = None
     staged_iter = prefetch_items(stage, len(blocks), depth=prefetch)
     if tracker is not None:
         tracker.on_run_start()
+    # the rounds and the evals read the run's shards (2-D route)
+    scope = model_shards_scope(run_shards)
+    scope.__enter__()
     try:
         for (start, end), (part, cohort, uniq, staged, names, fields,
                            event) in zip(blocks, staged_iter):
             _consume(staged, event)
             if prog is None:
                 prog = runner.program(layout, phi, staged, names, fields,
-                                      pool_state)
+                                      pool_state, mshards)
                 group_map(torch.Tensor.copy_, prog.phi, phi)
                 if pooled:
                     prog.load_pool(pool_state)
@@ -1664,6 +1855,7 @@ def run_federated(init_params, task_dist: TaskDistribution, strategy, *,
         if writer is not None:
             writer.close()        # drain the snapshots; raise their errors
     finally:
+        scope.__exit__(None, None, None)
         staged_iter.close()
         if writer is not None:
             writer.close(raise_errors=False)

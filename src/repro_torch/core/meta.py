@@ -16,6 +16,12 @@ losses with respect to the buffer is every model's own gradient, so
 each SGD step of the whole cohort is one backward pass and one
 ``online_sgd`` launch per group, where the JAX package vmaps one model's
 loop.
+
+On the engine's 2-D route the buffers hold this rank's shards of the
+params. A loss that computes on shards itself (``data/lm.py::lm_loss``,
+marked ``gathers_at_use``) sees them as they are; any other loss sees
+each split leaf gathered whole (``_loss_tree``), its gradient coming
+back as this rank's slice.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import torch
 from repro_torch.bridge import GroupedLayout, group_map
 from repro_torch.data.tasks import TaskDistribution
 from repro_torch.kernels import ops as kops
+from repro_torch.runtime.sharding import active_model_shards
 
 
 def tree_sub(a, b):
@@ -50,6 +57,16 @@ def _batch_dims(flat) -> int:
     return (flat[0] if isinstance(flat, tuple) else flat).dim() - 1
 
 
+def _loss_tree(loss_fn: Callable, layout, leaves: Dict, batch_dims: int):
+    """The tree ``loss_fn`` is called on: ``leaves`` in the layout's
+    structure, every split leaf gathered whole on the 2-D route unless
+    the loss computes on shards itself (``loss_fn.gathers_at_use``)."""
+    tp = active_model_shards()
+    if tp is not None and not getattr(loss_fn, "gathers_at_use", False):
+        leaves = {k: tp.gather(k, v, batch_dims) for k, v in leaves.items()}
+    return layout.tree(leaves)
+
+
 def cohort_grad(loss_fn: Callable, layout, flat, batch: Dict):
     """Per-model losses ``(C,)`` and gradients of a cohort buffer on its
     ``(C, ...)`` batch: ``(C, P)`` for a ``FlatLayout`` buffer, a tuple
@@ -61,7 +78,8 @@ def cohort_grad(loss_fn: Callable, layout, flat, batch: Dict):
     with torch.enable_grad():
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in layout.views(flat).items()}
-        loss = loss_fn(layout.tree(leaves), batch)
+        loss = loss_fn(_loss_tree(loss_fn, layout, leaves,
+                                  _batch_dims(flat)), batch)
         grads = torch.autograd.grad(loss.sum(),
                                     [leaves[k] for k in layout.names])
     g = layout.pack(dict(zip(layout.names, grads)),
@@ -152,7 +170,7 @@ def evaluate_init(loss_fn: Callable, params, task_dist: TaskDistribution,
         flat, _ = finetune_batch(loss_fn, layout, flat,
                                  stack([s for _, s in draws]), k_steps, lr)
     # support == 0: no adaptation (paper Fig. 6)
-    views = layout.tree_views(flat)
+    views = _loss_tree(loss_fn, layout, layout.views(flat), 1)
     qry = stack([q for q, _ in draws])
     out = {"query_loss": float(np.mean(loss_fn(views, qry).tolist()))}
     if metric_fn is not None:

@@ -184,11 +184,15 @@ def lm_loss(model):
 
     Where the JAX package vmaps one model's loss, this loops over the C
     clients; the Mamba2 scan's ``autograd.Function`` launches a kernel
-    through ``ctypes`` and has no vmap rule."""
+    through ``ctypes`` and has no vmap rule. On the engine's 2-D route
+    the leaves are this rank's shards and ``Model.loss_fn`` computes on
+    them (``gathers_at_use``)."""
     def loss_fn(params, batch):
         x, y = batch["x"], batch["y"]
         return torch.stack([
             model.loss_fn(index_tree(params, c),
                           {"tokens": x[c], "labels": y[c]}).float()
             for c in range(x.shape[0])])
+    # on the 2-D route the model computes on its shards itself
+    loss_fn.gathers_at_use = True
     return loss_fn

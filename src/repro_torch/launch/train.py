@@ -103,13 +103,19 @@ share one, gloo on the CPU with ``--device cpu``. ``--num-processes N
 user starts every rank, each with its own ``--process-id``, and the
 client mesh spans the N processes. Rank 0 alone prints the rows and
 writes the snapshots; its summary row carries ``"mesh"`` when
-``--mesh clients:K`` sized it, as the JAX launcher's does. ``--mesh
-clients:K,model:M`` (the 2-D mesh) is refused until the DTensor slice.
+``--mesh clients:K[,model:M]`` sized it, as the JAX launcher's does.
+``--mesh clients:K,model:M`` runs K x M ranks on the 2-D mesh
+(``client_model_mesh``): the cohort over K, phi's leaves split over M
+by the family's registered partitioner (``partitioner_for(--arch)``,
+the default rules for the sine MLP); ``--strategy tifed`` is refused
+there, as by the JAX launcher.
 
     PYTHONPATH=src python -m repro_torch.launch.train --strategy reptile \
         --devices 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2 \
         --reduced --mesh pod --devices 2 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --strategy reptile \
+        --arch transformer --mesh clients:2,model:2 --device cpu
 """
 from __future__ import annotations
 
@@ -382,11 +388,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "whole on every device; a model-sharded mesh "
                          "splits them — use --mesh clients:K (no model "
                          "axis)")
-            if "model" in args.mesh:
-                ap.error(f"--mesh {spec}: the 2-D ('clients', 'model') "
-                         f"mesh is not ported yet (the DTensor slice ports "
-                         f"it); use --mesh clients:K")
-            args.ranks = args.mesh["clients"]
+            # one process a rank: K x M of them on the 2-D mesh
+            args.ranks = args.mesh["clients"] * args.mesh.get("model", 1)
         if args.num_processes > 1:
             if args.devices is not None or isinstance(args.mesh, dict):
                 if args.ranks != args.num_processes:
@@ -458,6 +461,8 @@ def run_engine_strategy(args, init_params=None):
                                                paper_model_loss,
                                                relu_mlp_loss)
     from repro_torch.models.transformer import build_model
+    from repro_torch.runtime.sharding import (client_model_mesh,
+                                              partitioner_for)
 
     dev = resolve_device(args.device)
     tifed = args.strategy == "tifed"
@@ -503,9 +508,16 @@ def run_engine_strategy(args, init_params=None):
         sampling = None
     buffered = (BufferedAggregation(args.buffer_size)
                 if args.buffer_size else None)
-    # the client mesh: the process group's ranks (one rank without one)
+    # the client mesh: the process group's ranks (one rank without one);
+    # with a model axis the 2-D mesh, phi split by the family's rules (the
+    # sine MLP takes the default ones)
     mesh = (args.ranks if args.ranks > 1 or args.devices
             or isinstance(args.mesh, dict) else None)
+    partitioner = None
+    if isinstance(args.mesh, dict) and "model" in args.mesh:
+        mesh = client_model_mesh(args.mesh["clients"], args.mesh["model"],
+                                 dev)
+        partitioner = partitioner_for(args.arch or "default")
     ops.reset_launch_counts()
     t0 = time.time()
     out = run_federated(
@@ -513,7 +525,8 @@ def run_engine_strategy(args, init_params=None):
         clients_per_round=args.clients, alpha=args.alpha, beta=args.beta,
         support=support, seed=args.seed, eval_every=args.rounds,
         eval_kwargs=eval_kwargs, channel=channel, sampling=sampling,
-        pool=pool, buffered=buffered, mesh=mesh, ckpt_dir=args.ckpt_dir,
+        pool=pool, buffered=buffered, mesh=mesh, partitioner=partitioner,
+        ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, resume=args.resume, device=dev)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -801,8 +814,8 @@ def _rank_run(rank, argv):
 def main(argv=None):
     """Parse, then run: in this process; or, for ``--num-processes N``,
     as rank ``--process-id`` of the N ranks the user starts; or, for
-    more ranks than one (``--devices``, ``--mesh clients:K``) and no
-    process group yet, in that many local ranks started here."""
+    more ranks than one (``--devices``, ``--mesh clients:K[,model:M]``)
+    and no process group yet, in that many local ranks started here."""
     import sys
     import tempfile
 

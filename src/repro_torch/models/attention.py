@@ -35,7 +35,9 @@ the ``ringkv`` decode step (a cache of ``window`` rows written as a
 ring, attended through ``flash_decode`` with window 0). The others
 compute what the default route computes: ``gqa_flat`` (K and V repeated
 to the H query heads) and ``seqpar`` (one query block) exist to be
-sharded over a device mesh, which is not ported, and probe mode's
+sharded over a device mesh (their sharding is not ported; the 2-D
+route's tensor-parallel attention runs ``attention_block`` on a rank's
+heads with ``partial=True``), and probe mode's
 single-shot masked attention serves XLA's cost analysis. Under them
 ``flash_attention`` takes its default route.
 """
@@ -304,13 +306,19 @@ def flash_attention(q, k, v, *, causal, window=0, q_positions=None,
 
 
 def attention_block(params, x, *, num_kv_heads, rope_theta, causal=True,
-                    window=0, positions=None, kv_x=None, use_rope=True):
+                    window=0, positions=None, kv_x=None, use_rope=True,
+                    partial=False):
     """Full attention sub-block (projections, RoPE, ``flash_attention``,
     output projection) on x (B, S, d); positions (S,), default 0 ... S -
     1. With ``kv_x`` (B, Skv, d) it is cross-attention: k and v project
     ``kv_x``, nothing is rotated, and queries and keys take the default
     positions (so ``causal`` and ``window`` see 0 ... S - 1 against 0
-    ... Skv - 1). Returns (B, S, d)."""
+    ... Skv - 1). Returns (B, S, d).
+
+    ``partial``: the params are one rank's heads (the 2-D route's
+    tensor-parallel attention) and the output projection is returned in
+    fp32 (exact products, an fp32 sum), to be summed over the ranks'
+    heads before one rounding."""
     S = x.shape[1]
     src = x if kv_x is None else kv_x
     q = project(x, params["wq"])
@@ -324,4 +332,7 @@ def attention_block(params, x, *, num_kv_heads, rope_theta, causal=True,
     own = positions if kv_x is None else None
     out = flash_attention(q, k, v, causal=causal, window=window,
                           q_positions=own, kv_positions=own)
+    if partial:
+        return torch.einsum("bsnh,nhd->bsd", out.float(),
+                            params["wo"].float())
     return unproject(out, params["wo"])

@@ -60,6 +60,16 @@ def matmul(a, w):
     return torch.matmul(*promoted(a, w))
 
 
+def mlp_partial(params, x):
+    """The SwiGLU MLP on a slice of ``d_ff`` (``w_gate``/``w_up`` columns,
+    ``w_down`` rows of one rank): the gate in the operands' dtype, then
+    its part of the down product in fp32 (exact products, an fp32 sum),
+    to be summed over the slices before one rounding."""
+    g = silu(matmul(x, params["w_gate"]))
+    h = g * matmul(x, params["w_up"])
+    return torch.matmul(h.float(), params["w_down"].float())
+
+
 def mlp(params, x, act):
     """SwiGLU, or the gelu MLP with ``jax.nn.gelu``'s default: the tanh
     approximation (torch's default is the exact erf form). Mixed operand

@@ -16,6 +16,12 @@ Probe mode changes nothing here: the JAX package unrolls its
 inter-chunk recurrence there, and ``ssd_chunked``'s recurrence is a
 Python loop already.
 
+On the engine's 2-D ``("clients", "model")`` route a Mamba2 block's
+split leaves (``w_B``/``w_C`` on the state dim, ``conv_w`` across the
+concatenated x|B|C channels, the projections) are gathered whole inside
+the block that uses them (``models/transformer.py::_apply_block_tp``),
+so ``mamba_block`` and ``ssd_scan`` run on every head as they are.
+
 The one-token decode block (``mamba_decode_block``) is plain tensor
 ops, as it is plain jnp in the JAX package: the conv window shifted by
 one, softplus dt, the decay ``dA``, and the ``dBx`` outer product into

@@ -21,7 +21,11 @@ The ``moelocal`` and ``moe2d`` levers (``runtime/flags.py``) are
 accepted and change nothing here: with no device mesh the JAX package's
 block runs ``moelocal`` as one token group and ``moe2d`` only places
 shards, so both compute the unsharded dispatch this module computes.
-Their sharding needs a mesh and is not ported.
+Their sharding needs a mesh and is not ported. On the engine's 2-D
+``("clients", "model")`` route the experts, which the ``moe`` partitioner
+splits on E, are gathered whole inside the block that uses them
+(``models/transformer.py::_apply_block_tp``) and this module computes on
+them as it is.
 """
 from __future__ import annotations
 

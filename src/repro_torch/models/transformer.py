@@ -41,6 +41,27 @@ takes it), since their activations would not fit otherwise. The Mamba2
 blocks keep their activations, so the ``ssd_scan`` kernel runs once per
 layer per forward and not again in the backward.
 
+On the engine's 2-D ``("clients", "model")`` route the params are this
+rank's shards, as the run's ``ModelPartitioner`` splits them, and the
+engine installs its ``runtime.sharding.ModelShards`` for the thread
+that computes (``active_model_shards``). ``loss_fn`` then computes
+tensor-parallel where the rules give Megatron's layout: an attention
+sub-block whose ``wq``/``wk``/``wv`` are split on their heads and ``wo``
+on its heads runs on this rank's heads, and the SwiGLU MLP whose
+``w_gate``/``w_up`` and ``w_down`` are split on ``d_ff`` on this rank's
+slice of it, each between ``copy_to_model`` (before the column-parallel
+products) and ``reduce_from_model`` (after ``wo`` and ``w_down``, the
+partial products summed in fp32, where one GEMM keeps its fp32
+accumulator); the embedding looks up this rank's vocab rows and sums,
+and the cross entropy is vocab-parallel (the maxima, the exponentials'
+sums and the gold logits over the model group). Every other split leaf
+(a Mamba2 block's, the experts', the encoder's and the cross
+attention's, ``vision_proj``, any leaf of a user's partitioner) is
+gathered inside the block that uses it and freed after it
+(``ModelShards.gathered``; its gradient is this rank's slice). With no
+shards installed (``mesh=None``, 1-D meshes, a model extent of 1) every
+path runs as above.
+
 ``runtime/flags.py``: under probe mode nothing is stacked, as in the
 JAX package (``jax_layout`` is None for a homogeneous model, so the
 bridge carries the per-layer layout); its one-chunk cross entropy and
@@ -52,6 +73,7 @@ window)`` rows, a ring (``models/attention.py::decode_attention_block``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
@@ -64,8 +86,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba2 as mamba_lib
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.layers import mlp, mlp_shapes, normal_init, rms_norm
+from repro_torch.models.layers import (mlp, mlp_partial, mlp_shapes,
+                                       normal_init, rms_norm)
 from repro_torch.runtime.flags import feature, probe_mode
+from repro_torch.runtime.sharding import (active_model_shards, copy_to_model,
+                                          max_over_model, reduce_from_model)
 
 AUX_LOSS_WEIGHT = 0.01
 LABEL_IGNORE = -1
@@ -179,6 +204,63 @@ def _apply_block(cfg: ArchConfig, kind: str, window: int, bp, x,
     return _ffn(cfg, kind, bp, x)
 
 
+#: the splits the tensor-parallel attention and MLP take (leaf -> dim)
+_ATTN_TP = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
+_MLP_TP = {"w_gate": 1, "w_up": 1, "w_down": 0}
+
+
+def _apply_block_tp(tp, at, cfg: ArchConfig, kind: str, window: int, bp, x,
+                    enc_out=None, use_rope=True):
+    """``_apply_block`` on this rank's shards of block ``at`` (its path):
+    the attention on this rank's heads and the SwiGLU MLP on its slice of
+    ``d_ff`` where the specs split them so, every other split leaf of the
+    block gathered here. A Mamba2 block and an encoder-decoder block are
+    computed whole on their gathered leaves."""
+    if kind == MAMBA or "cross" in bp:
+        return _apply_block(cfg, kind, window, tp.gathered(bp, at), x,
+                            enc_out, use_rope)
+    eps = cfg.norm_eps
+    attn_tp = tp.all_split(at + ("attn",), _ATTN_TP)
+    mlp_tp = (kind != MOE and cfg.act == "silu"
+              and tp.all_split(at + ("mlp",), _MLP_TP))
+    keep = ([("attn", k) for k in _ATTN_TP] if attn_tp else []) + (
+        [("mlp", k) for k in _MLP_TP] if mlp_tp else [])
+    bp = tp.gathered(bp, at, keep)
+    h = rms_norm(x, bp["norm1"], eps)
+    if attn_tp:
+        part = attn_lib.attention_block(
+            bp["attn"], copy_to_model(h, tp.group),
+            num_kv_heads=cfg.num_kv_heads // tp.parts,
+            rope_theta=cfg.rope_theta, causal=True, window=window,
+            use_rope=use_rope, partial=True)
+        x = x + reduce_from_model(part, tp.group, torch.promote_types(
+            h.dtype, bp["attn"]["wo"].dtype))
+    else:
+        x = x + attn_lib.attention_block(
+            bp["attn"], h, num_kv_heads=cfg.num_kv_heads,
+            rope_theta=cfg.rope_theta, causal=True, window=window,
+            use_rope=use_rope)
+    if not mlp_tp:
+        return _ffn(cfg, kind, bp, x)
+    y_in = copy_to_model(rms_norm(x, bp["norm2"], eps), tp.group)
+    part = mlp_partial(bp["mlp"], y_in)
+    return x + reduce_from_model(part, tp.group, torch.promote_types(
+        y_in.dtype, bp["mlp"]["w_down"].dtype)), None
+
+
+def _embed_tp(tp, table, tokens):
+    """The embedding of ``tokens`` from this rank's vocab rows of the
+    table (split on dim 0): its rows where the token falls in them,
+    zeros elsewhere, summed over the model group (exact: one term of
+    each sum is not 0)."""
+    n = table.shape[0]
+    t = tokens.long() - tp.index * n
+    inside = (t >= 0) & (t < n)
+    rows = table[t.clamp(0, n - 1)]
+    rows = torch.where(inside[..., None], rows, torch.zeros_like(rows))
+    return reduce_from_model(rows, tp.group, table.dtype)
+
+
 def _ffn(cfg: ArchConfig, kind: str, bp, x):
     """The block's second half on x: the MLP, or the experts with their
     aux loss. Returns (x, aux or None)."""
@@ -278,14 +360,20 @@ class Model:
         x = frames + _sinusoidal(torch.arange(frames.shape[1],
                                               device=frames.device),
                                  cfg.d_model).to(frames.dtype)
-        for bp in params["encoder"]["layers"]:
+        tp = active_model_shards()
+        for i, bp in enumerate(params["encoder"]["layers"]):
+            if tp is not None:
+                bp = tp.gathered(bp, ("encoder", "layers", i))
             x = x + attn_lib.attention_block(
                 bp["attn"], rms_norm(x, bp["norm1"], cfg.norm_eps),
                 num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta,
                 causal=False, use_rope=False)
             x = x + mlp(bp["mlp"], rms_norm(x, bp["norm2"], cfg.norm_eps),
                         cfg.act)
-        return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+        norm = params["encoder"]["final_norm"]
+        if tp is not None:
+            norm = tp.gather(("encoder", "final_norm"), norm)
+        return rms_norm(x, norm, cfg.norm_eps)
 
     def _embed_inputs(self, params, batch):
         """Token (and frontend) embedding. Returns (x, enc_out, offset):
@@ -293,11 +381,15 @@ class Model:
         ``vision_proj``) go in front of the text, ``offset`` of them; the
         encoder-decoder's tokens get sinusoidal positions and its encoder
         runs over ``batch["frames"]``."""
-        x = params["embed"][batch["tokens"].long()]
+        tp = active_model_shards()
+        if tp is not None and tp.dim(("embed",)) == 0:
+            x = _embed_tp(tp, params["embed"], batch["tokens"])
+        else:
+            x = self._leaf(params, "embed")[batch["tokens"].long()]
         enc_out, offset = None, 0
         if self.cfg.frontend == "vision" and "patch_embeds" in batch:
-            patches = batch["patch_embeds"].to(x.dtype) @ params[
-                "vision_proj"]
+            patches = batch["patch_embeds"].to(x.dtype) @ self._leaf(
+                params, "vision_proj")
             x = torch.cat([patches, x], dim=1)
             offset = patches.shape[1]
         if self.is_encdec:
@@ -311,12 +403,25 @@ class Model:
         hybrid's shared block at each ``SHARED_ATTN`` entry (applied as an
         attention block), one dict of ``params["layers"]`` at each other
         entry."""
-        layers = iter(params["layers"])
+        for kind, window, bp, _ in self._blocks_at(params):
+            yield kind, window, bp
+
+    def _blocks_at(self, params):
+        """``_blocks`` with each block's path in the params tree."""
+        i = 0
         for kind, window in self.specs:
             if kind == SHARED_ATTN:
-                yield ATTN, window, params["shared_block"]
+                yield ATTN, window, params["shared_block"], ("shared_block",)
             else:
-                yield kind, window, next(layers)
+                yield kind, window, params["layers"][i], ("layers", i)
+                i += 1
+
+    @staticmethod
+    def _leaf(params, name):
+        """A top-level leaf whole: gathered at its use on the 2-D route."""
+        tp = active_model_shards()
+        leaf = params[name]
+        return leaf if tp is None else tp.gather((name,), leaf)
 
     def _backbone(self, params, x, enc_out=None):
         """All blocks (the decoder's, attending to ``enc_out``, for the
@@ -327,14 +432,17 @@ class Model:
         recompute = ((self.use_scan or self.is_hybrid)
                      and torch.is_grad_enabled())
         use_rope = not self.is_encdec
+        tp = active_model_shards()
         aux = None
-        for kind, window, bp in self._blocks(params):
+        for kind, window, bp, at in self._blocks_at(params):
+            apply = (_apply_block if tp is None
+                     else functools.partial(_apply_block_tp, tp, at))
             if recompute and kind != MAMBA:
-                x, a = checkpoint(_apply_block, self.cfg, kind, window, bp,
+                x, a = checkpoint(apply, self.cfg, kind, window, bp,
                                   x, enc_out, use_rope, use_reentrant=False)
             else:
-                x, a = _apply_block(self.cfg, kind, window, bp, x, enc_out,
-                                    use_rope)
+                x, a = apply(self.cfg, kind, window, bp, x, enc_out,
+                             use_rope)
             if a is not None:
                 aux = a if aux is None else aux + a
         return x, aux
@@ -351,11 +459,23 @@ class Model:
         times the MoE blocks' aux loss."""
         x, enc_out, offset = self._embed_inputs(params, batch)
         x, aux = self._backbone(params, x, enc_out)
-        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        x = rms_norm(x, self._leaf(params, "final_norm"), self.cfg.norm_eps)
         if offset:
             x = x[:, offset:]
-        loss = chunked_cross_entropy(x, self._lm_head(params),
-                                     batch["labels"])
+        tp = active_model_shards()
+        head_vocab = (None if tp is None else
+                      tp.dim(("embed",)) == 0 if self.cfg.tie_embeddings
+                      else tp.dim(("lm_head",)) == 1)
+        if head_vocab:
+            loss = chunked_cross_entropy(copy_to_model(x, tp.group),
+                                         self._lm_head(params),
+                                         batch["labels"], vocab_shards=tp)
+        else:
+            head = (self._lm_head(params) if tp is None else
+                    tp.gather(("embed",), params["embed"]).T
+                    if self.cfg.tie_embeddings
+                    else tp.gather(("lm_head",), params["lm_head"]))
+            loss = chunked_cross_entropy(x, head, batch["labels"])
         return loss if aux is None else loss + AUX_LOSS_WEIGHT * aux
 
     # ----- prefill ----------------------------------------------------------
@@ -497,10 +617,17 @@ class Model:
         return (x @ self._lm_head(params)).float(), cache
 
 
-def chunked_cross_entropy(x, lm_head, labels, chunk=1024):
+def chunked_cross_entropy(x, lm_head, labels, chunk=1024,
+                          vocab_shards=None):
     """Mean cross entropy over the sequence in chunks of ``chunk``
     positions, so the fp32 logits of the whole sequence never exist at
-    once. x: (B, S, d); labels: (B, S), -1 ignored."""
+    once. x: (B, S, d); labels: (B, S), -1 ignored.
+
+    ``vocab_shards`` (a ``ModelShards``): ``lm_head`` is this rank's
+    slice of the vocab (its columns ``index * V_local`` on) and ``x`` the
+    input of a column-parallel product; the logits' maximum, the sum of
+    their exponentials and the gold logit are taken over the model
+    group."""
     B, S, d = x.shape
     chunk = min(chunk, S)
     pad = (-S) % chunk
@@ -512,13 +639,34 @@ def chunked_cross_entropy(x, lm_head, labels, chunk=1024):
     for c0 in range(0, x.shape[1], chunk):
         xc, lc = x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk].long()
         logits = (xc @ lm_head).float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lc.clamp(min=0)[..., None])[..., 0]
+        if vocab_shards is None:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                lc.clamp(min=0)[..., None])[..., 0]
+        else:
+            logz, gold = _vocab_parallel_terms(vocab_shards, logits, lc)
         valid = lc != LABEL_IGNORE
         nll = torch.where(valid, logz - gold, torch.zeros_like(logz))
         total = total + nll.sum()
         count = count + valid.sum()
     return total / count.clamp(min=1)
+
+
+def _vocab_parallel_terms(tp, logits, labels):
+    """logsumexp and the gold logit of fp32 ``logits`` (..., V_local),
+    this rank's slice of the vocab, over the model group: the maximum
+    (a constant of the gradient), the exponentials' sum and the gold
+    logit (one rank's term, zeros elsewhere) summed there."""
+    n = logits.shape[-1]
+    m = max_over_model(logits.detach().amax(dim=-1), tp.group)
+    sumexp = reduce_from_model(torch.exp(logits - m[..., None]).sum(dim=-1),
+                               tp.group)
+    t = labels - tp.index * n
+    inside = (t >= 0) & (t < n)
+    mine = torch.gather(logits, -1, t.clamp(0, n - 1)[..., None])[..., 0]
+    gold = reduce_from_model(torch.where(inside, mine,
+                                         torch.zeros_like(mine)), tp.group)
+    return m + torch.log(sumexp), gold
 
 
 def build_model(cfg: ArchConfig) -> Model:

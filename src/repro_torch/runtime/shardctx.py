@@ -8,13 +8,18 @@ tensor axis, "seq" and "fsdp" -> "data", None -> replicated.
 
 The port runs one process per rank, each holding its own tensors: a
 tensor sharded over a batch axis is already this rank's rows, and a
-replicated one is the same on every rank. So ``shard`` is the identity
-wherever no model axis resolves: with no mesh, under ``manual_axes``
-that cover the mesh, and on the 1-D ``clients`` mesh and the
-``("pod", "data")`` mesh of this slice. A tensor split over a ``model``
-axis needs DTensor, which the 2-D ``("clients", "model")`` slice
-brings; until then ``shard`` raises there. ``spec`` returns the JAX
-package's ``PartitionSpec`` as a plain tuple, one entry per dim.
+replicated one is the same on every rank. Under the 2-D ``("clients",
+"model")`` route a tensor split over ``model`` is already this rank's
+part too: its layers compute on their local heads and their local slice
+of ``d_ff`` (``models/transformer.py``), with the model group's
+all-reduces where the products need them. So ``shard`` returns its
+input as it is on every mesh. ``spec`` returns the JAX package's
+``PartitionSpec`` as a plain tuple, one entry per dim.
+
+The engine's 2-D route also installs its ``runtime.sharding.ModelShards``
+here for the thread that runs its rounds and evals
+(``model_shards_scope``); the model code reads it with
+``current_model_shards``.
 """
 from __future__ import annotations
 
@@ -79,31 +84,30 @@ def spec(*logical):
     return tuple(resolve_axis(a, mesh) for a in logical)
 
 
-def _axis_size(mesh, ax):
-    if ax is None:
-        return 1
-    if isinstance(ax, tuple):
-        out = 1
-        for a in ax:
-            out *= mesh.shape[a]
-        return out
-    return mesh.shape[ax]
-
-
 def shard(x, *logical):
-    """``x`` placed as the logical axes ask on the current mesh. Axes
-    that do not divide their dim are dropped (replicated), as in the
-    JAX package. Every placement this slice meets is the identity (see
-    the module's docstring); a dim split over ``model`` raises."""
+    """``x`` placed as the logical axes ask on the current mesh: each
+    rank already holds its part (see the module's docstring), so ``x``
+    itself. The axes are resolved all the same, so an unknown logical
+    axis raises as in the JAX package."""
     mesh = current_mesh()
-    if mesh is None or set(_manual()) >= set(mesh.axis_names):
-        return x
-    for dim, name in zip(x.shape, logical):
-        ax = resolve_axis(name, mesh)
-        if ax == "model" and dim % _axis_size(mesh, ax) == 0 \
-                and mesh.shape["model"] > 1:
-            raise NotImplementedError(
-                "shard: a dim split over the 'model' mesh axis is not "
-                "ported yet (the 2-D ('clients', 'model') DTensor slice "
-                "ports it)")
+    if mesh is not None:
+        for name in logical:
+            resolve_axis(name, mesh)
     return x
+
+
+def current_model_shards():
+    """The calling thread's ``ModelShards`` (the 2-D route's), or None."""
+    return getattr(_state, "model_shards", None)
+
+
+@contextlib.contextmanager
+def model_shards_scope(shards):
+    """Install ``shards`` (a ``runtime.sharding.ModelShards``, or None)
+    for the calling thread."""
+    prev = current_model_shards()
+    _state.model_shards = shards
+    try:
+        yield
+    finally:
+        _state.model_shards = prev

@@ -31,6 +31,20 @@ lays the group's ranks out as a ``DeviceMesh`` with named axes and
 gives each axis's process group. ``all_reduce`` and ``gather_rows`` are
 the collectives the engine uses, built only on ``all_reduce`` so that
 they run on every backend.
+
+The 2-D ``("clients", "model")`` route holds each leaf of phi as this
+rank's shard of it, a plain local tensor beside its spec
+(``ModelShards``: ``shard_of``, ``gather``, ``local_shape``); DTensor's
+redistribution is never run, since its all-gather and reduce-scatter
+fail on a gloo group of CUDA tensors. A gather is a zero-padded
+``all_reduce`` of the leaf's bytes, exact; a gathered leaf's gradient is
+its slice (every rank of a model group computes the same one). The two
+autograd functions of tensor parallelism (``copy_to_model``: identity
+forward, an ``all_reduce`` backward; ``reduce_from_model``: an
+``all_reduce`` forward, identity backward) bracket the column- and
+row-parallel products of ``models/transformer.py``. The run's
+``ModelShards`` is the calling thread's while the engine runs a round or
+an eval (``model_shards_scope``, ``active_model_shards``).
 """
 from __future__ import annotations
 
@@ -167,10 +181,20 @@ def client_model_mesh(clients: int, model: int,
                       device: DeviceLike = None) -> ProcessMesh:
     """The engine's 2-D ``("clients", "model")`` mesh over the process
     group: ``clients`` cohort shards times ``model`` tensor-parallel
-    shards. The engine refuses it until the DTensor slice."""
+    shards, rank-major (the ranks of one ``clients`` coordinate form a
+    ``model`` group). The group must hold exactly ``clients * model``
+    ranks (one process a rank; one rank needs no group)."""
     if clients < 1 or model < 1:
         raise ValueError(f"mesh extents must be >= 1, got "
                          f"clients={clients}, model={model}")
+    import torch.distributed as dist
+    need = clients * model
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if need > have:
+        raise ValueError(
+            f"client_model_mesh of {clients}x{model} needs {need} ranks, "
+            f"have {have}; start {need} ranks (one process each) joined by "
+            f"repro_torch.runtime.sharding.init_distributed")
     return make_mesh((clients, model), ("clients", "model"), device)
 
 
@@ -285,14 +309,15 @@ CALLS = {"all_reduce": 0}
 
 
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    """``t`` reduced in place across ``group`` (SUM or MIN); no call
-    without a group."""
+    """``t`` reduced in place across ``group`` (SUM, MIN or MAX); no
+    call without a group."""
     if group is None:
         return t
     import torch.distributed as dist
     CALLS["all_reduce"] += 1
-    dist.all_reduce(t, op=dist.ReduceOp.MIN if op == "min"
-                    else dist.ReduceOp.SUM, group=group)
+    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                           "min": dist.ReduceOp.MIN,
+                           "max": dist.ReduceOp.MAX}[op], group=group)
     return t
 
 
@@ -306,6 +331,255 @@ def gather_rows(t: torch.Tensor, group, index: int, size: int):
                       device=t.device)
     out[index].copy_(t)
     return all_reduce(out, group)
+
+
+# -- shards of the model axis ---------------------------------------------------
+
+#: the model group's collectives, counted in Python by kind: the
+#: activations' all-reduces (``copy_to_model``'s backward,
+#: ``reduce_from_model``'s forward, the vocab-parallel cross entropy's
+#: sums and maxima) and the leaves' gathers, each with its bytes
+MODEL_CALLS = {"activation": 0, "activation_bytes": 0, "gather": 0,
+               "gather_bytes": 0}
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    MODEL_CALLS[kind] += 1
+    MODEL_CALLS[kind + "_bytes"] += t.numel() * t.element_size()
+
+
+def split_dim(spec) -> Optional[int]:
+    """The dim a leaf's spec splits over the ``model`` axis, or None (a
+    replicated leaf). Another axis, or two split dims, raises: on the
+    2-D route only ``model`` splits a leaf."""
+    dims = [i for i, ax in enumerate(spec) if ax is not None]
+    for i in dims:
+        if spec[i] != "model" and spec[i] != ("model",):
+            raise ValueError(f"spec {spec}: on the ('clients', 'model') "
+                             f"route a leaf splits over 'model' only")
+    if len(dims) > 1:
+        raise ValueError(f"spec {spec} splits more than one dim")
+    return dims[0] if dims else None
+
+
+def local_shape(shape, spec, parts: int) -> Tuple[int, ...]:
+    """The shape of one rank's shard of a leaf of ``shape``."""
+    shape = list(shape)
+    d = split_dim(spec)
+    if d is not None:
+        shape[d] //= parts
+    return tuple(shape)
+
+
+def shard_of(full, spec, parts: int, index: int, batch_dims: int = 0):
+    """Rank ``index``'s shard of a whole leaf (a view, for a tensor or a
+    NumPy array); ``batch_dims`` leading dims (a cohort's) come first."""
+    d = split_dim(spec)
+    if d is None:
+        return full
+    d += batch_dims
+    n = full.shape[d] // parts
+    at = [slice(None)] * len(full.shape)
+    at[d] = slice(index * n, (index + 1) * n)
+    return full[tuple(at)]
+
+
+def gather(local: torch.Tensor, spec, group, parts: int, index: int,
+           batch_dims: int = 0) -> torch.Tensor:
+    """The whole leaf from every rank's shard of it, on every rank of
+    ``group``: each rank writes its shard into zeros and the bytes are
+    summed, one ``all_reduce`` of uint8 (exact: every byte but one of
+    each sum is 0). Not differentiable (``ModelShards.gather`` is)."""
+    d = split_dim(spec)
+    if d is None or group is None:
+        return local
+    d += batch_dims
+    shape = list(local.shape)
+    n = shape[d]
+    shape[d] = n * parts
+    out = torch.zeros(shape, dtype=local.dtype, device=local.device)
+    out.narrow(d, index * n, n).copy_(local)
+    _count("gather", out)
+    all_reduce(out.view(-1).view(torch.uint8), group)
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """``gather`` forward; backward, the gradient's slice of this rank:
+    every rank of the model group computes on the same data, so each
+    holds the whole gradient already (summing would scale it by M)."""
+
+    @staticmethod
+    def forward(ctx, local, spec, group, parts, index, batch_dims):
+        ctx.at = (split_dim(spec) + batch_dims, index, local.shape)
+        return gather(local, spec, group, parts, index, batch_dims)
+
+    @staticmethod
+    def backward(ctx, g):
+        d, index, shape = ctx.at
+        n = shape[d]
+        return g.narrow(d, index * n, n), None, None, None, None, None
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """A private fp32 copy of a 16-bit float tensor (a 32- or 64-bit one
+    as it is, copied): what the model group sums, once rounded."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return t.float()
+    return t.clone()
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Identity forward; backward, the gradient summed over the model
+    group (in fp32): the input feeds this rank's part of a
+    column-parallel product, whose gradient is a partial sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = _wide(g)
+        _count("activation", s)
+        return all_reduce(s, ctx.group).to(g.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Forward, the partial results summed over the model group in fp32
+    and cast to ``dtype``; backward, the identity (every rank's
+    downstream is the same)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dtype):
+        ctx.dtype = x.dtype
+        s = _wide(x)
+        _count("activation", s)
+        return all_reduce(s, group).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` as the input of a column-parallel product (see
+    ``_CopyToModel``); the identity without a group."""
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group, dtype=None) -> torch.Tensor:
+    """The partial products ``x`` summed over the model group in fp32,
+    then cast to ``dtype`` (default x's); see ``_ReduceFromModel``."""
+    dtype = x.dtype if dtype is None else dtype
+    if group is None:
+        return x.to(dtype)
+    return _ReduceFromModel.apply(x, group, dtype)
+
+
+def max_over_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``'s elementwise maximum over the model group (no gradient)."""
+    if group is None:
+        return x
+    s = x.detach().clone()
+    _count("activation", s)
+    return all_reduce(s, group, "max")
+
+
+class ModelShards:
+    """This rank's part of a params tree split over a mesh's ``model``
+    axis: for each leaf (by its name in a ``bridge`` layout: a path tuple
+    of a nested tree, a key of a flat one) the dim its spec splits, if
+    any, and the whole leaf's shape. ``group`` is the model group,
+    ``parts`` its size, ``index`` this rank's coordinate on it.
+
+    ``local`` and ``gather`` map a whole leaf to this rank's shard and
+    back; ``gathered(sub, prefix)`` gathers, at its use, every split
+    leaf of a sub-tree (differentiably), where a layer has no
+    tensor-parallel form."""
+
+    def __init__(self, specs: Dict[Any, Tuple], shapes: Dict[Any, Tuple],
+                 mesh):
+        self.specs = dict(specs)
+        self.shapes = {k: tuple(v) for k, v in shapes.items()}
+        self.dims = {k: split_dim(s) for k, s in self.specs.items()}
+        self.group = mesh.group("model")
+        self.parts = mesh.shape["model"]
+        self.index = mesh.coordinate("model")
+
+    @classmethod
+    def of(cls, partitioner: "ModelPartitioner", named_shapes, mesh):
+        """The shards of a tree given as ``{name: whole shape}`` under
+        ``partitioner``'s rules on ``mesh``."""
+        specs = {k: partitioner.spec(k, shape, mesh)
+                 for k, shape in named_shapes.items()}
+        return cls(specs, named_shapes, mesh)
+
+    def dim(self, name) -> Optional[int]:
+        return self.dims.get(name)
+
+    def local_shape(self, name) -> Tuple[int, ...]:
+        return local_shape(self.shapes[name], self.specs[name], self.parts)
+
+    def local(self, name, full, batch_dims: int = 0):
+        """This rank's shard of the whole leaf ``full``."""
+        return shard_of(full, self.specs[name], self.parts, self.index,
+                        batch_dims)
+
+    def gather(self, name, local: torch.Tensor, batch_dims: int = 0):
+        """The whole leaf from this rank's shard, differentiably (the
+        gradient comes back as this rank's slice of it)."""
+        if self.dims.get(name) is None:
+            return local
+        return _Gather.apply(local, self.specs[name], self.group,
+                             self.parts, self.index, batch_dims)
+
+    def gather_exact(self, name, local: torch.Tensor, batch_dims: int = 0):
+        """``gather`` outside autograd (snapshots, results)."""
+        return gather(local, self.specs[name], self.group, self.parts,
+                      self.index, batch_dims)
+
+    def gathered(self, sub, prefix: Tuple = (), keep=()):
+        """``sub`` (a dict or list sub-tree at path ``prefix``) with every
+        split leaf gathered but those whose relative path is in ``keep``
+        (tuples of keys)."""
+        if isinstance(sub, dict):
+            return {k: self.gathered(v, prefix + (k,),
+                                     [p[1:] for p in keep if p[:1] == (k,)])
+                    for k, v in sub.items()}
+        if isinstance(sub, list):
+            return [self.gathered(v, prefix + (i,),
+                                  [p[1:] for p in keep if p[:1] == (i,)])
+                    for i, v in enumerate(sub)]
+        if () in keep:
+            return sub
+        return self.gather(prefix, sub)
+
+    def all_split(self, prefix: Tuple, dims: Dict[str, int]) -> bool:
+        """Whether each leaf ``prefix + (name,)`` of ``dims`` is split on
+        the dim given (the layout a tensor-parallel layer needs)."""
+        return all(self.dims.get(prefix + (k,)) == d
+                   for k, d in dims.items())
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalShards:
+    """An init that never exists whole on a rank: ``tree``, this rank's
+    shard of every leaf (tensors, in the params tree's structure), and
+    ``shapes``, each leaf's whole shape by its name in a ``bridge``
+    layout (a path tuple of a nested tree). ``run_federated`` on a 2-D
+    mesh takes it in place of the whole tree (the shards as its
+    partitioner cuts them)."""
+    tree: Any
+    shapes: Dict[Any, Tuple[int, ...]]
+
+
+def active_model_shards() -> Optional[ModelShards]:
+    """The calling thread's ``ModelShards`` while a 2-D run computes, or
+    None (no 2-D run, or a model extent of 1)."""
+    from repro_torch.runtime import shardctx
+    return shardctx.current_model_shards()
 
 
 # -- partitioners ---------------------------------------------------------------
@@ -368,8 +642,9 @@ def partitioner_for(arch: str) -> ModelPartitioner:
 
 
 def per_device_param_bytes(params) -> int:
-    """Parameter bytes on this rank: each leaf's local tensor (a DTensor's
-    local shard, any other tensor whole)."""
+    """Parameter bytes on this rank: each leaf's local tensor (on the
+    2-D route, this rank's shard; a DTensor's local shard; any other
+    tensor whole)."""
     from repro_torch.bridge import tree_leaves
     total = 0
     for _, leaf in tree_leaves(params):

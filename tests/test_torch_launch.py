@@ -123,11 +123,16 @@ def test_no_source_of_the_port_names_jax_or_the_jax_package():
      "--availability needs a persistent fleet"),
     (["--strategy", "reptile", "--buffer-size", "4"],
      "--buffer-size (FedBuff) needs persistent clients"),
-    (["--strategy", "reptile", "--mesh", "clients:2,model:2"],
-     "the 2-D ('clients', 'model') mesh is not ported yet (the DTensor "
-     "slice ports it)"),
+    (["--strategy", "reptile", "--mesh", "clients:2,model:2",
+      "--num-processes", "2", "--coordinator", "h:1"],
+     "--num-processes 2: the port runs one process a rank, so the client "
+     "mesh is those 2 ranks (got a mesh of 4)"),
     (["--strategy", "reptile", "--mesh", "clients:2", "--devices", "2"],
      "--mesh clients:2 already sizes the client mesh; drop --devices"),
+    (["--strategy", "tifed", "--mesh", "clients:2,model:2"],
+     "--strategy tifed uplinks NATIVE int8 trees whose quantization grids "
+     "need each parameter tensor whole on every device; a model-sharded "
+     "mesh splits them — use --mesh clients:K (no model axis)"),
     (["--arch", "mamba2", "--participation", "0.5", "--availability",
       "diurnal"], "--availability replaces the i.i.d. --participation"),
     (["--strategy", "reptile", "--resume"],
@@ -185,6 +190,11 @@ def test_train_parse_rejects_what_the_jax_launcher_rejects(argv):
     (["--arch", "mamba2", "--mesh", "data", "--devices", "2", "--batch",
       "16", "--device", "cpu"], 2, "data"),
     (["--arch", "mamba2", "--mesh", "pod", "--device", "cpu"], 1, "pod"),
+    (["--strategy", "reptile", "--arch", "transformer", "--mesh",
+      "clients:2,model:2"], 4, {"clients": 2, "model": 2}),
+    (["--strategy", "fedavg", "--mesh", "clients:1,model:2",
+      "--num-processes", "2", "--coordinator", "h:1"], 2,
+     {"clients": 1, "model": 2}),
 ])
 def test_train_parse_takes_the_mesh_and_process_flags(argv, ranks, mesh):
     args = train.parse_args(argv)
@@ -326,3 +336,55 @@ def test_serve_adapt_serves_a_port_written_round_state(tmp_path):
     assert rows[0]["mean_query_loss"] == rows[1]["mean_query_loss"]
     assert rows[0]["mean_query_loss"] != rows[2]["mean_query_loss"]
     assert rows[0]["requests"] == 8
+
+
+# the JAX launcher's 2-D route at the reduced transformer
+MESH2D_ARGV = ["--strategy", "reptile", "--arch", "transformer", "--mesh",
+               "clients:2,model:2", "--rounds", "2", "--clients", "4",
+               "--seed", "2"]
+
+
+def _mesh2d_rank(rank, init):
+    """One of the four ranks of the port's ``--mesh clients:2,model:2``
+    row, from the JAX launcher's init."""
+    row, _ = train.run_engine_strategy(train.parse_args(
+        MESH2D_ARGV + ["--num-processes", "4", "--coordinator",
+                       "127.0.0.1:1", "--process-id", str(rank),
+                       "--device", "cpu"]), init_params=init)
+    return row
+
+
+def test_train_2d_row_matches_the_jax_launchers(tmp_path):
+    """The port's ``--mesh clients:2,model:2 --arch transformer`` row (four
+    gloo ranks, each holding its shard of the reduced tinyllama) against
+    the JAX launcher's on four forced host devices, from the JAX init:
+    comm_mb exact, query_loss within one unit of its 4th place."""
+    import jax
+
+    from repro.configs import get_arch
+    from repro.models import build_model
+    from repro_torch.runtime.ranks import run_ranks
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
+    jax_proc = subprocess.Popen(
+        [sys.executable, "-m", "repro.launch.train"] + MESH2D_ARGV,
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        model = build_model(get_arch("tinyllama-1.1b").reduced())
+        init = jax.tree.map(np.asarray, model.init(jax.random.PRNGKey(2)))
+        rows = run_ranks(_mesh2d_rank, 4, str(tmp_path), init, device="cpu")
+        out, err = jax_proc.communicate(timeout=300)
+        assert jax_proc.returncode == 0, err[-3000:]
+    finally:
+        jax_proc.kill()
+    want = json.loads(out.strip().splitlines()[-1])
+    got = rows[0]
+    for key in ("strategy", "rounds", "clients", "arch", "mesh", "comm_mb"):
+        assert got[key] == want[key], (key, got, want)
+    assert abs(got["query_loss"] - want["query_loss"]) <= 1e-4 + 1e-12
+    for r in rows[1:]:
+        assert {k: v for k, v in r.items() if k != "dt_s"} == {
+            k: v for k, v in got.items() if k != "dt_s"}

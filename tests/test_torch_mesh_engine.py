@@ -356,7 +356,6 @@ def test_mesh_resolution_and_rejection():
         engine._resolve_mesh(2, dev)
     with pytest.raises(ValueError, match="'clients' mesh axis"):
         engine._resolve_mesh(ProcessMesh(("data",), (1,), dev), dev)
-    with pytest.raises(NotImplementedError, match="DTensor slice"):
-        engine._resolve_mesh(ProcessMesh(("clients", "model"), (1, 1), dev),
-                             dev)
+    m2d = ProcessMesh(("clients", "model"), (1, 1), dev)
+    assert engine._resolve_mesh(m2d, dev) is m2d      # the 2-D route
     assert MeshShape(("clients",), (4,)).shape == {"clients": 4}

@@ -133,18 +133,19 @@ def test_resolve_axis_and_spec_match_under_manual_axes(mesh):
 
 
 def test_shard_is_the_identity_without_a_model_axis():
+    """Each rank holds its own part of a tensor, on every mesh: under the
+    2-D route a dim split over ``model`` is already this rank's heads."""
     x = torch.zeros(4, 8)
     assert ctx.shard(x, "batch", "model") is x                 # no mesh
-    for mesh in ("clients4", "pod2_data16_model16"):
+    for mesh in ("clients4", "pod2_data16_model16", "clients2_model2"):
         m = MESHES[mesh]
         with ctx.mesh_context(m):
-            if "model" in m.axis_names:
-                with pytest.raises(NotImplementedError, match="DTensor"):
-                    ctx.shard(torch.zeros(4, 16), "batch", "model")
-                with ctx.manual_axes(*m.axis_names):
-                    assert ctx.shard(x, "batch", "model") is x
-            else:
+            y = torch.zeros(4, 16)
+            assert ctx.shard(y, "batch", "model") is y
+            with ctx.manual_axes(*m.axis_names):
                 assert ctx.shard(x, "batch", "model") is x
+            with pytest.raises(ValueError, match="unknown logical axis"):
+                ctx.shard(x, "nope")
     assert ctx.current_mesh() is None
 
 
@@ -217,3 +218,102 @@ def test_one_rank_group_meets_in_its_own_store():
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+# -- the shard holder and the model group's collectives (2-D route) ----------
+
+def _holder_rank(rank):
+    """On a (1, 2) clients x model mesh: gather, the gathered leaf's
+    gradient, copy_to_model / reduce_from_model and their gradients, the
+    maximum, and the int8 wire's scales over the group."""
+    from repro_torch.bridge import GroupedLayout
+    from repro_torch.core.engine import CommChannel
+
+    mesh = sh.client_model_mesh(1, 2, "cpu")
+    group = mesh.group("model")
+    gen = torch.Generator().manual_seed(0)
+    full = torch.randn(6, 4, generator=gen)
+    full[0, 0] = -0.0
+    out = {}
+    spec = (None, "model")
+    local = sh.shard_of(full, spec, 2, rank)
+    out["local_shape"] = tuple(local.shape) == sh.local_shape(full.shape,
+                                                              spec, 2)
+    whole = sh.gather(local.contiguous(), spec, group, 2, rank)
+    out["gather_bits"] = torch.equal(whole.view(torch.int32),
+                                     full.view(torch.int32))
+    bf = full.to(torch.bfloat16)
+    out["gather_bf16"] = torch.equal(sh.gather(
+        sh.shard_of(bf, ("model", None), 2, rank).contiguous(),
+        ("model", None), group, 2, rank), bf)
+    # the gathered leaf's gradient is this rank's slice of the whole one
+    shards = sh.ModelShards({("w",): spec}, {("w",): (6, 4)}, mesh)
+    w = local.clone().requires_grad_()
+    weight = torch.arange(24.0).reshape(6, 4)
+    (shards.gather(("w",), w) * weight).sum().backward()
+    out["gather_grad"] = torch.equal(w.grad, sh.shard_of(weight, spec, 2,
+                                                         rank))
+    # copy_to: identity forward, the gradients summed backward
+    x = torch.ones(3, requires_grad=True)
+    y = sh.copy_to_model(x, group)
+    out["copy_fwd"] = y is not x and torch.equal(y, x)
+    (y * (rank + 1.0)).sum().backward()
+    out["copy_grad"] = x.grad.tolist()
+    # reduce_from: the partial sums added in fp32, cast; identity backward
+    p = torch.full((3,), 1.0 + rank, requires_grad=True)
+    z = sh.reduce_from_model(p, group, torch.bfloat16)
+    out["reduce_fwd"] = (z.dtype, z.tolist())
+    (z.float() * 2.0).sum().backward()
+    out["reduce_grad"] = p.grad.tolist()
+    out["max"] = sh.max_over_model(torch.tensor([1.0 + rank, 5.0 - rank]),
+                                   group).tolist()
+    # the int8 wire of a leaf split over the ranks: the whole leaf's
+    # scale, so each rank's part is the part of the whole leaf's wire
+    tree = {"a": full * (1 + 9 * (rank == 1)), "b": torch.ones(2)}
+    lay = GroupedLayout.of_tree({"a": local, "b": tree["b"]})
+    mine = lay.pack({"a": sh.shard_of(tree["a"], spec, 2, rank)
+                     .contiguous(), "b": tree["b"]})
+    got = CommChannel("int8")._wire_flat(lay, mine, group)
+    whole_a = sh.gather(sh.shard_of(tree["a"], spec, 2, rank).contiguous(),
+                        spec, group, 2, rank)
+    want = CommChannel("int8")._wire(whole_a)
+    out["wire"] = torch.equal(lay.views(got)["a"],
+                              sh.shard_of(want, spec, 2, rank))
+    return out
+
+
+def test_shard_holder_and_model_group_collectives(tmp_path):
+    from repro_torch.runtime.ranks import run_ranks
+    outs = run_ranks(_holder_rank, 2, str(tmp_path), device="cpu")
+    for r in outs:
+        for key in ("local_shape", "gather_bits", "gather_bf16",
+                    "gather_grad", "copy_fwd", "wire"):
+            assert r[key], key
+        assert r["copy_grad"] == [3.0, 3.0, 3.0]
+        assert r["reduce_fwd"] == (torch.bfloat16, [3.0, 3.0, 3.0])
+        assert r["reduce_grad"] == [2.0, 2.0, 2.0]
+        assert r["max"] == [2.0, 5.0]
+
+
+def test_shard_holder_rules_and_refusals():
+    assert sh.split_dim((None, "model", None)) == 1
+    assert sh.split_dim((None, None)) is None
+    assert sh.local_shape((8, 6), ("model", None), 2) == (4, 6)
+    with pytest.raises(ValueError, match="'model' only"):
+        sh.split_dim(("data", None))
+    with pytest.raises(ValueError, match="more than one dim"):
+        sh.split_dim(("model", "model"))
+    full = np.arange(12).reshape(3, 4)
+    np.testing.assert_array_equal(sh.shard_of(full, (None, "model"), 2, 1),
+                                  full[:, 2:])
+    np.testing.assert_array_equal(
+        sh.shard_of(full[None], (None, "model"), 2, 0, batch_dims=1),
+        full[None, :, :2])
+    m = sh.client_model_mesh(1, 1, "cpu")
+    shards = sh.ModelShards.of(sh.DEFAULT_PARTITIONER,
+                               {("embed",): (8, 4), ("final_norm",): (4,)},
+                               m)
+    assert shards.dim(("embed",)) == 0 and shards.dim(("final_norm",)) is None
+    assert shards.local_shape(("embed",)) == (8, 4)      # model extent 1
+    with pytest.raises(ValueError, match="needs 4 ranks"):
+        sh.client_model_mesh(2, 2, "cpu")
