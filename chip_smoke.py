@@ -377,14 +377,37 @@ Phases, each printing one JSON line, in this order:
     model group's all-reduces a client step and the clients group's bytes
     a round.
 
+38. slice 21, the meta-train step on the production mesh, after slice
+    20: four ranks on a 2 x 2 ``("data", "model")`` mesh sharing the
+    card through gloo (started when the phase starts), phi held as each
+    rank's shards under the production rules (tensor parallelism on
+    ``model``, FSDP on ``data``: ``runtime/sharding.py::ModelShards.
+    of_model``). ``production_step_mixtral_reduced``: the reduced
+    mixtral at 4 layers, fp32, its FSDP threshold lowered to 100,000
+    bytes so that its experts split on ``data`` too, one step of 2 x 4 x
+    24 tokens, gathered whole, every rank the same and within 1e-4 of
+    the CPU port's single-rank step (the losses too), online_sgd and
+    meta_update launched on every rank. ``production_step_tinyllama``:
+    tinyllama-1.1b at full width and depth, bf16, drawn on the card
+    (each rank keeps only its shards), one meta step of K = 4
+    microbatches of 4 x 256 tokens (the train_4k cell cut in rows and
+    length), against ``make_meta_train_step`` on one rank on the card
+    from the same draw and batch (this process, while the ranks run the
+    mixtral): each rank's every shard within 4 bf16 steps of its slice
+    of the single-rank result, the losses too; each rank's parameter
+    bytes exactly ``launch/describe.py``'s bytes a chip for ``{"data":
+    2, "model": 2}``; each rank's peak memory and step seconds beside
+    the single-rank step's, the data and model groups' collectives, and
+    the online_sgd and meta_update launches.
+
 The order: the kernel phases, the levers (35) and slice 19 (36) run
 first, with nothing beside them. Then three streams run at once, each in
 a process of its own on the card (STREAMS): this process runs slice
 17's two engine phases (34), 27 and 28; ``decode_lm`` runs 4-6,
 ``train_lm_fleet`` (34) and 23's dense LM; ``sine`` runs 7-13b, 24-26,
 18-20, 29, 14-17 and 21-23's mamba2 LM. A stream's lines are printed when it ends, each with its
-``stream``. Slice 20 (37) runs once they are done; the families
-(30-33) run last, alone on the card.
+``stream``. Slice 20 (37) and slice 21 (38) run once they are done; the
+families (30-33) run last, alone on the card.
 
 The CPU references that depend only on a seed or an argv (the engine LM
 runs' first rounds, the partial wire's, the pool's and the pool drift's
@@ -7368,6 +7391,310 @@ def phase_mesh2d(torch, np, thread, workdir, t_start):
     return paths
 
 
+# -- slice 21: the meta-train step on the production mesh ----------------------
+
+PROD_RANKS = 4
+PROD_MESH = ((2, 2), ("data", "model"))
+# tinyllama-1.1b at its published width and depth, bf16, drawn on the card
+# from PROD_SEED: one meta step of K = 4 microbatches, the train_4k cell
+# cut in rows and length to 4 rows of 256 tokens each (the cell's are 64
+# rows of 4,096); beta 0.002, the full-width rate
+PROD_SEED = 21
+PROD_SHAPE = (4, 4, 256)       # K, mb, S
+PROD_BETA, PROD_ALPHA = 0.002, 0.5
+PROD_CUT = ("train_4k cut in rows and length: K = 4 microbatches of 4 x "
+            "256 tokens (the cell's: 64 x 4,096)")
+PROD_TOL = POD_TOL             # 4 bf16 steps of the single-rank step
+# the reduced mixtral (MoE: its experts gathered whole, the dispatch over
+# the whole batch) at 4 layers, fp32, on the same mesh, its FSDP threshold
+# lowered as tests/test_torch_production_step.py lowers it, so that the
+# experts split on data too; against the CPU port's single-rank step
+PROD_MOE_THRESHOLD = 100_000
+PROD_MOE_SHAPE = (2, 4, 24)
+PROD_MOE_BETA = 0.02
+PROD_MOE_TOL = 1e-4
+PROD_KERNELS = ("online_sgd", "meta_update")
+
+
+def prod_batch(torch, np, vocab, shape, seed, dev):
+    """(K, mb, S) random tokens from ``seed`` and their next tokens (-1
+    at each row's end), on ``dev``."""
+    r = np.random.default_rng(seed)
+    tok = r.integers(0, vocab, shape).astype(np.int64)
+    lab = np.concatenate([tok[..., 1:], np.full(shape[:-1] + (1,), -1)], -1)
+    return {"tokens": torch.from_numpy(tok).to(dev),
+            "labels": torch.from_numpy(lab).to(dev)}
+
+
+def prod_moe_model(mods):
+    return mods["build_model"](dataclasses.replace(
+        mods["get_arch"]("mixtral-8x22b").reduced(), num_layers=4,
+        dtype="float32"))
+
+
+def prod_moe_rank(torch, np, mods, mesh):
+    """The reduced mixtral's step on this rank's shards (the init drawn
+    on the CPU from seed 0), gathered whole; its launches and the leaves
+    split on each axis."""
+    bridge, ops, sh = mods["bridge"], mods["ops"], mods["sh"]
+    from repro_torch.runtime.steps import make_meta_train_step
+    model = prod_moe_model(mods)
+    threshold = sh.FSDP_THRESHOLD_BYTES
+    sh.FSDP_THRESHOLD_BYTES = PROD_MOE_THRESHOLD
+    try:
+        step = make_meta_train_step(model, beta=PROD_MOE_BETA,
+                                    alpha=PROD_ALPHA, mesh=mesh)
+    finally:
+        sh.FSDP_THRESHOLD_BYTES = threshold
+    shards = step.shards
+    init = model.init(torch.Generator().manual_seed(0), "cpu")
+    local = bridge.unflatten_tree(bridge.shard_tree(
+        bridge.flatten_tree(init), shards, "cuda"))
+    batch = prod_batch(torch, np, model.cfg.vocab_size, PROD_MOE_SHAPE, 1,
+                       "cuda")
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    new, metrics = step(local, batch, PROD_ALPHA)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    whole = bridge.whole_tree(new, shards)
+    return {"launches": launches,
+            "metrics": {k: float(v) for k, v in metrics.items()},
+            "params": {"/".join(map(str, k)): v.cpu().numpy() for k, v in
+                       bridge.flatten_tree(whole).items()},
+            "split": {"data": sum(d is not None
+                                  for d in shards.data_dims.values()),
+                      "model": sum(d is not None
+                                   for d in shards.dims.values())}}
+
+
+def prod_worker(rank, workdir):
+    """Every slice-21 phase in one rank of the PROD_RANKS, on a (2, 2)
+    ("data", "model") mesh: the reduced mixtral, then, once the
+    single-rank reference is written (``workdir/go_tinyllama``),
+    tinyllama-1.1b: its shards drawn on the card, the step timed, each
+    shard held against its slice of the reference's leaves (read from
+    ``workdir/prod_ref.pt`` without loading the rest), its parameter
+    bytes against ``describe``'s bytes a chip."""
+    import numpy as np
+    import torch
+
+    torch.zeros(1, device="cuda")
+    mods = mesh2d_mods()
+    bridge, ops, sh = mods["bridge"], mods["ops"], mods["sh"]
+    from repro_torch.launch.describe import chip_bytes
+    from repro_torch.runtime.steps import make_meta_train_step
+    mesh = sh.make_mesh(*PROD_MESH, "cuda")
+    out = {"rank": rank, "coords": (mesh.coordinate("data"),
+                                    mesh.coordinate("model"))}
+    t0 = time.perf_counter()
+    out["moe"] = prod_moe_rank(torch, np, mods, mesh)
+    out["moe_s"] = time.perf_counter() - t0
+    go = Path(workdir) / "go_tinyllama"
+    while not go.exists():
+        time.sleep(0.05)
+    model = mods["build_model"](mods["get_arch"]("tinyllama-1.1b"))
+    step = make_meta_train_step(model, beta=PROD_BETA, alpha=PROD_ALPHA,
+                                mesh=mesh)
+    shards = step.shards
+    local = draw_shards_on_card(torch, model, PROD_SEED, shards)
+    batch = prod_batch(torch, np, model.cfg.vocab_size, PROD_SHAPE, 2,
+                       "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    calls0 = {"data": dict(sh.DATA_CALLS), "model": dict(sh.MODEL_CALLS),
+              "all_reduce": sh.CALLS["all_reduce"]}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    new, metrics = step(local, batch, PROD_ALPHA)
+    torch.cuda.synchronize()
+    out["step_s"] = time.perf_counter() - t0
+    out["launches"] = ops.launch_counts()
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["calls"] = {
+        "data": {k: v - calls0["data"][k] for k, v in sh.DATA_CALLS.items()},
+        "model": {k: v - calls0["model"][k]
+                  for k, v in sh.MODEL_CALLS.items()},
+        "all_reduce": sh.CALLS["all_reduce"] - calls0["all_reduce"]}
+    out["param_bytes"] = sh.per_device_param_bytes(new)
+    out["chip_bytes"] = chip_bytes(model.cfg, sh.MeshShape(
+        PROD_MESH[1], PROD_MESH[0]))
+    out["split"] = {"data": sum(d is not None
+                                for d in shards.data_dims.values()),
+                    "model": sum(d is not None for d in shards.dims.values())}
+    out["metrics"] = {k: float(v) for k, v in metrics.items()}
+    ref = torch.load(Path(workdir) / "prod_ref.pt", mmap=True)
+    worst = {"max_abs_diff": 0.0, "within": True, "leaves": 0}
+    for k, v in bridge.flatten_tree(new).items():
+        w = shards.local(k, ref["leaves"]["/".join(map(str, k))]).to(
+            "cuda").float()
+        diff = (v.float() - w).abs()
+        worst["max_abs_diff"] = max(worst["max_abs_diff"], diff.max().item())
+        worst["within"] &= bool((diff <= PROD_TOL["atol"] + PROD_TOL["rtol"]
+                                 * w.abs()).all().item())
+        worst["leaves"] += 1
+    out["vs_single_rank"] = worst
+    out["ref_metrics"] = ref["metrics"]
+    return out
+
+
+def start_prod_workers(workdir):
+    """The PROD_RANKS ranks, started now in the background. Returns the
+    thread that collects their results."""
+    from repro_torch.runtime.ranks import run_ranks
+
+    def collect():
+        try:
+            thread.result = run_ranks(prod_worker, PROD_RANKS, workdir,
+                                      workdir, device="cuda", threads=2,
+                                      timeout=600)
+        except BaseException as e:              # raised in the phase
+            thread.result = e
+
+    thread = threading.Thread(target=collect, daemon=True)
+    thread.start()
+    return thread
+
+
+def prod_reference(torch, np, mods, workdir):
+    """tinyllama-1.1b's single-rank step on the card from the same draw
+    and batch as the ranks': its leaves and losses to
+    ``workdir/prod_ref.pt``; returns its time, peak memory and
+    launches."""
+    from repro_torch.runtime.steps import make_meta_train_step
+    bridge, ops = mods["bridge"], mods["ops"]
+    model = mods["build_model"](mods["get_arch"]("tinyllama-1.1b"))
+    phi = draw_on_card(torch, model, PROD_SEED)
+    batch = prod_batch(torch, np, model.cfg.vocab_size, PROD_SHAPE, 2,
+                       "cuda")
+    step = make_meta_train_step(model, beta=PROD_BETA, alpha=PROD_ALPHA)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    new, metrics = step(phi, batch, PROD_ALPHA)
+    torch.cuda.synchronize()
+    res = {"step_s": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": ops.launch_counts(),
+           "param_bytes": mods["sh"].per_device_param_bytes(phi),
+           "metrics": {k: float(v) for k, v in metrics.items()}}
+    torch.save({"leaves": {"/".join(map(str, k)): v.cpu() for k, v in
+                           bridge.flatten_tree(new).items()},
+                "metrics": res["metrics"]}, Path(workdir) / "prod_ref.pt")
+    del phi, new, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_production(torch, np, workdir):
+    """Start the four ranks; meanwhile the reduced mixtral's single-rank
+    step on the CPU and tinyllama-1.1b's on the card; then the ranks'
+    tinyllama go, and their runs held to both
+    (``production_step_mixtral_reduced``, ``production_step_tinyllama``)."""
+    from repro_torch.runtime.steps import make_meta_train_step
+    mods = mesh2d_mods()
+    bridge, ops = mods["bridge"], mods["ops"]
+    thread = start_prod_workers(workdir)
+    model = prod_moe_model(mods)
+    one, m1 = make_meta_train_step(model, beta=PROD_MOE_BETA,
+                                   alpha=PROD_ALPHA)(
+        model.init(torch.Generator().manual_seed(0), "cpu"),
+        prod_batch(torch, np, model.cfg.vocab_size, PROD_MOE_SHAPE, 1, "cpu"),
+        PROD_ALPHA)
+    want = {"/".join(map(str, k)): v.numpy()
+            for k, v in bridge.flatten_tree(one).items()}
+    ref = prod_reference(torch, np, mods, workdir)
+    (Path(workdir) / "go_tinyllama").touch()
+    thread.join()
+    outs = thread.result
+    if isinstance(outs, BaseException):
+        raise outs
+    paths = {}
+
+    moe = [r["moe"] for r in outs]
+    for r in moe[1:]:
+        check(all(np.array_equal(r["params"][k], v)
+                  for k, v in moe[0]["params"].items())
+              and r["metrics"] == moe[0]["metrics"],
+              "production_step_mixtral_reduced: the ranks differ")
+    diff = max(float(np.abs(moe[0]["params"][k] - v).max())
+               for k, v in want.items())
+    check(diff <= PROD_MOE_TOL, f"production_step_mixtral_reduced: phi "
+                                f"{diff} from the CPU's, tolerance "
+                                f"{PROD_MOE_TOL}")
+    loss_diff = max(abs(moe[0]["metrics"][k] - float(v))
+                    for k, v in m1.items())
+    check(loss_diff <= PROD_MOE_TOL, f"production_step_mixtral_reduced: "
+                                     f"losses {moe[0]['metrics']} vs CPU's")
+    check(moe[0]["split"]["data"] > 0 and moe[0]["split"]["model"] > 0,
+          f"production_step_mixtral_reduced: splits {moe[0]['split']}")
+    for r, m in zip(outs, moe):
+        for kernel in PROD_KERNELS:
+            check(m["launches"][kernel] > 0,
+                  f"production_step_mixtral_reduced: rank {r['rank']} "
+                  f"launched no {kernel}")
+    paths["production_step_mixtral_reduced"] = {
+        k: sum(m["launches"][k] for m in moe) for k in ops.KERNELS}
+    emit({"phase": "production_step_mixtral_reduced",
+          "mesh": dict(zip(PROD_MESH[1], PROD_MESH[0])),
+          "config": "mixtral-8x22b reduced, 4 layers, fp32, FSDP threshold "
+                    f"{PROD_MOE_THRESHOLD} B", "shape_K_mb_S": PROD_MOE_SHAPE,
+          "leaves_split": moe[0]["split"], "params_vs_cpu": diff,
+          "losses_vs_cpu": loss_diff, "tol": PROD_MOE_TOL,
+          "metrics": moe[0]["metrics"], "launches_rank0": moe[0]["launches"],
+          "ranks_s": [r["moe_s"] for r in outs]})
+
+    t0r = outs[0]
+    for r in outs:
+        check(r["vs_single_rank"]["within"],
+              f"production_step_tinyllama: rank {r['rank']} against the "
+              f"single-rank step: {r['vs_single_rank']}")
+        check(r["param_bytes"] == r["chip_bytes"],
+              f"production_step_tinyllama: rank {r['rank']} holds "
+              f"{r['param_bytes']} bytes, describe gives {r['chip_bytes']}")
+        check(r["metrics"] == t0r["metrics"],
+              "production_step_tinyllama: the ranks' losses differ")
+        for kernel in PROD_KERNELS:
+            check(r["launches"][kernel] > 0, f"production_step_tinyllama: "
+                                             f"rank {r['rank']} launched no "
+                                             f"{kernel}")
+    check(t0r["split"]["data"] > 0 and t0r["split"]["model"] > 0,
+          f"production_step_tinyllama: splits {t0r['split']}")
+    loss_diff = max(abs(t0r["metrics"][k] - v)
+                    for k, v in ref["metrics"].items())
+    check(all(abs(t0r["metrics"][k] - v) <= PROD_TOL["atol"]
+              + PROD_TOL["rtol"] * abs(v) for k, v in ref["metrics"].items()),
+          f"production_step_tinyllama: losses {t0r['metrics']} vs "
+          f"{ref['metrics']}")
+    check(all(math.isfinite(v) for v in t0r["metrics"].values()),
+          "production_step_tinyllama: losses not finite")
+    paths["production_step_tinyllama"] = {
+        k: sum(r["launches"][k] for r in outs) for k in ops.KERNELS}
+    emit({"phase": "production_step_tinyllama",
+          "mesh": dict(zip(PROD_MESH[1], PROD_MESH[0])),
+          "ranks": PROD_RANKS, "backend": "gloo (four ranks share the card)",
+          "config": "tinyllama-1.1b, 22 layers, d_model 2,048, bf16, drawn "
+                    "on the card", "reduced": PROD_CUT,
+          "shape_K_mb_S": PROD_SHAPE, "beta": PROD_BETA,
+          "alpha": PROD_ALPHA, "leaves_split": t0r["split"],
+          "param_bytes_per_rank": [r["param_bytes"] for r in outs],
+          "describe_chip_bytes": t0r["chip_bytes"],
+          "param_bytes_single_rank": ref["param_bytes"],
+          "peak_gb_per_rank": [r["peak_gb"] for r in outs],
+          "peak_gb_single_rank": ref["peak_gb"],
+          "step_s_per_rank": [r["step_s"] for r in outs],
+          "step_s_single_rank": ref["step_s"],
+          "vs_single_rank": [r["vs_single_rank"] for r in outs],
+          "losses_vs_single_rank": loss_diff, "tol": PROD_TOL,
+          "metrics": t0r["metrics"], "metrics_single_rank": ref["metrics"],
+          "collectives_rank0": t0r["calls"],
+          "launches_per_rank": [r["launches"] for r in outs],
+          "launches_single_rank": ref["launches"]})
+    return paths
+
+
 # -- streams: groups of phases in processes of their own ------------------------
 
 # After slice 19 three streams of phases run at once on the one card,
@@ -7699,6 +8026,13 @@ def run_phases(torch, np, refs, t_start):
                                 t_start)
     emit({"phase": "slice_20", "phases_s": time.perf_counter() - t20,
           "script_s_so_far": time.perf_counter() - t_start})
+    # slice 21: the meta-train step on the production mesh, after slice
+    # 20 and before the families, alone on the card
+    t21 = time.perf_counter()
+    prod_paths = phase_production(torch, np, tempfile.mkdtemp(
+        prefix="chip_smoke_prod_"))
+    emit({"phase": "slice_21", "phases_s": time.perf_counter() - t21,
+          "script_s_so_far": time.perf_counter() - t_start})
 
     # the decoder-only families of slice 15 and the encoder-decoder and
     # VLM of slice 16, alone on the card; the decode runners dropped with
@@ -7712,7 +8046,8 @@ def run_phases(torch, np, refs, t_start):
     # every main path's launches, each counted from 0 just before it (in
     # the process that drove it)
     paths = {**stream_paths, **engine_lm_paths, **family_paths,
-             **mixed_paths, **levers_paths, **mesh_paths, **mesh2d_paths}
+             **mixed_paths, **levers_paths, **mesh_paths, **mesh2d_paths,
+             **prod_paths}
     kernels = []
     for kernel, route, source, replaces, row in (
             ("online_sgd", "cuda", "src/repro_torch/kernels/csrc/online_sgd.cu",

@@ -45,7 +45,12 @@ every leaf: ``GroupedLayout.with_shapes`` is the layout of those shards
 (the whole tree's groups and leaf order, each leaf at its local shape),
 and ``shard_tree`` cuts a whole tree (the JAX package's init as NumPy,
 or tensors) into this rank's shards on its device, leaf by leaf, so the
-device never holds a whole split leaf.
+device never holds a whole split leaf. The production mesh's shards
+(``("data", "model")``) cross the same way: ``lm_shards_from_jax`` cuts
+the JAX package's params into a rank's, ``whole_tree`` gathers a rank's
+back. ``jax_layout_map`` names, for trees given by their paths alone
+(``launch/specs.py``'s shapes), the JAX leaf each port leaf is stacked
+into, and the reverse.
 """
 from __future__ import annotations
 
@@ -151,6 +156,19 @@ def _stack(layers, period):
         for path in flatten_tree(layers[pos])}) for pos in range(period)]
 
 
+def _port_layout(tree, layout):
+    """The JAX package's LM params as NumPy in the port's layout (views
+    of the stacked arrays)."""
+    tree = _as_numpy(tree)
+    if isinstance(layout, HybridLayout):
+        tree = dict(tree)
+        tree["layers"] = (_unstack(tree["layers"], layout.every)
+                          + list(tree.pop("tail", [])))
+    elif layout is not None:
+        tree = _map_layers(tree, lambda s: _unstack(s, layout))
+    return tree
+
+
 def lm_params_from_jax(tree, layout=None, device: DeviceLike = None):
     """The JAX package's LM params (NumPy or ``jax.Array`` leaves) -> the
     port's tree on ``device``, by ``layout`` (``Model.jax_layout``): None
@@ -159,14 +177,72 @@ def lm_params_from_jax(tree, layout=None, device: DeviceLike = None):
     stacked over the layer groups, layer g * p + pos being row g of dict
     pos; a ``HybridLayout`` for the hybrid's groups and tail (the module
     docstring). The port unstacks them into one dict per layer."""
-    tree = _as_numpy(tree)
-    if isinstance(layout, HybridLayout):
-        tree = dict(tree)
-        tree["layers"] = (_unstack(tree["layers"], layout.every)
-                          + list(tree.pop("tail", [])))
-    elif layout is not None:
-        tree = _map_layers(tree, lambda s: _unstack(s, layout))
-    return params_from_numpy(tree, device)
+    return params_from_numpy(_port_layout(tree, layout), device)
+
+
+def lm_shards_from_jax(tree, layout, shards, device: DeviceLike = None):
+    """The JAX package's LM params -> this rank's shards of the port's
+    tree on ``device`` (``shard_tree`` by ``shards``, a
+    ``runtime.sharding.ModelShards``): each leaf is cut on the host and
+    only the shard is copied to the device."""
+    named = flatten_tree(_port_layout(tree, layout))
+    return unflatten_tree(shard_tree(named, shards, device))
+
+
+def whole_tree(local, shards):
+    """A rank's shards (a params tree) -> the whole tree, every leaf
+    gathered on every rank (``ModelShards.gather_exact``; a collective
+    that every rank of the mesh calls, leaf by leaf in the same order)."""
+    return unflatten_tree({k: shards.gather_exact(k, v)
+                           for k, v in tree_leaves(local)})
+
+
+def jax_layout_map(paths, layout=None, cache: bool = False
+                   ) -> Dict[Tuple, Tuple[bool, Tuple[Tuple, ...]]]:
+    """Where the port's leaves sit in the JAX package's layout, for trees
+    given only by their leaf paths (``flatten_tree`` paths; no leaf is
+    read). Returns ``{JAX path: (stacked, port paths)}`` in the port's
+    leaf order: a stacked JAX leaf holds its port leaves along a new
+    leading axis, in that order; an unstacked one is its one port leaf.
+    ``layout`` is ``Model.jax_layout``. ``cache`` maps a decode cache
+    (one ``layers`` entry per application) instead of params: under a
+    ``HybridLayout`` its ``group_attn``, ``group_mamba``, ``tail_attn``
+    and ``tail_mamba`` (``lm_cache_from_jax``'s layouts)."""
+    paths = list(paths)
+    n = 1 + max((p[1] for p in paths if p[0] == "layers"), default=-1)
+    out: Dict[Tuple, Tuple[bool, list]] = {}
+
+    def place(jpath, stacked, path):
+        out.setdefault(jpath, (stacked, []))[1].append(path)
+
+    for path in paths:
+        if path[0] != "layers" or layout is None:
+            place(path, False, path)
+            continue
+        i, rest = path[1], path[2:]
+        if not isinstance(layout, HybridLayout):
+            place(("layers", i % layout) + rest, True, path)
+        elif not cache:
+            full = n // layout.every * layout.every
+            if i < full:
+                place(("layers", i % layout.every) + rest, True, path)
+            else:
+                place(("tail", i - full) + rest, False, path)
+        else:
+            k = layout.every + 1           # a group: its attention, k Mamba2
+            full = n // k * k
+            if i < full:
+                pos = i % k
+                place(("group_attn",) + rest if pos == 0 else
+                      ("group_mamba", pos - 1) + rest, True, path)
+            elif i == full:
+                place(("tail_attn",) + rest, False, path)
+            else:
+                place(("tail_mamba", i - full - 1) + rest, False, path)
+    # a stacked leaf's layers in the port's order: layer g of the group
+    # is row g
+    return {k: (st, tuple(sorted(v, key=lambda p: p[1]) if st else v))
+            for k, (st, v) in out.items()}
 
 
 def lm_params_to_jax(params, layout=None):

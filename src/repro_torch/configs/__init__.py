@@ -2,6 +2,8 @@
 architectures (importing this package registers them)."""
 from repro_torch.configs.base import (ArchConfig, get_arch,  # noqa: F401
                                       list_archs, register)
+from repro_torch.configs.shapes import (SHAPES, InputShape,  # noqa: F401
+                                        get_shape)
 from repro_torch.configs.glm4_9b import GLM4_9B  # noqa: F401
 from repro_torch.configs.llama4_maverick_400b_a17b import (  # noqa: F401
     LLAMA4_MAVERICK)

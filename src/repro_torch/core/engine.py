@@ -216,7 +216,8 @@ def meta_interpolate(phi, phi_hat, alpha):
                      phi_hat)
 
 
-def streaming_sgd(loss_fn, phi, batch, beta, group=None):
+def streaming_sgd(loss_fn, phi, batch, beta, group=None, *, layout=None,
+                  reduce=None):
     """The LM inner loop: one SGD step per microbatch of ``batch`` (the
     paper's online learning), fp32 update math, each leaf stored back in
     its own dtype. ``phi`` is a nested tree; ``batch`` a dict of
@@ -237,8 +238,14 @@ def streaming_sgd(loss_fn, phi, batch, beta, group=None):
     ``--mesh data`` route), so each step's gradient buffers are summed
     across the group's ranks and divided by their count, one
     ``all_reduce`` a dtype group, giving every rank the whole
-    microbatch's mean gradient; the losses are averaged alike, once."""
-    layout = GroupedLayout.of_tree(phi)
+    microbatch's mean gradient; the losses are averaged alike, once.
+
+    ``layout`` and ``reduce`` (the production mesh's step, on this rank's
+    shards): the flat buffers' layout (``ModelShards.fsdp_layout``), and
+    what turns each step's gradient buffers into the whole microbatch's
+    mean and averages the losses (``runtime.sharding.BatchMean``), in
+    place of ``group``'s sums."""
+    layout = layout or GroupedLayout.of_tree(phi)
     flats = layout.pack(layout.named(phi))
     grads = group_map(torch.zeros_like, flats)
     steps = next(iter(batch.values())).shape[0]
@@ -255,14 +262,18 @@ def streaming_sgd(loss_fn, phi, batch, beta, group=None):
             params[k].grad = grad_views[k]
         loss = loss_fn(layout.tree(params), micro)
         loss.backward()
-        if group is not None:
+        if reduce is not None:
+            reduce.grads(grads)
+        elif group is not None:
             for grad in grads:
                 all_reduce(grad, group).div_(ranks)
         for flat, grad in zip(flats, grads):
             kops.online_sgd(flat, grad, beta, flat)         # in place
         losses.append(loss.detach().float())
     losses = torch.stack(losses)
-    if group is not None:
+    if reduce is not None:
+        reduce.losses(losses)
+    elif group is not None:
         all_reduce(losses, group).div_(ranks)
     return layout.tree_views(flats), losses
 

@@ -34,14 +34,15 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-def tree_meta_update(phi, phi_hat, alpha):
+def tree_meta_update(phi, phi_hat, alpha, layout=None):
     """Reptile interpolation over a whole params tree (nested dicts and
     lists) in ONE launch per leaf dtype: the leaves of each dtype are
-    packed into one flat buffer (sorted paths), updated, and handed back
-    as views of the result, each leaf in its own dtype. A tree that is
-    already such views (an earlier result, ``streaming_sgd``'s phi_hat)
-    is read from its buffer, without a copy."""
-    layout = GroupedLayout.of_tree(phi)
+    packed into one flat buffer (sorted paths, or ``layout``'s order),
+    updated, and handed back as views of the result, each leaf in its own
+    dtype. A tree that is already such views (an earlier result,
+    ``streaming_sgd``'s phi_hat) is read from its buffer, without a
+    copy."""
+    layout = layout or GroupedLayout.of_tree(phi)
     trees = layout.named(phi), layout.named(phi_hat)
     out = {}
     for group in layout.groups:

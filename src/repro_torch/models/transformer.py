@@ -44,7 +44,11 @@ layer per forward and not again in the backward.
 On the engine's 2-D ``("clients", "model")`` route the params are this
 rank's shards, as the run's ``ModelPartitioner`` splits them, and the
 engine installs its ``runtime.sharding.ModelShards`` for the thread
-that computes (``active_model_shards``). ``loss_fn`` then computes
+that computes (``active_model_shards``); so does the production step on
+a ``("data", "model")`` mesh (``runtime/steps.py``), whose shards are
+also split on ``data`` (FSDP): a tensor-parallel layer first gathers a
+leaf's data parts (``ModelShards.model_part``), every other use gathers
+the leaf whole. ``loss_fn`` then computes
 tensor-parallel where the rules give Megatron's layout: an attention
 sub-block whose ``wq``/``wk``/``wv`` are split on their heads and ``wo``
 on its heads runs on this rank's heads, and the SwiGLU MLP whose
@@ -241,7 +245,7 @@ def _apply_block_tp(tp, at, cfg: ArchConfig, kind: str, window: int, bp, x,
             rope_theta=cfg.rope_theta, causal=True, window=window,
             use_rope=use_rope)
     if not mlp_tp:
-        return _ffn(cfg, kind, bp, x)
+        return _ffn(cfg, kind, bp, x, tp)
     y_in = copy_to_model(rms_norm(x, bp["norm2"], eps), tp.group)
     part = mlp_partial(bp["mlp"], y_in)
     return x + reduce_from_model(part, tp.group, torch.promote_types(
@@ -261,11 +265,18 @@ def _embed_tp(tp, table, tokens):
     return reduce_from_model(rows, tp.group, table.dtype)
 
 
-def _ffn(cfg: ArchConfig, kind: str, bp, x):
+def _ffn(cfg: ArchConfig, kind: str, bp, x, tp=None):
     """The block's second half on x: the MLP, or the experts with their
-    aux loss. Returns (x, aux or None)."""
+    aux loss. Returns (x, aux or None). ``tp`` (the shards, passed in: a
+    recompute in the backward may run on another thread) with its batch
+    split over ranks: the experts dispatch the whole batch's tokens."""
     y_in = rms_norm(x, bp["norm2"], cfg.norm_eps)
     if kind == MOE:
+        if tp is not None and tp.batch_axes:
+            # the production mesh: the whole batch's tokens dispatched
+            y, aux = moe_lib.moe_block(bp["moe"], tp.all_rows(y_in),
+                                       experts_per_token=cfg.experts_per_token)
+            return x + tp.own_rows(y, x.shape[0]), aux
         y, aux = moe_lib.moe_block(bp["moe"], y_in,
                                    experts_per_token=cfg.experts_per_token)
         return x + y, aux
@@ -383,7 +394,8 @@ class Model:
         runs over ``batch["frames"]``."""
         tp = active_model_shards()
         if tp is not None and tp.dim(("embed",)) == 0:
-            x = _embed_tp(tp, params["embed"], batch["tokens"])
+            x = _embed_tp(tp, tp.model_part(("embed",), params["embed"]),
+                          batch["tokens"])
         else:
             x = self._leaf(params, "embed")[batch["tokens"].long()]
         enc_out, offset = None, 0
@@ -467,8 +479,10 @@ class Model:
                       tp.dim(("embed",)) == 0 if self.cfg.tie_embeddings
                       else tp.dim(("lm_head",)) == 1)
         if head_vocab:
-            loss = chunked_cross_entropy(copy_to_model(x, tp.group),
-                                         self._lm_head(params),
+            head = (tp.model_part(("embed",), params["embed"]).T
+                    if self.cfg.tie_embeddings
+                    else tp.model_part(("lm_head",), params["lm_head"]))
+            loss = chunked_cross_entropy(copy_to_model(x, tp.group), head,
                                          batch["labels"], vocab_shards=tp)
         else:
             head = (self._lm_head(params) if tp is None else
@@ -509,9 +523,12 @@ class Model:
         sequence axis (``bridge.lm_cache_from_jax`` maps the JAX
         package's layouts); for the encoder-decoder also ``"cross"``, a
         ``{"k", "v"}`` of (batch, encoder_tokens, Kv, hd) per decoder
-        layer, zeros as the JAX package leaves them."""
+        layer, zeros as the JAX package leaves them. ``device="meta"``
+        gives the cache's shapes and dtypes without allocating it
+        (``launch/specs.py``)."""
         cfg = self.cfg
-        dev = resolve_device(device)
+        dev = (torch.device("meta") if str(device) == "meta"
+               else resolve_device(device))
         dtype = _DTYPES[cfg.dtype]
         layers = []
         for (kind, _), rows in zip(self.specs, self.cache_rows(seq_len)):

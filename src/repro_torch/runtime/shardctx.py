@@ -18,8 +18,10 @@ input as it is on every mesh. ``spec`` returns the JAX package's
 
 The engine's 2-D route also installs its ``runtime.sharding.ModelShards``
 here for the thread that runs its rounds and evals
-(``model_shards_scope``); the model code reads it with
-``current_model_shards``.
+(``model_shards_scope``), and the production step for the thread that
+runs its forward; the model code reads it with ``current_model_shards``
+in the forward and hands it to what a backward recomputes, which may run
+on another thread.
 """
 from __future__ import annotations
 

@@ -45,9 +45,20 @@ forward, an ``all_reduce`` backward; ``reduce_from_model``: an
 row-parallel products of ``models/transformer.py``. The run's
 ``ModelShards`` is the calling thread's while the engine runs a round or
 an eval (``model_shards_scope``, ``active_model_shards``).
+
+On the production mesh (``("data", "model")``, ``("pod", "data",
+"model")``) the same holder also splits a leaf on ``data`` (FSDP), with
+each leaf's spec decided on the JAX package's layout (``layout_specs``,
+``ModelShards.of_model``): a leaf's data parts are gathered where it is
+used (``model_part``, the same zero-padded ``all_reduce``), and the
+gather's backward sums the gradient over the data group and keeps this
+rank's slice (``_GatherData``). ``BatchMean`` sums every other gradient
+over the batch ranks once. ``DATA_CALLS`` counts the data group's
+collectives.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import math
@@ -341,6 +352,10 @@ def gather_rows(t: torch.Tensor, group, index: int, size: int):
 #: sums and maxima) and the leaves' gathers, each with its bytes
 MODEL_CALLS = {"activation": 0, "activation_bytes": 0, "gather": 0,
                "gather_bytes": 0}
+#: the batch groups' collectives on the production mesh, counted alike:
+#: FSDP's gathers of a leaf's data parts (and a MoE block's of the
+#: batch's rows), and their gradients' sums
+DATA_CALLS = {"gather": 0, "gather_bytes": 0, "grad": 0, "grad_bytes": 0}
 
 
 def _count(kind: str, t: torch.Tensor) -> None:
@@ -393,13 +408,19 @@ def gather(local: torch.Tensor, spec, group, parts: int, index: int,
     d = split_dim(spec)
     if d is None or group is None:
         return local
-    d += batch_dims
+    return _gather_along(local, d + batch_dims, group, parts, index,
+                         MODEL_CALLS)
+
+
+def _gather_along(local, d, group, parts, index, calls):
+    """``gather`` along dim ``d``, counted in ``calls``."""
     shape = list(local.shape)
     n = shape[d]
     shape[d] = n * parts
     out = torch.zeros(shape, dtype=local.dtype, device=local.device)
     out.narrow(d, index * n, n).copy_(local)
-    _count("gather", out)
+    calls["gather"] += 1
+    calls["gather_bytes"] += out.numel() * out.element_size()
     all_reduce(out.view(-1).view(torch.uint8), group)
     return out
 
@@ -410,15 +431,39 @@ class _Gather(torch.autograd.Function):
     holds the whole gradient already (summing would scale it by M)."""
 
     @staticmethod
-    def forward(ctx, local, spec, group, parts, index, batch_dims):
-        ctx.at = (split_dim(spec) + batch_dims, index, local.shape)
-        return gather(local, spec, group, parts, index, batch_dims)
+    def forward(ctx, local, d, group, parts, index):
+        ctx.at = (d, index, local.shape[d])
+        return _gather_along(local, d, group, parts, index, MODEL_CALLS)
 
     @staticmethod
     def backward(ctx, g):
-        d, index, shape = ctx.at
-        n = shape[d]
-        return g.narrow(d, index * n, n), None, None, None, None, None
+        d, index, n = ctx.at
+        return g.narrow(d, index * n, n), None, None, None, None
+
+
+class _GatherData(torch.autograd.Function):
+    """A gather over a batch group (``data``, or ``pod`` for
+    ``ModelShards.all_rows``): forward, the whole from every rank's part
+    (``_gather_along``: FSDP's model shard of a leaf, or the batch's
+    rows); backward, the gradient summed over the group in fp32 (each
+    rank computed it from its own rows of the batch) and this rank's
+    slice of the sum, in the gradient's dtype."""
+
+    @staticmethod
+    def forward(ctx, local, d, group, parts, index):
+        ctx.at = (d, group, index, local.shape[d])
+        return _gather_along(local, d, group, parts, index, DATA_CALLS)
+
+    @staticmethod
+    def backward(ctx, g):
+        d, group, index, n = ctx.at
+        s = torch.empty(g.shape, dtype=torch.float32, device=g.device)
+        s.copy_(g)
+        DATA_CALLS["grad"] += 1
+        DATA_CALLS["grad_bytes"] += s.numel() * s.element_size()
+        all_reduce(s, group)
+        return (s.narrow(d, index * n, n).to(g.dtype), None, None, None,
+                None)
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -487,26 +532,61 @@ def max_over_model(x: torch.Tensor, group) -> torch.Tensor:
     return all_reduce(s, group, "max")
 
 
+def axis_dim(spec, axis: str) -> Optional[int]:
+    """The dim a spec splits over ``axis``, or None; two such dims
+    raise."""
+    dims = [i for i, ax in enumerate(spec) if ax in (axis, (axis,))]
+    if len(dims) > 1:
+        raise ValueError(f"spec {spec} splits more than one dim over "
+                         f"{axis!r}")
+    return dims[0] if dims else None
+
+
 class ModelShards:
     """This rank's part of a params tree split over a mesh's ``model``
-    axis: for each leaf (by its name in a ``bridge`` layout: a path tuple
-    of a nested tree, a key of a flat one) the dim its spec splits, if
-    any, and the whole leaf's shape. ``group`` is the model group,
-    ``parts`` its size, ``index`` this rank's coordinate on it.
+    axis and, on the production mesh, its ``data`` axis: for each leaf
+    (by its name in a ``bridge`` layout: a path tuple of a nested tree, a
+    key of a flat one) the dim its spec splits over each, if any, and the
+    whole leaf's shape. ``group`` is the model group, ``parts`` its size,
+    ``index`` this rank's coordinate on it; ``data_group``,
+    ``data_parts`` and ``data_index`` the same for ``data`` (None, 1 and
+    0 on a mesh without it, or of one data rank).
 
     ``local`` and ``gather`` map a whole leaf to this rank's shard and
-    back; ``gathered(sub, prefix)`` gathers, at its use, every split
+    back; ``model_part`` gathers only a leaf's data parts (FSDP), giving
+    this rank's shard of it on ``model``, where a tensor-parallel layer
+    uses it; ``gathered(sub, prefix)`` gathers, at its use, every split
     leaf of a sub-tree (differentiably), where a layer has no
-    tensor-parallel form."""
+    tensor-parallel form. A gather's gradient is this rank's slice of it:
+    over ``model`` as it comes (every rank of a model group computes on
+    the same rows), over ``data`` summed across the data group first
+    (``_GatherData``)."""
 
     def __init__(self, specs: Dict[Any, Tuple], shapes: Dict[Any, Tuple],
                  mesh):
         self.specs = dict(specs)
         self.shapes = {k: tuple(v) for k, v in shapes.items()}
-        self.dims = {k: split_dim(s) for k, s in self.specs.items()}
+        for s in self.specs.values():
+            if any(ax not in (None, "model", "data", ("model",), ("data",))
+                   for ax in s):
+                raise ValueError(f"spec {s}: a leaf splits over 'model' "
+                                 f"and 'data' only")
+        self.dims = {k: axis_dim(s, "model") for k, s in self.specs.items()}
+        self.data_dims = {k: axis_dim(s, "data")
+                          for k, s in self.specs.items()}
         self.group = mesh.group("model")
         self.parts = mesh.shape["model"]
         self.index = mesh.coordinate("model")
+        self.data_parts = mesh.shape.get("data", 1)
+        many = self.data_parts > 1
+        self.data_group = mesh.group("data") if many else None
+        self.data_index = mesh.coordinate("data") if many else 0
+        # the batch axes with more than one rank, and those this step's
+        # batch is split over (``with_batch``)
+        self._rows = {ax: (mesh.group(ax), mesh.shape[ax],
+                           mesh.coordinate(ax)) for ax in ("pod", "data")
+                      if mesh.shape.get(ax, 1) > 1}
+        self.batch_axes: Tuple[str, ...] = ()
 
     @classmethod
     def of(cls, partitioner: "ModelPartitioner", named_shapes, mesh):
@@ -516,34 +596,78 @@ class ModelShards:
                  for k, shape in named_shapes.items()}
         return cls(specs, named_shapes, mesh)
 
+    @classmethod
+    def of_model(cls, model, mesh):
+        """An LM's shards on a production mesh, each leaf's spec decided
+        on the JAX package's layout (``layout_specs``)."""
+        from repro_torch.bridge import tree_leaves
+        shapes = {path: tuple(shape) for path, (shape, _) in
+                  tree_leaves(model.param_shapes())}
+        return cls(layout_specs(shapes, model.jax_layout, mesh), shapes,
+                   mesh)
+
     def dim(self, name) -> Optional[int]:
         return self.dims.get(name)
 
     def local_shape(self, name) -> Tuple[int, ...]:
-        return local_shape(self.shapes[name], self.specs[name], self.parts)
+        shape = list(self.shapes[name])
+        for d, parts in ((self.dims.get(name), self.parts),
+                         (self.data_dims.get(name), self.data_parts)):
+            if d is not None:
+                shape[d] //= parts
+        return tuple(shape)
 
     def local(self, name, full, batch_dims: int = 0):
         """This rank's shard of the whole leaf ``full``."""
-        return shard_of(full, self.specs[name], self.parts, self.index,
-                        batch_dims)
+        out = full
+        for d, parts, index in (
+                (self.dims.get(name), self.parts, self.index),
+                (self.data_dims.get(name), self.data_parts,
+                 self.data_index)):
+            if d is not None:
+                d += batch_dims
+                n = out.shape[d] // parts
+                at = [slice(None)] * len(out.shape)
+                at[d] = slice(index * n, (index + 1) * n)
+                out = out[tuple(at)]
+        return out
+
+    def model_part(self, name, local: torch.Tensor, batch_dims: int = 0):
+        """This rank's shard of the leaf on ``model`` (its data parts
+        gathered), differentiably."""
+        d = self.data_dims.get(name)
+        if d is None or self.data_group is None:
+            return local
+        return _GatherData.apply(local, d + batch_dims, self.data_group,
+                                 self.data_parts, self.data_index)
 
     def gather(self, name, local: torch.Tensor, batch_dims: int = 0):
         """The whole leaf from this rank's shard, differentiably (the
         gradient comes back as this rank's slice of it)."""
-        if self.dims.get(name) is None:
-            return local
-        return _Gather.apply(local, self.specs[name], self.group,
-                             self.parts, self.index, batch_dims)
+        part = self.model_part(name, local, batch_dims)
+        d = self.dims.get(name)
+        if d is None or self.group is None:
+            return part
+        return _Gather.apply(part, d + batch_dims, self.group, self.parts,
+                             self.index)
 
     def gather_exact(self, name, local: torch.Tensor, batch_dims: int = 0):
         """``gather`` outside autograd (snapshots, results)."""
-        return gather(local, self.specs[name], self.group, self.parts,
-                      self.index, batch_dims)
+        d = self.data_dims.get(name)
+        if d is not None and self.data_group is not None:
+            local = _gather_along(local, d + batch_dims, self.data_group,
+                                  self.data_parts, self.data_index,
+                                  DATA_CALLS)
+        d = self.dims.get(name)
+        if d is None or self.group is None:
+            return local
+        return _gather_along(local, d + batch_dims, self.group, self.parts,
+                             self.index, MODEL_CALLS)
 
     def gathered(self, sub, prefix: Tuple = (), keep=()):
         """``sub`` (a dict or list sub-tree at path ``prefix``) with every
         split leaf gathered but those whose relative path is in ``keep``
-        (tuples of keys)."""
+        (tuples of keys), which get their ``model_part``."""
         if isinstance(sub, dict):
             return {k: self.gathered(v, prefix + (k,),
                                      [p[1:] for p in keep if p[:1] == (k,)])
@@ -553,14 +677,100 @@ class ModelShards:
                                   [p[1:] for p in keep if p[:1] == (i,)])
                     for i, v in enumerate(sub)]
         if () in keep:
-            return sub
+            return self.model_part(prefix, sub)
         return self.gather(prefix, sub)
 
     def all_split(self, prefix: Tuple, dims: Dict[str, int]) -> bool:
         """Whether each leaf ``prefix + (name,)`` of ``dims`` is split on
-        the dim given (the layout a tensor-parallel layer needs)."""
+        the dim given over ``model`` (the layout a tensor-parallel layer
+        needs)."""
         return all(self.dims.get(prefix + (k,)) == d
                    for k, d in dims.items())
+
+    def with_batch(self, axes) -> "ModelShards":
+        """These shards for a step whose batch rows are split over
+        ``axes`` (``token_spec``'s batch axes, or None)."""
+        out = copy.copy(self)
+        out.batch_axes = tuple(ax for ax in (axes or ()) if ax in self._rows)
+        return out
+
+    def all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (this rank's rows of the batch, dim 0) with every batch
+        rank's rows, in the batch's order, differentiably: where a layer
+        mixes the rows (the MoE dispatch's capacity and aux loss), it
+        sees the whole batch as the JAX package's step does. The backward
+        sums each rank's gradient over the batch ranks (``_GatherData``):
+        every rank then holds the whole batch's gradient of its rows, which
+        ``BatchMean`` divides by the ranks as it does the others."""
+        for ax in reversed(self.batch_axes):            # data, then pod
+            group, parts, index = self._rows[ax]
+            x = _GatherData.apply(x, 0, group, parts, index)
+        return x
+
+    def own_rows(self, y: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's ``n`` rows of a whole batch's ``y`` (dim 0)."""
+        i = 0
+        for ax in self.batch_axes:
+            _, parts, index = self._rows[ax]
+            i = i * parts + index
+        return y[i * n:(i + 1) * n]
+
+    def batch_mean(self, mesh, layout):
+        """The production step's sums over the batch ranks for a
+        ``bridge.GroupedLayout`` of this rank's shards whose groups list
+        the leaves kept whole on ``data`` first (``fsdp_layout``)."""
+        counts = tuple(sum(math.prod(s) for k, s in zip(g.names, g.shapes)
+                           if self.data_dims.get(k) is None)
+                       for g in layout.groups)
+        return BatchMean(mesh, counts)
+
+    def fsdp_layout(self, layout):
+        """``layout`` (a ``bridge.GroupedLayout`` of this rank's shards)
+        with each group's leaves kept whole on ``data`` first, then those
+        split on it, each part in its order."""
+        groups = []
+        for g in layout.groups:
+            order = sorted(range(len(g.names)), key=lambda i: (
+                self.data_dims.get(g.names[i]) is not None, i))
+            groups.append(dataclasses.replace(
+                g, names=tuple(g.names[i] for i in order),
+                shapes=tuple(g.shapes[i] for i in order)))
+        return dataclasses.replace(layout, groups=tuple(groups))
+
+
+class BatchMean:
+    """The production step's mean over its batch ranks (the ranks of
+    ``pod`` x ``data``, each with its rows of a microbatch): ``grads``
+    turns each rank's gradient buffers (one a dtype group, the leaves
+    kept whole on ``data`` first, ``whole`` elements of each) into the
+    whole microbatch's mean in place. A leaf split on ``data`` has its
+    data ranks' sum already, this rank's slice of it, from its gather's
+    backward (``_GatherData``); so only the whole leaves are summed over
+    ``data``, then every leaf over ``pod`` (which replicates phi), in
+    fp32, and divided by the batch ranks. ``losses`` averages the
+    losses alike."""
+
+    def __init__(self, mesh, whole: Tuple[int, ...]):
+        def group(ax):
+            return mesh.group(ax) if mesh.shape.get(ax, 1) > 1 else None
+        self.data, self.pod = group("data"), group("pod")
+        self.ranks = mesh.shape.get("data", 1) * mesh.shape.get("pod", 1)
+        self.whole = whole
+
+    def grads(self, bufs) -> None:
+        for g, n in zip(bufs, self.whole):
+            s = g.float() if g.dtype != torch.float32 else g
+            if n:
+                all_reduce(s[:n], self.data)
+            all_reduce(s, self.pod)
+            s.div_(self.ranks)
+            if s is not g:
+                g.copy_(s)
+
+    def losses(self, t: torch.Tensor) -> torch.Tensor:
+        all_reduce(t, self.data)
+        all_reduce(t, self.pod)
+        return t.div_(self.ranks)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -765,6 +975,39 @@ def param_spec(path: str, shape: Tuple[int, ...], mesh) -> Tuple:
                 _, best = max(cands)
                 assign(best, data_ax)
     return tuple(spec)
+
+
+def jax_layout_specs(named_shapes, layout, rule, cache: bool = False):
+    """A tree given as ``{port path: shape}`` (an LM's params, or with
+    ``cache`` its decode cache) in the JAX package's ``layout``
+    (``Model.jax_layout``; ``bridge.jax_layout_map``), each leaf's spec
+    decided where the JAX package decides it: ``rule(JAX path, shape)``
+    on the JAX leaf, whose scan stacks carry the layers along a leading
+    dim (so the FSDP threshold reads the stacked leaf's bytes). Returns
+    ``{"a/b/c": (shape, spec, a port path stacked into it)}`` and
+    ``{port path: spec}``, each layer taking its stack's spec without
+    the stack dim."""
+    from repro_torch.bridge import jax_layout_map
+    jax, port = {}, {}
+    for jpath, (stacked, members) in jax_layout_map(
+            list(named_shapes), layout, cache).items():
+        shape = tuple(named_shapes[members[0]])
+        if stacked:
+            shape = (len(members),) + shape
+        name = "/".join(map(str, jpath))
+        spec = tuple(rule(name, shape))
+        jax[name] = (shape, spec, members[0])
+        for m in members:
+            port[m] = spec[1:] if stacked else spec
+    return jax, port
+
+
+def layout_specs(named_shapes, layout, mesh):
+    """``{port path: spec}`` of an LM's params given as ``{port path:
+    shape}`` under ``param_spec`` on ``mesh``, decided on the JAX layout
+    (``jax_layout_specs``)."""
+    return jax_layout_specs(named_shapes, layout, lambda name, shape:
+                            param_spec(name, shape, mesh))[1]
 
 
 def param_shardings(params, mesh):

@@ -1,6 +1,7 @@
 """Step builders: the paper's technique (a TinyReptile round) as the LM
-train step, the port of the JAX package's ``runtime/steps.py`` on its
-single-device route.
+train step, the port of the JAX package's ``runtime/steps.py``: on one
+device, on a ``data`` mesh and on the production ``("data", "model")``
+mesh (``make_meta_train_step(mesh=)``).
 
 ``make_meta_train_step`` is TinyReptile with one client per round, built
 from the round engine's building blocks (``core/engine.py``):
@@ -27,13 +28,15 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
 
-from repro_torch.bridge import tree_leaves, unflatten_tree
+from repro_torch.bridge import GroupedLayout, tree_leaves, unflatten_tree
 from repro_torch.core.engine import streaming_sgd
 from repro_torch.core.pipeline import prefetch_items
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs import GraphStep, weak_method
 from repro_torch.kernels.ops import tree_meta_update
 from repro_torch.runtime.flags import feature, feature_scope
+from repro_torch.runtime.shardctx import model_shards_scope
+from repro_torch.runtime.sharding import ModelShards, token_spec
 
 
 def data_rows(batch, mesh, axis: str):
@@ -45,6 +48,23 @@ def data_rows(batch, mesh, axis: str):
     return {k: v[:, i * rows:(i + 1) * rows] for k, v in batch.items()}
 
 
+def batch_rows(batch, mesh):
+    """This rank's rows of each microbatch on a production mesh, and the
+    axes they split over: the leaves are (K, mb, ...), split over the
+    batch axes (``pod``, then ``data``) as ``token_spec`` splits them, or
+    whole on every rank (axes None) when those axes do not divide mb."""
+    mb = next(iter(batch.values())).shape[1]
+    axes = token_spec(mesh, mb, extra_dims=1, leading=1)[1]
+    if axes is None:
+        return batch, None
+    n, i = 1, 0
+    for ax in axes:
+        i = i * mesh.shape[ax] + mesh.coordinate(ax)
+        n *= mesh.shape[ax]
+    rows = mb // n
+    return {k: v[:, i * rows:(i + 1) * rows] for k, v in batch.items()}, axes
+
+
 def make_meta_train_step(model, *, beta: float = 0.01, alpha: float = 0.5,
                          mesh=None) -> Callable:
     """TinyReptile round. batch: {"tokens": (K, mb, S), "labels": ...}.
@@ -53,14 +73,36 @@ def make_meta_train_step(model, *, beta: float = 0.01, alpha: float = 0.5,
     first and last inner losses as fp32 tensors on the device. ``alpha``
     is a float or a one-element fp32 tensor on phi's device.
 
-    ``mesh`` (a ``ProcessMesh`` with a ``data`` axis: the JAX launcher's
-    ``--mesh data``, the cohort step) splits each microbatch over the
-    data axis's ranks: each takes its rows (``data_rows``) and the inner
-    step's gradient is summed to the whole microbatch's mean on every
-    rank (``streaming_sgd(group=)``), so phi stays the same on every
-    rank. The JAX package also shards leaves over 32 MB on ``data``
-    (FSDP), which saves memory only; here they stay whole on every rank.
+    ``mesh`` (a ``ProcessMesh``):
+
+    - with a ``data`` axis only (the JAX launcher's ``--mesh data``, the
+      cohort step): each microbatch splits over the data axis's ranks;
+      each takes its rows (``data_rows``) and the inner step's gradient
+      is summed to the whole microbatch's mean on every rank
+      (``streaming_sgd(group=)``), so phi stays the same on every rank.
+      phi is whole on every rank, as the JAX launcher places it
+      (replicated, ``src/repro/launch/train.py``);
+    - the production mesh, ``("data", "model")`` or ``("pod", "data",
+      "model")`` (``launch/mesh.py::make_production_mesh``): phi is this
+      rank's shards, each leaf split as the JAX package's production
+      rules split it (``ModelShards.of_model``: tensor parallelism on
+      ``model``, FSDP on ``data`` for a leaf whose share of a model shard
+      passes ``FSDP_THRESHOLD_BYTES``, replicated over ``pod``), and the
+      step returns this rank's shards. Each microbatch splits over the
+      batch ranks (``batch_rows``); the model computes tensor-parallel
+      where it has the form, gathering a leaf's data parts where a
+      layer uses it; a MoE block dispatches the whole batch's tokens
+      (``ModelShards.all_rows``), as the JAX step does. Each inner step
+      runs ``online_sgd`` on each dtype
+      group's flat buffer of the rank's shards, and the interpolation
+      ``meta_update`` on them. A gradient is summed over the batch ranks
+      once: over ``data`` by the backward of a leaf's gather where the
+      leaf is split there, by ``BatchMean`` where it is whole, and over
+      ``pod`` by ``BatchMean``. The losses are averaged over the batch
+      ranks.
     """
+    if mesh is not None and "model" in mesh.axis_names:
+        return _production_step(model, beta, alpha, mesh)
     group = mesh.group("data") if mesh is not None else None
 
     def step(phi, batch, alpha=alpha):
@@ -72,6 +114,24 @@ def make_meta_train_step(model, *, beta: float = 0.01, alpha: float = 0.5,
         return new_phi, {"loss": losses.mean(), "inner_first": losses[0],
                          "inner_last": losses[-1]}
 
+    return step
+
+
+def _production_step(model, beta, alpha, mesh) -> Callable:
+    shards = ModelShards.of_model(model, mesh)
+
+    def step(phi, batch, alpha=alpha):
+        layout = shards.fsdp_layout(GroupedLayout.of_tree(phi))
+        rows, axes = batch_rows(batch, mesh)
+        with model_shards_scope(shards.with_batch(axes)):
+            phi_hat, losses = streaming_sgd(
+                model.loss_fn, phi, rows, beta, layout=layout,
+                reduce=shards.batch_mean(mesh, layout))
+        new_phi = tree_meta_update(phi, phi_hat, alpha, layout)
+        return new_phi, {"loss": losses.mean(), "inner_first": losses[0],
+                         "inner_last": losses[-1]}
+
+    step.shards = shards
     return step
 
 
