@@ -400,14 +400,43 @@ Phases, each printing one JSON line, in this order:
     the single-rank step's, the data and model groups' collectives, and
     the online_sgd and meta_update launches.
 
+39. slice 22, the production prefill, decode and joint steps, on slice
+    21's ranks after their meta step, each against its single-rank step
+    on the card (this process, from the same draw, before the ranks'
+    go). ``production_decode_tinyllama``: decode_32k cut to 16 rows (the
+    cut on its line), its 32,768 positions kept, K and V drawn to
+    position 16,380 a layer and a block of 1,024 positions at a time (a
+    rank draws its own slice alone), 8 steps across the model ranks'
+    boundary at 16,384 at an int32 cursor on the card; each rank's cache
+    exactly 2,952,790,016 bytes (the specs' bytes a chip too), its
+    logits held to an fp32 run of the same weights, cache and tokens
+    within the single-rank bf16 step's own distance from it plus 4 bf16
+    steps of the largest logit (the distance from the single-rank step
+    printed beside), flash_decode launched on every rank; peaks, step
+    seconds and the gloo bytes a step by group.
+    ``production_prefill_tinyllama``: 4 x 4,096 tokens, each rank's rows'
+    logits held alike. ``production_joint_tinyllama``: one AdamW step on
+    4 x 256 tokens; params within 4 bf16 steps and AdamW's mu and nu
+    within 4 bf16 steps of each leaf's largest entry of the single-rank
+    update of the same shards (from the single-rank gradient), at most
+    1 entry in 10^4 of each outside, a param's within 2 lr.
+    ``production_decode_reduced``: the reduced mixtral and zamba2 (fp32,
+    4 layers) prefill and decode 6 steps across their slice boundary,
+    against the CPU port's single-rank steps within 2e-4 of the largest
+    entry. The kernel phases also hold flash_decode's slice route
+    (``offset``, the log-sum-exp out) against its plain version in both
+    dtypes on both routes: a slice in the middle of the stretch, one
+    holding the window's edge, an empty one, a ring slot, and 2 and 4
+    slices merged against the whole call.
+
 The order: the kernel phases, the levers (35) and slice 19 (36) run
 first, with nothing beside them. Then three streams run at once, each in
 a process of its own on the card (STREAMS): this process runs slice
 17's two engine phases (34), 27 and 28; ``decode_lm`` runs 4-6,
 ``train_lm_fleet`` (34) and 23's dense LM; ``sine`` runs 7-13b, 24-26,
 18-20, 29, 14-17 and 21-23's mamba2 LM. A stream's lines are printed when it ends, each with its
-``stream``. Slice 20 (37) and slice 21 (38) run once they are done; the
-families (30-33) run last, alone on the card.
+``stream``. Slice 20 (37) and slices 21 and 22 (38, 39) run once they
+are done; the families (30-33) run last, alone on the card.
 
 The CPU references that depend only on a seed or an argv (the engine LM
 runs' first rounds, the partial wire's, the pool's and the pool drift's
@@ -3259,7 +3288,154 @@ def phase_kernels_decode(torch, np, ops, ref, rows):
         rows[f"flash_decode/path_run_mean{suffix}"] = row
         emit({"phase": "kernel", "kernel": "flash_decode",
               "case": f"path_run_mean{suffix}", **row})
+    fd_slice_rows(torch, np, ops, ref, rows)
     return rows
+
+
+# slice 22: flash_decode over one rank's slice of a cache split on its
+# sequence, with its log-sum-exp out. The production decode's shape
+# (tinyllama-1.1b, 8 rows a rank, a cache of 32,768 positions) cut into
+# FD_SLICE_PARTS slices: (name, whole cache (B, H, Kv, hd, S), parts,
+# slice, L, window); the ring is starcoder2-15b's 4,096-row ring in two
+FD_SLICE_WHOLE = (8, 32, 4, 64, 32768)
+FD_SLICE_CASES = (
+    ("mid", FD_SLICE_WHOLE, 4, 1, 24000, 0),          # all its rows
+    ("window_edge", FD_SLICE_WHOLE, 4, 2, 30000, 8192),
+    ("empty", FD_SLICE_WHOLE, 4, 3, 16387, 0),        # nothing attended
+    ("ring", (8, 48, 4, 128, 4096), 2, 1, 4096, 0),   # a full ring's slot
+)
+# the merge of every slice's partials against one call over the whole
+# cache: (parts, L, window)
+FD_MERGES = ((2, 16387, 0), (4, 16387, 0), (4, 30000, 8192))
+
+
+def merge_slices(torch, outs, lses):
+    """``models/attention.py::merge_partials``'s arithmetic over slices
+    held in one process: fp32, each weighted by e^(lse - max lse)."""
+    lse = torch.stack(lses)
+    m = lse.max(0).values
+    w = torch.exp(lse - m)
+    out = (torch.stack([o.float() for o in outs]) * w[..., None]).sum(0)
+    return out / w.sum(0)[..., None], m + torch.log(w.sum(0))
+
+
+def fd_slice_rows(torch, np, ops, ref, rows):
+    """The slice route against ``ref.flash_decode(offset=, return_lse=)``
+    in both dtypes on both routes (the device-L route bit-equal to the
+    host int), each case timed beside its bound (the K and V bytes of
+    its attended local rows, q read, the output and the log-sum-exp
+    written) and ``scaled_dot_product_attention`` over the same rows
+    (no log-sum-exp; none for the empty slice); then the merge of 2 and
+    4 slices against the whole call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import local_stretch
+    dev = torch.device("cuda")
+    for i, (case, whole, parts, at, L, w) in enumerate(FD_SLICE_CASES):
+        B, H, Kv, hd, S = whole
+        n = S // parts
+        drawn = fd_inputs(torch, np, (B, H, Kv, hd, n), torch.float32,
+                          300 + i, dev)
+        for dt in ("bfloat16", "float32"):
+            q, k, v = (t.to(getattr(torch, dt)) for t in drawn)
+            off = at * n
+            got, lse = ops.flash_decode(q, k, v, L, window=w, offset=off,
+                                        return_lse=True)
+            want, want_lse = ref.flash_decode(q, k, v, L, window=w,
+                                              offset=off, return_lse=True)
+            length = torch.tensor([L], dtype=torch.int32, device=dev)
+            got_d, lse_d = ops.flash_decode(q, k, v, length, window=w,
+                                            offset=off, return_lse=True)
+            torch.cuda.synchronize()
+            tag = f"slice_{case}_{'x'.join(map(str, whole))}_{dt}"
+            check(torch.equal(got_d, got) and torch.equal(lse_d, lse),
+                  f"flash_decode {tag}: the device-L route differs from "
+                  f"the host-int call")
+            lo, hi = local_stretch(L, w, off, n)
+            tol = FD_TOL[dt]
+            atol = tol * min(1.0, max(want.abs().max().item(), 1e-30))
+            torch.testing.assert_close(got.float(), want, rtol=tol,
+                                       atol=atol)
+            if hi > lo:
+                torch.testing.assert_close(lse, want_lse, rtol=tol,
+                                           atol=tol)
+            else:
+                check(torch.equal(lse, want_lse) and not got.any(),
+                      f"flash_decode {tag}: an empty slice must give 0 and "
+                      f"-inf")
+            elem = q.element_size()
+            moved = (2 * B * (hi - lo) * Kv * hd * elem
+                     + (2 * B * H * hd * elem if hi > lo else
+                        B * H * hd * elem) + B * H * 4)
+            nops = 4 * B * H * (hi - lo) * hd
+            t_bytes = moved / HBM_BYTES_PER_S
+            t_ops = nops / (FP32_OPS_PER_S if dt == "float32"
+                            else BF16_OPS_PER_S)
+            view = (q.view(B, H, 1, hd), k[:, lo:hi].transpose(1, 2),
+                    v[:, lo:hi].transpose(1, 2))
+            row = {"shape_BHKvhdS": [B, H, Kv, hd, n], "whole_S": S,
+                   "offset": off, "dtype": dt, "L": L, "window": w,
+                   "local_lo_hi": [lo, hi], "route": "host_int",
+                   "rtol": tol, "atol": atol,
+                   "max_abs_err": (got.float() - want).abs().max().item(),
+                   "lse_max_abs_err": (
+                       (lse - want_lse).abs().max().item() if hi > lo
+                       else 0.0),
+                   "device_L_bit_equal": True,
+                   "ms": cuda_ms(torch, lambda: ops.flash_decode(
+                       q, k, v, L, window=w, offset=off, return_lse=True),
+                       100),
+                   **device_ms(torch, lambda: ops.flash_decode(
+                       q, k, v, L, window=w, offset=off, return_lse=True)),
+                   **device_ms(torch, lambda: ops.flash_decode(
+                       q, k, v, length, window=w, offset=off,
+                       return_lse=True), "device_L_device_ms"),
+                   "plain_ms": cuda_ms(torch, lambda: ref.flash_decode(
+                       q, k, v, L, window=w, offset=off, return_lse=True),
+                       20),
+                   "library_ms": None, "library_device_ms": None,
+                   "bound_ms": 1e3 * max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "bytes": moved, "flop": nops}
+            if hi > lo:
+                row["library_ms"] = cuda_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        *view, enable_gqa=True), 100)
+                row.update(device_ms(
+                    torch, lambda: F.scaled_dot_product_attention(
+                        *view, enable_gqa=True), "library_device_ms"))
+            rows[f"flash_decode/{tag}"] = row
+            emit({"phase": "kernel", "kernel": "flash_decode", "case": tag,
+                  **row})
+    whole_inputs = {dt: fd_inputs(torch, np, FD_SLICE_WHOLE,
+                                  getattr(torch, dt), 400, dev)
+                    for dt in ("bfloat16", "float32")}
+    for parts, L, w in FD_MERGES:
+        for dt in ("bfloat16", "float32"):
+            B, H, Kv, hd, S = FD_SLICE_WHOLE
+            q, k, v = whole_inputs[dt]
+            whole = ops.flash_decode(q, k, v, L, window=w)
+            want = ref.flash_decode(q, k, v, L, window=w)
+            n = S // parts
+            outs, lses = zip(*(ops.flash_decode(
+                q, k[:, j * n:(j + 1) * n].contiguous(),
+                v[:, j * n:(j + 1) * n].contiguous(), L, window=w,
+                offset=j * n, return_lse=True) for j in range(parts)))
+            merged, _ = merge_slices(torch, outs, lses)
+            torch.cuda.synchronize()
+            tol = FD_TOL[dt]
+            atol = tol * min(1.0, want.abs().max().item())
+            torch.testing.assert_close(merged, want, rtol=tol, atol=atol)
+            tag = f"merge{parts}_L{L}_w{w}_{dt}"
+            row = {"shape_BHKvhdS": list(FD_SLICE_WHOLE), "parts": parts,
+                   "L": L, "window": w, "dtype": dt, "rtol": tol,
+                   "atol": atol,
+                   "max_abs_err": (merged - want).abs().max().item(),
+                   "vs_whole_kernel_max_abs_diff": (
+                       merged - whole.float()).abs().max().item()}
+            rows[f"flash_decode/{tag}"] = row
+            emit({"phase": "kernel", "kernel": "flash_decode",
+                  "case": tag, **row})
 
 
 def decode_steps(args):
@@ -7468,6 +7644,467 @@ def prod_moe_rank(torch, np, mods, mesh):
                                    for d in shards.dims.values())}}
 
 
+# slice 22: the production prefill, decode and joint steps, on the same
+# ranks, after the meta step. tinyllama-1.1b at full width and depth:
+# decode_32k cut to 16 rows (its 128 rows' cache would be 94.5 GB) with
+# its 32,768 positions kept, K and V drawn up to position PROD_FILL (one
+# generator a layer and a block of PROD_FILL_BLOCK positions, so a rank
+# draws its own slice alone), then PROD_DECODE_STEPS steps across the
+# model ranks' boundary at 16,384; each rank's cache is exactly
+# PROD_CACHE_BYTES (8 rows x 16,384 positions x 4 KV heads x 64 x 2 B x 2
+# x 22 layers)
+PROD_DECODE_BATCH, PROD_DECODE_SEQ = 16, 32768
+PROD_FILL, PROD_FILL_BLOCK, PROD_DECODE_STEPS = 16380, 1024, 8
+PROD_CACHE_BYTES = 2_952_790_016
+PROD_DECODE_CUT = ("decode_32k cut in batch: 16 rows (the cell's: 128, "
+                   "whose cache would be 94.5 GB); its 32,768 positions "
+                   "kept")
+PROD_PREFILL_SHAPE = (4, 4096)
+PROD_PREFILL_CUT = ("prefill_32k cut in rows and length: 4 x 4,096 tokens "
+                    "(the cell's: 32 x 32,768)")
+# one AdamW step on the meta phase's microbatch, 4 x 256 tokens
+PROD_JOINT_SHAPE = (4, 256)
+PROD_JOINT_LR = JOINT_LR_HIGH
+PROD_LOGIT_STEPS = 4           # bf16 steps of the largest logit
+# the decode and prefill logits are held to an fp32 run of the same
+# weights, cache and tokens (the single-rank steps in fp32): the ranks'
+# within the single-rank bf16 step's own distance from it plus
+# PROD_LOGIT_STEPS bf16 steps of the largest logit. The single-rank bf16
+# step itself lies farther than 4 bf16 steps of the largest logit from
+# that run (PERF.md): bf16 rounding through 22 random layers, read at the
+# largest of 512k logits; so 4 bf16 steps against the single-rank step
+# alone sits below the bf16 path's own error. That distance is printed
+# beside (vs_single_rank)
+PROD_STATE_OUTLIERS = 1e-4     # AdamW's step sign near a zero gradient
+# the reduced mixtral (MoE) and zamba2 (hybrid: the ssm state split on
+# heads, ssd_scan in its prefill, the shared block's cache) on the same
+# mesh, fp32 at 4 layers, FSDP threshold lowered, against the CPU port's
+# single-rank steps: prefill (4 x 32), decode of 4 rows from a seeded
+# cache of 32 positions, 6 steps from 13, across the slice boundary;
+# within PROD_REDUCED_TOL of the largest entry (the fp32 kernels' 3e-4
+# against their plain versions, less: most of a logit is plain GEMMs)
+PROD_REDUCED = ("mixtral-8x22b", "zamba2-1.2b")
+PROD_REDUCED_SHAPE = dict(batch=4, seq=32, start=13, steps=6, prefill=32)
+PROD_REDUCED_TOL = 2e-4
+
+
+def bf16_steps(x, n):
+    """n steps of bf16 (8 significant bits) at |x|."""
+    return n * 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def prod_decode_tokens(np, vocab):
+    r = np.random.default_rng(PROD_SEED + 1)
+    return r.integers(0, vocab, (PROD_DECODE_STEPS, PROD_DECODE_BATCH, 1))
+
+
+def prod_fill_cache(torch, cache, rows, offset):
+    """K and V of every layer at the global positions below PROD_FILL that
+    fall in this part of the cache (its batch ``rows``, its sequence from
+    ``offset``), drawn on the card a layer and a block of PROD_FILL_BLOCK
+    positions at a time from a generator seeded by both, so that every
+    part of the cache draws the whole cache's numbers."""
+    S = cache["layers"][0]["k"].shape[1]
+    for li, entry in enumerate(cache["layers"]):
+        shape = (PROD_DECODE_BATCH, PROD_FILL_BLOCK) + tuple(
+            entry["k"].shape[2:])
+        for j in range(-(-PROD_FILL // PROD_FILL_BLOCK)):
+            p0 = j * PROD_FILL_BLOCK
+            a = max(p0, offset)
+            b = min(p0 + PROD_FILL_BLOCK, PROD_FILL, offset + S)
+            if a >= b:
+                continue
+            gen = torch.Generator(device="cuda").manual_seed(
+                PROD_SEED * 100_000 + li * 1_000 + j)
+            for name in ("k", "v"):
+                block = torch.randn(shape, generator=gen, device="cuda")
+                entry[name][:, a - offset:b - offset].copy_(
+                    block[rows, a - p0:b - p0])
+
+
+def prod_serve_reference(torch, np, mods, model, phi, workdir):
+    """tinyllama-1.1b's single-rank decode, prefill and joint steps on the
+    card from the meta phase's draw: the decode logits of every step, the
+    prefill logits and the joint step's gradient (from which every rank
+    recomputes the single-rank AdamW update of its shards, elementwise;
+    checked here to give the step's own params and state bit for bit)
+    to ``workdir/serve_ref.pt``. Returns times, peaks and launches."""
+    from repro_torch import optim
+    from repro_torch.runtime.steps import (make_decode_step,
+                                           make_joint_train_step,
+                                           make_prefill_step)
+    bridge, ops = mods["bridge"], mods["ops"]
+    out, saved = {}, {}
+    cache = model.init_cache(PROD_DECODE_BATCH, PROD_DECODE_SEQ, "cuda")
+    prod_fill_cache(torch, cache, slice(None), 0)
+    tokens = torch.from_numpy(prod_decode_tokens(
+        np, model.cfg.vocab_size)).to("cuda")
+    step = make_decode_step(model)
+    cursor = torch.tensor([PROD_FILL], dtype=torch.int32, device="cuda")
+    logits, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        for t in range(PROD_DECODE_STEPS):
+            t0 = time.perf_counter()
+            lg, cache = step(phi, {"tokens": tokens[t], "cache": cache,
+                                   "cache_len": cursor})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            logits.append(lg.cpu())
+            cursor.add_(1)
+    out["decode"] = {"step_s": times, "launches": ops.launch_counts(),
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "cache_bytes": sum(v.numel() * v.element_size() for _, v
+                                        in bridge.tree_leaves(cache))}
+    saved["decode_logits"] = torch.stack(logits)
+    # the same steps, weights and cache in fp32: the cache as it was
+    # before the steps, whose rows from PROD_FILL on were zeros
+    cache32 = {"layers": [{k: v.float() for k, v in e.items()}
+                          for e in cache["layers"]]}
+    del cache
+    for e in cache32["layers"]:
+        for v in e.values():
+            v[:, PROD_FILL:].zero_()
+    torch.cuda.empty_cache()
+    m32 = mods["build_model"](dataclasses.replace(model.cfg,
+                                                  dtype="float32"))
+    p32 = bridge.unflatten_tree({k: v.float() for k, v in
+                                 bridge.tree_leaves(phi)})
+    step32, logits = make_decode_step(m32), []
+    with torch.no_grad():
+        for t in range(PROD_DECODE_STEPS):
+            lg, cache32 = step32(p32, {"tokens": tokens[t], "cache": cache32,
+                                       "cache_len": PROD_FILL + t})
+            logits.append(lg.cpu())
+    saved["decode_logits_fp32"] = torch.stack(logits)
+    del cache32
+    torch.cuda.empty_cache()
+    batch = prod_batch(torch, np, model.cfg.vocab_size, PROD_PREFILL_SHAPE,
+                       3, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    saved["prefill_logits"] = make_prefill_step(model)(
+        phi, {"tokens": batch["tokens"]}).cpu()
+    out["prefill"] = {"step_s": time.perf_counter() - t0,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    saved["prefill_logits_fp32"] = make_prefill_step(m32)(
+        p32, {"tokens": batch["tokens"]}).cpu()
+    del batch, p32
+    torch.cuda.empty_cache()
+    batch = prod_batch(torch, np, model.cfg.vocab_size, PROD_JOINT_SHAPE, 4,
+                       "cuda")
+    opt = optim.adamw()
+    lr = optim.constant(PROD_JOINT_LR)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new, state, _, met = make_joint_train_step(model, opt, lr)(
+        phi, opt.init(phi), 0, batch)
+    torch.cuda.synchronize()
+    out["joint"] = {"step_s": time.perf_counter() - t0,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "loss": met["loss"].item()}
+    # the gradient, from the step's first moment (mu = (1 - b1) g from a
+    # zero state, exact to invert to bf16), and the update it gives
+    grads = bridge.unflatten_tree({
+        k: (v / (1 - 0.9)).to(torch.bfloat16)
+        for k, v in bridge.tree_leaves(state.mu)})
+    again, again_state = opt.update(grads, opt.init(phi), phi,
+                                    lr(0))
+    check(all(torch.equal(a, b) for (_, a), (_, b) in zip(
+        bridge.tree_leaves([again, again_state.mu, again_state.nu]),
+        bridge.tree_leaves([new, state.mu, state.nu]))),
+        "production_joint_tinyllama: the single-rank update is not "
+        "recovered from its gradient")
+    saved["joint_grads"] = {"/".join(map(str, k)): v.cpu()
+                            for k, v in bridge.tree_leaves(grads)}
+    saved["joint_loss"] = out["joint"]["loss"]
+    del new, state, grads, again, again_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save(saved, Path(workdir) / "serve_ref.pt")
+    return out
+
+
+def vs_references(torch, got, single, fp32):
+    """Logits against the single-rank bf16 step's and the fp32 run's: the
+    distances (max abs), the tolerance (the single-rank step's own
+    distance from the fp32 run plus PROD_LOGIT_STEPS bf16 steps of the
+    largest logit) and whether it holds."""
+    steps = bf16_steps(fp32.abs().max().item(), PROD_LOGIT_STEPS)
+    single_fp32 = (single - fp32).abs().max().item()
+    vs_fp32 = (got - fp32).abs().max().item()
+    vs_single = got - single
+    return {"max_abs_logit": fp32.abs().max().item(),
+            "vs_fp32": vs_fp32, "single_vs_fp32": single_fp32,
+            "tol": single_fp32 + steps, "bf16_steps": steps,
+            "vs_single_rank": vs_single.abs().max().item(),
+            "vs_single_rank_entries_past_steps": int(
+                (vs_single.abs() > steps).sum().item()),
+            "entries": got.numel(),
+            "ok": bool(torch.isfinite(got).all().item())
+            and vs_fp32 <= single_fp32 + steps}
+
+
+def prod_serve_rank(torch, np, mods, mesh, model, local, workdir):
+    """tinyllama-1.1b's production decode, prefill and joint steps on this
+    rank's shards, each held against the single-rank step's
+    (``prod_serve_reference``): the numbers for the phase lines."""
+    from repro_torch import optim
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch.specs import cache_chip_bytes
+    from repro_torch.runtime.steps import (batch_rows, make_decode_step,
+                                           make_joint_train_step,
+                                           make_prefill_step)
+    bridge, ops, sh = mods["bridge"], mods["ops"], mods["sh"]
+    ref = torch.load(Path(workdir) / "serve_ref.pt", mmap=True)
+    out = {}
+
+    def calls():
+        return {"model": dict(sh.MODEL_CALLS), "data": dict(sh.DATA_CALLS),
+                "merge": dict(sh.MERGE_CALLS),
+                "all_reduce": sh.CALLS["all_reduce"]}
+
+    def delta(before, after):
+        return {g: ({k: (v - before[g][k]) / PROD_DECODE_STEPS
+                     for k, v in after[g].items()} if isinstance(
+                         after[g], dict)
+                    else (after[g] - before[g]) / PROD_DECODE_STEPS)
+                for g in after}
+
+    # decode: this rank's rows and its slice of the cache
+    step = make_decode_step(model, mesh=mesh, batch_size=PROD_DECODE_BATCH,
+                            seq_len=PROD_DECODE_SEQ)
+    cs = step.cache_shards
+    cache = cs.init("cuda")
+    first = cs.seq(("layers", 0, "k"))
+    rows, _ = batch_rows({"r": torch.arange(PROD_DECODE_BATCH)}, mesh,
+                         leading=0)
+    rows = slice(int(rows["r"][0]), int(rows["r"][-1]) + 1)
+    prod_fill_cache(torch, cache, rows, first.offset)
+    tokens = torch.from_numpy(prod_decode_tokens(
+        np, model.cfg.vocab_size)).to("cuda")
+    cursor = torch.tensor([PROD_FILL], dtype=torch.int32, device="cuda")
+    out["cache_bytes"] = sum(v.numel() * v.element_size()
+                             for _, v in bridge.tree_leaves(cache))
+    out["specs_cache_bytes"] = cache_chip_bytes(
+        model.cfg, InputShape("decode_32k_cut", PROD_DECODE_SEQ,
+                              PROD_DECODE_BATCH, "decode"),
+        sh.MeshShape(PROD_MESH[1], PROD_MESH[0]))
+    out["rows"], out["offset"] = [rows.start, rows.stop], first.offset
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    before = calls()
+    times, worst = [], []
+    for t in range(PROD_DECODE_STEPS):
+        t0 = time.perf_counter()
+        lg, cache = step(local, {"tokens": tokens[t, rows], "cache": cache,
+                                 "cache_len": cursor})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        cursor.add_(1)
+        worst.append(vs_references(
+            torch, lg, ref["decode_logits"][t, rows].to("cuda"),
+            ref["decode_logits_fp32"][t, rows].to("cuda")))
+    out["decode"] = {
+        "step_s": times, "launches": ops.launch_counts(),
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "calls_per_step": delta(before, calls()), "vs_single_rank": worst,
+        "shape": list(lg.shape)}
+    del cache
+    torch.cuda.empty_cache()
+
+    # prefill: this rank's rows of 4 x 4,096 tokens
+    batch = prod_batch(torch, np, model.cfg.vocab_size, PROD_PREFILL_SHAPE,
+                       3, "cuda")
+    prefill = make_prefill_step(model, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lg = prefill(local, {"tokens": batch["tokens"]})
+    torch.cuda.synchronize()
+    prow, _ = batch_rows({"r": torch.arange(PROD_PREFILL_SHAPE[0])}, mesh,
+                         leading=0)
+    out["prefill"] = {"step_s": time.perf_counter() - t0,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "shape": list(lg.shape),
+                      **vs_references(
+                          torch, lg,
+                          ref["prefill_logits"][prow["r"]].to("cuda"),
+                          ref["prefill_logits_fp32"][prow["r"]].to("cuda"))}
+    del batch, lg
+    torch.cuda.empty_cache()
+
+    # joint: one AdamW step on this rank's shards and their AdamW state;
+    # the single-rank update of the same shards from the single-rank
+    # gradient (elementwise, so the slice of its whole update)
+    batch = prod_batch(torch, np, model.cfg.vocab_size, PROD_JOINT_SHAPE, 4,
+                       "cuda")
+    opt = optim.adamw()
+    lr = optim.constant(PROD_JOINT_LR)
+    joint = make_joint_train_step(model, opt, lr, mesh=mesh)
+    shards = joint.shards
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    new, state, _, met = joint(local, opt.init(local), 0, batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    g = bridge.unflatten_tree({
+        k: shards.local(k, ref["joint_grads"]["/".join(map(str, k))])
+        .to("cuda") for k, _ in bridge.tree_leaves(local)})
+    want_p, want_s = opt.update(g, opt.init(local), local, lr(0))
+    # each of params, mu and nu: at most PROD_STATE_OUTLIERS of its
+    # entries outside the tolerance (a param's within 2 lr)
+    stats, bad = {}, []
+    for name, got_t, want_t in (("params", new, want_p),
+                                ("mu", state.mu, want_s.mu),
+                                ("nu", state.nu, want_s.nu)):
+        st = stats[name] = {"off": 0, "entries": 0, "max_abs_diff": 0.0,
+                            "max_abs_diff_off": 0.0, "leaves_off": []}
+        for (k, a), (_, b) in zip(bridge.tree_leaves(got_t),
+                                  bridge.tree_leaves(want_t)):
+            a, b = a.float(), b.float()
+            d = (a - b).abs()
+            if name == "params":
+                lim = POD_TOL["atol"] + POD_TOL["rtol"] * b.abs()
+            else:
+                lim = bf16_steps(b.abs().max().item(), PROD_LOGIT_STEPS)
+            off = d > lim
+            n_off = int(off.sum().item())
+            st["off"] += n_off
+            st["entries"] += b.numel()
+            st["max_abs_diff"] = max(st["max_abs_diff"], d.max().item())
+            if n_off:
+                st["max_abs_diff_off"] = max(st["max_abs_diff_off"],
+                                             d[off].max().item())
+                st["leaves_off"].append(("/".join(map(str, k)), n_off))
+        st["leaves_off"] = sorted(st["leaves_off"], key=lambda x: -x[1])[:6]
+        if st["off"] > max(1, PROD_STATE_OUTLIERS * st["entries"]) or (
+                name == "params" and st["max_abs_diff_off"]
+                > 2 * PROD_JOINT_LR):
+            bad.append((name, st["off"], st["entries"],
+                        st["max_abs_diff_off"]))
+    out["joint"] = {"step_s": step_s, "peak_gb": peak,
+                    "loss": met["loss"].item(), "ref_loss": ref["joint_loss"],
+                    "vs_single_rank": stats, "bad": bad}
+    del new, state, g, want_p, want_s, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def prod_reduced_model(mods, arch):
+    return mods["build_model"](dataclasses.replace(
+        mods["get_arch"](arch).reduced(), num_layers=4, dtype="float32"))
+
+
+def prod_reduced_inputs(torch, np, model):
+    """The reduced phase's prefill tokens, decode tokens and whole seeded
+    cache (K and V below the start, the Mamba2 states whole), on the
+    CPU, from seeds."""
+    sh = PROD_REDUCED_SHAPE
+    r = np.random.default_rng(PROD_SEED + 2)
+    prefill = torch.from_numpy(r.integers(0, model.cfg.vocab_size, (
+        sh["batch"], sh["prefill"])))
+    tokens = torch.from_numpy(r.integers(0, model.cfg.vocab_size, (
+        sh["steps"], sh["batch"], 1)))
+    cache = model.init_cache(sh["batch"], sh["seq"], device="cpu")
+    gen = torch.Generator().manual_seed(PROD_SEED + 3)
+    from repro_torch.bridge import tree_leaves
+    for path, leaf in tree_leaves(cache):
+        if path[-1] in ("conv", "ssm"):
+            leaf.copy_(0.5 * torch.randn(leaf.shape, generator=gen))
+        else:
+            leaf[:, :sh["start"]].copy_(torch.randn(
+                leaf[:, :sh["start"]].shape, generator=gen))
+    return prefill, tokens, cache
+
+
+def prod_reduced_reference(torch, np, mods):
+    """The reduced models' single-rank prefill and decode on the CPU:
+    the logits and the cache at the end."""
+    from repro_torch.runtime.steps import make_decode_step, make_prefill_step
+    bridge = mods["bridge"]
+    out = {}
+    for arch in PROD_REDUCED:
+        model = prod_reduced_model(mods, arch)
+        params = model.init(torch.Generator().manual_seed(0), "cpu")
+        prefill, tokens, cache = prod_reduced_inputs(torch, np, model)
+        res = {"prefill": make_prefill_step(model)(
+            params, {"tokens": prefill})}
+        step, logits = make_decode_step(model), []
+        with torch.no_grad():
+            for t in range(PROD_REDUCED_SHAPE["steps"]):
+                lg, cache = step(params, {
+                    "tokens": tokens[t], "cache": cache,
+                    "cache_len": PROD_REDUCED_SHAPE["start"] + t})
+                logits.append(lg)
+        res["decode"] = torch.stack(logits)
+        res["cache"] = {k: v.clone() for k, v in bridge.tree_leaves(cache)}
+        out[arch] = res
+    return out
+
+
+def prod_reduced_rank(torch, np, mods, mesh):
+    """The reduced models' production prefill and decode on this rank's
+    shards on the card (the init drawn on the CPU from seed 0), its
+    logits and its cache gathered whole, to the host."""
+    from repro_torch.runtime.steps import (batch_rows, make_decode_step,
+                                           make_prefill_step)
+    bridge, ops, sh = mods["bridge"], mods["ops"], mods["sh"]
+    shp = PROD_REDUCED_SHAPE
+    out = {}
+    for arch in PROD_REDUCED:
+        model = prod_reduced_model(mods, arch)
+        threshold = sh.FSDP_THRESHOLD_BYTES
+        sh.FSDP_THRESHOLD_BYTES = PROD_MOE_THRESHOLD
+        try:
+            prefill = make_prefill_step(model, mesh=mesh)
+            step = make_decode_step(model, mesh=mesh,
+                                    batch_size=shp["batch"],
+                                    seq_len=shp["seq"])
+        finally:
+            sh.FSDP_THRESHOLD_BYTES = threshold
+        init = model.init(torch.Generator().manual_seed(0), "cpu")
+        local = bridge.unflatten_tree(bridge.shard_tree(
+            bridge.flatten_tree(init), prefill.shards, "cuda"))
+        toks, tokens, whole = prod_reduced_inputs(torch, np, model)
+        cs = step.cache_shards
+        cache = bridge.unflatten_tree({
+            k: cs.local(k, v).contiguous().to("cuda")
+            for k, v in bridge.tree_leaves(whole)})
+        ops.reset_launch_counts()
+        res = {"prefill": prefill(local, {"tokens": toks.to("cuda")}).cpu()}
+        logits = []
+        for t in range(shp["steps"]):
+            rows, _ = batch_rows({"t": tokens[t]}, mesh, leading=0)
+            lg, cache = step(local, {"tokens": rows["t"].to("cuda"),
+                                     "cache": cache,
+                                     "cache_len": shp["start"] + t})
+            logits.append(lg.cpu())
+        torch.cuda.synchronize()
+        res["launches"] = ops.launch_counts()
+        res["decode"] = torch.stack(logits)
+        res["cache"] = {k: v.cpu() for k, v in bridge.tree_leaves(
+            bridge.whole_cache(cache, cs))}
+        rows, _ = batch_rows({"r": torch.arange(shp["batch"])}, mesh,
+                             leading=0)
+        res["rows"] = rows["r"]
+        res["seq_split"] = sum(cs.seq(k) is not None for k in cs.specs
+                               if k[-1] == "k")
+        res["ssm_split"] = sum(cs.specs[k][1] is not None for k in cs.specs
+                               if k[-1] == "ssm")
+        out[arch] = res
+    return out
+
+
 def prod_worker(rank, workdir):
     """Every slice-21 phase in one rank of the PROD_RANKS, on a (2, 2)
     ("data", "model") mesh: the reduced mixtral, then, once the
@@ -7535,6 +8172,14 @@ def prod_worker(rank, workdir):
         worst["leaves"] += 1
     out["vs_single_rank"] = worst
     out["ref_metrics"] = ref["metrics"]
+    del new, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["serve"] = prod_serve_rank(torch, np, mods, mesh, model, local,
+                                   workdir)
+    t0 = time.perf_counter()
+    out["reduced"] = prod_reduced_rank(torch, np, mods, mesh)
+    out["reduced_s"] = time.perf_counter() - t0
     return out
 
 
@@ -7559,8 +8204,10 @@ def start_prod_workers(workdir):
 def prod_reference(torch, np, mods, workdir):
     """tinyllama-1.1b's single-rank step on the card from the same draw
     and batch as the ranks': its leaves and losses to
-    ``workdir/prod_ref.pt``; returns its time, peak memory and
-    launches."""
+    ``workdir/prod_ref.pt``; then, from the same draw, the single-rank
+    decode, prefill and joint steps (``prod_serve_reference``). Returns
+    the meta step's time, peak memory and launches, and the others' under
+    ``serve``."""
     from repro_torch.runtime.steps import make_meta_train_step
     bridge, ops = mods["bridge"], mods["ops"]
     model = mods["build_model"](mods["get_arch"]("tinyllama-1.1b"))
@@ -7582,7 +8229,11 @@ def prod_reference(torch, np, mods, workdir):
     torch.save({"leaves": {"/".join(map(str, k)): v.cpu() for k, v in
                            bridge.flatten_tree(new).items()},
                 "metrics": res["metrics"]}, Path(workdir) / "prod_ref.pt")
-    del phi, new, batch
+    del new, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["serve"] = prod_serve_reference(torch, np, mods, model, phi, workdir)
+    del phi
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -7605,6 +8256,7 @@ def phase_production(torch, np, workdir):
         PROD_ALPHA)
     want = {"/".join(map(str, k)): v.numpy()
             for k, v in bridge.flatten_tree(one).items()}
+    reduced_ref = prod_reduced_reference(torch, np, mods)
     ref = prod_reference(torch, np, mods, workdir)
     (Path(workdir) / "go_tinyllama").touch()
     thread.join()
@@ -7692,6 +8344,133 @@ def phase_production(torch, np, workdir):
           "collectives_rank0": t0r["calls"],
           "launches_per_rank": [r["launches"] for r in outs],
           "launches_single_rank": ref["launches"]})
+    paths.update(prod_serve_lines(torch, np, mods, outs, ref["serve"],
+                                  reduced_ref))
+    return paths
+
+
+def prod_serve_lines(torch, np, mods, outs, ref, reduced_ref):
+    """The slice-22 phases' checks and lines from the ranks' results:
+    ``production_decode_tinyllama``, ``production_prefill_tinyllama``,
+    ``production_joint_tinyllama``, ``production_decode_reduced``.
+    Returns their launches by path."""
+    ops = mods["ops"]
+    paths, fails = {}, []
+
+    def need(cond, msg):               # every phase's line first, then fail
+        if not cond:
+            fails.append(msg)
+
+    mesh = dict(zip(PROD_MESH[1], PROD_MESH[0]))
+    sv = [r["serve"] for r in outs]
+    for r, s in zip(outs, sv):
+        d = s["decode"]
+        need(s["cache_bytes"] == PROD_CACHE_BYTES == s["specs_cache_bytes"],
+             f"production_decode_tinyllama: rank {r['rank']} holds "
+             f"{s['cache_bytes']} cache bytes, the specs give "
+             f"{s['specs_cache_bytes']}, want {PROD_CACHE_BYTES}")
+        for t, w in enumerate(d["vs_single_rank"]):
+            need(w["ok"], f"production_decode_tinyllama: rank {r['rank']} "
+                          f"step {t} logits {w}")
+        need(d["launches"]["flash_decode"] > 0,
+             f"production_decode_tinyllama: rank {r['rank']} launched no "
+             f"flash_decode")
+    paths["production_decode_tinyllama"] = {
+        k: sum(s["decode"]["launches"][k] for s in sv) for k in ops.KERNELS}
+    emit({"phase": "production_decode_tinyllama", "mesh": mesh,
+          "ranks": PROD_RANKS, "backend": "gloo (four ranks share the card)",
+          "config": "tinyllama-1.1b, 22 layers, d_model 2,048, bf16, drawn "
+                    "on the card", "reduced": PROD_DECODE_CUT,
+          "batch": PROD_DECODE_BATCH, "seq": PROD_DECODE_SEQ,
+          "cursor": [PROD_FILL, PROD_FILL + PROD_DECODE_STEPS - 1],
+          "cache_bytes_per_rank": [s["cache_bytes"] for s in sv],
+          "specs_cache_bytes": sv[0]["specs_cache_bytes"],
+          "cache_bytes_single_rank": ref["decode"]["cache_bytes"],
+          "rows_offset_per_rank": [(s["rows"], s["offset"]) for s in sv],
+          "peak_gb_per_rank": [s["decode"]["peak_gb"] for s in sv],
+          "peak_gb_single_rank": ref["decode"]["peak_gb"],
+          "step_s_per_rank": [s["decode"]["step_s"] for s in sv],
+          "step_s_single_rank": ref["decode"]["step_s"],
+          "vs_references_rank0": sv[0]["decode"]["vs_single_rank"],
+          "worst_vs_tol": max(w["vs_fp32"] / w["tol"] for s in sv
+                              for w in s["decode"]["vs_single_rank"]),
+          "gloo_per_step_rank0": sv[0]["decode"]["calls_per_step"],
+          "logits_shape_per_rank": sv[0]["decode"]["shape"],
+          "flash_decode_launches_per_rank": [
+              s["decode"]["launches"]["flash_decode"] for s in sv],
+          "launches_single_rank": ref["decode"]["launches"]})
+
+    for r, s in zip(outs, sv):
+        need(s["prefill"]["ok"], f"production_prefill_tinyllama: rank "
+                                 f"{r['rank']} logits {s['prefill']}")
+    paths["production_prefill_tinyllama"] = {k: 0 for k in ops.KERNELS}
+    emit({"phase": "production_prefill_tinyllama", "mesh": mesh,
+          "reduced": PROD_PREFILL_CUT, "shape_B_S": PROD_PREFILL_SHAPE,
+          "per_rank": [s["prefill"] for s in sv],
+          "step_s_single_rank": ref["prefill"]["step_s"],
+          "peak_gb_single_rank": ref["prefill"]["peak_gb"]})
+
+    for r, s in zip(outs, sv):
+        j = s["joint"]
+        need(not j["bad"], f"production_joint_tinyllama: rank {r['rank']} "
+                           f"against the single-rank step: {j['bad']}")
+        need(math.isfinite(j["loss"]) and abs(j["loss"] - j["ref_loss"])
+             <= POD_TOL["atol"] + POD_TOL["rtol"] * abs(j["ref_loss"]),
+             f"production_joint_tinyllama: loss {j['loss']} vs "
+             f"{j['ref_loss']}")
+    paths["production_joint_tinyllama"] = {k: 0 for k in ops.KERNELS}
+    emit({"phase": "production_joint_tinyllama", "mesh": mesh,
+          "optimizer": f"adamw, constant lr {PROD_JOINT_LR}",
+          "shape_B_S": PROD_JOINT_SHAPE, "tol_params": POD_TOL,
+          "tol_state": f"{PROD_LOGIT_STEPS} bf16 steps of each leaf's "
+                       f"largest entry",
+          "outliers_over": "each of params, mu and nu, whole",
+          "outliers_allowed": PROD_STATE_OUTLIERS,
+          "per_rank": [s["joint"] for s in sv],
+          "single_rank": ref["joint"]})
+
+    lines = {}
+    for arch in PROD_REDUCED:
+        want = reduced_ref[arch]
+        worst = {"prefill": 0.0, "decode": 0.0, "cache": 0.0}
+        for r in outs:
+            got = r["reduced"][arch]
+            rows = got["rows"]
+            for what, g, w in (("prefill", got["prefill"],
+                                want["prefill"][rows]),
+                               ("decode", got["decode"],
+                                want["decode"][:, rows])):
+                err = (g - w).abs().max().item()
+                worst[what] = max(worst[what], err / w.abs().max().item())
+                need(err <= PROD_REDUCED_TOL * w.abs().max().item(),
+                     f"production_decode_reduced: {arch} rank {r['rank']} "
+                     f"{what} {err} from the CPU's")
+            cerr = max((got["cache"][k] - v).abs().max().item()
+                       / max(v.abs().max().item(), 1e-30)
+                       for k, v in want["cache"].items())
+            worst["cache"] = max(worst["cache"], cerr)
+            need(cerr <= PROD_REDUCED_TOL,
+                 f"production_decode_reduced: {arch} rank {r['rank']} "
+                 f"cache {cerr} from the CPU's")
+            need(got["launches"]["flash_decode"] > 0 and (
+                arch != "zamba2-1.2b" or got["launches"]["ssd_scan"] > 0),
+                f"production_decode_reduced: {arch} rank {r['rank']} "
+                f"launches {got['launches']}")
+        g0 = outs[0]["reduced"][arch]
+        lines[arch] = {
+            "seq_split_leaves": g0["seq_split"],
+            "ssm_heads_split_leaves": g0["ssm_split"],
+            "vs_cpu_of_largest": worst,
+            "launches_rank0": g0["launches"]}
+    paths["production_decode_reduced"] = {
+        k: sum(r["reduced"][a]["launches"][k] for r in outs
+               for a in PROD_REDUCED) for k in ops.KERNELS}
+    emit({"phase": "production_decode_reduced", "mesh": mesh,
+          "config": "reduced, 4 layers, fp32, FSDP threshold "
+                    f"{PROD_MOE_THRESHOLD} B", "shape": PROD_REDUCED_SHAPE,
+          "tol": PROD_REDUCED_TOL, "per_arch": lines,
+          "ranks_s": [r["reduced_s"] for r in outs]})
+    check(not fails, "; ".join(fails))
     return paths
 
 
@@ -8026,8 +8805,9 @@ def run_phases(torch, np, refs, t_start):
                                 t_start)
     emit({"phase": "slice_20", "phases_s": time.perf_counter() - t20,
           "script_s_so_far": time.perf_counter() - t_start})
-    # slice 21: the meta-train step on the production mesh, after slice
-    # 20 and before the families, alone on the card
+    # slices 21 and 22: the meta-train step, then the prefill, decode
+    # and joint steps, on the production mesh, after slice 20 and before
+    # the families, alone on the card
     t21 = time.perf_counter()
     prod_paths = phase_production(torch, np, tempfile.mkdtemp(
         prefix="chip_smoke_prod_"))
@@ -8103,7 +8883,19 @@ def run_phases(torch, np, refs, t_start):
                  # the ringkv route at starcoder2-15b's ring
                  "ringkv": rows["flash_decode/ringkv_"
                                 + "x".join(map(str, FD_RINGKV))
-                                + "_bfloat16_devL"]}
+                                + "_bfloat16_devL"],
+                 # slice 22's slice route: offset and log-sum-exp out
+                 "slice_22": {key[len("flash_decode/"):]: {
+                     k: r[k] for k in (
+                         "shape_BHKvhdS", "offset", "L", "window", "dtype",
+                         "local_lo_hi", "max_abs_err", "lse_max_abs_err",
+                         "ms", "device_ms", "device_L_device_ms",
+                         "plain_ms", "bound_ms", "bound_by", "library_ms",
+                         "library_device_ms", "parts",
+                         "vs_whole_kernel_max_abs_diff") if k in r}
+                     for key, r in rows.items()
+                     if key.startswith(("flash_decode/slice_",
+                                        "flash_decode/merge"))}}
                 if kernel == "flash_decode" else {}),
              **({"kernels_per_call": row["kernels_per_call"]}
                 if "kernels_per_call" in row else {}),

@@ -48,7 +48,10 @@ or tensors) into this rank's shards on its device, leaf by leaf, so the
 device never holds a whole split leaf. The production mesh's shards
 (``("data", "model")``) cross the same way: ``lm_shards_from_jax`` cuts
 the JAX package's params into a rank's, ``whole_tree`` gathers a rank's
-back. ``jax_layout_map`` names, for trees given by their paths alone
+back; ``lm_cache_shards_from_jax`` and ``whole_cache`` do the same for a
+decode cache split by ``runtime.sharding.CacheShards``, and
+``adam_shards_from_jax`` for AdamW's state. ``jax_layout_map`` names, for
+trees given by their paths alone
 (``launch/specs.py``'s shapes), the JAX leaf each port leaf is stacked
 into, and the reverse.
 """
@@ -268,8 +271,13 @@ def lm_cache_from_jax(cache, layout=None, device: DeviceLike = None):
     hybrid's ``group_attn``, ``group_mamba``, ``tail_attn`` and
     ``tail_mamba`` under a ``HybridLayout``; the port's has one entry per
     application. The layers map as ``lm_params_from_jax`` maps params."""
+    return params_from_numpy(_port_cache(cache, layout), device)
+
+
+def _port_cache(cache, layout):
+    """The JAX package's decode cache as NumPy in the port's layout."""
     if not isinstance(layout, HybridLayout):
-        return lm_params_from_jax(cache, layout, device)
+        return _port_layout(cache, layout)
     cache = _as_numpy(cache)
     layers = []
     attn, mamba = cache["group_attn"], cache["group_mamba"]
@@ -279,7 +287,39 @@ def lm_cache_from_jax(cache, layout=None, device: DeviceLike = None):
     if "tail_attn" in cache:
         layers.append(cache["tail_attn"])
         layers.extend(cache["tail_mamba"])
-    return params_from_numpy({"layers": layers}, device)
+    return {"layers": layers}
+
+
+def lm_cache_shards_from_jax(cache, layout, cache_shards,
+                             device: DeviceLike = None):
+    """The JAX package's decode cache -> this rank's part of the port's
+    on ``device``, by ``cache_shards`` (a ``runtime.sharding.
+    CacheShards``): each leaf is cut on the host and only the part is
+    copied to the device."""
+    named = flatten_tree(_port_cache(cache, layout))
+    return unflatten_tree(shard_tree(named, cache_shards, device))
+
+
+def whole_cache(local, cache_shards):
+    """A rank's part of a decode cache -> the whole cache, every leaf
+    gathered on every rank (``CacheShards.gather``; a collective that
+    every rank of the mesh calls, leaf by leaf in the same order)."""
+    return unflatten_tree({k: cache_shards.gather(k, v)
+                           for k, v in tree_leaves(local)})
+
+
+def adam_shards_from_jax(state, layout, shards, device: DeviceLike = None):
+    """The JAX package's ``AdamState`` (``mu`` and ``nu`` in the params'
+    JAX layout, ``count``) -> the port's ``optim.AdamState`` of this
+    rank's shards on ``device``, by ``shards`` (the params' ``ModelShards``:
+    the moments split as the params are)."""
+    from repro_torch.optim import AdamState
+    mu, nu, count = state
+    return AdamState(
+        lm_shards_from_jax(mu, layout, shards, device),
+        lm_shards_from_jax(nu, layout, shards, device),
+        torch.tensor(int(np.asarray(count)), dtype=torch.int32,
+                     device=resolve_device(device)))
 
 
 def lm_cache_to_jax(cache, layout=None):

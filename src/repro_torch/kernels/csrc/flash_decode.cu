@@ -10,14 +10,25 @@
 // without a window. Sums are fp32 and the result is stored in q's dtype.
 // Positions outside [lo, hi) are never read: with L >= 1 they add exactly
 // 0 to the TPU kernel's sums too (exp(-1e30 - m) underflows), so the
-// cache's tail need not be zero. The wrapper rejects L = 0 (the TPU
-// kernel's degenerate mean of V), as decode never passes it.
+// cache's tail need not be zero. The wrapper rejects L = 0 on a whole
+// cache (the TPU kernel's degenerate mean of V), as decode never passes it.
 //
 // Bound on an H100: the K and V bytes, 2 B n Kv hd elem with n = hi - lo.
 // At the decode path's (B, H, Kv, hd) = (8, 32, 4, 64) in bf16 with n =
 // 2048 that is 16.8 MB, 5.0 us at 3.35 TB/s; its 4 B H n hd = 134 MFLOP
 // are 8 operations a byte, far below the 295 at which bf16 tensor-core
 // throughput would bound it. chip_smoke.py prints the bound of every case.
+//
+// A slice of a cache split on its sequence over ranks (the production
+// decode step): the cache holds global positions offset .. offset + S - 1,
+// L and the window stay global, and the call attends [lo, hi) = [max(0, L
+// - window), L) shifted by -offset and clamped to [0, S]. It also writes
+// the (B, H) log-sum-exp, lse = m + log(l) from the (max, sum) pair that
+// each path carries into its merge (the bf16 warps' or cluster's, the
+// fp32 block's or workspace's), in natural-log units, so the ranks'
+// partials can be merged (models/attention.py::merge_partials). An empty
+// stretch writes zeros and -inf and reads nothing. The slice's bound is
+// the same: the K and V bytes of its attended local positions.
 //
 // Shared by both dtypes. One block owns a (b, kv) pair and up to kRows = 8
 // of its R query heads, so each K and V row is read from device memory
@@ -132,6 +143,7 @@ constexpr int kMaxSplits = 128;      // fp32: the merge's weights fit in smem
 constexpr int kMaxCluster = 8;       // bf16: splits a (portable) cluster holds
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxDevices = 64;
 
 // Above 48 KB a kernel takes dynamic shared memory only after opting in,
@@ -160,18 +172,30 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 // positions: given by the host (len null), or planned by every block from
 // the device length *len, its window, the split cap and the least tiles a
 // split streams, as kernels/flash_decode.py::plan plans it on the host.
+// A slice (`slice` set: an offset, or the log-sum-exp asked for) reads L
+// as global and the cache as rows offset .. offset + S - 1 of a longer
+// one, so its stretch is [max(0, L - window), L) shifted by -offset and
+// clamped to [0, S], and may be empty (n_split 0).
 struct Span {
   const int* len;
   int lo, hi, chunk, n_split;
   int window, cap, min_tiles;
+  int offset, slice;
 };
 
 __device__ __forceinline__ Span resolve(Span a, int S) {
   if (a.len == nullptr) return a;
-  const int L = min(max(*a.len, 1), S);
-  a.lo = a.window ? max(0, L - a.window) : 0;
-  a.hi = L;
+  int L = *a.len;
+  if (!a.slice) L = min(max(L, 1), S);
+  const int glo = a.window ? max(0, L - a.window) : 0;
+  a.lo = min(max(glo - a.offset, 0), S);
+  a.hi = min(max(L - a.offset, 0), S);
   const int n = a.hi - a.lo;
+  if (n <= 0) {
+    a.chunk = kChunk;
+    a.n_split = 0;
+    return a;
+  }
   const int tiles = (n + kChunk - 1) / kChunk;
   const int splits = max(1, min(tiles / a.min_tiles, a.cap));
   a.chunk = (tiles + splits - 1) / splits * kChunk;
@@ -186,12 +210,14 @@ __device__ __forceinline__ Span resolve(Span a, int S) {
 // by every thread of every active block after it wrote its own partial;
 // the last of the n_split blocks of the (b, group) merges all of them:
 //   out = sum_s w_s acc_s / max(sum_s w_s l_s, 1e-30),  w_s = e^(m_s - M)
+// and, where lse is not null, lse = M + log(sum_s w_s l_s).
 // smem holds 2 kRows kMaxSplits floats.
 template <int HD>
 __device__ __forceinline__ void merge_splits(const float* ws, float* out,
-                                             int* counter, float* smem,
-                                             int n_split, long long BH,
-                                             long long row0, int nr) {
+                                             float* lse, int* counter,
+                                             float* smem, int n_split,
+                                             long long BH, long long row0,
+                                             int nr) {
   __shared__ int s_last;
   __shared__ float sM[kRows];
   const int t = threadIdx.x;
@@ -234,6 +260,7 @@ __device__ __forceinline__ void merge_splits(const float* ws, float* out,
       den += swl[s * kRows + r];
     }
     out[(row0 + r) * HD + d] = num / fmaxf(den, 1e-30f);
+    if (lse != nullptr && d == 0) lse[row0 + r] = sM[r] + logf(den);
   }
   if (t == 0) *counter = 0;             // ready for the next call
 }
@@ -300,8 +327,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_decode_bf16(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ out, int S, int H, int Kv,
-                  int R, Span span, float scale_log2) {
+                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                  int S, int H, int Kv, int R, Span span, float scale_log2) {
   constexpr int CPR = HD / 8;                  // 16-byte chunks per row
   constexpr int TILE_BYTES = kTile * HD * 2;   // one of K or V
   constexpr int LOADS = kTile * CPR / kThreads;  // copies a thread issues
@@ -329,6 +356,13 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q,
   // (kRows), behind the warps' states in the ring
   float* pAcc = reinterpret_cast<float*>(smem) + kWarps * kRows * (HD + 2);
 
+  if (span.hi <= span.lo) {  // an empty slice: zeros and -inf, no barrier
+    if (split == 0) {
+      for (int e = t; e < nr * HD; e += kThreads) store(out + row0 * HD + e, 0.f);
+      if (lse != nullptr && t < nr) lse[row0 + t] = -INFINITY;
+    }
+    return;
+  }
   if (split < n_split) {   // the blocks past n_split attend nothing
     const int p_begin = span.lo + split * span.chunk;
     const int p_end = min(span.hi, p_begin + span.chunk);
@@ -489,6 +523,7 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q,
     }
     if (n_split == 1) {
       store(out + (row0 + r) * HD + d, acc / fmaxf(den, 1e-30f));
+      if (lse != nullptr && d == 0) lse[row0 + r] = (M + log2f(den)) * kLn2;
     } else {
       pAcc[e] = acc;
       if (d == 0) {
@@ -537,6 +572,7 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q,
         }
       }
       store(out + (row0 + r) * HD + d, num / fmaxf(den, 1e-30f));
+      if (lse != nullptr && d == 0) lse[row0 + r] = (M + log2f(den)) * kLn2;
   }
   }
   cluster.sync();
@@ -551,8 +587,9 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
-                 float* __restrict__ ws, int* __restrict__ counters, int S,
-                 int H, int Kv, int R, Span span, float scale) {
+                 float* __restrict__ lse, float* __restrict__ ws,
+                 int* __restrict__ counters, int S, int H, int Kv, int R,
+                 Span span, float scale) {
   constexpr int KP = HD + 1;                   // padded shared row
   constexpr int VPR = HD / 4;                  // float4 loads per row
   constexpr int DW = HD < kThreads ? HD : kThreads;  // threads along a row
@@ -577,10 +614,19 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z, B = gridDim.z;
   span = resolve(span, S);
   const int split = blockIdx.x, n_split = span.n_split;
-  if (split >= n_split) return;        // attends nothing; not in the ticket
   const int h0 = kv * R + g * kRows;
   const int nr = min(kRows, R - g * kRows);
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const long long BH = (long long)B * H;
+  const long long row0 = (long long)b * H + h0;
+  if (span.hi <= span.lo) {            // an empty slice: zeros and -inf
+    if (split == 0) {
+      for (int e = t; e < nr * HD; e += kThreads) out[row0 * HD + e] = 0.f;
+      if (lse != nullptr && t < nr) lse[row0 + t] = -INFINITY;
+    }
+    return;
+  }
+  if (split >= n_split) return;        // attends nothing; not in the ticket
   const int d_own = t % DW, r_own = t / DW;    // dims d_own + u DW
 
   const int p_begin = span.lo + split * span.chunk;
@@ -709,8 +755,6 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (r < nr && lane == 0) sL[r] = l[j];
   }
   __syncthreads();
-  const long long BH = (long long)B * H;
-  const long long row0 = (long long)b * H + h0;
   if (n_split == 1) {
 #pragma unroll
     for (int i = 0; i < ACC; ++i) {
@@ -720,6 +764,13 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
         for (int u = 0; u < DPT; ++u)
           out[(row0 + r) * HD + d_own + u * DW] =
               acc[i][u] / fmaxf(sL[r], 1e-30f);
+    }
+    if (lse != nullptr) {
+#pragma unroll
+      for (int j = 0; j < RPW; ++j) {
+        const int r = warp + j * kWarps;
+        if (r < nr && lane == 0) lse[row0 + r] = m[j] + logf(l[j]);
+      }
     }
     return;
   }
@@ -744,16 +795,16 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
     if (r < nr && lane == 0) ws_m[base + r] = m[j];
   }
   merge_splits<HD>(
-      ws, out, counters + (long long)b * gridDim.y + blockIdx.y, sK, n_split,
-      BH, row0, nr);
+      ws, out, lse, counters + (long long)b * gridDim.y + blockIdx.y, sK,
+      n_split, BH, row0, nr);
 }
 
 // -- launch -------------------------------------------------------------------
 
 template <int HD>
 int launch_bf16(dim3 grid, const void* q, const void* k, const void* v,
-                void* out, int S, int H, int Kv, Span span, float scale,
-                cudaStream_t stream) {
+                void* out, float* lse, int S, int H, int Kv, Span span,
+                float scale, cudaStream_t stream) {
   constexpr int smem = bf16_smem_bytes<HD>();
   static bool opted[kMaxDevices];
   const int refused = opt_in(flash_decode_bf16<HD>, smem, opted);
@@ -776,49 +827,51 @@ int launch_bf16(dim3 grid, const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      S, H, Kv, H / Kv, span, scale * kLog2e);
+      lse, S, H, Kv, H / Kv, span, scale * kLog2e);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <int HD>
 int launch_f32(dim3 grid, const void* q, const void* k, const void* v,
-               void* out, float* ws, int* counters, int S, int H, int Kv,
-               Span span, float scale, cudaStream_t stream) {
+               void* out, float* lse, float* ws, int* counters, int S, int H,
+               int Kv, Span span, float scale, cudaStream_t stream) {
   constexpr int smem = 2 * kTile32 * (HD + 1) * 4;   // sK and sV
   static bool opted[kMaxDevices];
   const int refused = opt_in(flash_decode_f32<HD>, smem, opted);
   if (refused != 0) return refused;
   flash_decode_f32<HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), ws, counters,
-      S, H, Kv, H / Kv, span, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, ws,
+      counters, S, H, Kv, H / Kv, span, scale);
   return (int)cudaGetLastError();
 }
 
 // the kernel for (dtype, hd) on a grid of n_grid splits
 int launch(int n_grid, const void* q, const void* k, const void* v,
-           void* out, void* ws, void* counters, int dtype, int B, int S,
-           int H, int Kv, int hd, Span span, float scale, void* stream) {
+           void* out, void* lse_out, void* ws, void* counters, int dtype,
+           int B, int S, int H, int Kv, int hd, Span span, float scale,
+           void* stream) {
   const int G = (H / Kv + kRows - 1) / kRows;
   const dim3 grid((unsigned)n_grid, (unsigned)(Kv * G), (unsigned)B);
+  float* lse = static_cast<float*>(lse_out);
   float* w = static_cast<float*>(ws);
   int* c = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && hd == 64)
-    return launch_f32<64>(grid, q, k, v, out, w, c, S, H, Kv, span, scale, s);
+    return launch_f32<64>(grid, q, k, v, out, lse, w, c, S, H, Kv, span, scale, s);
   if (dtype == 0 && hd == 128)
-    return launch_f32<128>(grid, q, k, v, out, w, c, S, H, Kv, span, scale,
+    return launch_f32<128>(grid, q, k, v, out, lse, w, c, S, H, Kv, span, scale,
                            s);
   if (dtype == 0 && hd == 256)
-    return launch_f32<256>(grid, q, k, v, out, w, c, S, H, Kv, span, scale,
+    return launch_f32<256>(grid, q, k, v, out, lse, w, c, S, H, Kv, span, scale,
                            s);
   if (dtype == 1 && hd == 64)
-    return launch_bf16<64>(grid, q, k, v, out, S, H, Kv, span, scale, s);
+    return launch_bf16<64>(grid, q, k, v, out, lse, S, H, Kv, span, scale, s);
   if (dtype == 1 && hd == 128)
-    return launch_bf16<128>(grid, q, k, v, out, S, H, Kv, span, scale, s);
+    return launch_bf16<128>(grid, q, k, v, out, lse, S, H, Kv, span, scale, s);
   if (dtype == 1 && hd == 256)
-    return launch_bf16<256>(grid, q, k, v, out, S, H, Kv, span, scale, s);
+    return launch_bf16<256>(grid, q, k, v, out, lse, S, H, Kv, span, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -828,56 +881,63 @@ int launch(int n_grid, const void* q, const void* k, const void* v,
 // fp32 (dtype 0) or bf16 (dtype 1). Positions [lo, hi) are attended, in
 // n_split stretches of `chunk` positions (a multiple of 64; every stretch
 // non-empty; n_split <= 128 in fp32, <= 8 in bf16); up to 8 query heads
-// per block. For fp32 with n_split > 1, ws holds n_split * B * H * (hd +
-// 2) floats and counters B * Kv * ceil(H / Kv / 8) ints, all 0 (each call
-// leaves them 0); otherwise both may be null. Returns the cudaError_t of
-// the launch.
+// per block. lo == hi (an empty slice, n_split 1) writes zeros. For fp32
+// with n_split > 1, ws holds n_split * B * H * (hd + 2) floats and
+// counters B * Kv * ceil(H / Kv / 8) ints, all 0 (each call leaves them
+// 0); otherwise both may be null. lse, where not null, takes the (B, H)
+// fp32 natural-log log-sum-exp of the attended scaled scores (-inf for an
+// empty slice). Returns the cudaError_t of the launch.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, void* out, void* ws,
-                                   void* counters, int dtype, int B, int S,
-                                   int H, int Kv, int hd, int lo, int hi,
-                                   int chunk, int n_split, float scale,
-                                   void* stream) {
+                                   void* counters, void* lse, int dtype,
+                                   int B, int S, int H, int Kv, int hd,
+                                   int lo, int hi, int chunk, int n_split,
+                                   float scale, void* stream) {
   if (B <= 0 || H <= 0 || Kv <= 0 || H % Kv != 0 || lo < 0 || hi > S ||
-      lo >= hi || chunk <= 0 || chunk % kChunk != 0 || n_split <= 0 ||
-      (long long)(n_split - 1) * chunk >= hi - lo ||
+      lo > hi || chunk <= 0 || chunk % kChunk != 0 || n_split <= 0 ||
+      (lo == hi && n_split != 1) ||
+      (lo < hi && (long long)(n_split - 1) * chunk >= hi - lo) ||
       (dtype == 0 && (n_split > kMaxSplits ||
                       (n_split > 1 && (ws == nullptr || counters == nullptr)))) ||
       (dtype == 1 && n_split > kMaxCluster))
     return (int)cudaErrorInvalidValue;
-  const Span span = {nullptr, lo, hi, chunk, n_split, 0, 0, 1};
-  return launch(n_split, q, k, v, out, ws, counters, dtype, B, S, H, Kv, hd,
-                span, scale, stream);
+  const Span span = {nullptr, lo, hi, chunk, n_split, 0, 0, 1, 0, 0};
+  return launch(n_split, q, k, v, out, lse, ws, counters, dtype, B, S, H, Kv,
+                hd, span, scale, stream);
 }
 
-// The same attention with L read on the device from len (one int32; the
-// kernel clamps it to [1, S]): positions [max(0, L - window), L), or [0,
-// L) with window 0, split as the wrapper's plan splits them, with `cap`
-// the most splits and `min_tiles` the least 64-position tiles a split
-// streams where there are enough. The grid has n_grid splits, enough for
-// the longest stretch, min(window, S) or S; the blocks past a length's
-// splits attend nothing. For fp32 with n_grid > 1, ws holds n_grid * B *
-// H * (hd + 2) floats and counters as above. Returns the cudaError_t of
-// the launch.
+// The same attention with L read on the device from len (one int32): the
+// cache holds the global positions offset .. offset + S - 1, and the
+// positions [max(0, L - window), L), or [0, L) with window 0, that fall in
+// it are attended, split as the wrapper's plan splits them, with `cap` the
+// most splits and `min_tiles` the least 64-position tiles a split streams
+// where there are enough. With offset 0 and lse null the kernel clamps L
+// to [1, S] (a bad length never reads outside the cache); otherwise L is
+// global and the slice's stretch may be empty (zeros and -inf). The grid
+// has n_grid splits, enough for the longest stretch, min(window, S) or S;
+// the blocks past a length's splits attend nothing. For fp32 with n_grid >
+// 1, ws holds n_grid * B * H * (hd + 2) floats and counters as above; lse
+// as above. Returns the cudaError_t of the launch.
 extern "C" int flash_decode_launch_len(const void* q, const void* k,
                                        const void* v, void* out, void* ws,
                                        void* counters, const void* len,
-                                       int dtype, int B, int S, int H,
-                                       int Kv, int hd, int window,
-                                       int n_grid, int cap, int min_tiles,
-                                       float scale, void* stream) {
+                                       void* lse, int dtype, int B, int S,
+                                       int H, int Kv, int hd, int window,
+                                       int offset, int n_grid, int cap,
+                                       int min_tiles, float scale,
+                                       void* stream) {
   const int n_max = window > 0 && window < S ? window : S;
   const int tiles = (n_max + kChunk - 1) / kChunk;
   if (len == nullptr || B <= 0 || S <= 0 || H <= 0 || Kv <= 0 ||
-      H % Kv != 0 || window < 0 || cap <= 0 || min_tiles <= 0 ||
-      n_grid < max(1, min(tiles / min_tiles, cap)) ||
+      H % Kv != 0 || window < 0 || offset < 0 || cap <= 0 ||
+      min_tiles <= 0 || n_grid < max(1, min(tiles / min_tiles, cap)) ||
       (dtype == 0 &&
        (n_grid > kMaxSplits ||
         (n_grid > 1 && (ws == nullptr || counters == nullptr)))) ||
       (dtype == 1 && n_grid > kMaxCluster))
     return (int)cudaErrorInvalidValue;
   const Span span = {static_cast<const int*>(len), 0, 0, 0, 0, window, cap,
-                     min_tiles};
-  return launch(n_grid, q, k, v, out, ws, counters, dtype, B, S, H, Kv, hd,
-                span, scale, stream);
+                     min_tiles, offset, offset != 0 || lse != nullptr};
+  return launch(n_grid, q, k, v, out, lse, ws, counters, dtype, B, S, H, Kv,
+                hd, span, scale, stream);
 }

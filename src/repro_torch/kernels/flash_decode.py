@@ -28,6 +28,16 @@ partials and one counter per (batch, head group), both held per (device,
 stream) and grown on demand. The counters are allocated zeroed and
 every call leaves them at 0, so no call clears them or waits on the
 host.
+
+A slice (``offset``, ``return_lse``): the caches are rows ``offset ...
+offset + S - 1`` of a cache split on its sequence over ranks (the
+production decode step, ``models/attention.py``), L and the window stay
+global, and the call attends what of ``[max(0, L - window), L)`` falls
+in the slice, on both routes (the device-L route shifts and clamps the
+stretch on the card, so one captured launch still serves every L). With
+``return_lse`` it also returns the (B, H) fp32 log-sum-exp of the
+attended scaled scores; an empty slice gives zeros and -inf. The bound
+of a slice call is the K and V bytes of its attended local positions.
 """
 from __future__ import annotations
 
@@ -60,9 +70,9 @@ def _bind():
     route and the device-L route."""
     lib = build.load("flash_decode")
     launch, launch_len = lib.flash_decode_launch, lib.flash_decode_launch_len
-    launch.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 10
+    launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
-    launch_len.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 10
+    launch_len.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
                            + [ctypes.c_float, ctypes.c_void_p])
     launch.restype = launch_len.restype = ctypes.c_int
     return launch, launch_len
@@ -164,8 +174,8 @@ def _check_len(cache_len: torch.Tensor, dev: int) -> None:
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, cache_len, *,
-                 window: int = 0) -> torch.Tensor:
+                 v_cache: torch.Tensor, cache_len, *, window: int = 0,
+                 offset: int = 0, return_lse: bool = False):
     """q (B, H, hd), caches (B, S, Kv, hd) with H a multiple of Kv, hd 64,
     128 or 256, all fp32 or all bf16; ``cache_len`` an int in [1, S], or an
     int32 tensor of one element on q's device -> (B, H, hd) in q's dtype,
@@ -173,16 +183,22 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     cache_len - window), cache_len)``. A CPU tensor gets the plain version;
     a CUDA tensor gets the kernel (``flash_decode.launches`` counts its
     launches) or an error. A tensor L on the card is never read on the
-    host: the kernel reads it (the device-L route)."""
+    host: the kernel reads it (the device-L route).
+
+    ``offset`` (an int >= 0) and ``return_lse`` make the call a slice's
+    (the module's docstring): L is global, any int >= 0, and with
+    ``return_lse`` the result is ``(out, lse)``, lse (B, H) fp32."""
     B, H, hd, S, Kv = _shapes(q.shape, k_cache.shape, v_cache.shape,
                               q.dtype, k_cache.dtype, v_cache.dtype)
     dev = q.get_device()                # -1 on the CPU
     if k_cache.get_device() != dev or v_cache.get_device() != dev:
         raise ValueError(f"flash_decode: caches on {k_cache.device} and "
                          f"{v_cache.device}, q on {q.device}")
-    window = operator.index(window)
-    if window < 0:
-        raise ValueError(f"flash_decode: window must be >= 0; got {window}")
+    window, offset = operator.index(window), operator.index(offset)
+    if window < 0 or offset < 0:
+        raise ValueError(f"flash_decode: window and offset must be >= 0; "
+                         f"got {window} and {offset}")
+    sliced = bool(offset or return_lse)
     if isinstance(cache_len, torch.Tensor):
         _check_len(cache_len, dev)
         if not q.is_cuda:               # a CPU tensor: read, as an int
@@ -190,14 +206,17 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     on_device = isinstance(cache_len, torch.Tensor)
     if not on_device:
         L = operator.index(cache_len)
-        if not 1 <= L <= S:
+        if not (L >= 0 if sliced else 1 <= L <= S):
             raise ValueError(f"flash_decode: cache_len must be in "
-                             f"[1, S={S}]; got {L}")
+                             f"[1, S={S}] (>= 0 for a slice); got {L}")
     if not q.is_cuda:
         if q.device.type != "cpu":
             raise ValueError(f"flash_decode: unsupported device {q.device}")
-        return ref.flash_decode(q, k_cache, v_cache, L,
-                                window=window).to(q.dtype)
+        out = ref.flash_decode(q, k_cache, v_cache, L, window=window,
+                               offset=offset, return_lse=return_lse)
+        if return_lse:
+            return out[0].to(q.dtype), out[1]
+        return out.to(q.dtype)
     if not (q.is_contiguous() and k_cache.is_contiguous()
             and v_cache.is_contiguous()):
         raise ValueError("flash_decode: q and the caches must be contiguous")
@@ -209,23 +228,36 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     code = _DTYPE_CODES[q.dtype]
     cap = CLUSTER_SPLITS if code else MAX_SPLITS
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    lse_ptr = lse.data_ptr() if return_lse else 0
     if on_device:
         n_max = min(window, S) if window else S
         err = build.launch_on(
             dev, _launch_len, dev, q.data_ptr(), k_ptr, v_ptr,
-            out.data_ptr(), cache_len.data_ptr(), code, B, S, H, Kv, hd,
-            window, splits_for(B, Kv, H // Kv, n_max, cap),
+            out.data_ptr(), cache_len.data_ptr(), lse_ptr, code, B, S, H,
+            Kv, hd, window, offset, splits_for(B, Kv, H // Kv, n_max, cap),
             split_cap(B, Kv, H // Kv, cap), MIN_TILES)
     else:
-        lo = max(0, L - window) if window else 0
-        n_split, chunk = plan(B, Kv, H // Kv, L - lo, cap)
+        lo, hi = local_stretch(L, window, offset, S)
+        n_split, chunk = (plan(B, Kv, H // Kv, hi - lo, cap) if hi > lo
+                          else (1, TILE))
         err = build.launch_on(dev, _launch, dev, q.data_ptr(), k_ptr,
-                              v_ptr, out.data_ptr(), code, B, S, H, Kv, hd,
-                              lo, L, chunk, n_split)
+                              v_ptr, out.data_ptr(), lse_ptr, code, B, S, H,
+                              Kv, hd, lo, hi, chunk, n_split)
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: cudaError {err}")
     flash_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def local_stretch(L: int, window: int, offset: int, S: int):
+    """The local rows ``[lo, hi)`` that a cache slice of S rows from
+    global position ``offset`` attends for global length L: ``[max(0, L -
+    window), L)`` (``[0, L)`` without a window) shifted by ``-offset`` and
+    clamped to [0, S]; ``lo == hi`` for an empty slice."""
+    glo = max(0, L - window) if window else 0
+    return (min(max(glo - offset, 0), S), min(max(L - offset, 0), S))
 
 
 def _workspace(index, stream, dtype, B, H, Kv, hd, n_split):
@@ -236,19 +268,19 @@ def _workspace(index, stream, dtype, B, H, Kv, hd, n_split):
     return 0, 0
 
 
-def _launch(index, q, k, v, out, dtype, B, S, H, Kv, hd, lo, L, chunk,
+def _launch(index, q, k, v, out, lse, dtype, B, S, H, Kv, hd, lo, hi, chunk,
             n_split, stream):
     ws, counters = _workspace(index, stream, dtype, B, H, Kv, hd, n_split)
-    return _bind()[0](q, k, v, out, ws, counters, dtype, B, S, H, Kv, hd, lo,
-                      L, chunk, n_split, hd ** -0.5, stream)
+    return _bind()[0](q, k, v, out, ws, counters, lse, dtype, B, S, H, Kv,
+                      hd, lo, hi, chunk, n_split, hd ** -0.5, stream)
 
 
-def _launch_len(index, q, k, v, out, len_ptr, dtype, B, S, H, Kv, hd, window,
-                n_grid, cap, min_tiles, stream):
+def _launch_len(index, q, k, v, out, len_ptr, lse, dtype, B, S, H, Kv, hd,
+                window, offset, n_grid, cap, min_tiles, stream):
     ws, counters = _workspace(index, stream, dtype, B, H, Kv, hd, n_grid)
-    return _bind()[1](q, k, v, out, ws, counters, len_ptr, dtype, B, S, H,
-                      Kv, hd, window, n_grid, cap, min_tiles, hd ** -0.5,
-                      stream)
+    return _bind()[1](q, k, v, out, ws, counters, len_ptr, lse, dtype, B, S,
+                      H, Kv, hd, window, offset, n_grid, cap, min_tiles,
+                      hd ** -0.5, stream)
 
 
 flash_decode.launches = 0

@@ -121,25 +121,40 @@ def online_sgd(p, g, lr, m=None, momentum=0.0):
     return (p.float() - lr * m_new).to(p.dtype), m_new
 
 
-def flash_decode(q, k_cache, v_cache, cache_len, *, window=0):
+def flash_decode(q, k_cache, v_cache, cache_len, *, window=0, offset=0,
+                 return_lse=False):
     """Single-token GQA attention. q: (B, H, hd); caches: (B, S, Kv, hd)
     with H = Kv * R; cache_len: an int. Positions ``pos < cache_len``
     (and ``pos >= cache_len - window`` with a window) are attended; q is
     scaled by ``hd ** -0.5`` and everything is computed in fp32. Returns
-    (B, H, hd) fp32."""
+    (B, H, hd) fp32.
+
+    ``offset``: the caches are a slice of a longer cache whose row 0 is
+    global position ``offset`` (one rank's part of a cache split on its
+    sequence); ``cache_len`` and ``window`` stay global, so the slice
+    attends ``[max(0, L - window), L) ∩ [offset, offset + S)``.
+    ``return_lse``: also return the natural-log log-sum-exp of the
+    attended scaled scores, (B, H) fp32, what merges slices
+    (``models/attention.py::merge_partials``). An empty intersection
+    gives 0 and -inf."""
     B, H, hd = q.shape
     S, Kv = k_cache.shape[1], k_cache.shape[2]
     R = H // Kv
     qg = q.reshape(B, Kv, R, hd).float() * hd ** -0.5
     s = torch.einsum("bkrh,bskh->bkrs", qg, k_cache.float())
-    pos = torch.arange(S, device=q.device)
+    pos = offset + torch.arange(S, device=q.device)
     valid = pos < cache_len
     if window:
         valid &= pos >= cache_len - window
     s = s.masked_fill(~valid, -1e30)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkrs,bskh->bkrh", p, v_cache.float())
-    return out.reshape(B, H, hd)
+    out = out.reshape(B, H, hd)
+    lse = torch.logsumexp(s, dim=-1).reshape(B, H)
+    if not bool(valid.any()):            # nothing attended
+        out = torch.zeros_like(out)
+        lse = torch.full_like(lse, -math.inf)
+    return (out, lse) if return_lse else out
 
 
 def exp2_int(e):

@@ -55,6 +55,11 @@ class LeafSpec:
                           if ax is not None)
         return self.nbytes // parts
 
+    def local_shape(self, mesh) -> Tuple[int, ...]:
+        """The shape of one part on one chip."""
+        return tuple(d // shrules._size(mesh, ax)
+                     for d, ax in zip(self.shape, self.spec))
+
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
     return _DTYPES[cfg.dtype]
@@ -134,23 +139,6 @@ def prefill_batch_specs(cfg: ArchConfig, shape: InputShape, mesh
     return batch
 
 
-def _cache_rule(mesh, batch_size):
-    """The JAX package's spec of one decode-cache leaf, by its path and
-    its (stacked) shape."""
-    def rule(name, shape):
-        leaf_name = name.rsplit("/", 1)[-1]
-        if leaf_name in ("conv", "ssm"):
-            base = 4 if leaf_name == "ssm" else 3
-            off = len(shape) - base
-            nh = shape[off + 1] if leaf_name == "ssm" else 0
-            return shrules.mamba_cache_spec(mesh, leaf_name, len(shape),
-                                            batch_size, nh)
-        # attention k/v (self or cross): (..., B, S, Kv, hd)
-        return shrules.attn_cache_spec(mesh, len(shape), batch_size,
-                                       shape[len(shape) - 3])
-    return rule
-
-
 def _cache_plan(cfg: ArchConfig, shape: InputShape, mesh):
     """The decode cache's leaves (shapes from a ``meta`` cache) in both
     layouts, as ``_plan`` gives them."""
@@ -160,7 +148,7 @@ def _cache_plan(cfg: ArchConfig, shape: InputShape, mesh):
     named = {k: LeafSpec(tuple(v.shape), v.dtype, ())
              for k, v in tree_leaves(cache)}
     return _plan(named, model.jax_layout,
-                 _cache_rule(mesh, shape.global_batch), cache=True)
+                 shrules.cache_rule(mesh, shape.global_batch), cache=True)
 
 
 def jax_cache_specs(cfg: ArchConfig, shape: InputShape, mesh
@@ -181,6 +169,21 @@ def decode_batch_specs(cfg: ArchConfig, shape: InputShape, mesh
         "cache": unflatten_tree(_cache_plan(cfg, shape, mesh)[1]),
         "cache_len": LeafSpec((), torch.int32, ()),
     }
+
+
+def local_cache_shapes(cfg: ArchConfig, shape: InputShape, mesh
+                       ) -> Dict[Tuple, Tuple[int, ...]]:
+    """``{port path: shape}`` of one chip's part of the decode cache of
+    ``decode_batch_specs`` (what ``runtime.sharding.CacheShards`` gives
+    a rank of a live mesh)."""
+    return {k: v.local_shape(mesh)
+            for k, v in _cache_plan(cfg, shape, mesh)[1].items()}
+
+
+def cache_chip_bytes(cfg: ArchConfig, shape: InputShape, mesh) -> int:
+    """The bytes of one chip's part of the decode cache."""
+    return sum(v.chip_bytes(mesh)
+               for v in _cache_plan(cfg, shape, mesh)[1].values())
 
 
 def input_specs(cfg: ArchConfig, shape: InputShape, mesh):

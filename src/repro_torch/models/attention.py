@@ -40,9 +40,16 @@ route's tensor-parallel attention runs ``attention_block`` on a rank's
 heads with ``partial=True``), and probe mode's
 single-shot masked attention serves XLA's cost analysis. Under them
 ``flash_attention`` takes its default route.
+
+On the production mesh a decode cache splits on its sequence over the
+ranks (``runtime.sharding.CacheShards``): ``cache_attention`` writes the
+new k and v on the rank that owns their row, each rank attends its slice
+(``decode_attention(offset=, lse=True)``, the kernel's log-sum-exp out)
+and ``merge_partials`` merges the slices across the ranks.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -51,6 +58,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops
 from repro_torch.models.layers import normal_init, promoted
 from repro_torch.runtime.flags import feature
+from repro_torch.runtime.sharding import MERGE_CALLS, all_reduce
 
 NEG_INF = -1e30
 
@@ -110,24 +118,121 @@ def apply_rope(x, positions, theta):
     return rotate(x, *rope_angles(positions, x.shape[-1], theta))
 
 
-def decode_attention(q, k_cache, v_cache, cache_len, *, window=0):
+def decode_attention(q, k_cache, v_cache, cache_len, *, window=0, offset=0,
+                     lse=False):
     """Single-token attention against a KV cache.
 
     q: (B, 1, H, hd); k_cache/v_cache: (B, S, Kv, hd); cache_len: the
     number of valid cache entries, an int or an int32 tensor of one element
     on q's device (the JAX package's traced scalar; ``flash_decode`` reads
     it on the card). The new token attends to ``cache[max(0, cache_len -
-    window):cache_len]``. Returns (B, 1, H, hd) in q's dtype."""
+    window):cache_len]``. Returns (B, 1, H, hd) in q's dtype.
+
+    ``offset`` and ``lse``: the caches are one rank's slice of a cache
+    split on its sequence, from global position ``offset`` (``cache_len``
+    and ``window`` stay global); with ``lse`` the result is ``(out,
+    lse)``, the slice's partial output and its fp32 log-sum-exp (B, 1, H),
+    to be merged across the ranks by ``merge_partials``."""
     B, _, H, hd = q.shape
     out = ops.flash_decode(q.reshape(B, H, hd), k_cache, v_cache, cache_len,
-                           window=window)
+                           window=window, offset=offset, return_lse=lse)
+    if lse:
+        return out[0].reshape(B, 1, H, hd), out[1].reshape(B, 1, H)
     return out.reshape(B, 1, H, hd)
+
+
+def merge_partials(out, lse, groups):
+    """The slices' partial outputs ``out`` (..., H, hd) and their
+    log-sum-exps ``lse`` (..., H) merged over each process group of
+    ``groups`` in turn (None skipped): ``M = max_r lse_r`` (an ``all_reduce``
+    MAX), then ``out = sum_r e^(lse_r - M) out_r / sum_r e^(lse_r - M)`` in
+    fp32, with one ``all_reduce`` of the weighted outputs and the weights
+    together (gloo takes only ``all_reduce`` and ``broadcast`` of CUDA
+    tensors), and ``lse = M + log sum_r e^(lse_r - M)`` for the next
+    group. The merge is associative, so a sequence split over several mesh
+    axes is merged one axis at a time, in the order of its spec. An empty
+    slice (-inf) weighs exactly 0; a group whose slices are all empty gives
+    0 and -inf. Returns ``(out in out's dtype, lse)``. Not bit-equal to
+    one call over the whole cache: its tolerance is the caller's."""
+    o = out.float()
+    for group in groups:
+        if group is None:
+            continue
+        m = lse.clone()
+        _count_merge("max", m)
+        all_reduce(m, group, "max")
+        m = torch.where(m == -math.inf, torch.zeros_like(m), m)
+        w = torch.exp(lse - m)[..., None]
+        buf = torch.cat([o * w, w], dim=-1)
+        _count_merge("sum", buf)
+        all_reduce(buf, group)
+        den = buf[..., -1:]
+        o = buf[..., :-1] / torch.where(den > 0, den, torch.ones_like(den))
+        lse = m + torch.log(den[..., 0])
+    return o.to(out.dtype), lse
+
+
+def _count_merge(kind, t):
+    MERGE_CALLS[kind] += 1
+    MERGE_CALLS[kind + "_bytes"] += t.numel() * t.element_size()
+
+
+def cache_attention(q, k, v, k_cache, v_cache, cache_len, *, window=0,
+                    seq=None):
+    """Write one token's k and v (B, 1, Kv, hd) into the caches at
+    ``cache_len`` and attend q (B, 1, H, hd) over them, as
+    ``decode_attention_block`` describes (the ring included). Returns (B,
+    1, H, hd) in q's dtype.
+
+    ``seq`` (a ``runtime.sharding.SeqSlice``): the caches are this rank's
+    slice of the sequence, global rows ``seq.offset ...``, of
+    ``seq.rows`` in all. Only the rank that owns the written row (the ring
+    slot ``cache_len % seq.rows`` on a ring) writes it: with a tensor
+    cursor through a clamped local index and a ``torch.where`` against the
+    row already there, nothing read on the host. Every rank then attends
+    over its slice and the partials are merged over ``seq.groups``."""
+    S_cache = k_cache.shape[1]
+    rows = S_cache if seq is None else seq.rows
+    offset = 0 if seq is None else seq.offset
+    ring = bool(feature("ringkv") and window and rows == window)
+    if isinstance(cache_len, torch.Tensor):
+        w = torch.remainder(cache_len, rows) if ring else cache_len
+        length = (torch.clamp(cache_len + 1, max=rows) if ring
+                  else cache_len + 1)
+        if seq is None:
+            at = w.reshape(1)
+            k_cache[:, at] = k.to(k_cache.dtype)
+            v_cache[:, at] = v.to(v_cache.dtype)
+        else:
+            local = (w - offset).reshape(1)
+            own = (local >= 0) & (local < S_cache)
+            at = local.clamp(0, S_cache - 1)
+            k_cache[:, at] = torch.where(own, k.to(k_cache.dtype),
+                                         k_cache[:, at])
+            v_cache[:, at] = torch.where(own, v.to(v_cache.dtype),
+                                         v_cache[:, at])
+    else:
+        if cache_len < 0 or (not ring and cache_len >= rows):
+            raise ValueError(f"decode_attention_block: the cache holds "
+                             f"{rows} entries; cannot write at "
+                             f"{cache_len}")
+        w = (cache_len % rows if ring else cache_len) - offset
+        length = min(cache_len + 1, rows) if ring else cache_len + 1
+        if 0 <= w < S_cache:
+            k_cache[:, w:w + 1] = k.to(k_cache.dtype)
+            v_cache[:, w:w + 1] = v.to(v_cache.dtype)
+    window = 0 if ring else window
+    if seq is None:
+        return decode_attention(q, k_cache, v_cache, length, window=window)
+    out, lse = decode_attention(q, k_cache, v_cache, length, window=window,
+                                offset=offset, lse=True)
+    return merge_partials(out, lse, seq.groups)[0]
 
 
 def decode_attention_block(params, x, k_cache, v_cache, cache_len,
                            rope: Optional[Tuple[torch.Tensor,
                                                 torch.Tensor]], *,
-                           window=0):
+                           window=0, seq=None):
     """Decode sub-block: project one token, rotate q and k by ``rope``
     (``rope_angles`` of the position ``cache_len``, which the caller
     computes once per step for all layers; None for no rotation, the JAX
@@ -148,31 +253,17 @@ def decode_attention_block(params, x, k_cache, v_cache, cache_len,
     cache length: the JAX package's ``dynamic_update_slice`` clamps the
     write index and silently overwrites the last row instead. An int is
     checked here; a tensor's caller, which knows the step, keeps it in
-    range."""
-    S_cache = k_cache.shape[1]
-    ring = bool(feature("ringkv") and window and S_cache == window)
-    if isinstance(cache_len, torch.Tensor):
-        at = (torch.remainder(cache_len, S_cache) if ring
-              else cache_len).reshape(1)
-        length = (torch.clamp(cache_len + 1, max=S_cache) if ring
-                  else cache_len + 1)
-    else:
-        if cache_len < 0 or (not ring and cache_len >= S_cache):
-            raise ValueError(f"decode_attention_block: the cache holds "
-                             f"{S_cache} entries; cannot write at "
-                             f"{cache_len}")
-        w = cache_len % S_cache if ring else cache_len
-        at = slice(w, w + 1)
-        length = min(cache_len + 1, S_cache) if ring else cache_len + 1
+    range.
+
+    ``seq``: the caches are this rank's slice of a cache split on its
+    sequence (``cache_attention``)."""
     q = project(x, params["wq"])
     k = project(x, params["wk"])
     v = project(x, params["wv"])
     if rope is not None:
         q, k = rotate(q, *rope), rotate(k, *rope)
-    k_cache[:, at] = k.to(k_cache.dtype)
-    v_cache[:, at] = v.to(v_cache.dtype)
-    out = decode_attention(q, k_cache, v_cache, length,
-                           window=0 if ring else window)
+    out = cache_attention(q, k, v, k_cache, v_cache, cache_len,
+                          window=window, seq=seq)
     return unproject(out, params["wo"]), k_cache, v_cache
 
 

@@ -64,7 +64,11 @@ attention's, ``vision_proj``, any leaf of a user's partitioner) is
 gathered inside the block that uses it and freed after it
 (``ModelShards.gathered``; its gradient is this rank's slice). With no
 shards installed (``mesh=None``, 1-D meshes, a model extent of 1) every
-path runs as above.
+path runs as above. ``prefill_fn`` runs the same blocks under the
+shards, with the logits vocab-parallel and gathered; ``decode_fn`` under
+a production decode step's shards, which carry its part of the cache,
+runs each block through ``_decode_block_tp`` (the attention over the
+rank's slice of a cache split on its sequence, the slices merged).
 
 ``runtime/flags.py``: under probe mode nothing is stacked, as in the
 JAX package (``jax_layout`` is None for a homogeneous model, so the
@@ -392,12 +396,7 @@ class Model:
         ``vision_proj``) go in front of the text, ``offset`` of them; the
         encoder-decoder's tokens get sinusoidal positions and its encoder
         runs over ``batch["frames"]``."""
-        tp = active_model_shards()
-        if tp is not None and tp.dim(("embed",)) == 0:
-            x = _embed_tp(tp, tp.model_part(("embed",), params["embed"]),
-                          batch["tokens"])
-        else:
-            x = self._leaf(params, "embed")[batch["tokens"].long()]
+        x = self._embed_tokens(params, batch["tokens"])
         enc_out, offset = None, 0
         if self.cfg.frontend == "vision" and "patch_embeds" in batch:
             patches = batch["patch_embeds"].to(x.dtype) @ self._leaf(
@@ -409,6 +408,34 @@ class Model:
             x = x + _sinusoidal(torch.arange(x.shape[1], device=x.device),
                                 self.cfg.d_model).to(x.dtype)
         return x, enc_out, offset
+
+    def _embed_tokens(self, params, tokens):
+        """The tokens' embedding: from this rank's vocab rows where the
+        shards split ``embed`` on vocab (``_embed_tp``), else a lookup in
+        the (gathered) table."""
+        tp = active_model_shards()
+        if tp is not None and tp.dim(("embed",)) == 0:
+            return _embed_tp(tp, tp.model_part(("embed",), params["embed"]),
+                             tokens)
+        return self._leaf(params, "embed")[tokens.long()]
+
+    def _logits(self, params, x):
+        """``x @ the LM head`` in fp32. Under shards that split the head
+        (``lm_head``, or the tied ``embed``) on vocab, vocab-parallel:
+        this rank's columns, then every rank's gathered exactly
+        (``ModelShards.gather_model``), so each rank has its rows' whole
+        logits."""
+        tp = active_model_shards()
+        if tp is None:
+            return (x @ self._lm_head(params)).float()
+        tied = self.cfg.tie_embeddings
+        if tp.dim(("embed",)) == 0 if tied else tp.dim(("lm_head",)) == 1:
+            head = (tp.model_part(("embed",), params["embed"]).T if tied
+                    else tp.model_part(("lm_head",), params["lm_head"]))
+            return tp.gather_model(x @ head, x.dim() - 1).float()
+        head = (tp.gather(("embed",), params["embed"]).T if tied
+                else tp.gather(("lm_head",), params["lm_head"]))
+        return (x @ head).float()
 
     def _blocks(self, params):
         """``(kind, window, block params)`` per application, in order: the
@@ -497,8 +524,8 @@ class Model:
         """Last-token logits (B, 1, V) in fp32."""
         x, enc_out, _ = self._embed_inputs(params, batch)
         x, _ = self._backbone(params, x, enc_out)
-        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return (x[:, -1:] @ self._lm_head(params)).float()
+        x = rms_norm(x, self._leaf(params, "final_norm"), self.cfg.norm_eps)
+        return self._logits(params, x[:, -1:])
 
     # ----- decode -----------------------------------------------------------
     def cache_rows(self, seq_len: int) -> List[Any]:
@@ -590,6 +617,81 @@ class Model:
             x = x + attn_lib.unproject(c, bp["cross"]["wo"])
         return _ffn(cfg, kind, bp, x)[0]
 
+    def _decode_block_tp(self, tp, at, i, kind, window, bp, x, entry,
+                         cache_len, rope, cross=None):
+        """``_decode_block`` on this rank's shards of block ``at`` (its
+        path) and its part of the cache (``tp.cache``, entry ``i``). The
+        attention: where the specs split ``wq``/``wk``/``wv``/``wo`` on
+        heads, q, k and v are projected for this rank's heads and
+        gathered over ``model`` (exact), else computed whole from the
+        gathered leaves; k and v go to the rank that owns ``cache_len``'s
+        row, every rank attends over its slice of the cache for all heads
+        and the slices are merged (``attention.cache_attention``); this
+        rank's heads of the result go through the row-parallel ``wo``
+        and ``reduce_from_model``. The cross-attention of the
+        encoder-decoder attends its slice of the cross cache alike. The
+        SwiGLU MLP is tensor-parallel where the specs split it so, the
+        experts dispatch the whole batch's tokens. A Mamba2 layer runs
+        whole on its gathered leaves: its ``ssm`` state, split on heads,
+        is gathered, stepped, and this rank's heads written back."""
+        cfg = self.cfg
+        eps = cfg.norm_eps
+        cs = tp.cache
+        if kind == MAMBA:
+            bp = tp.gathered(bp, at)
+            name = ("layers", i, "ssm")
+            out, conv, ssm = mamba_lib.mamba_decode_block(
+                bp["mamba"], rms_norm(x, bp["norm1"], eps), entry["conv"],
+                cs.gather(name, entry["ssm"], dims=(1,)),
+                d_state=cfg.ssm_state, head_dim=cfg.ssm_head_dim,
+                expand=cfg.ssm_expand, conv_width=cfg.ssm_conv_width,
+                norm_eps=eps)
+            entry["conv"].copy_(conv)
+            entry["ssm"].copy_(cs.local(name, ssm, dims=(1,)))
+            return x + out
+        attn_tp = tp.all_split(at + ("attn",), _ATTN_TP)
+        mlp_tp = (kind != MOE and cfg.act == "silu"
+                  and tp.all_split(at + ("mlp",), _MLP_TP))
+        keep = ([("attn", k) for k in _ATTN_TP] if attn_tp else []) + (
+            [("mlp", k) for k in _MLP_TP] if mlp_tp else [])
+        bp = tp.gathered(bp, at, keep)
+        h = rms_norm(x, bp["norm1"], eps)
+        a = bp["attn"]
+        q, k, v = (attn_lib.project(h, a[w]) for w in ("wq", "wk", "wv"))
+        if attn_tp:                     # every head, on every model rank
+            q, k, v = (tp.gather_model(t, 2) for t in (q, k, v))
+        if rope is not None:
+            q, k = attn_lib.rotate(q, *rope), attn_lib.rotate(k, *rope)
+        out = attn_lib.cache_attention(q, k, v, entry["k"], entry["v"],
+                                       cache_len, window=window,
+                                       seq=cs.seq(("layers", i, "k")))
+        if attn_tp:
+            n = out.shape[2] // tp.parts
+            part = torch.einsum("bsnh,nhd->bsd",
+                                out[:, :, tp.index * n:(tp.index + 1) * n]
+                                .float(), a["wo"].float())
+            x = x + reduce_from_model(part, tp.group, torch.promote_types(
+                h.dtype, a["wo"].dtype))
+        else:
+            x = x + attn_lib.unproject(out, a["wo"])
+        if cross is not None:
+            seq = cs.seq(("cross", i, "k"))
+            q = attn_lib.project(rms_norm(x, bp["norm_x"], eps),
+                                 bp["cross"]["wq"])
+            if seq is None:
+                c = attn_lib.decode_attention(q, cross["k"], cross["v"],
+                                              cfg.encoder_tokens)
+            else:
+                c = attn_lib.merge_partials(*attn_lib.decode_attention(
+                    q, cross["k"], cross["v"], cfg.encoder_tokens,
+                    offset=seq.offset, lse=True), seq.groups)[0]
+            x = x + attn_lib.unproject(c, bp["cross"]["wo"])
+        if not mlp_tp:
+            return _ffn(cfg, kind, bp, x, tp)[0]
+        part = mlp_partial(bp["mlp"], rms_norm(x, bp["norm2"], eps))
+        return x + reduce_from_model(part, tp.group, torch.promote_types(
+            x.dtype, bp["mlp"]["w_down"].dtype))
+
     def decode_fn(self, params, batch):
         """One decode step. batch: ``tokens`` (B, 1), ``cache``
         (``init_cache``), ``cache_len`` (the position this token takes: an
@@ -608,11 +710,24 @@ class Model:
         the cache length (a ring's layers take any position). The
         encoder-decoder's token gets the sinusoidal position of
         ``cache_len`` (made on the device from a tensor cursor) instead
-        of RoPE."""
+        of RoPE.
+
+        Under a production decode step's shards (``active_model_shards``
+        with a ``cache``: ``runtime/steps.py::make_decode_step(mesh=)``)
+        the params are this rank's shards, the tokens its batch rows and
+        the cache its part, split on the sequence over the ranks
+        (``runtime.sharding.CacheShards``): each block runs
+        ``_decode_block_tp``, and the logits are vocab-parallel where the
+        head is split on vocab, gathered, (B_local, 1, V) fp32."""
         cfg = self.cfg
         tokens, cache, cache_len = (batch["tokens"], batch["cache"],
                                     batch["cache_len"])
-        x = params["embed"][tokens.long()]
+        tp = active_model_shards()
+        if tp is not None and tp.cache is None:
+            raise ValueError("decode_fn: the shards installed carry no "
+                             "cache shards (make_decode_step(mesh=) "
+                             "installs them)")
+        x = self._embed_tokens(params, tokens)
         rope = None
         if any(kind != MAMBA for kind, _ in self.specs):
             if isinstance(cache_len, torch.Tensor):
@@ -626,12 +741,16 @@ class Model:
                 rope = attn_lib.rope_angles(pos, cfg.resolved_head_dim,
                                             cfg.rope_theta)
         crosses = cache.get("cross") or [None] * len(cache["layers"])
-        for (kind, window, bp), entry, cross in zip(
-                self._blocks(params), cache["layers"], crosses):
-            x = self._decode_block(kind, window, bp, x, entry, cache_len,
-                                   rope, cross)
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        return (x @ self._lm_head(params)).float(), cache
+        for i, ((kind, window, bp, at), entry, cross) in enumerate(zip(
+                self._blocks_at(params), cache["layers"], crosses)):
+            if tp is None:
+                x = self._decode_block(kind, window, bp, x, entry,
+                                       cache_len, rope, cross)
+            else:
+                x = self._decode_block_tp(tp, at, i, kind, window, bp, x,
+                                          entry, cache_len, rope, cross)
+        x = rms_norm(x, self._leaf(params, "final_norm"), cfg.norm_eps)
+        return self._logits(params, x), cache
 
 
 def chunked_cross_entropy(x, lm_head, labels, chunk=1024,

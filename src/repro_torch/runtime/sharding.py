@@ -55,6 +55,13 @@ gather's backward sums the gradient over the data group and keeps this
 rank's slice (``_GatherData``). ``BatchMean`` sums every other gradient
 over the batch ranks once. ``DATA_CALLS`` counts the data group's
 collectives.
+
+A production decode step holds only this rank's part of the decode
+cache (``CacheShards``, from ``cache_rule``: the JAX package's
+``attn_cache_spec`` and ``mamba_cache_spec`` on the JAX layout's leaf):
+a KV cache's batch over the batch axes where they divide it, its
+sequence over the axes left (``SeqSlice``: the rank's offset and the
+groups its attention is merged over); ``MERGE_CALLS`` counts the merges.
 """
 from __future__ import annotations
 
@@ -356,6 +363,10 @@ MODEL_CALLS = {"activation": 0, "activation_bytes": 0, "gather": 0,
 #: FSDP's gathers of a leaf's data parts (and a MoE block's of the
 #: batch's rows), and their gradients' sums
 DATA_CALLS = {"gather": 0, "gather_bytes": 0, "grad": 0, "grad_bytes": 0}
+#: the production decode step's merges of the attention partials over the
+#: ranks that hold a cache's sequence (``models/attention.py::
+#: merge_partials``): its maxima and its sums of weighted outputs
+MERGE_CALLS = {"max": 0, "max_bytes": 0, "sum": 0, "sum_bytes": 0}
 
 
 def _count(kind: str, t: torch.Tensor) -> None:
@@ -587,6 +598,8 @@ class ModelShards:
                            mesh.coordinate(ax)) for ax in ("pod", "data")
                       if mesh.shape.get(ax, 1) > 1}
         self.batch_axes: Tuple[str, ...] = ()
+        # the decode cache's shards (``with_cache``), for a decode step
+        self.cache: Optional["CacheShards"] = None
 
     @classmethod
     def of(cls, partitioner: "ModelPartitioner", named_shapes, mesh):
@@ -664,6 +677,15 @@ class ModelShards:
         return _gather_along(local, d + batch_dims, self.group, self.parts,
                              self.index, MODEL_CALLS)
 
+    def gather_model(self, t: torch.Tensor, d: int) -> torch.Tensor:
+        """An activation split over the model group along dim ``d`` (each
+        rank's heads, or its vocab columns) made whole on every rank,
+        exactly (a zero-padded ``all_reduce``), outside autograd."""
+        if self.group is None:
+            return t
+        return _gather_along(t, d, self.group, self.parts, self.index,
+                             MODEL_CALLS)
+
     def gathered(self, sub, prefix: Tuple = (), keep=()):
         """``sub`` (a dict or list sub-tree at path ``prefix``) with every
         split leaf gathered but those whose relative path is in ``keep``
@@ -692,6 +714,13 @@ class ModelShards:
         ``axes`` (``token_spec``'s batch axes, or None)."""
         out = copy.copy(self)
         out.batch_axes = tuple(ax for ax in (axes or ()) if ax in self._rows)
+        return out
+
+    def with_cache(self, cache: "CacheShards") -> "ModelShards":
+        """These shards for a decode step on this rank's part of a cache
+        split by ``cache`` (a ``CacheShards``)."""
+        out = copy.copy(self)
+        out.cache = cache
         return out
 
     def all_rows(self, x: torch.Tensor) -> torch.Tensor:
@@ -771,6 +800,132 @@ class BatchMean:
         all_reduce(t, self.data)
         all_reduce(t, self.pod)
         return t.div_(self.ranks)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSlice:
+    """This rank's slice of a KV cache split on its sequence: its first
+    global row ``offset``, the whole cache's ``rows``, and the process
+    groups to merge the slices' attention over, one a mesh axis the
+    sequence splits over (of more than one rank), in the spec's order."""
+    offset: int
+    rows: int
+    groups: Tuple[Any, ...]
+
+
+def _spec_axes(entry) -> Tuple[str, ...]:
+    """A spec entry (None, an axis name, or a tuple of names) as a tuple
+    of names."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class CacheShards:
+    """This rank's part of an LM's decode cache on a production mesh: for
+    each leaf (by its port path) its spec, as the JAX package's
+    ``attn_cache_spec`` and ``mamba_cache_spec`` split it, decided on the
+    JAX layout's leaf (``jax_layout_specs``, as ``launch/specs.py``'s
+    ``decode_batch_specs`` decides it), its whole shape and its dtype.
+
+    An attention leaf (B, S, Kv, hd) splits its batch over (``pod``,
+    ``data``) where they divide it and its sequence over the axes left
+    (``model``, and the batch axes where they do not divide the batch); a
+    Mamba2 ``ssm`` state (B, H, P, N) its batch alike and its heads over
+    ``model``; a ``conv`` window its batch only. A dim split over several
+    axes is cut as ``runtime/steps.py::batch_rows`` cuts rows: the index
+    runs over the axes in order, the last fastest.
+
+    ``init`` builds this rank's cache only (zeros, or ``meta``), never
+    the whole; ``local`` cuts a whole leaf (a tensor or a NumPy array)
+    into this rank's part, along some of its dims or all, and ``gather``
+    makes a leaf whole along them (a collective every rank calls);
+    ``seq`` gives an attention leaf's ``SeqSlice`` (None where its
+    sequence is whole: it is attended whole and not merged)."""
+
+    def __init__(self, specs: Dict[Any, Tuple], shapes: Dict[Any, Tuple],
+                 dtypes: Dict[Any, torch.dtype], mesh):
+        self.specs = dict(specs)
+        self.shapes = {k: tuple(v) for k, v in shapes.items()}
+        self.dtypes = dict(dtypes)
+        self.mesh = mesh
+
+    @classmethod
+    def of_model(cls, model, mesh, batch_size: int, seq_len: int):
+        """The cache of ``model.init_cache(batch_size, seq_len)`` (read
+        under the calling thread's levers: ``ringkv`` sizes the rings) on
+        ``mesh``."""
+        from repro_torch.bridge import tree_leaves
+        cache = model.init_cache(batch_size, seq_len, device="meta")
+        leaves = dict(tree_leaves(cache))
+        shapes = {k: tuple(v.shape) for k, v in leaves.items()}
+        _, specs = jax_layout_specs(shapes, model.jax_layout,
+                                    cache_rule(mesh, batch_size), cache=True)
+        return cls(specs, shapes, {k: v.dtype for k, v in leaves.items()},
+                   mesh)
+
+    def _cut(self, axes) -> Tuple[int, int]:
+        """(parts, this rank's index) of a dim split over ``axes``."""
+        n, i = 1, 0
+        for ax in axes:
+            size = self.mesh.shape[ax]
+            n, i = n * size, i * size + self.mesh.coordinate(ax)
+        return n, i
+
+    def local_shape(self, name) -> Tuple[int, ...]:
+        return tuple(dim // self._cut(_spec_axes(ax))[0]
+                     for dim, ax in zip(self.shapes[name], self.specs[name]))
+
+    def local(self, name, whole, dims=None):
+        """This rank's part of the whole leaf ``whole`` along ``dims``
+        (default every split dim): a view, of a tensor or a NumPy
+        array."""
+        at = [slice(None)] * len(whole.shape)
+        for d, ax in enumerate(self.specs[name]):
+            if dims is not None and d not in dims:
+                continue
+            n, i = self._cut(_spec_axes(ax))
+            rows = whole.shape[d] // n
+            at[d] = slice(i * rows, (i + 1) * rows)
+        return whole[tuple(at)]
+
+    def gather(self, name, local: torch.Tensor, dims=None) -> torch.Tensor:
+        """The leaf made whole along ``dims`` (default every split dim)
+        from every rank's part: a zero-padded ``all_reduce`` of its bytes a
+        mesh axis, the last axis of a dim first (exact)."""
+        for d, ax in enumerate(self.specs[name]):
+            if dims is not None and d not in dims:
+                continue
+            for a in reversed(_spec_axes(ax)):
+                if self.mesh.shape[a] > 1:
+                    local = _gather_along(
+                        local, d, self.mesh.group(a), self.mesh.shape[a],
+                        self.mesh.coordinate(a),
+                        MODEL_CALLS if a == "model" else DATA_CALLS)
+        return local
+
+    def seq(self, name) -> Optional[SeqSlice]:
+        """The ``SeqSlice`` of an attention leaf (B, S, Kv, hd), or None
+        where its sequence is whole."""
+        axes = _spec_axes(self.specs[name][1])
+        if not axes:
+            return None
+        n, i = self._cut(axes)
+        rows = self.shapes[name][1]
+        return SeqSlice(i * (rows // n), rows, tuple(
+            self.mesh.group(ax) for ax in axes if self.mesh.shape[ax] > 1))
+
+    def init(self, device: DeviceLike = None):
+        """This rank's cache, zeros, on ``device`` (``"meta"`` for its
+        shapes alone), in the model's cache tree."""
+        from repro_torch.bridge import unflatten_tree
+        from repro_torch.device import resolve_device
+        dev = (torch.device("meta") if str(device) == "meta"
+               else resolve_device(device))
+        return unflatten_tree({
+            k: torch.zeros(self.local_shape(k), dtype=self.dtypes[k],
+                           device=dev) for k in self.specs})
+
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1045,6 +1200,23 @@ def attn_cache_spec(mesh, ndim, batch_size, seq_len) -> Tuple:
     if seq_axes and seq_len % _size(mesh, seq_axes) == 0:
         spec[s_i] = seq_axes
     return tuple(spec)
+
+
+def cache_rule(mesh, batch_size):
+    """The JAX package's spec of one decode-cache leaf, by its path and
+    its (stacked) shape: ``rule(name, shape)``."""
+    def rule(name, shape):
+        leaf_name = name.rsplit("/", 1)[-1]
+        if leaf_name in ("conv", "ssm"):
+            base = 4 if leaf_name == "ssm" else 3
+            off = len(shape) - base
+            nh = shape[off + 1] if leaf_name == "ssm" else 0
+            return mamba_cache_spec(mesh, leaf_name, len(shape), batch_size,
+                                    nh)
+        # attention k/v (self or cross): (..., B, S, Kv, hd)
+        return attn_cache_spec(mesh, len(shape), batch_size,
+                               shape[len(shape) - 3])
+    return rule
 
 
 def mamba_cache_spec(mesh, leaf_name, ndim, batch_size,

@@ -16,7 +16,13 @@ from the round engine's building blocks (``core/engine.py``):
 ``make_joint_train_step`` is the joint-training baseline (one optimizer
 step of ``optim.sgd`` or ``optim.adamw`` a batch), ``make_prefill_step``
 the last-token logits, and ``make_decode_step`` the LM's decode step
-(``Model.decode_fn``).
+(``Model.decode_fn``). Each also takes a production mesh (``mesh=``), as
+the JAX dry run compiles all four steps there: the joint step on the
+params' and AdamW state's shards with the batch split over the batch
+ranks; prefill likewise, each rank returning its rows' logits; decode on
+this rank's rows and its part of the cache, whose KV leaves are split
+on their sequence (``runtime.sharding.CacheShards``), each rank
+attending its slice and the partials merged across the ranks.
 ``DecodeRunner`` is what the serve launcher's decode mode drives: a whole
 greedy decode step (the token, ``decode_fn``, the argmax) built once and
 replayed, as the JAX launcher jits ``decode_fn`` once with ``cache_len``
@@ -24,6 +30,7 @@ a traced scalar.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import torch
@@ -36,7 +43,7 @@ from repro_torch.graphs import GraphStep, weak_method
 from repro_torch.kernels.ops import tree_meta_update
 from repro_torch.runtime.flags import feature, feature_scope
 from repro_torch.runtime.shardctx import model_shards_scope
-from repro_torch.runtime.sharding import ModelShards, token_spec
+from repro_torch.runtime.sharding import CacheShards, ModelShards, token_spec
 
 
 def data_rows(batch, mesh, axis: str):
@@ -48,13 +55,14 @@ def data_rows(batch, mesh, axis: str):
     return {k: v[:, i * rows:(i + 1) * rows] for k, v in batch.items()}
 
 
-def batch_rows(batch, mesh):
+def batch_rows(batch, mesh, leading: int = 1):
     """This rank's rows of each microbatch on a production mesh, and the
-    axes they split over: the leaves are (K, mb, ...), split over the
-    batch axes (``pod``, then ``data``) as ``token_spec`` splits them, or
-    whole on every rank (axes None) when those axes do not divide mb."""
-    mb = next(iter(batch.values())).shape[1]
-    axes = token_spec(mesh, mb, extra_dims=1, leading=1)[1]
+    axes they split over: the leaves are (K, mb, ...) (``leading`` 1; a
+    (B, ...) batch with ``leading`` 0), split over the batch axes
+    (``pod``, then ``data``) as ``token_spec`` splits them, or whole on
+    every rank (axes None) when those axes do not divide mb."""
+    mb = next(iter(batch.values())).shape[leading]
+    axes = token_spec(mesh, mb, extra_dims=1, leading=leading)[leading]
     if axes is None:
         return batch, None
     n, i = 1, 0
@@ -62,7 +70,8 @@ def batch_rows(batch, mesh):
         i = i * mesh.shape[ax] + mesh.coordinate(ax)
         n *= mesh.shape[ax]
     rows = mb // n
-    return {k: v[:, i * rows:(i + 1) * rows] for k, v in batch.items()}, axes
+    at = (slice(None),) * leading + (slice(i * rows, (i + 1) * rows),)
+    return {k: v[at] for k, v in batch.items()}, axes
 
 
 def make_meta_train_step(model, *, beta: float = 0.01, alpha: float = 0.5,
@@ -135,13 +144,27 @@ def _production_step(model, beta, alpha, mesh) -> Callable:
     return step
 
 
-def make_joint_train_step(model, optimizer, schedule) -> Callable:
+def make_joint_train_step(model, optimizer, schedule, mesh=None) -> Callable:
     """Baseline joint training (the transfer-learning / FedAVG-objective
     regime the paper compares against): one optimizer step per batch.
 
     ``step(params, opt_state, opt_step, batch)`` returns ``(params,
     opt_state, opt_step + 1, {"loss", "lr"})``: the loss an fp32 tensor
-    on the device, lr the schedule's float32 at ``opt_step`` (an int)."""
+    on the device, lr the schedule's float32 at ``opt_step`` (an int).
+
+    ``mesh``, a production ``ProcessMesh`` (``("data", "model")`` or
+    ``("pod", "data", "model")``): the params and the optimizer's state
+    (AdamW's fp32 ``mu`` and ``nu``) are this rank's shards under the
+    meta step's specs (``ModelShards.of_model``; ``step.shards``), and
+    the (B, S) batch is split over the batch ranks (``batch_rows``,
+    leading 0). The model computes tensor-parallel as the meta step's
+    does; each gradient is summed over the batch ranks once (the
+    gathers' backward and ``BatchMean``, on the ``fsdp_layout`` of the
+    shards), the loss averaged over them, and the optimizer updates each
+    shard elementwise."""
+    if mesh is not None:
+        return _production_joint_step(model, optimizer, schedule, mesh)
+
     def step(params, opt_state, opt_step, batch):
         leaves = dict(tree_leaves(params))
         live = {k: v.detach().requires_grad_() for k, v in leaves.items()}
@@ -157,21 +180,101 @@ def make_joint_train_step(model, optimizer, schedule) -> Callable:
     return step
 
 
-def make_prefill_step(model) -> Callable:
-    """``step(params, batch)`` is ``model.prefill_fn`` without autograd:
-    the last-token logits (B, 1, V) fp32."""
-    def step(params, batch):
+def _production_joint_step(model, optimizer, schedule, mesh) -> Callable:
+    shards = ModelShards.of_model(model, mesh)
+
+    def step(params, opt_state, opt_step, batch):
+        rows, axes = batch_rows(batch, mesh, leading=0)
+        layout = shards.fsdp_layout(GroupedLayout.of_tree(params))
+        dev = next(tree_leaves(params))[1].device
+        grads = tuple(torch.zeros(sum(map(math.prod, g.shapes)), dtype=dt,
+                                  device=dev)
+                      for g, dt in zip(layout.groups, layout.dtypes))
+        grad_views = layout.views(grads)
+        live = {}
+        for k, v in layout.named(params).items():
+            live[k] = v.detach().requires_grad_()
+            live[k].grad = grad_views[k]
+        with model_shards_scope(shards.with_batch(axes)):
+            loss = model.loss_fn(layout.tree(live), rows)
+        loss.backward()
+        reduce = shards.batch_mean(mesh, layout)
+        reduce.grads(grads)
+        loss = reduce.losses(loss.detach().float())
+        lr = schedule(opt_step)
         with torch.no_grad():
-            return model.prefill_fn(params, batch)
+            new_params, new_state = optimizer.update(
+                layout.tree_views(grads), opt_state, params, lr)
+        return new_params, new_state, opt_step + 1, {"loss": loss, "lr": lr}
+
+    step.shards = shards
     return step
 
 
-def make_decode_step(model) -> Callable:
+def make_prefill_step(model, mesh=None) -> Callable:
+    """``step(params, batch)`` is ``model.prefill_fn`` without autograd:
+    the last-token logits (B, 1, V) fp32.
+
+    ``mesh``, a production ``ProcessMesh``: the params are this rank's
+    shards (``step.shards``, the meta step's specs), the (B, S) batch
+    (and any ``patch_embeds`` or ``frames``) is split over the batch
+    ranks as ``token_spec`` splits it (``batch_rows``, leading 0), the
+    model computes tensor-parallel where it has the form, and each rank
+    returns its rows' whole logits (B_local, 1, V) fp32, gathered from
+    the vocab-parallel head."""
+    if mesh is None:
+        def step(params, batch):
+            with torch.no_grad():
+                return model.prefill_fn(params, batch)
+        return step
+    shards = ModelShards.of_model(model, mesh)
+
+    def sharded(params, batch):
+        rows, axes = batch_rows(batch, mesh, leading=0)
+        with torch.no_grad(), model_shards_scope(shards.with_batch(axes)):
+            return model.prefill_fn(params, rows)
+
+    sharded.shards = shards
+    return sharded
+
+
+def make_decode_step(model, mesh=None, *, batch_size: Optional[int] = None,
+                     seq_len: Optional[int] = None) -> Callable:
     """One decode step: ``step(params, batch)`` is ``model.decode_fn``
-    (batch: tokens (B, 1), cache, cache_len), returning (logits, cache)."""
-    def step(params, batch):
-        return model.decode_fn(params, batch)
-    return step
+    (batch: tokens (B, 1), cache, cache_len), returning (logits, cache).
+
+    ``mesh``, a production ``ProcessMesh``, with the whole cache's
+    ``batch_size`` and ``seq_len`` (``launch/specs.py::
+    decode_batch_specs``'s shape): the params are this rank's shards
+    (``step.shards``), the cache this rank's part of it as the JAX
+    package splits it (``step.cache_shards``, a ``CacheShards``; its
+    ``init(device)`` builds it, zeros), the tokens this rank's rows of
+    the batch (all of them where the batch axes do not divide it), and
+    ``cache_len`` the global position (an int, or an int32 tensor on the
+    device). A KV cache is split on its sequence: each rank attends its
+    slice and the partials are merged across the ranks that hold it
+    (``models/attention.py``). Returns (this rank's rows' logits (B_local,
+    1, V) fp32, its cache, updated in place). The ``ringkv`` lever in
+    force when the step is built sizes the rings; run the step under the
+    same setting. Runs eagerly: gloo's collectives cannot be captured."""
+    if mesh is None:
+        def step(params, batch):
+            return model.decode_fn(params, batch)
+        return step
+    if batch_size is None or seq_len is None:
+        raise ValueError("make_decode_step(mesh=): give the whole cache's "
+                         "batch_size and seq_len")
+    shards = ModelShards.of_model(model, mesh)
+    cache_shards = CacheShards.of_model(model, mesh, batch_size, seq_len)
+    axes = token_spec(mesh, batch_size, extra_dims=1)[0]
+    scoped = shards.with_batch(axes).with_cache(cache_shards)
+
+    def sharded(params, batch):
+        with torch.no_grad(), model_shards_scope(scoped):
+            return model.decode_fn(params, batch)
+
+    sharded.shards, sharded.cache_shards = shards, cache_shards
+    return sharded
 
 
 class DecodeRunner:

@@ -901,6 +901,65 @@ def test_flash_decode_device_len_in_a_captured_graph(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [(FD_PATH, torch.bfloat16),
+                                         (FD_PATH, torch.float32),
+                                         (FD_HD256, torch.bfloat16),
+                                         ((1, 24, 2, 128, 640),
+                                          torch.float32)])
+def test_flash_decode_slice_matches_plain(cuda, shape, dtype):
+    """A slice of a cache split on its sequence (``offset``,
+    ``return_lse``): each slice of four, at lengths and windows whose
+    stretch covers it, cuts it, holds the window's edge or misses it, on
+    the host-int and the device-L route (bit-equal), against the plain
+    version; an empty slice gives 0 and -inf; the four merged equal the
+    whole call within the kernel's tolerance; the split fp32 merge leaves
+    its counters at 0 (a later call still matches)."""
+    from repro_torch.kernels import flash_decode as fd
+
+    B, H, Kv, hd, S = shape
+    tol = FD_TOL[dtype]
+    q, k, v = _fd_inputs(shape, dtype, 73, cuda)
+    n = S // 4
+    for L, window in ((S, 0), (S // 2 + 7, 0), (S - 5, n + 9), (1, 0),
+                      (3 * n + 1, 2 * n)):
+        outs, lses = [], []
+        for j in range(4):
+            kj, vj = k[:, j * n:(j + 1) * n].contiguous(), \
+                v[:, j * n:(j + 1) * n].contiguous()
+            got, lse = ops.flash_decode(q, kj, vj, L, window=window,
+                                        offset=j * n, return_lse=True)
+            length = torch.tensor([L], dtype=torch.int32, device=cuda)
+            got_d, lse_d = ops.flash_decode(q, kj, vj, length,
+                                            window=window, offset=j * n,
+                                            return_lse=True)
+            want, want_lse = ref.flash_decode(q, kj, vj, L, window=window,
+                                              offset=j * n, return_lse=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got_d, got) and torch.equal(lse_d, lse)
+            lo, hi = fd.local_stretch(L, window, j * n, n)
+            if hi == lo:
+                assert not got.any() and bool((lse == -np.inf).all())
+            else:
+                torch.testing.assert_close(got.float(), want, rtol=tol,
+                                           atol=tol)
+                torch.testing.assert_close(lse, want_lse, rtol=tol,
+                                           atol=tol)
+            outs.append(got.float())
+            lses.append(lse)
+        lse = torch.stack(lses)
+        w = torch.exp(lse - lse.max(0).values)
+        merged = (torch.stack(outs) * w[..., None]).sum(0) / w.sum(0)[
+            ..., None]
+        torch.testing.assert_close(
+            merged, ref.flash_decode(q, k, v, L, window=window), rtol=tol,
+            atol=tol)
+    # the default call is unchanged after slices that split
+    torch.testing.assert_close(ops.flash_decode(q, k, v, S).float(),
+                               ref.flash_decode(q, k, v, S), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
 def test_flash_decode_device_len_rejects(cuda):
     q, k, v = _fd_inputs((2, 8, 2, 64, 128), torch.bfloat16, 72, cuda)
     with pytest.raises(TypeError, match="one int32"):
