@@ -427,7 +427,24 @@ Phases, each printing one JSON line, in this order:
     (``offset``, the log-sum-exp out) against its plain version in both
     dtypes on both routes: a slice in the middle of the stretch, one
     holding the window's edge, an empty one, a ring slot, and 2 and 4
-    slices merged against the whole call.
+    slices merged against the whole call; since slice 23 each slice's
+    partial is fp32 and an empty one with a host-int L launches nothing.
+
+40. slice 23, the dry run. ``dryrun_production``: ``launch/dryrun.py::
+    dryrun`` of tinyllama-1.1b train_4k and decode_32k on 16 x 16 and of
+    mamba2-130m long_500k on 2 x 16 x 16 (each cell traced as rank 0 of
+    a fake 256- or 512-rank group on ``meta`` tensors, on the host alone,
+    in one process started beside the streams), each OK with its chips,
+    tinyllama's parameter bytes a rank ``describe``'s bytes a chip and
+    decode_32k's cache bytes a rank ``cache_chip_bytes``; its memory,
+    FLOPs, collective bytes and roofline printed after the streams.
+    ``dryrun_vs_production``, after slice 22: the cut cells of slices
+    21 and 22 (the meta step, the decode step) traced on a fake (2, 2)
+    group, against the four ranks' counters exactly: each group's
+    collective counts and bytes, the kernel launches by name, the
+    parameter and cache bytes a rank, and rank 0's FLOPs and kernel
+    records of one more decode step (untimed, under a ``CostMode``); the
+    predicted peak a rank beside ``max_memory_allocated``, not gated.
 
 The order: the kernel phases, the levers (35) and slice 19 (36) run
 first, with nothing beside them. Then three streams run at once, each in
@@ -435,8 +452,9 @@ a process of its own on the card (STREAMS): this process runs slice
 17's two engine phases (34), 27 and 28; ``decode_lm`` runs 4-6,
 ``train_lm_fleet`` (34) and 23's dense LM; ``sine`` runs 7-13b, 24-26,
 18-20, 29, 14-17 and 21-23's mamba2 LM. A stream's lines are printed when it ends, each with its
-``stream``. Slice 20 (37) and slices 21 and 22 (38, 39) run once they
-are done; the families (30-33) run last, alone on the card.
+``stream``. Slice 23's dry runs (40) run beside them on the host and
+print after them. Slice 20 (37) and slices 21 and 22 (38, 39) run once
+they are done; the families (30-33) run last, alone on the card.
 
 The CPU references that depend only on a seed or an argv (the engine LM
 runs' first rounds, the partial wire's, the pool's and the pool drift's
@@ -3339,8 +3357,10 @@ def fd_slice_rows(torch, np, ops, ref, rows):
         for dt in ("bfloat16", "float32"):
             q, k, v = (t.to(getattr(torch, dt)) for t in drawn)
             off = at * n
+            launched = ops.flash_decode.launches
             got, lse = ops.flash_decode(q, k, v, L, window=w, offset=off,
                                         return_lse=True)
+            launched = ops.flash_decode.launches - launched
             want, want_lse = ref.flash_decode(q, k, v, L, window=w,
                                               offset=off, return_lse=True)
             length = torch.tensor([L], dtype=torch.int32, device=dev)
@@ -3352,6 +3372,10 @@ def fd_slice_rows(torch, np, ops, ref, rows):
                   f"flash_decode {tag}: the device-L route differs from "
                   f"the host-int call")
             lo, hi = local_stretch(L, w, off, n)
+            check(got.dtype == torch.float32 and launched == (hi > lo),
+                  f"flash_decode {tag}: a slice's partial must be fp32 "
+                  f"and an empty slice launch nothing ({got.dtype}, "
+                  f"{launched} launches)")
             tol = FD_TOL[dt]
             atol = tol * min(1.0, max(want.abs().max().item(), 1e-30))
             torch.testing.assert_close(got.float(), want, rtol=tol,
@@ -3364,9 +3388,10 @@ def fd_slice_rows(torch, np, ops, ref, rows):
                       f"flash_decode {tag}: an empty slice must give 0 and "
                       f"-inf")
             elem = q.element_size()
+            # the partial is written in fp32; an empty slice writes only
             moved = (2 * B * (hi - lo) * Kv * hd * elem
-                     + (2 * B * H * hd * elem if hi > lo else
-                        B * H * hd * elem) + B * H * 4)
+                     + (B * H * hd * elem if hi > lo else 0)
+                     + B * H * hd * 4 + B * H * 4)
             nops = 4 * B * H * (hi - lo) * hd
             t_bytes = moved / HBM_BYTES_PER_S
             t_ops = nops / (FP32_OPS_PER_S if dt == "float32"
@@ -3376,6 +3401,8 @@ def fd_slice_rows(torch, np, ops, ref, rows):
             row = {"shape_BHKvhdS": [B, H, Kv, hd, n], "whole_S": S,
                    "offset": off, "dtype": dt, "L": L, "window": w,
                    "local_lo_hi": [lo, hi], "route": "host_int",
+                   "host_int_launches": launched,
+                   "partial_dtype": str(got.dtype),
                    "rtol": tol, "atol": atol,
                    "max_abs_err": (got.float() - want).abs().max().item(),
                    "lse_max_abs_err": (
@@ -7856,6 +7883,8 @@ def prod_serve_rank(torch, np, mods, mesh, model, local, workdir):
     (``prod_serve_reference``): the numbers for the phase lines."""
     from repro_torch import optim
     from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels.costs import CostMode
+    from repro_torch.launch import dryrun as D
     from repro_torch.launch.specs import cache_chip_bytes
     from repro_torch.runtime.steps import (batch_rows, make_decode_step,
                                            make_joint_train_step,
@@ -7900,6 +7929,7 @@ def prod_serve_rank(torch, np, mods, mesh, model, local, workdir):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     before = calls()
+    counted = D.collective_counters()
     times, worst = [], []
     for t in range(PROD_DECODE_STEPS):
         t0 = time.perf_counter()
@@ -7914,8 +7944,19 @@ def prod_serve_rank(torch, np, mods, mesh, model, local, workdir):
     out["decode"] = {
         "step_s": times, "launches": ops.launch_counts(),
         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
         "calls_per_step": delta(before, calls()), "vs_single_rank": worst,
-        "shape": list(lg.shape)}
+        "calls": D.collectives_since(counted), "shape": list(lg.shape)}
+    # one more step, untimed, rank 0's under a CostMode: its FLOPs and
+    # kernel records, for dryrun_vs_production
+    with CostMode() if mesh.coordinate("data") == mesh.coordinate(
+            "model") == 0 else contextlib.nullcontext() as cm:
+        step(local, {"tokens": tokens[PROD_DECODE_STEPS - 1, rows],
+                     "cache": cache, "cache_len": cursor})
+    torch.cuda.synchronize()
+    if cm is not None:
+        out["decode"]["counted"] = {"flops": cm.flops,
+                                    "kernels": cm.kernels}
     del cache
     torch.cuda.empty_cache()
 
@@ -8119,6 +8160,7 @@ def prod_worker(rank, workdir):
     torch.zeros(1, device="cuda")
     mods = mesh2d_mods()
     bridge, ops, sh = mods["bridge"], mods["ops"], mods["sh"]
+    from repro_torch.launch import dryrun as D
     from repro_torch.launch.describe import chip_bytes
     from repro_torch.runtime.steps import make_meta_train_step
     mesh = sh.make_mesh(*PROD_MESH, "cuda")
@@ -8139,8 +8181,7 @@ def prod_worker(rank, workdir):
                        "cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    calls0 = {"data": dict(sh.DATA_CALLS), "model": dict(sh.MODEL_CALLS),
-              "all_reduce": sh.CALLS["all_reduce"]}
+    calls0 = D.collective_counters()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     new, metrics = step(local, batch, PROD_ALPHA)
@@ -8148,11 +8189,8 @@ def prod_worker(rank, workdir):
     out["step_s"] = time.perf_counter() - t0
     out["launches"] = ops.launch_counts()
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    out["calls"] = {
-        "data": {k: v - calls0["data"][k] for k, v in sh.DATA_CALLS.items()},
-        "model": {k: v - calls0["model"][k]
-                  for k, v in sh.MODEL_CALLS.items()},
-        "all_reduce": sh.CALLS["all_reduce"] - calls0["all_reduce"]}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["calls"] = D.collectives_since(calls0)
     out["param_bytes"] = sh.per_device_param_bytes(new)
     out["chip_bytes"] = chip_bytes(model.cfg, sh.MeshShape(
         PROD_MESH[1], PROD_MESH[0]))
@@ -8239,11 +8277,13 @@ def prod_reference(torch, np, mods, workdir):
     return res
 
 
-def phase_production(torch, np, workdir):
+def phase_production(torch, np, workdir, cut):
     """Start the four ranks; meanwhile the reduced mixtral's single-rank
     step on the CPU and tinyllama-1.1b's on the card; then the ranks'
     tinyllama go, and their runs held to both
-    (``production_step_mixtral_reduced``, ``production_step_tinyllama``)."""
+    (``production_step_mixtral_reduced``, ``production_step_tinyllama``),
+    and their counters to the dry run's traces ``cut``
+    (``dryrun_vs_production``)."""
     from repro_torch.runtime.steps import make_meta_train_step
     mods = mesh2d_mods()
     bridge, ops = mods["bridge"], mods["ops"]
@@ -8346,6 +8386,7 @@ def phase_production(torch, np, workdir):
           "launches_single_rank": ref["launches"]})
     paths.update(prod_serve_lines(torch, np, mods, outs, ref["serve"],
                                   reduced_ref))
+    phase_dryrun_vs_production(outs, cut)
     return paths
 
 
@@ -8472,6 +8513,203 @@ def prod_serve_lines(torch, np, mods, outs, ref, reduced_ref):
           "ranks_s": [r["reduced_s"] for r in outs]})
     check(not fails, "; ".join(fails))
     return paths
+
+
+# -- slice 23: the dry run ----------------------------------------------------
+
+# the cells dryrun_production runs the dry run on: (arch, shape, multi-pod)
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", False),
+                ("tinyllama-1.1b", "decode_32k", False),
+                ("mamba2-130m", "long_500k", True))
+DRYRUN_TIMEOUT = 900           # seconds from the dry runs' start
+
+
+def dryrun_main(out_dir):
+    """The dry runs, one after another in a process of its own (spawned)
+    beside the streams, on the host alone (``meta`` tensors; no card:
+    CUDA_VISIBLE_DEVICES is empty): first the production phases' two cut
+    cells, tinyllama-1.1b's meta step on PROD_SHAPE and its decode step on
+    PROD_DECODE_BATCH rows of PROD_DECODE_SEQ, traced on a fake
+    ``PROD_MESH`` group (``cut.json``, for dryrun_vs_production); then
+    ``launch/dryrun.py::dryrun`` of each DRYRUN_CELLS cell on its fake
+    256- or 512-rank group (``cells.json``: each report and its seconds).
+    It runs below the streams' priority (``os.nice``)."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.nice(10)              # the streams' timed phases first on the cores
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import InputShape, get_arch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.runtime import sharding as sh
+    cut = {}
+    t0 = time.perf_counter()
+    with D.fake_group(PROD_RANKS):
+        mesh = sh.make_mesh(*PROD_MESH, "cpu")
+        cfg = get_arch("tinyllama-1.1b")
+        K, mb, S = PROD_SHAPE
+        for name, shape, k in (
+                ("meta", InputShape("train_4k_cut", S, K * mb, "train"), K),
+                ("decode", InputShape("decode_32k_cut", PROD_DECODE_SEQ,
+                                      PROD_DECODE_BATCH, "decode"), None)):
+            t = D.trace(cfg, shape, mesh, "meta", k)
+            cut[name] = {key: t[key] for key in (
+                "flops", "kernels", "calls", "argument", "temp",
+                "param_bytes", "cache_bytes", "trace_s")}
+    cut["seconds"] = time.perf_counter() - t0
+    with open(Path(out_dir) / "cut.json", "w") as f:
+        json.dump(cut, f)
+    cells = {}
+    for arch, shape, multi in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        report = D.dryrun(arch, shape, multi_pod=multi)
+        cells[f"{arch}__{shape}"] = {"report": report,
+                                     "seconds": time.perf_counter() - t0}
+    with open(Path(out_dir) / "cells.json", "w") as f:
+        json.dump(cells, f)
+
+
+def start_dryruns():
+    """``dryrun_main`` started now (spawned); returns its process, when it
+    started, and its output directory."""
+    import multiprocessing
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=dryrun_main, args=(out_dir,))
+    proc.start()
+    STREAM_PROCS.append(proc)
+    return proc, time.monotonic(), out_dir
+
+
+def phase_dryrun_production(started):
+    """Wait for ``start_dryruns``' process; check each DRYRUN_CELLS cell's
+    report (OK, its chips; tinyllama-1.1b's parameter bytes a rank
+    ``describe``'s bytes a chip, decode_32k's cache bytes a rank
+    ``cache_chip_bytes``) and print it (``dryrun_production``: its
+    memory, FLOPs, collective bytes and roofline). Returns the cut
+    cells' traces."""
+    from repro_torch.configs import get_arch, get_shape
+    from repro_torch.launch.describe import MULTI_POD, SINGLE_POD, chip_bytes
+    from repro_torch.launch.specs import cache_chip_bytes
+    proc, at, out_dir = started
+    t0 = time.perf_counter()
+    proc.join(max(at + DRYRUN_TIMEOUT - time.monotonic(), 0.0))
+    waited = time.perf_counter() - t0
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+        check(False, f"dryrun_production: still running after "
+                     f"{DRYRUN_TIMEOUT} s")
+    check(proc.exitcode == 0, f"dryrun_production: the dry runs failed "
+                              f"(exit code {proc.exitcode}); see stderr")
+    with open(Path(out_dir) / "cut.json") as f:
+        cut = json.load(f)
+    with open(Path(out_dir) / "cells.json") as f:
+        cells = json.load(f)
+    fails = []
+    for arch, shape, multi in DRYRUN_CELLS:
+        cell = cells[f"{arch}__{shape}"]
+        rep = cell["report"]
+        mesh = MULTI_POD if multi else SINGLE_POD
+        cfg = get_arch(arch)
+        ok = rep["status"] == "OK" and rep["roofline"]["chips"] == (
+            512 if multi else 256)
+        ok &= rep["param_bytes_per_rank"] == chip_bytes(cfg, mesh)
+        if get_shape(shape).kind == "decode":
+            ok &= rep["cache_bytes_per_rank"] == cache_chip_bytes(
+                cfg, get_shape(shape), mesh)
+        if not ok:
+            fails.append(f"{arch} {shape}: {rep.get('status')}")
+        mem = rep["memory"]
+        emit({"phase": "dryrun_production", "arch": arch, "shape": shape,
+              "mesh": rep["mesh"], "status": rep["status"],
+              "step": rep["step"], "memory": mem,
+              "predicted_peak_gb_per_rank": (
+                  mem["argument_size_in_bytes"]
+                  + mem["temp_size_in_bytes"]) / 1e9,
+              "param_bytes_per_rank": rep["param_bytes_per_rank"],
+              "cache_bytes_per_rank": rep["cache_bytes_per_rank"],
+              "flops": rep["cost"]["flops"],
+              "bytes_accessed": rep["cost"]["bytes accessed"],
+              "kernels": rep["kernels"],
+              "collective_bytes": rep["collective_bytes"]["all-reduce"],
+              "collective_counts": rep["collective_counts"]["all-reduce"],
+              "gathers": rep["gathers"], "roofline": rep["roofline"],
+              "model_flops_per_chip": rep["model_flops_per_chip"],
+              "useful_ratio": rep.get("useful_ratio"),
+              "probe_cost_flops": rep["probe_cost"]["flops"],
+              "trace_s": rep["timing"]["trace_s"],
+              "cell_s": cell["seconds"], "waited_s": waited,
+              "cut_cells_s": cut["seconds"]})
+    check(not fails, "dryrun_production: " + "; ".join(fails))
+    return cut
+
+
+def phase_dryrun_vs_production(outs, cut):
+    """The production phases' counters from their four ranks on the card
+    against the cut cells traced on a fake four-rank group
+    (``dryrun_main``), exactly: each group's collective counts and bytes
+    (the meta step's, the decode steps' over PROD_DECODE_STEPS), the
+    kernel launches by name, the parameter and cache bytes a rank, and
+    rank 0's FLOPs and kernel records of one more decode step (its
+    ``CostMode``); the predicted peak a rank (argument and temp) beside
+    ``max_memory_allocated``, a ratio, not gated."""
+    meta, dec = cut["meta"], cut["decode"]
+    steps = PROD_DECODE_STEPS
+    dec_calls = {g: {k: v * steps for k, v in c.items()}
+                 for g, c in dec["calls"].items()}
+    fails = []
+
+    def need(cond, msg):
+        if not cond:
+            fails.append(msg)
+
+    def records(kernels, times=1):
+        return {k: r["calls"] * times for k, r in kernels.items()}
+
+    for r in outs:
+        s = r["serve"]["decode"]
+        need(r["calls"] == meta["calls"], f"rank {r['rank']}: meta step "
+                                          f"collectives {r['calls']}")
+        need({k: v for k, v in r["launches"].items() if v}
+             == records(meta["kernels"]), f"rank {r['rank']}: meta step "
+                                          f"launches {r['launches']}")
+        need(r["param_bytes"] == meta["param_bytes"],
+             f"rank {r['rank']}: {r['param_bytes']} param bytes")
+        need(s["calls"] == dec_calls, f"rank {r['rank']}: decode "
+                                      f"collectives {s['calls']}")
+        need({k: v for k, v in s["launches"].items() if v}
+             == records(dec["kernels"], steps),
+             f"rank {r['rank']}: decode launches {s['launches']}")
+        need(r["serve"]["cache_bytes"] == dec["cache_bytes"],
+             f"rank {r['rank']}: {r['serve']['cache_bytes']} cache bytes")
+    counted = outs[0]["serve"]["decode"]["counted"]
+    need(counted == {"flops": dec["flops"], "kernels": dec["kernels"]},
+         f"rank 0's decode step counted {counted}")
+    peaks = {"meta": [(meta["argument"] + meta["temp"]) / r["peak_bytes"]
+                      for r in outs],
+             "decode": [(dec["argument"] + dec["temp"])
+                        / r["serve"]["decode"]["peak_bytes"] for r in outs]}
+    emit({"phase": "dryrun_vs_production",
+          "mesh": dict(zip(PROD_MESH[1], PROD_MESH[0])),
+          "cells": {"meta": PROD_CUT, "decode": PROD_DECODE_CUT},
+          "exact": not fails,
+          "meta_collectives_per_rank": meta["calls"],
+          "meta_launches": records(meta["kernels"]),
+          "param_bytes_per_rank": meta["param_bytes"],
+          "decode_collectives_per_step": dec["calls"],
+          "decode_launches_per_step": records(dec["kernels"]),
+          "cache_bytes_per_rank": dec["cache_bytes"],
+          "decode_flops_rank0": dec["flops"],
+          "decode_kernel_records": dec["kernels"],
+          "predicted_peak_gb": {
+              "meta": (meta["argument"] + meta["temp"]) / 1e9,
+              "decode": (dec["argument"] + dec["temp"]) / 1e9},
+          "measured_peak_gb_per_rank": {
+              "meta": [r["peak_bytes"] / 1e9 for r in outs],
+              "decode": [r["serve"]["decode"]["peak_bytes"] / 1e9
+                         for r in outs]},
+          "predicted_over_measured": peaks,
+          "trace_s": {"meta": meta["trace_s"], "decode": dec["trace_s"]}})
+    check(not fails, "dryrun_vs_production: " + "; ".join(fails))
 
 
 # -- streams: groups of phases in processes of their own ------------------------
@@ -8781,6 +9019,8 @@ def run_phases(torch, np, refs, t_start):
     # the engine's LM route; the families run after them, alone
     stream_dir = tempfile.mkdtemp(prefix="chip_smoke_streams_")
     streams = start_streams(stream_dir)
+    # slice 23's dry runs beside them, on the host alone
+    dryruns = start_dryruns()
     # slice 20's four ranks set up beside the streams and wait for them
     mesh2d_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh2d_")
     mesh2d_thread = start_mesh2d_workers(mesh2d_dir)
@@ -8798,6 +9038,7 @@ def run_phases(torch, np, refs, t_start):
     engine_lm_paths = {**phase_engine_lm_reduced(torch, np, tm),
                        **phase_engine_lm_full(torch, np, tm)}
     stream_paths, stream_log = join_streams(streams, stream_dir)
+    cut = phase_dryrun_production(dryruns)
 
     # slice 20: the 2-D (clients, model) route, once the streams are done
     t20 = time.perf_counter()
@@ -8810,7 +9051,7 @@ def run_phases(torch, np, refs, t_start):
     # the families, alone on the card
     t21 = time.perf_counter()
     prod_paths = phase_production(torch, np, tempfile.mkdtemp(
-        prefix="chip_smoke_prod_"))
+        prefix="chip_smoke_prod_"), cut)
     emit({"phase": "slice_21", "phases_s": time.perf_counter() - t21,
           "script_s_so_far": time.perf_counter() - t_start})
 

@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, costs, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -41,7 +41,8 @@ def client_mean(results: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     axis with ``weights`` (C,), in fp32, shaped ``results.shape[1:]``;
     ``results`` fp32 or bf16 (other dtypes are widened to fp32 first). A
     CPU tensor gets the plain version; a CUDA tensor gets the kernel
-    (``client_mean.launches`` counts its launches) or an error."""
+    (``client_mean.launches`` counts its launches) or an error; a fake or
+    ``meta`` one its output's shape alone (``costs.shape_only``)."""
     if results.dim() < 1 or weights.shape != results.shape[:1]:
         raise ValueError(f"client_mean: weights {tuple(weights.shape)} do "
                          f"not match the clients axis of results "
@@ -50,12 +51,21 @@ def client_mean(results: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
             or weights.is_cuda != results.is_cuda):
         raise ValueError(f"client_mean: results on {results.device}, "
                          f"weights on {weights.device}")
+    C = results.shape[0]
+    mode = costs.active()
+    if mode is not None:
+        mode.record("client_mean", *cost(C, results.numel() // max(C, 1),
+                                         results.dtype))
+    if costs.shape_only(results):
+        costs.same_device("client_mean", results, weights)
+        return costs.empty_like_shape(results, results.shape[1:],
+                                      torch.float32)
     if not results.is_cuda:
         if results.device.type != "cpu":
             raise ValueError(f"client_mean: unsupported device "
                              f"{results.device}")
-        return ref.client_mean(results, weights)
-    C = results.shape[0]
+        with costs.uncounted():
+            return ref.client_mean(results, weights)
     if C < 1:
         raise ValueError("client_mean: no clients")
     q = results if results.dtype in _DTYPES else results.float()
@@ -70,6 +80,14 @@ def client_mean(results: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
             raise RuntimeError(f"client_mean launch failed: cudaError {err}")
         client_mean.launches += 1
     return out.reshape(results.shape[1:])
+
+
+def cost(C: int, n: int, dtype: torch.dtype):
+    """(operations, bytes) of the mean of C rows of n: a multiply and an
+    add an element; the rows and weights read once, the fp32 mean
+    written once."""
+    size = dtype.itemsize if dtype in _DTYPES else 4
+    return 2 * C * n, C * n * size + 4 * C + 4 * n
 
 
 client_mean.launches = 0

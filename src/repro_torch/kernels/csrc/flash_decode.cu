@@ -26,7 +26,9 @@
 // the (B, H) log-sum-exp, lse = m + log(l) from the (max, sum) pair that
 // each path carries into its merge (the bf16 warps' or cluster's, the
 // fp32 block's or workspace's), in natural-log units, so the ranks'
-// partials can be merged (models/attention.py::merge_partials). An empty
+// partials can be merged (models/attention.py::merge_partials); a bf16
+// slice then writes its partial in fp32 (dtype 2), so the merge rounds the
+// attention output once, as one call over the whole cache does. An empty
 // stretch writes zeros and -inf and reads nothing. The slice's bound is
 // the same: the K and V bytes of its attended local positions.
 //
@@ -167,6 +169,8 @@ int opt_in(Kernel kernel, int smem, bool (&opted)[kMaxDevices]) {
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
+
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
 
 // What a call attends, [lo, hi), in n_split stretches of `chunk`
 // positions: given by the host (len null), or planned by every block from
@@ -321,13 +325,14 @@ __host__ __device__ constexpr int bf16_smem_bytes() {
   return kStages * 2 * kTile * HD * 2;
 }
 
-// q (B, H, HD), k and v (B, S, Kv, HD), out (B, H, HD), all bf16.
-template <int HD>
+// q (B, H, HD), k and v (B, S, Kv, HD), all bf16; out (B, H, HD) bf16, or
+// fp32 (OutT float) for a slice's partial, merged before it is rounded.
+template <int HD, typename OutT>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_bf16(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                  OutT* __restrict__ out, float* __restrict__ lse,
                   int S, int H, int Kv, int R, Span span, float scale_log2) {
   constexpr int CPR = HD / 8;                  // 16-byte chunks per row
   constexpr int TILE_BYTES = kTile * HD * 2;   // one of K or V
@@ -801,13 +806,13 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 // -- launch -------------------------------------------------------------------
 
-template <int HD>
+template <int HD, typename OutT>
 int launch_bf16(dim3 grid, const void* q, const void* k, const void* v,
                 void* out, float* lse, int S, int H, int Kv, Span span,
                 float scale, cudaStream_t stream) {
   constexpr int smem = bf16_smem_bytes<HD>();
   static bool opted[kMaxDevices];
-  const int refused = opt_in(flash_decode_bf16<HD>, smem, opted);
+  const int refused = opt_in(flash_decode_bf16<HD, OutT>, smem, opted);
   if (refused != 0) return refused;
   // one cluster of grid.x blocks per (b, group): the splits
   cudaLaunchConfig_t cfg = {};
@@ -823,10 +828,10 @@ int launch_bf16(dim3 grid, const void* q, const void* k, const void* v,
   cfg.attrs = attr;
   cfg.numAttrs = grid.x > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, flash_decode_bf16<HD>,
+      &cfg, flash_decode_bf16<HD, OutT>,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<const __nv_bfloat16*>(v), static_cast<OutT*>(out),
       lse, S, H, Kv, H / Kv, span, scale * kLog2e);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -866,19 +871,33 @@ int launch(int n_grid, const void* q, const void* k, const void* v,
   if (dtype == 0 && hd == 256)
     return launch_f32<256>(grid, q, k, v, out, lse, w, c, S, H, Kv, span, scale,
                            s);
+  using bf16 = __nv_bfloat16;
   if (dtype == 1 && hd == 64)
-    return launch_bf16<64>(grid, q, k, v, out, lse, S, H, Kv, span, scale, s);
+    return launch_bf16<64, bf16>(grid, q, k, v, out, lse, S, H, Kv, span,
+                                 scale, s);
   if (dtype == 1 && hd == 128)
-    return launch_bf16<128>(grid, q, k, v, out, lse, S, H, Kv, span, scale, s);
+    return launch_bf16<128, bf16>(grid, q, k, v, out, lse, S, H, Kv, span,
+                                  scale, s);
   if (dtype == 1 && hd == 256)
-    return launch_bf16<256>(grid, q, k, v, out, lse, S, H, Kv, span, scale, s);
+    return launch_bf16<256, bf16>(grid, q, k, v, out, lse, S, H, Kv, span,
+                                  scale, s);
+  if (dtype == 2 && hd == 64)
+    return launch_bf16<64, float>(grid, q, k, v, out, lse, S, H, Kv, span,
+                                  scale, s);
+  if (dtype == 2 && hd == 128)
+    return launch_bf16<128, float>(grid, q, k, v, out, lse, S, H, Kv, span,
+                                   scale, s);
+  if (dtype == 2 && hd == 256)
+    return launch_bf16<256, float>(grid, q, k, v, out, lse, S, H, Kv, span,
+                                   scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // q (B,H,hd), k and v (B,S,Kv,hd), out (B,H,hd): contiguous on the device,
-// fp32 (dtype 0) or bf16 (dtype 1). Positions [lo, hi) are attended, in
+// fp32 (dtype 0) or bf16 (dtype 1), or bf16 operands with an fp32 out
+// (dtype 2: a slice's partial). Positions [lo, hi) are attended, in
 // n_split stretches of `chunk` positions (a multiple of 64; every stretch
 // non-empty; n_split <= 128 in fp32, <= 8 in bf16); up to 8 query heads
 // per block. lo == hi (an empty slice, n_split 1) writes zeros. For fp32
@@ -899,7 +918,7 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
       (lo < hi && (long long)(n_split - 1) * chunk >= hi - lo) ||
       (dtype == 0 && (n_split > kMaxSplits ||
                       (n_split > 1 && (ws == nullptr || counters == nullptr)))) ||
-      (dtype == 1 && n_split > kMaxCluster))
+      (dtype != 0 && n_split > kMaxCluster))
     return (int)cudaErrorInvalidValue;
   const Span span = {nullptr, lo, hi, chunk, n_split, 0, 0, 1, 0, 0};
   return launch(n_split, q, k, v, out, lse, ws, counters, dtype, B, S, H, Kv,
@@ -934,7 +953,7 @@ extern "C" int flash_decode_launch_len(const void* q, const void* k,
       (dtype == 0 &&
        (n_grid > kMaxSplits ||
         (n_grid > 1 && (ws == nullptr || counters == nullptr)))) ||
-      (dtype == 1 && n_grid > kMaxCluster))
+      (dtype != 0 && n_grid > kMaxCluster))
     return (int)cudaErrorInvalidValue;
   const Span span = {static_cast<const int*>(len), 0, 0, 0, 0, window, cap,
                      min_tiles, offset, offset != 0 || lse != nullptr};

@@ -36,21 +36,31 @@ global, and the call attends what of ``[max(0, L - window), L)`` falls
 in the slice, on both routes (the device-L route shifts and clamps the
 stretch on the card, so one captured launch still serves every L). With
 ``return_lse`` it also returns the (B, H) fp32 log-sum-exp of the
-attended scaled scores; an empty slice gives zeros and -inf. The bound
-of a slice call is the K and V bytes of its attended local positions.
+attended scaled scores, and the output is fp32 whatever the caches'
+dtype (the kernel's bf16 instantiation with an fp32 output), so that
+the slices are merged before anything is rounded; an empty slice gives
+zeros and -inf, and with a host-int L launches nothing (a device L is
+read only by the kernel, which writes them). The bound of a slice call
+is the K and V bytes of its attended local positions.
+
+A fake or ``meta`` tensor (``costs.shape_only``: the dry run's trace)
+gets outputs of the right shapes without a launch; under a
+``costs.CostMode`` every call records ``cost``'s operations and bytes.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import operator
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, costs, ref
 
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+BF16_FP32_OUT = 2          # bf16 operands, fp32 output: a slice's partial
 TILE = 64                  # positions per tile of the bf16 kernel
 MAX_ROWS = 8               # query heads one block takes (kRows)
 MAX_SPLITS = 128           # fp32: kMaxSplits
@@ -162,6 +172,15 @@ def _shapes(q_shape, k_shape, v_shape, q_dtype, k_dtype, v_dtype):
     return B, H, hd, S, Kv
 
 
+def _check_int(L, S: int, sliced: bool) -> int:
+    """A host-int ``cache_len``: in [1, S], or >= 0 for a slice."""
+    L = operator.index(L)
+    if not (L >= 0 if sliced else 1 <= L <= S):
+        raise ValueError(f"flash_decode: cache_len must be in [1, S={S}] "
+                         f"(>= 0 for a slice); got {L}")
+    return L
+
+
 def _check_len(cache_len: torch.Tensor, dev: int) -> None:
     """A tensor ``cache_len`` must be one int32 on q's device."""
     if cache_len.dtype != torch.int32 or cache_len.numel() != 1:
@@ -182,12 +201,16 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     as ``ref.flash_decode`` computes it over the positions ``[max(0,
     cache_len - window), cache_len)``. A CPU tensor gets the plain version;
     a CUDA tensor gets the kernel (``flash_decode.launches`` counts its
-    launches) or an error. A tensor L on the card is never read on the
-    host: the kernel reads it (the device-L route).
+    launches) or an error; a fake or ``meta`` one its outputs' shapes
+    alone (``costs.shape_only``). A tensor L on the card is never read on
+    the host: the kernel reads it (the device-L route).
 
     ``offset`` (an int >= 0) and ``return_lse`` make the call a slice's
     (the module's docstring): L is global, any int >= 0, and with
-    ``return_lse`` the result is ``(out, lse)``, lse (B, H) fp32."""
+    ``return_lse`` the result is ``(out, lse)``, out (B, H, hd) and lse
+    (B, H) both fp32, so that the slices merge before anything is
+    rounded. A host-int L whose stretch misses the slice launches nothing
+    and gives zeros and -inf."""
     B, H, hd, S, Kv = _shapes(q.shape, k_cache.shape, v_cache.shape,
                               q.dtype, k_cache.dtype, v_cache.dtype)
     dev = q.get_device()                # -1 on the CPU
@@ -199,27 +222,39 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"flash_decode: window and offset must be >= 0; "
                          f"got {window} and {offset}")
     sliced = bool(offset or return_lse)
-    if isinstance(cache_len, torch.Tensor):
-        _check_len(cache_len, dev)
-        if not q.is_cuda:               # a CPU tensor: read, as an int
-            cache_len = int(cache_len)
     on_device = isinstance(cache_len, torch.Tensor)
-    if not on_device:
-        L = operator.index(cache_len)
-        if not (L >= 0 if sliced else 1 <= L <= S):
-            raise ValueError(f"flash_decode: cache_len must be in "
-                             f"[1, S={S}] (>= 0 for a slice); got {L}")
+    if on_device:
+        _check_len(cache_len, dev)
+        lo, hi = 0, min(window, S) if window else S
+    else:
+        lo, hi = local_stretch(_check_int(cache_len, S, sliced), window,
+                               offset, S)
+    mode = costs.active()
+    if mode is not None:
+        mode.record("flash_decode", *cost(B, H, hd, Kv, hi - lo, q.dtype,
+                                          return_lse))
+    out_dtype = torch.float32 if return_lse else q.dtype
+    if costs.shape_only(q):
+        costs.same_device("flash_decode", q, k_cache, v_cache,
+                          *([cache_len] if on_device else []))
+        out = costs.empty_like_shape(q, dtype=out_dtype)
+        return ((out, costs.empty_like_shape(q, (B, H), torch.float32))
+                if return_lse else out)
     if not q.is_cuda:
         if q.device.type != "cpu":
             raise ValueError(f"flash_decode: unsupported device {q.device}")
-        out = ref.flash_decode(q, k_cache, v_cache, L, window=window,
-                               offset=offset, return_lse=return_lse)
-        if return_lse:
-            return out[0].to(q.dtype), out[1]
-        return out.to(q.dtype)
+        L = _check_int(int(cache_len), S, sliced)   # a CPU tensor: read
+        with costs.uncounted():
+            out = ref.flash_decode(q, k_cache, v_cache, L, window=window,
+                                   offset=offset, return_lse=return_lse)
+        return out if return_lse else out.to(q.dtype)
     if not (q.is_contiguous() and k_cache.is_contiguous()
             and v_cache.is_contiguous()):
         raise ValueError("flash_decode: q and the caches must be contiguous")
+    if not on_device and hi <= lo:      # a slice the stretch misses
+        out = torch.zeros((B, H, hd), dtype=out_dtype, device=q.device)
+        return ((out, torch.full((B, H), -math.inf, dtype=torch.float32,
+                                 device=q.device)) if return_lse else out)
     k_ptr, v_ptr = k_cache.data_ptr(), v_cache.data_ptr()
     if k_ptr % 16 or v_ptr % 16:
         raise ValueError("flash_decode: the caches must start on a 16-byte "
@@ -227,19 +262,19 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                          "vectors)")
     code = _DTYPE_CODES[q.dtype]
     cap = CLUSTER_SPLITS if code else MAX_SPLITS
-    out = torch.empty_like(q)
+    if code and return_lse:
+        code = BF16_FP32_OUT
+    out = torch.empty((B, H, hd), dtype=out_dtype, device=q.device)
     lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
            if return_lse else None)
     lse_ptr = lse.data_ptr() if return_lse else 0
     if on_device:
-        n_max = min(window, S) if window else S
         err = build.launch_on(
             dev, _launch_len, dev, q.data_ptr(), k_ptr, v_ptr,
             out.data_ptr(), cache_len.data_ptr(), lse_ptr, code, B, S, H,
-            Kv, hd, window, offset, splits_for(B, Kv, H // Kv, n_max, cap),
+            Kv, hd, window, offset, splits_for(B, Kv, H // Kv, hi, cap),
             split_cap(B, Kv, H // Kv, cap), MIN_TILES)
     else:
-        lo, hi = local_stretch(L, window, offset, S)
         n_split, chunk = (plan(B, Kv, H // Kv, hi - lo, cap) if hi > lo
                           else (1, TILE))
         err = build.launch_on(dev, _launch, dev, q.data_ptr(), k_ptr,
@@ -249,6 +284,19 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         raise RuntimeError(f"flash_decode launch failed: cudaError {err}")
     flash_decode.launches += 1
     return (out, lse) if return_lse else out
+
+
+def cost(B: int, H: int, hd: int, Kv: int, n: int, dtype: torch.dtype,
+         return_lse: bool = False):
+    """(operations, bytes) of one call attending ``n`` positions: q K^T
+    and P V, 4 B H n hd; the attended K and V read once, q read and the
+    output (and the log-sum-exp) written once. A device-L call is counted
+    at its longest stretch, which its grid is planned for."""
+    size = dtype.itemsize
+    out_size = 4 if return_lse else size
+    moved = (2 * B * n * Kv * hd * size + B * H * hd * (size + out_size)
+             + (4 * B * H if return_lse else 0))
+    return 4 * B * H * n * hd, moved
 
 
 def local_stretch(L: int, window: int, offset: int, S: int):

@@ -28,7 +28,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, costs, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: (w, w_hat) dtype pairs the kernel takes as they are, by launch code;
@@ -67,7 +67,8 @@ def meta_update(w: torch.Tensor, w_hat: torch.Tensor,
     unrounded; any other ``w_hat`` is cast to w's dtype first, as the
     JAX wrapper does. A CPU tensor gets the plain version; a CUDA tensor
     gets the kernel (``meta_update.launches`` counts its launches) or an
-    error."""
+    error; a fake or ``meta`` one its output's shape alone
+    (``costs.shape_only``)."""
     if w.shape != w_hat.shape:
         raise ValueError(f"w {tuple(w.shape)} and w_hat "
                          f"{tuple(w_hat.shape)} differ in shape")
@@ -79,11 +80,18 @@ def meta_update(w: torch.Tensor, w_hat: torch.Tensor,
     if (w.dtype, w_hat.dtype) not in _CODES:
         w_hat = w_hat.to(w.dtype)
     code = _CODES[w.dtype, w_hat.dtype]
+    mode = costs.active()
+    if mode is not None:
+        mode.record("meta_update", *cost(w.numel(), w.dtype, w_hat.dtype))
+    if costs.shape_only(w):
+        costs.same_device("meta_update", w, w_hat)
+        return costs.empty_like_shape(w)
     a = _alpha_tensor(alpha, w)
     if not w.is_cuda:
         if w.device.type != "cpu":
             raise ValueError(f"meta_update: unsupported device {w.device}")
-        return ref.meta_update(w, w_hat, a.reshape(1))
+        with costs.uncounted():
+            return ref.meta_update(w, w_hat, a.reshape(1))
     if not (w.is_contiguous() and w_hat.is_contiguous()):
         raise ValueError("meta_update: w and w_hat must be contiguous")
     out = torch.empty_like(w)
@@ -96,6 +104,12 @@ def meta_update(w: torch.Tensor, w_hat: torch.Tensor,
             raise RuntimeError(f"meta_update launch failed: cudaError {err}")
         meta_update.launches += 1
     return out
+
+
+def cost(n: int, dtype: torch.dtype, hat_dtype: torch.dtype):
+    """(operations, bytes) of one call on n elements: a subtraction and
+    an FMA each; w, w_hat and alpha read once, the result written once."""
+    return 3 * n, n * (2 * dtype.itemsize + hat_dtype.itemsize) + 4
 
 
 meta_update.launches = 0

@@ -34,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, costs, ref
 
 _CODES = {torch.float32: 0, torch.bfloat16: 1}   # online_sgd.cu's dtype
 _DTYPES = tuple(_CODES)
@@ -79,16 +79,25 @@ def online_sgd(p: torch.Tensor, g: torch.Tensor, lr: float,
     tensor, or into ``out`` (p's shape, dtype and device; it may be p
     itself, the update in place). A CPU tensor gets the plain version; a
     CUDA tensor gets the kernel (``online_sgd.launches`` counts its
-    launches) or an error."""
+    launches) or an error; a fake or ``meta`` one its output's shape
+    alone (``costs.shape_only``). Its cost: a multiply and a subtraction
+    an element; p and g read once, the result written once."""
     code, index = _check(p, g)
     if out is not None:
         _check(p, out)
+    mode = costs.active()
+    if mode is not None:
+        mode.record("online_sgd", 2 * p.numel(), 3 * p.numel() * p.itemsize)
+    if costs.shape_only(p):
+        costs.same_device("online_sgd", p, g, *([] if out is None else [out]))
+        return costs.empty_like_shape(p) if out is None else out
     if index < 0:
         if p.device.type != "cpu" or g.device.type != "cpu":
             raise ValueError(f"online_sgd: unsupported device {p.device}, "
                              f"{g.device}")
-        new = ref.online_sgd(p, g, float(lr))
-        return new if out is None else out.copy_(new)
+        with costs.uncounted():
+            new = ref.online_sgd(p, g, float(lr))
+            return new if out is None else out.copy_(new)
     if out is None:
         out = torch.empty_like(p)
     if not (p.is_contiguous() and g.is_contiguous() and out.is_contiguous()):
@@ -112,18 +121,29 @@ def online_sgd_momentum(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     lr * m'`` stored in p's dtype, as new tensors. ``m`` must be fp32. A
     CPU tensor gets the plain version; a CUDA tensor gets the kernel
     (``online_sgd_momentum.launches`` counts its launches) or an
-    error."""
+    error; a fake or ``meta`` one its outputs' shapes alone. Its cost:
+    two multiplies and two adds an element; p, g and m read once, p' and
+    m' written once."""
     code, index = _check(p, g)
     if m.shape != p.shape or m.dtype != torch.float32:
         raise ValueError(f"m must be fp32 of shape {tuple(p.shape)}; got "
                          f"{m.dtype} {tuple(m.shape)}")
     if m.get_device() != index:
         raise ValueError(f"p on {p.device}, m on {m.device}")
+    mode = costs.active()
+    if mode is not None:
+        mode.record("online_sgd_momentum", 4 * p.numel(),
+                    p.numel() * (3 * p.itemsize + 8))
+    if costs.shape_only(p):
+        costs.same_device("online_sgd_momentum", p, g, m)
+        return costs.empty_like_shape(p), costs.empty_like_shape(m)
     if index < 0:
         if {p.device.type, g.device.type, m.device.type} != {"cpu"}:
             raise ValueError(f"online_sgd_momentum: unsupported device "
                              f"{p.device}")
-        return ref.online_sgd(p, g, float(lr), m=m, momentum=float(momentum))
+        with costs.uncounted():
+            return ref.online_sgd(p, g, float(lr), m=m,
+                                  momentum=float(momentum))
     if not (p.is_contiguous() and g.is_contiguous() and m.is_contiguous()):
         raise ValueError("online_sgd_momentum: p, g and m must be "
                          "contiguous")

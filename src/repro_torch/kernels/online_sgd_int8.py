@@ -27,7 +27,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, costs, ref
 
 MAX_SMEM = 232448          # bytes of shared memory an H100 block may use
 _I8, _I32, _F32 = torch.int8, torch.int32, torch.float32
@@ -154,18 +154,42 @@ def dfa_epoch_int8(ws: Sequence[torch.Tensor], bs: Sequence[torch.Tensor],
     """One TIFeD epoch per slot; the contract of ``ref.dfa_int8_epoch``
     (native int8 / int32 operands with a leading slot axis, per-slot
     ``layer``, packed (10,) fp32 ``scales``). Returns (ws', bs', loss).
-    ``dfa_epoch_int8.launches`` counts kernel launches."""
+    ``dfa_epoch_int8.launches`` counts kernel launches; a fake or
+    ``meta`` operand gets the outputs' shapes alone
+    (``costs.shape_only``)."""
     ins = (xq, yal, *ws, *bs, *fb, *dither, scales, layer)
     dims = _check(ins)
+    mode = costs.active()
+    if mode is not None:
+        mode.record("dfa_epoch_int8", *cost(ins, dims))
+    if costs.shape_only(xq):
+        costs.same_device("dfa_epoch_int8", *ins)
+        return (tuple(costs.empty_like_shape(w) for w in ws),
+                tuple(costs.empty_like_shape(b) for b in bs),
+                costs.empty_like_shape(scales, (dims[0],)))
     if xq.get_device() < 0:
         if any(t.device.type != "cpu" for t in ins):
             raise ValueError(f"dfa_epoch_int8: unsupported device "
                              f"{xq.device}")
-        return ref.dfa_int8_epoch(ws, bs, xq, yal, layer, fb, dither,
-                                  scales)
+        with costs.uncounted():
+            return ref.dfa_int8_epoch(ws, bs, xq, yal, layer, fb, dither,
+                                      scales)
     out = _launch(0, ins, dims)
     dfa_epoch_int8.launches += 1
     return out
+
+
+def cost(ins, dims):
+    """(operations, bytes) of one epoch: for each slot and sample the
+    three layers' products forward, the error's projection through the
+    two feedback matrices, and the three rank-one updates, two operations
+    a multiply-add; every operand read once and every output written
+    once."""
+    B, S, din, h1, h2, dout = dims
+    weights = din * h1 + h1 * h2 + h2 * dout
+    ops = 2 * B * S * (2 * weights + dout * (h1 + h2))
+    outs = B * (weights + 4 * (h1 + h2 + dout) + 4)
+    return ops, sum(t.numel() * t.element_size() for t in ins) + outs
 
 
 dfa_epoch_int8.launches = 0

@@ -35,7 +35,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, costs, ref
 
 SMEM_LIMIT = 232_448           # dynamic shared memory one H100 block may use
 MAX_P = 64                     # head dim: the 64 columns of every product
@@ -147,12 +147,19 @@ def ssd_scan(xd: torch.Tensor, dA: torch.Tensor, Bm: torch.Tensor,
     """xd (B, H, nc, Q, P), dA (B, H, nc, Q), Bm and Cm (B, nc, Q, N), all
     fp32 -> y (B, H, nc, Q, P) fp32, as ``ref.ssd_scan`` computes it. A
     CPU tensor gets the plain version; a CUDA tensor gets the kernels
-    (``ssd_scan.launches`` counts the calls) or an error."""
+    (``ssd_scan.launches`` counts the calls) or an error; a fake or
+    ``meta`` one its output's shape alone (``costs.shape_only``)."""
     _check(xd, dA, Bm, Cm)
-    if xd.device.type == "cpu":
-        return ref.ssd_scan(xd, dA, Bm, Cm)
     B, H, nc, Q, P = xd.shape
     N = Bm.shape[-1]
+    mode = costs.active()
+    if mode is not None and xd.numel():
+        mode.record("ssd_scan", *cost(B, H, nc, Q, P, N))
+    if costs.shape_only(xd):
+        return costs.empty_like_shape(xd)
+    if xd.device.type == "cpu":
+        with costs.uncounted():
+            return ref.ssd_scan(xd, dA, Bm, Cm)
     lib = _library("ssd_scan", Q, P, N, xd, dA, Bm, Cm)
     y = torch.empty_like(xd)
     st = xd.new_empty((B, H, nc, N, P))
@@ -170,6 +177,10 @@ def chunk_states(xd: torch.Tensor, dA: torch.Tensor,
     """Phase 1: (st (B, H, nc, N, P), cs (B, H, nc, Q)) as
     ``ref.ssd_chunk_states`` computes them."""
     _check(xd, dA, Bm, Bm)
+    if costs.shape_only(xd):
+        B, H, nc, Q, P = xd.shape
+        return (costs.empty_like_shape(xd, (B, H, nc, Bm.shape[-1], P)),
+                costs.empty_like_shape(dA))
     if xd.device.type == "cpu":
         return ref.ssd_chunk_states(xd, dA, Bm)
     B, H, nc, Q, P = xd.shape
@@ -191,6 +202,8 @@ def state_pass(st: torch.Tensor, cs: torch.Tensor) -> torch.Tensor:
                          f"nc, Q); got {tuple(st.shape)} and "
                          f"{tuple(cs.shape)}")
     _same("state_pass", st, cs=cs)
+    if costs.shape_only(st):
+        return costs.empty_like_shape(st)
     if st.device.type == "cpu":
         return ref.ssd_state_pass(st, cs)[0]
     B, H, nc, N, P = st.shape
@@ -216,6 +229,8 @@ def chunk_outputs(xd: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,
         raise ValueError(f"chunk_outputs: s_in must be {(B, H, nc, N, P)}; "
                          f"got {tuple(s_in.shape)}")
     _same("chunk_outputs", xd, s_in=s_in)
+    if costs.shape_only(xd):
+        return costs.empty_like_shape(xd)
     if xd.device.type == "cpu":
         return ref.ssd_chunk_outputs(xd, cs, Bm, Cm, s_in)
     lib = _library("chunk_outputs", Q, P, N, xd, cs, Bm, Cm, s_in)
@@ -224,6 +239,18 @@ def chunk_outputs(xd: torch.Tensor, cs: torch.Tensor, Bm: torch.Tensor,
          Bm.data_ptr(), Cm.data_ptr(), s_in.data_ptr(), cs.data_ptr(),
          y.data_ptr(), B, H, nc, Q, P, N, hg or _heads(xd))
     return y
+
+
+def cost(B: int, H: int, nc: int, Q: int, P: int, N: int):
+    """(fp32 operations, bytes) of one call: the chunked products, the
+    two in-chunk ones over the Q (Q + 1) / 2 causal pairs (C B^T once per
+    (b, c), as the heads share it; the masked product per (b, h, c)) and
+    the two state products dense per (b, h, c); xd, dA, Bm and Cm read
+    once, y written once."""
+    causal = Q * (Q + 1)                # 2 ops for each of Q (Q + 1) / 2 pairs
+    ops = B * nc * causal * N + B * H * nc * (causal * P + 4 * Q * N * P)
+    moved = 4 * (2 * B * H * nc * Q * P + B * H * nc * Q + 2 * B * nc * Q * N)
+    return ops, moved
 
 
 ssd_scan.launches = 0

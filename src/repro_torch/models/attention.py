@@ -131,8 +131,9 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0, offset=0,
     ``offset`` and ``lse``: the caches are one rank's slice of a cache
     split on its sequence, from global position ``offset`` (``cache_len``
     and ``window`` stay global); with ``lse`` the result is ``(out,
-    lse)``, the slice's partial output and its fp32 log-sum-exp (B, 1, H),
-    to be merged across the ranks by ``merge_partials``."""
+    lse)``, the slice's partial output in fp32 (whatever q's dtype) and its
+    fp32 log-sum-exp (B, 1, H), to be merged across the ranks by
+    ``merge_partials``, which rounds the merged output once."""
     B, _, H, hd = q.shape
     out = ops.flash_decode(q.reshape(B, H, hd), k_cache, v_cache, cache_len,
                            window=window, offset=offset, return_lse=lse)
@@ -141,7 +142,7 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=0, offset=0,
     return out.reshape(B, 1, H, hd)
 
 
-def merge_partials(out, lse, groups):
+def merge_partials(out, lse, groups, dtype=None):
     """The slices' partial outputs ``out`` (..., H, hd) and their
     log-sum-exps ``lse`` (..., H) merged over each process group of
     ``groups`` in turn (None skipped): ``M = max_r lse_r`` (an ``all_reduce``
@@ -152,8 +153,10 @@ def merge_partials(out, lse, groups):
     group. The merge is associative, so a sequence split over several mesh
     axes is merged one axis at a time, in the order of its spec. An empty
     slice (-inf) weighs exactly 0; a group whose slices are all empty gives
-    0 and -inf. Returns ``(out in out's dtype, lse)``. Not bit-equal to
-    one call over the whole cache: its tolerance is the caller's."""
+    0 and -inf. Returns ``(out in dtype, lse)``, ``dtype`` by default
+    out's: the partials are fp32, so the merged output is rounded once,
+    here, as one call over the whole cache rounds it. Not bit-equal to
+    that call: its tolerance is the caller's."""
     o = out.float()
     for group in groups:
         if group is None:
@@ -169,7 +172,7 @@ def merge_partials(out, lse, groups):
         den = buf[..., -1:]
         o = buf[..., :-1] / torch.where(den > 0, den, torch.ones_like(den))
         lse = m + torch.log(den[..., 0])
-    return o.to(out.dtype), lse
+    return o.to(out.dtype if dtype is None else dtype), lse
 
 
 def _count_merge(kind, t):
@@ -226,7 +229,7 @@ def cache_attention(q, k, v, k_cache, v_cache, cache_len, *, window=0,
         return decode_attention(q, k_cache, v_cache, length, window=window)
     out, lse = decode_attention(q, k_cache, v_cache, length, window=window,
                                 offset=offset, lse=True)
-    return merge_partials(out, lse, seq.groups)[0]
+    return merge_partials(out, lse, seq.groups, q.dtype)[0]
 
 
 def decode_attention_block(params, x, k_cache, v_cache, cache_len,

@@ -684,7 +684,7 @@ class Model:
             else:
                 c = attn_lib.merge_partials(*attn_lib.decode_attention(
                     q, cross["k"], cross["v"], cfg.encoder_tokens,
-                    offset=seq.offset, lse=True), seq.groups)[0]
+                    offset=seq.offset, lse=True), seq.groups, q.dtype)[0]
             x = x + attn_lib.unproject(c, bp["cross"]["wo"])
         if not mlp_tp:
             return _ffn(cfg, kind, bp, x, tp)[0]

@@ -321,9 +321,10 @@ def init_distributed(coordinator: Optional[str], num_processes: int,
 
 # -- collectives ---------------------------------------------------------------
 
-#: collective calls made, counted in Python: a captured round makes its
-#: calls once, while it is captured, and none at its replays
-CALLS = {"all_reduce": 0}
+#: collective calls made, counted in Python, with their bytes (each
+#: call's result, the JAX dry run's convention): a captured round makes
+#: its calls once, while it is captured, and none at its replays
+CALLS = {"all_reduce": 0, "all_reduce_bytes": 0}
 
 
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
@@ -333,6 +334,7 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
         return t
     import torch.distributed as dist
     CALLS["all_reduce"] += 1
+    CALLS["all_reduce_bytes"] += t.numel() * t.element_size()
     dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
                            "min": dist.ReduceOp.MIN,
                            "max": dist.ReduceOp.MAX}[op], group=group)

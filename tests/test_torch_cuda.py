@@ -960,6 +960,46 @@ def test_flash_decode_slice_matches_plain(cuda, shape, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [FD_PATH, FD_HD256])
+def test_flash_decode_slice_partials_are_fp32(cuda, shape):
+    """bf16 caches: a slice's partial comes out fp32 on both routes (the
+    kernel's bf16 instantiation with an fp32 output), held to the plain
+    version's unrounded partial, the device-L route bit-equal; a host-int
+    L whose stretch misses the slice launches nothing and gives 0 and
+    -inf; a real CUDA tensor never takes the shape-only route."""
+    from repro_torch.kernels import costs
+
+    B, H, Kv, hd, S = shape
+    tol = FD_TOL[torch.bfloat16]
+    q, k, v = _fd_inputs(shape, torch.bfloat16, 91, cuda)
+    n = S // 4
+    kj, vj = k[:, n:2 * n].contiguous(), v[:, n:2 * n].contiguous()
+    assert not any(costs.shape_only(t) for t in (q, kj, vj))
+    L = n + n // 2 + 3
+    before = ops.flash_decode.launches
+    got, lse = ops.flash_decode(q, kj, vj, L, offset=n, return_lse=True)
+    got_d, lse_d = ops.flash_decode(
+        q, kj, vj, torch.tensor([L], dtype=torch.int32, device=cuda),
+        offset=n, return_lse=True)
+    torch.cuda.synchronize()
+    assert ops.flash_decode.launches == before + 2
+    want, want_lse = ref.flash_decode(q, kj, vj, L, offset=n,
+                                      return_lse=True)
+    assert got.dtype == got_d.dtype == torch.float32
+    assert torch.equal(got_d, got) and torch.equal(lse_d, lse)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(lse, want_lse, rtol=tol, atol=tol)
+    # the fp32 partial keeps what a bf16 output would round away
+    assert not torch.equal(got, got.bfloat16().float())
+    before = ops.flash_decode.launches
+    empty, empty_lse = ops.flash_decode(q, kj, vj, n, offset=3 * n,
+                                        return_lse=True)
+    assert ops.flash_decode.launches == before
+    assert empty.dtype == torch.float32 and not empty.any()
+    assert bool((empty_lse == -np.inf).all())
+
+
+@pytest.mark.cuda
 def test_flash_decode_device_len_rejects(cuda):
     q, k, v = _fd_inputs((2, 8, 2, 64, 128), torch.bfloat16, 72, cuda)
     with pytest.raises(TypeError, match="one int32"):

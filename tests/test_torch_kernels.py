@@ -362,6 +362,12 @@ def test_online_sgd_rejects_before_any_build(no_build, case):
          "devices": torch.zeros(8, device="meta")}[case]
     if case in ("dtype", "device"):
         p = torch.zeros(8, dtype=g.dtype, device=g.device)
+    if case == "device":
+        # meta tensors take the shape-only route (the dry run's), still
+        # without a build
+        out = tops.online_sgd(p, g, 0.1)
+        assert out.is_meta and out.shape == p.shape
+        return
     err = TypeError if "dtype" in case else ValueError
     with pytest.raises(err):
         tops.online_sgd(p, g, 0.1)

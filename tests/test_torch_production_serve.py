@@ -50,7 +50,14 @@ even steps and an int32 tensor at odd ones. Held:
 - the plain ``ref.flash_decode``'s ``offset`` and ``return_lse`` against
   a slice of the whole call, its empty slice (0 and -inf), and
   ``merge_partials`` of 2 and 4 slices on the ranks against the whole
-  call.
+  call;
+- the slices' partials fp32 whatever the cache's dtype, so that a bf16
+  decode's attention output is rounded once, after the merge: merged
+  over four ranks it is within one bf16 step of each entry of the JAX
+  package's ``decode_attention`` over the whole cache, computed in fp32
+  on the same bf16 values and rounded once to bf16 (the JAX bf16 route
+  also rounds p and the scaled q to bf16 on the way, a gap of its own,
+  held at 4 bf16 steps in ``tests/test_torch_decode.py``).
 """
 import dataclasses
 import math
@@ -228,11 +235,25 @@ def jax_side(in_path, out_path, names):
         pickle.dump(res, f)
 
 
+# the bf16 merge's cases: (L, window)
+BF16_MERGES = ((50, 0), (64, 0), (9, 0), (33, 20))
+
+
+def _bf16_merge_inputs():
+    """q (B, 1, H, hd), k and v (B, 64, Kv, hd), bf16, from a seed."""
+    gen = torch.Generator().manual_seed(5)
+    B, H, Kv, hd, S = 2, 8, 2, 64, 64
+    return (torch.randn(B, 1, H, hd, generator=gen).bfloat16(),
+            torch.randn(B, S, Kv, hd, generator=gen).bfloat16(),
+            torch.randn(B, S, Kv, hd, generator=gen).bfloat16())
+
+
 def _merge_rank(rank):
     """``merge_partials`` of 2 slices (over ``model``) and of 4 (over
     ``data``, then ``model``) of one cache, each rank attending its own,
     against the whole call; a window whose edge falls in a slice and a
-    length that leaves slices empty."""
+    length that leaves slices empty. Then bf16 slices of 4 merged into
+    bf16 (``BF16_MERGES``), for the test against the JAX package."""
     from repro_torch.models.attention import decode_attention, merge_partials
     from repro_torch.runtime import sharding as sh
 
@@ -256,7 +277,19 @@ def _merge_rank(rank):
                 offset=i * n, lse=True)
             got, _ = merge_partials(o, lse, [mesh.group(ax) for ax in axes])
             out[(L, window, parts)] = float((got - want).abs().max())
-    return out
+    q, k, v = _bf16_merge_inputs()
+    i, n = rank, k.shape[1] // 4
+    groups = [mesh.group("data"), mesh.group("model")]
+    bf16 = {}
+    for L, window in BF16_MERGES:
+        o, lse = decode_attention(
+            q, k[:, i * n:(i + 1) * n].contiguous(),
+            v[:, i * n:(i + 1) * n].contiguous(), L, window=window,
+            offset=i * n, lse=True)
+        assert o.dtype == torch.float32
+        got, _ = merge_partials(o, lse, groups, q.dtype)
+        bf16[(L, window)] = got.float().numpy()
+    return {"f32": out, "bf16": bf16}
 
 
 def _rank_steps(rank, inits, inputs):
@@ -519,8 +552,37 @@ def test_each_rank_holds_its_specs_cache_bytes(runs, name):
 
 def test_merge_of_2_and_4_slices_matches_the_whole_call(runs):
     for r in runs["ranks"]:
-        for key, err in r["merge"].items():
+        for key, err in r["merge"]["f32"].items():
             assert err <= 1e-5, (key, err)
+
+
+def _bf16_step(x):
+    """One bf16 step (8 significant bits) at the magnitude of each entry
+    of ``x``."""
+    a = np.maximum(np.abs(x).astype(np.float64), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(a)) - 7)
+
+
+@pytest.mark.parametrize("case", BF16_MERGES)
+def test_bf16_merge_rounds_once_as_the_jax_attention(runs, case):
+    """The production decode's bf16 attention output, its four slices'
+    fp32 partials merged over the ranks and rounded once, within one bf16
+    step of each entry of the JAX ``decode_attention`` over the whole
+    cache in fp32, rounded once to bf16. (Partials rounded to bf16 before
+    the merge miss it at up to 100 of the 1,024 entries.)"""
+    import jax.numpy as jnp
+
+    from repro.models.attention import decode_attention as jax_decode
+    L, window = case
+    q, k, v = (jnp.asarray(t.float().numpy())
+               for t in _bf16_merge_inputs())
+    want = np.asarray(jax_decode(q, k, v, L, window=window).astype(
+        jnp.bfloat16)).astype(np.float32)
+    for r in runs["ranks"]:
+        got = r["merge"]["bf16"][case]
+        assert got.shape == want.shape
+        assert (np.abs(got - want) <= _bf16_step(want)).all(), (
+            case, float(np.abs(got - want).max()))
 
 
 @pytest.mark.parametrize("window", [0, 6])
@@ -573,8 +635,8 @@ def test_ref_flash_decode_empty_slice_gives_zero_and_minus_inf():
 
 def test_wrapper_slice_on_the_cpu_is_the_plain_version():
     """``kernels/flash_decode.py`` on CPU tensors: the plain version, its
-    output in q's dtype and its log-sum-exp fp32, a tensor L read as an
-    int; the slice's range rules."""
+    output and its log-sum-exp fp32 (a bf16 slice's partial unrounded), a
+    tensor L read as an int; the slice's range rules."""
     from repro_torch.kernels import flash_decode as fd
     gen = torch.Generator().manual_seed(1)
     q = torch.randn(2, 4, 64, generator=gen).bfloat16()
@@ -583,8 +645,8 @@ def test_wrapper_slice_on_the_cpu_is_the_plain_version():
                              window=8, offset=16, return_lse=True)
     wo, wl = ref.flash_decode(q, k, k, 20, window=8, offset=16,
                               return_lse=True)
-    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    assert torch.equal(o, wo.bfloat16()) and torch.equal(lse, wl)
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    assert torch.equal(o, wo) and torch.equal(lse, wl)
     assert fd.local_stretch(20, 8, 16, 16) == (0, 4)
     assert fd.local_stretch(20, 0, 24, 16) == (0, 0)
     assert fd.local_stretch(50, 4, 16, 16) == (16, 16)
