@@ -8218,6 +8218,10 @@ def prod_worker(rank, workdir):
     t0 = time.perf_counter()
     out["reduced"] = prod_reduced_rank(torch, np, mods, mesh)
     out["reduced_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["levers"] = prod_levers_rank(torch, np, mods, mesh, model, local,
+                                     workdir)
+    out["levers_s"] = time.perf_counter() - t0
     return out
 
 
@@ -8283,7 +8287,10 @@ def phase_production(torch, np, workdir, cut):
     tinyllama go, and their runs held to both
     (``production_step_mixtral_reduced``, ``production_step_tinyllama``),
     and their counters to the dry run's traces ``cut``
-    (``dryrun_vs_production``)."""
+    (``dryrun_vs_production``). Slice 24's references (the reduced
+    lever cases on the CPU, glm4-9b's single-rank prefill on the card)
+    are made while the ranks run slices 21-22, and the ranks' lever
+    phases held to them (``prod_levers_lines``)."""
     from repro_torch.runtime.steps import make_meta_train_step
     mods = mesh2d_mods()
     bridge, ops = mods["bridge"], mods["ops"]
@@ -8299,6 +8306,10 @@ def phase_production(torch, np, workdir, cut):
     reduced_ref = prod_reduced_reference(torch, np, mods)
     ref = prod_reference(torch, np, mods, workdir)
     (Path(workdir) / "go_tinyllama").touch()
+    # slice 24's references while the ranks run slices 21-22
+    levers_ref_s = lever_reference(torch, np, mods, workdir)
+    glm4_ref = glm4_reference(torch, np, mods, workdir)
+    (Path(workdir) / "go_levers").touch()
     thread.join()
     outs = thread.result
     if isinstance(outs, BaseException):
@@ -8386,6 +8397,8 @@ def phase_production(torch, np, workdir, cut):
           "launches_single_rank": ref["launches"]})
     paths.update(prod_serve_lines(torch, np, mods, outs, ref["serve"],
                                   reduced_ref))
+    glm4_ref["cpu_references_s"] = levers_ref_s
+    paths.update(prod_levers_lines(torch, np, mods, outs, glm4_ref))
     phase_dryrun_vs_production(outs, cut)
     return paths
 
@@ -8515,12 +8528,468 @@ def prod_serve_lines(torch, np, mods, outs, ref, reduced_ref):
     return paths
 
 
+# -- slice 24: the mesh levers' routes on the production and data meshes ------
+
+# the reduced cases of tests/test_torch_levers_mesh.py, on the card on
+# slice 21's four ranks (PROD_MESH), each against the CPU port's
+# single-rank step (the lever inert there; moelocal's MoE block run once
+# per token group of the whole batch, as the JAX package runs it) within
+# LEVER_TOL of each result's largest entry; fp32, 4 layers, the FSDP
+# threshold lowered to PROD_MOE_THRESHOLD, the port's init from seed 0.
+# name -> (config, lever, step, rows: mb for meta, B otherwise)
+LEVER_CONFIGS = {"tinyllama_kv1": ("tinyllama-1.1b", {"num_kv_heads": 1}),
+                 "tinyllama": ("tinyllama-1.1b", {}),
+                 "mixtral_e3": ("mixtral-8x22b", {"num_experts": 3}),
+                 "mixtral": ("mixtral-8x22b", {})}
+LEVER_CASES = {
+    "gqa_flat_meta": ("tinyllama_kv1", "gqa_flat", "meta", 4),
+    "gqa_flat_prefill": ("tinyllama_kv1", "gqa_flat", "prefill", 4),
+    "gqa_flat_joint": ("tinyllama_kv1", "gqa_flat", "joint", 4),
+    "seqpar_meta": ("tinyllama", "seqpar", "meta", 4),
+    "seqpar_prefill": ("tinyllama", "seqpar", "prefill", 4),
+    "seqpar_joint": ("tinyllama", "seqpar", "joint", 4),
+    "moe2d_meta": ("mixtral_e3", "moe2d", "meta", 4),
+    "moe2d_prefill": ("mixtral_e3", "moe2d", "prefill", 4),
+    "moe2d_decode": ("mixtral_e3", "moe2d", "decode", 4),
+    "moe2d_joint": ("mixtral_e3", "moe2d", "joint", 4),
+    "moelocal_meta": ("mixtral", "moelocal", "meta", 4),
+    "moelocal_prefill": ("mixtral", "moelocal", "prefill", 4),
+    "moelocal_decode": ("mixtral", "moelocal", "decode", 2),
+    "moelocal_joint": ("mixtral", "moelocal", "joint", 4),
+    "moelocal_joint_b3": ("mixtral", "moelocal", "joint", 3),
+    # the repaired data mesh: two ranks of ("data",), the levers off, the
+    # whole microbatch's tokens dispatched (the single-rank function)
+    "data_mesh_mixtral": ("mixtral", None, "meta", 4)}
+LEVER_K, LEVER_S = 1, 24
+LEVER_SEQ, LEVER_START, LEVER_STEPS = 32, 13, 3
+LEVER_BETA, LEVER_LR = 0.02, 0.05
+LEVER_GROUPS = 2               # moelocal's token groups: the data ranks
+LEVER_DROP = "moelocal_meta"   # data rank 0's rows one repeated token
+LEVER_TOL = 1e-4
+# tinyllama-1.1b at full size under seqpar: slice 22's prefill of
+# PROD_PREFILL_SHAPE on the same shards, against the same references;
+# glm4-9b at its published width (32 heads, 2 kv heads: 4 model ranks do
+# not split them) cut to GLM4_LAYERS of its 40 layers, bf16, drawn on the
+# card from GLM4_SEED, one prefill of GLM4_PREFILL on a (1, 4) ("data",
+# "model") mesh of the same ranks, gqa_flat on and off; both held as
+# slice 22 holds prefill (vs_references: an fp32 run of the same weights,
+# within the single-rank bf16 step's own distance plus PROD_LOGIT_STEPS
+# bf16 steps of the largest logit)
+GLM4_LAYERS, GLM4_SEED = 4, 24
+GLM4_PREFILL = (4, 4096)
+GLM4_MESH = ((1, 4), ("data", "model"))
+GLM4_CUT = ("glm4-9b at its published width, 4 of its 40 layers; prefill "
+            "4 x 4,096 tokens (prefill_32k's: 32 x 32,768)")
+
+
+def lever_model(mods, config):
+    arch, over = LEVER_CONFIGS[config]
+    return mods["build_model"](dataclasses.replace(
+        mods["get_arch"](arch).reduced(), num_layers=4, dtype="float32",
+        **over))
+
+
+def lever_inputs(np, name, vocab):
+    """A case's batch (NumPy, from a seed): meta (K, mb, S) tokens and
+    labels, prefill (B, S) tokens, joint (B, S) tokens and labels, decode
+    (steps, B, 1) tokens."""
+    _, _, step, rows = LEVER_CASES[name]
+    r = np.random.default_rng(3)
+    if step == "decode":
+        return r.integers(0, vocab, (LEVER_STEPS, rows, 1)).astype(np.int64)
+    shape = (LEVER_K, rows, LEVER_S) if step == "meta" else (rows, LEVER_S)
+    tok = r.integers(0, vocab, shape).astype(np.int64)
+    if name == LEVER_DROP:
+        tok[:, :rows // LEVER_GROUPS] = 7
+    lab = np.concatenate([tok[..., 1:], np.full(shape[:-1] + (1,), -1)], -1)
+    return {"tokens": tok} if step == "prefill" else {"tokens": tok,
+                                                      "labels": lab}
+
+
+def lever_cache(torch, model, B):
+    """A whole decode cache on the CPU, K and V drawn below LEVER_START."""
+    from repro_torch.bridge import tree_leaves
+    cache = model.init_cache(B, LEVER_SEQ, device="cpu")
+    gen = torch.Generator().manual_seed(11)
+    for _, leaf in tree_leaves(cache):
+        leaf[:, :LEVER_START].copy_(torch.randn(
+            leaf[:, :LEVER_START].shape, generator=gen))
+    return cache
+
+
+@contextlib.contextmanager
+def lever_chunked(torch):
+    """``moe_block`` run once per token group (LEVER_GROUPS equal runs of
+    the B S tokens, each with its own capacity, the aux losses' mean), as
+    the JAX package's ``moelocal`` runs it on one device per group."""
+    from repro_torch.models import moe as moe_lib
+    block = moe_lib.moe_block
+
+    def chunked(params, x, **kw):
+        B, S, d = x.shape
+        if (B * S) % LEVER_GROUPS:
+            return block(params, x, **kw)
+        outs = [block(params, r, **kw) for r in x.reshape(
+            LEVER_GROUPS, B * S // LEVER_GROUPS, 1, d)]
+        return (torch.stack([o[0] for o in outs]).reshape(B, S, d),
+                torch.stack([o[1] for o in outs]).mean())
+    moe_lib.moe_block = chunked
+    try:
+        yield
+    finally:
+        moe_lib.moe_block = block
+
+
+def lever_run(torch, np, mods, name, model, init, mesh=None, dev="cpu"):
+    """One LEVER_CASES case's step from the whole ``init`` (CPU): on one
+    rank with ``mesh`` None, else on this rank's shards of it on ``dev``
+    (and its part of the cache). Run under the case's lever by the
+    caller. Returns {name: tensor on the CPU}: phi or the params made
+    whole and the losses, the logits (this rank's rows), the decode cache
+    made whole; and the launches."""
+    from repro_torch import optim
+    from repro_torch.runtime.steps import (batch_rows, make_decode_step,
+                                           make_joint_train_step,
+                                           make_meta_train_step,
+                                           make_prefill_step)
+    bridge, ops = mods["bridge"], mods["ops"]
+    _, _, step, rows = LEVER_CASES[name]
+    inputs = lever_inputs(np, name, model.cfg.vocab_size)
+    kw = {} if mesh is None else {"mesh": mesh}
+    if step == "meta":
+        fn = make_meta_train_step(model, beta=LEVER_BETA, alpha=PROD_ALPHA,
+                                  **kw)
+    elif step == "prefill":
+        fn = make_prefill_step(model, **kw)
+    elif step == "joint":
+        fn = make_joint_train_step(model, optim.sgd(),
+                                   optim.constant(LEVER_LR), **kw)
+    elif mesh is None:
+        fn = make_decode_step(model)
+    else:
+        fn = make_decode_step(model, mesh=mesh, batch_size=rows,
+                              seq_len=LEVER_SEQ)
+    shards = getattr(fn, "shards", None)
+    flat = bridge.flatten_tree(init)
+    params = bridge.unflatten_tree(
+        bridge.shard_tree(flat, shards, dev) if shards is not None
+        else {k: v.to(dev) for k, v in flat.items()})
+
+    def whole(tree):
+        return tree if shards is None else bridge.whole_tree(tree, shards)
+
+    def named(prefix, tree):
+        return {f"{prefix}/" + "/".join(map(str, k)): v.float().cpu()
+                for k, v in bridge.flatten_tree(tree).items()}
+
+    def own(t):
+        return t if mesh is None or "model" not in mesh.axis_names else \
+            batch_rows({"t": t}, mesh, leading=0)[0]["t"]
+    ops.reset_launch_counts()
+    if step == "decode":
+        cache = lever_cache(torch, model, rows)
+        cs = getattr(fn, "cache_shards", None)
+        cache = bridge.unflatten_tree({
+            k: (v if cs is None else cs.local(k, v)).contiguous().to(dev)
+            for k, v in bridge.tree_leaves(cache)})
+        logits = []
+        with torch.no_grad():
+            for t in range(LEVER_STEPS):
+                lg, cache = fn(params, {
+                    "tokens": own(torch.from_numpy(inputs[t])).to(dev),
+                    "cache": cache, "cache_len": LEVER_START + t})
+                logits.append(lg.float().cpu())
+        res = {"logits": torch.stack(logits), **named(
+            "cache", cache if cs is None else bridge.whole_cache(cache, cs))}
+    else:
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in inputs.items()}
+        if step == "meta":
+            new, m = fn(params, batch, PROD_ALPHA)
+            res = {**named("phi", whole(new)),
+                   **{k: v.float().cpu().reshape(1) for k, v in m.items()}}
+        elif step == "prefill":
+            with torch.no_grad():
+                res = {"logits": fn(params, batch).float().cpu()}
+        else:
+            new, _, _, m = fn(params, optim.sgd().init(params), 0, batch)
+            res = {**named("params", whole(new)),
+                   "loss": m["loss"].float().cpu().reshape(1)}
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return res, ops.launch_counts()
+
+
+def lever_diff(torch, got, want, rows=None):
+    """The largest distance over a case's results, each over the largest
+    entry of its want (at least 1); the logits are ``rows`` of want's."""
+    worst = 0.0
+    for k, w in want.items():
+        if k == "logits" and rows is not None:
+            w = w[:, rows] if w.dim() == 4 else w[rows]
+        g = got[k]
+        if g.shape != w.shape:
+            return math.inf
+        worst = max(worst, (g - w).abs().max().item()
+                    / max(1.0, w.abs().max().item()))
+    return worst
+
+
+def lever_reference(torch, np, mods, workdir):
+    """Every LEVER_CASES case's single-rank step on the CPU (its lever on:
+    inert with no mesh; moelocal's MoE block through ``lever_chunked``),
+    and the drop case with the levers off too, to
+    ``workdir/levers_ref.pt``. Returns the seconds it took."""
+    from repro_torch.runtime.flags import feature_scope
+    t0 = time.perf_counter()
+    out = {}
+    for name, (config, lever, _, _) in LEVER_CASES.items():
+        model = lever_model(mods, config)
+        init = model.init(torch.Generator().manual_seed(0), "cpu")
+        with feature_scope(**({lever: True} if lever else {})), (
+                lever_chunked(torch) if lever == "moelocal"
+                else contextlib.nullcontext()):
+            out[name] = lever_run(torch, np, mods, name, model, init)[0]
+        if name == LEVER_DROP:
+            out[name + "_off"] = lever_run(torch, np, mods, name, model,
+                                           init)[0]
+    torch.save(out, Path(workdir) / "levers_ref.pt")
+    return time.perf_counter() - t0
+
+
+def glm4_model(mods, dtype=None):
+    cfg = dataclasses.replace(mods["get_arch"]("glm4-9b"),
+                              num_layers=GLM4_LAYERS)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    return mods["build_model"](cfg)
+
+
+def glm4_reference(torch, np, mods, workdir):
+    """glm4-9b's single-rank prefill of GLM4_PREFILL on the card, bf16 and
+    in fp32 on the same weights, to ``workdir/glm4_ref.pt``; its time and
+    peak."""
+    from repro_torch.runtime.steps import make_prefill_step
+    bridge = mods["bridge"]
+    model = glm4_model(mods)
+    phi = draw_on_card(torch, model, GLM4_SEED)
+    batch = prod_batch(torch, np, model.cfg.vocab_size, GLM4_PREFILL, 5,
+                       "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    saved = {"logits": make_prefill_step(model)(
+        phi, {"tokens": batch["tokens"]}).cpu()}
+    out = {"step_s": time.perf_counter() - t0,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    p32 = bridge.unflatten_tree({k: v.float() for k, v in
+                                 bridge.tree_leaves(phi)})
+    del phi
+    saved["logits_fp32"] = make_prefill_step(glm4_model(mods, "float32"))(
+        p32, {"tokens": batch["tokens"]}).cpu()
+    del p32, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.save(saved, Path(workdir) / "glm4_ref.pt")
+    return out
+
+
+def prod_levers_rank(torch, np, mods, mesh, tl_model, tl_local, workdir):
+    """This rank's slice-24 phases, once ``workdir/go_levers`` is there:
+    tinyllama-1.1b's prefill under seqpar on its shards (``tl_local``),
+    glm4-9b's prefill on the (1, 4) mesh, gqa_flat off and on, and every
+    LEVER_CASES case on the card against ``levers_ref.pt``."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.runtime.flags import feature_scope
+    from repro_torch.runtime.steps import batch_rows, make_prefill_step
+    ops, sh = mods["ops"], mods["sh"]
+    go = Path(workdir) / "go_levers"
+    while not go.exists():
+        time.sleep(0.05)
+    out = {}
+
+    def prefill_run(model, params, tokens, m, ref, rows, levers):
+        step = make_prefill_step(model, mesh=m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        before = D.collective_counters()
+        t0 = time.perf_counter()
+        with feature_scope(**levers):
+            lg = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return {"step_s": time.perf_counter() - t0,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": ops.launch_counts(),
+                "calls": D.collectives_since(before),
+                "shape": list(lg.shape),
+                **vs_references(torch, lg, ref[0][rows].to("cuda"),
+                                ref[1][rows].to("cuda"))}
+
+    # tinyllama-1.1b under seqpar: slice 22's prefill and references
+    serve = torch.load(Path(workdir) / "serve_ref.pt", mmap=True)
+    batch = prod_batch(torch, np, tl_model.cfg.vocab_size,
+                       PROD_PREFILL_SHAPE, 3, "cuda")
+    prow, _ = batch_rows({"r": torch.arange(PROD_PREFILL_SHAPE[0])}, mesh,
+                         leading=0)
+    out["seqpar"] = prefill_run(
+        tl_model, tl_local, batch["tokens"], mesh,
+        (serve["prefill_logits"], serve["prefill_logits_fp32"]), prow["r"],
+        {"seqpar": True})
+    del batch, serve
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # glm4-9b on the (1, 4) mesh, gqa_flat off, then on
+    m14 = sh.make_mesh(*GLM4_MESH, "cuda")
+    model = glm4_model(mods)
+    local = draw_shards_on_card(torch, model, GLM4_SEED,
+                                make_prefill_step(model, mesh=m14).shards)
+    ref = torch.load(Path(workdir) / "glm4_ref.pt")
+    tokens = prod_batch(torch, np, model.cfg.vocab_size, GLM4_PREFILL, 5,
+                        "cuda")["tokens"]
+    rows = torch.arange(GLM4_PREFILL[0])
+    out["glm4"] = {tag: prefill_run(model, local, tokens, m14,
+                                    (ref["logits"], ref["logits_fp32"]),
+                                    rows, levers)
+                   for tag, levers in (("off", {}),
+                                       ("gqa_flat", {"gqa_flat": True}))}
+    del local, ref, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out["cases"] = lever_cases_rank(torch, np, mods, mesh, workdir, "cuda")
+    return out
+
+
+def lever_cases_rank(torch, np, mods, mesh, workdir, dev):
+    """Every LEVER_CASES case on this rank of ``mesh`` (PROD_MESH; the
+    data-mesh case on the (2,) ``data`` sub-mesh of its model coordinate)
+    on ``dev``, against ``workdir/levers_ref.pt``: each case's distance,
+    launches and seconds."""
+    from repro_torch.runtime.flags import feature_scope
+    from repro_torch.runtime.steps import batch_rows
+    sh = mods["sh"]
+    want = torch.load(Path(workdir) / "levers_ref.pt")
+    threshold = sh.FSDP_THRESHOLD_BYTES
+    sh.FSDP_THRESHOLD_BYTES = PROD_MOE_THRESHOLD
+    data_mesh = sh.ProcessMesh.of(mesh.device_mesh["data"], mesh.device)
+    cases = {}
+    try:
+        for name, (config, lever, step, rows) in LEVER_CASES.items():
+            model = lever_model(mods, config)
+            init = model.init(torch.Generator().manual_seed(0), "cpu")
+            m = data_mesh if lever is None else mesh
+            t0 = time.perf_counter()
+            with feature_scope(**({lever: True} if lever else {})):
+                got, launches = lever_run(torch, np, mods, name, model, init,
+                                          m, dev)
+            own = None
+            if step in ("prefill", "decode") and rows % LEVER_GROUPS == 0:
+                own = batch_rows({"r": torch.arange(rows)}, mesh,
+                                 leading=0)[0]["r"]
+            cases[name] = {"diff": lever_diff(torch, got, want[name], own),
+                           "launches": launches,
+                           "seconds": time.perf_counter() - t0}
+            if name == LEVER_DROP:
+                cases[name]["vs_levers_off"] = lever_diff(
+                    torch, got, want[name + "_off"])
+    finally:
+        sh.FSDP_THRESHOLD_BYTES = threshold
+    return cases
+
+
+def prod_levers_lines(torch, np, mods, outs, glm4_ref):
+    """The slice-24 phases' checks and lines from the ranks' results
+    (``levers_reduced``, ``levers_tinyllama_seqpar``,
+    ``levers_glm4_gqa_flat``). Returns their launches by path."""
+    ops = mods["ops"]
+    paths, fails = {}, []
+    lv = [r["levers"] for r in outs]
+    worst = {name: max(x["cases"][name]["diff"] for x in lv)
+             for name in LEVER_CASES}
+    for name, d in worst.items():
+        if not d <= LEVER_TOL:
+            fails.append(f"levers_reduced {name}: {d} from the CPU's")
+    drop = min(x["cases"][LEVER_DROP]["vs_levers_off"] for x in lv)
+    if not drop > 10 * LEVER_TOL:
+        fails.append(f"levers_reduced: {LEVER_DROP} {drop} from the "
+                     f"levers-off function")
+    # every rank steps the meta step's kernels; a decode rank whose slice
+    # of the cache holds no attended row launches no flash_decode
+    kernels = {"meta": ("online_sgd", "meta_update"),
+               "decode": ("flash_decode",)}
+    for name, (_, _, step, _) in LEVER_CASES.items():
+        launched = paths[f"levers_reduced_{name}"] = {
+            k: sum(x["cases"][name]["launches"][k] for x in lv)
+            for k in ops.KERNELS}
+        for k in kernels.get(step, ()):
+            if step == "meta" and not all(
+                    x["cases"][name]["launches"][k] > 0 for x in lv):
+                fails.append(f"levers_reduced {name}: a rank launched no "
+                             f"{k}")
+            if not launched[k] > 0:
+                fails.append(f"levers_reduced {name}: no {k} launched")
+    emit({"phase": "levers_reduced",
+          "mesh": dict(zip(PROD_MESH[1], PROD_MESH[0])),
+          "config": "reduced, 4 layers, fp32, FSDP threshold "
+                    f"{PROD_MOE_THRESHOLD} B; data_mesh_mixtral on the "
+                    "(2,) data mesh of each model coordinate's two ranks",
+          "tol_of_largest_entry": LEVER_TOL, "vs_cpu": worst,
+          "drop_case_vs_levers_off": drop,
+          "seconds_rank0": {n: lv[0]["cases"][n]["seconds"]
+                            for n in LEVER_CASES},
+          "launches_rank0": {n: {k: v for k, v in lv[0]["cases"][n][
+              "launches"].items() if v} for n in LEVER_CASES}})
+
+    def prefill_runs(phase, runs):
+        for r, x in zip(outs, runs):
+            if not x["ok"]:
+                fails.append(f"{phase}: rank {r['rank']} {x['vs_fp32']} "
+                             f"from fp32, tolerance {x['tol']}")
+        paths[phase] = {k: sum(x["launches"][k] for x in runs)
+                        for k in ops.KERNELS}
+        return {"step_s_per_rank": [x["step_s"] for x in runs],
+                "peak_gb_per_rank": [x["peak_gb"] for x in runs],
+                "model_group_bytes_per_rank": [
+                    sum(v for k, v in x["calls"]["model"].items()
+                        if k.endswith("_bytes")) for x in runs],
+                "collectives_rank0": runs[0]["calls"],
+                "shape": runs[0]["shape"],
+                "vs_references": [{k: x[k] for k in (
+                    "vs_fp32", "single_vs_fp32", "tol", "vs_single_rank",
+                    "vs_single_rank_entries_past_steps", "ok")}
+                    for x in runs]}
+
+    sp = [x["seqpar"] for x in lv]
+    if not all(x["calls"]["model"]["rows"] == 22 for x in sp):
+        fails.append("levers_tinyllama_seqpar: not one row gather a layer")
+    emit({"phase": "levers_tinyllama_seqpar",
+          "mesh": dict(zip(PROD_MESH[1], PROD_MESH[0])),
+          "config": "tinyllama-1.1b, 22 layers, bf16, slice 22's shards",
+          "reduced": PROD_PREFILL_CUT, "lever": "seqpar",
+          **prefill_runs("levers_tinyllama_seqpar", sp)})
+    emit({"phase": "levers_glm4_gqa_flat",
+          "mesh": dict(zip(GLM4_MESH[1], GLM4_MESH[0])),
+          "config": "glm4-9b, bf16, drawn on the card", "reduced": GLM4_CUT,
+          "single_rank": glm4_ref,
+          **{tag: prefill_runs(f"levers_glm4_{tag}",
+                               [x["glm4"][tag] for x in lv])
+             for tag in ("off", "gqa_flat")}})
+    check(not fails, "; ".join(fails))
+    return paths
+
+
 # -- slice 23: the dry run ----------------------------------------------------
 
-# the cells dryrun_production runs the dry run on: (arch, shape, multi-pod)
-DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", False),
-                ("tinyllama-1.1b", "decode_32k", False),
-                ("mamba2-130m", "long_500k", True))
+# the cells dryrun_production runs the dry run on: (arch, shape, multi-pod,
+# the levers on, as dryrun's --opt); a cell with levers is printed beside
+# the same cell's report with none
+DRYRUN_CELLS = (("tinyllama-1.1b", "train_4k", False, ""),
+                ("tinyllama-1.1b", "decode_32k", False, ""),
+                ("mamba2-130m", "long_500k", True, ""),
+                ("mixtral-8x22b", "decode_32k", False, ""),
+                ("mixtral-8x22b", "decode_32k", False, "moe2d"),
+                ("mixtral-8x22b", "decode_32k", False, "moelocal"))
 DRYRUN_TIMEOUT = 900           # seconds from the dry runs' start
 
 
@@ -8557,12 +9026,14 @@ def dryrun_main(out_dir):
     cut["seconds"] = time.perf_counter() - t0
     with open(Path(out_dir) / "cut.json", "w") as f:
         json.dump(cut, f)
+    from repro_torch.runtime.flags import feature_scope
     cells = {}
-    for arch, shape, multi in DRYRUN_CELLS:
+    for arch, shape, multi, opt in DRYRUN_CELLS:
         t0 = time.perf_counter()
-        report = D.dryrun(arch, shape, multi_pod=multi)
-        cells[f"{arch}__{shape}"] = {"report": report,
-                                     "seconds": time.perf_counter() - t0}
+        with feature_scope(**{o: True for o in opt.split(",") if o}):
+            report = D.dryrun(arch, shape, multi_pod=multi)
+        cells[f"{arch}__{shape}__{opt}"] = {
+            "report": report, "seconds": time.perf_counter() - t0}
     with open(Path(out_dir) / "cells.json", "w") as f:
         json.dump(cells, f)
 
@@ -8605,8 +9076,8 @@ def phase_dryrun_production(started):
     with open(Path(out_dir) / "cells.json") as f:
         cells = json.load(f)
     fails = []
-    for arch, shape, multi in DRYRUN_CELLS:
-        cell = cells[f"{arch}__{shape}"]
+    for arch, shape, multi, opt in DRYRUN_CELLS:
+        cell = cells[f"{arch}__{shape}__{opt}"]
         rep = cell["report"]
         mesh = MULTI_POD if multi else SINGLE_POD
         cfg = get_arch(arch)
@@ -8616,10 +9087,27 @@ def phase_dryrun_production(started):
         if get_shape(shape).kind == "decode":
             ok &= rep["cache_bytes_per_rank"] == cache_chip_bytes(
                 cfg, get_shape(shape), mesh)
+        lever_off = {}
+        if opt:
+            off = cells[f"{arch}__{shape}__"]["report"]
+            by, by_off = (r["collectives_by_group"] for r in (rep, off))
+            lever_off = {"lever_off": {
+                "collectives_by_group": by_off, "memory": off["memory"],
+                "flops": off["cost"]["flops"], "roofline": off["roofline"]}}
+            # the route taken: moe2d gathers no expert leaf (their 168
+            # gathers on each group a step gone), moelocal no MoE row
+            if opt == "moe2d":
+                ok &= (by_off["model"]["gather"] - by["model"]["gather"]
+                       == by_off["data"]["gather"] - by["data"]["gather"]
+                       == 3 * get_arch(arch).num_layers)
+            if opt == "moelocal":
+                ok &= by["data"]["rows"] == 0 < by_off["data"]["rows"]
         if not ok:
-            fails.append(f"{arch} {shape}: {rep.get('status')}")
+            fails.append(f"{arch} {shape} {opt}: {rep.get('status')}")
         mem = rep["memory"]
         emit({"phase": "dryrun_production", "arch": arch, "shape": shape,
+              "opt": opt or None, "collectives_by_group":
+              rep["collectives_by_group"], **lever_off,
               "mesh": rep["mesh"], "status": rep["status"],
               "step": rep["step"], "memory": mem,
               "predicted_peak_gb_per_rank": (

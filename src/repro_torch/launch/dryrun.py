@@ -520,8 +520,9 @@ def main(argv=None):
     ap.add_argument("--step", default="meta", choices=["meta", "joint"])
     ap.add_argument("--out", default=None, help="write JSON here")
     ap.add_argument("--opt", default="",
-                    help="comma list of perf levers: "
-                         "gqa_flat,banded,moe2d,ringkv")
+                    help="comma list of perf levers (runtime/flags.py): "
+                         "gqa_flat, banded, moe2d, ringkv, moelocal, "
+                         "seqpar, ssd_pallas; the rest off")
     ap.add_argument("--refine", action="store_true",
                     help="flash-adjusted memory term (extra seq probes)")
     args = ap.parse_args(argv)

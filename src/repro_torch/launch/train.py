@@ -628,8 +628,9 @@ def run_lm(args, init_params=None):
     from repro_torch.models.transformer import build_model
     from repro_torch.optim.schedules import linear_anneal
     from repro_torch.runtime.sharding import make_mesh
-    from repro_torch.runtime.steps import (data_rows, make_meta_train_step,
-                                           microbatch, prefetch_batches)
+    from repro_torch.runtime.steps import (data_mesh_sgd,
+                                           make_meta_train_step, microbatch,
+                                           prefetch_batches)
 
     dev = resolve_device(args.device)
     # --mesh data|pod: the process group's ranks (one without a group)
@@ -728,12 +729,12 @@ def run_lm(args, init_params=None):
             _consume(tensors, event)
             batch = dict(zip(names, tensors[:-1]))
             if args.buffer_size:
-                group = None
-                if mesh is not None:          # --mesh data: this rank's rows
-                    batch = data_rows(batch, mesh, "data")
-                    group = mesh.group("data")
-                phi_hat, losses = streaming_sgd(model.loss_fn, phi, batch,
-                                                args.beta, group)
+                if mesh is None:
+                    phi_hat, losses = streaming_sgd(model.loss_fn, phi,
+                                                    batch, args.beta)
+                else:                         # --mesh data: this rank's rows
+                    phi_hat, losses = data_mesh_sgd(model, phi, batch,
+                                                    args.beta, mesh)
                 hat = flatten_tree(phi_hat)
                 buffer.append((rnd, {k: hat[k] - p for k, p in
                                      flatten_tree(phi).items()}))

@@ -29,17 +29,20 @@ of mixed dtypes (whisper's fp32 frames against bf16 weights) are
 promoted, as jnp promotes them.
 
 Of the routes the JAX package takes under ``runtime/flags.py``'s
-levers, two change the work on one device and are ported: ``banded``
+levers, two change the work on one device: ``banded``
 (``_banded_attention``: each query block against its KV band only) and
 the ``ringkv`` decode step (a cache of ``window`` rows written as a
-ring, attended through ``flash_decode`` with window 0). The others
-compute what the default route computes: ``gqa_flat`` (K and V repeated
-to the H query heads) and ``seqpar`` (one query block) exist to be
-sharded over a device mesh (their sharding is not ported; the 2-D
-route's tensor-parallel attention runs ``attention_block`` on a rank's
-heads with ``partial=True``), and probe mode's
-single-shot masked attention serves XLA's cost analysis. Under them
-``flash_attention`` takes its default route.
+ring, attended through ``flash_decode`` with window 0). Two act on the
+production mesh's train and prefill attention
+(``models/transformer.py::_attention_route``): ``gqa_flat``
+(``attention_block(heads=)``: K and V repeated to the H query heads, a
+rank's H / model of them kept, where the kv heads do not split over
+``model``) and ``seqpar`` (``attention_rows``: a rank's S / model query
+rows against every key). With no mesh both compute what the default
+route computes, which they take; so does probe mode's single-shot
+masked attention, which serves XLA's cost analysis. The 2-D route's
+tensor-parallel attention runs ``attention_block`` on a rank's heads
+with ``partial=True``.
 
 On the production mesh a decode cache splits on its sequence over the
 ranks (``runtime.sharding.CacheShards``): ``cache_attention`` writes the
@@ -304,11 +307,12 @@ def _masked_softmax_attention(q, k, v, valid, R):
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
 
 
-def _banded_attention(q, k, v, *, window, q_block=512):
-    """The ``banded`` lever: causal sliding-window self-attention (aligned
-    q and kv, positions 0 ... S - 1) that gathers only the KV band of each
-    query block, ``band = (window // qb + 2) * qb`` keys starting at
-    ``qs + qb - band`` clipped to ``[0, Skv - band]``, which covers
+def _banded_attention(q, k, v, *, window, q_block=512, q_offset=0):
+    """The ``banded`` lever: causal sliding-window self-attention (keys
+    at positions 0 ... Skv - 1, queries at ``q_offset`` on: 0 unless q
+    is one rank's rows under ``seqpar``) that gathers only the KV band
+    of each query block, ``band = (window // qb + 2) * qb`` keys starting
+    at ``qs + qb - band`` clipped to ``[0, Skv - band]``, which covers
     ``(qs - window, qs + qb)``: O(S window) work, not O(S^2). Each block
     is one masked softmax over its band (the JAX package scans the blocks,
     or unrolls them in probe mode; here they are a loop either way)."""
@@ -325,9 +329,10 @@ def _banded_attention(q, k, v, *, window, q_block=512):
     dev = q.device
     outs = []
     for i in range(nq):
-        start = min(max(i * qb + qb - band, 0), Skv - band)
+        q0 = q_offset + i * qb
+        start = min(max(q0 + qb - band, 0), Skv - band)
         kpos = start + torch.arange(band, device=dev)
-        qpos = i * qb + torch.arange(qb, device=dev)
+        qpos = q0 + torch.arange(qb, device=dev)
         valid = ((kpos[None, :] <= qpos[:, None])
                  & (kpos[None, :] > qpos[:, None] - window))
         outs.append(_masked_softmax_attention(
@@ -401,7 +406,7 @@ def flash_attention(q, k, v, *, causal, window=0, q_positions=None,
 
 def attention_block(params, x, *, num_kv_heads, rope_theta, causal=True,
                     window=0, positions=None, kv_x=None, use_rope=True,
-                    partial=False):
+                    partial=False, heads=None):
     """Full attention sub-block (projections, RoPE, ``flash_attention``,
     output projection) on x (B, S, d); positions (S,), default 0 ... S -
     1. With ``kv_x`` (B, Skv, d) it is cross-attention: k and v project
@@ -412,7 +417,13 @@ def attention_block(params, x, *, num_kv_heads, rope_theta, causal=True,
     ``partial``: the params are one rank's heads (the 2-D route's
     tensor-parallel attention) and the output projection is returned in
     fp32 (exact products, an fp32 sum), to be summed over the ranks'
-    heads before one rounding."""
+    heads before one rounding.
+
+    ``heads`` = (index, parts), the ``gqa_flat`` lever on a mesh whose
+    model axis does not divide the kv heads: ``wq`` and ``wo`` are rank
+    ``index``'s H / parts heads and ``wk``/``wv`` whole; K and V are
+    repeated to the H heads (as ``jnp.repeat`` on the head axis) and this
+    rank's H / parts of them kept, so it attends its heads alone."""
     S = x.shape[1]
     src = x if kv_x is None else kv_x
     q = project(x, params["wq"])
@@ -423,10 +434,43 @@ def attention_block(params, x, *, num_kv_heads, rope_theta, causal=True,
                else positions)
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
+    if heads is not None:
+        index, parts = heads
+        n = q.shape[2]
+        mine = torch.arange(index * n, (index + 1) * n,
+                            device=x.device) // (n * parts // k.shape[2])
+        k, v = k.index_select(2, mine), v.index_select(2, mine)
     own = positions if kv_x is None else None
     out = flash_attention(q, k, v, causal=causal, window=window,
                           q_positions=own, kv_positions=own)
     if partial:
         return torch.einsum("bsnh,nhd->bsd", out.float(),
                             params["wo"].float())
+    return unproject(out, params["wo"])
+
+
+def attention_rows(params, x, start, rows, *, rope_theta, window=0,
+                   use_rope=True):
+    """The ``seqpar`` lever's causal self-attention for the query rows
+    ``start ... start + rows - 1`` of x (B, S, d) (one model rank's S /
+    model rows): q projected for those rows, K and V for all S, every
+    head, each row at its global position (the causal mask, the window
+    and RoPE are the whole sequence's), in blocks of 512 query rows (per
+    row the JAX package's one block). Under ``banded`` the band route on
+    those rows, as the JAX package's ``flash_attention`` takes it first.
+    Returns the rows' output projection (B, rows, d)."""
+    S = x.shape[1]
+    pos = torch.arange(S, device=x.device)
+    qpos = pos[start:start + rows]
+    q = project(x[:, start:start + rows], params["wq"])
+    k = project(x, params["wk"])
+    v = project(x, params["wv"])
+    if use_rope:
+        q = apply_rope(q, qpos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+    if feature("banded") and window and S > window:
+        out = _banded_attention(q, k, v, window=window, q_offset=start)
+    else:
+        out = flash_attention(q, k, v, causal=True, window=window,
+                              q_positions=qpos, kv_positions=pos)
     return unproject(out, params["wo"])

@@ -17,13 +17,19 @@ probabilities and picks experts 0 ... k - 1, as there.
 The expert products are plain ``jnp.einsum`` in the JAX package and
 plain ``torch.bmm`` here: no Pallas kernel computes them.
 
-The ``moelocal`` and ``moe2d`` levers (``runtime/flags.py``) are
-accepted and change nothing here: with no device mesh the JAX package's
-block runs ``moelocal`` as one token group and ``moe2d`` only places
-shards, so both compute the unsharded dispatch this module computes.
-Their sharding needs a mesh and is not ported. On the engine's 2-D
-``("clients", "model")`` route the experts, which the ``moe`` partitioner
-splits on E, are gathered whole inside the block that uses them
+The ``moelocal`` and ``moe2d`` levers (``runtime/flags.py``) act on a
+mesh only; ``models/transformer.py::_moe`` takes their routes. Under
+``moelocal`` the block runs once per token group (``moe_grouped`` where a
+rank holds every group, ``moe_block`` on its rows where they are one),
+each group with its own capacity, the aux loss their mean; this changes
+the function, as in the JAX package. Under ``moe2d``, where the experts
+do not split over ``model``, ``moe_block`` takes ``experts=`` a function
+that computes the experts' SwiGLU on this rank's (E, d/data, f/model)
+shards (``experts_2d``): the weights stay where they are and only the
+(E, C, .) activations move. With no mesh, and on the engine's 2-D
+``("clients", "model")`` route, neither lever changes anything: the
+experts, which the ``moe`` partitioner splits on E there, are gathered
+whole inside the block that uses them
 (``models/transformer.py::_apply_block_tp``) and this module computes on
 them as it is.
 """
@@ -34,6 +40,7 @@ import math
 import torch
 
 from repro_torch.models.layers import mlp, mlp_shapes, silu
+from repro_torch.runtime.sharding import copy_to_model, reduce_from_model
 
 #: the profiler range around the experts' three batched products
 EXPERTS_RANGE = "moe_experts"
@@ -73,8 +80,21 @@ def route(params, xf, k):
                                      min=1e-9), idx
 
 
-def moe_block(params, x, *, experts_per_token, capacity_factor=1.25):
-    """x: (B, S, d) -> (y (B, S, d) in x's dtype, the aux loss fp32)."""
+def _swiglu_experts(params, ex_in):
+    """The experts' SwiGLU on their rows ``ex_in`` (E, C, d): three
+    batched products in the operands' dtype."""
+    h = silu(torch.bmm(ex_in, params["w_gate"]))
+    h = h * torch.bmm(ex_in, params["w_up"])
+    return torch.bmm(h, params["w_down"])                   # (E, C, d)
+
+
+def moe_block(params, x, *, experts_per_token, capacity_factor=1.25,
+              experts=None):
+    """x: (B, S, d) -> (y (B, S, d) in x's dtype, the aux loss fp32).
+
+    ``experts(params, ex_in)`` computes the experts' outputs (E, C, d)
+    from their rows; by default the SwiGLU on the whole expert weights
+    (``experts_2d`` on a rank's 2-D shards of them)."""
     B, S, d = x.shape
     E = params["w_gate"].shape[0]
     k = experts_per_token
@@ -111,9 +131,7 @@ def moe_block(params, x, *, experts_per_token, capacity_factor=1.25):
                         device=dev).index_copy(
         0, slot, xf.index_select(0, tok_sorted))[:E * C].reshape(E, C, d)
     with torch.profiler.record_function(EXPERTS_RANGE):
-        h = silu(torch.bmm(ex_in, params["w_gate"]))
-        h = h * torch.bmm(ex_in, params["w_up"])
-        y_e = torch.bmm(h, params["w_down"])                # (E, C, d)
+        y_e = (experts or _swiglu_experts)(params, ex_in)
 
     y_pad = torch.cat([y_e.reshape(E * C, d),
                        torch.zeros((1, d), dtype=y_e.dtype, device=dev)])
@@ -128,3 +146,68 @@ def moe_block(params, x, *, experts_per_token, capacity_factor=1.25):
     if "shared" in params:
         y = y + mlp(params["shared"], x, "silu")
     return y, aux
+
+
+def moe_grouped(params, x, groups, *, experts_per_token,
+                capacity_factor=1.25):
+    """The ``moelocal`` lever's block where one rank holds every group:
+    x (B, S, d)'s B S tokens, in order, cut into ``groups`` equal runs
+    (a run may cross a row), each dispatched alone with the capacity of
+    its tokens, as the JAX package's vmap over (groups, T / groups, 1, d)
+    does. Returns (y (B, S, d), the mean of the groups' aux losses)."""
+    B, S, d = x.shape
+    runs = x.reshape(groups, B * S // groups, 1, d)
+    ys, auxes = [], []
+    for g in range(groups):
+        y, aux = moe_block(params, runs[g],
+                           experts_per_token=experts_per_token,
+                           capacity_factor=capacity_factor)
+        ys.append(y)
+        auxes.append(aux)
+    return torch.stack(ys).reshape(B, S, d), torch.stack(auxes).mean()
+
+
+def experts_2d(shards, at, params, ex_in):
+    """The ``moe2d`` lever's experts on this rank's shards of block
+    ``at`` (its path; ``shards`` a ``runtime.sharding.ModelShards``):
+    ``w_gate``/``w_up`` (E, d/data, f/model) and ``w_down`` (E, f/model,
+    d/data), each dim split where the rule split it. ``ex_in`` (E, C, d)
+    is the same on every rank (the whole batch's dispatch).
+
+    1. The gate and up products contract this rank's slice of d; the
+       partial products are summed over ``data`` in fp32 and rounded once
+       (``ModelShards.sum_over_data``, whose backward sums too: each data
+       rank uses the sums for its own rows).
+    2. The SiLU and the product on this rank's slice of f
+       (``copy_to_model`` first: each model rank's slice feeds back a
+       part of ``ex_in``'s gradient).
+    3. The ``w_down`` product gives this rank's slice of d, summed over
+       ``model`` in fp32 (``reduce_from_model``).
+    4. The slices are gathered over ``data`` into (E, C, d).
+
+    The expert weights never move; only (E, C, .) activations do."""
+    name = at + ("moe", "w_gate")
+    d_split = shards.data_dims.get(name) is not None and \
+        shards.data_group is not None
+    f_split = shards.dims.get(name) is not None and shards.group is not None
+    dtype = ex_in.dtype
+    if f_split:
+        ex_in = copy_to_model(ex_in, shards.group)
+    x = ex_in
+    if d_split:
+        n = params["w_gate"].shape[1]
+        x = ex_in[..., shards.data_index * n:(shards.data_index + 1) * n]
+
+    def up(w):
+        if not d_split:
+            return torch.bmm(x, w)
+        return shards.sum_over_data(torch.bmm(x.float(), w.float()), dtype)
+
+    h = silu(up(params["w_gate"])) * up(params["w_up"])
+    if f_split:
+        y = reduce_from_model(torch.bmm(h.float(),
+                                        params["w_down"].float()),
+                              shards.group, dtype)
+    else:
+        y = torch.bmm(h, params["w_down"])
+    return shards.gather_data(y, 2) if d_split else y

@@ -77,6 +77,14 @@ unrolled loops, which serve XLA's cost analysis, compute what the
 default route computes and are not taken. With the ``ringkv`` lever a
 windowed attention application's decode cache has ``min(seq_len,
 window)`` rows, a ring (``models/attention.py::decode_attention_block``).
+The mesh levers act on a mesh step's shards or rows, read once a call
+(``BatchRows.levers``): ``moelocal`` (the data mesh and the production
+mesh) dispatches each batch rank's token group alone and changes the
+function; ``moe2d`` (the production mesh) computes the experts on this
+rank's 2-D shards of them (``_moe``); ``gqa_flat`` and ``seqpar`` (the
+production mesh's train and prefill attention, ``_attention_route``)
+attend this rank's heads with K and V repeated, or its query rows. With
+no mesh, and on the 2-D route, none changes anything.
 """
 from __future__ import annotations
 
@@ -97,8 +105,10 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (mlp, mlp_partial, mlp_shapes,
                                        normal_init, rms_norm)
 from repro_torch.runtime.flags import feature, probe_mode
-from repro_torch.runtime.sharding import (active_model_shards, copy_to_model,
-                                          max_over_model, reduce_from_model)
+from repro_torch.runtime.shardctx import current_batch_rows
+from repro_torch.runtime.sharding import (ModelShards, active_model_shards,
+                                          copy_to_model, max_over_model,
+                                          reduce_from_model)
 
 AUX_LOSS_WEIGHT = 0.01
 LABEL_IGNORE = -1
@@ -188,11 +198,12 @@ def _init_leaf(name, shape, dtype, gen, device):
 
 
 def _apply_block(cfg: ArchConfig, kind: str, window: int, bp, x,
-                 enc_out=None, use_rope=True):
+                 enc_out=None, use_rope=True, rows=None):
     """Forward one block (train/prefill). Returns (x, aux): the MoE
     block's aux loss, None for a block without experts (the JAX package
     adds an exact 0 there). A decoder block of the encoder-decoder family
-    (``"cross"`` in bp) attends to ``enc_out`` after its self-attention."""
+    (``"cross"`` in bp) attends to ``enc_out`` after its self-attention.
+    ``rows``: the ``--mesh data`` step's ``BatchRows`` (``_moe``)."""
     eps = cfg.norm_eps
     if kind == MAMBA:
         return x + mamba_lib.mamba_block(
@@ -209,12 +220,48 @@ def _apply_block(cfg: ArchConfig, kind: str, window: int, bp, x,
             bp["cross"], rms_norm(x, bp["norm_x"], eps),
             num_kv_heads=cfg.num_kv_heads, rope_theta=cfg.rope_theta,
             causal=False, kv_x=enc_out, use_rope=False)
-    return _ffn(cfg, kind, bp, x)
+    return _ffn(cfg, kind, bp, x, rows)
 
 
 #: the splits the tensor-parallel attention and MLP take (leaf -> dim)
 _ATTN_TP = {"wq": 1, "wk": 1, "wv": 1, "wo": 0}
 _MLP_TP = {"w_gate": 1, "w_up": 1, "w_down": 0}
+#: the experts' leaves, which the ``moe2d`` lever keeps as local shards
+_EXPERTS = ("w_gate", "w_up", "w_down")
+
+
+def _attention_route(tp, at, cfg: ArchConfig, seq_len: int) -> str:
+    """How the production mesh's train and prefill attention of block
+    ``at`` runs on ``seq_len`` positions: ``seqpar`` (the lever, where
+    ``model`` divides the sequence: this rank's query rows, every head),
+    ``tp`` (the specs split ``wq``/``wk``/``wv``/``wo`` on heads: this
+    rank's heads), ``gqa_flat`` (the lever, where ``wq`` and ``wo``
+    split on heads and ``wk``/``wv`` do not: K and V whole, repeated to
+    the heads, this rank's heads of them), else ``whole`` (every leaf
+    gathered, every head)."""
+    a = at + ("attn",)
+    if "seqpar" in tp.levers and tp.group is not None \
+            and seq_len % tp.parts == 0:
+        return "seqpar"
+    if tp.all_split(a, _ATTN_TP):
+        return "tp"
+    if "gqa_flat" in tp.levers and tp.all_split(a, {"wq": 1, "wo": 0}) \
+            and cfg.num_kv_heads % tp.parts:
+        return "gqa_flat"
+    return "whole"
+
+
+def _stationary_experts(tp, at, kind: str, tokens: int) -> bool:
+    """Whether block ``at``'s experts stay this rank's shards (the
+    ``moe2d`` lever, where the experts do not split on E over ``model``
+    or ``data``) instead of being gathered whole, for this rank's
+    ``tokens`` (B S). Under ``moelocal`` too, where its groups dispatch
+    alone, the experts are gathered, as the JAX block's local route
+    places no constraint on them."""
+    if kind != MOE or "moe2d" not in tp.levers or tp.moe_groups(tokens) > 1:
+        return False
+    names = [at + ("moe", k) for k in _EXPERTS]
+    return all(tp.dim(n) != 0 and tp.data_dims.get(n) != 0 for n in names)
 
 
 def _apply_block_tp(tp, at, cfg: ArchConfig, kind: str, window: int, bp, x,
@@ -228,28 +275,42 @@ def _apply_block_tp(tp, at, cfg: ArchConfig, kind: str, window: int, bp, x,
         return _apply_block(cfg, kind, window, tp.gathered(bp, at), x,
                             enc_out, use_rope)
     eps = cfg.norm_eps
-    attn_tp = tp.all_split(at + ("attn",), _ATTN_TP)
+    route = _attention_route(tp, at, cfg, x.shape[1])
     mlp_tp = (kind != MOE and cfg.act == "silu"
               and tp.all_split(at + ("mlp",), _MLP_TP))
-    keep = ([("attn", k) for k in _ATTN_TP] if attn_tp else []) + (
-        [("mlp", k) for k in _MLP_TP] if mlp_tp else [])
-    bp = tp.gathered(bp, at, keep)
+    keep = ([("attn", k) for k in _ATTN_TP] if route == "tp" else
+            [("attn", "wq"), ("attn", "wo")] if route == "gqa_flat"
+            else []) + ([("mlp", k) for k in _MLP_TP] if mlp_tp else [])
+    split = [("attn", k) for k in _ATTN_TP] if route == "seqpar" else \
+        [("attn", "wk"), ("attn", "wv")] if route == "gqa_flat" else []
+    local = ([("moe", k) for k in _EXPERTS] if _stationary_experts(
+        tp, at, kind, x.shape[0] * x.shape[1]) else [])
+    bp = tp.gathered(bp, at, keep, local + split)
+    for _, k in split:     # each model rank computes a part of their work
+        bp["attn"][k] = tp.gather_summed(at + ("attn", k), bp["attn"][k])
     h = rms_norm(x, bp["norm1"], eps)
-    if attn_tp:
+    out_dtype = torch.promote_types(h.dtype, bp["attn"]["wo"].dtype)
+    if route == "seqpar":
+        n = x.shape[1] // tp.parts
+        part = attn_lib.attention_rows(
+            bp["attn"], copy_to_model(h, tp.group), tp.index * n, n,
+            rope_theta=cfg.rope_theta, window=window, use_rope=use_rope)
+        x = x + tp.gather_rows(part, 1)
+    elif route in ("tp", "gqa_flat"):
+        kv = cfg.num_kv_heads // tp.parts if route == "tp" else None
         part = attn_lib.attention_block(
-            bp["attn"], copy_to_model(h, tp.group),
-            num_kv_heads=cfg.num_kv_heads // tp.parts,
+            bp["attn"], copy_to_model(h, tp.group), num_kv_heads=kv,
             rope_theta=cfg.rope_theta, causal=True, window=window,
-            use_rope=use_rope, partial=True)
-        x = x + reduce_from_model(part, tp.group, torch.promote_types(
-            h.dtype, bp["attn"]["wo"].dtype))
+            use_rope=use_rope, partial=True,
+            heads=None if route == "tp" else (tp.index, tp.parts))
+        x = x + reduce_from_model(part, tp.group, out_dtype)
     else:
         x = x + attn_lib.attention_block(
             bp["attn"], h, num_kv_heads=cfg.num_kv_heads,
             rope_theta=cfg.rope_theta, causal=True, window=window,
             use_rope=use_rope)
     if not mlp_tp:
-        return _ffn(cfg, kind, bp, x, tp)
+        return _ffn(cfg, kind, bp, x, tp, at)
     y_in = copy_to_model(rms_norm(x, bp["norm2"], eps), tp.group)
     part = mlp_partial(bp["mlp"], y_in)
     return x + reduce_from_model(part, tp.group, torch.promote_types(
@@ -269,22 +330,50 @@ def _embed_tp(tp, table, tokens):
     return reduce_from_model(rows, tp.group, table.dtype)
 
 
-def _ffn(cfg: ArchConfig, kind: str, bp, x, tp=None):
+def _ffn(cfg: ArchConfig, kind: str, bp, x, rows=None, at=()):
     """The block's second half on x: the MLP, or the experts with their
-    aux loss. Returns (x, aux or None). ``tp`` (the shards, passed in: a
-    recompute in the backward may run on another thread) with its batch
-    split over ranks: the experts dispatch the whole batch's tokens."""
+    aux loss (``_moe``). Returns (x, aux or None). ``rows``: the
+    ``BatchRows`` of a mesh step (the production mesh's ``ModelShards``
+    for block ``at``), passed in: a recompute in the backward may run on
+    another thread."""
     y_in = rms_norm(x, bp["norm2"], cfg.norm_eps)
     if kind == MOE:
-        if tp is not None and tp.batch_axes:
-            # the production mesh: the whole batch's tokens dispatched
-            y, aux = moe_lib.moe_block(bp["moe"], tp.all_rows(y_in),
-                                       experts_per_token=cfg.experts_per_token)
-            return x + tp.own_rows(y, x.shape[0]), aux
-        y, aux = moe_lib.moe_block(bp["moe"], y_in,
-                                   experts_per_token=cfg.experts_per_token)
+        y, aux = _moe(cfg, bp["moe"], y_in, rows, at)
         return x + y, aux
     return x + mlp(bp["mlp"], y_in, cfg.act), None
+
+
+def _moe(cfg: ArchConfig, p, y_in, rows, at):
+    """The MoE block on a mesh step's rows ``y_in`` (B, S, d), as the
+    JAX package dispatches them:
+
+    - under ``moelocal``, where the batch ranks divide the B S tokens
+      (``BatchRows.moe_groups``), each group alone: where the batch is
+      split over those ranks this rank's rows are its group (no row
+      moves), else this rank holds every group and runs each
+      (``moe_grouped``); the aux loss is the groups' mean;
+    - else the whole batch's tokens: every batch rank's rows gathered
+      (``all_rows``), dispatched, and this rank's taken back; under
+      ``moe2d`` the experts computed on this rank's 2-D shards of them
+      (``moe_lib.experts_2d``).
+
+    With no mesh (``rows`` None) the block as it is."""
+    k = cfg.experts_per_token
+    if rows is None:
+        return moe_lib.moe_block(p, y_in, experts_per_token=k)
+    B, S, _ = y_in.shape
+    groups = rows.moe_groups(B * S)
+    if groups > 1:
+        if rows.batch_axes:
+            return moe_lib.moe_block(p, y_in, experts_per_token=k)
+        return moe_lib.moe_grouped(p, y_in, groups, experts_per_token=k)
+    experts = None
+    if isinstance(rows, ModelShards) and _stationary_experts(rows, at, MOE,
+                                                             B * S):
+        experts = functools.partial(moe_lib.experts_2d, rows, at)
+    y, aux = moe_lib.moe_block(p, rows.all_rows(y_in), experts_per_token=k,
+                               experts=experts)
+    return rows.own_rows(y, B), aux
 
 
 @dataclasses.dataclass
@@ -472,9 +561,10 @@ class Model:
                      and torch.is_grad_enabled())
         use_rope = not self.is_encdec
         tp = active_model_shards()
+        rows = current_batch_rows() if tp is None else None
         aux = None
         for kind, window, bp, at in self._blocks_at(params):
-            apply = (_apply_block if tp is None
+            apply = (functools.partial(_apply_block, rows=rows) if tp is None
                      else functools.partial(_apply_block_tp, tp, at))
             if recompute and kind != MAMBA:
                 x, a = checkpoint(apply, self.cfg, kind, window, bp,
@@ -654,7 +744,9 @@ class Model:
                   and tp.all_split(at + ("mlp",), _MLP_TP))
         keep = ([("attn", k) for k in _ATTN_TP] if attn_tp else []) + (
             [("mlp", k) for k in _MLP_TP] if mlp_tp else [])
-        bp = tp.gathered(bp, at, keep)
+        local = ([("moe", k) for k in _EXPERTS] if _stationary_experts(
+            tp, at, kind, x.shape[0] * x.shape[1]) else [])
+        bp = tp.gathered(bp, at, keep, local)
         h = rms_norm(x, bp["norm1"], eps)
         a = bp["attn"]
         q, k, v = (attn_lib.project(h, a[w]) for w in ("wq", "wk", "wv"))
@@ -687,7 +779,7 @@ class Model:
                     offset=seq.offset, lse=True), seq.groups, q.dtype)[0]
             x = x + attn_lib.unproject(c, bp["cross"]["wo"])
         if not mlp_tp:
-            return _ffn(cfg, kind, bp, x, tp)[0]
+            return _ffn(cfg, kind, bp, x, tp, at)[0]
         part = mlp_partial(bp["mlp"], rms_norm(x, bp["norm2"], eps))
         return x + reduce_from_model(part, tp.group, torch.promote_types(
             x.dtype, bp["mlp"]["w_down"].dtype))

@@ -22,13 +22,32 @@ does on one device in the port:
   ``flash_decode``: cache bytes and attention reads / (S / window).
 - ``banded``: sliding-window attention gathers only the KV band of each
   query block (``models/attention.py::_banded_attention``).
-- ``gqa_flat``, ``seqpar``, ``moelocal``, ``moe2d``: accepted, and change
-  nothing. With no device mesh each computes what the default route
-  computes (K and V repeated to the query heads, one query block, the
-  MoE block as one token group, shards only placed); they exist to be
-  sharded, and their sharding needs a mesh, which is not ported.
 - ``ssd_pallas``: mamba2's chunked scan through the Pallas kernel; the
   port's train path always takes ``ssd_scan``.
+
+Four levers act only on a mesh (``MESH_LEVERS``); with no mesh, and on
+the engine's 2-D ``("clients", "model")`` route, each computes what the
+default route computes. A step reads them once a call, in its calling
+thread (``mesh_levers``, through ``BatchRows.with_batch``), and hands
+them to what a backward recomputes:
+
+- ``moelocal`` (the ``--mesh data`` step and the production mesh's meta,
+  prefill, decode and joint steps): a MoE block dispatches each of the
+  batch ranks' token groups alone (``models/transformer.py::_moe``),
+  with its own capacity, and its aux loss is the groups' mean. This
+  lever changes the function. Without it a MoE block dispatches the
+  whole batch's tokens.
+- ``moe2d`` (the production mesh, every step): where the experts do not
+  split over ``model``, each rank computes on its (E, d/data, f/model)
+  shard of them (``models/moe.py::experts_2d``); the experts' weights
+  never move, only their (E, C, .) activations.
+- ``gqa_flat`` (the production mesh's meta, prefill and joint steps):
+  where ``wq`` and ``wo`` split on heads and ``wk``/``wv`` do not, K and
+  V are computed whole, repeated to the H heads, and each rank attends
+  its H/model heads.
+- ``seqpar`` (the same steps): where ``model`` divides the sequence,
+  each rank attends its S/model query rows against every key, and the
+  rows are gathered.
 """
 from __future__ import annotations
 
@@ -40,6 +59,8 @@ _state = threading.local()
 
 _FEATURES = ("gqa_flat", "banded", "moe2d", "ringkv", "moelocal",
              "seqpar", "ssd_pallas")
+#: the levers that act only on a mesh
+MESH_LEVERS = ("gqa_flat", "seqpar", "moelocal", "moe2d")
 
 
 def probe_mode() -> bool:
@@ -93,3 +114,8 @@ def set_features_from_env_string(s: str) -> None:
     on = {x.strip() for x in s.split(",") if x.strip()}
     _known(on)
     _state.features = {f: (f in on) for f in _FEATURES}
+
+
+def mesh_levers() -> frozenset:
+    """The ``MESH_LEVERS`` on for the calling thread."""
+    return frozenset(f for f in MESH_LEVERS if feature(f))

@@ -19,8 +19,10 @@ input as it is on every mesh. ``spec`` returns the JAX package's
 The engine's 2-D route also installs its ``runtime.sharding.ModelShards``
 here for the thread that runs its rounds and evals
 (``model_shards_scope``), and the production step for the thread that
-runs its forward; the model code reads it with ``current_model_shards``
-in the forward and hands it to what a backward recomputes, which may run
+runs its forward; the ``--mesh data`` step installs its
+``runtime.sharding.BatchRows`` (``batch_rows_scope``). The model code
+reads them with ``current_model_shards`` and ``current_batch_rows`` in
+the forward and hands them to what a backward recomputes, which may run
 on another thread.
 """
 from __future__ import annotations
@@ -113,3 +115,21 @@ def model_shards_scope(shards):
         yield
     finally:
         _state.model_shards = prev
+
+
+def current_batch_rows():
+    """The calling thread's ``runtime.sharding.BatchRows`` (the ``--mesh
+    data`` step's), or None."""
+    return getattr(_state, "batch_rows", None)
+
+
+@contextlib.contextmanager
+def batch_rows_scope(rows):
+    """Install ``rows`` (a ``BatchRows``, or None) for the calling
+    thread."""
+    prev = current_batch_rows()
+    _state.batch_rows = rows
+    try:
+        yield
+    finally:
+        _state.batch_rows = prev

@@ -358,22 +358,27 @@ def gather_rows(t: torch.Tensor, group, index: int, size: int):
 #: the model group's collectives, counted in Python by kind: the
 #: activations' all-reduces (``copy_to_model``'s backward,
 #: ``reduce_from_model``'s forward, the vocab-parallel cross entropy's
-#: sums and maxima) and the leaves' gathers, each with its bytes
+#: sums and maxima), the leaves' gathers, and the gathers of a layer's
+#: output rows (the ``seqpar`` attention's), each with its bytes
 MODEL_CALLS = {"activation": 0, "activation_bytes": 0, "gather": 0,
-               "gather_bytes": 0}
-#: the batch groups' collectives on the production mesh, counted alike:
-#: FSDP's gathers of a leaf's data parts (and a MoE block's of the
-#: batch's rows), and their gradients' sums
-DATA_CALLS = {"gather": 0, "gather_bytes": 0, "grad": 0, "grad_bytes": 0}
+               "gather_bytes": 0, "rows": 0, "rows_bytes": 0}
+#: the batch groups' collectives, counted alike: FSDP's gathers of a
+#: leaf's data parts, a MoE block's gathers of the batch's rows
+#: (``BatchRows.all_rows``), the gradients' sums of both, and the
+#: ``moe2d`` experts' activations (their partial products summed over
+#: ``data``, forward and back, and their outputs gathered)
+DATA_CALLS = {"gather": 0, "gather_bytes": 0, "grad": 0, "grad_bytes": 0,
+              "rows": 0, "rows_bytes": 0, "activation": 0,
+              "activation_bytes": 0}
 #: the production decode step's merges of the attention partials over the
 #: ranks that hold a cache's sequence (``models/attention.py::
 #: merge_partials``): its maxima and its sums of weighted outputs
 MERGE_CALLS = {"max": 0, "max_bytes": 0, "sum": 0, "sum_bytes": 0}
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
-    MODEL_CALLS[kind] += 1
-    MODEL_CALLS[kind + "_bytes"] += t.numel() * t.element_size()
+def _count(kind: str, t: torch.Tensor, calls=MODEL_CALLS) -> None:
+    calls[kind] += 1
+    calls[kind + "_bytes"] += t.numel() * t.element_size()
 
 
 def split_dim(spec) -> Optional[int]:
@@ -425,15 +430,15 @@ def gather(local: torch.Tensor, spec, group, parts: int, index: int,
                          MODEL_CALLS)
 
 
-def _gather_along(local, d, group, parts, index, calls):
-    """``gather`` along dim ``d``, counted in ``calls``."""
+def _gather_along(local, d, group, parts, index, calls, kind="gather"):
+    """``gather`` along dim ``d``, counted in ``calls[kind]``."""
     shape = list(local.shape)
     n = shape[d]
     shape[d] = n * parts
     out = torch.zeros(shape, dtype=local.dtype, device=local.device)
     out.narrow(d, index * n, n).copy_(local)
-    calls["gather"] += 1
-    calls["gather_bytes"] += out.numel() * out.element_size()
+    calls[kind] += 1
+    calls[kind + "_bytes"] += out.numel() * out.element_size()
     all_reduce(out.view(-1).view(torch.uint8), group)
     return out
 
@@ -441,31 +446,36 @@ def _gather_along(local, d, group, parts, index, calls):
 class _Gather(torch.autograd.Function):
     """``gather`` forward; backward, the gradient's slice of this rank:
     every rank of the model group computes on the same data, so each
-    holds the whole gradient already (summing would scale it by M)."""
+    holds the whole gradient already (summing would scale it by M).
+    ``kind``: the ``MODEL_CALLS`` entry it counts in (a leaf's
+    ``gather``, or a layer's output ``rows``)."""
 
     @staticmethod
-    def forward(ctx, local, d, group, parts, index):
+    def forward(ctx, local, d, group, parts, index, kind="gather"):
         ctx.at = (d, index, local.shape[d])
-        return _gather_along(local, d, group, parts, index, MODEL_CALLS)
+        return _gather_along(local, d, group, parts, index, MODEL_CALLS,
+                             kind)
 
     @staticmethod
     def backward(ctx, g):
         d, index, n = ctx.at
-        return g.narrow(d, index * n, n), None, None, None, None
+        return g.narrow(d, index * n, n), None, None, None, None, None
 
 
 class _GatherData(torch.autograd.Function):
     """A gather over a batch group (``data``, or ``pod`` for
-    ``ModelShards.all_rows``): forward, the whole from every rank's part
-    (``_gather_along``: FSDP's model shard of a leaf, or the batch's
-    rows); backward, the gradient summed over the group in fp32 (each
-    rank computed it from its own rows of the batch) and this rank's
-    slice of the sum, in the gradient's dtype."""
+    ``BatchRows.all_rows``): forward, the whole from every rank's part
+    (``_gather_along``: FSDP's model shard of a leaf, counted as a
+    ``gather``; the batch's ``rows``; the ``moe2d`` experts' outputs, an
+    ``activation``); backward, the gradient summed over the group in
+    fp32 (each rank computed it from its own rows of the batch) and this
+    rank's slice of the sum, in the gradient's dtype."""
 
     @staticmethod
-    def forward(ctx, local, d, group, parts, index):
+    def forward(ctx, local, d, group, parts, index, kind="gather"):
         ctx.at = (d, group, index, local.shape[d])
-        return _gather_along(local, d, group, parts, index, DATA_CALLS)
+        return _gather_along(local, d, group, parts, index, DATA_CALLS,
+                             kind)
 
     @staticmethod
     def backward(ctx, g):
@@ -476,7 +486,29 @@ class _GatherData(torch.autograd.Function):
         DATA_CALLS["grad_bytes"] += s.numel() * s.element_size()
         all_reduce(s, group)
         return (s.narrow(d, index * n, n).to(g.dtype), None, None, None,
-                None)
+                None, None)
+
+
+class _SumOverData(torch.autograd.Function):
+    """Partial products summed over a data group in fp32 and cast to
+    ``dtype``, forward and back: each data rank contracted its slice of
+    a dim split on ``data``, and each uses the sum for its own rows of
+    the batch, so the gradient that comes back is partial too (the
+    ``moe2d`` experts' gate and up products). Counted as an
+    ``activation`` of ``DATA_CALLS``."""
+
+    @staticmethod
+    def forward(ctx, x, group, dtype):
+        ctx.group, ctx.dtype = group, x.dtype
+        s = _wide(x)
+        _count("activation", s, DATA_CALLS)
+        return all_reduce(s, group).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        s = _wide(g)
+        _count("activation", s, DATA_CALLS)
+        return all_reduce(s, ctx.group).to(ctx.dtype), None, None
 
 
 def _wide(t: torch.Tensor) -> torch.Tensor:
@@ -555,7 +587,75 @@ def axis_dim(spec, axis: str) -> Optional[int]:
     return dims[0] if dims else None
 
 
-class ModelShards:
+class BatchRows:
+    """A step's rows of the batch over a mesh's batch axes (``pod`` and
+    ``data``), and the mesh levers in force for it
+    (``runtime/flags.py::mesh_levers``). ``batch_axes`` are the axes of
+    more than one rank that this step's batch is split over
+    (``with_batch``); ``batch_ranks`` the ranks of every batch axis, the
+    JAX package's ``moelocal`` group count.
+
+    The ``--mesh data`` step installs one for the thread that computes
+    (``shardctx.batch_rows_scope``); on a production mesh
+    ``ModelShards`` is one. Where a layer mixes the rows (the MoE
+    dispatch's capacity and aux loss), ``all_rows`` gives it every batch
+    rank's rows and ``own_rows`` takes this rank's back."""
+
+    def __init__(self, mesh):
+        self._rows = {ax: (mesh.group(ax), mesh.shape[ax],
+                           mesh.coordinate(ax)) for ax in ("pod", "data")
+                      if mesh.shape.get(ax, 1) > 1}
+        self.batch_ranks = math.prod(mesh.shape.get(ax, 1)
+                                     for ax in ("pod", "data"))
+        self.batch_axes: Tuple[str, ...] = ()
+        self.levers: frozenset = frozenset()
+
+    def with_batch(self, axes):
+        """These rows for a step whose batch rows are split over ``axes``
+        (``token_spec``'s batch axes, or None), under the mesh levers of
+        the calling thread, read now."""
+        from repro_torch.runtime.flags import mesh_levers
+        out = copy.copy(self)
+        out.batch_axes = tuple(ax for ax in (axes or ()) if ax in self._rows)
+        out.levers = mesh_levers()
+        return out
+
+    def moe_groups(self, tokens: int) -> int:
+        """The token groups a MoE block dispatches alone: under the
+        ``moelocal`` lever the batch ranks, where they divide the
+        whole batch's tokens (``tokens``, this rank's B S, times the
+        ranks its rows split over); else 1."""
+        g = self.batch_ranks
+        for ax in self.batch_axes:
+            tokens *= self._rows[ax][1]
+        return g if "moelocal" in self.levers and g > 1 and \
+            tokens % g == 0 else 1
+
+    def all_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (this rank's rows of the batch, dim 0) with every batch
+        rank's rows, in the batch's order, differentiably: where a layer
+        mixes the rows (the MoE dispatch's capacity and aux loss), it
+        sees the whole batch as the JAX package's step does. The backward
+        sums each rank's gradient over the batch ranks (``_GatherData``):
+        every rank then holds the whole batch's gradient of its rows, which
+        the step's mean over the batch ranks divides as it does the
+        others (so a term every rank computes whole, the aux loss, counts
+        once)."""
+        for ax in reversed(self.batch_axes):            # data, then pod
+            group, parts, index = self._rows[ax]
+            x = _GatherData.apply(x, 0, group, parts, index, "rows")
+        return x
+
+    def own_rows(self, y: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's ``n`` rows of a whole batch's ``y`` (dim 0)."""
+        i = 0
+        for ax in self.batch_axes:
+            _, parts, index = self._rows[ax]
+            i = i * parts + index
+        return y[i * n:(i + 1) * n]
+
+
+class ModelShards(BatchRows):
     """This rank's part of a params tree split over a mesh's ``model``
     axis and, on the production mesh, its ``data`` axis: for each leaf
     (by its name in a ``bridge`` layout: a path tuple of a nested tree, a
@@ -594,12 +694,7 @@ class ModelShards:
         many = self.data_parts > 1
         self.data_group = mesh.group("data") if many else None
         self.data_index = mesh.coordinate("data") if many else 0
-        # the batch axes with more than one rank, and those this step's
-        # batch is split over (``with_batch``)
-        self._rows = {ax: (mesh.group(ax), mesh.shape[ax],
-                           mesh.coordinate(ax)) for ax in ("pod", "data")
-                      if mesh.shape.get(ax, 1) > 1}
-        self.batch_axes: Tuple[str, ...] = ()
+        BatchRows.__init__(self, mesh)
         # the decode cache's shards (``with_cache``), for a decode step
         self.cache: Optional["CacheShards"] = None
 
@@ -688,21 +783,58 @@ class ModelShards:
         return _gather_along(t, d, self.group, self.parts, self.index,
                              MODEL_CALLS)
 
-    def gathered(self, sub, prefix: Tuple = (), keep=()):
+    def gathered(self, sub, prefix: Tuple = (), keep=(), local=()):
         """``sub`` (a dict or list sub-tree at path ``prefix``) with every
         split leaf gathered but those whose relative path is in ``keep``
-        (tuples of keys), which get their ``model_part``."""
+        (tuples of keys), which get their ``model_part``, and those in
+        ``local``, left as this rank's shards."""
+        def under(paths, k):
+            return [p[1:] for p in paths if p[:1] == (k,)]
         if isinstance(sub, dict):
-            return {k: self.gathered(v, prefix + (k,),
-                                     [p[1:] for p in keep if p[:1] == (k,)])
+            return {k: self.gathered(v, prefix + (k,), under(keep, k),
+                                     under(local, k))
                     for k, v in sub.items()}
         if isinstance(sub, list):
-            return [self.gathered(v, prefix + (i,),
-                                  [p[1:] for p in keep if p[:1] == (i,)])
+            return [self.gathered(v, prefix + (i,), under(keep, i),
+                                  under(local, i))
                     for i, v in enumerate(sub)]
+        if () in local:
+            return sub
         if () in keep:
             return self.model_part(prefix, sub)
         return self.gather(prefix, sub)
+
+    def gather_summed(self, name, local: torch.Tensor) -> torch.Tensor:
+        """``gather``, for a layer whose model ranks each compute a part
+        of its work (their query rows, or their heads of K and V): the
+        gradient is summed over the model group before this rank keeps
+        its slice (``copy_to_model`` on the whole leaf)."""
+        return copy_to_model(self.gather(name, local), self.group)
+
+    def sum_over_data(self, x: torch.Tensor, dtype) -> torch.Tensor:
+        """``x``'s partial sums over the data group (``_SumOverData``),
+        cast to ``dtype``; the cast alone without one."""
+        if self.data_group is None:
+            return x.to(dtype)
+        return _SumOverData.apply(x, self.data_group, dtype)
+
+    def gather_data(self, t: torch.Tensor, d: int) -> torch.Tensor:
+        """An activation split over the data group along dim ``d`` made
+        whole, differentiably (``_GatherData``: its gradient summed over
+        the group), counted as an ``activation``."""
+        if self.data_group is None:
+            return t
+        return _GatherData.apply(t, d, self.data_group, self.data_parts,
+                                 self.data_index, "activation")
+
+    def gather_rows(self, t: torch.Tensor, d: int) -> torch.Tensor:
+        """A layer's output split over the model group along dim ``d``
+        (each rank's query rows) made whole on every rank, differentiably
+        (the gradient's slice comes back), counted as ``rows``."""
+        if self.group is None:
+            return t
+        return _Gather.apply(t, d, self.group, self.parts, self.index,
+                             "rows")
 
     def all_split(self, prefix: Tuple, dims: Dict[str, int]) -> bool:
         """Whether each leaf ``prefix + (name,)`` of ``dims`` is split on
@@ -711,40 +843,12 @@ class ModelShards:
         return all(self.dims.get(prefix + (k,)) == d
                    for k, d in dims.items())
 
-    def with_batch(self, axes) -> "ModelShards":
-        """These shards for a step whose batch rows are split over
-        ``axes`` (``token_spec``'s batch axes, or None)."""
-        out = copy.copy(self)
-        out.batch_axes = tuple(ax for ax in (axes or ()) if ax in self._rows)
-        return out
-
     def with_cache(self, cache: "CacheShards") -> "ModelShards":
         """These shards for a decode step on this rank's part of a cache
         split by ``cache`` (a ``CacheShards``)."""
         out = copy.copy(self)
         out.cache = cache
         return out
-
-    def all_rows(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` (this rank's rows of the batch, dim 0) with every batch
-        rank's rows, in the batch's order, differentiably: where a layer
-        mixes the rows (the MoE dispatch's capacity and aux loss), it
-        sees the whole batch as the JAX package's step does. The backward
-        sums each rank's gradient over the batch ranks (``_GatherData``):
-        every rank then holds the whole batch's gradient of its rows, which
-        ``BatchMean`` divides by the ranks as it does the others."""
-        for ax in reversed(self.batch_axes):            # data, then pod
-            group, parts, index = self._rows[ax]
-            x = _GatherData.apply(x, 0, group, parts, index)
-        return x
-
-    def own_rows(self, y: torch.Tensor, n: int) -> torch.Tensor:
-        """This rank's ``n`` rows of a whole batch's ``y`` (dim 0)."""
-        i = 0
-        for ax in self.batch_axes:
-            _, parts, index = self._rows[ax]
-            i = i * parts + index
-        return y[i * n:(i + 1) * n]
 
     def batch_mean(self, mesh, layout):
         """The production step's sums over the batch ranks for a

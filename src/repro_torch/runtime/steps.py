@@ -42,8 +42,9 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.graphs import GraphStep, weak_method
 from repro_torch.kernels.ops import tree_meta_update
 from repro_torch.runtime.flags import feature, feature_scope
-from repro_torch.runtime.shardctx import model_shards_scope
-from repro_torch.runtime.sharding import CacheShards, ModelShards, token_spec
+from repro_torch.runtime.shardctx import batch_rows_scope, model_shards_scope
+from repro_torch.runtime.sharding import (BatchRows, CacheShards, ModelShards,
+                                          token_spec)
 
 
 def data_rows(batch, mesh, axis: str):
@@ -85,12 +86,14 @@ def make_meta_train_step(model, *, beta: float = 0.01, alpha: float = 0.5,
     ``mesh`` (a ``ProcessMesh``):
 
     - with a ``data`` axis only (the JAX launcher's ``--mesh data``, the
-      cohort step): each microbatch splits over the data axis's ranks;
-      each takes its rows (``data_rows``) and the inner step's gradient
-      is summed to the whole microbatch's mean on every rank
-      (``streaming_sgd(group=)``), so phi stays the same on every rank.
-      phi is whole on every rank, as the JAX launcher places it
-      (replicated, ``src/repro/launch/train.py``);
+      cohort step; ``data_mesh_sgd``): each microbatch splits over the
+      data axis's ranks; each takes its rows (``data_rows``) and the
+      inner step's gradient is summed to the whole microbatch's mean on
+      every rank (``streaming_sgd(group=)``), so phi stays the same on
+      every rank. phi is whole on every rank, as the JAX launcher places
+      it (replicated, ``src/repro/launch/train.py``). A MoE block
+      dispatches the whole microbatch's tokens (``BatchRows.all_rows``),
+      or under the ``moelocal`` lever each rank's rows alone;
     - the production mesh, ``("data", "model")`` or ``("pod", "data",
       "model")`` (``launch/mesh.py::make_production_mesh``): phi is this
       rank's shards, each leaf split as the JAX package's production
@@ -101,7 +104,11 @@ def make_meta_train_step(model, *, beta: float = 0.01, alpha: float = 0.5,
       batch ranks (``batch_rows``); the model computes tensor-parallel
       where it has the form, gathering a leaf's data parts where a
       layer uses it; a MoE block dispatches the whole batch's tokens
-      (``ModelShards.all_rows``), as the JAX step does. Each inner step
+      (``BatchRows.all_rows``), as the JAX step does. The mesh levers
+      in force at the call (``runtime/flags.py``) take their routes:
+      ``moelocal`` (the batch ranks' token groups alone), ``moe2d`` (the
+      experts on this rank's 2-D shards), ``gqa_flat`` and ``seqpar``
+      (``models/transformer.py::_attention_route``). Each inner step
       runs ``online_sgd`` on each dtype
       group's flat buffer of the rank's shards, and the interpolation
       ``meta_update`` on them. A gradient is summed over the batch ranks
@@ -112,18 +119,32 @@ def make_meta_train_step(model, *, beta: float = 0.01, alpha: float = 0.5,
     """
     if mesh is not None and "model" in mesh.axis_names:
         return _production_step(model, beta, alpha, mesh)
-    group = mesh.group("data") if mesh is not None else None
 
     def step(phi, batch, alpha=alpha):
-        if mesh is not None:
-            batch = data_rows(batch, mesh, "data")
-        phi_hat, losses = streaming_sgd(model.loss_fn, phi, batch, beta,
-                                        group)
+        if mesh is None:
+            phi_hat, losses = streaming_sgd(model.loss_fn, phi, batch, beta)
+        else:
+            phi_hat, losses = data_mesh_sgd(model, phi, batch, beta, mesh)
         new_phi = tree_meta_update(phi, phi_hat, alpha)
         return new_phi, {"loss": losses.mean(), "inner_first": losses[0],
                          "inner_last": losses[-1]}
 
     return step
+
+
+def data_mesh_sgd(model, phi, batch, beta, mesh):
+    """The ``--mesh data`` inner loop: this rank's rows of each
+    microbatch (``data_rows``), ``streaming_sgd`` with the gradient
+    averaged over the data group, and its ``BatchRows`` installed for the
+    model (``shardctx.batch_rows_scope``), so that a MoE block dispatches
+    the whole microbatch's tokens (one capacity, one aux loss), or under
+    ``moelocal`` each rank's rows alone, as the JAX step does. Returns
+    ``(phi_hat, losses)``."""
+    rows = BatchRows(mesh).with_batch(("data",))
+    with batch_rows_scope(rows):
+        return streaming_sgd(model.loss_fn, phi,
+                             data_rows(batch, mesh, "data"), beta,
+                             mesh.group("data"))
 
 
 def _production_step(model, beta, alpha, mesh) -> Callable:
@@ -267,10 +288,10 @@ def make_decode_step(model, mesh=None, *, batch_size: Optional[int] = None,
     shards = ModelShards.of_model(model, mesh)
     cache_shards = CacheShards.of_model(model, mesh, batch_size, seq_len)
     axes = token_spec(mesh, batch_size, extra_dims=1)[0]
-    scoped = shards.with_batch(axes).with_cache(cache_shards)
+    scoped = shards.with_cache(cache_shards)
 
     def sharded(params, batch):
-        with torch.no_grad(), model_shards_scope(scoped):
+        with torch.no_grad(), model_shards_scope(scoped.with_batch(axes)):
             return model.decode_fn(params, batch)
 
     sharded.shards, sharded.cache_shards = shards, cache_shards

@@ -7,8 +7,10 @@ mesh: ``("pod", "data")`` of shape (2, 1), and ``("data",)`` of 2.
 One module fixture starts the two ranks once (a ``FileStore`` under
 ``tmp_path``) and, at the same time, the JAX side in a subprocess under
 ``XLA_FLAGS=--xla_force_host_platform_device_count=2``. Both take the
-JAX package's init of the reduced mamba2-130m and tinyllama-1.1b (fp32,
-2 layers) and the same batch, (K = 2, mb = 4, 24) tokens: new phi leaf
+JAX package's init of the reduced mamba2-130m, tinyllama-1.1b and
+mixtral-8x22b (fp32, 2 layers; on the data mesh the MoE blocks dispatch
+the whole microbatch's tokens, one capacity and one aux loss, as the
+JAX step does) and the same batch, (K = 2, mb = 4, 24) tokens: new phi leaf
 by leaf and the three losses within 1e-4 (the tolerance of the one-rank
 round in ``tests/test_torch_lm.py``); both ranks bit for bit; at
 ``alpha=0`` phi comes back unchanged, exactly.
@@ -38,7 +40,7 @@ from repro_torch.runtime.sharding import make_mesh  # noqa: E402
 from repro_torch.runtime.steps import make_meta_train_step  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ("mamba2-130m", "tinyllama-1.1b")
+ARCHS = ("mamba2-130m", "tinyllama-1.1b", "mixtral-8x22b")
 BETA, ALPHA = 0.02, 0.5
 SHAPE = (2, 4, 24)
 TOL = 1e-4
